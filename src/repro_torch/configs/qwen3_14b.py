@@ -1,0 +1,13 @@
+"""qwen3-14b — dense LM with per-head qk RMSNorm, GQA kv=8 [hf:Qwen/Qwen3]."""
+from .base import ModelConfig, reduced
+
+CONFIG = ModelConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=17408, vocab=151936, head_dim=128,
+    qk_norm=True, rope_theta=1_000_000.0,
+).validate()
+
+
+def smoke():
+    return reduced(CONFIG, qk_norm=True)
