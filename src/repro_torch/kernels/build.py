@@ -36,8 +36,8 @@ SIGNATURES = {
         "rmsnorm_launch": (_P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
     },
     "decode_attention": {
-        "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _F, _I, _P),
+        "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "chunk_attention_launch": (_P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },

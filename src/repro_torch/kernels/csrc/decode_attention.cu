@@ -5,15 +5,19 @@
 // one query token per (row, q head) against a [S, D] KV cache row with a
 // per-row valid length kv_len[b].  Bound on an H100: bytes.  Every visible
 // K/V row is read once and used for G q heads, about 2*G FLOPs per byte.
-// Design: one 128-thread block per (batch row, kv head).  The G q heads of
-// that kv head share each 64-row K/V tile staged in shared memory (f32),
-// so K/V is read from device memory once per kv head, not once per q head.
-// The block streams tiles only up to kv_len[b] and masks the ragged tail
-// (no S % tile requirement).  The online softmax runs in f32.  A row with
-// kv_len == 0 writes zeros (and m = -1e30, l = 0), as the Pallas kernel
-// does.  Optional (m, l) residuals feed split-K merges.  Known limit: the
-// grid is B*Hkv blocks (32 at the serving shapes), fewer than the 132 SMs.
-// Splitting S across blocks is later work.
+// Design: the G q heads of a kv head share each 64-row K/V tile staged in
+// shared memory (f32), so K/V is read from device memory once per kv head,
+// not once per q head.  One block per (batch row, kv head) would give only
+// B*Hkv = 32 blocks at the serving shapes for 132 SMs, so S is also split
+// into ranges of whole tiles, one 128-thread block each (flash-decoding):
+// 8 ranges of 256 rows at S = 2048, 256 blocks.  A block streams tiles
+// only up to kv_len[b] and masks the ragged tail (no S % tile
+// requirement); blocks whose range starts past kv_len[b] exit at once.
+// Each block keeps an f32 online softmax; the last block of a (row, kv
+// head) to finish merges the ranges' (acc, m, l) partials, counted with
+// one atomic per block, so a decode step is still a single launch.  A row
+// with kv_len == 0 writes zeros (and m = -1e30, l = 0), as the Pallas
+// kernel does.  Optional (m, l) residuals feed split-K merges.
 //
 // chunk_attention replaces repro/kernels/decode_attention.py::
 // chunk_attention (_chunk_kernel): a T-token chunk of queries per row at
@@ -53,7 +57,8 @@ __global__ void __launch_bounds__(kDecThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ kv_len, T* __restrict__ o,
               float* __restrict__ m_out, float* __restrict__ l_out,
-              int hkv, int G, int S, float scale) {
+              float* __restrict__ part, int* __restrict__ done,
+              int hkv, int G, int S, int split_rows, float scale) {
   constexpr int V = rt::Vec<T>::n;
   constexpr int DV = D / V;
   extern __shared__ float smem[];
@@ -65,12 +70,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* m_s = acc_s + G * D;
   float* l_s = m_s + G;
   float* a_s = l_s + G;
+  __shared__ bool last;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int nsplit = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   constexpr int nw = kDecThreads / 32;
   int len = kv_len[b];
   len = len < 0 ? 0 : (len > S ? S : len);
+  // splits that hold at least one visible row (at least one, so an empty
+  // row still writes its zeros); the others have nothing to do
+  int active = (len + split_rows - 1) / split_rows;
+  active = active < 1 ? 1 : active;
+  if (split >= active) return;
+  const int lo = split * split_rows;
+  const int hi = len < lo + split_rows ? len : lo + split_rows;
   const size_t head = static_cast<size_t>(b) * hkv + h;
   const T* kb = k + head * S * D;
   const T* vb = v + head * S * D;
@@ -86,11 +100,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int g = tid; g < G; g += kDecThreads) { m_s[g] = kNegInf; l_s[g] = 0.f; }
   __syncthreads();
 
-  for (int j0 = 0; j0 < len; j0 += kDecBK) {
+  for (int j0 = lo; j0 < hi; j0 += kDecBK) {
     for (int i = tid; i < kDecBK * DV; i += kDecThreads) {
       const int r = i / DV, c = (i % DV) * V;
       float kt[V], vt[V];
-      if (j0 + r < len) {
+      if (j0 + r < hi) {
         rt::load_vec(kb + static_cast<size_t>(j0 + r) * D + c, kt);
         rt::load_vec(vb + static_cast<size_t>(j0 + r) * D + c, vt);
       } else {
@@ -115,7 +129,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
 
     for (int g = wid; g < G; g += nw) {
-      const bool ok0 = j0 + lane < len, ok1 = j0 + lane + 32 < len;
+      const bool ok0 = j0 + lane < hi, ok1 = j0 + lane + 32 < hi;
       const float s0 = ok0 ? p_s[g * kDecBK + lane] : kNegInf;
       const float s1 = ok1 ? p_s[g * kDecBK + lane + 32] : kNegInf;
       const float m_prev = m_s[g];
@@ -144,6 +158,48 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();
   }
 
+  if (active > 1) {
+    // publish this split's (acc, m, l); the last split of the (row, kv
+    // head) to arrive merges them all (flash-decode combine)
+    float* mine = part + (head * nsplit + split) * G * (D + 2);
+    for (int i = tid; i < G * D; i += kDecThreads)
+      mine[(i / D) * (D + 2) + i % D] = acc_s[i];
+    for (int g = tid; g < G; g += kDecThreads) {
+      mine[g * (D + 2) + D] = m_s[g];
+      mine[g * (D + 2) + D + 1] = l_s[g];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(done + head, 1) == active - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* all = part + head * nsplit * G * (D + 2);
+    // w[s][g] = exp(m_s - m*) in p_s (nsplit <= 64 = kDecBK, host-capped)
+    for (int g = tid; g < G; g += kDecThreads) {
+      float mx = kNegInf;
+      for (int sp = 0; sp < active; ++sp)
+        mx = fmaxf(mx, __ldcg(all + (sp * G + g) * (D + 2) + D));
+      float lsum = 0.f;
+      for (int sp = 0; sp < active; ++sp) {
+        const float w = expf(__ldcg(all + (sp * G + g) * (D + 2) + D) - mx);
+        p_s[g * kDecBK + sp] = w;
+        lsum += w * __ldcg(all + (sp * G + g) * (D + 2) + D + 1);
+      }
+      m_s[g] = mx;
+      l_s[g] = lsum;
+    }
+    __syncthreads();
+    for (int i = tid; i < G * D; i += kDecThreads) {
+      const int g = i / D, d = i % D;
+      float a = 0.f;
+      for (int sp = 0; sp < active; ++sp)
+        a += p_s[g * kDecBK + sp] * __ldcg(all + (sp * G + g) * (D + 2) + d);
+      acc_s[i] = a;
+    }
+    __syncthreads();
+  }
+
   for (int i = tid; i < G * D; i += kDecThreads) {
     const float l = l_s[i / D];
     o[qo + i] = rt::from_f<T>(l == 0.f ? 0.f : acc_s[i] / l);
@@ -158,15 +214,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 template <typename T, int D>
 cudaError_t decode_launch_t(const void* q, const void* k, const void* v, const int* kv_len,
-                            void* o, float* m, float* l, int B, int hkv, int G, int S,
-                            float scale, cudaStream_t stream) {
+                            void* o, float* m, float* l, float* part, int* done, int B,
+                            int hkv, int G, int S, int nsplit, int split_rows, float scale,
+                            cudaStream_t stream) {
   const size_t smem = decode_smem_floats<D>(G) * sizeof(float);
   auto kernel = decode_kernel<T, D>;
   cudaError_t err = rt::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(hkv, B), kDecThreads, smem, stream>>>(
+  kernel<<<dim3(hkv, B, nsplit), kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
-      static_cast<T*>(o), m, l, hkv, G, S, scale);
+      static_cast<T*>(o), m, l, part, done, hkv, G, S, split_rows, scale);
   return cudaGetLastError();
 }
 
@@ -353,12 +410,19 @@ cudaError_t chunk_launch_t(const void* q, const void* k, const void* v, const in
 
 template <typename T>
 cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v,
-                            const int* kv_len, void* o, float* m, float* l, int B, int hkv,
-                            int G, int S, float scale, cudaStream_t s) {
+                            const int* kv_len, void* o, float* m, float* l, float* part,
+                            int* done, int B, int hkv, int G, int S, int nsplit,
+                            int split_rows, float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return decode_launch_t<T, 32>(q, k, v, kv_len, o, m, l, B, hkv, G, S, scale, s);
-    case 64: return decode_launch_t<T, 64>(q, k, v, kv_len, o, m, l, B, hkv, G, S, scale, s);
-    case 128: return decode_launch_t<T, 128>(q, k, v, kv_len, o, m, l, B, hkv, G, S, scale, s);
+    case 32:
+      return decode_launch_t<T, 32>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
+                                    nsplit, split_rows, scale, s);
+    case 64:
+      return decode_launch_t<T, 64>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
+                                    nsplit, split_rows, scale, s);
+    case 128:
+      return decode_launch_t<T, 128>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
+                                     nsplit, split_rows, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -378,21 +442,32 @@ cudaError_t chunk_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: [B, Hkv*G, D]; k, v: [B, Hkv, S, D]; kv_len: [B] int32; o like q;
-// m, l: [B, Hkv*G] f32 or both null.  Returns the launch's CUDA error.
+// m, l: [B, Hkv*G] f32 or both null.  S is cut into `nsplit` ranges of
+// `split_rows` rows (a multiple of 64; nsplit <= 64), one block each;
+// with nsplit > 1, `part` is f32 scratch of B*Hkv*nsplit*G*(D+2) values
+// and `done` B*Hkv int32 zeros.  Returns the launch's CUDA error.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* kv_len, void* o, void* m, void* l,
-                                       int B, int hkv, int G, int S, int D, float scale,
+                                       void* part, void* done, int B, int hkv, int G, int S,
+                                       int D, int nsplit, int split_rows, float scale,
                                        int dtype, void* stream) {
   if (B <= 0 || hkv <= 0 || G <= 0) return cudaSuccess;
+  if (nsplit < 1 || nsplit > kDecBK || split_rows % kDecBK != 0 ||
+      (nsplit > 1 && (part == nullptr || done == nullptr)))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(kv_len);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
+  float* pf = static_cast<float*>(part);
+  int* dn = static_cast<int*>(done);
   switch (dtype) {
     case rt::kBF16:
-      return decode_dispatch<__nv_bfloat16>(D, q, k, v, len, o, mf, lf, B, hkv, G, S, scale, s);
+      return decode_dispatch<__nv_bfloat16>(D, q, k, v, len, o, mf, lf, pf, dn, B, hkv, G, S,
+                                            nsplit, split_rows, scale, s);
     case rt::kF32:
-      return decode_dispatch<float>(D, q, k, v, len, o, mf, lf, B, hkv, G, S, scale, s);
+      return decode_dispatch<float>(D, q, k, v, len, o, mf, lf, pf, dn, B, hkv, G, S, nsplit,
+                                    split_rows, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

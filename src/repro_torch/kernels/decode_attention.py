@@ -13,7 +13,8 @@ ragged tail.  Head dims 32, 64 and 128 are compiled.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +22,23 @@ from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
 HEAD_DIMS = (32, 64, 128)
+TILE = 64           # K/V rows per tile in the kernels
+MAX_SPLITS = 64     # S ranges per (row, kv head) the decode merge takes
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
+    """(nsplit, split_rows) for the decode kernel: S cut into whole tiles
+    so that B*Hkv*nsplit blocks give about two per SM, at most MAX_SPLITS
+    ranges."""
+    tiles = -(-S // TILE)
+    want = min(MAX_SPLITS, max(1, -(-2 * sms // max(B * Hkv, 1))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * TILE
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,15 +83,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, kv_len, "decode_attention")
     scale = sm_scale if sm_scale is not None else D ** -0.5
     o = torch.empty_like(q)
-    m = l = None
+    m = l = part = None
     if return_residuals:
         m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    nsplit, split_rows = decode_splits(B, Hkv, S, _sm_count(q.get_device()))
+    if nsplit > 1:   # per-range (acc, m, l) partials and arrival counters
+        part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
+                           device=q.device)
+    done = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     err = build.load("decode_attention").decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        o.data_ptr(), m.data_ptr() if m is not None else None,
-        l.data_ptr() if l is not None else None,
-        B, Hkv, Hq // Hkv, S, D, float(scale), DTYPES[q.dtype], stream(q))
+        o.data_ptr(), ptr(m), ptr(l), ptr(part), done.data_ptr(),
+        B, Hkv, Hq // Hkv, S, D, nsplit, split_rows, float(scale),
+        DTYPES[q.dtype], stream(q))
     build.check(err, "decode_attention")
     decode_attention.launches += 1
     return (o, (m, l)) if return_residuals else o

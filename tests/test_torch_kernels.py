@@ -179,6 +179,19 @@ class TestDispatch:
         with pytest.raises(ValueError, match="impl"):
             tops.rmsnorm(torch.zeros(2, 8), torch.ones(8), impl="pallas")
 
+    @pytest.mark.parametrize("B,Hkv,S,want", [
+        (8, 4, 2048, (8, 256)),      # the serving decode tick on 132 SMs
+        (1, 1, 2048, (32, 64)),      # one row: a range per tile
+        (1, 1, 8192, (64, 128)),     # capped at MAX_SPLITS ranges
+        (64, 8, 2048, (1, 2048)),    # enough rows already: no split
+        (3, 1, 1000, (16, 64)),      # ragged S: the last range is short
+    ])
+    def test_decode_splits_cover_s_in_whole_tiles(self, B, Hkv, S, want):
+        nsplit, rows = tdec.decode_splits(B, Hkv, S, sms=132)
+        assert (nsplit, rows) == want
+        assert rows % tdec.TILE == 0 and nsplit <= tdec.MAX_SPLITS
+        assert (nsplit - 1) * rows < S <= nsplit * rows
+
     def test_wrappers_check_before_launching(self):
         """The CUDA path validates without a card: a CPU tensor never
         reaches it, and the checks name what is wrong."""
