@@ -35,7 +35,6 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -242,44 +241,34 @@ def check_kernels(torch):
         ops=4.0 * sum(lens) * Hq * D))
 
     # chunk_attention: a short continuation chunk and a full prefill chunk
-    worst, best = 0.0, None
+    cases, errs = [], []
     for T, pos_l in ((8, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
                      (512, [0, 512, 1024, 1536, 100, 700, 1300, 7])):
         qc = rnd(B, Hq, T, D)
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-        worst = max(worst, max_err(
-            torch, dec.chunk_attention(qc, k, v, pos=pos),
-            ref.chunk_attention(qc, k, v, pos=pos), f"chunk_attention T={T}"))
-        cols = torch.arange(S, device=dev)
+        errs.append(max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
+                            ref.chunk_attention(qc, k, v, pos=pos),
+                            f"chunk_attention T={T}"))
         lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
-        cmask = (cols[None, None, :] <= lim[:, :, None])[:, None]
+        cmask = (torch.arange(S, device=dev)[None, None, :]
+                 <= lim[:, :, None])[:, None]
+        cases.append((T, pos_l, qc, pos, cmask))
+    for T, pos_l, qc, pos, cmask in cases:
         seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
-        best = (T, pos_l, qc, pos, cmask, seen)
-        if T == 8:
-            record("chunk_attention",
-                   "src/repro_torch/kernels/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:434",
-                   f"q {B}x{Hq}x{T}x{D} pos {pos_l}", worst,
-                   lambda: dec.chunk_attention(qc, k, v, pos=pos),
-                   lambda: ref.chunk_attention(qc, k, v, pos=pos),
-                   (lambda: F.scaled_dot_product_attention(
-                       qc, k, v, attn_mask=cmask, enable_gqa=True))
-                   if sdpa_gqa else None,
-                   nbytes=2.0 * qc.numel() * 2 + 4 * B
-                   + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
-                   ops=4.0 * Hq * D * seen)
-    T, pos_l, qc, pos, cmask, seen = best
-    entries.append(record(
-        "chunk_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:434",
-        f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}", worst,
-        lambda: dec.chunk_attention(qc, k, v, pos=pos),
-        lambda: ref.chunk_attention(qc, k, v, pos=pos),
-        (lambda: F.scaled_dot_product_attention(
-            qc, k, v, attn_mask=cmask, enable_gqa=True)) if sdpa_gqa else None,
-        nbytes=2.0 * qc.numel() * 2 + 4 * B
-        + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
-        ops=4.0 * Hq * D * seen))
+        e = record(
+            "chunk_attention",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:434",
+            f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}", max(errs),
+            lambda: dec.chunk_attention(qc, k, v, pos=pos),
+            lambda: ref.chunk_attention(qc, k, v, pos=pos),
+            (lambda: F.scaled_dot_product_attention(
+                qc, k, v, attn_mask=cmask, enable_gqa=True))
+            if sdpa_gqa else None,
+            nbytes=2.0 * qc.numel() * 2 + 4 * B
+            + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
+            ops=4.0 * Hq * D * seen)
+    entries.append(e)       # the prefill chunk, T = 512
     del flush
     torch.cuda.empty_cache()
     return entries
@@ -453,6 +442,15 @@ def profile_phase(torch):
     for e in sorted(rows, key=_dev_us, reverse=True)[:12]:
         log(f"[profile] {_dev_us(e) / 1e3:9.2f} ms {100 * _dev_us(e) / busy:5.1f}%"
             f"  x{e.count:<6d} {e.key[:90]}")
+    # host side: self CPU time by op (what keeps the device waiting)
+    host = [e for e in p.key_averages() if e.self_cpu_time_total > 0]
+    cpu = sum(e.self_cpu_time_total for e in host)
+    log(f"[profile] host self time in ops {cpu / 1e3:.1f} ms "
+        f"({100 * cpu / wall_us:.1f}% of wall)")
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        log(f"[profile] host {e.self_cpu_time_total / 1e3:9.2f} ms "
+            f"x{e.count:<6d} {e.key[:70]}")
     del engine
     torch.cuda.empty_cache()
 

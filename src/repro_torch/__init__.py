@@ -11,7 +11,3 @@ Every entry point runs on `cuda` unless the caller passes
 Pallas TPU kernels of the serving path are CUDA C++ kernels for Hopper
 (`kernels/csrc/`), built with nvcc at first use.
 """
-
-__all__ = ["resolve_device"]
-
-from .device import resolve_device

@@ -13,8 +13,6 @@ reference's edges and formulas.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from ..core import tracer as xfa

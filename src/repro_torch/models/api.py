@@ -14,8 +14,8 @@
                                                    ported yet)
 
 Only family="dense" is ported; the other families raise
-NotImplementedError.  So do the paged-cache entry points, which stay None
-(the engine refuses max_cache_pages > 0).
+NotImplementedError (and the engine refuses max_cache_pages > 0: the
+paged entry points are not ported yet).
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..configs.base import ModelConfig
-from ..device import resolve_device
 from ..kernels.ops import IMPLS
 from . import transformer
 from .layers import Runtime
@@ -41,9 +40,6 @@ class Model:
     forward_chunk: Callable
     prefill: Callable
     decode_step: Callable
-    init_paged_cache: Optional[Callable] = None
-    forward_chunk_paged: Optional[Callable] = None
-    decode_step_paged: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
@@ -51,6 +47,19 @@ class Model:
 
     def table(self):
         return None
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """`None` means `cuda`.  A CUDA device without CUDA raises: the port
+    never falls back to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def build_model(cfg: ModelConfig, impl: str = "auto",

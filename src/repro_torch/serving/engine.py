@@ -154,7 +154,6 @@ class ServingEngine:
         self.scheduler = Scheduler(scfg)
         self.sampler = PooledSampler(scfg.max_batch)
         self.table = model.table()
-        self.paged = False
         self.cache = model.init_cache(scfg.max_batch, scfg.max_seq_len)
         self._decode = model.decode_step
         self._chunk = model.forward_chunk
@@ -338,11 +337,6 @@ class ServingEngine:
                     self._to_device(np.zeros((b,), np.int32)),
                     self._to_device(np.ones((b,), np.int32)))
         self._sync()
-
-    @property
-    def chunk_widths(self) -> frozenset:
-        """Chunk widths scheduled so far."""
-        return frozenset(w for _, w in self._chunk_programs)
 
     @property
     def chunk_programs(self) -> frozenset:

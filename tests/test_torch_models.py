@@ -187,6 +187,18 @@ def test_other_families_are_not_ported_yet():
         build_model(torch_smoke("zamba2_2_7b"), device="cpu")
 
 
+def test_cuda_is_the_default_and_never_falls_back():
+    """Without a card, an entry point that was not asked for the CPU
+    raises instead of running there."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA path")
+    cfg = tiny(torch_smoke, "tinyllama_1_1b")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_model(cfg, device=device)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
 def test_port_init_follows_reference_distributions():
     """Seeded port init: the reference's scales (fan_in ** -0.5, embed
     1.0, norm scales 1) and a pure function of the seed."""

@@ -203,6 +203,121 @@ def test_golden_snapshots_resave_byte_identically(version, tmp_path):
         assert a.read() == b.read()
 
 
+class TestEngineSemantics:
+    """The engine's client-facing behaviour, ported with it: truncation
+    and clamping as the reference does them, EOS, deadlines, the
+    background thread, and failures that never strand a client."""
+
+    @staticmethod
+    def pair(models, **kw):
+        jm, jp, tm, tp = models
+        return (JaxEngine(jm, jp, JaxServeConfig(**kw)),
+                ServingEngine(tm, tp, ServeConfig(**kw)))
+
+    @staticmethod
+    def count(edge):
+        from repro_torch.profile import tracer_folded
+        return sum(e.count for k, e in tracer_folded().edges.items()
+                   if k[2] == edge)
+
+    @pytest.mark.parametrize("plen,max_new,max_seq", [(40, 4, 32),
+                                                      (5, 64, 16)])
+    def test_truncation_and_clamping_match_reference(self, models, plen,
+                                                     max_new, max_seq):
+        prompt = np.random.default_rng(0).integers(0, 256, plen)
+        before = self.count("truncated_prompt") + self.count("clamped_max_new")
+        outs = []
+        for engine in self.pair(models, max_batch=1, max_seq_len=max_seq,
+                                eos_token=-1):
+            req = engine.submit(prompt, max_new_tokens=max_new)
+            engine.run_until_drained()
+            assert req.done and req.truncated
+            assert max(s.pos for s in engine.scheduler.slots) <= max_seq
+            outs.append(req.output)
+        assert outs[0] == outs[1]
+        assert self.count("truncated_prompt") \
+            + self.count("clamped_max_new") > before
+
+    def test_first_token_eos_finishes_at_admission(self, models):
+        _, _, tm, tp = models
+        prompt = mixed_prompts()[1]
+        probe = ServingEngine(tm, tp, ServeConfig(max_batch=1, max_seq_len=64,
+                                                  eos_token=-1))
+        first = probe.submit(prompt, 3)
+        probe.run_until_drained()
+        engine = ServingEngine(tm, tp, ServeConfig(
+            max_batch=1, max_seq_len=64, eos_token=first.output[0]))
+        req = engine.submit(prompt, 8)
+        engine.run_until_drained()
+        assert req.output == [first.output[0]]
+
+    def test_deadlines_fold_met_and_miss(self, models):
+        _, _, tm, tp = models
+        engine = ServingEngine(tm, tp, ServeConfig(max_batch=2,
+                                                   max_seq_len=64))
+        met0, miss0 = self.count("deadline_met"), self.count("deadline_miss")
+        ok = engine.submit(mixed_prompts()[0], 2, deadline_ms=1e9)
+        late = engine.submit(mixed_prompts()[1], 2, deadline_ms=1e-6)
+        engine.run_until_drained()
+        assert ok.deadline_missed is False and late.deadline_missed is True
+        assert self.count("deadline_met") == met0 + 1
+        assert self.count("deadline_miss") == miss0 + 1
+
+    @pytest.mark.parametrize("prompt", [np.zeros((0,), np.int32),
+                                        np.zeros((2, 3), np.int32)])
+    def test_malformed_requests_rejected_per_request(self, models, prompt):
+        _, _, tm, tp = models
+        engine = ServingEngine(tm, tp, ServeConfig(max_batch=1,
+                                                   max_seq_len=64))
+        with pytest.raises(ValueError):
+            engine.submit(prompt, 2)
+        with pytest.raises(ValueError):
+            engine.submit(np.ones((3,), np.int32), max_new_tokens=0)
+
+    def test_background_thread_streams_and_restarts(self, models):
+        _, _, tm, tp = models
+        engine = ServingEngine(tm, tp, ServeConfig(
+            max_batch=2, max_seq_len=64, eos_token=-1)).start()
+        streamed = []
+        try:
+            h1 = engine.submit(mixed_prompts()[0], 5,
+                               on_token=lambda r, t: streamed.append(t))
+            h2 = engine.submit(mixed_prompts()[1], 4)
+            assert h1.result(timeout=60).done and h2.result(timeout=60).done
+            assert streamed == h1.output and len(h2.output) == 4
+        finally:
+            assert engine.stop()
+        engine.start()
+        try:
+            h3 = engine.submit(mixed_prompts()[2], 3)
+            assert len(h3.result(timeout=60).output) == 3
+        finally:
+            assert engine.stop()
+
+    @pytest.mark.parametrize("threaded", [False, True])
+    def test_failure_wakes_every_waiter(self, models, threaded):
+        _, _, tm, tp = models
+        engine = ServingEngine(tm, tp, ServeConfig(max_batch=2,
+                                                   max_seq_len=64))
+
+        def boom(*a, **k):
+            raise RuntimeError("injected decode failure")
+        engine._decode = boom
+        if threaded:
+            engine.start()
+        try:
+            bad = engine.submit(mixed_prompts()[0], 4)
+            if not threaded:
+                with pytest.raises(RuntimeError, match="injected"):
+                    engine.step()
+            with pytest.raises(RuntimeError, match="failed"):
+                bad.result(timeout=60)
+            with pytest.raises(RuntimeError, match="failed"):
+                engine.submit(np.ones((3,), np.int32), 2)
+        finally:
+            engine.stop()
+
+
 def test_unported_engine_options_raise(models):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="paged"):
