@@ -103,7 +103,9 @@ def main() -> None:
             fail(f"kernel {k['name']} was not launched on the serving path")
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.monotonic() - t_start:.1f}s; served "
-        f"{stats['throughput_tok_s']:.1f} tok/s on {smi}")
+        f"{stats['throughput_tok_s']:.1f} tok/s, ttft mean "
+        f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
+        f"{json.dumps(counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
