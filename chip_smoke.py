@@ -15,7 +15,12 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               version at the serving shapes (bf16, Hq 32, Hkv 4, head 64,
               S 2048), with the times of the kernel, the plain version and
               one PyTorch library call (a yardstick the port never calls),
-              and the least time the card could take (the roofline bound)
+              and the least time the card could take (the roofline bound);
+              the paged kernels over an arena of 257 pages of 64 rows
+              (block tables a random permutation of pages 1..256, scratch
+              page 0 full of large finite garbage), also timed beside the
+              dense kernel on the equivalent contiguous cache, plus a
+              page_size 16 correctness case
   4. forward  full-width tinyllama_1_1b (22 layers, bf16, seeded random
               weights): one 512-token prefill chunk and one decode step
               with the kernels and with the plain versions, logits compared
@@ -24,6 +29,12 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               2048, prefill_chunk 512, prefill_batch 8); the launch counters
               are set to 0 just before and read just after, and the XFA
               profile shard is loaded back
+  5b. paged   the same requests through the paged pool (page_size 64):
+              257 pages (the contiguous pool's 16384 rows; the page gate
+              never waits) must give the same greedy tokens as phase 5;
+              65 pages (a quarter of them) must back-pressure admission,
+              complete every request and return every page, with the page
+              gauges in its profile shard
   6. profile  a torch.profiler window over a short second serving run: the
               device time by kernel and the device's busy share
 
@@ -94,18 +105,21 @@ def main() -> None:
 
     kernels = check_kernels(torch)
     forward_phase(torch)
-    counts, stats = serve_phase(torch)
+    counts, stats, outputs = serve_phase(torch)
+    paged_counts = paged_phase(torch, stats, outputs)
     profile_phase(torch)
 
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        # each kernel's launches in the run of its own serving path
+        k["launches"] = (paged_counts if k["name"].endswith("_paged")
+                         else counts)[k["name"]]
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was not launched on the serving path")
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.monotonic() - t_start:.1f}s; served "
         f"{stats['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
-        f"{json.dumps(counts)} on {smi}")
+        f"{json.dumps(counts)}, paged {json.dumps(paged_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -180,19 +194,26 @@ def check_kernels(torch):
     entries = []
 
     def record(name, src, replaces, shape, err, fn, plain, library, nbytes,
-               ops):
+               ops, dense=None):
+        """`dense`: for a paged kernel, the dense kernel on the equivalent
+        contiguous cache (the cost of the indirection)."""
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
         ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, plain, flush)
         lib_ms = time_ms(torch, library, flush) if library else None
+        dense_ms = time_ms(torch, dense, flush) if dense else None
         log(f"[kernel] {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}")
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": 0, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            + (f"dense kernel {dense_ms:.4f} ms, " if dense else "")
+            + f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}")
+        e = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": 0, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
+        if dense:
+            e["dense_ms"] = dense_ms
+        return e
 
     # rmsnorm: decode-tick rows and a full prefill group
     w = (1.0 + 0.1 * torch.randn(2048, generator=gen, device=dev)).to(bf16)
@@ -271,8 +292,114 @@ def check_kernels(torch):
             + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
             ops=4.0 * Hq * D * seen)
     entries.append(e)       # the prefill chunk, T = 512
+    entries += check_paged_kernels(torch, record, k, v, lens, cases)
     del flush
     torch.cuda.empty_cache()
+    return entries
+
+
+PAGE = 64                       # the serving page size: one 64-row tile
+
+
+def shred(torch, k, ps, perm):
+    """The contiguous cache k [B, Hkv, S, D] as a page arena of ps-row
+    pages: row b's virtual page j is arena page perm[b, j]; page 0 is
+    scratch, filled with large finite garbage."""
+    B, Hkv, S, D = k.shape
+    nb = S // ps
+    arena = torch.full((1 + B * nb, Hkv, ps, D), 1e4, dtype=k.dtype,
+                       device=k.device)
+    arena[perm.reshape(-1).long()] = k.reshape(B, Hkv, nb, ps, D) \
+        .transpose(1, 2).reshape(B * nb, Hkv, ps, D)
+    return arena
+
+
+def tables(torch, perm, ps, limits):
+    """perm with every slot past each row's limit pointed at page 0."""
+    bt = perm.clone()
+    for b, lim in enumerate(limits):
+        bt[b, -(-lim // ps):] = 0
+    return bt.contiguous()
+
+
+def check_paged_kernels(torch, record, k, v, lens, cases):
+    """Phase 3, paged: each paged kernel against its plain version over the
+    same K/V shredded into an arena, timed beside the dense kernel on the
+    contiguous cache.  `lens` and `cases` are the dense phase's decode
+    lengths and chunk cases.  Returns the two entries of the kernels
+    line."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    dev = k.device
+    B, Hkv, S, D = k.shape
+    Hq = 32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(k.dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    errs = {"decode": [], "chunk": []}
+    arenas = {}
+    for ps in (PAGE, 16):
+        nb = S // ps
+        perm = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
+            .to(torch.int32).reshape(B, nb)
+        kp, vp = shred(torch, k, ps, perm), shred(torch, v, ps, perm)
+        arenas[ps] = (kp, vp, perm)
+        bt = tables(torch, perm, ps, lens)
+        o = dec.decode_attention_paged(q, kp, vp, block_table=bt,
+                                       kv_len=kv_len)
+        errs["decode"].append(max_err(
+            torch, o, ref.decode_attention_paged(q, kp, vp, block_table=bt,
+                                                 kv_len=kv_len),
+            f"decode_attention_paged page_size {ps}"))
+        if not bool((o[kv_len == 0] == 0).all()):
+            fail("decode_attention_paged: the kv_len == 0 row is not zeros")
+        for T, pos_l, qc, pos, _ in cases:
+            btc = tables(torch, perm, ps, [p + T for p in pos_l])
+            errs["chunk"].append(max_err(
+                torch, dec.chunk_attention_paged(qc, kp, vp, block_table=btc,
+                                                 pos=pos),
+                ref.chunk_attention_paged(qc, kp, vp, block_table=btc,
+                                          pos=pos),
+                f"chunk_attention_paged T={T} page_size {ps}"))
+    kp, vp, perm = arenas[PAGE]
+    nb = S // PAGE
+    src = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    pages = lambda limits: sum(-(-min(n, S) // PAGE) for n in limits)
+    bt = tables(torch, perm, PAGE, lens)
+    entries = [record(
+        "decode_attention_paged", src,
+        "src/repro/kernels/decode_attention.py:262",
+        f"q {B}x{Hq}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} bt {B}x{nb} "
+        f"kv_len {lens}", max(errs["decode"]),
+        lambda: dec.decode_attention_paged(q, kp, vp, block_table=bt,
+                                           kv_len=kv_len),
+        lambda: ref.decode_attention_paged(q, kp, vp, block_table=bt,
+                                           kv_len=kv_len),
+        None,   # no one PyTorch call attends through a block table
+        nbytes=2.0 * q.numel() * 2 + 4 * B + 4 * pages(lens)
+        + sum(lens) * Hkv * D * 2 * 2,
+        ops=4.0 * sum(lens) * Hq * D,
+        dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len))]
+    for T, pos_l, qc, pos, _ in cases:
+        btc = tables(torch, perm, PAGE, [p + T for p in pos_l])
+        seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
+        e = record(
+            "chunk_attention_paged", src,
+            "src/repro/kernels/decode_attention.py:373",
+            f"q {B}x{Hq}x{T}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} "
+            f"bt {B}x{nb} pos {pos_l}", max(errs["chunk"]),
+            lambda: dec.chunk_attention_paged(qc, kp, vp, block_table=btc,
+                                              pos=pos),
+            lambda: ref.chunk_attention_paged(qc, kp, vp, block_table=btc,
+                                              pos=pos),
+            None,
+            nbytes=2.0 * qc.numel() * 2 + 4 * B
+            + 4 * pages([p + T for p in pos_l])
+            + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
+            ops=4.0 * Hq * D * seen,
+            dense=lambda: dec.chunk_attention(qc, k, v, pos=pos))
+    entries.append(e)       # the prefill chunk, T = 512
     return entries
 
 
@@ -337,7 +464,9 @@ PROMPT_LENS = [16, 1500, 700, 33, 1024, 511, 513, 90,
                1200, 260, 48, 999, 1337, 128, 640, 1499]
 
 
-def make_engine(torch, profile_dir: str):
+def make_engine(torch, profile_dir: str, **paged):
+    """The serving engine of phases 5-6 (`paged`: page_size and
+    max_cache_pages for the paged pool) and its 16 prompts."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
@@ -348,24 +477,39 @@ def make_engine(torch, profile_dir: str):
     model = build_model(cfg, impl="auto", device="cuda")
     engine = ServingEngine(model, model.init(0), ServeConfig(
         max_batch=8, max_seq_len=2048, prefill_chunk=512, prefill_batch=8,
-        eos_token=-1, profile_dir=profile_dir))
+        eos_token=-1, profile_dir=profile_dir, **paged))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in PROMPT_LENS]
     return cfg, engine, prompts
 
 
-def serve_phase(torch):
-    """Phase 5: the main path.  Returns (launch counts, latency stats)."""
+SERVE_EDGES = ("queue_wait", "ttft", "decode_token", "e2e",
+               "prefill_request", "prefill_chunk", "decode_tick")
+PAGE_GAUGES = ("cache_pages_in_use", "cache_page_hwm",
+               "cache_pages_capacity")
+
+
+def serve_run(torch, what: str, on_engine=None, **paged):
+    """Serve the 16 prompts (32 new tokens each) through a fresh engine
+    (handed to `on_engine` first, if given), with the launch counters set
+    to 0 just before and read just after.  Checks every request, the cache
+    and the launch counts, and loads the profile shard back.  Returns
+    (engine, done, launch counts, latency stats, serve edges of the
+    shard)."""
+    from repro_torch.core import tracer as xfa
     from repro_torch.kernels import ops
     from repro_torch.profile import load_profile
     from repro_torch.serving import latency_stats, run_workload
 
+    xfa.reset()          # this run's folds only, not an earlier run's
     with tempfile.TemporaryDirectory() as prof:
-        cfg, engine, prompts = make_engine(torch, prof)
+        cfg, engine, prompts = make_engine(torch, prof, **paged)
+        if on_engine is not None:
+            on_engine(engine)
         t0 = time.monotonic()
         engine.warm_chunk_programs()
-        log(f"[serve] warmed {len(engine.chunk_buckets())} widths x "
+        log(f"[{what}] warmed {len(engine.chunk_buckets())} widths x "
             f"{len(engine.batch_buckets())} batch buckets in "
             f"{time.monotonic() - t0:.1f}s")
         ops.reset_launch_counts()
@@ -375,31 +519,37 @@ def serve_phase(torch):
         wall = time.monotonic() - t0
         counts = ops.launch_counts()
         if len(done) != len(prompts) or not all(r.done for r in done):
-            fail(f"serve: {len(done)} of {len(prompts)} requests completed")
+            fail(f"{what}: {len(done)} of {len(prompts)} requests completed")
         for r in done:
             if r.error is not None or len(r.output) != 32 \
                     or not all(0 <= t < cfg.vocab for t in r.output):
-                fail(f"serve: request {r.uid} output is wrong: {r.output}")
+                fail(f"{what}: request {r.uid} output is wrong: {r.output}")
         for name in ("k", "v"):
             if not torch.isfinite(engine.cache[name]).all():
-                fail("serve: the KV cache holds non-finite values")
+                fail(f"{what}: the KV cache holds non-finite values")
+        # the attention pair of this path runs once per layer per forward,
+        # rmsnorm 2L+1 times; the other pair never
         L = cfg.n_layers
-        groups, ticks = counts["chunk_attention"] / L, \
-            counts["decode_attention"] / L
-        if groups != int(groups) or ticks != int(ticks) \
-                or counts["rmsnorm"] != (2 * L + 1) * (groups + ticks):
-            fail(f"serve: launch counts inconsistent with {L} layers: "
+        sfx = "_paged" if engine.paged else ""
+        other = "" if engine.paged else "_paged"
+        groups = counts["chunk_attention" + sfx] / L
+        ticks = counts["decode_attention" + sfx] / L
+        if groups != int(groups) or ticks != int(ticks) or groups == 0 \
+                or ticks == 0 \
+                or counts["rmsnorm"] != (2 * L + 1) * (groups + ticks) \
+                or counts["chunk_attention" + other] \
+                or counts["decode_attention" + other]:
+            fail(f"{what}: launch counts inconsistent with {L} layers: "
                  f"{counts}")
         folded = load_profile(prof).to_folded()
         serve = {k[2]: e for k, e in folded.edges.items() if k[1] == "serve"}
-        for phase in ("queue_wait", "ttft", "decode_token", "e2e",
-                      "prefill_request", "prefill_chunk", "decode_tick"):
+        for phase in SERVE_EDGES + (PAGE_GAUGES if engine.paged else ()):
             if phase not in serve:
-                fail(f"serve: profile shard lacks the serve edge {phase}")
+                fail(f"{what}: profile shard lacks the serve edge {phase}")
         if serve["ttft"].count < len(prompts):
-            fail("serve: ttft folded fewer times than requests served")
+            fail(f"{what}: ttft folded fewer times than requests served")
     stats = latency_stats(done, wall)
-    log(f"[serve] {len(done)} requests, {int(stats['tokens'])} new tokens "
+    log(f"[{what}] {len(done)} requests, {int(stats['tokens'])} new tokens "
         f"(prompts {min(PROMPT_LENS)}..{max(PROMPT_LENS)}, "
         f"{sum(PROMPT_LENS)} prompt tokens) in {wall:.3f}s: "
         f"{stats['throughput_tok_s']:.1f} tok/s; ttft mean "
@@ -407,17 +557,96 @@ def serve_phase(torch):
         f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
         f"{stats['ttft_p95_s'] * 1e3:.1f} ms; decode "
         f"{stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
-    log(f"[serve] prefill groups {int(groups)}, decode ticks {int(ticks)}, "
+    log(f"[{what}] prefill groups {int(groups)}, decode ticks {int(ticks)}, "
         f"launches {json.dumps(counts)} "
         f"(per forward: rmsnorm {2 * L + 1}, attention {L})")
-    log(f"[serve] xfa prefill_chunk mean "
+    log(f"[{what}] xfa prefill_chunk mean "
         f"{serve['prefill_chunk'].total_ns / serve['prefill_chunk'].count / 1e6:.2f}"
         f" ms x {serve['prefill_chunk'].count}, decode_token mean "
         f"{serve['decode_token'].total_ns / serve['decode_token'].count / 1e6:.3f}"
         f" ms x {serve['decode_token'].count}")
+    return engine, done, counts, stats, serve
+
+
+def streams(done):
+    """Token streams in submission order (`done` is in finishing order)."""
+    return [r.output for r in sorted(done, key=lambda r: r.uid)]
+
+
+def serve_phase(torch):
+    """Phase 5: the main path, contiguous cache.  Returns (launch counts,
+    latency stats, token streams)."""
+    engine, done, counts, stats, _ = serve_run(torch, "serve")
+    outputs = streams(done)
     del engine
     torch.cuda.empty_cache()
-    return counts, stats
+    return counts, stats, outputs
+
+
+def paged_phase(torch, dense_stats, dense_outputs):
+    """Phase 5b: the paged pool, (a) at the contiguous pool's capacity,
+    (b) at a quarter of it.  Returns run (a)'s launch counts."""
+    base = dict(page_size=PAGE)
+    # (a) 257 pages: 256 usable = 16384 rows, the contiguous pool's
+    # capacity; all 16 reservations total 179 pages, so the schedule is
+    # phase 5's
+    engine, done, counts, stats, _ = serve_run(
+        torch, "paged", max_cache_pages=257, **base)
+    if streams(done) != dense_outputs:
+        fail("paged: greedy tokens differ from the contiguous run")
+    alloc = engine.allocator
+    if alloc.in_use != 0 or alloc.hwm > alloc.usable:
+        fail(f"paged: allocator in_use {alloc.in_use} hwm {alloc.hwm}")
+    log(f"[paged] 16 of 16 token streams equal the contiguous run; page "
+        f"hwm {alloc.hwm} of {alloc.usable}; tok/s {stats['throughput_tok_s']:.1f}"
+        f" vs {dense_stats['throughput_tok_s']:.1f}, ttft mean/p50/p95 "
+        f"{stats['ttft_mean_s'] * 1e3:.1f}/{stats['ttft_p50_s'] * 1e3:.1f}/"
+        f"{stats['ttft_p95_s'] * 1e3:.1f} ms vs "
+        f"{dense_stats['ttft_mean_s'] * 1e3:.1f}/"
+        f"{dense_stats['ttft_p50_s'] * 1e3:.1f}/"
+        f"{dense_stats['ttft_p95_s'] * 1e3:.1f} ms, decode "
+        f"{stats['decode_s_per_tok'] * 1e3:.2f} vs "
+        f"{dense_stats['decode_s_per_tok'] * 1e3:.2f} ms/token (contiguous)")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) 65 pages: 64 usable = 4096 rows, a quarter of the contiguous
+    # pool; the first eight requests reserve 75 pages, so admission waits
+    # on pages with slots free.  The gate is wrapped to count refusals.
+    refused = []
+
+    def count_refusals(engine):
+        gate = engine.scheduler.page_gate
+
+        def counting(req):
+            ok = gate(req)
+            if not ok:
+                refused.append(req.uid)
+            return ok
+        engine.scheduler.page_gate = counting
+
+    engine, done, counts_b, _, serve = serve_run(
+        torch, "paged-quarter", on_engine=count_refusals,
+        max_cache_pages=65, **base)
+    alloc = engine.allocator
+    if alloc.in_use != 0 or not 0 < alloc.hwm <= 64:
+        fail(f"paged-quarter: allocator in_use {alloc.in_use} hwm "
+             f"{alloc.hwm} (must drain to 0 with hwm <= 64)")
+    if not refused:
+        fail("paged-quarter: the page gate never back-pressured admission")
+    same = sum(a == b for a, b in zip(streams(done), dense_outputs))
+    arena_mb = sum(t.numel() * t.element_size()
+                   for t in engine.cache.values()) / 1e6
+    gauges = {g: serve[g].count for g in PAGE_GAUGES}
+    log(f"[paged-quarter] arena {arena_mb:.1f} MB; page gate refused "
+        f"{len(refused)} times ({len(set(refused))} requests); page hwm "
+        f"{alloc.hwm} of {alloc.usable}, in use at drain {alloc.in_use}; "
+        f"{same} of {len(done)} token streams equal the contiguous run; "
+        f"gauges folded {json.dumps(gauges)}; launches "
+        f"{json.dumps(counts_b)}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_phase(torch):

@@ -40,6 +40,12 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "chunk_attention_launch": (_P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "decode_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _F, _I, _P),
+        "chunk_attention_paged_launch": (_P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _I,
+                                         _F, _I, _P),
     },
 }
 

@@ -32,11 +32,66 @@
 // pos[b] + t_max.  Products run on the CUDA cores in f32 (a 4x4 register
 // tile per thread for Q.K^T and for P.V).  Tensor cores (mma.sync/wgmma)
 // are later work.
+//
+// decode_attention_paged and chunk_attention_paged replace
+// repro/kernels/decode_attention.py::decode_attention_paged
+// (_decode_paged_kernel) and ::chunk_attention_paged (_chunk_paged_kernel):
+// the same two functions over a page arena [P, Hkv, ps, D] reached through
+// a per-row block table bt [B, NB], K/V row j of batch row b, kv head h
+// being pages[bt[b, j / ps], h, j % ps, :].  Bound: as their dense twins,
+// plus the table (4 bytes per page).  Design: each kernel body is
+// templated on the row addressing (dense or paged), so a pair shares one
+// body.  Before each 64-row tile, the block stages the arena offsets of
+// the pages the tile touches in shared memory, one table load per page;
+// at the serving page size of 64 a tile is exactly one page, at 16 it
+// spans four, at 128 a page spans two tiles.  A row stops at its own
+// limit (kv_len, or pos + t) clamped to NB * ps, so it never reads a
+// table slot past that limit, never touches scratch page 0 or an
+// ungranted page unless its table points there, and gives such rows
+// exactly zero softmax mass.  Arena offsets are 64-bit.  A page id out
+// of [0, P) is not checked on the device: the engine only writes ids it
+// was granted.
 #include "common.cuh"
 
 namespace {
 
 using rt::kNegInf;
+
+// Where K/V row j of one (batch row b, kv head h) lives.  Dense: rows of
+// [B, Hkv, S, D] (nb = 1, ps = S, bt unused).  Paged: an arena
+// [P, Hkv, ps, D] through the row's block table bt[b, :nb].  Either way
+// the row's virtual length is S = nb * ps.
+struct KvRows {
+  const int* bt;
+  int nb, ps;
+};
+
+constexpr int kMaxTilePages = 64;   // pages one 64-row tile can touch (ps = 1)
+
+// Paged: the arena offsets of the pages that rows [j0, j1) of (b, h)
+// touch, staged in `pbase` (one table load per page); returns the first
+// page's slot.  The caller synchronizes before reading `pbase`.
+template <int D>
+__device__ __forceinline__ int stage_pages(const KvRows& kv, int b, int h, int hkv, int j0,
+                                           int j1, long long* pbase) {
+  const int pf = j0 / kv.ps, pl = (j1 - 1) / kv.ps;
+  const int* row = kv.bt + static_cast<size_t>(b) * kv.nb;
+  for (int i = threadIdx.x; i <= pl - pf; i += blockDim.x)
+    pbase[i] = (static_cast<long long>(row[pf + i]) * hkv + h) * kv.ps * D;
+  return pf;
+}
+
+// Element offset of K/V row j: from the staged page offsets (paged, pf the
+// table slot of pbase[0]) or from the (row, head)'s dense row 0.
+template <int D, bool kPaged>
+__device__ __forceinline__ long long kv_offset(const KvRows& kv, const long long* pbase, int pf,
+                                                long long dense, int j) {
+  if constexpr (kPaged) {
+    return pbase[j / kv.ps - pf] + static_cast<long long>(j % kv.ps) * D;
+  } else {
+    return dense + static_cast<long long>(j) * D;
+  }
+}
 
 // ---------------------------------------------------------------- decode ----
 constexpr int kDecThreads = 128;
@@ -52,13 +107,13 @@ size_t decode_smem_floats(int G) {
        + 3 * static_cast<size_t>(G);          // m, l, alpha
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(kDecThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ kv_len, T* __restrict__ o,
+              KvRows kv, const int* __restrict__ kv_len, T* __restrict__ o,
               float* __restrict__ m_out, float* __restrict__ l_out,
               float* __restrict__ part, int* __restrict__ done,
-              int hkv, int G, int S, int split_rows, float scale) {
+              int hkv, int G, int split_rows, float scale) {
   constexpr int V = rt::Vec<T>::n;
   constexpr int DV = D / V;
   extern __shared__ float smem[];
@@ -71,8 +126,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float* l_s = m_s + G;
   float* a_s = l_s + G;
   __shared__ bool last;
+  __shared__ long long pbase[kMaxTilePages];   // paged: this tile's page offsets
 
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int S = kv.nb * kv.ps;
   const int nsplit = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   constexpr int nw = kDecThreads / 32;
@@ -86,8 +143,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int lo = split * split_rows;
   const int hi = len < lo + split_rows ? len : lo + split_rows;
   const size_t head = static_cast<size_t>(b) * hkv + h;
-  const T* kb = k + head * S * D;
-  const T* vb = v + head * S * D;
+  const long long dense = static_cast<long long>(head) * S * D;   // dense row 0
+  int pf = 0;                       // paged: table slot of pbase[0]
   const size_t qo = head * G * D;   // q/o [B, Hq, D]: this kv head's G q heads
 
   for (int i = tid; i < G * DV; i += kDecThreads) {
@@ -101,12 +158,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   __syncthreads();
 
   for (int j0 = lo; j0 < hi; j0 += kDecBK) {
+    if constexpr (kPaged) {
+      pf = stage_pages<D>(kv, b, h, hkv, j0, j0 + kDecBK < hi ? j0 + kDecBK : hi, pbase);
+      __syncthreads();
+    }
     for (int i = tid; i < kDecBK * DV; i += kDecThreads) {
       const int r = i / DV, c = (i % DV) * V;
       float kt[V], vt[V];
       if (j0 + r < hi) {
-        rt::load_vec(kb + static_cast<size_t>(j0 + r) * D + c, kt);
-        rt::load_vec(vb + static_cast<size_t>(j0 + r) * D + c, vt);
+        const long long off = kv_offset<D, kPaged>(kv, pbase, pf, dense, j0 + r) + c;
+        rt::load_vec(k + off, kt);
+        rt::load_vec(v + off, vt);
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) kt[j] = vt[j] = 0.f;
@@ -212,18 +274,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T, int D>
-cudaError_t decode_launch_t(const void* q, const void* k, const void* v, const int* kv_len,
-                            void* o, float* m, float* l, float* part, int* done, int B,
-                            int hkv, int G, int S, int nsplit, int split_rows, float scale,
-                            cudaStream_t stream) {
+template <typename T, int D, bool kPaged>
+cudaError_t decode_launch_t(const void* q, const void* k, const void* v, KvRows kv,
+                            const int* kv_len, void* o, float* m, float* l, float* part,
+                            int* done, int B, int hkv, int G, int nsplit, int split_rows,
+                            float scale, cudaStream_t stream) {
   const size_t smem = decode_smem_floats<D>(G) * sizeof(float);
-  auto kernel = decode_kernel<T, D>;
+  auto kernel = decode_kernel<T, D, kPaged>;
   cudaError_t err = rt::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(hkv, B, nsplit), kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
-      static_cast<T*>(o), m, l, part, done, hkv, G, S, split_rows, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv,
+      kv_len, static_cast<T*>(o), m, l, part, done, hkv, G, split_rows, scale);
   return cudaGetLastError();
 }
 
@@ -237,11 +299,11 @@ constexpr size_t chunk_smem_floats() {
   return kChBQ * (D + 1) + kChBK * (D + 1) + kChBK * D + kChBQ * (kChBK + 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(kChThreads)
 chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const int* __restrict__ pos, T* __restrict__ o,
-             int hkv, int G, int T_, int S, float scale) {
+             KvRows kv, const int* __restrict__ pos, T* __restrict__ o,
+             int hkv, int G, int T_, float scale) {
   constexpr int V = rt::Vec<T>::n;
   constexpr int DV = D / V;
   constexpr int DP = D + 1;
@@ -252,15 +314,17 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   float* k_s = q_s + kChBQ * DP;  // [BK][DP]
   float* v_s = k_s + kChBK * DP;  // [BK][D]
   float* p_s = v_s + kChBK * D;   // [BQ][PP]
+  __shared__ long long pbase[kMaxTilePages];   // paged: this tile's page offsets
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int S = kv.nb * kv.ps;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int rows = G * T_;
   const int r0 = tile * kChBQ;
   const int p0 = pos[b];
   const size_t head = static_cast<size_t>(b) * hkv + h;
-  const T* kb = k + head * S * D;
-  const T* vb = v + head * S * D;
+  const long long dense = static_cast<long long>(head) * S * D;   // dense row 0
+  int pf = 0;                       // paged: table slot of pbase[0]
   // tile row r -> (t = r / G, g = r % G); q/o [B, Hq, T, D] with q head h*G+g
   auto row_offset = [&](int r) {
     return ((head * G + r % G) * T_ + r / G) * static_cast<size_t>(D);
@@ -298,12 +362,17 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   __syncthreads();
 
   for (int c0 = 0; c0 < ncols; c0 += kChBK) {
+    if constexpr (kPaged) {
+      pf = stage_pages<D>(kv, b, h, hkv, c0, c0 + kChBK < ncols ? c0 + kChBK : ncols, pbase);
+      __syncthreads();
+    }
     for (int i = tid; i < kChBK * DV; i += kChThreads) {
       const int jj = i / DV, c = (i % DV) * V, col = c0 + jj;
       float kt[V], vt[V];
       if (col < ncols) {
-        rt::load_vec(kb + static_cast<size_t>(col) * D + c, kt);
-        rt::load_vec(vb + static_cast<size_t>(col) * D + c, vt);
+        const long long off = kv_offset<D, kPaged>(kv, pbase, pf, dense, col) + c;
+        rt::load_vec(k + off, kt);
+        rt::load_vec(v + off, vt);
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) kt[j] = vt[j] = 0.f;
@@ -393,48 +462,109 @@ chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T, int D>
-cudaError_t chunk_launch_t(const void* q, const void* k, const void* v, const int* pos,
-                           void* o, int B, int hkv, int G, int T_, int S, float scale,
-                           cudaStream_t stream) {
+template <typename T, int D, bool kPaged>
+cudaError_t chunk_launch_t(const void* q, const void* k, const void* v, KvRows kv,
+                           const int* pos, void* o, int B, int hkv, int G, int T_,
+                           float scale, cudaStream_t stream) {
   constexpr size_t smem = chunk_smem_floats<D>() * sizeof(float);
-  auto kernel = chunk_kernel<T, D>;
+  auto kernel = chunk_kernel<T, D, kPaged>;
   static const cudaError_t attr = rt::set_smem(kernel, smem);   // once per process
   if (attr != cudaSuccess) return attr;
   const int tiles = (G * T_ + kChBQ - 1) / kChBQ;
   kernel<<<dim3(tiles, hkv, B), kChThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(o), hkv, G, T_, S, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kv, pos,
+      static_cast<T*>(o), hkv, G, T_, scale);
   return cudaGetLastError();
 }
 
+// The kernel instance for (T, D, dense or paged).
+template <typename T, int D>
+cudaError_t decode_pick(const void* q, const void* k, const void* v, KvRows kv,
+                        const int* kv_len, void* o, float* m, float* l, float* part, int* done,
+                        int B, int hkv, int G, int nsplit, int split_rows, float scale,
+                        cudaStream_t s) {
+  return kv.bt != nullptr
+             ? decode_launch_t<T, D, true>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G,
+                                           nsplit, split_rows, scale, s)
+             : decode_launch_t<T, D, false>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv,
+                                            G, nsplit, split_rows, scale, s);
+}
+
 template <typename T>
-cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v,
+cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v, KvRows kv,
                             const int* kv_len, void* o, float* m, float* l, float* part,
-                            int* done, int B, int hkv, int G, int S, int nsplit,
-                            int split_rows, float scale, cudaStream_t s) {
+                            int* done, int B, int hkv, int G, int nsplit, int split_rows,
+                            float scale, cudaStream_t s) {
   switch (D) {
     case 32:
-      return decode_launch_t<T, 32>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
-                                    nsplit, split_rows, scale, s);
+      return decode_pick<T, 32>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
+                                split_rows, scale, s);
     case 64:
-      return decode_launch_t<T, 64>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
-                                    nsplit, split_rows, scale, s);
+      return decode_pick<T, 64>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
+                                split_rows, scale, s);
     case 128:
-      return decode_launch_t<T, 128>(q, k, v, kv_len, o, m, l, part, done, B, hkv, G, S,
-                                     nsplit, split_rows, scale, s);
+      return decode_pick<T, 128>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
+                                 split_rows, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T, int D>
+cudaError_t chunk_pick(const void* q, const void* k, const void* v, KvRows kv, const int* pos,
+                       void* o, int B, int hkv, int G, int T_, float scale, cudaStream_t s) {
+  return kv.bt != nullptr
+             ? chunk_launch_t<T, D, true>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s)
+             : chunk_launch_t<T, D, false>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
+}
+
 template <typename T>
-cudaError_t chunk_dispatch(int D, const void* q, const void* k, const void* v,
-                           const int* pos, void* o, int B, int hkv, int G, int T_, int S,
-                           float scale, cudaStream_t s) {
+cudaError_t chunk_dispatch(int D, const void* q, const void* k, const void* v, KvRows kv,
+                           const int* pos, void* o, int B, int hkv, int G, int T_, float scale,
+                           cudaStream_t s) {
   switch (D) {
-    case 32: return chunk_launch_t<T, 32>(q, k, v, pos, o, B, hkv, G, T_, S, scale, s);
-    case 64: return chunk_launch_t<T, 64>(q, k, v, pos, o, B, hkv, G, T_, S, scale, s);
-    case 128: return chunk_launch_t<T, 128>(q, k, v, pos, o, B, hkv, G, T_, S, scale, s);
+    case 32: return chunk_pick<T, 32>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
+    case 64: return chunk_pick<T, 64>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
+    case 128: return chunk_pick<T, 128>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int decode_common(const void* q, const void* k, const void* v, KvRows kv, const void* kv_len,
+                  void* o, void* m, void* l, void* part, void* done, int B, int hkv, int G,
+                  int D, int nsplit, int split_rows, float scale, int dtype, void* stream) {
+  if (B <= 0 || hkv <= 0 || G <= 0) return cudaSuccess;
+  if (kv.nb < 1 || kv.ps < 1 || nsplit < 1 || nsplit > kDecBK || split_rows % kDecBK != 0 ||
+      (nsplit > 1 && (part == nullptr || done == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(kv_len);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  float* pf = static_cast<float*>(part);
+  int* dn = static_cast<int*>(done);
+  switch (dtype) {
+    case rt::kBF16:
+      return decode_dispatch<__nv_bfloat16>(D, q, k, v, kv, len, o, mf, lf, pf, dn, B, hkv, G,
+                                            nsplit, split_rows, scale, s);
+    case rt::kF32:
+      return decode_dispatch<float>(D, q, k, v, kv, len, o, mf, lf, pf, dn, B, hkv, G, nsplit,
+                                    split_rows, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const void* pos,
+                 void* o, int B, int hkv, int G, int T, int D, float scale, int dtype,
+                 void* stream) {
+  if (B <= 0 || hkv <= 0 || G <= 0 || T <= 0) return cudaSuccess;
+  if (kv.nb < 1 || kv.ps < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  switch (dtype) {
+    case rt::kBF16:
+      return chunk_dispatch<__nv_bfloat16>(D, q, k, v, kv, p, o, B, hkv, G, T, scale, s);
+    case rt::kF32:
+      return chunk_dispatch<float>(D, q, k, v, kv, p, o, B, hkv, G, T, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -451,39 +581,39 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        void* part, void* done, int B, int hkv, int G, int S,
                                        int D, int nsplit, int split_rows, float scale,
                                        int dtype, void* stream) {
-  if (B <= 0 || hkv <= 0 || G <= 0) return cudaSuccess;
-  if (nsplit < 1 || nsplit > kDecBK || split_rows % kDecBK != 0 ||
-      (nsplit > 1 && (part == nullptr || done == nullptr)))
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(kv_len);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  float* pf = static_cast<float*>(part);
-  int* dn = static_cast<int*>(done);
-  switch (dtype) {
-    case rt::kBF16:
-      return decode_dispatch<__nv_bfloat16>(D, q, k, v, len, o, mf, lf, pf, dn, B, hkv, G, S,
-                                            nsplit, split_rows, scale, s);
-    case rt::kF32:
-      return decode_dispatch<float>(D, q, k, v, len, o, mf, lf, pf, dn, B, hkv, G, S, nsplit,
-                                    split_rows, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return decode_common(q, k, v, KvRows{nullptr, 1, S}, kv_len, o, m, l, part, done, B, hkv, G,
+                       D, nsplit, split_rows, scale, dtype, stream);
+}
+
+// As decode_attention_launch over a page arena: k, v: [P, Hkv, ps, D];
+// bt: [B, nb] int32 page ids; the split ranges cut the virtual S = nb*ps.
+extern "C" int decode_attention_paged_launch(const void* q, const void* k, const void* v,
+                                             const void* bt, const void* kv_len, void* o,
+                                             void* part, void* done, int B, int hkv, int G,
+                                             int nb, int ps, int D, int nsplit,
+                                             int split_rows, float scale, int dtype,
+                                             void* stream) {
+  if (bt == nullptr) return cudaErrorInvalidValue;
+  return decode_common(q, k, v, KvRows{static_cast<const int*>(bt), nb, ps}, kv_len, o,
+                       nullptr, nullptr, part, done, B, hkv, G, D, nsplit, split_rows, scale,
+                       dtype, stream);
 }
 
 // q: [B, Hkv*G, T, D]; k, v: [B, Hkv, S, D]; pos: [B] int32; o like q.
 extern "C" int chunk_attention_launch(const void* q, const void* k, const void* v,
                                       const void* pos, void* o, int B, int hkv, int G, int T,
                                       int S, int D, float scale, int dtype, void* stream) {
-  if (B <= 0 || hkv <= 0 || G <= 0 || T <= 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  switch (dtype) {
-    case rt::kBF16:
-      return chunk_dispatch<__nv_bfloat16>(D, q, k, v, p, o, B, hkv, G, T, S, scale, s);
-    case rt::kF32:
-      return chunk_dispatch<float>(D, q, k, v, p, o, B, hkv, G, T, S, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return chunk_common(q, k, v, KvRows{nullptr, 1, S}, pos, o, B, hkv, G, T, D, scale, dtype,
+                      stream);
+}
+
+// As chunk_attention_launch over a page arena: k, v: [P, Hkv, ps, D];
+// bt: [B, nb] int32 page ids.
+extern "C" int chunk_attention_paged_launch(const void* q, const void* k, const void* v,
+                                            const void* bt, const void* pos, void* o, int B,
+                                            int hkv, int G, int T, int nb, int ps, int D,
+                                            float scale, int dtype, void* stream) {
+  if (bt == nullptr) return cudaErrorInvalidValue;
+  return chunk_common(q, k, v, KvRows{static_cast<const int*>(bt), nb, ps}, pos, o, B, hkv, G,
+                      T, D, scale, dtype, stream);
 }

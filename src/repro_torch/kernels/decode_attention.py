@@ -1,14 +1,22 @@
-"""Flash-decode and positioned-chunk attention: the CUDA kernels' wrappers
-(csrc/decode_attention.cu).
+"""Flash-decode and positioned-chunk attention, over a contiguous cache or
+a page arena: the CUDA kernels' wrappers (csrc/decode_attention.cu).
 
 Replace the Pallas TPU kernels `repro/kernels/decode_attention.py::
-decode_attention` and `::chunk_attention`.  For CUDA tensors a wrapper
-launches its kernel or raises; for CPU tensors it runs the plain version
-in `ref`.  `decode_attention.launches` and `chunk_attention.launches`
-count kernel launches, nothing else.
+decode_attention`, `::chunk_attention`, `::decode_attention_paged` and
+`::chunk_attention_paged`.  For CUDA tensors a wrapper launches its
+kernel or raises; for CPU tensors it runs the plain version in `ref`.
+Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
 ragged tail.  Head dims 32, 64 and 128 are compiled.
+
+The paged kernels read K/V row j of batch row b from
+`pages[block_table[b, j // page_size], :, j % page_size]`, any
+page_size >= 1.  Each row stops at its own limit (kv_len, or pos + t),
+clamped to NB * page_size as the plain version's gather is, so no table
+slot past it is read.  Page ids are not range-checked on the device: a
+block table holds only pages the engine granted (or scratch page 0), and
+that is the engine's contract.
 """
 
 from __future__ import annotations
@@ -42,15 +50,29 @@ def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           lens: torch.Tensor, what: str) -> None:
+           lens: torch.Tensor, what: str,
+           block_table: Optional[torch.Tensor] = None) -> None:
+    """Operands the kernels take: k/v are [B, Hkv, S, D] rows, or with a
+    block table [P, Hkv, page_size, D] pages and block_table [B, NB]."""
     check_cuda(q, what)
     D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise ValueError(f"{what} kernel compiles head dims {HEAD_DIMS}, "
                          f"got {D}")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[-1] != D:
+    if k.shape != v.shape or k.shape[-1] != D or (
+            block_table is None and k.shape[0] != q.shape[0]):
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if block_table is not None and (
+            block_table.dtype != torch.int32 or block_table.dim() != 2
+            or block_table.shape[0] != q.shape[0]
+            or block_table.shape[1] < 1
+            or block_table.device != q.device
+            or not block_table.is_contiguous()):
+        raise ValueError(f"{what}: block_table must be contiguous int32 "
+                         f"[{q.shape[0]}, NB >= 1] on {q.device}, got "
+                         f"{block_table.dtype} {tuple(block_table.shape)} "
+                         f"on {block_table.device}")
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"{what}: {q.shape[1]} q heads not a multiple of "
                          f"{k.shape[1]} kv heads")
@@ -64,6 +86,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lens.device != q.device:
         raise ValueError(f"{what}: lengths must be int32 [B] on {q.device}")
     check_vectors(D, q, k, v)
+
+
+def _decode_scratch(B: int, Hq: int, Hkv: int, S: int, D: int,
+                    device: torch.device):
+    """(nsplit, split_rows, partials or None, arrival counters) for a
+    decode launch over a virtual length S."""
+    nsplit, split_rows = decode_splits(B, Hkv, S, _sm_count(device.index))
+    part = None
+    if nsplit > 1:   # per-range (acc, m, l) partials
+        part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
+                           device=device)
+    done = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
+    return nsplit, split_rows, part, done
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,15 +118,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, kv_len, "decode_attention")
     scale = sm_scale if sm_scale is not None else D ** -0.5
     o = torch.empty_like(q)
-    m = l = part = None
+    m = l = None
     if return_residuals:
         m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    nsplit, split_rows = decode_splits(B, Hkv, S, _sm_count(q.get_device()))
-    if nsplit > 1:   # per-range (acc, m, l) partials and arrival counters
-        part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
-                           device=q.device)
-    done = torch.zeros(B * Hkv, dtype=torch.int32, device=q.device)
+    nsplit, split_rows, part, done = _decode_scratch(B, Hq, Hkv, S, D,
+                                                     q.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     err = build.load("decode_attention").decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
@@ -129,3 +161,74 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 chunk_attention.launches = 0
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, *,
+                           block_table: torch.Tensor,
+                           kv_len: Optional[torch.Tensor] = None,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, Hq, D]; k_pages, v_pages: [P, Hkv, page_size, D];
+    block_table: [B, NB] int32; kv_len: [B] int32 (None = NB*page_size)
+    -> [B, Hq, D].  The decode kernel's split-S design over the virtual
+    length NB*page_size: one launch per tick."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged(q, k_pages, v_pages,
+                                          block_table=block_table,
+                                          kv_len=kv_len, sm_scale=sm_scale)
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = k_pages.shape
+    NB = block_table.shape[-1]
+    if kv_len is None:
+        kv_len = torch.full((B,), NB * ps, dtype=torch.int32,
+                            device=q.device)
+    _check(q, k_pages, v_pages, kv_len, "decode_attention_paged",
+           block_table=block_table)
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    o = torch.empty_like(q)
+    nsplit, split_rows, part, done = _decode_scratch(B, Hq, Hkv, NB * ps, D,
+                                                     q.device)
+    err = build.load("decode_attention").decode_attention_paged_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+        part.data_ptr() if part is not None else None, done.data_ptr(),
+        B, Hkv, Hq // Hkv, NB, ps, D, nsplit, split_rows, float(scale),
+        DTYPES[q.dtype], stream(q))
+    build.check(err, "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return o
+
+
+decode_attention_paged.launches = 0
+
+
+def chunk_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, *, block_table: torch.Tensor,
+                          pos: torch.Tensor,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, Hq, T, D] at per-row offsets pos [B] int32; k_pages,
+    v_pages: [P, Hkv, page_size, D]; block_table: [B, NB] int32 ->
+    [B, Hq, T, D].  Query t of row b attends virtual columns
+    <= pos[b] + t of its pages."""
+    if q.device.type == "cpu":
+        return ref.chunk_attention_paged(q, k_pages, v_pages,
+                                         block_table=block_table, pos=pos,
+                                         sm_scale=sm_scale)
+    B, Hq, T, D = q.shape
+    _, Hkv, ps, _ = k_pages.shape
+    NB = block_table.shape[-1]
+    _check(q, k_pages, v_pages, pos, "chunk_attention_paged",
+           block_table=block_table)
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    o = torch.empty_like(q)
+    err = build.load("decode_attention").chunk_attention_paged_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), pos.data_ptr(), o.data_ptr(),
+        B, Hkv, Hq // Hkv, T, NB, ps, D, float(scale), DTYPES[q.dtype],
+        stream(q))
+    build.check(err, "chunk_attention_paged")
+    chunk_attention_paged.launches += 1
+    return o
+
+
+chunk_attention_paged.launches = 0

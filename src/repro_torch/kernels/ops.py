@@ -63,6 +63,46 @@ def chunk_attention(q, k, v, *, pos, sm_scale=None, impl: str = "auto",
     return fn(q, k, v, pos=pos, sm_scale=sm_scale)
 
 
+def decode_attention_paged(q, k_pages, v_pages, *, block_table, kv_len,
+                           sm_scale=None, impl: str = "auto",
+                           component: str = "attention") -> torch.Tensor:
+    """Paged single-token decode: q [B, Hq, D] against a page arena
+    k_pages/v_pages [P, Hkv, page_size, D] addressed through block_table
+    [B, NB] (int32 page ids; unassigned slots point at the reserved
+    scratch page 0 and are masked by kv_len [B])."""
+    B, Hq, D = q.shape
+    _, _, ps, _ = k_pages.shape
+    NB = block_table.shape[1]
+    # cost model charges the VISIBLE prefix, not the arena: each row
+    # streams at most NB pages of its own table
+    annotate_cost(xfa.current_component(), component, "decode_attention_paged",
+                  flops=4.0 * B * Hq * NB * ps * D,
+                  bytes=2.0 * B * NB * ps * D * k_pages.element_size())
+    fn = ref.decode_attention_paged if _plain(impl, q) \
+        else _dec.decode_attention_paged
+    return fn(q, k_pages, v_pages, block_table=block_table, kv_len=kv_len,
+              sm_scale=sm_scale)
+
+
+def chunk_attention_paged(q, k_pages, v_pages, *, block_table, pos,
+                          sm_scale=None, impl: str = "auto",
+                          component: str = "attention") -> torch.Tensor:
+    """Paged positioned-chunk attention: q [B, Hq, T, D] at per-row
+    offsets pos [B]; KV lives in the page arena [P, Hkv, page_size, D]
+    and each row's visible prefix is read through block_table [B, NB].
+    Same offset-causal mask as chunk_attention."""
+    B, Hq, T, D = q.shape
+    _, _, ps, _ = k_pages.shape
+    NB = block_table.shape[1]
+    annotate_cost(xfa.current_component(), component, "chunk_attention_paged",
+                  flops=4.0 * B * Hq * T * NB * ps * D,
+                  bytes=2.0 * B * NB * ps * D * k_pages.element_size())
+    fn = ref.chunk_attention_paged if _plain(impl, q) \
+        else _dec.chunk_attention_paged
+    return fn(q, k_pages, v_pages, block_table=block_table, pos=pos,
+              sm_scale=sm_scale)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
             component: str = "norm") -> torch.Tensor:
     annotate_cost(xfa.current_component(), component, "rmsnorm",
@@ -73,12 +113,14 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the counters were last reset."""
-    return {"rmsnorm": _rms.rmsnorm.launches,
-            "decode_attention": _dec.decode_attention.launches,
-            "chunk_attention": _dec.chunk_attention.launches}
+    return {fn.__name__: fn.launches for fn in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _rms.rmsnorm.launches = 0
-    _dec.decode_attention.launches = 0
-    _dec.chunk_attention.launches = 0
+    for fn in _KERNELS:
+        fn.launches = 0
+
+
+#: every kernel wrapper of the serving path (each carries `.launches`)
+_KERNELS = (_rms.rmsnorm, _dec.decode_attention, _dec.chunk_attention,
+            _dec.decode_attention_paged, _dec.chunk_attention_paged)

@@ -73,6 +73,46 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o / l).reshape(B, Hq, T, D).to(q.dtype)
 
 
+def gather_kv_pages(pages: torch.Tensor, block_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """Materialize a paged KV arena as per-row dense caches.
+
+    pages: [P, Hkv, page_size, D] (page 0 is the engine's scratch page);
+    block_table: [B, NB] page ids, row b's virtual cache being the
+    concatenation of its NB pages.  Returns [B, Hkv, NB*page_size, D]."""
+    g = pages[block_table.to(pages.device).long()]      # [B, NB, Hkv, ps, D]
+    B, NB, Hkv, ps, D = g.shape
+    return g.movedim(1, 2).reshape(B, Hkv, NB * ps, D)
+
+
+def chunk_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, *, block_table: torch.Tensor,
+                          pos: torch.Tensor,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Paged positioned-chunk attention: gather the row's pages through
+    the block table, then the dense chunk_attention.  q: [B, Hq, T, D];
+    k_pages/v_pages: [P, Hkv, page_size, D]; block_table: [B, NB];
+    pos: [B].  Columns past pos[b] + t get exactly zero softmax mass, so
+    scratch-page content and ungranted pages never leak in."""
+    return chunk_attention(q, gather_kv_pages(k_pages, block_table),
+                           gather_kv_pages(v_pages, block_table), pos=pos,
+                           sm_scale=sm_scale)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, *,
+                           block_table: torch.Tensor,
+                           kv_len: Optional[torch.Tensor] = None,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Paged single-token decode (gather pages, dense decode_attention):
+    q: [B, Hq, D]; k_pages/v_pages: [P, Hkv, page_size, D]; block_table:
+    [B, NB]; kv_len: [B] (None = NB*page_size).  A row with kv_len == 0
+    gives zeros, as in decode_attention."""
+    return decode_attention(q, gather_kv_pages(k_pages, block_table),
+                            gather_kv_pages(v_pages, block_table),
+                            kv_len=kv_len, sm_scale=sm_scale)
+
+
 def combine_decode_partials(o_parts: torch.Tensor, m_parts: torch.Tensor,
                             l_parts: torch.Tensor) -> torch.Tensor:
     """Numerically stable split-K merge of per-shard decode partials.

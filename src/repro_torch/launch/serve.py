@@ -13,10 +13,17 @@ on its background thread — the latency-under-load run.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \\
         --smoke --device cpu --mode open --rate 4 --requests 32
 
+Paged KV-cache pool: --max-cache-pages N pages of --page-size rows
+(page 0 is reserved scratch), admission gated by free pages.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
+        --requests 16 --max-batch 8 --max-seq 2048 \
+        --max-cache-pages 257 --page-size 64
+
 --device defaults to cuda; without CUDA the launcher raises rather than
 fall back (pass --device cpu to run the plain versions on the CPU).
-The paged pool (--max-cache-pages) and the fleet collector
-(--xfa-collector) are not ported yet and raise NotImplementedError.
+The fleet collector (--xfa-collector) is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -95,8 +102,10 @@ def main() -> int:
                     help="max slots whose same-width prefill chunks batch "
                          "into ONE forward_chunk call per tick")
     ap.add_argument("--max-cache-pages", type=int, default=0,
-                    help="paged KV-cache pool (not ported yet: > 0 raises)")
-    ap.add_argument("--page-size", type=int, default=64)
+                    help="paged KV-cache pool: total pages in the arena, "
+                         "page 0 reserved (0: contiguous cache)")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="rows per KV-cache page")
     # -- sampling ------------------------------------------------------------
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy")

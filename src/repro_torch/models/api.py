@@ -10,12 +10,20 @@
         updated in place and returned.
     model.prefill(params, batch, table, cache)  -> (logits, cache, table)
     model.decode_step(params, tok, table, cache, pos)
+    model.init_paged_cache(pages, page_size)    -> {"k", "v"}
+                                                   [L,P,Hkv,page_size,h]
+    model.forward_chunk_paged(params, tokens, table, cache, pos,
+                              block_table[, valid])
+    model.decode_step_paged(params, tok, table, cache, pos, block_table)
+        the same steps against a page arena: block_table [B, NB] int32
+        maps row b's virtual page i to arena page block_table[b, i]
+        (page 0 is reserved scratch); the engine's paged pool
+        (ServeConfig.max_cache_pages > 0) runs through these.
     model.table()                               -> None (device fold not
                                                    ported yet)
 
 Only family="dense" is ported; the other families raise
-NotImplementedError (and the engine refuses max_cache_pages > 0: the
-paged entry points are not ported yet).
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,6 +48,9 @@ class Model:
     forward_chunk: Callable
     prefill: Callable
     decode_step: Callable
+    init_paged_cache: Callable
+    forward_chunk_paged: Callable
+    decode_step_paged: Callable
 
     @property
     def device(self) -> torch.device:
@@ -92,6 +103,21 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     def decode_step(params, token, table, cache, pos):
         return transformer.decode_step(params, token, rt, table, cache, pos)
 
+    def init_paged_cache(pages, page_size):
+        return transformer.init_paged_cache(cfg, pages, page_size, rt.device)
+
+    def forward_chunk_paged(params, tokens, table, cache, pos, block_table,
+                            valid=None):
+        return transformer.forward_chunk_paged(params, tokens, rt, table,
+                                               cache, pos, block_table,
+                                               valid=valid)
+
+    def decode_step_paged(params, token, table, cache, pos, block_table):
+        return transformer.decode_step_paged(params, token, rt, table, cache,
+                                             pos, block_table)
+
     return Model(cfg=cfg, rt=rt, init=init, init_cache=init_cache,
                  forward_chunk=forward_chunk, prefill=prefill,
-                 decode_step=decode_step)
+                 decode_step=decode_step, init_paged_cache=init_paged_cache,
+                 forward_chunk_paged=forward_chunk_paged,
+                 decode_step_paged=decode_step_paged)

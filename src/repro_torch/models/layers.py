@@ -6,8 +6,9 @@ they are), the same dtype policy (params in cfg.param_dtype, compute in
 cfg.compute_dtype, reductions and softmax in f32) and the same static
 cost edges.  Kernel hot spots route through `repro_torch.kernels.ops`.
 
-KV caches are updated IN PLACE: `update_cache_rows` writes the fresh
-rows into the cache tensor it is given, where the reference returns a
+KV caches are updated IN PLACE: `update_cache_rows` (contiguous rows) and
+`update_cache_pages` (page arena through a block table) write the fresh
+rows into the cache tensor they are given, where the reference returns a
 new array that jit donation lets XLA write in place.
 """
 
@@ -93,6 +94,39 @@ def update_cache_rows(dst: torch.Tensor, src: torch.Tensor,
     return dst
 
 
+def update_cache_pages(arena: torch.Tensor, src: torch.Tensor,
+                       pos: torch.Tensor, block_table: torch.Tensor,
+                       seq_axis: int = 2) -> torch.Tensor:
+    """Paged cache scatter, IN PLACE: the page-arena twin of
+    update_cache_rows.  arena: [P, ..., page_size, ...] (the page id
+    replaces the batch dim; `seq_axis` is the row-within-page axis);
+    src: [B, ..., T, ...] fresh rows; pos: [B] per-row virtual offsets;
+    block_table: [B, NB] page ids.
+
+    Virtual row pos[b]+t of batch row b lands at
+    (block_table[b, clip((pos[b]+t) // page_size, 0, NB-1)],
+     (pos[b]+t) % page_size), as in the reference: the clip keeps a
+    past-end pad write inside the table.  Pad rows carry all-zero tables,
+    so their writes land on scratch page 0.  Returns arena."""
+    ps = arena.shape[seq_axis]
+    NB = block_table.shape[1]
+    B, T = src.shape[0], src.shape[seq_axis]
+    abs_pos = (pos.long()[:, None]
+               + torch.arange(T, device=arena.device)[None, :])
+    blk = torch.clamp(abs_pos // ps, 0, NB - 1)
+    pg = torch.gather(block_table.long(), 1, blk)
+    row = abs_pos % ps
+    # [B, ..., T, ...] -> [B*T, ...rest], the shape the advanced indices
+    # (page, row) select: broadcast index dims go to the front
+    srcf = src.movedim(seq_axis, 1).reshape(
+        (B * T,) + src.shape[1:seq_axis] + src.shape[seq_axis + 1:])
+    index = [slice(None)] * arena.ndim
+    index[0] = pg.reshape(-1)
+    index[seq_axis] = row.reshape(-1)
+    arena[tuple(index)] = srcf.to(arena.dtype)
+    return arena
+
+
 def last_valid(x: torch.Tensor, valid: Optional[torch.Tensor]
                ) -> torch.Tensor:
     """x: [B, T, d] -> [B, 1, d] at each row's last VALID position (a
@@ -113,13 +147,17 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def attention(p: Params, x: torch.Tensor, rt: Runtime,
-              positions: torch.Tensor, cache: Params, pos: torch.Tensor
+              positions: torch.Tensor, cache: Params, pos: torch.Tensor,
+              block_table: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Params]:
     """GQA/MQA (optionally qk-norm) self-attention in positioned-chunk
     mode.  x: [B, S, d]; positions: [B, S] per-row rope positions; cache:
     one layer's {"k", "v"} [B, Hkv, S_max, h], updated in place at
     [pos, pos+S) per row; pos: [B] int32.  S == 1 is the pooled decode
     step (decode kernel), S > 1 a prefill chunk (chunk kernel).
+    block_table: [B, NB] int32 page ids — when given, `cache` is one
+    layer's PAGE ARENA [P, Hkv, page_size, h]: writes scatter and reads
+    go through the table, so a row only touches the pages it was granted.
     Returns (y [B, S, d], cache)."""
     cfg = rt.cfg
     ap = p["attn"]
@@ -138,14 +176,30 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     q = apply_rope(q.transpose(1, 2), cos, sin)          # [B, Hq, S, h]
     k = apply_rope(k.transpose(1, 2), cos, sin)
     v = v.transpose(1, 2)
-    ck = update_cache_rows(cache["k"], k, pos)
-    cv = update_cache_rows(cache["v"], v, pos)
-    if S == 1:                 # decode width: flash-decode kernel
-        o = ops.decode_attention(q[:, :, 0], ck, cv, kv_len=pos + 1,
-                                 impl=rt.impl)
+    if block_table is not None:
+        # paged positioned chunk: scatter the S fresh rows through the
+        # block table into the shared arena, read the row's visible
+        # prefix back through the same indirection
+        ck = update_cache_pages(cache["k"], k, pos, block_table)
+        cv = update_cache_pages(cache["v"], v, pos, block_table)
+        if S == 1:             # decode width: paged flash-decode kernel
+            o = ops.decode_attention_paged(
+                q[:, :, 0], ck, cv, block_table=block_table,
+                kv_len=pos + 1, impl=rt.impl)
+        else:                  # prefill chunk at per-row offsets
+            o = ops.chunk_attention_paged(q, ck, cv, block_table=block_table,
+                                          pos=pos, impl=rt.impl)
+    else:
+        ck = update_cache_rows(cache["k"], k, pos)
+        cv = update_cache_rows(cache["v"], v, pos)
+        if S == 1:             # decode width: flash-decode kernel
+            o = ops.decode_attention(q[:, :, 0], ck, cv, kv_len=pos + 1,
+                                     impl=rt.impl)
+        else:                  # prefill chunk at per-row offsets
+            o = ops.chunk_attention(q, ck, cv, pos=pos, impl=rt.impl)
+    if S == 1:
         o = o.reshape(B, 1, cfg.n_heads * h)
-    else:                      # prefill chunk at per-row offsets
-        o = ops.chunk_attention(q, ck, cv, pos=pos, impl=rt.impl)
+    else:
         o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * h)
     y = linear(ap["wo"], o)
     annotate_cost("attention", "attention", "o_proj",

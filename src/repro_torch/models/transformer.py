@@ -10,7 +10,10 @@ so the loop is NOT wrapped in scan_multiplier.
 
 Prefill and decode share ONE positioned-chunk body (forward_chunk): a
 chunk of T tokens lands at per-row cache offsets, T = 1 being the pooled
-decode tick and pos = 0, T = S bulk prefill.
+decode tick and pos = 0, T = S bulk prefill.  The paged entry points
+(`init_paged_cache`, `forward_chunk_paged`, `decode_step_paged`) run the
+same body against a page arena [L, P, Hkv, page_size, h] through per-row
+block tables.
 """
 
 from __future__ import annotations
@@ -91,11 +94,12 @@ def _layer(stack: Params, i: int) -> Params:
 
 
 def decoder_layer(p: Params, x: torch.Tensor, rt: Runtime,
-                  positions: torch.Tensor, cache: Params, pos: torch.Tensor
+                  positions: torch.Tensor, cache: Params, pos: torch.Tensor,
+                  block_table: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Pre-norm block; writes this layer's cache rows in place."""
     h = norm(p["norm1"], x, rt)
-    a, _ = attention(p, h, rt, positions, cache, pos)
+    a, _ = attention(p, h, rt, positions, cache, pos, block_table)
     x = x + a
     h = norm(p["norm2"], x, rt)
     return x + mlp(p, h, rt)
@@ -110,15 +114,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
                   cache: Params, pos: torch.Tensor,
-                  valid: Optional[torch.Tensor] = None
+                  valid: Optional[torch.Tensor] = None,
+                  block_table: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Params, Any]:
     """THE serving entry point: write a T-token chunk at per-slot offsets.
 
     tokens: [B, T]; pos: [B] int32 per-slot cache depths (a scalar
     broadcasts); valid: [B] real tokens of the chunk (None = T;
     bucket-padded chunks mask the pad).  The cache is updated in place.
-    `table` is the device fold table, passed through unchanged (the
-    in-graph fold is not ported yet).
+    block_table: [B, NB] page ids when `cache` is a page arena (one int32
+    copy to the device per call).  `table` is the device fold table,
+    passed through unchanged (the in-graph fold is not ported yet).
     Returns (last-valid-token logits [B, V], cache, table)."""
     dev = rt.device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -129,10 +135,14 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
     positions = pos[:, None] + torch.arange(T, device=dev)[None, :]
     if valid is not None:
         valid = torch.as_tensor(valid, device=dev)
+    if block_table is not None:
+        block_table = torch.as_tensor(block_table, dtype=torch.int32,
+                                      device=dev).contiguous()
     stack = p["stack"]["stack"]
     for i in range(rt.cfg.n_layers):
         x = decoder_layer(_layer(stack, i), x, rt, positions,
-                          {"k": cache["k"][i], "v": cache["v"][i]}, pos)
+                          {"k": cache["k"][i], "v": cache["v"][i]}, pos,
+                          block_table)
     x = norm(p["final_norm"], x, rt)
     logits = lm_head(p, last_valid(x, valid), rt)[:, 0]
     return logits, cache, table
@@ -151,3 +161,32 @@ def decode_step(p: Params, token: torch.Tensor, rt: Runtime, table,
     """Pooled decode = forward_chunk at width T = 1.  token: [B]."""
     token = torch.as_tensor(token, device=rt.device)
     return forward_chunk(p, token[:, None], rt, table, cache, pos)
+
+
+# ------------------------------------------------------- paged serving ----
+def init_paged_cache(cfg: ModelConfig, pages: int, page_size: int,
+                     device: torch.device,
+                     dtype: Optional[torch.dtype] = None) -> Params:
+    """Page-arena KV cache: init_cache's per-slot batch dim becomes the
+    PAGE dim, k, v [L, P, Hkv, page_size, h].  The engine's block tables
+    map (slot, virtual page) -> arena page; page 0 is reserved scratch."""
+    return init_cache(cfg, pages, page_size, device, dtype)
+
+
+def forward_chunk_paged(p: Params, tokens: torch.Tensor, rt: Runtime, table,
+                        cache: Params, pos: torch.Tensor,
+                        block_table: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None):
+    """forward_chunk against the page arena: the same math, every cache
+    write and read through block_table [B, NB]."""
+    return forward_chunk(p, tokens, rt, table, cache, pos, valid=valid,
+                         block_table=block_table)
+
+
+def decode_step_paged(p: Params, token: torch.Tensor, rt: Runtime, table,
+                      cache: Params, pos: torch.Tensor,
+                      block_table: torch.Tensor):
+    """Pooled paged decode = forward_chunk_paged at width T = 1."""
+    token = torch.as_tensor(token, device=rt.device)
+    return forward_chunk_paged(p, token[:, None], rt, table, cache, pos,
+                               block_table)

@@ -1,10 +1,12 @@
 """Serving engine: iteration-level continuous batching behind a client API.
 
-The PyTorch counterpart of `repro/serving/engine.py`, contiguous cache:
+The PyTorch counterpart of `repro/serving/engine.py`:
 
     scheduler.py  admission + prefill planning (a copy of the reference)
     sampling.py   per-request sampling params as per-slot vectors, one
                   pooled sampler (greedy/temperature/top-k/top-p)
+    paging.py     page accounting of the paged pool (a copy of the
+                  reference)
     engine.py     the slot pool + positioned-chunk forward, the
                   background serving thread, and the client handles
 
@@ -30,9 +32,20 @@ host.  On a CUDA device the engine synchronizes before a prefill chunk's
 end timestamp, so the `prefill_chunk` fold times the work, not the
 enqueue.
 
-Not ported yet: the paged KV-cache pool (ServeConfig.max_cache_pages > 0)
-and the fleet collector stream (ServeConfig.xfa_collector); both raise
-NotImplementedError.
+Paged KV-cache pool (ServeConfig.max_cache_pages > 0): the contiguous
+[max_batch, max_seq_len] cache becomes a fixed arena of pages plus
+per-slot block tables (paging.PageAllocator owns the accounting).
+Admission is gated by FREE PAGES: the scheduler's page gate reserves a
+request's worst-case pages (prompt + max_new - 1 rows) or back-pressures
+the FCFS queue, and pages are granted lazily as a slot's `pos` crosses
+page boundaries, recycled at finish.  Prefill groups and the decode tick
+write straight into the shared arena through the tables (no batch=1
+stashes, no scatter); the tables stay on the host as numpy and cross to
+the device once per forward call.  Pages in use, their high-water mark
+and the capacity fold as `serve.cache_pages_*` gauges.
+
+Not ported yet: the fleet collector stream (ServeConfig.xfa_collector)
+raises NotImplementedError.
 
 Client API: `submit()` returns a Request handle immediately; tokens
 stream through an optional `on_token` callback and `handle.result()`
@@ -65,6 +78,7 @@ from ..core import tracer as xfa
 from ..core.shadow import KIND_WAIT
 from ..models.api import Model
 
+from .paging import PageAllocator
 from .sampling import GREEDY, PooledSampler, SamplingParams
 from .scheduler import Scheduler
 
@@ -135,10 +149,6 @@ def _scatter_slot(pool, one, slot_idx: int) -> None:
 
 class ServingEngine:
     def __init__(self, model: Model, params, scfg: ServeConfig) -> None:
-        if scfg.max_cache_pages > 0:
-            raise NotImplementedError(
-                "the paged KV-cache pool (max_cache_pages > 0) is not "
-                "ported to PyTorch yet (ROADMAP.md: paged pool slice)")
         if scfg.xfa_collector:
             raise NotImplementedError(
                 "the fleet collector stream (xfa_collector) is not ported "
@@ -154,9 +164,28 @@ class ServingEngine:
         self.scheduler = Scheduler(scfg)
         self.sampler = PooledSampler(scfg.max_batch)
         self.table = model.table()
-        self.cache = model.init_cache(scfg.max_batch, scfg.max_seq_len)
-        self._decode = model.decode_step
-        self._chunk = model.forward_chunk
+        # paged pool: a page arena + per-slot block tables in place of the
+        # contiguous [max_batch, max_seq_len] cache, admission gated by
+        # free pages
+        self.paged = scfg.max_cache_pages > 0
+        self.allocator = None
+        if self.paged:
+            self.allocator = PageAllocator(scfg.max_cache_pages,
+                                           scfg.page_size)
+            # virtual pages per slot: a full max_seq_len row (unassigned
+            # entries point at scratch page 0)
+            self._n_blocks = -(-scfg.max_seq_len // scfg.page_size)
+            self.block_tables = np.zeros(
+                (scfg.max_batch, self._n_blocks), np.int32)
+            self.cache = model.init_paged_cache(scfg.max_cache_pages,
+                                                scfg.page_size)
+            self._decode = model.decode_step_paged
+            self._chunk = model.forward_chunk_paged
+            self.scheduler.page_gate = self._page_gate
+        else:
+            self.cache = model.init_cache(scfg.max_batch, scfg.max_seq_len)
+            self._decode = model.decode_step
+            self._chunk = model.forward_chunk
         # (batch bucket, width) pairs scheduled so far — bounded
         # regardless of how many distinct prompt lengths arrive
         self._chunk_programs: set = set()
@@ -187,6 +216,9 @@ class ServingEngine:
                 meta={"max_batch": scfg.max_batch,
                       "max_seq_len": scfg.max_seq_len,
                       "device": str(self.device),
+                      **({"page_size": scfg.page_size,
+                          "max_cache_pages": scfg.max_cache_pages}
+                         if self.paged else {}),
                       **dict(scfg.profile_meta)})
 
     def _sync(self) -> None:
@@ -239,6 +271,19 @@ class ServingEngine:
             max_new_tokens = cap
             truncated = True
             xfa.count_event("serve", "clamped_max_new")
+        if self.paged:
+            # a request whose worst case exceeds the whole pool could never
+            # pass the page gate: reject it here instead of deadlocking the
+            # head of the FCFS queue
+            rows = int(prompt.size) + max_new_tokens - 1
+            need = self.allocator.pages_needed(rows)
+            if need > self.allocator.usable:
+                raise ValueError(
+                    f"request needs {need} cache pages ({rows} rows at "
+                    f"page_size={self.scfg.page_size}) but the pool has "
+                    f"only {self.allocator.usable} usable pages "
+                    f"(max_cache_pages={self.scfg.max_cache_pages}, "
+                    f"page 0 reserved)")
         # timestamp BEFORE taking the lock: a tick in progress holds it,
         # and that wait is queueing delay the client really experienced
         submitted_at = time.monotonic()
@@ -328,20 +373,59 @@ class ServingEngine:
         caches, so a timed window measures serving, not the kernels'
         first-use build or the allocator's growth.  Warm shapes do NOT
         count toward chunk_programs."""
-        for w in self.chunk_buckets() or [self.scfg.prefill_chunk or 1]:
+        scfg = self.scfg
+        # paged: a scratch arena of the same size; the all-zero block
+        # tables route every write to its scratch page
+        arena = self.model.init_paged_cache(
+            scfg.max_cache_pages, scfg.page_size) if self.paged else None
+        for w in self.chunk_buckets() or [scfg.prefill_chunk or 1]:
             for b in self.batch_buckets() or [1]:
-                cache = self.model.init_cache(b, self.scfg.max_seq_len)
-                self._chunk(
-                    self.params, self._to_device(np.zeros((b, w), np.int32)),
-                    self.table, cache,
-                    self._to_device(np.zeros((b,), np.int32)),
-                    self._to_device(np.ones((b,), np.int32)))
+                tokens = self._to_device(np.zeros((b, w), np.int32))
+                pos = self._to_device(np.zeros((b,), np.int32))
+                valid = self._to_device(np.ones((b,), np.int32))
+                if self.paged:
+                    bt = self._to_device(
+                        np.zeros((b, self._n_blocks), np.int32))
+                    self._chunk(self.params, tokens, self.table, arena, pos,
+                                bt, valid)
+                else:
+                    cache = self.model.init_cache(b, scfg.max_seq_len)
+                    self._chunk(self.params, tokens, self.table, cache, pos,
+                                valid)
         self._sync()
 
     @property
     def chunk_programs(self) -> frozenset:
         """(batch_bucket, width) pairs scheduled so far."""
         return frozenset(self._chunk_programs)
+
+    # -- paged pool ---------------------------------------------------------
+    def _page_gate(self, req: Request) -> bool:
+        """Scheduler admission gate: reserve the request's WORST-CASE
+        pages (prompt + max_new - 1 rows; submit already fitted both to
+        the row) or report back-pressure.  True has committed pages: the
+        slot draws them through lazy grants, rollback paths cancel them."""
+        rows = len(req.prompt) + req.max_new_tokens - 1
+        return self.allocator.try_reserve(
+            req.uid, self.allocator.pages_needed(rows))
+
+    def _grant_rows(self, slot_idx: int, rows: int) -> None:
+        """Ensure slot `slot_idx` owns pages covering its first `rows`
+        cache rows, drawing from the allocator as the frontier crosses
+        page boundaries (page 0 is never granted, so count_nonzero is the
+        number of pages held)."""
+        have = int(np.count_nonzero(self.block_tables[slot_idx]))
+        need = self.allocator.pages_needed(rows) - have
+        if need > 0:
+            uid = self.scheduler.slots[slot_idx].request.uid
+            pages = self.allocator.grant(uid, need)
+            self.block_tables[slot_idx, have:have + need] = pages
+
+    def _release_pages(self, slot_idx: int, req: Request) -> None:
+        """Recycle a finished or failed slot's pages and clear its table."""
+        if self.paged:
+            self.allocator.release(req.uid)
+            self.block_tables[slot_idx, :] = 0
 
     # -- batched cross-slot prefill -----------------------------------------
     def _pad_stash(self, rows: int):
@@ -387,12 +471,28 @@ class ServingEngine:
             tokens[r, :n] = [slot.pending.popleft() for _ in range(n)]
             pos[r] = slot.pos
             valid[r] = n
-        gathered = self._gather_stashes([slots[i].stash for i in idxs],
-                                        Bb - B)
-        t0 = time.perf_counter_ns()
-        logits, gathered, self.table = self._chunk(
-            self.params, self._to_device(tokens), self.table, gathered,
-            self._to_device(pos), self._to_device(valid))
+        if self.paged:
+            # grant the pages this chunk's frontier crosses, then run the
+            # group straight against the shared arena: the block table IS
+            # the slot's cache row.  Pad rows carry all-zero tables (their
+            # writes land on the scratch page).
+            for i, n in zip(idxs, ns):
+                self._grant_rows(i, slots[i].pos + n)
+            bt = np.zeros((Bb, self._n_blocks), np.int32)
+            bt[:B] = self.block_tables[idxs]
+            gathered = None
+            t0 = time.perf_counter_ns()
+            logits, self.cache, self.table = self._chunk(
+                self.params, self._to_device(tokens), self.table, self.cache,
+                self._to_device(pos), self._to_device(bt),
+                self._to_device(valid))
+        else:
+            gathered = self._gather_stashes([slots[i].stash for i in idxs],
+                                            Bb - B)
+            t0 = time.perf_counter_ns()
+            logits, gathered, self.table = self._chunk(
+                self.params, self._to_device(tokens), self.table, gathered,
+                self._to_device(pos), self._to_device(valid))
         # sync before the end timestamp: kernels return before the device
         # finishes, and mid-prompt chunks have no host read to wait on
         self._sync()
@@ -404,13 +504,17 @@ class ServingEngine:
         for r, (i, n) in enumerate(zip(idxs, ns)):
             slot = slots[i]
             slot.pos += n
-            row = gathered if B == 1 and Bb == 1 \
-                else self._take_row(gathered, r)
-            if slot.pending:
-                slot.stash = row
-                continue
-            _scatter_slot(self.cache, row, i)
-            slot.stash = None
+            if self.paged:
+                if slot.pending:
+                    continue           # the arena already holds the chunk
+            else:
+                row = gathered if B == 1 and Bb == 1 \
+                    else self._take_row(gathered, r)
+                if slot.pending:
+                    slot.stash = row
+                    continue
+                _scatter_slot(self.cache, row, i)
+                slot.stash = None
             # the first token is EOS-checked — a first-token EOS finishes
             # without any decode ticks
             tok = self.sampler.sample_one(logits[r], slot.request.sampling,
@@ -441,8 +545,11 @@ class ServingEngine:
             req.max_new_tokens = cap
             req.truncated = True
             xfa.count_event("serve", "clamped_max_new")
+        # paged pool: the slot writes straight into the shared arena
+        # through its block table, no batch=1 stash
         self.scheduler.bind(slot_idx, req, pos=0, pending=prompt,
-                            stash=model.init_cache(1, scfg.max_seq_len))
+                            stash=None if self.paged
+                            else model.init_cache(1, scfg.max_seq_len))
         self.sampler.bind(slot_idx, req.sampling)
         return self.scheduler.admit_cost(req)
 
@@ -458,10 +565,16 @@ class ServingEngine:
         pos = self.scheduler.pos_vector()
         for i in active:
             tokens[i] = slots[i].request.output[-1]
+        extra = ()
+        if self.paged:
+            # the write frontier (row `pos`) may cross into a new page
+            for i in active:
+                self._grant_rows(i, slots[i].pos + 1)
+            extra = (self._to_device(self.block_tables),)
         t0 = time.perf_counter_ns()
         logits, self.cache, self.table = self._decode(
             self.params, self._to_device(tokens), self.table, self.cache,
-            self._to_device(pos))
+            self._to_device(pos), *extra)
         nxt = self.sampler(logits, step=pos + 1)     # waits for the device
         tick_ns = time.perf_counter_ns() - t0
         now = time.monotonic()
@@ -500,6 +613,7 @@ class ServingEngine:
             xfa.count_event("serve", "deadline_miss" if req.deadline_missed
                             else "deadline_met")
         self.completed.append(req)
+        self._release_pages(slot_idx, req)
         self.scheduler.release(slot_idx)
         self.sampler.release(slot_idx)
         req._done_event.set()
@@ -516,6 +630,15 @@ class ServingEngine:
                 # saturation signal `diagnose` reads)
                 xfa.record_gauge("serve", "queue_depth",
                                  len(self.scheduler.waiting))
+                if self.paged:
+                    # pages are the admission resource: occupancy, its
+                    # high-water mark and capacity fold as gauges
+                    xfa.record_gauge("serve", "cache_pages_in_use",
+                                     self.allocator.in_use)
+                    xfa.record_gauge("serve", "cache_page_hwm",
+                                     self.allocator.hwm)
+                    xfa.record_gauge("serve", "cache_pages_capacity",
+                                     self.allocator.usable)
                 cont, deferred = self.scheduler.continuation_plan()
                 # strict FCFS: if any mid-prefill slot was deferred by the
                 # budget, nothing younger may spend the leftover this tick
@@ -530,8 +653,14 @@ class ServingEngine:
                         # back to the queue head (FCFS preserved)
                         req.error = e
                         req._done_event.set()
+                        self._release_pages(idx, req)
                         self.scheduler.release(idx)
                         for _, later in reversed(picked[k + 1:]):
+                            if self.paged:
+                                # the gate reserved pages for them; back in
+                                # the queue they re-reserve at their next
+                                # gate pass
+                                self.allocator.cancel(later.uid)
                             self.scheduler.waiting.appendleft(later)
                         raise
                 # continuations AND admissions batch together: one
@@ -576,6 +705,12 @@ class ServingEngine:
                     if s.request is not None]
             live += list(self.scheduler.waiting)
             self.scheduler.waiting.clear()
+            if self.paged:
+                # recycle every page and reservation, so the allocator
+                # shows the true terminal state
+                for req in live:
+                    self.allocator.release(req.uid)
+                self.block_tables[:] = 0
             for i in self.scheduler.active():
                 self.scheduler.release(i)
             for req in live:

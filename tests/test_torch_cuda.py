@@ -103,6 +103,95 @@ def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     assert dec.chunk_attention.launches == before + 1
 
 
+def paged_case(rng, B, Hkv, NB, ps, D, limits, dtype):
+    """A page arena holding B rows of NB pages each, through block tables
+    that are a random permutation of pages 1..B*NB; table slots past each
+    row's limit point at scratch page 0, which holds large finite
+    garbage.  Returns (k_pages, v_pages, block_table)."""
+    P = 1 + B * NB
+    k = arr(rng, P, Hkv, ps, D, dtype=dtype)
+    v = arr(rng, P, Hkv, ps, D, dtype=dtype)
+    k[0], v[0] = 1e4, -1e4
+    bt = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    for b, lim in enumerate(limits):
+        bt[b, -(-lim // ps):] = 0
+    return k, v, torch.tensor(bt, device="cuda")
+
+
+def scrubbed(pages):
+    """The same arena with scratch page 0 zeroed."""
+    out = pages.clone()
+    out[0] = 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,NB,ps,D", [
+    (8, 32, 4, 32, 64, 64),    # the serving shape: one page per tile
+    (4, 32, 4, 128, 16, 64),   # a tile spans four pages
+    (3, 8, 1, 8, 128, 32),     # MQA, a page spans two tiles
+    (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
+])
+def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
+    rng = np.random.default_rng(4)
+    S = NB * ps
+    lens = ([S - 37, 0, 1, S] * 2)[:B]
+    kp, vp, bt = paged_case(rng, B, Hkv, NB, ps, D, lens, dtype)
+    q = arr(rng, B, Hq, D, dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = dec.decode_attention_paged.launches
+    o = dec.decode_attention_paged(q, kp, vp, block_table=bt, kv_len=kv_len)
+    close(o, ref.decode_attention_paged(q, kp, vp, block_table=bt,
+                                        kv_len=kv_len), dtype)
+    assert dec.decode_attention_paged.launches == before + 1
+    assert torch.all(o[kv_len == 0] == 0)
+    # the dense kernel on the gathered cache, and no leak from page 0
+    dense = dec.decode_attention(q, ref.gather_kv_pages(kp, bt),
+                                 ref.gather_kv_pages(vp, bt), kv_len=kv_len)
+    close(o, dense, dtype)
+    again = dec.decode_attention_paged(q, scrubbed(kp), scrubbed(vp),
+                                       block_table=bt, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,T,NB,ps,D", [
+    (3, 32, 4, 512, 32, 64, 64),   # the serving prefill chunk
+    (2, 32, 4, 8, 128, 16, 64),    # a short chunk, four pages per tile
+    (2, 6, 2, 67, 3, 128, 32),     # ragged T, a page spans two tiles
+    (2, 2, 2, 5, 11, 16, 128),
+])
+def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
+    rng = np.random.default_rng(5)
+    S = NB * ps
+    pos_l = [0] + list(rng.integers(0, S - T + 1, B - 1))
+    kp, vp, bt = paged_case(rng, B, Hkv, NB, ps, D,
+                            [p + T for p in pos_l], dtype)
+    q = arr(rng, B, Hq, T, D, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    before = dec.chunk_attention_paged.launches
+    o = dec.chunk_attention_paged(q, kp, vp, block_table=bt, pos=pos)
+    close(o, ref.chunk_attention_paged(q, kp, vp, block_table=bt, pos=pos),
+          dtype)
+    assert dec.chunk_attention_paged.launches == before + 1
+    again = dec.chunk_attention_paged(q, scrubbed(kp), scrubbed(vp),
+                                      block_table=bt, pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+
+
+def test_paged_kernels_refuse_bad_tables():
+    rng = np.random.default_rng(6)
+    kp, vp, bt = paged_case(rng, 2, 2, 4, 16, 64, [64, 64], torch.float32)
+    q = arr(rng, 2, 4, 64, dtype=torch.float32)
+    kv_len = torch.tensor([3, 64], dtype=torch.int32, device="cuda")
+    for bad in (bt.long(), bt.t().contiguous(), bt[:, ::2], bt.cpu()):
+        with pytest.raises(ValueError, match="block_table"):
+            dec.decode_attention_paged(q, kp, vp, block_table=bad,
+                                       kv_len=kv_len)
+
+
 def test_engine_on_the_card_matches_the_plain_path():
     """A small f32 model served on the card through the kernels gives the
     same greedy tokens as the plain versions on the card, and every
@@ -132,7 +221,52 @@ def test_engine_on_the_card_matches_the_plain_path():
         outs[impl] = [r.output for r in reqs]
         counts = ops.launch_counts()
         if impl == "kernel":
-            assert all(n > 0 for n in counts.values()), counts
+            # every kernel of the contiguous path (the paged pair serves
+            # the paged pool, below)
+            assert all(counts[n] > 0 for n in (
+                "rmsnorm", "decode_attention", "chunk_attention")), counts
         else:
             assert not any(counts.values()), counts
     assert outs["kernel"] == outs["ref"]
+
+
+def test_paged_engine_on_the_card_matches_the_plain_path():
+    """The paged pool on the card: the kernels and the plain versions give
+    the same greedy tokens as the contiguous engine, the page gate
+    back-pressures, every page comes back, and the paged kernels (not the
+    dense ones) carry the attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_smoke("tinyllama_1_1b"), n_layers=2,
+                              vocab=256)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)
+               for n in (3, 17, 40, 9)]
+    outs = {}
+    for impl, pages in (("kernel", 0), ("kernel", 40), ("kernel", 9),
+                        ("ref", 9)):
+        model = build_model(cfg, impl=impl, device="cuda")
+        engine = ServingEngine(model, model.init(0), ServeConfig(
+            max_batch=3, max_seq_len=96, prefill_chunk=16, eos_token=-1,
+            min_chunk_bucket=4, page_size=8, max_cache_pages=pages))
+        ops.reset_launch_counts()
+        reqs = [engine.submit(p, 6) for p in prompts]
+        engine.run_until_drained()
+        outs[impl, pages] = [r.output for r in reqs]
+        counts = ops.launch_counts()
+        if impl == "ref":
+            assert not any(counts.values()), counts
+        elif pages:
+            assert counts["decode_attention_paged"] > 0 \
+                and counts["chunk_attention_paged"] > 0, counts
+            assert counts["decode_attention"] == 0 \
+                and counts["chunk_attention"] == 0, counts
+            assert engine.allocator.in_use == 0
+            assert engine.allocator.hwm <= engine.allocator.usable
+    assert len({str(o) for o in outs.values()}) == 1, outs
