@@ -35,7 +35,25 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               65 pages (a quarter of them) must back-pressure admission,
               complete every request and return every page, with the page
               gauges in its profile shard
-  6. profile  a torch.profiler window over a short second serving run: the
+  3b. train kernels  the training kernels against their plain versions:
+              flash attention forward and backward at the training shape
+              (q [4,32,2048,64], k/v [4,4,2048,64], bf16, causal), plus a
+              ragged (S = 2000), a non-causal Sq != Sk and a softcap case
+              for correctness, and the rmsnorm backward at x [4,2048,2048];
+              timed beside their plain versions, one PyTorch library call
+              each (SDPA and its autograd backward, F.rms_norm's backward)
+              and their bounds
+  6. train    full-width tinyllama_1_1b (22 layers, bf16, the config's own
+              remat) trained for TRAIN_STEPS steps of batch 4 x 2048 from
+              SyntheticLMData through the port's Trainer, launch counters
+              set to 0 just before and read just after; every loss and
+              grad norm finite; step time, tokens/s and model FLOPs
+              utilisation; the checkpoint saved in the run restores into an
+              equal state; then one loss_fn + backward at batch 1 x 1024
+              with the kernels and with the plain versions, the loss and
+              every gradient leaf compared; a torch.profiler window over
+              one more step (device time by kernel, busy share)
+  7. profile  a torch.profiler window over a short second serving run: the
               device time by kernel and the device's busy share
 
 It prints the kernels line ({"kernels": [...]}), the card's name and power
@@ -46,6 +64,8 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -66,6 +86,16 @@ KERNEL_TOL = 2e-2
 # full-width logits, kernels vs plain versions: relative L2 error; bf16
 # rounding differences compound over 22 layers
 LOGITS_REL_TOL = 5e-2
+# full-width training step, kernels vs plain versions (bf16): the loss to
+# 1e-2 relative (a mean over 1024 tokens of values near log(32000)), each
+# gradient leaf to 5e-2 relative L2 (bf16 rounding compounds over 22
+# layers forward and back, as for the logits)
+LOSS_REL_TOL = 1e-2
+GRAD_REL_TOL = 5e-2
+TRAIN_STEPS = 6
+#: kernels of the training path (their launches come from phase 6)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_backward",
+                 "rmsnorm_backward")
 
 
 def fail(msg: str) -> None:
@@ -103,23 +133,28 @@ def main() -> None:
                     "spill" in line and " 0 bytes spill" not in line):
                 log(f"[build] {name}: {line.strip()}")
 
-    kernels = check_kernels(torch)
+    kernels = check_kernels(torch) + check_train_kernels(torch)
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
+    train_counts, train = train_phase(torch)
     profile_phase(torch)
 
     for k in kernels:
-        # each kernel's launches in the run of its own serving path
-        k["launches"] = (paged_counts if k["name"].endswith("_paged")
+        # each kernel's launches in the run of its own path
+        k["launches"] = (train_counts if k["name"] in TRAIN_KERNELS
+                         else paged_counts if k["name"].endswith("_paged")
                          else counts)[k["name"]]
         if k["launches"] <= 0:
-            fail(f"kernel {k['name']} was not launched on the serving path")
+            fail(f"kernel {k['name']} was not launched on its path")
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.monotonic() - t_start:.1f}s; served "
         f"{stats['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
-        f"{json.dumps(counts)}, paged {json.dumps(paged_counts)} on {smi}")
+        f"{json.dumps(counts)}, paged {json.dumps(paged_counts)}; trained "
+        f"{train['step_ms']:.1f} ms/step, {train['tok_s']:.0f} tok/s, MFU "
+        f"{100 * train['mfu']:.2f}%, launches {json.dumps(train_counts)} "
+        f"on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -162,6 +197,30 @@ def bound(nbytes: float, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def record_kernel(torch, flush, name, src, replaces, shape, err, fn, plain,
+                  library, nbytes, ops, dense=None):
+    """Time a kernel, its plain version, its library yardstick and (for a
+    paged kernel) the dense kernel on the equivalent contiguous cache, and
+    return its entry of the kernels line (launches filled in later)."""
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    ms = time_ms(torch, fn, flush)
+    plain_ms = time_ms(torch, plain, flush)
+    lib_ms = time_ms(torch, library, flush) if library else None
+    dense_ms = time_ms(torch, dense, flush) if dense else None
+    log(f"[kernel] {name} {shape}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+        + (f"dense kernel {dense_ms:.4f} ms, " if dense else "")
+        + f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}")
+    e = {"name": name, "route": "cuda", "source": src,
+         "replaces": replaces, "launches": 0, "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
+    if dense:
+        e["dense_ms"] = dense_ms
+    return e
+
+
 def max_err(torch, got, want, what: str) -> float:
     torch.cuda.synchronize()
     g, w = got.float(), want.float()
@@ -193,27 +252,8 @@ def check_kernels(torch):
     sdpa_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
     entries = []
 
-    def record(name, src, replaces, shape, err, fn, plain, library, nbytes,
-               ops, dense=None):
-        """`dense`: for a paged kernel, the dense kernel on the equivalent
-        contiguous cache (the cost of the indirection)."""
-        b_ms, b_by = bound(nbytes, ops, "bfloat16")
-        ms = time_ms(torch, fn, flush)
-        plain_ms = time_ms(torch, plain, flush)
-        lib_ms = time_ms(torch, library, flush) if library else None
-        dense_ms = time_ms(torch, dense, flush) if dense else None
-        log(f"[kernel] {name} {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            + (f"dense kernel {dense_ms:.4f} ms, " if dense else "")
-            + f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}")
-        e = {"name": name, "route": "cuda", "source": src,
-             "replaces": replaces, "launches": 0, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
-        if dense:
-            e["dense_ms"] = dense_ms
-        return e
+    def record(*args, **kw):
+        return record_kernel(torch, flush, *args, **kw)
 
     # rmsnorm: decode-tick rows and a full prefill group
     w = (1.0 + 0.1 * torch.randn(2048, generator=gen, device=dev)).to(bf16)
@@ -400,6 +440,112 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
             ops=4.0 * Hq * D * seen,
             dense=lambda: dec.chunk_attention(qc, k, v, pos=pos))
     entries.append(e)       # the prefill chunk, T = 512
+    return entries
+
+
+# --------------------------------------------------------- train kernels ----
+TRAIN_SHAPE = (4, 32, 4, 2048, 64)      # B, Hq, Hkv, S, D of the train phase
+
+
+def check_train_kernels(torch):
+    """Phase 3b: the training kernels against their plain versions, and
+    their times at the training shapes.  Returns their three entries of
+    the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    B, Hq, Hkv, S, D = TRAIN_SHAPE
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    errs = {"fwd": [], "bwd": []}
+    # (what, B, Sq, Sk, causal, softcap): the training shape first
+    cases = [("training", B, S, S, True, 0.0),
+             ("ragged S=2000", 2, 2000, 2000, True, 0.0),
+             ("non-causal Sq=512 Sk=2048", 2, 512, 2048, False, 0.0),
+             ("softcap 30", 2, 1024, 1024, True, 30.0)]
+    for what, b, sq, sk, causal, cap in cases:
+        q, k, v, do = rnd(b, Hq, sq, D), rnd(b, Hkv, sk, D), \
+            rnd(b, Hkv, sk, D), rnd(b, Hq, sq, D)
+        opts = dict(causal=causal, logit_softcap=cap)
+        off = dict(q_offset=sk - sq if causal else 0)
+        o, lse = fa.flash_attention(q, k, v, **opts)
+        o_r, lse_r = ref.attention(q, k, v, return_lse=True, **opts, **off)
+        errs["fwd"].append(max_err(torch, o, o_r, f"flash_attention {what}"))
+        max_err(torch, lse, lse_r, f"flash_attention lse {what}")
+        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+        want = ref.attention_backward(q, k, v, o_r, lse_r, do, **opts, **off)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            errs["bwd"].append(max_err(
+                torch, g, w, f"flash_attention_backward {name} {what}"))
+        if what == "training":
+            timed = (q, k, v, do, o, lse)
+        del q, k, v, do, o, lse, o_r, lse_r, grads, want
+        torch.cuda.empty_cache()
+    log(f"[train-kernels] flash forward max_abs_err per case "
+        f"{[f'{e:.3e}' for e in errs['fwd']]}, backward (dq, dk, dv per "
+        f"case) {[f'{e:.3e}' for e in errs['bwd']]}")
+
+    q, k, v, do, o, lse = timed
+    shape = f"q {B}x{Hq}x{S}x{D} kv {B}x{Hkv}x{S}x{D} causal"
+    pairs = B * Hq * S * (S + 1) / 2          # visible (query, key) pairs
+    fwd_ops = 4.0 * D * pairs                 # QK^T and PV
+    io = 2.0 * (q.numel() + 2 * k.numel())    # bf16 q, k, v
+    entries = [record_kernel(
+        torch, flush, "flash_attention", src,
+        "src/repro/kernels/flash_attention.py:94", shape, max(errs["fwd"]),
+        lambda: fa.flash_attention(q, k, v),
+        lambda: ref.attention(q, k, v, q_offset=0, return_lse=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(), ops=fwd_ops)]
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                         enable_gqa=True)
+    entries.append(record_kernel(
+        torch, flush, "flash_attention_backward", src,
+        "src/repro/kernels/flash_attention.py:94 (backward of "
+        "src/repro/kernels/ref.py:183)", shape, max(errs["bwd"]),
+        lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+        lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+        lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                    retain_graph=True),
+        # reads q, k, v, o, dO, lse; writes dq, dk, dv.  Operations: S and
+        # dP recomputed, dV, dK, dQ: five products, 2.5x the forward's
+        nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+        ops=2.5 * fwd_ops))
+    del out, qq, kk, vv, timed, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    # rmsnorm backward at the train phase's hidden states
+    x, dy = rnd(B, S, 2048), rnd(B, S, 2048)
+    w = (1.0 + 0.1 * torch.randn(2048, generator=gen, device=dev)).to(bf16)
+    dx, dw = rms.rmsnorm_backward(x, w, dy)
+    dx_r, dw_r = ref.rmsnorm_backward(x, w, dy)
+    err = max_err(torch, dx, dx_r, "rmsnorm_backward dx")
+    # dw sums 8192 rows: held relative to its largest entry
+    scale = dw_r.float().abs().max()
+    err_w = max_err(torch, dw.float() / scale, dw_r.float() / scale,
+                    "rmsnorm_backward dw (relative to max |dw|)")
+    xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = F.rms_norm(xx, (2048,), ww, 1e-5)
+    entries.append(record_kernel(
+        torch, flush, "rmsnorm_backward",
+        "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:38 (backward)",
+        f"x {B}x{S}x2048", max(err, err_w),
+        lambda: rms.rmsnorm_backward(x, w, dy),
+        lambda: ref.rmsnorm_backward(x, w, dy),
+        lambda: torch.autograd.grad(y, (xx, ww), dy, retain_graph=True),
+        # reads x, dy, w; writes dx, dw
+        nbytes=2.0 * (3 * x.numel() + 2 * 2048), ops=10.0 * x.numel()))
+    del x, dy, dx, dw, dx_r, dw_r, xx, ww, y, flush
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -649,8 +795,155 @@ def paged_phase(torch, dense_stats, dense_outputs):
     return counts
 
 
+# ----------------------------------------------------------------- train ----
+def model_flops_per_token(cfg, S: int) -> float:
+    """Training FLOPs per token of the dense decoder at sequence length S:
+    3x the forward's (forward + backward), the forward being 2 FLOPs per
+    weight of every matmul plus causal attention's 4 * S/2 * d per head
+    and layer (no recompute counted)."""
+    d, h, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
+    per_layer = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+        + 2 * cfg.n_heads * h * d + 2 * 3 * d * f \
+        + 4 * cfg.n_heads * h * (S + 1) / 2
+    return 3.0 * (cfg.n_layers * per_layer + 2 * d * cfg.vocab)
+
+
+def train_phase(torch):
+    """Phase 6: full-width training through the Trainer, a checkpoint that
+    restores equal, and kernels vs plain versions on one step.  Returns
+    (launch counts of the run, its stats)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.profile import load_profile
+    from repro_torch.runtime.trainer import Trainer, init_train_state
+    from repro_torch.tree import leaves_with_path
+
+    cfg = get_config("tinyllama_1_1b")
+    model = build_model(cfg, impl="auto", device="cuda")
+    B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[3]
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
+                       ckpt_interval=TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(model, tcfg, CheckpointManager(
+            os.path.join(d, "ckpt"), async_save=True),
+            profile_dir=os.path.join(d, "prof"))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        state, _ = trainer.run(0, SyntheticLMData(cfg, B, S), TRAIN_STEPS,
+                               resume=False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = trainer.history
+        if len(hist) != TRAIN_STEPS:
+            fail(f"train: {len(hist)} of {TRAIN_STEPS} steps recorded")
+        for h in hist:
+            if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm")):
+                fail(f"train: step {h['step']} loss {h['loss']} grad norm "
+                     f"{h['grad_norm']} not finite")
+        for name in TRAIN_KERNELS + ("rmsnorm",):
+            if counts[name] <= 0:
+                fail(f"train: kernel {name} was not launched: {counts}")
+        folded = load_profile(os.path.join(d, "prof")).to_folded()
+        steps = [e.count for k, e in folded.edges.items()
+                 if k[1:] == ("runtime", "dispatch_step")]
+        if steps != [TRAIN_STEPS]:
+            fail(f"train: profile shard holds dispatch_step counts {steps}")
+        # the checkpoint of the last step restores into an equal state
+        t1 = time.monotonic()
+        restored, extra = trainer.ckpt.restore(
+            init_train_state(model, 1, tcfg))
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaves_with_path(state), leaves_with_path(restored)))
+        if not same or extra != {"next_step": TRAIN_STEPS}:
+            fail(f"train: the checkpoint does not restore the final state "
+                 f"(equal {same}, extra {extra})")
+        ckpt_gb = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(os.path.join(d, "ckpt"))
+                      for f in fs) / 1e9
+        restore_s = time.monotonic() - t1
+        del restored
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+    flops = model_flops_per_token(cfg, S) * B * S
+    stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
+             "mfu": flops / step_s / PEAK_OPS_S["bfloat16"]}
+    log(f"[train] {cfg.name} ({cfg.n_layers} layers, {cfg.param_dtype}, "
+        f"remat {cfg.remat}), batch {B} x {S}: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}")
+    log(f"[train] step times (s) {[round(h['step_s'], 4) for h in hist]}; "
+        f"median after the first {stats['step_ms']:.1f} ms = "
+        f"{stats['tok_s']:.0f} tokens/s; model FLOPs "
+        f"{flops / 1e12:.2f} TFLOP/step -> MFU {100 * stats['mfu']:.2f}% "
+        f"of 989 TFLOP/s; peak memory {peak_gb:.1f} GB; run wall "
+        f"{wall:.1f}s incl. init and the async checkpoint of "
+        f"{ckpt_gb:.2f} GB (restored equal in {restore_s:.1f}s)")
+    log(f"[train] launches over {TRAIN_STEPS} steps {json.dumps(counts)}")
+    # one more step of the same run under torch.profiler: where it goes
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.trainer import make_train_step
+    step_fn = make_train_step(model, tcfg)
+    batch = SyntheticLMData(cfg, B, S).generate(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.monotonic()
+        state, _, _ = step_fn(state, batch, None)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    breakdown(p, wall_us, "train-profile", f"one step, batch {B} x {S}")
+    del state, trainer, p
+    torch.cuda.empty_cache()
+    grads_check(torch, cfg)
+    return counts, stats
+
+
+def grads_check(torch, cfg):
+    """One loss_fn + backward at full width, batch 1 x 1024, with the
+    kernels and with the plain versions on the same params and batch."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import value_and_grad
+    from repro_torch.tree import leaves_with_path
+
+    batch = SyntheticLMData(cfg, 1, 1024, seed=1).generate(0)
+    params = build_model(cfg, device="cuda").init(0)
+    out = {}
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device="cuda")
+        loss, _, _, grads = value_and_grad(model, params, batch, None)
+        out[impl] = (float(loss), leaves_with_path(grads))
+        del grads
+        torch.cuda.empty_cache()
+    (lk, gk), (lr, gr) = out["kernel"], out["ref"]
+    rel_loss = abs(lk - lr) / abs(lr)
+    worst, rels = 0.0, {}
+    for (name, a), (_, b) in zip(gk, gr):
+        if not torch.isfinite(a).all():
+            fail(f"train grads: kernel gradient {name} is not finite")
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        rels[name] = rel
+        worst = max(worst, rel)
+    log(f"[train] full width, batch 1 x 1024: loss kernels {lk:.6f} plain "
+        f"{lr:.6f} (relative error {rel_loss:.3e}, tolerance "
+        f"{LOSS_REL_TOL}); gradient relative L2 errors "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} "
+        f"(tolerance {GRAD_REL_TOL})")
+    if rel_loss > LOSS_REL_TOL or worst > GRAD_REL_TOL:
+        fail(f"train grads: kernels and plain versions disagree (loss "
+             f"{rel_loss:.3e}, worst gradient leaf {worst:.3e})")
+    del out
+    torch.cuda.empty_cache()
+
+
 def profile_phase(torch):
-    """Phase 6: device time by kernel over a second, shorter serving run."""
+    """Phase 7: device time by kernel over a second, shorter serving run."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import run_workload
 
@@ -664,26 +957,32 @@ def profile_phase(torch):
             run_workload(engine, prompts[:8], 16, mode="closed")
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
+    breakdown(p, wall_us, "profile", "8 requests x 16 tokens")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def breakdown(p, wall_us: float, tag: str, what: str) -> None:
+    """Log a profiler window: device busy share, device time by kernel,
+    host self time by op."""
     rows = [e for e in p.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and _dev_us(e) > 0]
     busy = sum(_dev_us(e) for e in rows)
-    log(f"[profile] 8 requests x 16 tokens: wall {wall_us / 1e3:.1f} ms, "
-        f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
+    log(f"[{tag}] {what}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)")
     for e in sorted(rows, key=_dev_us, reverse=True)[:12]:
-        log(f"[profile] {_dev_us(e) / 1e3:9.2f} ms {100 * _dev_us(e) / busy:5.1f}%"
-            f"  x{e.count:<6d} {e.key[:90]}")
+        log(f"[{tag}] {_dev_us(e) / 1e3:9.2f} ms "
+            f"{100 * _dev_us(e) / busy:5.1f}%  x{e.count:<6d} {e.key[:90]}")
     # host side: self CPU time by op (what keeps the device waiting)
     host = [e for e in p.key_averages() if e.self_cpu_time_total > 0]
     cpu = sum(e.self_cpu_time_total for e in host)
-    log(f"[profile] host self time in ops {cpu / 1e3:.1f} ms "
+    log(f"[{tag}] host self time in ops {cpu / 1e3:.1f} ms "
         f"({100 * cpu / wall_us:.1f}% of wall)")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:
-        log(f"[profile] host {e.self_cpu_time_total / 1e3:9.2f} ms "
+        log(f"[{tag}] host {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:70]}")
-    del engine
-    torch.cuda.empty_cache()
 
 
 def _dev_us(e) -> float:

@@ -6,6 +6,9 @@
   histogram.py            bounded log-bucket latency histograms
   sampler.py              adaptive 1-in-k timing governor
   device_fold.py          static per-call costs (annotate_cost)
+  views.py, attribution.py, session.py
+                          component / API views, serial-parallel
+                          attribution, and XFASession (report, shards)
 
 These are the reference package's numpy/stdlib modules, kept here as the
 port's own copies so that nothing of the JAX package is imported.

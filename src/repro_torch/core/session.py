@@ -1,0 +1,210 @@
+"""XFASession — wire the XFA layers around a training/serving step.
+
+The port's copy of `repro/core/session.py`.  Two layers of the reference
+are not ported yet: the in-graph device fold (`DeviceFoldSpec`; the
+port's models carry `table = None`, and `finish_device(None)` folds
+nothing) and the compiled-HLO collective flows (`attach_hlo` raises
+NotImplementedError; ROADMAP.md).
+
+The session is the user-facing object (the paper's 'Scaler runtime' +
+'offline visualizer' pair):
+
+  L1 host layer    TRACER records every framework boundary around dispatch
+  L2 device layer  a DeviceFoldSpec table threads through the jitted step
+  L3 static layer  trace-time analytic costs + compiled-HLO collective flows
+
+`report()` merges everything into one FoldedTable and renders the paper's
+component view / API view / flow matrix, plus the TPU-specific collective
+flow summary that feeds the roofline collective term.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from . import tracer as xfa
+from .attribution import (attribute_parallel, attribute_serial,
+                          combine_phases, imbalance_report, wait_split)
+from .device_fold import STATIC_COSTS
+from .folding import FoldedTable
+from .views import (View, api_view, api_view_by_caller, component_view,
+                    flow_matrix, metric_view, render_flow_matrix)
+
+
+@dataclass
+class XFAReport:
+    folded: FoldedTable
+    collectives: Any    # always None: HLO collective flows are not ported
+    wall_ns: float
+    n_steps: int
+
+    def component_view(self, component: str,
+                       total_ns: Optional[float] = None) -> View:
+        if component == "app" and total_ns is None:
+            total_ns = self.wall_ns
+        return component_view(self.folded, component, total_ns)
+
+    def api_view(self, component: str) -> View:
+        return api_view(self.folded, component)
+
+    def api_view_by_caller(self, component: str) -> View:
+        return api_view_by_caller(self.folded, component)
+
+    def metric_view(self, metric: str) -> View:
+        return metric_view(self.folded, metric)
+
+    def render(self, components: Sequence[str] = ("app",)) -> str:
+        parts = [f"XFA report: {self.n_steps} steps, "
+                 f"wall {self.wall_ns/1e9:.3f}s"]
+        for c in components:
+            parts.append(self.component_view(c).render())
+            parts.append(self.api_view(c).render())
+        parts.append(render_flow_matrix(self.folded))
+        return "\n\n".join(parts)
+
+    def to_json(self) -> dict:
+        return {
+            "wall_ns": self.wall_ns,
+            "n_steps": self.n_steps,
+            "folded": self.folded.to_json(),
+            "collectives": None,
+        }
+
+
+class XFASession:
+    """Profiles a run: host folds + device fold table + HLO collective flows.
+
+    Usage:
+        spec = DeviceFoldSpec(); model declares slots; spec.freeze()
+        sess = XFASession(device_spec=spec, dp_degree=16)
+        table = sess.init_device_table()
+        ... step = jit(step_fn) ; table carried through ...
+        sess.observe_step(wall_ns)       # per dispatched step
+        sess.finish_device(table)        # fetch + fold once at the end
+        sess.attach_hlo(compiled.as_text(), mesh_axes={...})
+        report = sess.report()
+    """
+
+    def __init__(self, device_spec: Any = None,
+                 dp_degree: int = 1, tracer=None) -> None:
+        self.device_spec = device_spec
+        self.dp_degree = dp_degree
+        self.tracer = tracer or xfa.TRACER
+        self.n_steps = 0
+        self.wall_ns = 0.0
+        self._device_fold: Optional[FoldedTable] = None
+        self._collectives = None
+        self._static_snapshot: Optional[FoldedTable] = None
+
+    # -- device table ------------------------------------------------------
+    def init_device_table(self):
+        if self.device_spec is None:
+            raise RuntimeError("no DeviceFoldSpec attached")
+        return self.device_spec.init_table()
+
+    def finish_device(self, table) -> None:
+        if table is None:          # no device fold table (not ported)
+            return
+        arr = np.asarray(table, dtype=np.float64)
+        self._device_fold = self.device_spec.fold(arr, group="device")
+
+    # -- step accounting -----------------------------------------------------
+    def observe_step(self, wall_ns: float, n: int = 1) -> None:
+        self.n_steps += n
+        self.wall_ns += wall_ns
+
+    # -- static layers -------------------------------------------------------
+    def snapshot_static(self) -> None:
+        """Capture trace-time analytic costs; call right after tracing/jit."""
+        self._static_snapshot = STATIC_COSTS.as_folded()
+
+    def attach_hlo(self, hlo_text: str,
+                   mesh_axes: Optional[Dict[str, int]] = None) -> None:
+        raise NotImplementedError(
+            "compiled-HLO collective flows (L3) are not ported: torch emits "
+            "no HLO; a new design is queued in ROADMAP.md")
+
+    # -- report --------------------------------------------------------------
+    def host_folds(self) -> List[FoldedTable]:
+        return FoldedTable.from_set(self.tracer.tables,
+                                    rates=self.tracer.sample_rates())
+
+    def folded_all(self, include_replicated: bool = True) -> FoldedTable:
+        """Raw merge of host + device + static folds — no attribution, no
+        step scaling.  This is what persists to profile shards: host totals
+        stay additive, so shards from N processes reduce to exactly the
+        profile one process doing all the work would have written.
+
+        The device and static folds hold *replicated* (globally identical)
+        values in SPMD: every rank traces the same program and fetches the
+        same fold vector.  In a multi-process run only one rank should shard
+        them (`include_replicated=False` on the others), or the cross-rank
+        reduce would count them once per rank."""
+        merged = FoldedTable.merge_all(self.host_folds())
+        if not include_replicated:
+            return merged
+        if self._device_fold is not None:
+            merged = merged.merge(self._device_fold)
+        static = self._static_snapshot
+        if static is None:
+            static = STATIC_COSTS.as_folded()
+        if len(static):
+            merged = merged.merge(static)
+        return merged
+
+    def snapshot(self, path: str, meta: Optional[Dict[str, Any]] = None,
+                 include_replicated: bool = True) -> str:
+        """Persist the current raw profile as one snapshot shard (atomic)."""
+        from ..profile import ProfileSnapshot  # avoid import cycle
+        snap_meta: Dict[str, Any] = {"n_steps": self.n_steps,
+                                     "wall_ns": self.wall_ns}
+        snap_meta.update(meta or {})
+        return ProfileSnapshot.from_folded(
+            self.folded_all(include_replicated), meta=snap_meta).save(path)
+
+    def report(self, parallel_groups: Optional[Dict[str, int]] = None
+               ) -> XFAReport:
+        """Merge host (per-thread), device, and static folds.
+
+        `parallel_groups`: thread-group name -> lane count; groups listed are
+        attributed as parallel phases (duration / lanes), others serial.
+        """
+        phases = []
+        for fold in self.host_folds():
+            lanes = (parallel_groups or {}).get(fold.group, 1)
+            phases.append(attribute_parallel(fold, lanes) if lanes > 1
+                          else attribute_serial(fold))
+        merged = combine_phases(phases)
+        if self._device_fold is not None:
+            merged = merged.merge(self._device_fold)
+        static = self._static_snapshot
+        if static is None:
+            static = STATIC_COSTS.as_folded()
+        # static costs are per traced step; scale to the observed step count
+        if self.n_steps > 1 and len(static):
+            scaled = FoldedTable(group="static")
+            for k, e in static.edges.items():
+                e2 = e.merge(type(e)())  # copy
+                e2.metrics = {m: v * self.n_steps for m, v in e.metrics.items()}
+                e2.count = e.count * self.n_steps
+                scaled.edges[k] = e2
+            static = scaled
+        merged = merged.merge(static)
+        return XFAReport(merged, self._collectives, self.wall_ns, self.n_steps)
+
+    def imbalance(self, threshold: float = 4.0):
+        by_group: Dict[str, List[FoldedTable]] = {}
+        for fold in self.host_folds():
+            by_group.setdefault(fold.group, []).append(fold)
+        return imbalance_report(by_group, threshold)
+
+    def dump(self, path: str) -> None:
+        rep = self.report()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(rep.to_json(), f, indent=1)

@@ -1,9 +1,10 @@
-"""Hand-written CUDA kernels of the serving path and their plain versions.
+"""Hand-written CUDA kernels of the port and their plain versions.
 
   ref.py               plain PyTorch versions (CPU path, ground truth)
   csrc/*.cu            CUDA C++ kernels for Hopper (sm_90a)
   build.py             nvcc build at first use + ctypes loading
-  rmsnorm.py           wrapper of csrc/rmsnorm.cu
+  rmsnorm.py           wrappers of csrc/rmsnorm.cu (forward, backward)
+  flash_attention.py   wrappers of csrc/flash_attention.cu (forward, backward)
   decode_attention.py  wrappers of csrc/decode_attention.cu
   ops.py               impl dispatch + XFA static costs
 """

@@ -13,6 +13,18 @@
 // device memory.  The normalized value is rounded to the input dtype
 // before the scale is applied, exactly as the reference oracle rounds,
 // so kernel and plain version differ only by the order of the f32 sum.
+//
+// rmsnorm_bwd is the gradient of that function (the Pallas kernel has
+// none).  Bound on an H100: bytes -- x and dy are read and dx written once.
+// With r = rsqrt(mean(x^2) + eps), g = dy * w and xhat = x * r:
+// dx = r * (g - xhat * mean(g * xhat)), dw = sum over rows of
+// dy * round(xhat).  Design: a block walks a contiguous range of rows, one
+// row at a time as the forward does (16-byte loads, the two row sums --
+// x^2 and g * x -- reduced together in one pass), and keeps its share of dw
+// in shared memory, each thread owning its own columns, so no atomics.  The
+// blocks' f32 partials [nblk, d] are then summed per column by a second
+// launch (rmsnorm_dw_reduce), in a fixed order: the result is the same on
+// every run.
 #include "common.cuh"
 
 namespace {
@@ -67,6 +79,111 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
   return cudaGetLastError();
 }
 
+// Block reduction of two sums at once; every thread gets both totals.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float2* part) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  a = rt::warp_sum(a);
+  b = rt::warp_sum(b);
+  if (lane == 0) part[wid] = make_float2(a, b);
+  __syncthreads();
+  if (wid == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    float2 t = lane < nw ? part[lane] : make_float2(0.f, 0.f);
+    t.x = rt::warp_sum(t.x);
+    t.y = rt::warp_sum(t.y);
+    if (lane == 0) part[32] = t;
+  }
+  __syncthreads();
+  const float2 r = part[32];
+  __syncthreads();   // part is reused by the next row
+  return r;
+}
+
+template <typename T>
+__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                   const T* __restrict__ dy, T* __restrict__ dx,
+                                   float* __restrict__ dw_part, long long rows, int d,
+                                   int rows_per_block, float eps) {
+  constexpr int V = rt::Vec<T>::n;
+  extern __shared__ float dw_s[];   // [d] this block's share of dw
+  __shared__ float2 part[33];
+  const int nvec = d / V;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) dw_s[i] = 0.f;
+  __syncthreads();   // below, each thread owns the columns of its vectors
+  const long long r_lo = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r_hi = r_lo + rows_per_block < rows ? r_lo + rows_per_block : rows;
+  for (long long row = r_lo; row < r_hi; ++row) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.f, gx = 0.f;
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      float xv[V], gv[V], wv[V];
+      rt::load_vec(xr + i * V, xv);
+      rt::load_vec(gr + i * V, gv);
+      rt::load_vec(w + i * V, wv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ss += xv[j] * xv[j];
+        gx += gv[j] * wv[j] * xv[j];
+      }
+    }
+    const float2 tot = block_sum2(ss, gx, part);
+    const float r = rsqrtf(tot.x / static_cast<float>(d) + eps);
+    // mean(g * xhat) = r * sum(g * x) / d; dx = r * g - xhat * r * that
+    const float c = r * r * r * tot.y / static_cast<float>(d);
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      float xv[V], gv[V], wv[V], o[V];
+      rt::load_vec(xr + i * V, xv);
+      rt::load_vec(gr + i * V, gv);
+      rt::load_vec(w + i * V, wv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        o[j] = r * gv[j] * wv[j] - c * xv[j];
+        dw_s[i * V + j] += gv[j] * rt::to_f(rt::from_f<T>(xv[j] * r));
+      }
+      rt::store_vec(dx + row * d + i * V, o);
+    }
+  }
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x)
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      dw_part[static_cast<size_t>(blockIdx.x) * d + i * V + j] = dw_s[i * V + j];
+}
+
+// dw[c] = sum over blocks of dw_part[blk, c], in block order.
+template <typename T>
+__global__ void rmsnorm_dw_reduce_kernel(const float* __restrict__ dw_part, T* __restrict__ dw,
+                                         int nblk, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < nblk; ++b) s += dw_part[static_cast<size_t>(b) * d + c];
+  dw[c] = rt::from_f<T>(s);
+}
+
+template <typename T>
+cudaError_t bwd_launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                       float* dw_part, long long rows, int d, int nblk, float eps,
+                       cudaStream_t stream) {
+  const int nvec = d / rt::Vec<T>::n;
+  int threads = (nvec + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  const int per = static_cast<int>((rows + nblk - 1) / nblk);
+  const int blocks = static_cast<int>((rows + per - 1) / per);
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  auto kernel = rmsnorm_bwd_kernel<T>;
+  cudaError_t err = rt::set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), dw_part, rows, d, per, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_reduce_kernel<T><<<(d + 255) / 256, 256, 0, stream>>>(dw_part, static_cast<T*>(dw),
+                                                                    blocks, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: [rows, d] contiguous; w: [d].  Returns the launch's CUDA error.
@@ -77,6 +194,25 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* y, long long r
   switch (dtype) {
     case rt::kBF16: return launch<__nv_bfloat16>(x, w, y, rows, d, eps, s);
     case rt::kF32: return launch<float>(x, w, y, rows, d, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The backward of rmsnorm_launch: x, dy, dx: [rows, d]; w, dw: [d] (all in
+// `dtype`); dw_part: f32 scratch of nblk * d values, nblk >= 1 the number
+// of row ranges (one block each).  Two launches: the row pass and the
+// per-column sum of the blocks' dw partials.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy, void* dx,
+                                  void* dw, void* dw_part, long long rows, int d, int nblk,
+                                  float eps, int dtype, void* stream) {
+  if (rows <= 0 || d <= 0) return cudaSuccess;
+  if (nblk < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(dw_part);
+  switch (dtype) {
+    case rt::kBF16:
+      return bwd_launch<__nv_bfloat16>(x, w, dy, dx, dw, part, rows, d, nblk, eps, s);
+    case rt::kF32: return bwd_launch<float>(x, w, dy, dx, dw, part, rows, d, nblk, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,22 +21,16 @@ that is the engine's contract.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import build, ref
-from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
+from .rmsnorm import DTYPES, check_cuda, check_vectors, sm_count, stream
 
 HEAD_DIMS = (32, 64, 128)
 TILE = 64           # K/V rows per tile in the kernels
 MAX_SPLITS = 64     # S ranges per (row, kv head) the decode merge takes
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
@@ -92,7 +86,7 @@ def _decode_scratch(B: int, Hq: int, Hkv: int, S: int, D: int,
                     device: torch.device):
     """(nsplit, split_rows, partials or None, arrival counters) for a
     decode launch over a virtual length S."""
-    nsplit, split_rows = decode_splits(B, Hkv, S, _sm_count(device.index))
+    nsplit, split_rows = decode_splits(B, Hkv, S, sm_count(device.index))
     part = None
     if nsplit > 1:   # per-range (acc, m, l) partials
         part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,

@@ -1,0 +1,148 @@
+"""Flash attention forward and backward: the CUDA kernels' wrappers
+(csrc/flash_attention.cu).
+
+`flash_attention` replaces the Pallas TPU kernel
+`repro/kernels/flash_attention.py::flash_attention`;
+`flash_attention_backward` computes what the reference's custom VJP
+`repro/kernels/ref.py::_flash_chunked_bwd_impl` computes (the Pallas
+kernel is forward-only).  `FlashAttention` is the autograd Function that
+pairs them: it saves (q, k, v, o, lse) and recomputes p in the backward.
+For CUDA tensors a wrapper launches its kernel or raises; for CPU tensors
+it runs the plain version in `ref`.  Each wrapper's `.launches` counts its
+kernel launches, nothing else.
+
+Causal masking follows the reference oracle: query t sees columns
+<= t + Sk - Sq.  A row that sees no column (Sq > Sk) gives zeros and
+lse = -1e30.  S needs no tile multiple; head dims 32, 64 and 128 are
+compiled.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import build, ref
+from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
+    return float(sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
+
+
+def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *rest: torch.Tensor) -> None:
+    """q [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D]; `rest` like q (o, dO)."""
+    check_cuda(q, what)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1] \
+            or q.shape[1] % k.shape[1]:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel compiles head dims {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    for t in (k, v) + rest:
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what}: operands must share dtype and device")
+    for t in rest:
+        if t.shape != q.shape:
+            raise ValueError(f"{what}: {tuple(t.shape)} is not q's shape "
+                             f"{tuple(q.shape)}")
+    for t in (q, k, v) + rest:
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous operands")
+    check_vectors(q.shape[-1], q, k, v, *rest)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: Optional[float] = None,
+                    logit_softcap: float = 0.0):
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] -> (o [B, Hq, Sq, D] in
+    q's dtype, lse [B, Hq, Sq] f32)."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                             logit_softcap=logit_softcap,
+                             q_offset=Sk - Sq if causal else 0,
+                             return_lse=True)
+    _check("flash_attention", q, k, v)
+    Hkv = k.shape[1]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    err = build.load("flash_attention").flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D, int(causal),
+        _scale(q, sm_scale), float(logit_softcap), DTYPES[q.dtype],
+        stream(q))
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return o, lse
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True,
+                             sm_scale: Optional[float] = None,
+                             logit_softcap: float = 0.0):
+    """The backward of flash_attention from its inputs, output and lse:
+    do like o -> (dq, dk, dv) like (q, k, v).  On the card: a delta
+    pre-pass, then one dK/dV kernel and one dQ kernel (no atomics; the
+    same bits on every run), counted as one launch of the backward."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    if q.device.type == "cpu":
+        return ref.attention_backward(q, k, v, o, lse, do, causal=causal,
+                                      sm_scale=sm_scale,
+                                      logit_softcap=logit_softcap,
+                                      q_offset=Sk - Sq if causal else 0)
+    _check("flash_attention_backward", q, k, v, o, do)
+    if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq) \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_backward: lse must be contiguous "
+                         f"f32 [{B}, {Hq}, {Sq}] on {q.device}")
+    Hkv = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    err = build.load("flash_attention").flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D,
+        int(causal), _scale(q, sm_scale), float(logit_softcap),
+        DTYPES[q.dtype], stream(q))
+    build.check(err, "flash_attention_backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose backward recomputes p from the saved
+    (q, k, v, o, lse), as the FlashAttention-2 backward does.
+    apply(q, k, v, causal, sm_scale, logit_softcap) -> o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, logit_softcap):
+        o, lse = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 logit_softcap=logit_softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale,
+                        logit_softcap=logit_softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+                                              do.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None

@@ -1,7 +1,9 @@
-"""Public wrappers for the serving path's kernels, with impl dispatch.
+"""Public wrappers for the port's kernels, with impl dispatch.
 
 impl='auto'   -> the kernel wrapper: the CUDA kernel for a CUDA tensor,
-                 the plain version for a CPU tensor
+                 the plain version for a CPU tensor; `attention` and
+                 `rmsnorm` go through their autograd Functions, whose
+                 backward is a kernel too
 impl='kernel' -> the CUDA kernel; a CPU tensor raises
 impl='ref'    -> the plain PyTorch version (tests and chip_smoke.py)
 
@@ -18,6 +20,7 @@ import torch
 from ..core import tracer as xfa
 from ..core.device_fold import annotate_cost
 from . import decode_attention as _dec
+from . import flash_attention as _fa
 from . import ref
 from . import rmsnorm as _rms
 
@@ -35,6 +38,24 @@ def _plain(impl: str, x: torch.Tensor) -> bool:
 
 def _bytes(*ts: torch.Tensor) -> float:
     return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def attention(q, k, v, *, causal: bool = True, sm_scale=None,
+              logit_softcap: float = 0.0, impl: str = "auto",
+              component: str = "attention") -> torch.Tensor:
+    """Training / no-cache attention: q [B, Hq, Sq, D] against k, v
+    [B, Hkv, Sk, D]; causal rows see columns <= t + Sk - Sq, as the
+    reference oracle's q_offset puts them."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    flops = 4.0 * B * Hq * Sq * Sk * D * (0.5 if causal and Sq == Sk else 1.0)
+    annotate_cost(xfa.current_component(), component, "flash_attention",
+                  flops=flops, bytes=_bytes(q, k, v) * 2)
+    if _plain(impl, q):
+        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                             logit_softcap=logit_softcap,
+                             q_offset=Sk - Sq if causal else 0)
+    return _fa.FlashAttention.apply(q, k, v, causal, sm_scale, logit_softcap)
 
 
 def decode_attention(q, k, v, *, kv_len=None, sm_scale=None,
@@ -107,8 +128,9 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
             component: str = "norm") -> torch.Tensor:
     annotate_cost(xfa.current_component(), component, "rmsnorm",
                   flops=4.0 * x.numel(), bytes=2.0 * _bytes(x))
-    fn = ref.rmsnorm if _plain(impl, x) else _rms.rmsnorm
-    return fn(x, w, eps=eps)
+    if _plain(impl, x):
+        return ref.rmsnorm(x, w, eps=eps)
+    return _rms.RMSNorm.apply(x, w, eps)
 
 
 def launch_counts() -> dict:
@@ -121,6 +143,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-#: every kernel wrapper of the serving path (each carries `.launches`)
+#: every kernel wrapper of the port (each carries `.launches`)
 _KERNELS = (_rms.rmsnorm, _dec.decode_attention, _dec.chunk_attention,
-            _dec.decode_attention_paged, _dec.chunk_attention_paged)
+            _dec.decode_attention_paged, _dec.chunk_attention_paged,
+            _fa.flash_attention, _fa.flash_attention_backward,
+            _rms.rmsnorm_backward)

@@ -1,11 +1,15 @@
-"""Plain PyTorch versions of the serving path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 The ground truth the CUDA kernels are held against on the card, and what
 the wrappers run for a tensor that lies on the CPU.  Each mirrors its
 counterpart in the reference `repro/kernels/ref.py`, with one deliberate
-difference: a decode row with kv_len == 0 returns ZEROS (with m = NEG_INF,
-l = 0), as the Pallas decode kernel does, where the reference oracle's
+difference: a row that sees no column (a decode row with kv_len == 0, a
+causal attention row with Sq > Sk whose offset puts it before column 0)
+returns ZEROS, as the Pallas kernels do, where the reference oracle's
 finite NEG_INF mask gives the mean of v.
+
+The backward passes (`attention_backward`, `rmsnorm_backward`) compute
+in f32 and return gradients in the inputs' dtypes.
 """
 
 from __future__ import annotations
@@ -15,6 +19,88 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+# ------------------------------------------------------------ attention ----
+def _scores(q, k, causal, sm_scale, logit_softcap, q_offset):
+    """Grouped f32 scores of attention: (qs [B,Hkv,g,Sq,D] = q * scale,
+    s [B,Hkv,g,Sq,Sk] after the softcap, tanh(s/c) or None, visibility
+    mask [Sq, Sk] or None)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    qs = (q.float() * scale).reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.float())
+    th = None
+    if logit_softcap > 0:
+        th = torch.tanh(s / logit_softcap)
+        s = logit_softcap * th
+    mask = None
+    if causal:
+        rows = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        mask = torch.arange(Sk, device=q.device)[None, :] <= rows
+    return qs, s, th, mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sm_scale: Optional[float] = None,
+              logit_softcap: float = 0.0, q_offset: int = 0,
+              return_lse: bool = False):
+    """GQA attention.  q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D];
+    q_offset: absolute position of q[0] (causal: query t sees columns
+    <= t + q_offset).  With return_lse=True also returns the f32
+    log-sum-exp of each row's scores, lse [B, Hq, Sq] (NEG_INF for a row
+    that sees no column; that row's output is zeros)."""
+    B, Hq, Sq, D = q.shape
+    _, s, _, mask = _scores(q, k, causal, sm_scale, logit_softcap, q_offset)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    o = (o / torch.where(l == 0.0, 1.0, l)).reshape(B, Hq, Sq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l))
+    return o, lse.reshape(B, Hq, Sq)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                       *, causal: bool = True,
+                       sm_scale: Optional[float] = None,
+                       logit_softcap: float = 0.0, q_offset: int = 0):
+    """The FlashAttention-2 backward of `attention` from its saved
+    (q, k, v, o, lse), as the reference's custom VJP
+    (`repro/kernels/ref.py::_flash_chunked_bwd_impl`) computes it:
+    p = exp(s - lse), delta = rowsum(dO * O), dS = p * (dP - delta),
+    plus the softcap's chain factor 1 - tanh^2(s/c), which the reference
+    gets from autodiff of its softcap path.  Returns (dq, dk, dv) in the
+    dtypes of q, k, v; dk, dv sum over the q heads of each kv head."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    g = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    qs, s, th, mask = _scores(q, k, causal, sm_scale, logit_softcap,
+                              q_offset)
+    shape = (B, Hkv, g, Sq)
+    p = torch.exp(s - lse.float().reshape(shape)[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dof = do.float().reshape(shape + (D,))
+    delta = (dof * o.float().reshape(shape + (D,))).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    ds = p * (dp - delta)
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qs)
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,3 +219,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                     eps: float = 1e-5):
+    """Gradient of `rmsnorm` in f32: with r = rsqrt(mean(x^2) + eps),
+    g = dy * w and xhat = x * r, dx = r * (g - xhat * mean(g * xhat));
+    dw = the sum over rows of dy * round(xhat), the normalized row as the
+    forward rounds it to x's dtype.  Returns (dx in x's dtype, dw in w's
+    dtype)."""
+    D = x.shape[-1]
+    xf = x.float().reshape(-1, D)
+    dyf = dy.float().reshape(-1, D)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gw = dyf * w.to(x.dtype).float()
+    dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = (dyf * xhat.to(x.dtype).float()).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)

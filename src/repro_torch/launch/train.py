@@ -1,0 +1,108 @@
+"""Training launcher of the PyTorch port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --steps 50 --batch 4 --seq 2048 [--resume] [--profile-dir DIR]
+
+On the CPU, with the plain versions of the kernels and the smoke config:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --smoke --device cpu --steps 4
+
+--device defaults to cuda; without CUDA the launcher raises rather than
+fall back.  The reference CLI reads the run's profile shards
+(`python -m repro.profile report DIR`).  Not ported yet: --mesh (one
+device only) and --xfa-collector raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..ckpt.manager import CheckpointManager
+from ..configs import get_config, get_smoke
+from ..configs.base import TrainConfig
+from ..data.pipeline import SyntheticLMData
+from ..models import build_model
+from ..runtime.trainer import Trainer
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random initial weights")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--mesh", default="",
+                    help="device mesh (not ported: one device only)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="artifacts/train")
+    ap.add_argument("--ckpt-interval", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--profile-dir", default="",
+                    help="register the run + write XFA profile snapshot "
+                         "rings here (reduce with: python -m repro.profile "
+                         "report DIR)")
+    ap.add_argument("--profile-interval", type=int, default=0,
+                    help="steps between snapshot-ring refreshes "
+                         "(0: only at end)")
+    ap.add_argument("--profile-keep-last", type=int, default=8,
+                    help="snapshots kept per shard ring (0: unbounded)")
+    ap.add_argument("--profile-max-age-s", type=float, default=0.0,
+                    help="delete ring snapshots older than this (0: never)")
+    ap.add_argument("--profile-max-bytes", type=int, default=0,
+                    help="per-run-dir snapshot byte budget (0: unbounded)")
+    from ..profile import kv_pair
+    ap.add_argument("--profile-meta", action="append", default=[],
+                    type=kv_pair, metavar="KEY=VALUE",
+                    help="extra run-manifest metadata (repeatable)")
+    ap.add_argument("--xfa-collector", default="", metavar="HOST:PORT",
+                    help="fleet collector stream (not ported yet)")
+    ap.add_argument("--xfa-host-label", default="",
+                    help="override this process's host label in shard "
+                         "names and manifests (default: hostname)")
+    ap.add_argument("--xfa-budget-pct", type=float, default=0.0,
+                    help="host-tracer overhead budget as a percent of wall "
+                         "time (0: governor off)")
+    args = ap.parse_args()
+
+    if args.mesh:
+        raise NotImplementedError("--mesh: the port trains on one device "
+                                  "(parallel/ is not ported yet)")
+    if args.xfa_host_label:
+        from ..profile import set_host_label
+        set_host_label(args.xfa_host_label)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg, impl="auto", device=args.device)
+    tcfg = TrainConfig(total_steps=args.steps, learning_rate=args.lr,
+                       warmup_steps=max(args.steps // 10, 1),
+                       microbatches=args.microbatches,
+                       ckpt_interval=args.ckpt_interval,
+                       xfa_overhead_budget=args.xfa_budget_pct / 100.0,
+                       seed=args.seed)
+    from ..profile import RetentionPolicy
+    trainer = Trainer(model, tcfg,
+                      CheckpointManager(args.ckpt_dir, async_save=True),
+                      profile_dir=args.profile_dir or None,
+                      profile_interval=args.profile_interval,
+                      profile_retention=RetentionPolicy(
+                          keep_last=args.profile_keep_last,
+                          max_age_s=args.profile_max_age_s,
+                          max_bytes=args.profile_max_bytes),
+                      profile_meta=dict(args.profile_meta),
+                      xfa_collector=args.xfa_collector)
+    data = SyntheticLMData(cfg, args.batch, args.seq, seed=args.seed)
+    state, metrics = trainer.run(args.seed, data, args.steps,
+                                 resume=args.resume)
+    print(f"done: {metrics}")
+    print(trainer.session.report().render(components=("app",)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

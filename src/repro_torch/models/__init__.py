@@ -1,5 +1,7 @@
 from .api import Model, build_model
-from .weights import load_reference_checkpoint, params_from_numpy
+from .weights import (load_reference_checkpoint, load_reference_train_state,
+                      params_from_numpy, train_state_from_numpy)
 
 __all__ = ["Model", "build_model", "load_reference_checkpoint",
-           "params_from_numpy"]
+           "load_reference_train_state", "params_from_numpy",
+           "train_state_from_numpy"]

@@ -1,6 +1,12 @@
 """build_model(cfg) — the uniform model handle of the port.
 
     model.init(seed=0)                          -> params on model.device
+    model.loss_fn(params, batch, table)         -> (loss, (metrics, table))
+        causal LM loss over batch tokens/labels/mask [B, S] (numpy or
+        tensors); differentiable by torch autograd (the kernels carry
+        their own backward passes)
+    model.batch_spec(shape)                     -> {name: (shape, dtype)}
+        of a training batch for a ShapeConfig
     model.init_cache(batch, max_len)            -> {"k", "v"} [L,B,Hkv,S,h]
     model.forward_chunk(params, tokens, table, cache, pos[, valid])
                                                 -> (logits, cache, table)
@@ -29,11 +35,11 @@ NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels.ops import IMPLS
 from . import transformer
 from .layers import Runtime
@@ -44,6 +50,7 @@ class Model:
     cfg: ModelConfig
     rt: Runtime
     init: Callable
+    loss_fn: Callable
     init_cache: Callable
     forward_chunk: Callable
     prefill: Callable
@@ -58,6 +65,14 @@ class Model:
 
     def table(self):
         return None
+
+    def batch_spec(self, shape: ShapeConfig
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of each entry of a training batch."""
+        B, S = shape.global_batch, shape.seq_len
+        return {"tokens": ((B, S), torch.int32),
+                "labels": ((B, S), torch.int32),
+                "mask": ((B, S), torch.float32)}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -89,6 +104,9 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     def init(seed: int = 0):
         return transformer.init_params(cfg, seed, rt.device)
 
+    def loss_fn(params, batch, table):
+        return transformer.loss_fn(params, batch, rt, table)
+
     def init_cache(batch, max_len):
         return transformer.init_cache(cfg, batch, max_len, rt.device)
 
@@ -116,7 +134,8 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
         return transformer.decode_step_paged(params, token, rt, table, cache,
                                              pos, block_table)
 
-    return Model(cfg=cfg, rt=rt, init=init, init_cache=init_cache,
+    return Model(cfg=cfg, rt=rt, init=init, loss_fn=loss_fn,
+                 init_cache=init_cache,
                  forward_chunk=forward_chunk, prefill=prefill,
                  decode_step=decode_step, init_paged_cache=init_paged_cache,
                  forward_chunk_paged=forward_chunk_paged,

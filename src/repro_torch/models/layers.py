@@ -10,6 +10,10 @@ KV caches are updated IN PLACE: `update_cache_rows` (contiguous rows) and
 `update_cache_pages` (page arena through a block table) write the fresh
 rows into the cache tensor they are given, where the reference returns a
 new array that jit donation lets XLA write in place.
+
+Training runs `attention` without a cache (causal flash attention over
+the whole sequence) and differentiates with torch autograd; the kernels'
+autograd Functions supply the attention and norm backward passes.
 """
 
 from __future__ import annotations
@@ -49,6 +53,30 @@ def linear(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p.to(x.dtype))
 
 
+class _BF16GradBarrier(torch.autograd.Function):
+    """Identity whose f32 cotangent is rounded through bf16, as the
+    reference's `_bf16_grad_barrier` does (there: to halve the bytes of
+    the tensor-parallel gradient all-reduces)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ct.dtype == torch.float32:
+            return ct.to(torch.bfloat16).to(ct.dtype)
+        return ct
+
+
+def grad_barrier(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The identity; with cfg.bf16_grad_reduce its f32 gradient is rounded
+    to bf16 on the way back."""
+    if getattr(cfg, "bf16_grad_reduce", False):
+        return _BF16GradBarrier.apply(x)
+    return x
+
+
 def norm(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     return ops.rmsnorm(x, p["scale"], eps=rt.cfg.norm_eps, impl=rt.impl)
 
@@ -59,8 +87,10 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor, dim: int
     """positions [S] (or [B, S]) -> cos/sin [..., S, dim//2], f32."""
     half = dim // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=positions.device)
-    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                   device=positions.device), -idx / half)
+    # torch.full fills on the device: torch.tensor(x, device=cuda) would be
+    # a host-to-device copy that waits for the stream, once per layer
+    freqs = torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                 device=positions.device), -idx / half)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -147,18 +177,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def attention(p: Params, x: torch.Tensor, rt: Runtime,
-              positions: torch.Tensor, cache: Params, pos: torch.Tensor,
+              positions: torch.Tensor, cache: Optional[Params] = None,
+              pos: Optional[torch.Tensor] = None,
               block_table: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, Params]:
-    """GQA/MQA (optionally qk-norm) self-attention in positioned-chunk
-    mode.  x: [B, S, d]; positions: [B, S] per-row rope positions; cache:
-    one layer's {"k", "v"} [B, Hkv, S_max, h], updated in place at
-    [pos, pos+S) per row; pos: [B] int32.  S == 1 is the pooled decode
-    step (decode kernel), S > 1 a prefill chunk (chunk kernel).
-    block_table: [B, NB] int32 page ids — when given, `cache` is one
-    layer's PAGE ARENA [P, Hkv, page_size, h]: writes scatter and reads
-    go through the table, so a row only touches the pages it was granted.
-    Returns (y [B, S, d], cache)."""
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA/MQA (optionally qk-norm) self-attention.  x: [B, S, d].
+
+    Without a cache (training): causal attention over the S positions,
+    positions [S] the shared rope positions; returns (y, None).
+
+    With a cache, positioned-chunk mode: positions [B, S] per-row rope
+    positions; cache: one layer's {"k", "v"} [B, Hkv, S_max, h], updated
+    in place at [pos, pos+S) per row; pos: [B] int32.  S == 1 is the
+    pooled decode step (decode kernel), S > 1 a prefill chunk (chunk
+    kernel).  block_table: [B, NB] int32 page ids — when given, `cache`
+    is one layer's PAGE ARENA [P, Hkv, page_size, h]: writes scatter and
+    reads go through the table, so a row only touches the pages it was
+    granted.  Returns (y [B, S, d], cache)."""
     cfg = rt.cfg
     ap = p["attn"]
     B, S, d = x.shape
@@ -172,16 +207,21 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
         q = ops.rmsnorm(q, ap["q_norm"], eps=cfg.norm_eps, impl=rt.impl)
         k = ops.rmsnorm(k, ap["k_norm"], eps=cfg.norm_eps, impl=rt.impl)
     cos, sin = rope_tables(cfg, positions, h)
-    cos, sin = cos[:, None], sin[:, None]                # [B, 1, S, h/2]
+    if cos.dim() == 3:                                   # per-row positions
+        cos, sin = cos[:, None], sin[:, None]            # [B, 1, S, h/2]
     q = apply_rope(q.transpose(1, 2), cos, sin)          # [B, Hq, S, h]
     k = apply_rope(k.transpose(1, 2), cos, sin)
     v = v.transpose(1, 2)
-    if block_table is not None:
+    new_cache = None
+    if cache is None:          # training: causal over the S positions
+        o = ops.attention(q, k, v.contiguous(), causal=True, impl=rt.impl)
+    elif block_table is not None:
         # paged positioned chunk: scatter the S fresh rows through the
         # block table into the shared arena, read the row's visible
         # prefix back through the same indirection
         ck = update_cache_pages(cache["k"], k, pos, block_table)
         cv = update_cache_pages(cache["v"], v, pos, block_table)
+        new_cache = {"k": ck, "v": cv}
         if S == 1:             # decode width: paged flash-decode kernel
             o = ops.decode_attention_paged(
                 q[:, :, 0], ck, cv, block_table=block_table,
@@ -192,19 +232,20 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     else:
         ck = update_cache_rows(cache["k"], k, pos)
         cv = update_cache_rows(cache["v"], v, pos)
+        new_cache = {"k": ck, "v": cv}
         if S == 1:             # decode width: flash-decode kernel
             o = ops.decode_attention(q[:, :, 0], ck, cv, kv_len=pos + 1,
                                      impl=rt.impl)
         else:                  # prefill chunk at per-row offsets
             o = ops.chunk_attention(q, ck, cv, pos=pos, impl=rt.impl)
-    if S == 1:
+    if o.dim() == 3:           # decode: [B, Hq, h]
         o = o.reshape(B, 1, cfg.n_heads * h)
     else:
         o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * h)
     y = linear(ap["wo"], o)
     annotate_cost("attention", "attention", "o_proj",
                   flops=2.0 * B * S * cfg.n_heads * h * d)
-    return y, {"k": ck, "v": cv}
+    return y, new_cache
 
 
 # ------------------------------------------------------------------- mlp ----
@@ -240,3 +281,16 @@ def lm_head(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
                   flops=2.0 * x.shape[0] * x.shape[1] * rt.cfg.d_model
                   * rt.cfg.vocab)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in f32; mask: [B, S] 1 = count."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -1,4 +1,5 @@
-"""Decoder-only dense transformer LM: params, cache and forward_chunk.
+"""Decoder-only dense transformer LM: params, training loss, cache and
+forward_chunk.
 
 The PyTorch counterpart of `repro/models/transformer.py` for
 family="dense".  Layer params are stacked [L, ...] under
@@ -7,6 +8,12 @@ and the KV cache is stacked [L, B, Hkv, S, h].  Where the reference scans
 one traced layer body (and scales its static costs by L), the port runs
 an explicit loop over the L layers: each layer registers its own costs,
 so the loop is NOT wrapped in scan_multiplier.
+
+Training (`forward`, `loss_fn`) runs the same layers without a cache and
+is differentiated by torch autograd.  `cfg.remat` is honoured per layer
+with torch.utils.checkpoint: "full" recomputes the whole layer in the
+backward, "dots_saveable" saves the matmul outputs and recomputes the
+rest.  Remat changes memory, never the loss or the gradients.
 
 Prefill and decode share ONE positioned-chunk body (forward_chunk): a
 chunk of T tokens lands at per-row cache offsets, T = 1 being the pooled
@@ -18,13 +25,17 @@ block tables.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
-from .layers import (Params, Runtime, attention, embed, init_kv_cache,
-                     last_valid, lm_head, mlp, norm, torch_dtype)
+from ..core.device_fold import scan_multiplier
+from .layers import (Params, Runtime, attention, cross_entropy, embed,
+                     init_kv_cache, last_valid, lm_head, mlp, norm,
+                     torch_dtype)
 
 #: init scale marker: ones (norm scales) instead of a scaled normal
 ONES = "ones"
@@ -93,16 +104,99 @@ def _layer(stack: Params, i: int) -> Params:
             for k, v in stack.items()}
 
 
+def _unstack(stack: Params, n: int) -> List[Params]:
+    """The [L, ...] stacked layer params as L per-layer dicts (views, by
+    one unbind per leaf: autograd stacks their gradients back once)."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in stack.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 def decoder_layer(p: Params, x: torch.Tensor, rt: Runtime,
-                  positions: torch.Tensor, cache: Params, pos: torch.Tensor,
+                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  pos: Optional[torch.Tensor] = None,
                   block_table: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    """Pre-norm block; writes this layer's cache rows in place."""
+    """Pre-norm block; with a cache, writes this layer's cache rows in
+    place."""
     h = norm(p["norm1"], x, rt)
     a, _ = attention(p, h, rt, positions, cache, pos, block_table)
     x = x + a
     h = norm(p["norm2"], x, rt)
     return x + mlp(p, h, rt)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots_saveable": keep the
+    matmul outputs, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """fn wrapped per cfg.remat.  The static costs register once, on the
+    first run of the layer: the recompute in the backward runs under a
+    zero multiplier, so one loss_fn call counts one forward, as one trace
+    does in the reference."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots_saveable"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+
+    def run(*args):
+        calls = []
+
+        def body(*a):
+            calls.append(None)
+            if len(calls) == 1:
+                return fn(*a)
+            with scan_multiplier(0):
+                return fn(*a)
+        return ckpt.checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
+
+
+def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
+    """tokens: [B, S] -> (hidden [B, S, d] after the final norm, table,
+    aux_total = 0 for the dense family).  Causal attention over the S
+    positions, no cache; each layer rematerialized per cfg.remat."""
+    cfg = rt.cfg
+    x = embed(p, torch.as_tensor(tokens, device=rt.device), rt)
+    positions = torch.arange(x.shape[1], device=rt.device)
+    body = _remat(lambda lp, h: decoder_layer(lp, h, rt, positions), cfg)
+    for layer_p in _unstack(p["stack"]["stack"], cfg.n_layers):
+        x = body(layer_p, x)
+    x = norm(p["final_norm"], x, rt)
+    return x, table, torch.zeros((), dtype=torch.float32, device=rt.device)
+
+
+def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):
+    """batch: tokens [B, S], labels [B, S], mask [B, S] (numpy or
+    tensors) -> (loss + aux, (metrics, table)), metrics holding loss,
+    aux_loss and the count of tokens."""
+    labels = torch.as_tensor(batch["labels"], device=rt.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=rt.device)
+    x, table, aux = forward(p, batch["tokens"], rt, table)
+    logits = lm_head(p, x, rt)
+    loss = cross_entropy(logits, labels, mask)
+    tokens = (mask.float().sum() if mask is not None
+              else torch.full((), float(labels.numel()), device=rt.device))
+    metrics = {"loss": loss, "aux_loss": aux, "tokens": tokens}
+    return loss + aux, (metrics, table)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -5,7 +5,9 @@ The reference names every param leaf by its path, as
 `lm_head/w`, `final_norm/scale`, `stack/stack/attn/wq`, ...), with layer
 leaves stacked [L, ...].  `params_from_numpy` turns such a flat dict into
 the port's params; `load_reference_checkpoint` reads a reference
-checkpoint directory (`manifest.json` + `<i>.npy`).
+checkpoint directory (`manifest.json` + `<i>.npy`).  A reference TRAIN
+STATE (`params/...`, `opt/{master,mu,nu}/...`, `opt/step`) carries across
+whole with `train_state_from_numpy` / `load_reference_train_state`.
 
 A bf16 leaf saved by `np.save` reads back in plain numpy as void `|V2`
 (numpy has no bfloat16): its bytes are reinterpreted as uint16 and then
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -42,11 +44,13 @@ def to_tensor(arr: Array, dtype_name: str = "") -> torch.Tensor:
 
 
 def params_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,
-                      device: Union[str, torch.device]) -> Params:
-    """Reference leaf names -> the port's params on `device`, in
-    cfg.param_dtype.  Every leaf the config needs must be present with its
-    exact shape; a missing, extra or mis-shaped leaf raises."""
-    dtype = torch_dtype(cfg.param_dtype)
+                      device: Union[str, torch.device],
+                      dtype: Optional[torch.dtype] = None) -> Params:
+    """Reference leaf names -> the port's params on `device`, in `dtype`
+    (default cfg.param_dtype).  Every leaf the config needs must be
+    present with its exact shape; a missing, extra or mis-shaped leaf
+    raises."""
+    dtype = dtype or torch_dtype(cfg.param_dtype)
     specs = param_specs(cfg)
     need = set()
 
@@ -92,3 +96,41 @@ def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                              f"manifest {e['shape']}")
         out[e["name"]] = t
     return out
+
+
+def train_state_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,
+                           device: Union[str, torch.device]
+                           ) -> Dict[str, Any]:
+    """A reference train state by leaf name -> the port's train state
+    {"params", "opt": {"master", "mu", "nu", "step"}} on `device`: params
+    in cfg.param_dtype, master and moments in f32, step int32.  A missing
+    or unknown leaf raises (an int8 `grad_err` state is not ported)."""
+    groups: Dict[str, Dict[str, Array]] = {}
+    for name, arr in flat.items():
+        for prefix in ("params/", "opt/master/", "opt/mu/", "opt/nu/"):
+            if name.startswith(prefix):
+                groups.setdefault(prefix, {})[name[len(prefix):]] = arr
+                break
+        else:
+            if name != "opt/step":
+                raise KeyError(f"train state has a leaf the port does not "
+                               f"hold: {name!r}")
+    if "opt/step" not in flat:
+        raise KeyError("train state missing leaf 'opt/step'")
+    opt = {kind: params_from_numpy(groups.get(f"opt/{kind}/", {}), cfg,
+                                   device, torch.float32)
+           for kind in ("master", "mu", "nu")}
+    opt["step"] = to_tensor(flat["opt/step"]).to(device=device,
+                                                 dtype=torch.int32)
+    return {"params": params_from_numpy(groups.get("params/", {}), cfg,
+                                        device),
+            "opt": opt}
+
+
+def load_reference_train_state(path: str, cfg: ModelConfig,
+                               device: Union[str, torch.device]
+                               ) -> Dict[str, Any]:
+    """A reference checkpoint directory of a train state (a step dir, or
+    a root whose newest step is read) -> the port's train state."""
+    return train_state_from_numpy(load_reference_checkpoint(path), cfg,
+                                  device)

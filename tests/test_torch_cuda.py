@@ -270,3 +270,141 @@ def test_paged_engine_on_the_card_matches_the_plain_path():
             assert engine.allocator.in_use == 0
             assert engine.allocator.hwm <= engine.allocator.usable
     assert len({str(o) for o in outs.values()}) == 1, outs
+
+
+# ------------------------------------------------------ training kernels ----
+FLASH_CASES = [
+    # B, Hq, Hkv, Sq, Sk, D, causal, softcap
+    (2, 32, 4, 256, 256, 64, True, 0.0),      # the training layout, G = 8
+    (2, 8, 8, 200, 200, 64, True, 0.0),       # MHA (G = 1), ragged S
+    (1, 16, 2, 130, 130, 128, True, 0.0),     # wide head, ragged
+    (2, 8, 1, 96, 300, 64, False, 0.0),       # non-causal, Sq < Sk, MQA
+    (1, 8, 2, 300, 130, 64, True, 0.0),       # causal Sq > Sk: masked rows
+    (2, 8, 8, 100, 100, 64, True, 30.0),      # tanh softcap
+    (1, 4, 4, 77, 77, 32, True, 0.0),
+]
+
+
+def flash_inputs(rng, B, Hq, Hkv, Sq, Sk, D, dtype):
+    return (arr(rng, B, Hq, Sq, D, dtype=dtype),
+            arr(rng, B, Hkv, Sk, D, dtype=dtype),
+            arr(rng, B, Hkv, Sk, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel(dtype, case):
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Sk, D, causal, cap = case
+    q, k, v = flash_inputs(np.random.default_rng(7), B, Hq, Hkv, Sq, Sk, D,
+                           dtype)
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention(q, k, v, causal=causal, logit_softcap=cap)
+    assert fa.flash_attention.launches == before + 1
+    o_r, lse_r = ref.attention(q, k, v, causal=causal, logit_softcap=cap,
+                               q_offset=Sk - Sq if causal else 0,
+                               return_lse=True)
+    close(o, o_r, dtype)
+    close(lse, lse_r, torch.float32 if dtype == torch.float32 else dtype)
+    if causal and Sq > Sk:      # rows before column 0 see nothing
+        assert torch.all(o[:, :, :Sq - Sk] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_backward_kernel(dtype, case):
+    """The backward kernel from the plain forward's (o, lse), against the
+    plain backward; and two runs give the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Sk, D, causal, cap = case
+    rng = np.random.default_rng(8)
+    q, k, v = flash_inputs(rng, B, Hq, Hkv, Sq, Sk, D, dtype)
+    do = arr(rng, B, Hq, Sq, D, dtype=dtype)
+    opts = dict(causal=causal, logit_softcap=cap)
+    o, lse = ref.attention(q, k, v, q_offset=Sk - Sq if causal else 0,
+                           return_lse=True, **opts)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, **opts)
+    assert fa.flash_attention_backward.launches == before + 1
+    want = ref.attention_backward(q, k, v, o, lse, do,
+                                  q_offset=Sk - Sq if causal else 0, **opts)
+    for g, w in zip(got, want):
+        close(g, w, dtype)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_function_matches_autograd():
+    """FlashAttention (kernels both ways) against torch autograd through
+    the plain attention, f32, with an explicit sm_scale."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(9)
+    q, k, v = flash_inputs(rng, 2, 8, 2, 150, 150, 64, torch.float32)
+    do = arr(rng, 2, 8, 150, 64, dtype=torch.float32)
+    grads = []
+    for fn in (lambda *t: fa.FlashAttention.apply(*t, True, 0.2, 0.0),
+               lambda *t: ref.attention(*t, causal=True, sm_scale=0.2)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, do))
+    for g, w in zip(*grads):
+        close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 300, 2048), (7, 64), (3, 5, 128),
+                                   (2, 40)])
+def test_rmsnorm_backward_kernel(dtype, shape):
+    rng = np.random.default_rng(10)
+    x = arr(rng, *shape, dtype=dtype)
+    w = arr(rng, shape[-1], dtype=dtype)
+    dy = arr(rng, *shape, dtype=dtype)
+    before = rms.rmsnorm_backward.launches
+    dx, dw = rms.rmsnorm_backward(x, w, dy, eps=1e-5)
+    assert rms.rmsnorm_backward.launches == before + 1
+    dx_r, dw_r = ref.rmsnorm_backward(x, w, dy, eps=1e-5)
+    close(dx, dx_r, dtype)
+    # dw sums over every row: compare relative to its scale
+    scale = float(dw_r.float().abs().max())
+    np.testing.assert_allclose(dw.float().cpu().numpy() / scale,
+                               dw_r.float().cpu().numpy() / scale,
+                               atol=tol(dtype), rtol=tol(dtype))
+    again = rms.rmsnorm_backward(x, w, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+def test_train_step_on_the_card_matches_the_plain_path():
+    """One loss_fn + backward of a small f32 model on the card, through
+    the kernels and through the plain versions: the loss and every
+    gradient leaf agree (the kernels sum in another order: 1e-4 relative
+    L2), and the training kernels were launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import value_and_grad
+    from repro_torch.tree import leaves_with_path
+
+    cfg = dataclasses.replace(get_smoke("tinyllama_1_1b"), head_dim=64,
+                              n_heads=8, n_kv_heads=2, d_model=256,
+                              remat="dots_saveable")
+    batch = SyntheticLMData(cfg, 2, 200).generate(0)
+    out = {}
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device="cuda")
+        ops.reset_launch_counts()
+        loss, _, _, grads = value_and_grad(model, model.init(0), batch, None)
+        out[impl] = (loss, leaves_with_path(grads))
+        counts = ops.launch_counts()
+        if impl == "kernel":
+            assert all(counts[n] > 0 for n in (
+                "flash_attention", "flash_attention_backward", "rmsnorm",
+                "rmsnorm_backward")), counts
+    (lk, gk), (lr, gr) = out["kernel"], out["ref"]
+    assert abs(float(lk) - float(lr)) <= 1e-4 * abs(float(lr))
+    for (name, a), (_, b) in zip(gk, gr):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel < 1e-4, (name, rel)
