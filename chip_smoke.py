@@ -55,9 +55,32 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               one more step (device time by kernel, busy share)
   7. profile  a torch.profiler window over a short second serving run: the
               device time by kernel and the device's busy share
+  3c. hybrid kernels  the kernels of the hybrid path at its shapes: the
+              SSD scan (ssd_scan) at the serving shape (x [8,512,80,64]
+              bf16, N 64, chunk 128) with and without a carried state, a
+              padded case (L 300) and a small-chunk case (L 16); chunk and
+              decode attention at Hq = Hkv = 32, head dim 80; rmsnorm_add
+              at [8,512,2560]; each against its plain version and timed
+              beside it, its bound and (where one exists) a library call
+  8. hybrid   full-width zamba2_2_7b (54 Mamba2 layers + a shared
+              attention block every 6, seeded random weights): one
+              512-token prefill chunk and one decode step with the kernels
+              and with the plain versions, in bf16 (each held against the
+              f32 plain model) and in f32 (held to each other); the same
+              prompt as 4 x 128-token chunks gives the whole prompt's SSM
+              state and logits (f32); then the 16 requests of phase 5 through
+              ServingEngine with the launch counters set to 0 just before
+              and read just after (ssd_scan, rmsnorm, chunk_attention and
+              decode_attention must all run), the profile shard loaded
+              back, a second run with max_cache_pages set giving the same
+              greedy tokens (the hybrid keeps the contiguous cache), and a
+              torch.profiler window over a short third run
 
 It prints the kernels line ({"kernels": [...]}), the card's name and power
-limit, and last {"ok": true, "device": {...}}.  Without CUDA, or outside a
+limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
+come from the serving or training run of its own path; rmsnorm_add has
+no model path in either package, so its launches are those of its
+correctness checks in phase 3c.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -92,10 +115,27 @@ LOGITS_REL_TOL = 5e-2
 # layers forward and back, as for the logits)
 LOSS_REL_TOL = 1e-2
 GRAD_REL_TOL = 5e-2
+# full-width zamba2 (54 Mamba2 layers + 9 shared-block calls), kernels vs
+# plain versions.  In f32 both sum in another order only: relative L2
+# 1e-3 (a full-width f32 run measured 1.8e-5).  In bf16 a fixed bound says
+# nothing: bf16 rounding puts this 63-block random-weight model ~9.6% from
+# its f32 self, and kernels vs plain ~8% apart (one chip run), so the
+# kernels' bf16 logits must be no further from the f32 plain model's than
+# the plain bf16 model's are, within 1.25x
+HYBRID_F32_TOL = 1e-3
+HYBRID_BF16_RATIO = 1.25
+# SSD final state h (f32 in both versions, from the same bf16-rounded
+# inputs): they differ by the f32 order of sums over up to 512 steps and
+# expf against torch.exp, a few ulp of values up to ~20 -> 1e-3 abs + rel
+STATE_TOL = 1e-3
 TRAIN_STEPS = 6
 #: kernels of the training path (their launches come from phase 6)
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward",
                  "rmsnorm_backward")
+#: kernels of the hybrid path only (their launches come from phase 8)
+HYBRID_KERNELS = ("ssd_scan",)
+#: the kernel no model calls in either package: launches from phase 3c
+PATHLESS_KERNELS = ("rmsnorm_add",)
 
 
 def fail(msg: str) -> None:
@@ -134,27 +174,39 @@ def main() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
     kernels = check_kernels(torch) + check_train_kernels(torch)
+    hybrid_entries, pathless_counts = check_hybrid_kernels(torch, kernels)
+    kernels += hybrid_entries
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
     train_counts, train = train_phase(torch)
     profile_phase(torch)
+    hybrid_counts, hybrid = hybrid_phase(torch)
 
     for k in kernels:
         # each kernel's launches in the run of its own path
-        k["launches"] = (train_counts if k["name"] in TRAIN_KERNELS
-                         else paged_counts if k["name"].endswith("_paged")
-                         else counts)[k["name"]]
+        name = k["name"]
+        if name in PATHLESS_KERNELS:
+            log(f"[kernels] {name} has no model path in either package: "
+                f"its launches are those of its phase 3c checks")
+        k["launches"] = (train_counts if name in TRAIN_KERNELS
+                         else hybrid_counts if name in HYBRID_KERNELS
+                         else pathless_counts if name in PATHLESS_KERNELS
+                         else paged_counts if name.endswith("_paged")
+                         else counts)[name]
         if k["launches"] <= 0:
-            fail(f"kernel {k['name']} was not launched on its path")
+            fail(f"kernel {name} was not launched on its path")
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.monotonic() - t_start:.1f}s; served "
         f"{stats['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
         f"{json.dumps(counts)}, paged {json.dumps(paged_counts)}; trained "
         f"{train['step_ms']:.1f} ms/step, {train['tok_s']:.0f} tok/s, MFU "
-        f"{100 * train['mfu']:.2f}%, launches {json.dumps(train_counts)} "
-        f"on {smi}")
+        f"{100 * train['mfu']:.2f}%, launches {json.dumps(train_counts)}; "
+        f"hybrid served {hybrid['throughput_tok_s']:.1f} tok/s, ttft mean "
+        f"{hybrid['ttft_mean_s'] * 1e3:.1f} ms, decode gap "
+        f"{hybrid['decode_s_per_tok'] * 1e3:.2f} ms/token, launches "
+        f"{json.dumps(hybrid_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -588,6 +640,14 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def _leaf_items(tree, prefix=""):
+    """(path, leaf) of a nested dict of tensors."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        yield from (_leaf_items(v, path) if isinstance(v, dict)
+                    else ((path, v),))
+
+
 def compare_logits(torch, got, want, shape, what):
     torch.cuda.synchronize()
     if tuple(got.shape) != shape or tuple(want.shape) != shape:
@@ -610,16 +670,18 @@ PROMPT_LENS = [16, 1500, 700, 33, 1024, 511, 513, 90,
                1200, 260, 48, 999, 1337, 128, 640, 1499]
 
 
-def make_engine(torch, profile_dir: str, **paged):
-    """The serving engine of phases 5-6 (`paged`: page_size and
-    max_cache_pages for the paged pool) and its 16 prompts."""
+def make_engine(torch, profile_dir: str, arch: str = "tinyllama_1_1b",
+                **paged):
+    """The serving engine of phases 5, 5b, 7 and 8 for `arch` (`paged`:
+    page_size and max_cache_pages for the paged pool) and its 16
+    prompts."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("tinyllama_1_1b")
+    cfg = get_config(arch)
     model = build_model(cfg, impl="auto", device="cuda")
     engine = ServingEngine(model, model.init(0), ServeConfig(
         max_batch=8, max_seq_len=2048, prefill_chunk=512, prefill_batch=8,
@@ -636,13 +698,43 @@ PAGE_GAUGES = ("cache_pages_in_use", "cache_page_hwm",
                "cache_pages_capacity")
 
 
-def serve_run(torch, what: str, on_engine=None, **paged):
+def check_launch_counts(cfg, engine, counts, what: str):
+    """The launch counts of a serving run must fit the model's depth: per
+    forward, the dense family runs its attention pair once per layer and
+    rmsnorm 2L+1 times; the hybrid runs chunk or decode attention once per
+    shared-block call (n_super), ssd_scan once per Mamba layer of a
+    prefill group, and rmsnorm 2L + 2 n_super + 1 times.  The other
+    attention pair (paged or dense) never runs.  Returns (prefill groups,
+    decode ticks, a note on the per-forward counts)."""
+    sfx = "_paged" if engine.paged else ""
+    other = "" if engine.paged else "_paged"
+    L = cfg.n_layers
+    calls = L // cfg.attn_every if cfg.family == "hybrid" else L
+    groups = counts["chunk_attention" + sfx] / calls
+    ticks = counts["decode_attention" + sfx] / calls
+    norms = 2 * L + 1 + (2 * calls if cfg.family == "hybrid" else 0)
+    ok = groups == int(groups) and ticks == int(ticks) and groups > 0 \
+        and ticks > 0 and counts["rmsnorm"] == norms * (groups + ticks) \
+        and not counts["chunk_attention" + other] \
+        and not counts["decode_attention" + other] \
+        and counts["ssd_scan"] == (L * groups if cfg.family == "hybrid"
+                                   else 0)
+    if not ok:
+        fail(f"{what}: launch counts inconsistent with {cfg.name}'s depth: "
+             f"{counts}")
+    note = f"per forward: rmsnorm {norms}, attention {calls}" + (
+        f", ssd_scan {L} per prefill group" if cfg.family == "hybrid" else "")
+    return int(groups), int(ticks), note
+
+
+def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
+              **paged):
     """Serve the 16 prompts (32 new tokens each) through a fresh engine
-    (handed to `on_engine` first, if given), with the launch counters set
-    to 0 just before and read just after.  Checks every request, the cache
-    and the launch counts, and loads the profile shard back.  Returns
-    (engine, done, launch counts, latency stats, serve edges of the
-    shard)."""
+    for `arch` (handed to `on_engine` first, if given), with the launch
+    counters set to 0 just before and read just after.  Checks every
+    request, the cache and the launch counts, and loads the profile shard
+    back.  Returns (engine, done, launch counts, latency stats, serve
+    edges of the shard)."""
     from repro_torch.core import tracer as xfa
     from repro_torch.kernels import ops
     from repro_torch.profile import load_profile
@@ -650,7 +742,7 @@ def serve_run(torch, what: str, on_engine=None, **paged):
 
     xfa.reset()          # this run's folds only, not an earlier run's
     with tempfile.TemporaryDirectory() as prof:
-        cfg, engine, prompts = make_engine(torch, prof, **paged)
+        cfg, engine, prompts = make_engine(torch, prof, arch, **paged)
         if on_engine is not None:
             on_engine(engine)
         t0 = time.monotonic()
@@ -670,23 +762,11 @@ def serve_run(torch, what: str, on_engine=None, **paged):
             if r.error is not None or len(r.output) != 32 \
                     or not all(0 <= t < cfg.vocab for t in r.output):
                 fail(f"{what}: request {r.uid} output is wrong: {r.output}")
-        for name in ("k", "v"):
-            if not torch.isfinite(engine.cache[name]).all():
-                fail(f"{what}: the KV cache holds non-finite values")
-        # the attention pair of this path runs once per layer per forward,
-        # rmsnorm 2L+1 times; the other pair never
-        L = cfg.n_layers
-        sfx = "_paged" if engine.paged else ""
-        other = "" if engine.paged else "_paged"
-        groups = counts["chunk_attention" + sfx] / L
-        ticks = counts["decode_attention" + sfx] / L
-        if groups != int(groups) or ticks != int(ticks) or groups == 0 \
-                or ticks == 0 \
-                or counts["rmsnorm"] != (2 * L + 1) * (groups + ticks) \
-                or counts["chunk_attention" + other] \
-                or counts["decode_attention" + other]:
-            fail(f"{what}: launch counts inconsistent with {L} layers: "
-                 f"{counts}")
+        for name, leaf in _leaf_items(engine.cache):
+            if not torch.isfinite(leaf).all():
+                fail(f"{what}: the cache leaf {name} holds non-finite "
+                     f"values")
+        groups, ticks, note = check_launch_counts(cfg, engine, counts, what)
         folded = load_profile(prof).to_folded()
         serve = {k[2]: e for k, e in folded.edges.items() if k[1] == "serve"}
         for phase in SERVE_EDGES + (PAGE_GAUGES if engine.paged else ()):
@@ -703,9 +783,8 @@ def serve_run(torch, what: str, on_engine=None, **paged):
         f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
         f"{stats['ttft_p95_s'] * 1e3:.1f} ms; decode "
         f"{stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
-    log(f"[{what}] prefill groups {int(groups)}, decode ticks {int(ticks)}, "
-        f"launches {json.dumps(counts)} "
-        f"(per forward: rmsnorm {2 * L + 1}, attention {L})")
+    log(f"[{what}] prefill groups {groups}, decode ticks {ticks}, "
+        f"launches {json.dumps(counts)} ({note})")
     log(f"[{what}] xfa prefill_chunk mean "
         f"{serve['prefill_chunk'].total_ns / serve['prefill_chunk'].count / 1e6:.2f}"
         f" ms x {serve['prefill_chunk'].count}, decode_token mean "
@@ -960,6 +1039,316 @@ def profile_phase(torch):
     breakdown(p, wall_us, "profile", "8 requests x 16 tokens")
     del engine
     torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------- hybrid kernels ----
+SSD_SHAPE = (8, 512, 80, 64, 64, 128)   # B, L, H, P, N, chunk of phase 8
+
+
+def plain_ssd(torch, x, dt, a, b, c, chunk, h0):
+    """The SSD kernel's plain version with ops.ssd_scan's zero padding of L
+    to a chunk multiple."""
+    from repro_torch.kernels import ref
+
+    L = x.shape[1]
+    pad = (-L) % chunk
+
+    def zp(t):
+        return torch.cat([t, t.new_zeros((t.shape[0], pad)
+                                         + tuple(t.shape[2:]))], dim=1)
+    if pad:
+        x, dt, b, c = zp(x), zp(dt), zp(b), zp(c)
+    y, h = ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    return y[:, :L], h
+
+
+def state_err(torch, got, want, what: str) -> float:
+    """Max abs error of an f32 SSD state, held to STATE_TOL abs + rel."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: kernel state is not finite")
+    err = (got - want).abs()
+    if not bool((err <= STATE_TOL + STATE_TOL * want.abs()).all()):
+        fail(f"{what}: kernel state disagrees with its plain version (max "
+             f"abs err {err.max().item():.3e}, tolerance {STATE_TOL} abs + "
+             f"rel)")
+    return err.max().item()
+
+
+def check_hybrid_kernels(torch, entries):
+    """Phase 3c: the hybrid path's kernels against their plain versions at
+    its shapes, and their times.  Adds the head-dim-80 numbers to the
+    chunk and decode attention entries of `entries`; returns (the
+    ssd_scan and rmsnorm_add entries, the launch counts of rmsnorm_add's
+    correctness checks)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    out = []
+
+    # ssd_scan: the serving shape without and with a carried state, a
+    # padded L (ops pads to the chunk) and a small chunk
+    B, L, H, P, N, chunk = SSD_SHAPE
+    a = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
+    errs, h_errs = [], []
+    for what, l, ch, with_h0 in (("L 512 h0 none", L, chunk, False),
+                                 ("L 512 h0 random", L, chunk, True),
+                                 ("L 300 padded", 300, chunk, True),
+                                 ("L 16 chunk 16", 16, 16, True)):
+        x = rnd(B, l, H, P)
+        dt = F.softplus(torch.randn(B, l, H, generator=gen, device=dev) - 2)
+        b, c = rnd(B, l, N), rnd(B, l, N)
+        h0 = torch.randn(B, H, N, P, generator=gen, device=dev) \
+            if with_h0 else None
+        y, h = ops.ssd_scan(x, dt, a, b, c, chunk=ch, h0=h0, impl="kernel")
+        y_r, h_r = plain_ssd(torch, x, dt, a, b, c, ch, h0)
+        errs.append(max_err(torch, y, y_r, f"ssd_scan y {what}"))
+        h_errs.append(state_err(torch, h, h_r, f"ssd_scan h {what}"))
+        if what == "L 512 h0 random":
+            timed = (x, dt, b, c, h0)
+    log(f"[hybrid-kernels] ssd_scan max_abs_err per case: y "
+        f"{[f'{e:.3e}' for e in errs]}, h {[f'{e:.3e}' for e in h_errs]} "
+        f"(tolerance {STATE_TOL} abs + rel)")
+    x, dt, b, c, h0 = timed
+    # bytes: x, b, c (bf16), dt, h0 read; y (bf16), h written.  Operations:
+    # per (b, h, chunk) C B^T and S dtx over the T(T+1)/2 visible pairs,
+    # C h and the state update: 2(N+P)T(T+1)/2 + 4TNP
+    ops_ssd = B * H * (L // chunk) * (
+        (N + P) * chunk * (chunk + 1) + 4.0 * chunk * N * P)
+    e = record_kernel(
+        torch, flush, "ssd_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan.py:81",
+        f"x {B}x{L}x{H}x{P} b/c {B}x{L}x{N} chunk {chunk} h0 f32",
+        max(errs), lambda: ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
+        lambda: ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
+        None,   # no one PyTorch call computes the SSD scan
+        nbytes=2.0 * (2 * x.numel() + b.numel() + c.numel())
+        + 4.0 * (dt.numel() + a.numel() + 2 * h0.numel()), ops=ops_ssd)
+    e["max_abs_err_state"] = max(h_errs)
+    out.append(e)
+    del x, dt, b, c, h0, timed
+    torch.cuda.empty_cache()
+
+    # rmsnorm_add at the hybrid's hidden width; its launches here are the
+    # only ones (no model calls it)
+    d = 2560
+    xa, ra = rnd(8, 512, d), rnd(8, 512, d)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+    before = rms.rmsnorm_add.launches
+    err = 0.0
+    for shape in ((8, 512, d), (3, 40)):
+        xs, rs = (xa, ra) if shape[-1] == d else (rnd(*shape), rnd(*shape))
+        ws = w if shape[-1] == d else w[:shape[-1]].contiguous()
+        (y, s), (y_r, s_r) = rms.rmsnorm_add(xs, rs, ws), \
+            ref.rmsnorm_add(xs, rs, ws)
+        err = max(err, max_err(torch, y, y_r, f"rmsnorm_add y {shape}"),
+                  max_err(torch, s, s_r, f"rmsnorm_add sum {shape}"))
+    pathless = {"rmsnorm_add": rms.rmsnorm_add.launches - before}
+    out.append(record_kernel(
+        torch, flush, "rmsnorm_add", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:71", f"x, residual 8x512x{d}", err,
+        lambda: rms.rmsnorm_add(xa, ra, w), lambda: ref.rmsnorm_add(xa, ra, w),
+        None,   # no one PyTorch call adds and normalizes
+        nbytes=2.0 * 4 * xa.numel() + 2.0 * d, ops=5.0 * xa.numel()))
+    del xa, ra
+
+    # chunk and decode attention at the shared block's shape: Hq = Hkv =
+    # 32 (G = 1), head dim 80
+    Bq, Hq, S, D = 8, 32, 2048, 80
+    k, v = rnd(Bq, Hq, S, D), rnd(Bq, Hq, S, D)
+    q = rnd(Bq, Hq, D)
+    lens = [0, 1, 77, 1000, 1537, 2047, 2048, 513]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    derr = max_err(torch, dec.decode_attention(q, k, v, kv_len=kv_len),
+                   ref.decode_attention(q, k, v, kv_len=kv_len),
+                   "decode_attention D=80")
+    dmask = (torch.arange(S, device=dev)[None, :] < kv_len[:, None])
+    dmask = dmask[:, None, None, :]
+    T, pos_l = 512, [0, 512, 1024, 1536, 100, 700, 1300, 7]
+    qc = rnd(Bq, Hq, T, D)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    cerr = max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
+                   ref.chunk_attention(qc, k, v, pos=pos),
+                   "chunk_attention D=80")
+    lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
+    cmask = (torch.arange(S, device=dev)[None, None, :]
+             <= lim[:, :, None])[:, None]
+    seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
+    cases = {
+        "decode_attention": (
+            f"q {Bq}x{Hq}x{D} kv {Bq}x{Hq}x{S}x{D} kv_len {lens}", derr,
+            lambda: dec.decode_attention(q, k, v, kv_len=kv_len),
+            lambda: ref.decode_attention(q, k, v, kv_len=kv_len),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                   attn_mask=dmask),
+            2.0 * q.numel() * 2 + 4 * Bq + sum(lens) * Hq * D * 2 * 2,
+            4.0 * sum(lens) * Hq * D),
+        "chunk_attention": (
+            f"q {Bq}x{Hq}x{T}x{D} kv {Bq}x{Hq}x{S}x{D} pos {pos_l}", cerr,
+            lambda: dec.chunk_attention(qc, k, v, pos=pos),
+            lambda: ref.chunk_attention(qc, k, v, pos=pos),
+            lambda: F.scaled_dot_product_attention(qc, k, v,
+                                                   attn_mask=cmask),
+            2.0 * qc.numel() * 2 + 4 * Bq
+            + sum(min(p + T, S) for p in pos_l) * Hq * D * 2 * 2,
+            4.0 * Hq * D * seen)}
+    for e in entries:
+        if e["name"] in cases:
+            shape, err, fn, plain, lib, nbytes, nops = cases[e["name"]]
+            d80 = record_kernel(torch, flush, e["name"], e["source"],
+                                e["replaces"], shape, err, fn, plain, lib,
+                                nbytes=nbytes, ops=nops)
+            e["head_dim_80"] = {key: d80[key] for key in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+    del k, v, q, qc, flush
+    torch.cuda.empty_cache()
+    return out, pathless
+
+
+# ---------------------------------------------------------------- hybrid ----
+def hybrid_forward(torch):
+    """Phase 8a: full-width zamba2_2_7b logits, kernels vs plain versions
+    in bf16 (each held against the f32 plain model) and in f32, and the
+    prompt fed as 4 x 128-token chunks against the whole prompt (f32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg16 = get_config("zamba2_2_7b")
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, T = 4, 512
+    tokens = torch.randint(0, cfg16.vocab, (B, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    nxt = torch.randint(0, cfg16.vocab, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    at = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    def run(cfg, impl, params):
+        """(prefill logits, decode-step logits) of `impl` on `params`."""
+        m = build_model(cfg, impl=impl, device="cuda")
+        cache = m.init_cache(B, 2048)
+        lp, cache, _ = m.forward_chunk(params, tokens, None, cache, zero)
+        ld, _, _ = m.decode_step(params, nxt, None, cache, at)
+        torch.cuda.synchronize()
+        return lp.float(), ld.float()
+
+    t0 = time.monotonic()
+    params = build_model(cfg16, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[hybrid] {cfg16.name}: {cfg16.n_layers} Mamba2 layers + a shared "
+        f"attention block every {cfg16.attn_every}, d_model {cfg16.d_model}"
+        f", d_inner {cfg16.d_inner_}, {cfg16.n_ssm_heads} SSM heads of "
+        f"{cfg16.ssm_head_dim}, state {cfg16.ssm_state}, "
+        f"{n_params / 1e9:.3f}B params ({cfg16.param_dtype}; a_log, "
+        f"dt_bias, d_skip in "
+        f"{params['stack']['stack']['ssm']['a_log'].dtype}) initialised in "
+        f"{time.monotonic() - t0:.1f}s")
+    k16 = run(cfg16, "kernel", params)
+    r16 = run(cfg16, "ref", params)
+    del params
+    torch.cuda.empty_cache()
+    # the same seeded draws in f32 (the bf16 params are their roundings)
+    p32 = build_model(cfg32, device="cuda").init(0)
+    k32 = run(cfg32, "kernel", p32)
+    r32 = run(cfg32, "ref", p32)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    for i, what in enumerate(("prefill chunk T=512", "decode step")):
+        for name, got in (("kernels bf16", k16[i]), ("plain bf16", r16[i]),
+                          ("kernels f32", k32[i]), ("plain f32", r32[i])):
+            if tuple(got.shape) != (B, cfg16.vocab) \
+                    or not torch.isfinite(got).all():
+                fail(f"hybrid {what}: {name} logits are not finite "
+                     f"[{B}, {cfg16.vocab}]")
+        e32 = rel(k32[i], r32[i])
+        ek, er = rel(k16[i], r32[i]), rel(r16[i], r32[i])
+        log(f"[hybrid] {what}: relative L2, kernels vs plain: f32 "
+            f"{e32:.3e} (tolerance {HYBRID_F32_TOL}), bf16 "
+            f"{rel(k16[i], r16[i]):.3e}; against the f32 plain model: "
+            f"kernels bf16 {ek:.3e}, plain bf16 {er:.3e} (ratio "
+            f"{ek / er:.3f}, limit {HYBRID_BF16_RATIO})")
+        if e32 > HYBRID_F32_TOL or ek > HYBRID_BF16_RATIO * er:
+            fail(f"hybrid {what}: kernels and plain versions disagree (f32 "
+                 f"{e32:.3e}; bf16 {ek:.3e} against {er:.3e} from the f32 "
+                 f"model)")
+    # the same prompt as 4 x 128-token chunks: the carried state resumes
+    m = build_model(cfg32, impl="kernel", device="cuda")
+    cc, whole = m.init_cache(B, 2048), m.init_cache(B, 2048)
+    for i in range(4):
+        lc, cc, _ = m.forward_chunk(p32, tokens[:, 128 * i:128 * (i + 1)],
+                                    None, cc, zero + 128 * i)
+    lw, whole, _ = m.forward_chunk(p32, tokens, None, whole, zero)
+    torch.cuda.synchronize()
+    errs = {"logits": rel(lc.float(), lw.float())}
+    for name in ("h", "conv"):
+        errs[name] = rel(cc["ssm"][name].float(), whole["ssm"][name].float())
+    log(f"[hybrid] 4 x 128-token chunks vs the whole prompt (f32, kernels): "
+        f"relative L2 {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+        f" (tolerance {HYBRID_F32_TOL})")
+    if not all(math.isfinite(v) and v <= HYBRID_F32_TOL
+               for v in errs.values()):
+        fail(f"hybrid: the chunked prompt's logits or SSM state differ from "
+             f"the whole prompt's: {errs}")
+    del p32, cc, whole
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch):
+    """Phase 8: the hybrid family's serving path.  Returns (launch counts
+    of the contiguous serve run, its latency stats)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import run_workload
+
+    hybrid_forward(torch)
+    arch = "zamba2_2_7b"
+    engine, done, counts, stats, _ = serve_run(torch, "hybrid-serve",
+                                               arch=arch)
+    for name in ("ssd_scan", "rmsnorm", "chunk_attention",
+                 "decode_attention"):
+        if counts[name] <= 0:
+            fail(f"hybrid-serve: kernel {name} was not launched: {counts}")
+    outputs = streams(done)
+    del engine
+    torch.cuda.empty_cache()
+    # max_cache_pages set: the hybrid has no paged entry points, so the
+    # engine keeps the contiguous cache and the schedule, and the tokens
+    engine, done, counts_p, _, _ = serve_run(
+        torch, "hybrid-pages-requested", arch=arch, page_size=PAGE,
+        max_cache_pages=257)
+    if engine.paged or streams(done) != outputs:
+        fail(f"hybrid: with max_cache_pages the engine paged "
+             f"({engine.paged}) or its tokens differ from the contiguous run")
+    log(f"[hybrid-pages-requested] engine.paged {engine.paged}; 16 of 16 "
+        f"token streams equal the contiguous run")
+    del engine
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as prof:
+        _, engine, prompts = make_engine(torch, prof, arch)
+        engine.warm_chunk_programs()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t0 = time.monotonic()
+            run_workload(engine, prompts[:8], 16, mode="closed")
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    breakdown(p, wall_us, "hybrid-profile", "8 requests x 16 tokens")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 def breakdown(p, wall_us: float, tag: str, what: str) -> None:

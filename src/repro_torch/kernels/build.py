@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rmsnorm", "decode_attention", "flash_attention")
+SOURCES = ("rmsnorm", "decode_attention", "flash_attention", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -34,6 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rmsnorm": {
         "rmsnorm_launch": (_P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
+        "rmsnorm_add_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _F,
+                               _I, _P),
         "rmsnorm_bwd_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                _I, _I, _F, _I, _P),
     },
@@ -56,6 +58,10 @@ SIGNATURES = {
         "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _I, _I, _I,
                                        _F, _F, _I, _P),
+    },
+    "mamba_scan": {
+        "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -502,6 +502,9 @@ cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v, 
     case 64:
       return decode_pick<T, 64>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
                                 split_rows, scale, s);
+    case 80:
+      return decode_pick<T, 80>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
+                                split_rows, scale, s);
     case 128:
       return decode_pick<T, 128>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
                                  split_rows, scale, s);
@@ -524,6 +527,7 @@ cudaError_t chunk_dispatch(int D, const void* q, const void* k, const void* v, K
   switch (D) {
     case 32: return chunk_pick<T, 32>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
     case 64: return chunk_pick<T, 64>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
+    case 80: return chunk_pick<T, 80>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
     case 128: return chunk_pick<T, 128>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
     default: return cudaErrorInvalidValue;
   }

@@ -14,6 +14,17 @@
 // before the scale is applied, exactly as the reference oracle rounds,
 // so kernel and plain version differ only by the order of the f32 sum.
 //
+// rmsnorm_add replaces repro/kernels/rmsnorm.py::rmsnorm_add
+// (_rmsnorm_add_kernel): s = x + residual, returning (rmsnorm(s), s).
+// Bound: bytes -- x and the residual are read once, s and y written once.
+// Design: rmsnorm's one block per row, with a second input and a second
+// output.  The first pass forms s in f32, rounds it to the io dtype, stores
+// it and sums the squares of the ROUNDED s; the second pass normalizes the
+// stored s (re-read from L1/L2).  This is the reference oracle's function
+// (s = x + residual in the io dtype, then rmsnorm of s), so kernel and
+// plain version differ only by the order of the f32 sum; the Pallas kernel
+// normalizes the unrounded f32 s, one bf16 ulp away at most.
+//
 // rmsnorm_bwd is the gradient of that function (the Pallas kernel has
 // none).  Bound on an H100: bytes -- x and dy are read and dx written once.
 // With r = rsqrt(mean(x^2) + eps), g = dy * w and xhat = x * r:
@@ -69,6 +80,50 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T>
+__global__ void rmsnorm_add_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                                   const T* __restrict__ w, T* __restrict__ y,
+                                   T* __restrict__ s, int d, float eps) {
+  constexpr int V = rt::Vec<T>::n;
+  const size_t off = static_cast<size_t>(blockIdx.x) * d;
+  const int nvec = d / V;
+
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    float a[V], r[V];
+    rt::load_vec(x + off + i * V, a);
+    rt::load_vec(res + off + i * V, r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a[j] = rt::to_f(rt::from_f<T>(a[j] + r[j]));   // s as stored
+      ss += a[j] * a[j];
+    }
+    rt::store_vec(s + off + i * V, a);
+  }
+  __shared__ float part[32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  ss = rt::warp_sum(ss);
+  if (lane == 0) part[wid] = ss;
+  __syncthreads();
+  if (wid == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    ss = rt::warp_sum(lane < nw ? part[lane] : 0.f);
+    if (lane == 0) part[0] = ss;
+  }
+  __syncthreads();
+  const float r = rsqrtf(part[0] / static_cast<float>(d) + eps);
+
+  // each thread re-reads only the vectors of s it stored itself
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    float v[V], sc[V], o[V];
+    rt::load_vec(s + off + i * V, v);
+    rt::load_vec(w + i * V, sc);
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = rt::to_f(rt::from_f<T>(v[j] * r)) * sc[j];
+    rt::store_vec(y + off + i * V, o);
+  }
+}
+
+template <typename T>
 cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
                    float eps, cudaStream_t stream) {
   const int nvec = d / rt::Vec<T>::n;
@@ -76,6 +131,18 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
   threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
   rmsnorm_kernel<T><<<static_cast<unsigned>(rows), threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), d, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t add_launch(const void* x, const void* res, const void* w, void* y, void* s,
+                       long long rows, int d, float eps, cudaStream_t stream) {
+  const int nvec = d / rt::Vec<T>::n;
+  int threads = (nvec + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  rmsnorm_add_kernel<T><<<static_cast<unsigned>(rows), threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const T*>(w),
+      static_cast<T*>(y), static_cast<T*>(s), d, eps);
   return cudaGetLastError();
 }
 
@@ -194,6 +261,19 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* y, long long r
   switch (dtype) {
     case rt::kBF16: return launch<__nv_bfloat16>(x, w, y, rows, d, eps, s);
     case rt::kF32: return launch<float>(x, w, y, rows, d, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x, res, y, s: [rows, d] contiguous; w: [d].  s = x + res, y = rmsnorm(s).
+extern "C" int rmsnorm_add_launch(const void* x, const void* res, const void* w, void* y,
+                                  void* s, long long rows, int d, float eps, int dtype,
+                                  void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case rt::kBF16: return add_launch<__nv_bfloat16>(x, res, w, y, s, rows, d, eps, st);
+    case rt::kF32: return add_launch<float>(x, res, w, y, s, rows, d, eps, st);
     default: return cudaErrorInvalidValue;
   }
 }

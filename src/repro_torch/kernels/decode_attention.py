@@ -8,7 +8,7 @@ kernel or raises; for CPU tensors it runs the plain version in `ref`.
 Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
-ragged tail.  Head dims 32, 64 and 128 are compiled.
+ragged tail.  Head dims 32, 64, 80 and 128 are compiled.
 
 The paged kernels read K/V row j of batch row b from
 `pages[block_table[b, j // page_size], :, j % page_size]`, any
@@ -28,7 +28,7 @@ import torch
 from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, sm_count, stream
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 TILE = 64           # K/V rows per tile in the kernels
 MAX_SPLITS = 64     # S ranges per (row, kv head) the decode merge takes
 

@@ -21,6 +21,7 @@ from ..core import tracer as xfa
 from ..core.device_fold import annotate_cost
 from . import decode_attention as _dec
 from . import flash_attention as _fa
+from . import mamba_scan as _ssd
 from . import ref
 from . import rmsnorm as _rms
 
@@ -133,6 +134,50 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
     return _rms.RMSNorm.apply(x, w, eps)
 
 
+def rmsnorm_add(x, residual, w, *, eps: float = 1e-5, impl: str = "auto",
+                component: str = "norm"):
+    """Fused residual add and RMSNorm: (rmsnorm(x + residual), x +
+    residual).  No model of either package calls it."""
+    annotate_cost(xfa.current_component(), component, "rmsnorm_add",
+                  flops=5.0 * x.numel(), bytes=3.0 * _bytes(x))
+    fn = ref.rmsnorm_add if _plain(impl, x) else _rms.rmsnorm_add
+    return fn(x, residual, w, eps=eps)
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, h0=None,
+             impl: str = "auto", component: str = "ssm"):
+    """Mamba2 SSD: x [B, L, H, P], dt [B, L, H], a [H], b/c [B, L, N];
+    h0 [B, H, N, P] the carried state (None = a fresh sequence), so a
+    prompt fed in chunks resumes where the previous chunk stopped.
+    Returns (y [B, L, H, P] in x's dtype, h_final [B, H, N, P] f32).
+
+    L is zero-padded to a multiple of `chunk`: dt = 0 rows decay by
+    exp(0) = 1 and inject 0, so the state and the real rows are
+    untouched.  The plain path is `ref.ssd_chunked`, as the reference's;
+    the kernel path forms dtx = dt·x rounded to x's dtype, as the
+    reference does before its Pallas kernel (`ref.ssd_scan`)."""
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    # 2 matmul pairs of [T,T]x[T,*] per chunk ~ 6*B*H*L*chunk*(N+P) flops
+    annotate_cost(xfa.current_component(), component, "ssd_scan",
+                  flops=float(6 * B * H * L * chunk * (N + P)),
+                  bytes=_bytes(x, dt, b, c) * 2)
+    pad = (-L) % chunk
+    if pad:
+        def zp(t):
+            return torch.cat([t, t.new_zeros((t.shape[0], pad)
+                                             + tuple(t.shape[2:]))], dim=1)
+        x, dt, b, c = zp(x), zp(dt), zp(b), zp(c)
+    if _plain(impl, x):
+        y, h = ref.ssd_chunked(x, dt, a, b, c, chunk=chunk, h0=h0)
+    else:
+        y, h = _ssd.ssd_scan(x.contiguous(), dt, a, b.contiguous(),
+                             c.contiguous(), chunk=chunk, h0=h0)
+    if pad:
+        y = y[:, :L]
+    return y, h
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the counters were last reset."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
@@ -147,4 +192,4 @@ def reset_launch_counts() -> None:
 _KERNELS = (_rms.rmsnorm, _dec.decode_attention, _dec.chunk_attention,
             _dec.decode_attention_paged, _dec.chunk_attention_paged,
             _fa.flash_attention, _fa.flash_attention_backward,
-            _rms.rmsnorm_backward)
+            _rms.rmsnorm_backward, _rms.rmsnorm_add, _ssd.ssd_scan)

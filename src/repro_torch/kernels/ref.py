@@ -10,11 +10,17 @@ finite NEG_INF mask gives the mean of v.
 
 The backward passes (`attention_backward`, `rmsnorm_backward`) compute
 in f32 and return gradients in the inputs' dtypes.
+
+The Mamba2 SSD scan has three plain versions: `ssd_naive` (the
+step-by-step recurrence) and `ssd_chunked` (the chunked algorithm) as the
+reference writes them, and `ssd_scan`, the function the CUDA kernel
+computes: `ssd_chunked` with dt·x rounded to x's dtype first, as the
+reference's `ops.ssd_scan` rounds it before its Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -237,3 +243,104 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
     dw = (dyf * xhat.to(x.dtype).float()).sum(dim=0)
     return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
+
+
+def rmsnorm_add(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused residual add and RMSNorm: s = x + residual in x's dtype,
+    returns (rmsnorm(s, w), s), as the reference's `ops.rmsnorm_add`
+    computes it on its plain path."""
+    s = x + residual.to(x.dtype)
+    return rmsnorm(s, w, eps=eps), s
+
+
+# ----------------------------------------------------------- mamba2 SSD ----
+def ssd_naive(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, *,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential Mamba2 SSD recurrence, step by step (the ground
+    truth).  x: [B, L, H, P]; dt: [B, L, H] (softplus'd, >= 0); a: [H]
+    (negative); b, c: [B, L, N] (one group); h0: [B, H, N, P] (None =
+    zeros).  Computes in f32; returns (y [B, L, H, P] in x's dtype,
+    h_final [B, H, N, P] f32)."""
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    af = a.float()
+    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float().clone())
+    ys = []
+    for t in range(L):
+        decay = torch.exp(af[None, :] * dtf[:, t])                 # [B, H]
+        dbx = torch.einsum("bh,bn,bhp->bhnp", dtf[:, t], bf[:, t], xf[:, t])
+        h = decay[..., None, None] * h + dbx
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def _ssd_chunks(dtx: torch.Tensor, ldec: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, chunk: int, h0: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD in f32 from dtx [B, L, H, P] and ldec [B, L, H]
+    (both f32): within a chunk a masked (C B^T * decay) @ dtx product,
+    across chunks the state recurrence.  Returns (y f32, h_final f32)."""
+    B, L, H, P = dtx.shape
+    N = b.shape[-1]
+    if L % chunk:
+        raise ValueError(f"L = {L} is not a multiple of chunk = {chunk}")
+    nc = L // chunk
+    dtx = dtx.reshape(B, nc, chunk, H, P)
+    bf = b.float().reshape(B, nc, chunk, N)
+    cf = c.float().reshape(B, nc, chunk, N)
+    cum = torch.cumsum(ldec.reshape(B, nc, chunk, H), dim=2)     # inclusive
+    # intra-chunk: y[i] = sum_{j<=i} exp(cum[i]-cum[j]) (c_i . b_j) dtx[j];
+    # the mask is applied before the exponential (cum[i]-cum[j] > 0 for
+    # j > i could overflow)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,nc,T,T,H]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=dtx.device).tril()[None, None, :, :, None]
+    m = torch.exp(torch.where(tri, seg, float("-inf")))
+    g = torch.einsum("bktn,bksn->bkts", cf, bf)                  # [B,nc,T,T]
+    y = torch.einsum("bktsh,bkshp->bkthp", g[..., None] * m, dtx)
+    # inter-chunk: the state before each chunk, then its contribution
+    decay = torch.exp(cum[:, :, -1])                             # [B,nc,H]
+    w = torch.exp(cum[:, :, -1:] - cum)                          # [B,nc,T,H]
+    s_in = torch.einsum("bktn,bkthp->bkhnp", bf, w[..., None] * dtx)
+    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=dtx.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(h)
+        h = decay[:, k, :, None, None] * h + s_in[:, k]
+    h_prev = torch.stack(h_prev, dim=1)                          # [B,nc,H,N,P]
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bktn,bkhnp->bkthp", cf, h_prev)
+    return y.reshape(B, L, H, P), h
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD (Mamba2's state-space dual algorithm), computing in
+    f32: dtx = dt·x and ldec = a·dt unrounded.  Shapes as `ssd_naive`;
+    L a multiple of `chunk`.  Returns (y in x's dtype, h_final f32)."""
+    dtf = dt.float()
+    y, h = _ssd_chunks(dtf[..., None] * x.float(),
+                       a.float()[None, None, :] * dtf, b, c, chunk, h0)
+    return y.to(x.dtype), h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The function of the SSD kernel: `ssd_chunked` with dtx = dt·x
+    formed in f32 and rounded to x's dtype (the reference's `ops.ssd_scan`
+    rounds it so before its Pallas kernel), ldec = a·dt in f32.  In f32
+    it equals `ssd_chunked`."""
+    dtf = dt.float()
+    dtx = (dtf[..., None] * x.float()).to(x.dtype).float()
+    y, h = _ssd_chunks(dtx, a.float()[None, None, :] * dtf, b, c, chunk, h0)
+    return y.to(x.dtype), h

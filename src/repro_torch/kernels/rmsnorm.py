@@ -1,7 +1,8 @@
 """RMSNorm and its gradient: the CUDA kernels' wrappers (csrc/rmsnorm.cu).
 
 `rmsnorm` replaces the Pallas TPU kernel `repro/kernels/rmsnorm.py::
-rmsnorm`; `rmsnorm_backward` is its gradient, which the Pallas kernel does
+rmsnorm` and `rmsnorm_add` its fused residual twin `::rmsnorm_add`;
+`rmsnorm_backward` is its gradient, which the Pallas kernel does
 not have.  `RMSNorm` is the autograd Function that pairs them.  For a
 CUDA tensor a wrapper launches its kernel or raises; for a CPU tensor it
 runs the plain version (`ref.rmsnorm`, `ref.rmsnorm_backward`).  Each
@@ -41,6 +42,38 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_add(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-5):
+    """x, residual: [..., D]; w: [D] -> (rmsnorm(s), s) with s = x +
+    residual, both in x's dtype."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_add(x, residual, w, eps=eps)
+    check_cuda(x, "rmsnorm_add")
+    D = x.shape[-1]
+    w = w.to(x.dtype)
+    if residual.shape != x.shape or residual.dtype != x.dtype \
+            or residual.device != x.device or w.device != x.device \
+            or not (x.is_contiguous() and residual.is_contiguous()
+                    and w.is_contiguous()) or w.shape != (D,):
+        raise ValueError(f"rmsnorm_add kernel needs contiguous x, residual "
+                         f"[..., {D}] of one dtype and w [{D}] on one "
+                         f"device, got {tuple(x.shape)} {x.dtype} / "
+                         f"{tuple(residual.shape)} {residual.dtype} / "
+                         f"{tuple(w.shape)}")
+    check_vectors(D, x, residual, w)
+    y, s = torch.empty_like(x), torch.empty_like(x)
+    err = build.load("rmsnorm").rmsnorm_add_launch(
+        x.data_ptr(), residual.data_ptr(), w.data_ptr(), y.data_ptr(),
+        s.data_ptr(), x.numel() // max(D, 1), D, float(eps),
+        DTYPES[x.dtype], stream(x))
+    build.check(err, "rmsnorm_add")
+    rmsnorm_add.launches += 1
+    return y, s
+
+
+rmsnorm_add.launches = 0
 
 
 def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,

@@ -14,7 +14,9 @@ on its background thread — the latency-under-load run.
         --smoke --device cpu --mode open --rate 4 --requests 32
 
 Paged KV-cache pool: --max-cache-pages N pages of --page-size rows
-(page 0 is reserved scratch), admission gated by free pages.
+(page 0 is reserved scratch), admission gated by free pages.  A family
+without paged entry points (the hybrid) serves the contiguous cache, as
+the reference does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \
         --requests 16 --max-batch 8 --max-seq 2048 \

@@ -7,7 +7,9 @@
         their own backward passes)
     model.batch_spec(shape)                     -> {name: (shape, dtype)}
         of a training batch for a ShapeConfig
-    model.init_cache(batch, max_len)            -> {"k", "v"} [L,B,Hkv,S,h]
+    model.init_cache(batch, max_len)            -> the serving cache: dense
+        {"k", "v"} [L,B,Hkv,S,h]; hybrid {"ssm": {"conv", "h"},
+        "attn_k", "attn_v"} (batch axis 1 in every leaf)
     model.forward_chunk(params, tokens, table, cache, pos[, valid])
                                                 -> (logits, cache, table)
         THE serving entry point: tokens [B, T] written at per-slot cache
@@ -24,11 +26,14 @@
         the same steps against a page arena: block_table [B, NB] int32
         maps row b's virtual page i to arena page block_table[b, i]
         (page 0 is reserved scratch); the engine's paged pool
-        (ServeConfig.max_cache_pages > 0) runs through these.
+        (ServeConfig.max_cache_pages > 0) runs through these.  None for
+        the hybrid family, as in the reference: its recurrent state is
+        O(1) in sequence length, and the engine keeps the dense layout.
     model.table()                               -> None (device fold not
                                                    ported yet)
 
-Only family="dense" is ported; the other families raise
+Ported families: "dense" (serving and training) and "hybrid" (serving
+only: its loss_fn raises NotImplementedError).  The other families raise
 NotImplementedError.
 """
 
@@ -41,7 +46,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels.ops import IMPLS
-from . import transformer
+from . import mamba, transformer
 from .layers import Runtime
 
 
@@ -55,9 +60,9 @@ class Model:
     forward_chunk: Callable
     prefill: Callable
     decode_step: Callable
-    init_paged_cache: Callable
-    forward_chunk_paged: Callable
-    decode_step_paged: Callable
+    init_paged_cache: Optional[Callable]
+    forward_chunk_paged: Optional[Callable]
+    decode_step_paged: Optional[Callable]
 
     @property
     def device(self) -> torch.device:
@@ -93,50 +98,60 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     """impl: 'auto' (kernels on CUDA, plain versions on the CPU),
     'kernel' or 'ref'; device: None means cuda."""
     cfg = cfg.validate()
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense "
-            f"only; see ROADMAP.md)")
+            f"family {cfg.family!r} is not ported to PyTorch yet (dense and "
+            f"hybrid only; see ROADMAP.md)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     rt = Runtime(cfg=cfg, device=resolve_device(device), impl=impl)
+    mod = transformer if cfg.family == "dense" else mamba
 
     def init(seed: int = 0):
-        return transformer.init_params(cfg, seed, rt.device)
+        return mod.init_params(cfg, seed, rt.device)
 
     def loss_fn(params, batch, table):
+        if mod is mamba:
+            raise NotImplementedError(
+                "training the hybrid family is not ported yet (serving "
+                "only; ROADMAP.md)")
         return transformer.loss_fn(params, batch, rt, table)
 
     def init_cache(batch, max_len):
-        return transformer.init_cache(cfg, batch, max_len, rt.device)
+        return mod.init_cache(cfg, batch, max_len, rt.device)
 
     def forward_chunk(params, tokens, table, cache, pos, valid=None):
-        return transformer.forward_chunk(params, tokens, rt, table, cache,
-                                         pos, valid=valid)
+        return mod.forward_chunk(params, tokens, rt, table, cache, pos,
+                                 valid=valid)
 
     def prefill(params, batch, table, cache):
         tokens = torch.as_tensor(batch["tokens"], device=rt.device)
-        return transformer.prefill(params, tokens, rt, table, cache)
+        return mod.prefill(params, tokens, rt, table, cache)
 
     def decode_step(params, token, table, cache, pos):
-        return transformer.decode_step(params, token, rt, table, cache, pos)
+        return mod.decode_step(params, token, rt, table, cache, pos)
 
-    def init_paged_cache(pages, page_size):
-        return transformer.init_paged_cache(cfg, pages, page_size, rt.device)
+    paged: Dict[str, Optional[Callable]] = dict.fromkeys(
+        ("init_paged_cache", "forward_chunk_paged", "decode_step_paged"))
+    if mod is transformer:
+        def init_paged_cache(pages, page_size):
+            return transformer.init_paged_cache(cfg, pages, page_size,
+                                                rt.device)
 
-    def forward_chunk_paged(params, tokens, table, cache, pos, block_table,
-                            valid=None):
-        return transformer.forward_chunk_paged(params, tokens, rt, table,
-                                               cache, pos, block_table,
-                                               valid=valid)
+        def forward_chunk_paged(params, tokens, table, cache, pos,
+                                block_table, valid=None):
+            return transformer.forward_chunk_paged(
+                params, tokens, rt, table, cache, pos, block_table,
+                valid=valid)
 
-    def decode_step_paged(params, token, table, cache, pos, block_table):
-        return transformer.decode_step_paged(params, token, rt, table, cache,
-                                             pos, block_table)
+        def decode_step_paged(params, token, table, cache, pos, block_table):
+            return transformer.decode_step_paged(params, token, rt, table,
+                                                 cache, pos, block_table)
+
+        paged = {"init_paged_cache": init_paged_cache,
+                 "forward_chunk_paged": forward_chunk_paged,
+                 "decode_step_paged": decode_step_paged}
 
     return Model(cfg=cfg, rt=rt, init=init, loss_fn=loss_fn,
-                 init_cache=init_cache,
-                 forward_chunk=forward_chunk, prefill=prefill,
-                 decode_step=decode_step, init_paged_cache=init_paged_cache,
-                 forward_chunk_paged=forward_chunk_paged,
-                 decode_step_paged=decode_step_paged)
+                 init_cache=init_cache, forward_chunk=forward_chunk,
+                 prefill=prefill, decode_step=decode_step, **paged)

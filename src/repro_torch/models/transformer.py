@@ -37,15 +37,20 @@ from .layers import (Params, Runtime, attention, cross_entropy, embed,
                      init_kv_cache, last_valid, lm_head, mlp, norm,
                      torch_dtype)
 
-#: init scale marker: ones (norm scales) instead of a scaled normal
-ONES = "ones"
+#: init markers: a constant fill in place of a scaled normal draw
+ONES = ("fill", 1.0)
+ZEROS = ("fill", 0.0)
+#: dtype marker of a leaf kept in f32 whatever cfg.param_dtype is (the
+#: reference's Mamba2 a_log, dt_bias and d_skip)
+F32 = "float32"
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """Nested dict mirroring the params: each leaf is (shape, scale), with
     scale the normal's std (fan_in ** -0.5 by default, 1.0 for the
-    embedding — the reference's layers._init) or ONES for norm scales.
-    Stacked layer leaves carry the leading L."""
+    embedding — the reference's layers._init) or ONES for norm scales; a
+    third entry F32 keeps the leaf in f32 (`leaf_dtype`).  Stacked layer
+    leaves carry the leading L."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
                                   f"yet (dense only)")
@@ -84,19 +89,32 @@ def map_specs(fn, specs, path: str = ""):
     return fn(path, specs)
 
 
-def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> Params:
+def leaf_dtype(spec, cfg: ModelConfig) -> torch.dtype:
+    """The dtype of a spec leaf: f32 where it is marked F32, else
+    cfg.param_dtype."""
+    return torch.float32 if spec[2:] == (F32,) \
+        else torch_dtype(cfg.param_dtype)
+
+
+def init_from_specs(specs, cfg: ModelConfig, seed: int,
+                    device: torch.device) -> Params:
     """Seeded random params with the reference's distributions: normal
-    draws in f32 times the leaf's scale, cast to cfg.param_dtype."""
+    draws in f32 times the leaf's scale, or the leaf's constant fill, in
+    the leaf's dtype."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    dtype = torch_dtype(cfg.param_dtype)
 
     def leaf(_, spec):
-        shape, scale = spec
-        if scale == ONES:
-            return torch.ones(shape, dtype=dtype, device=device)
+        shape, scale = spec[:2]
+        dtype = leaf_dtype(spec, cfg)
+        if isinstance(scale, tuple):
+            return torch.full(shape, scale[1], dtype=dtype, device=device)
         return (torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=device) * scale).to(dtype)
-    return map_specs(leaf, param_specs(cfg))
+    return map_specs(leaf, specs)
+
+
+def init_params(cfg: ModelConfig, seed: int, device: torch.device) -> Params:
+    return init_from_specs(param_specs(cfg), cfg, seed, device)
 
 
 def _layer(stack: Params, i: int) -> Params:

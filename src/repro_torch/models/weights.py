@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import Params, torch_dtype
-from .transformer import map_specs, param_specs
+from . import mamba, transformer
+from .layers import Params
+from .transformer import leaf_dtype, map_specs
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -43,14 +44,22 @@ def to_tensor(arr: Array, dtype_name: str = "") -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))
 
 
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The spec tree of a ported family's params."""
+    if cfg.family == "hybrid":
+        return mamba.param_specs(cfg)
+    return transformer.param_specs(cfg)
+
+
 def params_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,
                       device: Union[str, torch.device],
                       dtype: Optional[torch.dtype] = None) -> Params:
-    """Reference leaf names -> the port's params on `device`, in `dtype`
-    (default cfg.param_dtype).  Every leaf the config needs must be
-    present with its exact shape; a missing, extra or mis-shaped leaf
+    """Reference leaf names -> the port's params on `device`, each in
+    `dtype` or, by default, in its own dtype: cfg.param_dtype, except the
+    leaves the reference keeps in f32 whatever param_dtype is (the
+    hybrid's a_log, dt_bias, d_skip).  Every leaf the config needs must
+    be present with its exact shape; a missing, extra or mis-shaped leaf
     raises."""
-    dtype = dtype or torch_dtype(cfg.param_dtype)
     specs = param_specs(cfg)
     need = set()
 
@@ -62,7 +71,7 @@ def params_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,
         if tuple(t.shape) != tuple(spec[0]):
             raise ValueError(f"{path}: shape {tuple(t.shape)} != "
                              f"{tuple(spec[0])}")
-        return t.to(device=device, dtype=dtype)
+        return t.to(device=device, dtype=dtype or leaf_dtype(spec, cfg))
 
     params = map_specs(leaf, specs)
     extra = set(flat) - need

@@ -32,6 +32,12 @@ host.  On a CUDA device the engine synchronizes before a prefill chunk's
 end timestamp, so the `prefill_chunk` fold times the work, not the
 enqueue.
 
+A cache is a nested dict of tensors whose batch axis is BATCH_AXIS in
+every leaf (the dense KV rows; the hybrid's SSM state and shared-block
+KV); stashes gather, split and scatter leaf by leaf.  At admission a
+slot's stash is a fresh zero cache, so a recurrent family's state starts
+from zero.
+
 Paged KV-cache pool (ServeConfig.max_cache_pages > 0): the contiguous
 [max_batch, max_seq_len] cache becomes a fixed arena of pages plus
 per-slot block tables (paging.PageAllocator owns the accounting).
@@ -42,7 +48,8 @@ page boundaries, recycled at finish.  Prefill groups and the decode tick
 write straight into the shared arena through the tables (no batch=1
 stashes, no scatter); the tables stay on the host as numpy and cross to
 the device once per forward call.  Pages in use, their high-water mark
-and the capacity fold as `serve.cache_pages_*` gauges.
+and the capacity fold as `serve.cache_pages_*` gauges.  A model without
+paged entry points (the hybrid family) keeps the contiguous cache.
 
 Not ported yet: the fleet collector stream (ServeConfig.xfa_collector)
 raises NotImplementedError.
@@ -77,12 +84,16 @@ from ..configs.base import ServeConfig
 from ..core import tracer as xfa
 from ..core.shadow import KIND_WAIT
 from ..models.api import Model
+from ..tree import leaves_with_path, tree_map
 
 from .paging import PageAllocator
 from .sampling import GREEDY, PooledSampler, SamplingParams
 from .scheduler import Scheduler
 
-#: batch axis of every cache leaf ([L, B, Hkv, S, h] KV rows)
+#: batch axis of every cache leaf of the ported families: the dense KV
+#: rows [L, B, Hkv, S, h]; the hybrid's conv tails [L, B, K-1, ch], SSD
+#: states [L, B, H, N, P] and shared-block KV [n_super, B, Hkv, S, h]
+#: (checked when the engine builds its pool)
 BATCH_AXIS = 1
 
 
@@ -142,9 +153,10 @@ class Request:
 
 
 def _scatter_slot(pool, one, slot_idx: int) -> None:
-    """Copy a batch=1 cache into row `slot_idx` of the pool, in place."""
-    for name, p in pool.items():
-        p.narrow(BATCH_AXIS, slot_idx, 1).copy_(one[name])
+    """Copy a batch=1 cache (a nested dict of tensors) into row
+    `slot_idx` of the pool, leaf by leaf, in place."""
+    tree_map(lambda p, o: p.narrow(BATCH_AXIS, slot_idx, 1).copy_(o),
+             pool, one)
 
 
 class ServingEngine:
@@ -166,8 +178,11 @@ class ServingEngine:
         self.table = model.table()
         # paged pool: a page arena + per-slot block tables in place of the
         # contiguous [max_batch, max_seq_len] cache, admission gated by
-        # free pages
-        self.paged = scfg.max_cache_pages > 0
+        # free pages.  A family without paged entry points (the hybrid:
+        # its recurrent state is O(1) in sequence length) keeps the dense
+        # layout even when max_cache_pages is set, as in the reference.
+        self.paged = bool(scfg.max_cache_pages > 0
+                          and model.forward_chunk_paged is not None)
         self.allocator = None
         if self.paged:
             self.allocator = PageAllocator(scfg.max_cache_pages,
@@ -184,6 +199,11 @@ class ServingEngine:
             self.scheduler.page_gate = self._page_gate
         else:
             self.cache = model.init_cache(scfg.max_batch, scfg.max_seq_len)
+            for path, leaf in leaves_with_path(self.cache):
+                if leaf.shape[BATCH_AXIS] != scfg.max_batch:
+                    raise ValueError(
+                        f"cache leaf {path} {tuple(leaf.shape)}: the "
+                        f"engine takes the batch on axis {BATCH_AXIS}")
             self._decode = model.decode_step
             self._chunk = model.forward_chunk
         # (batch bucket, width) pairs scheduled so far — bounded
@@ -444,14 +464,13 @@ class ServingEngine:
         if len(stashes) == 1 and pad == 0:
             return stashes[0]
         parts = stashes + ([self._pad_stash(pad)] if pad else [])
-        return {name: torch.cat([s[name] for s in parts], dim=BATCH_AXIS)
-                for name in parts[0]}
+        return tree_map(lambda *ls: torch.cat(ls, dim=BATCH_AXIS), *parts)
 
     def _take_row(self, gathered, row: int):
         """Row `row` of a gathered stash as a batch=1 cache (a copy, so a
         live slot stash never aliases the gathered buffer)."""
-        return {name: t.narrow(BATCH_AXIS, row, 1).clone()
-                for name, t in gathered.items()}
+        return tree_map(lambda t: t.narrow(BATCH_AXIS, row, 1).clone(),
+                        gathered)
 
     def _prefill_group(self, idxs: list, ns: list, width: int) -> None:
         """One batched prefill chunk: advance the B slots in `idxs` by
@@ -545,8 +564,9 @@ class ServingEngine:
             req.max_new_tokens = cap
             req.truncated = True
             xfa.count_event("serve", "clamped_max_new")
-        # paged pool: the slot writes straight into the shared arena
-        # through its block table, no batch=1 stash
+        # a fresh zero batch=1 stash (a recurrent family's SSM state
+        # starts from zero); the paged pool writes straight into the
+        # shared arena through the slot's block table, no stash
         self.scheduler.bind(slot_idx, req, pos=0, pending=prompt,
                             stash=None if self.paged
                             else model.init_cache(1, scfg.max_seq_len))

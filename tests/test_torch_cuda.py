@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rms
 
@@ -63,6 +64,7 @@ def test_rmsnorm_kernel(dtype, shape):
     (4, 32, 4, 2048, 64),      # the serving shape (GQA, G = 8)
     (3, 8, 1, 1000, 32),       # MQA, S no tile divides
     (2, 4, 4, 130, 128),       # MHA, wide head
+    (4, 32, 32, 2048, 80),     # zamba2's shared block: MHA, head dim 80
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -88,6 +90,8 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (2, 32, 4, 8, 2048, 64),     # a short continuation chunk
     (2, 6, 2, 67, 300, 32),      # ragged T and S
     (1, 2, 2, 5, 77, 128),
+    (2, 32, 32, 512, 2048, 80),  # zamba2's shared block: MHA, head dim 80
+    (2, 4, 4, 67, 300, 80),
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -131,6 +135,7 @@ def scrubbed(pages):
     (4, 32, 4, 128, 16, 64),   # a tile spans four pages
     (3, 8, 1, 8, 128, 32),     # MQA, a page spans two tiles
     (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
+    (2, 8, 8, 5, 64, 80),      # head dim 80 (the shared template)
 ])
 def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     rng = np.random.default_rng(4)
@@ -161,6 +166,7 @@ def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     (2, 32, 4, 8, 128, 16, 64),    # a short chunk, four pages per tile
     (2, 6, 2, 67, 3, 128, 32),     # ragged T, a page spans two tiles
     (2, 2, 2, 5, 11, 16, 128),
+    (2, 8, 8, 67, 5, 64, 80),      # head dim 80 (the shared template)
 ])
 def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
     rng = np.random.default_rng(5)
@@ -408,3 +414,105 @@ def test_train_step_on_the_card_matches_the_plain_path():
     for (name, a), (_, b) in zip(gk, gr):
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         assert rel < 1e-4, (name, rel)
+
+
+# -------------------------------------------------------- hybrid kernels ----
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (2, 512, 80, 64, 64, 128),   # zamba2's serving shape (two rows)
+    (2, 64, 8, 32, 16, 32),      # the smoke config: chunk 32
+    (3, 48, 4, 64, 64, 16),      # chunk 16
+    (2, 9, 3, 64, 32, 3),        # an odd chunk
+])
+def test_ssd_scan_kernel(dtype, with_h0, B, L, H, P, N, chunk):
+    """The SSD kernel against its plain version (ref.ssd_scan): y to the
+    dtype's tolerance, in f32 with the absolute part scaled by max |y|
+    (an output sums up to 128 + N products of its row's scale, and one
+    near zero carries the rounding of those terms, not of itself); the
+    f32 state h to 1e-3 abs + rel (f32 in both, from the same rounded
+    inputs: they differ by the order of sums over L steps, a few ulp of
+    values up to ~20)."""
+    rng = np.random.default_rng(6)
+    x = arr(rng, B, L, H, P, dtype=dtype)
+    b, c = arr(rng, B, L, N, dtype=dtype), arr(rng, B, L, N, dtype=dtype)
+    dt = torch.nn.functional.softplus(
+        arr(rng, B, L, H, dtype=torch.float32) - 2)
+    a = -torch.exp(0.5 * arr(rng, H, dtype=torch.float32))
+    h0 = arr(rng, B, H, N, P, dtype=torch.float32) if with_h0 else None
+    before = ms.ssd_scan.launches
+    y, h = ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    y_r, h_r = ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    assert ms.ssd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    scale = y_r.float().abs().max().item() if dtype == torch.float32 else 1.0
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_r.float().cpu().numpy(),
+                               atol=tol(dtype) * scale, rtol=tol(dtype))
+    np.testing.assert_allclose(h.cpu().numpy(), h_r.cpu().numpy(),
+                               atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take():
+    rng = np.random.default_rng(7)
+    x = arr(rng, 1, 32, 2, 48, dtype=torch.float32)       # P = 48
+    b = arr(rng, 1, 32, 16, dtype=torch.float32)
+    dt = arr(rng, 1, 32, 2, dtype=torch.float32).abs()
+    a = -torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="compiles"):
+        ms.ssd_scan(x, dt, a, b, b, chunk=16)
+    x = arr(rng, 1, 32, 2, 32, dtype=torch.float32)
+    with pytest.raises(ValueError, match="chunk"):
+        ms.ssd_scan(x, dt, a, b, b, chunk=12)               # 12 does not divide 32
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 512, 2560), (3, 40), (2, 5, 128)])
+def test_rmsnorm_add_kernel(dtype, shape):
+    rng = np.random.default_rng(8)
+    x, r = arr(rng, *shape, dtype=dtype), arr(rng, *shape, dtype=dtype)
+    w = arr(rng, shape[-1], dtype=dtype)
+    before = rms.rmsnorm_add.launches
+    (y, s), (y_r, s_r) = rms.rmsnorm_add(x, r, w), ref.rmsnorm_add(x, r, w)
+    assert rms.rmsnorm_add.launches == before + 1
+    close(s, s_r, dtype)
+    close(y, y_r, dtype)
+
+
+def test_hybrid_engine_on_the_card_matches_the_plain_path():
+    """The hybrid smoke model (f32) served on the card through the kernels
+    gives the same greedy tokens as the plain versions on the card; the
+    kernels of its path (ssd_scan, rmsnorm, chunk and decode attention)
+    were launched, the paged pair never (max_cache_pages keeps the dense
+    layout)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_smoke("zamba2_2_7b")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (3, 17, 40, 9)]
+    outs = {}
+    for impl, pages in (("kernel", 0), ("kernel", 40), ("ref", 0)):
+        model = build_model(cfg, impl=impl, device="cuda")
+        engine = ServingEngine(model, model.init(0), ServeConfig(
+            max_batch=3, max_seq_len=96, prefill_chunk=16, eos_token=-1,
+            min_chunk_bucket=4, page_size=8, max_cache_pages=pages))
+        assert not engine.paged
+        ops.reset_launch_counts()
+        reqs = [engine.submit(p, 6) for p in prompts]
+        engine.run_until_drained()
+        outs[impl, pages] = [r.output for r in reqs]
+        counts = ops.launch_counts()
+        if impl == "kernel":
+            assert all(counts[n] > 0 for n in (
+                "ssd_scan", "rmsnorm", "chunk_attention",
+                "decode_attention")), counts
+            assert counts["chunk_attention_paged"] == 0 \
+                and counts["decode_attention_paged"] == 0, counts
+        else:
+            assert not any(counts.values()), counts
+    assert len({str(o) for o in outs.values()}) == 1, outs

@@ -199,4 +199,4 @@ class TestDispatch:
             trms.check_cuda(torch.zeros(2), "rmsnorm")
         with pytest.raises(ValueError, match="multiple of 8"):
             trms.check_vectors(12, torch.zeros(12, dtype=torch.bfloat16))
-        assert tdec.HEAD_DIMS == (32, 64, 128)
+        assert tdec.HEAD_DIMS == (32, 64, 80, 128)

@@ -184,7 +184,7 @@ def test_params_from_numpy_is_strict():
 
 def test_other_families_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(torch_smoke("zamba2_2_7b"), device="cpu")
+        build_model(torch_smoke("xlstm_1_3b"), device="cpu")
 
 
 def test_cuda_is_the_default_and_never_falls_back():
