@@ -38,11 +38,15 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   3b. train kernels  the training kernels against their plain versions:
               flash attention forward and backward at the training shape
               (q [4,32,2048,64], k/v [4,4,2048,64], bf16, causal), plus a
-              ragged (S = 2000), a non-causal Sq != Sk and a softcap case
-              for correctness, and the rmsnorm backward at x [4,2048,2048];
-              timed beside their plain versions, one PyTorch library call
-              each (SDPA and its autograd backward, F.rms_norm's backward)
-              and their bounds
+              ragged (S = 2000), a non-causal Sq != Sk, a softcap, a G = 5
+              head-dim-128 (q [1,40,1024,128], k/v [1,8,1024,128]) and an
+              explicit sm_scale 0.0917 case for correctness, and the
+              rmsnorm backward at x [4,2048,2048]; timed beside their plain
+              versions, one PyTorch library call each (SDPA and its
+              autograd backward, F.rms_norm's backward) and their bounds,
+              with the flash kernels' TFLOP/s and share of the bound; both
+              flash kernels also timed beside SDPA at q [1,40,2048,128],
+              k/v [1,8,2048,128] causal (a log line)
   6. train    full-width tinyllama_1_1b (22 layers, bf16, the config's own
               remat) trained for TRAIN_STEPS steps of batch 4 x 2048 from
               SyntheticLMData through the port's Trainer, launch counters
@@ -52,7 +56,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               equal state; then one loss_fn + backward at batch 1 x 1024
               with the kernels and with the plain versions, the loss and
               every gradient leaf compared; a torch.profiler window over
-              one more step (device time by kernel, busy share)
+              one more step (device time by kernel, busy share, the flash
+              kernels' share of device time)
   7. profile  a torch.profiler window over a short second serving run: the
               device time by kernel and the device's busy share
   3c. hybrid kernels  the kernels of the hybrid path at its shapes: the
@@ -89,6 +94,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,6 +139,10 @@ TRAIN_STEPS = 6
 #: kernels of the training path (their launches come from phase 6)
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward",
                  "rmsnorm_backward")
+#: the flash kernels' device symbols (flash_attention.cu), for their share
+#: of the train step's device time
+FLASH_KERNEL_NAMES = ("fwd_kernel", "dkdv_kernel", "dq_kernel",
+                      "flash_delta_kernel")
 #: kernels of the hybrid path only (their launches come from phase 8)
 HYBRID_KERNELS = ("ssd_scan",)
 #: the kernel no model calls in either package: launches from phase 3c
@@ -168,10 +179,9 @@ def main() -> None:
     paths = build.build()
     log(f"[build] {len(paths)} libraries in {time.monotonic() - t0:.1f}s")
     for name in paths:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or (
-                    "spill" in line and " 0 bytes spill" not in line):
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, regs, spills in ptxas_report(build.build_log(name)):
+            log(f"[build] {name}: {kernel}: {regs} registers, {spills} bytes "
+                f"spill stores")
 
     kernels = check_kernels(torch) + check_train_kernels(torch)
     hybrid_entries, pathless_counts = check_hybrid_kernels(torch, kernels)
@@ -202,7 +212,9 @@ def main() -> None:
         f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
         f"{json.dumps(counts)}, paged {json.dumps(paged_counts)}; trained "
         f"{train['step_ms']:.1f} ms/step, {train['tok_s']:.0f} tok/s, MFU "
-        f"{100 * train['mfu']:.2f}%, launches {json.dumps(train_counts)}; "
+        f"{100 * train['mfu']:.2f}%, busy {100 * train['busy']:.1f}%, flash "
+        f"{100 * train['flash_share']:.1f}% of device time, launches "
+        f"{json.dumps(train_counts)}; "
         f"hybrid served {hybrid['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{hybrid['ttft_mean_s'] * 1e3:.1f} ms, decode gap "
         f"{hybrid['decode_s_per_tok'] * 1e3:.2f} ms/token, launches "
@@ -211,6 +223,32 @@ def main() -> None:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def ptxas_report(text: str):
+    """(kernel, registers, spill store bytes) of each entry function in
+    nvcc's -Xptxas -v report, names demangled where c++filt exists."""
+    entries, name, spills = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append([name, int(m.group(1)), spills])
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        out = subprocess.run([filt], input="\n".join(e[0] for e in entries),
+                             capture_output=True, text=True, timeout=60)
+        for e, full in zip(entries, out.stdout.splitlines()):
+            m = re.search(r"((?:\w+::)*\w+(?:<[^>]*>)?)\(", full)
+            e[0] = m.group(1) if m else full
+    return [tuple(e) for e in entries]
 
 
 def device_line() -> str:
@@ -516,15 +554,21 @@ def check_train_kernels(torch):
     B, Hq, Hkv, S, D = TRAIN_SHAPE
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     errs = {"fwd": [], "bwd": []}
-    # (what, B, Sq, Sk, causal, softcap): the training shape first
-    cases = [("training", B, S, S, True, 0.0),
-             ("ragged S=2000", 2, 2000, 2000, True, 0.0),
-             ("non-causal Sq=512 Sk=2048", 2, 512, 2048, False, 0.0),
-             ("softcap 30", 2, 1024, 1024, True, 30.0)]
-    for what, b, sq, sk, causal, cap in cases:
-        q, k, v, do = rnd(b, Hq, sq, D), rnd(b, Hkv, sk, D), \
-            rnd(b, Hkv, sk, D), rnd(b, Hq, sq, D)
-        opts = dict(causal=causal, logit_softcap=cap)
+    # (what, B, Hq, Hkv, Sq, Sk, D, causal, softcap, sm_scale): the
+    # training shape first
+    cases = [("training", B, Hq, Hkv, S, S, D, True, 0.0, None),
+             ("ragged S=2000", 2, Hq, Hkv, 2000, 2000, D, True, 0.0, None),
+             ("non-causal Sq=512 Sk=2048", 2, Hq, Hkv, 512, 2048, D, False,
+              0.0, None),
+             ("softcap 30", 2, Hq, Hkv, 1024, 1024, D, True, 30.0, None),
+             ("G=5 D=128 (qwen3 layout)", 1, 40, 8, 1024, 1024, 128, True,
+              0.0, None),
+             ("sm_scale 0.0917", 2, Hq, Hkv, 1024, 1024, D, True, 0.0,
+              0.0917)]
+    for what, b, hq, hkv, sq, sk, d, causal, cap, scale in cases:
+        q, k, v, do = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), \
+            rnd(b, hkv, sk, d), rnd(b, hq, sq, d)
+        opts = dict(causal=causal, logit_softcap=cap, sm_scale=scale)
         off = dict(q_offset=sk - sq if causal else 0)
         o, lse = fa.flash_attention(q, k, v, **opts)
         o_r, lse_r = ref.attention(q, k, v, return_lse=True, **opts, **off)
@@ -539,15 +583,14 @@ def check_train_kernels(torch):
             timed = (q, k, v, do, o, lse)
         del q, k, v, do, o, lse, o_r, lse_r, grads, want
         torch.cuda.empty_cache()
-    log(f"[train-kernels] flash forward max_abs_err per case "
-        f"{[f'{e:.3e}' for e in errs['fwd']]}, backward (dq, dk, dv per "
-        f"case) {[f'{e:.3e}' for e in errs['bwd']]}")
+    log(f"[train-kernels] flash cases {[c[0] for c in cases]}: forward "
+        f"max_abs_err per case {[f'{e:.3e}' for e in errs['fwd']]}, "
+        f"backward (dq, dk, dv per case) "
+        f"{[f'{e:.3e}' for e in errs['bwd']]}")
 
     q, k, v, do, o, lse = timed
     shape = f"q {B}x{Hq}x{S}x{D} kv {B}x{Hkv}x{S}x{D} causal"
-    pairs = B * Hq * S * (S + 1) / 2          # visible (query, key) pairs
-    fwd_ops = 4.0 * D * pairs                 # QK^T and PV
-    io = 2.0 * (q.numel() + 2 * k.numel())    # bf16 q, k, v
+    fwd_ops, io = flash_work(q, k)
     entries = [record_kernel(
         torch, flush, "flash_attention", src,
         "src/repro/kernels/flash_attention.py:94", shape, max(errs["fwd"]),
@@ -571,8 +614,13 @@ def check_train_kernels(torch):
         # dP recomputed, dV, dK, dQ: five products, 2.5x the forward's
         nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
         ops=2.5 * fwd_ops))
+    for e, ops in zip(entries, (fwd_ops, 2.5 * fwd_ops)):
+        log(f"[train-kernels] {e['name']} {shape}: {ops / e['ms'] / 1e9:.1f} "
+            f"TFLOP/s, {100 * e['bound_ms'] / e['ms']:.1f}% of its bound, "
+            f"{e['ms'] / e['library_ms']:.2f}x SDPA")
     del out, qq, kk, vv, timed, q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    time_flash_shape(torch, flush, rnd, 1, 40, 8, 2048, 128)
 
     # rmsnorm backward at the train phase's hidden states
     x, dy = rnd(B, S, 2048), rnd(B, S, 2048)
@@ -599,6 +647,50 @@ def check_train_kernels(torch):
     del x, dy, dx, dw, dx_r, dw_r, xx, ww, y, flush
     torch.cuda.empty_cache()
     return entries
+
+
+def flash_work(q, k):
+    """(FLOPs of the causal forward's QK^T and PV over the visible pairs,
+    bytes of bf16 q, k, v) for q [B, Hq, S, D], k [B, Hkv, S, D]."""
+    B, Hq, S, D = q.shape
+    pairs = B * Hq * S * (S + 1) / 2
+    return 4.0 * D * pairs, 2.0 * (q.numel() + 2 * k.numel())
+
+
+def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
+    """Phase 3b: both flash kernels at a second causal shape beside SDPA
+    (forward and autograd backward), with their TFLOP/s and share of the
+    bound, on a log line (the kernels line keeps TRAIN_SHAPE)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D), \
+        rnd(B, Hq, S, D)
+    o, lse = fa.flash_attention(q, k, v)
+    fwd_ops, io = flash_work(q, k)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                         enable_gqa=True)
+    rows = [("flash_attention", fwd_ops,
+             bound(io + 2.0 * o.numel() + 4.0 * lse.numel(), fwd_ops,
+                   "bfloat16")[0],
+             time_ms(torch, lambda: fa.flash_attention(q, k, v), flush),
+             time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True), flush)),
+            ("flash_attention_backward", 2.5 * fwd_ops,
+             bound(2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+                   2.5 * fwd_ops, "bfloat16")[0],
+             time_ms(torch, lambda: fa.flash_attention_backward(
+                 q, k, v, o, lse, do), flush),
+             time_ms(torch, lambda: torch.autograd.grad(
+                 out, (qq, kk, vv), do, retain_graph=True), flush))]
+    for name, ops, b_ms, ms, sdpa_ms in rows:
+        log(f"[train-kernels] {name} q {B}x{Hq}x{S}x{D} kv {B}x{Hkv}x{S}x{D} "
+            f"causal: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} ms), SDPA "
+            f"{sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x SDPA)")
+    del q, k, v, do, o, lse, qq, kk, vv, out
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- forward ----
@@ -976,7 +1068,14 @@ def train_phase(torch):
         state, _, _ = step_fn(state, batch, None)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    breakdown(p, wall_us, "train-profile", f"one step, batch {B} x {S}")
+    rows, busy = breakdown(p, wall_us, "train-profile",
+                           f"one step, batch {B} x {S}")
+    flash_us = sum(_dev_us(e) for e in rows
+                   if any(n in e.key for n in FLASH_KERNEL_NAMES))
+    stats["busy"] = busy / wall_us
+    stats["flash_share"] = flash_us / busy
+    log(f"[train-profile] flash kernels {flash_us / 1e3:.2f} ms, "
+        f"{100 * stats['flash_share']:.1f}% of device time")
     del state, trainer, p
     torch.cuda.empty_cache()
     grads_check(torch, cfg)
@@ -1351,9 +1450,9 @@ def hybrid_phase(torch):
     return counts, stats
 
 
-def breakdown(p, wall_us: float, tag: str, what: str) -> None:
+def breakdown(p, wall_us: float, tag: str, what: str):
     """Log a profiler window: device busy share, device time by kernel,
-    host self time by op."""
+    host self time by op.  Returns (the device rows, busy device us)."""
     rows = [e for e in p.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and _dev_us(e) > 0]
@@ -1372,6 +1471,7 @@ def breakdown(p, wall_us: float, tag: str, what: str) -> None:
                     reverse=True)[:8]:
         log(f"[{tag}] host {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:70]}")
+    return rows, busy
 
 
 def _dev_us(e) -> float:

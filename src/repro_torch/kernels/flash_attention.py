@@ -14,7 +14,8 @@ kernel launches, nothing else.
 Causal masking follows the reference oracle: query t sees columns
 <= t + Sk - Sq.  A row that sees no column (Sq > Sk) gives zeros and
 lse = -1e30.  S needs no tile multiple; head dims 32, 64 and 128 are
-compiled.
+compiled.  bf16 runs on the tensor cores (P and dS rounded to bf16 for
+their products, as FlashAttention-2 does), f32 on the FMA pipes in f32.
 """
 
 from __future__ import annotations

@@ -288,6 +288,10 @@ FLASH_CASES = [
     (1, 8, 2, 300, 130, 64, True, 0.0),       # causal Sq > Sk: masked rows
     (2, 8, 8, 100, 100, 64, True, 30.0),      # tanh softcap
     (1, 4, 4, 77, 77, 32, True, 0.0),
+    (1, 40, 8, 384, 384, 128, True, 0.0),     # G = 5 at D 128 (qwen3 layout)
+    (1, 36, 4, 301, 301, 128, True, 0.0),     # G = 9 at D 128, ragged
+    (1, 48, 1, 256, 256, 128, True, 0.0),     # G = 48 (MQA) at D 128
+    (1, 16, 2, 1024, 1024, 64, True, 0.0),    # many 128-row tiles on the diagonal
 ]
 
 
@@ -355,6 +359,33 @@ def test_flash_attention_function_matches_autograd():
         grads.append(torch.autograd.grad(fn(*ins), ins, do))
     for g, w in zip(*grads):
         close(g, w, torch.float32)
+
+
+def test_flash_attention_bf16_explicit_scale():
+    """bf16 with an sm_scale that is not a power of two (the kernels scale
+    S in f32, never q): the wrappers against the plain versions, and
+    FlashAttention (kernels both ways) against torch autograd through the
+    plain attention."""
+    from repro_torch.kernels import flash_attention as fa
+    dtype, scale = torch.bfloat16, 0.0917
+    rng = np.random.default_rng(11)
+    q, k, v = flash_inputs(rng, 2, 16, 4, 333, 333, 64, dtype)
+    do = arr(rng, 2, 16, 333, 64, dtype=dtype)
+    o, lse = fa.flash_attention(q, k, v, sm_scale=scale)
+    o_r, lse_r = ref.attention(q, k, v, sm_scale=scale, return_lse=True)
+    close(o, o_r, dtype)
+    close(lse, lse_r, dtype)
+    got = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, sm_scale=scale)
+    want = ref.attention_backward(q, k, v, o_r, lse_r, do, sm_scale=scale)
+    for g, w in zip(got, want):
+        close(g, w, dtype)
+    grads = []
+    for fn in (lambda *t: fa.FlashAttention.apply(*t, True, scale, 0.0),
+               lambda *t: ref.attention(*t, causal=True, sm_scale=scale)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, do))
+    for g, w in zip(*grads):
+        close(g, w, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
