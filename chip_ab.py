@@ -1,0 +1,223 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the repository on one NVIDIA GPU, in turns.
+
+Run from the root of a checkout, on a machine with one H100 and nvcc,
+with the root of a second checkout (for example the parent commit,
+unpacked with `git archive` into a directory .gitignore lists):
+
+    python3 chip_ab.py OTHER_ROOT [--phases kernels,groups,serve] [--pairs N]
+
+The phases run in a fresh process per checkout, N pairs of them (default
+2), the side that goes first alternating from pair to pair (other, this,
+this, other, ...), so that drift of the card and its host shows as a
+spread rather than as a difference.  A checkout builds its kernels from
+source in its first process.  Phases:
+
+  kernels  chunk attention (dense, and paged at page sizes 64 and 16) at
+           the shapes of chip_smoke.py phases 3 and 3c (bf16, B 8, S 2048:
+           Hq 32 / Hkv 4 / D 64 and Hq = Hkv = 32 / D 80, T 512 and T 8),
+           median of 20 launches with the L2 flushed, beside SDPA with a
+           boolean mask; paged output checked equal to the dense one
+  groups   the device time of one full-width prefill group (B 8 x T 512 at
+           the phase-3 offsets) for tinyllama_1_1b and zamba2_2_7b, by
+           torch.profiler, and the chunk-attention and SSD-scan kernels'
+           share of it
+  serve    chip_smoke.py's serve runs of the checkout (tinyllama on the
+           contiguous and the paged pool, zamba2): tok/s, TTFT p50 / p95,
+           the XFA prefill_chunk mean
+
+Prints one `RESULT <tag> ...` line per measurement and the card's name and
+power limit.  Exits non-zero if a process fails or there is no GPU.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("kernels", "groups", "serve")
+POS_T512 = [0, 512, 1024, 1536, 100, 700, 1300, 7]
+POS_T8 = [0, 5, 100, 1000, 2040, 333, 1500, 17]
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if args and args[0] == "--worker":
+        worker(Path(args[1]), args[2], args[3].split(","))
+        return
+    if not args:
+        sys.exit(__doc__)
+    other = Path(args[0]).resolve()
+    opts = dict(zip(args[1::2], args[2::2]))
+    phases = opts.get("--phases", ",".join(PHASES)).split(",")
+    pairs = int(opts.get("--pairs", 2))
+    if not (other / "chip_smoke.py").exists():
+        sys.exit(f"{other} is not a checkout of the repository")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    sides = (("other", other), ("this", ROOT))
+    order = [side for i in range(pairs)
+             for side in (sides[::-1] if i % 2 else sides)]
+    for tag, root in order:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--worker", str(root), tag, ",".join(phases)],
+                              cwd=root, capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("RESULT"):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            sys.exit(f"{tag} ({root}) failed:\n{proc.stderr[-4000:]}")
+    print(smi, flush=True)
+
+
+def worker(root: Path, tag: str, phases) -> None:
+    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for phase in phases:
+        {"kernels": kernels, "groups": groups, "serve": serve}[phase](
+            torch, tag)
+
+
+def result(tag: str, msg: str) -> None:
+    print(f"RESULT {tag} {msg}", flush=True)
+
+
+def time_ms(torch, fn, flush, iters: int = 20) -> float:
+    """Median device time of one call (CUDA events), L2 flushed before."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def arena(torch, k, ps, perm):
+    """The cache k [B, Hkv, S, D] as ps-row pages: row b's page j is arena
+    page perm[b, j]; page 0 holds large finite garbage."""
+    B, Hkv, S, D = k.shape
+    out = torch.full((1 + perm.numel(), Hkv, ps, D), 1e4, dtype=k.dtype,
+                     device=k.device)
+    out[perm.reshape(-1).long()] = k.reshape(B, Hkv, S // ps, ps, D) \
+        .transpose(1, 2).reshape(-1, Hkv, ps, D)
+    return out
+
+
+def kernels(torch, tag: str) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    B, S = 8, 2048
+    for Hq, Hkv, D in ((32, 4, 64), (32, 32, 80)):
+        for T, pos_l in ((512, POS_T512), (8, POS_T8)):
+            q, k, v = rnd(B, Hq, T, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
+            mask = (torch.arange(S, device=dev)[None, None, :]
+                    <= lim[:, :, None])[:, None]
+            dense = lambda: dec.chunk_attention(q, k, v, pos=pos)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+            o = dense()
+            msg = (f"chunk T{T} D{D} G{Hq // Hkv}: dense "
+                   f"{time_ms(torch, dense, flush):.4f} ms, sdpa "
+                   f"{time_ms(torch, sdpa, flush):.4f} ms")
+            for ps in (64, 16):
+                perm = (torch.randperm(B * S // ps, generator=gen, device=dev)
+                        + 1).to(torch.int32).reshape(B, S // ps)
+                kp, vp = arena(torch, k, ps, perm), arena(torch, v, ps, perm)
+                bt = perm.clone()
+                for b, p in enumerate(pos_l):
+                    bt[b, -(-(p + T) // ps):] = 0
+                run = lambda: dec.chunk_attention_paged(
+                    q, kp, vp, block_table=bt, pos=pos)
+                same = torch.equal(run(), o)
+                msg += (f", paged ps {ps} {time_ms(torch, run, flush):.4f} "
+                        f"ms (equal to dense: {same})")
+                del kp, vp
+            result(tag, msg)
+            del q, k, v, o
+
+
+def groups(torch, tag: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if getattr(e, attr, None):
+                return float(getattr(e, attr))
+        return 0.0
+
+    for arch in ("tinyllama_1_1b", "zamba2_2_7b"):
+        cfg = get_config(arch)
+        model = build_model(cfg, impl="auto", device="cuda")
+        params = model.init(0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        B, T = 8, 512
+        pos = torch.tensor(POS_T512, dtype=torch.int32, device="cuda")
+        tokens = torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        cache = model.init_cache(B, 2048)
+        for _ in range(2):
+            _, cache, _ = model.forward_chunk(params, tokens, None, cache, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            model.forward_chunk(params, tokens, None, cache, pos)
+            torch.cuda.synchronize()
+        rows = [e for e in p.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and dev_us(e) > 0]
+        part = lambda name: sum(dev_us(e) for e in rows if name in e.key)
+        result(tag, f"{arch} prefill group B{B} x T{T}: device busy "
+                    f"{sum(dev_us(e) for e in rows) / 1e3:.2f} ms, chunk "
+                    f"attention {part('chunk_kernel') / 1e3:.2f} ms, ssd_scan "
+                    f"{part('ssd_kernel') / 1e3:.2f} ms")
+        del model, params, cache
+        torch.cuda.empty_cache()
+
+
+def serve(torch, tag: str) -> None:
+    import chip_smoke as cs
+
+    for what, kw in (("serve", {}),
+                     ("paged", dict(page_size=64, max_cache_pages=257)),
+                     ("hybrid-serve", dict(arch="zamba2_2_7b"))):
+        engine, _, _, stats, edges = cs.serve_run(torch, what, **kw)
+        pc = edges["prefill_chunk"]
+        result(tag, f"{what}: {stats['throughput_tok_s']:.1f} tok/s, ttft "
+                    f"p50 {stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+                    f"{stats['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk "
+                    f"mean {pc.total_ns / pc.count / 1e6:.2f} ms x {pc.count},"
+                    f" decode {stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
+        del engine
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

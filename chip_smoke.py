@@ -15,12 +15,17 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               version at the serving shapes (bf16, Hq 32, Hkv 4, head 64,
               S 2048), with the times of the kernel, the plain version and
               one PyTorch library call (a yardstick the port never calls),
-              and the least time the card could take (the roofline bound);
-              the paged kernels over an arena of 257 pages of 64 rows
-              (block tables a random permutation of pages 1..256, scratch
-              page 0 full of large finite garbage), also timed beside the
-              dense kernel on the equivalent contiguous cache, plus a
-              page_size 16 correctness case
+              and the least time the card could take (the roofline bound),
+              with TFLOP/s, GB/s and the share of the bound; chunk
+              attention at T 512 and at T 8 deep in the cache (the split-
+              column path, which the planner must choose); the paged
+              kernels over an arena of 257 pages of 64 rows (block tables
+              a random permutation of pages 1..256, scratch page 0 full of
+              large finite garbage), also timed beside the dense kernel on
+              the equivalent contiguous cache, plus a page_size 16
+              correctness case (bf16 chunk attention copies pages by TMA
+              at 64 and gathers them at 16); paged chunk output must
+              equal the dense kernel's on the same K/V
   4. forward  full-width tinyllama_1_1b (22 layers, bf16, seeded random
               weights): one 512-token prefill chunk and one decode step
               with the kernels and with the plain versions, logits compared
@@ -64,7 +69,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               SSD scan (ssd_scan) at the serving shape (x [8,512,80,64]
               bf16, N 64, chunk 128) with and without a carried state, a
               padded case (L 300) and a small-chunk case (L 16); chunk and
-              decode attention at Hq = Hkv = 32, head dim 80; rmsnorm_add
+              decode attention at Hq = Hkv = 32, head dim 80, and paged
+              chunk attention there at page sizes 16 and 64; rmsnorm_add
               at [8,512,2560]; each against its plain version and timed
               beside it, its bound and (where one exists) a library call
   8. hybrid   full-width zamba2_2_7b (54 Mamba2 layers + a shared
@@ -81,8 +87,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               greedy tokens (the hybrid keeps the contiguous cache), and a
               torch.profiler window over a short third run
 
-It prints the kernels line ({"kernels": [...]}), the card's name and power
-limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
+It prints the kernels line ({"kernels": [...]}), a summary of each serve
+phase (tok/s, TTFT p50 / p95, the XFA prefill_chunk mean), the card's
+name and power limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
 come from the serving or training run of its own path; rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -207,6 +214,11 @@ def main() -> None:
         if k["launches"] <= 0:
             fail(f"kernel {name} was not launched on its path")
     log(json.dumps({"kernels": kernels}))
+    for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid)):
+        log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
+            f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
+            f"{st['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk mean "
+            f"{st['prefill_chunk_ms']:.2f} ms")
     log(f"[done] {time.monotonic() - t_start:.1f}s; served "
         f"{stats['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{stats['ttft_mean_s'] * 1e3:.1f} ms, launches "
@@ -301,7 +313,11 @@ def record_kernel(torch, flush, name, src, replaces, shape, err, fn, plain,
         f"{plain_ms:.4f} ms, library "
         f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
         + (f"dense kernel {dense_ms:.4f} ms, " if dense else "")
-        + f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}")
+        + f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e}; "
+        f"{ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{100 * b_ms / ms:.1f}% of its bound"
+        + (f", {ms / lib_ms:.2f}x the library call" if lib_ms else "")
+        + (f", {ms / dense_ms:.3f}x the dense kernel" if dense else ""))
     e = {"name": name, "route": "cuda", "source": src,
          "replaces": replaces, "launches": 0, "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -322,6 +338,32 @@ def max_err(torch, got, want, what: str) -> float:
         fail(f"{what}: kernel disagrees with its plain version (max abs "
              f"err {err.max().item():.3e}, tolerance {KERNEL_TOL} abs + rel)")
     return err.max().item()
+
+
+def chunk_work(pos_l, T: int, S: int, Hq: int, Hkv: int, D: int,
+               page: int = 0):
+    """Bytes and FLOPs of chunk attention (bf16) at offsets pos_l: q read
+    and o written, pos, each row's visible K/V once (and its table slots,
+    one int32 per page, when paged), Q K^T and P V over the visible
+    pairs."""
+    B = len(pos_l)
+    seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
+    rows = [min(p + T, S) for p in pos_l]
+    nbytes = 2.0 * 2 * B * Hq * T * D + 4 * B + sum(rows) * Hkv * D * 2 * 2
+    if page:
+        nbytes += 4 * sum(-(-n // page) for n in rows)
+    return {"nbytes": nbytes, "ops": 4.0 * Hq * D * seen}
+
+
+#: the keys of a kernels-line entry that a second shape of it keeps
+SUB_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
+def sub_entry(e):
+    """The numbers of a kernels-line entry at a second shape."""
+    return {key: e[key] for key in SUB_KEYS + (("dense_ms",)
+                                               if "dense_ms" in e else ())}
 
 
 # --------------------------------------------------------------- kernels ----
@@ -393,10 +435,18 @@ def check_kernels(torch):
         nbytes=2.0 * q.numel() * 2 + 4 * B + sum(lens) * Hkv * D * 2 * 2,
         ops=4.0 * sum(lens) * Hq * D))
 
-    # chunk_attention: a short continuation chunk and a full prefill chunk
+    # chunk_attention: a short continuation chunk deep in the cache (the
+    # split path: too few query tiles to fill the card) and a full
+    # prefill chunk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases, errs = [], []
     for T, pos_l in ((8, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
                      (512, [0, 512, 1024, 1536, 100, 700, 1300, 7])):
+        nsplit, cols = dec.chunk_splits(B, Hkv, Hq // Hkv, T, S, sms)
+        log(f"[kernel] chunk_attention T={T}: S cut into {nsplit} column "
+            f"range(s) of {cols} on {sms} SMs")
+        if T == 8 and nsplit == 1:
+            fail("chunk_attention T=8: the planner did not split the columns")
         qc = rnd(B, Hq, T, D)
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
         errs.append(max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
@@ -406,9 +456,9 @@ def check_kernels(torch):
         cmask = (torch.arange(S, device=dev)[None, None, :]
                  <= lim[:, :, None])[:, None]
         cases.append((T, pos_l, qc, pos, cmask))
+    timed = []
     for T, pos_l, qc, pos, cmask in cases:
-        seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
-        e = record(
+        timed.append(record(
             "chunk_attention",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:434",
@@ -418,10 +468,10 @@ def check_kernels(torch):
             (lambda: F.scaled_dot_product_attention(
                 qc, k, v, attn_mask=cmask, enable_gqa=True))
             if sdpa_gqa else None,
-            nbytes=2.0 * qc.numel() * 2 + 4 * B
-            + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
-            ops=4.0 * Hq * D * seen)
-    entries.append(e)       # the prefill chunk, T = 512
+            **chunk_work(pos_l, T, S, Hq, Hkv, D)))
+    short, e = timed
+    e["short_chunk"] = sub_entry(short)
+    entries.append(e)       # the prefill chunk, T = 512, with T = 8 inside
     entries += check_paged_kernels(torch, record, k, v, lens, cases)
     del flush
     torch.cuda.empty_cache()
@@ -469,7 +519,7 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     errs = {"decode": [], "chunk": []}
     arenas = {}
-    for ps in (PAGE, 16):
+    for ps in (PAGE, 16):   # bf16 chunk pages: by TMA at 64, gathered at 16
         nb = S // ps
         perm = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
             .to(torch.int32).reshape(B, nb)
@@ -486,11 +536,8 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
             fail("decode_attention_paged: the kv_len == 0 row is not zeros")
         for T, pos_l, qc, pos, _ in cases:
             btc = tables(torch, perm, ps, [p + T for p in pos_l])
-            errs["chunk"].append(max_err(
-                torch, dec.chunk_attention_paged(qc, kp, vp, block_table=btc,
-                                                 pos=pos),
-                ref.chunk_attention_paged(qc, kp, vp, block_table=btc,
-                                          pos=pos),
+            errs["chunk"].append(check_paged_chunk(
+                torch, qc, k, v, kp, vp, btc, pos,
                 f"chunk_attention_paged T={T} page_size {ps}"))
     kp, vp, perm = arenas[PAGE]
     nb = S // PAGE
@@ -511,10 +558,10 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
         + sum(lens) * Hkv * D * 2 * 2,
         ops=4.0 * sum(lens) * Hq * D,
         dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len))]
+    timed = []
     for T, pos_l, qc, pos, _ in cases:
         btc = tables(torch, perm, PAGE, [p + T for p in pos_l])
-        seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
-        e = record(
+        timed.append(record(
             "chunk_attention_paged", src,
             "src/repro/kernels/decode_attention.py:373",
             f"q {B}x{Hq}x{T}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} "
@@ -524,13 +571,32 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
             lambda: ref.chunk_attention_paged(qc, kp, vp, block_table=btc,
                                               pos=pos),
             None,
-            nbytes=2.0 * qc.numel() * 2 + 4 * B
-            + 4 * pages([p + T for p in pos_l])
-            + sum(min(p + T, S) for p in pos_l) * Hkv * D * 2 * 2,
-            ops=4.0 * Hq * D * seen,
-            dense=lambda: dec.chunk_attention(qc, k, v, pos=pos))
-    entries.append(e)       # the prefill chunk, T = 512
+            **chunk_work(pos_l, T, S, Hq, Hkv, D, page=PAGE),
+            dense=lambda: dec.chunk_attention(qc, k, v, pos=pos)))
+    short, e = timed
+    log(f"[kernel] chunk_attention_paged T=512 page_size {PAGE}: paged / "
+        f"dense {e['ms'] / e['dense_ms']:.3f} (T=8: "
+        f"{short['ms'] / short['dense_ms']:.3f})")
+    e["short_chunk"] = sub_entry(short)
+    entries.append(e)       # the prefill chunk, T = 512, with T = 8 inside
     return entries
+
+
+def check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos, what: str) -> float:
+    """The paged chunk kernel against its plain version, and equal to the
+    dense kernel on the contiguous cache k, v that the arena holds (one
+    arithmetic body; a masked entry adds exactly 0).  Returns the max abs
+    error."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    o = dec.chunk_attention_paged(qc, kp, vp, block_table=bt, pos=pos)
+    err = max_err(torch, o, ref.chunk_attention_paged(
+        qc, kp, vp, block_table=bt, pos=pos), what)
+    if not torch.equal(o, dec.chunk_attention(qc, k, v, pos=pos)):
+        fail(f"{what}: the paged output differs from the dense kernel's on "
+             f"the same K/V")
+    return err
 
 
 # --------------------------------------------------------- train kernels ----
@@ -867,6 +933,8 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
         if serve["ttft"].count < len(prompts):
             fail(f"{what}: ttft folded fewer times than requests served")
     stats = latency_stats(done, wall)
+    stats["prefill_chunk_ms"] = \
+        serve["prefill_chunk"].total_ns / serve["prefill_chunk"].count / 1e6
     log(f"[{what}] {len(done)} requests, {int(stats['tokens'])} new tokens "
         f"(prompts {min(PROMPT_LENS)}..{max(PROMPT_LENS)}, "
         f"{sum(PROMPT_LENS)} prompt tokens) in {wall:.3f}s: "
@@ -877,8 +945,7 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
         f"{stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
     log(f"[{what}] prefill groups {groups}, decode ticks {ticks}, "
         f"launches {json.dumps(counts)} ({note})")
-    log(f"[{what}] xfa prefill_chunk mean "
-        f"{serve['prefill_chunk'].total_ns / serve['prefill_chunk'].count / 1e6:.2f}"
+    log(f"[{what}] xfa prefill_chunk mean {stats['prefill_chunk_ms']:.2f}"
         f" ms x {serve['prefill_chunk'].count}, decode_token mean "
         f"{serve['decode_token'].total_ns / serve['decode_token'].count / 1e6:.3f}"
         f" ms x {serve['decode_token'].count}")
@@ -1280,7 +1347,16 @@ def check_hybrid_kernels(torch, entries):
     lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
     cmask = (torch.arange(S, device=dev)[None, None, :]
              <= lim[:, :, None])[:, None]
-    seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
+    # the paged twin over the same K/V at page sizes 64 and 16 (timed at 64)
+    perr = 0.0
+    for ps in (16, PAGE):
+        perm = (torch.randperm(Bq * (S // ps), generator=gen, device=dev)
+                + 1).to(torch.int32).reshape(Bq, S // ps)
+        kp, vp = shred(torch, k, ps, perm), shred(torch, v, ps, perm)
+        bt = tables(torch, perm, ps, [p + T for p in pos_l])
+        perr = max(perr, check_paged_chunk(
+            torch, qc, k, v, kp, vp, bt, pos,
+            f"chunk_attention_paged D=80 page_size {ps}"))
     cases = {
         "decode_attention": (
             f"q {Bq}x{Hq}x{D} kv {Bq}x{Hq}x{S}x{D} kv_len {lens}", derr,
@@ -1288,28 +1364,34 @@ def check_hybrid_kernels(torch, entries):
             lambda: ref.decode_attention(q, k, v, kv_len=kv_len),
             lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
                                                    attn_mask=dmask),
-            2.0 * q.numel() * 2 + 4 * Bq + sum(lens) * Hq * D * 2 * 2,
-            4.0 * sum(lens) * Hq * D),
+            dict(nbytes=2.0 * q.numel() * 2 + 4 * Bq
+                 + sum(lens) * Hq * D * 2 * 2, ops=4.0 * sum(lens) * Hq * D)),
         "chunk_attention": (
             f"q {Bq}x{Hq}x{T}x{D} kv {Bq}x{Hq}x{S}x{D} pos {pos_l}", cerr,
             lambda: dec.chunk_attention(qc, k, v, pos=pos),
             lambda: ref.chunk_attention(qc, k, v, pos=pos),
             lambda: F.scaled_dot_product_attention(qc, k, v,
                                                    attn_mask=cmask),
-            2.0 * qc.numel() * 2 + 4 * Bq
-            + sum(min(p + T, S) for p in pos_l) * Hq * D * 2 * 2,
-            4.0 * Hq * D * seen)}
+            chunk_work(pos_l, T, S, Hq, Hq, D)),
+        "chunk_attention_paged": (
+            f"q {Bq}x{Hq}x{T}x{D} pages {kp.shape[0]}x{Hq}x{PAGE}x{D} "
+            f"bt {Bq}x{S // PAGE} pos {pos_l}", perr,
+            lambda: dec.chunk_attention_paged(qc, kp, vp, block_table=bt,
+                                              pos=pos),
+            lambda: ref.chunk_attention_paged(qc, kp, vp, block_table=bt,
+                                              pos=pos),
+            None,
+            dict(chunk_work(pos_l, T, S, Hq, Hq, D, page=PAGE),
+                 dense=lambda: dec.chunk_attention(qc, k, v, pos=pos)))}
     for e in entries:
         if e["name"] in cases:
-            shape, err, fn, plain, lib, nbytes, nops = cases[e["name"]]
+            shape, err, fn, plain, lib, work = cases[e["name"]]
             d80 = record_kernel(torch, flush, e["name"], e["source"],
                                 e["replaces"], shape, err, fn, plain, lib,
-                                nbytes=nbytes, ops=nops)
-            e["head_dim_80"] = {key: d80[key] for key in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
+                                **work)
+            e["head_dim_80"] = sub_entry(d80)
             e["max_abs_err"] = max(e["max_abs_err"], err)
-    del k, v, q, qc, flush
+    del k, v, q, qc, kp, vp, flush
     torch.cuda.empty_cache()
     return out, pathless
 

@@ -42,14 +42,15 @@ SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-        "chunk_attention_launch": (_P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "chunk_attention_launch": (_P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _P),
         "decode_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _I, _I,
                                           _F, _I, _P),
-        "chunk_attention_paged_launch": (_P, _P, _P, _P, _P, _P,
-                                         _I, _I, _I, _I, _I, _I, _I,
-                                         _F, _I, _P),
+        "chunk_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _F, _I, _P),
     },
     "flash_attention": {
         "flash_attention_fwd_launch": (_P, _P, _P, _P, _P,

@@ -18,40 +18,89 @@
 // one atomic per block, so a decode step is still a single launch.  A row
 // with kv_len == 0 writes zeros (and m = -1e30, l = 0), as the Pallas
 // kernel does.  Optional (m, l) residuals feed split-K merges.
+// decode_attention_paged replaces ::decode_attention_paged
+// (_decode_paged_kernel): the same body templated on the row addressing
+// (dense, or a page arena through a block table, below).  Before each
+// 64-row tile the block stages the arena offsets of the pages the tile
+// touches in shared memory, one table load per page.
 //
-// chunk_attention replaces repro/kernels/decode_attention.py::
-// chunk_attention (_chunk_kernel): a T-token chunk of queries per row at
-// cache offset pos[b]; query t attends columns <= pos[b] + t.  Bound on an
-// H100: operations, at prefill widths (T = 512 gives ~G*T FLOPs per K/V
-// byte).  Design: the Pallas kernel holds all G*T rows of a (row, kv head)
-// in one program, which at T = 512, G = 8 is 4096 rows, far more than one
-// SM holds.  Here a 256-thread block takes one (row, kv head, tile of 64
-// query rows).  The rows of a tile are ordered (t, g), so the G heads of a
-// kv head share its K/V tiles and a tile spans only 64/G consecutive t.
-// The block stops streaming K/V at its own largest column limit
-// pos[b] + t_max.  Products run on the CUDA cores in f32 (a 4x4 register
-// tile per thread for Q.K^T and for P.V).  Tensor cores (mma.sync/wgmma)
-// are later work.
+// chunk_attention and chunk_attention_paged replace the Pallas TPU kernels
+// repro/kernels/decode_attention.py::chunk_attention (_chunk_kernel) and
+// ::chunk_attention_paged (_chunk_paged_kernel): a T-token chunk of
+// queries per row at cache offset pos[b]; query t of row b attends columns
+// <= pos[b] + t of K/V [B, Hkv, S, D] (dense) or of a page arena
+// [P, Hkv, ps, D] through a block table bt [B, NB] (paged: K/V row j of
+// (b, kv head h) is pages[bt[b, j / ps], h, j % ps, :], S = NB * ps).  No
+// softcap, no lse.
+// What bounds it on an H100.  Operations at prefill widths with G > 1: at
+// T = 512, G = 8 a visible K/V row feeds G * T query rows, ~30 GFLOP for
+// ~43 MB at the serving shape, far above the ~295 FLOP/byte where the card
+// stops being memory-bound.  Bytes at G = 1 (zamba2's shared block, D 80)
+// and at small T, where a K/V row feeds only G * T rows.
+// bf16 design (namespace tc; the pieces shared with the flash forward are
+// in attn_tc.cuh).  A block of 8 warps (two warpgroups) takes 128 query
+// rows of one (row b, kv head) in (t, g) order, so the G q heads of a kv
+// head share every K/V tile; a warpgroup with no rows skips its products.
+// Two blocks per SM at every head dim: at D 80 and 128 the 128-register
+// cap spills a few dozen bytes, yet at D 80 this ran faster on the card
+// than one block per SM.
+// S = Q K^T is a wgmma.mma_async m64n64k16 with both operands K-major in
+// swizzled shared tiles; O += P V takes P rounded to bf16 as the register
+// A operand and reads V MN-major.  The online softmax is f32 in log2
+// units, the scale applied to S in f32 after the product.  Per-row causal
+// offset: tile row r = (t, g) sees columns <= pos[b] + t, clamped to
+// S - 1, so a row past S sees S columns.  A block streams K/V tiles of 64
+// rows only up to the largest limit of its rows; only the tiles that some
+// row does not see whole pay the mask compares, and a masked entry gets
+// p = 0 by a select.  S needs no tile multiple.  Query tiles run longest
+// first (the grid walks them from the last); pos is read on the device
+// only, so the path has no host sync.
+// Copy route.  Dense: K/V through a two-stage ring filled by TMA on
+// mbarriers, from a [B*Hkv, S, D] tensor map (rows past S, and at D 80 the
+// columns past 80, arrive as zeros).  Paged at page sizes that are
+// multiples of 64 (the serving pool's 64): a 64-row tile lies in one page,
+// so the same ring is filled by TMA from a [P*Hkv, ps, D] map, the tile's
+// page read from the table one tile ahead.  Paged at any other page size:
+// a cp.async gather of each 16-byte chunk from its page, written with the
+// swizzle XOR of the query gather, two stages deep; each row's arena
+// offset is staged in shared memory one tile ahead, under the S product,
+// and rows past the block's last column are zero-filled (one TMA box per
+// page was slower than this gather at page size 16).  Neither reads a
+// table slot past a row's limit.  All routes run one arithmetic body and a
+// masked entry adds exactly 0, so the paged output equals the dense
+// kernel's on the same K/V.  Whole tiles or pages are read: cache rows
+// past a row's limit must be finite (the Pallas kernel reads whole blocks
+// too; caches start at zero).
+// Split columns.  With few query tiles (T = 8 at B = 8, Hkv = 4: 32 blocks
+// for 132 SMs) the planner (decode_attention.py::chunk_splits) cuts S into
+// `nsplit` ranges of whole 64-row tiles, so that the grid holds about two
+// blocks per SM (flash-decoding, as decode_kernel); a block whose range
+// starts past its tile's last column exits at once.  A tile with one live
+// range writes its output directly; otherwise each range writes its f32
+// (acc, m, l) partial and the last one to finish, counted by one atomic,
+// merges them in range order (one launch, deterministic).
+// D 80 (zamba2's shared block) runs on the 128-column tile layout: Q K^T
+// skips the k-steps past column 80 (5 of 8 run), P V runs at n 128, and
+// only 80 output columns are stored.
+// Numerics: bf16 rounding enters at the operands (the inputs are bf16), at
+// P before the P V product (unbiased, at most 2^-9 relative per entry;
+// l sums the unrounded f32 p) and at the output; m, l, the partials and
+// the merge are f32.
+// f32 keeps the FMA body (256 threads as 16 x 16, a 4 x 4 register tile
+// each for Q K^T and for P V, f32 tiles with a D + 1 pitch, 64 query rows
+// per block, no split) by an explicit dispatch on dtype: a TF32 product
+// would break the f32 tests' 2e-5.  A bf16 tensor always takes the tensor
+// cores.
 //
-// decode_attention_paged and chunk_attention_paged replace
-// repro/kernels/decode_attention.py::decode_attention_paged
-// (_decode_paged_kernel) and ::chunk_attention_paged (_chunk_paged_kernel):
-// the same two functions over a page arena [P, Hkv, ps, D] reached through
-// a per-row block table bt [B, NB], K/V row j of batch row b, kv head h
-// being pages[bt[b, j / ps], h, j % ps, :].  Bound: as their dense twins,
-// plus the table (4 bytes per page).  Design: each kernel body is
-// templated on the row addressing (dense or paged), so a pair shares one
-// body.  Before each 64-row tile, the block stages the arena offsets of
-// the pages the tile touches in shared memory, one table load per page;
-// at the serving page size of 64 a tile is exactly one page, at 16 it
-// spans four, at 128 a page spans two tiles.  A row stops at its own
-// limit (kv_len, or pos + t) clamped to NB * ps, so it never reads a
-// table slot past that limit, never touches scratch page 0 or an
-// ungranted page unless its table points there, and gives such rows
-// exactly zero softmax mass.  Arena offsets are 64-bit.  A page id out
-// of [0, P) is not checked on the device: the engine only writes ids it
-// was granted.
+// Paged addressing, both kernels: a row stops at its own limit (kv_len,
+// or pos + t) clamped to NB * ps, so it never reads a table slot past
+// that limit, never touches scratch page 0 or an ungranted page unless its
+// table points there, and gives such rows exactly zero softmax mass.
+// Arena offsets are 64-bit.  A page id out of [0, P) is not checked on the
+// device: the engine only writes ids it was granted.
+#include "attn_tc.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -289,7 +338,8 @@ cudaError_t decode_launch_t(const void* q, const void* k, const void* v, KvRows 
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- chunk ----
+// ----------------------------------------------------------- chunk, f32 ----
+// The FMA body: f32 only (bf16 takes the tensor-core kernel in namespace tc).
 constexpr int kChThreads = 256;   // 16 x 16 threads, a 4 x 4 register tile each
 constexpr int kChBQ = 64;         // query rows per block
 constexpr int kChBK = 64;         // K/V rows per tile
@@ -477,7 +527,301 @@ cudaError_t chunk_launch_t(const void* q, const void* k, const void* v, KvRows k
   return cudaGetLastError();
 }
 
-// The kernel instance for (T, D, dense or paged).
+}  // namespace
+
+// ====================================================== bf16: tensor cores ====
+namespace tc {
+
+constexpr int kChWarps = 8;             // chunk block: 8 warps, two warpgroups
+constexpr int kChM = 16 * kChWarps;     // query rows per chunk block
+
+// Tile width of head dim D: 80 runs on the 128-column layout.
+template <int D>
+__host__ __device__ constexpr int tile_dim() { return D == 80 ? 128 : D; }
+
+// How a chunk block's K/V tiles reach shared memory.
+enum Route : int {
+  kDense = 0,      // TMA from a [B*Hkv, S, D] map
+  kPagedTma = 1,   // TMA from a [P*Hkv, ps, D] map; ps a multiple of kBN
+  kGather = 2,     // paged, any other page size: cp.async 16-byte chunks
+};
+
+// What the chunk kernel needs to know about the problem.
+struct ChunkProblem {
+  int hkv, G, T;
+  int S;            // the row's length: dense S, or nb * ps
+  int nb, ps;       // paged: block-table width and page size
+  int split_cols;   // columns per split range, a multiple of kBN
+  float mul;        // softmax scale * log2(e): scores in log2 units
+  __device__ int rows() const { return G * T; }
+  // the last column tile row r = (t, g) sees at offset p0 (-1: no row)
+  __device__ int limit(int p0, int r) const {
+    if (r >= rows()) return -1;
+    const int lim = p0 + r / G;
+    return lim < S - 1 ? lim : S - 1;
+  }
+};
+
+// Scores to log2 units in place (chunk attention has no softcap).
+struct Log2Score {
+  float mul;
+  __device__ __forceinline__ float operator()(float& s) const {
+    s *= mul;
+    return 1.f;
+  }
+};
+
+template <int D>
+constexpr size_t chunk_smem() {   // Q tile, the K/V ring, paged row offsets
+  constexpr int DT = tile_dim<D>();
+  return kChM * DT * sizeof(bf16) + KvRing<DT>::kBytes + 2 * kBN * sizeof(long long) + kAlign;
+}
+
+// One block: 128 query rows (tile blockIdx.y from the last) of (row b,
+// kv head h) = blockIdx.x, columns of split range blockIdx.z.  Two blocks
+// per SM (see the head note).
+template <int D, int kRoute>
+__global__ void __launch_bounds__(kChWarps * 32, 2)
+chunk_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const int* __restrict__ bt,
+             const int* __restrict__ pos, bf16* __restrict__ o, float* __restrict__ part,
+             int* __restrict__ done, ChunkProblem pb) {
+  constexpr int DT = tile_dim<D>(), NT = kChWarps * 32, NS = kBN / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int last;
+  bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
+  const KvRing<DT> ring(q_s + kChM * DT);
+  long long* koff = reinterpret_cast<long long*>(ring.full + 2);   // kGather: [2][kBN]
+  int* pages = reinterpret_cast<int*>(koff);                        // kPagedTma: [2]
+
+  const int head = blockIdx.x;                           // b * hkv + h
+  const int b = head / pb.hkv, h = head % pb.hkv;
+  const int tile = gridDim.y - 1 - blockIdx.y;           // longest tiles first
+  const int r0 = tile * kChM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nrows = min(pb.rows() - r0, kChM);
+  const int p0 = pos[b];
+  const int ncols = pb.limit(p0, r0 + nrows - 1) + 1;   // columns any row sees
+  const int active = max((ncols + pb.split_cols - 1) / pb.split_cols, 1);   // live ranges
+  if (static_cast<int>(blockIdx.z) >= active) return;
+  const int lo = blockIdx.z * pb.split_cols;             // this block's columns [lo, hi)
+  const int hi = min(ncols, lo + pb.split_cols);
+  const int ntiles = max((hi - lo + kBN - 1) / kBN, 0);
+  auto q_of = [&](int rr) {   // q / o row of tile row rr = (t, g), q head h * G + g
+    const int r = r0 + rr;
+    return (static_cast<size_t>(head) * pb.G + r % pb.G) * pb.T + r / pb.G;
+  };
+  // kGather, threads < kBN: the arena offset of row threadIdx.x of tile j
+  // into koff[j % 2] (-1 past hi: zero-filled), one table read per row
+  auto stage_rows = [&](int j) {
+    const int col = lo + j * kBN + static_cast<int>(threadIdx.x);
+    long long off = -1;
+    if (col < hi) {
+      const long long page = bt[static_cast<size_t>(b) * pb.nb + col / pb.ps];
+      off = ((page * pb.hkv + h) * pb.ps + col % pb.ps) * D;
+    }
+    koff[(j & 1) * kBN + threadIdx.x] = off;
+  };
+  // kPagedTma, one thread: tile j lies in one page (ps a multiple of
+  // kBN, tiles start at multiples of kBN); its table read, into pages[j % 2]
+  auto stage_page = [&](int j) {
+    pages[j & 1] = bt[static_cast<size_t>(b) * pb.nb + (lo + j * kBN) / pb.ps];
+  };
+  // kPagedTma, one thread: start loading tile j from its page
+  auto load_page = [&](int j) {
+    ring.load_at(&tk, &tv, pages[j & 1] * pb.hkv + h, j, (lo + j * kBN) % pb.ps);
+  };
+  // kGather: start copying tile j into its ring stage, 16 bytes a thread
+  auto gather = [&](int j) {
+    constexpr int C = D / 8;
+#pragma unroll
+    for (int it = 0; it < (kBN * C + NT - 1) / NT; ++it) {
+      const int i = it * NT + static_cast<int>(threadIdx.x), r = i / C, c = i % C;
+      if (i < kBN * C) {
+        const long long off = koff[(j & 1) * kBN + r];
+        const bool ok = off >= 0;
+        const int at = tile_off<DT, kBN>(r, c);
+        mma::cp_async16(ring.k(j) + at, ok ? k + off + c * 8 : k, ok);
+        mma::cp_async16(ring.v(j) + at, ok ? v + off + c * 8 : v, ok);
+      }
+    }
+  };
+
+  if constexpr (kRoute == kGather) {
+    if (threadIdx.x < kBN) {
+      stage_rows(0);
+      stage_rows(1);
+    }
+    __syncthreads();
+    if (ntiles > 0) gather(0);
+  } else if constexpr (kRoute == kPagedTma) {
+    if (threadIdx.x == 0) {
+      ring.init();
+      if (ntiles > 0) {
+        stage_page(0);
+        load_page(0);
+      }
+      if (ntiles > 1) stage_page(1);
+    }
+  } else if (threadIdx.x == 0) {
+    ring.init();
+    if (ntiles > 0) ring.load_at(&tk, &tv, head, 0, lo);
+  }
+  load_rows<DT, kChM, NT, D>(q_s, q, nrows, q_of);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  mma::fence_async_smem();
+  __syncthreads();   // Q (kGather: and tile 0) has landed, the ring's barriers are set
+
+  const int rw = warp * 16 + (lane >> 2);   // this thread's rows: rw, rw + 8
+  const int lim[2] = {pb.limit(p0, r0 + rw), pb.limit(p0, r0 + rw + 8)};
+  // the tile's first row sees the fewest columns; rows past the last
+  // valid one may go unmasked: their zero Q gives finite p, never stored
+  const int lim_lo = pb.limit(p0, r0);
+  const bool idle = (warp >> 2) * 64 >= nrows;   // a warpgroup with no rows
+  const Log2Score score{pb.mul};
+  float acc[DT / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
+
+  for (int j = 0; j < ntiles; ++j) {
+    if constexpr (kRoute == kGather) {
+      if (j + 1 < ntiles) gather(j + 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+      mma::fence_async_smem();
+      __syncthreads();   // tile j has landed
+    } else {
+      if (threadIdx.x == 0 && j + 1 < ntiles) {
+        if constexpr (kRoute == kPagedTma)
+          load_page(j + 1);
+        else
+          ring.load_at(&tk, &tv, head, j + 1, lo + (j + 1) * kBN);
+      }
+      ring.wait(j);
+    }
+    if (!idle) {
+      float s[NS][4] = {}, alpha[2];
+      mma::fence_regs(s);
+      mma::wgmma_fence();
+      issue_abt<DT, kChM, D>(s, q_s, (warp >> 2) * 64, ring.k(j));   // S = Q K^T
+      mma::wgmma_commit();
+      // tile j + 2's table reads, under the product (warps 0-1: never idle)
+      if constexpr (kRoute == kGather) {
+        if (threadIdx.x < kBN && j + 2 < ntiles) stage_rows(j + 2);
+      } else if constexpr (kRoute == kPagedTma) {
+        if (threadIdx.x == 0 && j + 2 < ntiles) stage_page(j + 2);
+      }
+      mma::wgmma_wait<0>();
+      mma::fence_regs(s);
+      const int c0 = lo + j * kBN;
+      const int cb = c0 + (lane & 3) * 2;
+      if (c0 + kBN - 1 <= lim_lo)   // every row sees the whole tile
+        online_softmax<false>(s, m, l, alpha, cb, lim, score);
+      else
+        online_softmax<true>(s, m, l, alpha, cb, lim, score);
+#pragma unroll
+      for (int n = 0; n < DT / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      uint32_t pa[NS / 2][4];
+      mma::to_a<NS>(pa, s);
+      mma::fence_regs(acc);
+      mma::fence_regs(pa);
+      mma::wgmma_fence();
+      issue_pb<DT>(acc, pa, ring.v(j));   // O += P V
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+      mma::fence_regs(acc);
+    }
+    __syncthreads();   // stage j & 1 is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (active == 1) {   // the tile's only range: normalize and store
+    const float inv0 = l[0] == 0.f ? 0.f : 1.f / l[0], inv1 = l[1] == 0.f ? 0.f : 1.f / l[1];
+    acc_to_tile<DT, kChM>(q_s, warp * 16, acc, inv0, inv1);   // the warp's own Q rows
+    __syncwarp();
+    store_rows<DT, kChM, D>(q_s, o, warp * 16, nrows, q_of);
+    return;
+  }
+
+  // Split: publish this range's (acc, m, l) rows; the last of the tile's
+  // live ranges to arrive merges them all.  part holds every block's
+  // [kChM, D] accumulators, then every block's [kChM, 2] (m, l).
+  const size_t base = (static_cast<size_t>(head) * gridDim.y + tile) * gridDim.z;   // range 0
+  float* pml = part + static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z * kChM * D;
+  {
+    const size_t slot = base + blockIdx.z;
+    float* pacc = part + slot * kChM * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = rw + 8 * i;
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(pacc + r * D + n * 8 + (lane & 3) * 2) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      if ((lane & 3) == 0)
+        *reinterpret_cast<float2*>(pml + (slot * kChM + r) * 2) = make_float2(m[i], l[i]);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(done + static_cast<size_t>(head) * gridDim.y + tile, 1) == active - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* row_m = reinterpret_cast<float*>(q_s);   // per row: max over ranges, 1 / sum
+  float* row_inv = row_m + kChM;
+  auto ml_of = [&](int sp, int r) {   // range sp's (m, l) of row r
+    return __ldcg(reinterpret_cast<const float2*>(pml + ((base + sp) * kChM + r) * 2));
+  };
+  for (int r = threadIdx.x; r < nrows; r += NT) {
+    float mx = kNegInf;
+    for (int sp = 0; sp < active; ++sp) mx = fmaxf(mx, ml_of(sp, r).x);
+    float sum = 0.f;
+    for (int sp = 0; sp < active; ++sp) {
+      const float2 ml = ml_of(sp, r);
+      sum += exp2f(ml.x - mx) * ml.y;
+    }
+    row_m[r] = mx;
+    row_inv[r] = sum == 0.f ? 0.f : 1.f / sum;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrows * (D / 4); i += NT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < active; ++sp) {
+      const float w = exp2f(ml_of(sp, r).x - row_m[r]);
+      const float4 x =
+          __ldcg(reinterpret_cast<const float4*>(part + ((base + sp) * kChM + r) * D + c));
+      a.x += w * x.x;
+      a.y += w * x.y;
+      a.z += w * x.z;
+      a.w += w * x.w;
+    }
+    const float inv = row_inv[r];
+    uint2 u;
+    u.x = mma::pack_bf16(a.x * inv, a.y * inv);
+    u.y = mma::pack_bf16(a.z * inv, a.w * inv);
+    *reinterpret_cast<uint2*>(o + q_of(r) * D + c) = u;
+  }
+}
+
+}  // namespace tc
+
+namespace {
+
+// The decode kernel instance for (T, D, dense or paged).
 template <typename T, int D>
 cudaError_t decode_pick(const void* q, const void* k, const void* v, KvRows kv,
                         const int* kv_len, void* o, float* m, float* l, float* part, int* done,
@@ -512,27 +856,6 @@ cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v, 
   }
 }
 
-template <typename T, int D>
-cudaError_t chunk_pick(const void* q, const void* k, const void* v, KvRows kv, const int* pos,
-                       void* o, int B, int hkv, int G, int T_, float scale, cudaStream_t s) {
-  return kv.bt != nullptr
-             ? chunk_launch_t<T, D, true>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s)
-             : chunk_launch_t<T, D, false>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
-}
-
-template <typename T>
-cudaError_t chunk_dispatch(int D, const void* q, const void* k, const void* v, KvRows kv,
-                           const int* pos, void* o, int B, int hkv, int G, int T_, float scale,
-                           cudaStream_t s) {
-  switch (D) {
-    case 32: return chunk_pick<T, 32>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
-    case 64: return chunk_pick<T, 64>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
-    case 80: return chunk_pick<T, 80>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
-    case 128: return chunk_pick<T, 128>(q, k, v, kv, pos, o, B, hkv, G, T_, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 int decode_common(const void* q, const void* k, const void* v, KvRows kv, const void* kv_len,
                   void* o, void* m, void* l, void* part, void* done, int B, int hkv, int G,
                   int D, int nsplit, int split_rows, float scale, int dtype, void* stream) {
@@ -557,18 +880,87 @@ int decode_common(const void* q, const void* k, const void* v, KvRows kv, const 
   }
 }
 
-int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const void* pos,
-                 void* o, int B, int hkv, int G, int T, int D, float scale, int dtype,
-                 void* stream) {
-  if (B <= 0 || hkv <= 0 || G <= 0 || T <= 0) return cudaSuccess;
-  if (kv.nb < 1 || kv.ps < 1) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
+// What a chunk launch takes besides its tensors (pages: the arena's page
+// count, paged only).
+struct ChunkArgs {
+  int B, hkv, G, T, nsplit, split_cols, pages;
+  float scale;
+};
+
+// A paged K/V tile comes by TMA when it lies in one page (ps a multiple
+// of 64, as the serving pool's 64); every other page size takes the
+// cp.async gather, which was faster than one TMA box per page at 16.
+bool tma_pages(int ps) { return ps % tc::kBN == 0; }
+
+// bf16: the tensor-core kernel.  Grid: (b, kv head) x query tiles x split
+// ranges.
+template <int D, int kRoute>
+cudaError_t chunk_bf16(const void* q, const void* k, const void* v, KvRows kv, const int* pos,
+                       void* o, float* part, int* done, const ChunkArgs& a, cudaStream_t s) {
+  using tc::bf16;
+  constexpr int DT = tc::tile_dim<D>();
+  CUtensorMap tk{}, tv{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (kRoute == tc::kDense)   // kv.ps is S
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D);
+  else if constexpr (kRoute == tc::kPagedTma)
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D);
+  if (err != cudaSuccess) return err;
+  const tc::ChunkProblem pb{a.hkv, a.G, a.T, kv.nb * kv.ps, kv.nb, kv.ps, a.split_cols,
+                            a.scale * tc::kLog2e};
+  constexpr size_t smem = tc::chunk_smem<D>();
+  auto kernel = tc::chunk_kernel<D, kRoute>;
+  static const cudaError_t attr = rt::set_smem(kernel, smem);   // once per process
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (a.G * a.T + tc::kChM - 1) / tc::kChM;
+  kernel<<<dim3(a.B * a.hkv, tiles, a.nsplit), tc::kChWarps * 32, smem, s>>>(
+      static_cast<const bf16*>(q), tk, tv, static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kv.bt, pos, static_cast<bf16*>(o), part, done, pb);
+  return cudaGetLastError();
+}
+
+// The chunk kernel for (dtype, D, dense or paged): bf16 on the tensor
+// cores, f32 on the FMA body (which does not split).
+template <int D>
+cudaError_t chunk_pick(int dtype, const void* q, const void* k, const void* v, KvRows kv,
+                       const int* pos, void* o, float* part, int* done, const ChunkArgs& a,
+                       cudaStream_t s) {
+  const bool paged = kv.bt != nullptr;
   switch (dtype) {
     case rt::kBF16:
-      return chunk_dispatch<__nv_bfloat16>(D, q, k, v, kv, p, o, B, hkv, G, T, scale, s);
+      if (!paged) return chunk_bf16<D, tc::kDense>(q, k, v, kv, pos, o, part, done, a, s);
+      return tma_pages(kv.ps)
+                 ? chunk_bf16<D, tc::kPagedTma>(q, k, v, kv, pos, o, part, done, a, s)
+                 : chunk_bf16<D, tc::kGather>(q, k, v, kv, pos, o, part, done, a, s);
     case rt::kF32:
-      return chunk_dispatch<float>(D, q, k, v, kv, p, o, B, hkv, G, T, scale, s);
+      if (a.nsplit != 1) return cudaErrorInvalidValue;
+      return paged ? chunk_launch_t<float, D, true>(q, k, v, kv, pos, o, a.B, a.hkv, a.G, a.T,
+                                                    a.scale, s)
+                   : chunk_launch_t<float, D, false>(q, k, v, kv, pos, o, a.B, a.hkv, a.G, a.T,
+                                                     a.scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const void* pos,
+                 void* o, void* part, void* done, int D, const ChunkArgs& a, int dtype,
+                 void* stream) {
+  if (a.B <= 0 || a.hkv <= 0 || a.G <= 0 || a.T <= 0) return cudaSuccess;
+  // the ranges are whole tiles and cover the row's length S = nb * ps
+  if (kv.nb < 1 || kv.ps < 1 || a.nsplit < 1 || a.nsplit > kDecBK || a.split_cols < tc::kBN ||
+      a.split_cols % tc::kBN != 0 ||
+      static_cast<long long>(a.nsplit) * a.split_cols < static_cast<long long>(kv.nb) * kv.ps ||
+      (a.nsplit > 1 && (part == nullptr || done == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  float* pf = static_cast<float*>(part);
+  int* dn = static_cast<int*>(done);
+  switch (D) {
+    case 32: return chunk_pick<32>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
+    case 64: return chunk_pick<64>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
+    case 80: return chunk_pick<80>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
+    case 128: return chunk_pick<128>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -604,20 +996,28 @@ extern "C" int decode_attention_paged_launch(const void* q, const void* k, const
 }
 
 // q: [B, Hkv*G, T, D]; k, v: [B, Hkv, S, D]; pos: [B] int32; o like q.
+// bf16 cuts S into `nsplit` ranges of `split_cols` columns (a multiple of
+// 64, nsplit * split_cols >= S, nsplit <= 64), one block each; with
+// nsplit > 1, `part` is f32 scratch of B*Hkv*tiles*nsplit*128*(D+2)
+// values (tiles = ceil(G*T / 128)) and `done` B*Hkv*tiles int32 zeros.
+// f32 takes nsplit = 1 only.  Returns the launch's CUDA error.
 extern "C" int chunk_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* pos, void* o, int B, int hkv, int G, int T,
-                                      int S, int D, float scale, int dtype, void* stream) {
-  return chunk_common(q, k, v, KvRows{nullptr, 1, S}, pos, o, B, hkv, G, T, D, scale, dtype,
-                      stream);
+                                      const void* pos, void* o, void* part, void* done, int B,
+                                      int hkv, int G, int T, int S, int D, int nsplit,
+                                      int split_cols, float scale, int dtype, void* stream) {
+  return chunk_common(q, k, v, KvRows{nullptr, 1, S}, pos, o, part, done, D,
+                      ChunkArgs{B, hkv, G, T, nsplit, split_cols, 0, scale}, dtype, stream);
 }
 
 // As chunk_attention_launch over a page arena: k, v: [P, Hkv, ps, D];
-// bt: [B, nb] int32 page ids.
+// bt: [B, nb] int32 page ids; the split ranges cut the virtual S = nb*ps.
 extern "C" int chunk_attention_paged_launch(const void* q, const void* k, const void* v,
-                                            const void* bt, const void* pos, void* o, int B,
-                                            int hkv, int G, int T, int nb, int ps, int D,
-                                            float scale, int dtype, void* stream) {
-  if (bt == nullptr) return cudaErrorInvalidValue;
-  return chunk_common(q, k, v, KvRows{static_cast<const int*>(bt), nb, ps}, pos, o, B, hkv, G,
-                      T, D, scale, dtype, stream);
+                                            const void* bt, const void* pos, void* o,
+                                            void* part, void* done, int B, int hkv, int G,
+                                            int T, int P, int nb, int ps, int D, int nsplit,
+                                            int split_cols, float scale, int dtype,
+                                            void* stream) {
+  if (bt == nullptr || P < 1) return cudaErrorInvalidValue;
+  return chunk_common(q, k, v, KvRows{static_cast<const int*>(bt), nb, ps}, pos, o, part, done,
+                      D, ChunkArgs{B, hkv, G, T, nsplit, split_cols, P, scale}, dtype, stream);
 }

@@ -8,11 +8,16 @@ kernel or raises; for CPU tensors it runs the plain version in `ref`.
 Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
-ragged tail.  Head dims 32, 64, 80 and 128 are compiled.
+ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  bf16 chunk
+attention runs on the tensor cores (wgmma), f32 on the FMA pipes; when a
+chunk gives too few query tiles to fill the card, `chunk_splits` cuts its
+columns into ranges that the kernel merges (one launch).
 
 The paged kernels read K/V row j of batch row b from
 `pages[block_table[b, j // page_size], :, j % page_size]`, any
-page_size >= 1.  Each row stops at its own limit (kv_len, or pos + t),
+page_size >= 1 (bf16 chunk attention copies its 64-row tiles by TMA when
+the page size is a multiple of 64, and gathers 16-byte chunks
+otherwise).  Each row stops at its own limit (kv_len, or pos + t),
 clamped to NB * page_size as the plain version's gather is, so no table
 slot past it is read.  Page ids are not range-checked on the device: a
 block table holds only pages the engine granted (or scratch page 0), and
@@ -30,17 +35,41 @@ from .rmsnorm import DTYPES, check_cuda, check_vectors, sm_count, stream
 
 HEAD_DIMS = (32, 64, 80, 128)
 TILE = 64           # K/V rows per tile in the kernels
-MAX_SPLITS = 64     # S ranges per (row, kv head) the decode merge takes
+MAX_SPLITS = 64     # S ranges per (row, kv head) the merges take
+CHUNK_ROWS = 128    # query rows per block of the bf16 chunk kernel
+
+
+def _whole(S: int) -> Tuple[int, int]:
+    """One range of whole tiles covering S."""
+    return 1, max(1, -(-S // TILE)) * TILE
+
+
+def _cut(S: int, blocks: int, sms: int) -> Tuple[int, int]:
+    """S cut into ranges of whole tiles so that blocks * ranges give about
+    two blocks per SM, at most MAX_SPLITS ranges: (ranges, rows each)."""
+    tiles = max(1, -(-S // TILE))
+    want = min(MAX_SPLITS, max(1, -(-2 * sms // max(blocks, 1))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * TILE
 
 
 def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
     """(nsplit, split_rows) for the decode kernel: S cut into whole tiles
     so that B*Hkv*nsplit blocks give about two per SM, at most MAX_SPLITS
     ranges."""
-    tiles = -(-S // TILE)
-    want = min(MAX_SPLITS, max(1, -(-2 * sms // max(B * Hkv, 1))))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * TILE
+    return _cut(S, B * Hkv, sms)
+
+
+def chunk_splits(B: int, Hkv: int, G: int, T: int, S: int,
+                 sms: int) -> Tuple[int, int]:
+    """(nsplit, split_cols) for the bf16 chunk kernel.  It runs one block
+    per (row, kv head, tile of CHUNK_ROWS query rows); when that grid is
+    below two blocks per SM (short chunks), S is cut into ranges of whole
+    tiles as for decode, one block each, and the kernel merges them.
+    Otherwise one range covers S.  Sizes only: pos is never read here, so
+    planning needs no host sync."""
+    blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
+    return _whole(S) if blocks >= 2 * sms else _cut(S, blocks, sms)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,6 +124,28 @@ def _decode_scratch(B: int, Hq: int, Hkv: int, S: int, D: int,
     return nsplit, split_rows, part, done
 
 
+def _chunk_scratch(q: torch.Tensor, Hkv: int, S: int):
+    """(nsplit, split_cols, partials or None, arrival counters or None)
+    for a chunk launch over a length S.  bf16 plans its split
+    (chunk_splits); the f32 FMA kernel does not split."""
+    B, Hq, T, D = q.shape
+    G = Hq // Hkv
+    nsplit, cols = _whole(S) if q.dtype != torch.bfloat16 else \
+        chunk_splits(B, Hkv, G, T, S, sm_count(q.device.index))
+    if nsplit == 1:
+        return nsplit, cols, None, None
+    blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
+    # per block: CHUNK_ROWS rows of (acc [D], m, l)
+    part = torch.empty(blocks * nsplit * CHUNK_ROWS * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    done = torch.zeros(blocks, dtype=torch.int32, device=q.device)
+    return nsplit, cols, part, done
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[torch.Tensor] = None,
                      sm_scale: Optional[float] = None,
@@ -118,10 +169,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     nsplit, split_rows, part, done = _decode_scratch(B, Hq, Hkv, S, D,
                                                      q.device)
-    ptr = lambda t: t.data_ptr() if t is not None else None
     err = build.load("decode_attention").decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        o.data_ptr(), ptr(m), ptr(l), ptr(part), done.data_ptr(),
+        o.data_ptr(), _ptr(m), _ptr(l), _ptr(part), done.data_ptr(),
         B, Hkv, Hq // Hkv, S, D, nsplit, split_rows, float(scale),
         DTYPES[q.dtype], stream(q))
     build.check(err, "decode_attention")
@@ -145,10 +195,11 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, pos, "chunk_attention")
     scale = sm_scale if sm_scale is not None else D ** -0.5
     o = torch.empty_like(q)
+    nsplit, cols, part, done = _chunk_scratch(q, Hkv, S)
     err = build.load("decode_attention").chunk_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), B, Hkv, Hq // Hkv, T, S, D, float(scale),
-        DTYPES[q.dtype], stream(q))
+        o.data_ptr(), _ptr(part), _ptr(done), B, Hkv, Hq // Hkv, T, S, D,
+        nsplit, cols, float(scale), DTYPES[q.dtype], stream(q))
     build.check(err, "chunk_attention")
     chunk_attention.launches += 1
     return o
@@ -185,7 +236,7 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     err = build.load("decode_attention").decode_attention_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-        part.data_ptr() if part is not None else None, done.data_ptr(),
+        _ptr(part), done.data_ptr(),
         B, Hkv, Hq // Hkv, NB, ps, D, nsplit, split_rows, float(scale),
         DTYPES[q.dtype], stream(q))
     build.check(err, "decode_attention_paged")
@@ -215,11 +266,12 @@ def chunk_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
            block_table=block_table)
     scale = sm_scale if sm_scale is not None else D ** -0.5
     o = torch.empty_like(q)
+    nsplit, cols, part, done = _chunk_scratch(q, Hkv, NB * ps)
     err = build.load("decode_attention").chunk_attention_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), pos.data_ptr(), o.data_ptr(),
-        B, Hkv, Hq // Hkv, T, NB, ps, D, float(scale), DTYPES[q.dtype],
-        stream(q))
+        block_table.data_ptr(), pos.data_ptr(), o.data_ptr(), _ptr(part),
+        _ptr(done), B, Hkv, Hq // Hkv, T, k_pages.shape[0], NB, ps, D, nsplit,
+        cols, float(scale), DTYPES[q.dtype], stream(q))
     build.check(err, "chunk_attention_paged")
     chunk_attention_paged.launches += 1
     return o

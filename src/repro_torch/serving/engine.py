@@ -415,6 +415,13 @@ class ServingEngine:
         self._sync()
 
     @property
+    def chunk_widths(self) -> frozenset:
+        """Chunk widths scheduled so far: the width projection of
+        chunk_programs, bounded however many distinct prompt lengths
+        arrive."""
+        return frozenset(w for _, w in self._chunk_programs)
+
+    @property
     def chunk_programs(self) -> frozenset:
         """(batch_bucket, width) pairs scheduled so far."""
         return frozenset(self._chunk_programs)

@@ -107,6 +107,66 @@ def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     assert dec.chunk_attention.launches == before + 1
 
 
+# (B, Hq, Hkv, T, S, D, pos): per-row offsets, with rows near S and rows
+# whose pos + T passes S (such a row sees S columns); head dims 32, 64, 80
+# and 128, G 1, 5 and 8, T 1, 8, 64 and 512.  bf16 runs the tensor-core
+# kernel, f32 the FMA one.
+CHUNK_CASES = [
+    (2, 8, 8, 64, 300, 32, [0, 250]),          # G 1, D 32, ragged S, past S
+    (1, 16, 2, 512, 600, 32, [88]),            # G 8, D 32, T 512, past S
+    (2, 10, 2, 64, 333, 64, [0, 300]),         # G 5, past S
+    (2, 32, 4, 1, 2048, 64, [0, 2047]),        # T 1 at the last column
+    (2, 32, 4, 512, 777, 64, [0, 600]),        # T 512, G 8, ragged, past S
+    (2, 32, 32, 64, 1000, 80, [0, 970]),       # zamba2: G 1, D 80, past S
+    (1, 8, 8, 512, 700, 80, [100]),            # G 1, D 80, T 512
+    (3, 40, 8, 8, 1000, 128, [0, 995, 500]),   # G 5, D 128, T 8, past S
+    (1, 5, 1, 512, 1100, 128, [300]),          # G 5 (MQA), D 128, T 512
+    (3, 4, 4, 1, 130, 128, [0, 129, 64]),      # G 1, D 128, T 1
+    # short chunks deep in the cache: the split path (tests below)
+    (8, 32, 4, 8, 2048, 64, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
+    (4, 32, 32, 8, 2048, 80, [0, 2000, 64, 1023]),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_attention_kernel_offsets(dtype, case):
+    B, Hq, Hkv, T, S, D, pos_l = case
+    rng = np.random.default_rng(7)
+    q = arr(rng, B, Hq, T, D, dtype=dtype)
+    k, v = arr(rng, B, Hkv, S, D, dtype=dtype), arr(rng, B, Hkv, S, D,
+                                                   dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    before = dec.chunk_attention.launches
+    close(dec.chunk_attention(q, k, v, pos=pos),
+          ref.chunk_attention(q, k, v, pos=pos), dtype)
+    assert dec.chunk_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES[-2:])
+def test_chunk_attention_split_path(case, monkeypatch):
+    """A short chunk deep in the cache splits its columns on this card,
+    and the merged output agrees with the same kernel run unsplit (one
+    range over S) and with the plain version."""
+    B, Hq, Hkv, T, S, D, pos_l = case
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nsplit, _ = dec.chunk_splits(B, Hkv, Hq // Hkv, T, S, sms)
+    assert nsplit > 1
+    rng = np.random.default_rng(8)
+    q = arr(rng, B, Hq, T, D, dtype=torch.bfloat16)
+    k = arr(rng, B, Hkv, S, D, dtype=torch.bfloat16)
+    v = arr(rng, B, Hkv, S, D, dtype=torch.bfloat16)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    split = dec.chunk_attention(q, k, v, pos=pos)
+    close(split, ref.chunk_attention(q, k, v, pos=pos), torch.bfloat16)
+    again = dec.chunk_attention(q, k, v, pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(split, again)   # the merge runs in range order
+    monkeypatch.setattr(dec, "chunk_splits",
+                        lambda *a: (1, -(-S // dec.TILE) * dec.TILE))
+    close(split, dec.chunk_attention(q, k, v, pos=pos), torch.bfloat16)
+
+
 def paged_case(rng, B, Hkv, NB, ps, D, limits, dtype):
     """A page arena holding B rows of NB pages each, through block tables
     that are a random permutation of pages 1..B*NB; table slots past each
@@ -185,6 +245,47 @@ def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
                                       block_table=bt, pos=pos)
     torch.cuda.synchronize()
     assert torch.equal(o, again)
+    # one arithmetic body: the dense kernel on the gathered cache gives
+    # the same output (a masked entry adds exactly 0)
+    dense = dec.chunk_attention(q, ref.gather_kv_pages(kp, bt),
+                                ref.gather_kv_pages(vp, bt), pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense)
+
+
+# (B, Hq, Hkv, T, NB, ps, D, pos) at page sizes 64 and 128 (bf16: pages
+# by TMA) and 5, 8, 16 and 24 (bf16: the cp.async gather), with rows past
+# NB * ps and the split path
+PAGED_CHUNK_CASES = [
+    (2, 32, 4, 64, 20, 24, 64, [0, 430]),          # gather route, past S
+    (3, 8, 8, 8, 30, 5, 80, [0, 140, 60]),         # gather route, G 1, D 80
+    (2, 32, 4, 64, 40, 8, 64, [0, 290]),           # eight pages per tile
+    (2, 32, 4, 512, 48, 16, 64, [0, 300]),         # T 512, past S
+    (8, 32, 4, 8, 32, 64, 64, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
+    (3, 32, 32, 8, 16, 128, 80, [0, 2040, 900]),   # G 1, D 80, split
+    (2, 10, 2, 512, 50, 16, 128, [0, 300]),        # G 5, D 128
+    (3, 8, 8, 1, 9, 8, 32, [0, 71, 30]),           # T 1, D 32
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", PAGED_CHUNK_CASES)
+def test_chunk_attention_paged_kernel_offsets(dtype, case):
+    B, Hq, Hkv, T, NB, ps, D, pos_l = case
+    rng = np.random.default_rng(9)
+    kp, vp, bt = paged_case(rng, B, Hkv, NB, ps, D,
+                            [p + T for p in pos_l], dtype)
+    q = arr(rng, B, Hq, T, D, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    o = dec.chunk_attention_paged(q, kp, vp, block_table=bt, pos=pos)
+    close(o, ref.chunk_attention_paged(q, kp, vp, block_table=bt, pos=pos),
+          dtype)
+    dense = dec.chunk_attention(q, ref.gather_kv_pages(kp, bt),
+                                ref.gather_kv_pages(vp, bt), pos=pos)
+    again = dec.chunk_attention_paged(q, scrubbed(kp), scrubbed(vp),
+                                      block_table=bt, pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense) and torch.equal(o, again)
 
 
 def test_paged_kernels_refuse_bad_tables():

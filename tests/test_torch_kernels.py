@@ -116,6 +116,9 @@ CHUNK_SHAPES = [
     (2, 8, 2, 5, 64, 32),       # GQA, odd chunk width
     (3, 4, 1, 8, 128, 64),      # MQA
     (2, 2, 2, 16, 96, 32),      # MHA, S no power of two
+    (2, 4, 4, 16, 96, 80),      # zamba2's shared block: G 1, head dim 80
+    (3, 40, 8, 9, 77, 128),     # G 5, S no tile multiple (ragged tail)
+    (3, 8, 2, 1, 64, 64),       # T 1: a decode step through the chunk path
 ]
 
 
@@ -191,6 +194,52 @@ class TestDispatch:
         assert (nsplit, rows) == want
         assert rows % tdec.TILE == 0 and nsplit <= tdec.MAX_SPLITS
         assert (nsplit - 1) * rows < S <= nsplit * rows
+
+    @pytest.mark.parametrize("B,Hkv,G,T,S,want", [
+        (8, 4, 8, 8, 2048, (8, 256)),     # a short chunk deep in the cache
+        (8, 4, 8, 512, 2048, (1, 2048)),  # the prefill chunk: 1024 blocks
+        (8, 32, 1, 512, 2048, (1, 2048)), # zamba2's shared block: 1024
+        (8, 4, 8, 1, 2048, (8, 256)),     # T 1: one tile of 8 rows
+        (2, 32, 1, 8, 2048, (5, 448)),    # G 1, T 8: 64 blocks
+        (1, 1, 1, 1, 8192, (64, 128)),    # capped at MAX_SPLITS ranges
+        (3, 2, 5, 7, 300, (5, 64)),       # ragged S: the last range is short
+    ])
+    def test_chunk_splits_cover_s_in_whole_tiles(self, B, Hkv, G, T, S,
+                                                 want):
+        nsplit, cols = tdec.chunk_splits(B, Hkv, G, T, S, sms=132)
+        assert (nsplit, cols) == want
+        assert cols % tdec.TILE == 0 and 1 <= nsplit <= tdec.MAX_SPLITS
+        assert (nsplit - 1) * cols < S <= nsplit * cols
+        # a split grid gives every SM a block at least, unless the ranges
+        # are capped or already one tile each
+        blocks = B * Hkv * -(-G * T // tdec.CHUNK_ROWS)
+        assert nsplit == 1 or blocks * nsplit >= 132 \
+            or nsplit in (tdec.MAX_SPLITS, -(-S // tdec.TILE))
+        # a query tile whose rows see columns [0, ncols) runs the ranges
+        # that start below ncols: whole tiles, disjoint, covering them
+        for ncols in {1, 63, 64, 65, S // 2, S - 1, S}:
+            active = max(1, -(-ncols // cols))
+            assert active <= nsplit
+            ranges = [(r * cols, min(ncols, (r + 1) * cols))
+                      for r in range(active)]
+            assert ranges[0][0] == 0 and ranges[-1][1] == ncols
+            assert all(a % tdec.TILE == 0 and a < z for a, z in ranges)
+            assert all(z == a2 for (_, z), (a2, _) in zip(ranges, ranges[1:]))
+
+    def test_chunk_splits_only_when_the_grid_is_short(self):
+        """No split once the query tiles alone give two blocks per SM;
+        below that, at least one block per SM unless every range is one
+        tile already."""
+        for B in (1, 2, 4, 8, 16, 64):
+            for T in (1, 8, 64, 128, 512):
+                nsplit, _ = tdec.chunk_splits(B, 4, 8, T, 2048, sms=132)
+                blocks = B * 4 * -(-8 * T // tdec.CHUNK_ROWS)
+                if blocks >= 2 * 132:
+                    assert nsplit == 1
+                else:
+                    assert nsplit > 1
+                    assert blocks * nsplit >= 132 \
+                        or nsplit == 2048 // tdec.TILE
 
     def test_wrappers_check_before_launching(self):
         """The CUDA path validates without a card: a CPU tensor never

@@ -176,6 +176,8 @@ CHUNK_CASES = [
     # B, Hq, Hkv, T, NB, ps, D, pos
     (3, 4, 2, 5, 4, 8, 64, (0, 9, 22)),       # GQA
     (2, 4, 1, 8, 3, 16, 32, (40, 3)),         # MQA, pages of 16
+    (2, 4, 4, 6, 5, 16, 80, (0, 77)),         # G 1, head dim 80, past NB*ps
+    (3, 8, 2, 1, 3, 8, 64, (0, 23, 11)),      # T 1, the last column
 ]
 
 

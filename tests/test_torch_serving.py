@@ -91,6 +91,33 @@ def test_greedy_tokens_match_reference_engine(models, chunk, prefill_batch):
         assert max(b for b, _ in engine.chunk_programs) > 1
 
 
+@pytest.mark.parametrize("bucket", [True, False])
+def test_chunk_widths_match_reference_engine(models, bucket):
+    """The reference's prompt-length sweep (12 lengths 3..25,
+    prefill_chunk 32, min_chunk_bucket 8; its unbucketed case takes the
+    first four): the port schedules the same chunk widths as the JAX
+    engine, bounded with bucketing and one per length without."""
+    jm, jp, tm, tp = models
+    lengths = list(range(3, 27, 2))
+    if not bucket:
+        lengths = lengths[:4]
+    kw = dict(max_batch=2, max_seq_len=64, eos_token=-1, prefill_chunk=32,
+              min_chunk_bucket=8, bucket_chunks=bucket)
+    widths = []
+    for engine in (JaxEngine(jm, jp, JaxServeConfig(**kw)),
+                   ServingEngine(tm, tp, ServeConfig(**kw))):
+        rng = np.random.default_rng(4)
+        for n in lengths:
+            engine.submit(rng.integers(0, 256, n).astype(np.int32), 2)
+        assert len(engine.run_until_drained()) == len(lengths)
+        widths.append(engine.chunk_widths)
+    assert widths[1] == widths[0], widths
+    if bucket:
+        assert widths[1] <= {8, 16, 32}
+    else:
+        assert len(widths[1]) == len(lengths)
+
+
 # ------------------------------------------------------------- sampling ----
 def _params(B, temperature=1.0, top_k=0, top_p=1.0, seed=0, step=0):
     full = lambda v, dt: torch.full((B,), v, dtype=dt)
