@@ -16,8 +16,12 @@ source in its first process.  Phases:
   kernels  chunk attention (dense, and paged at page sizes 64 and 16) at
            the shapes of chip_smoke.py phases 3 and 3c (bf16, B 8, S 2048:
            Hq 32 / Hkv 4 / D 64 and Hq = Hkv = 32 / D 80, T 512 and T 8),
-           median of 20 launches with the L2 flushed, beside SDPA with a
-           boolean mask; paged output checked equal to the dense one
+           and decode attention (dense, and paged at page size 64) at the
+           same two widths and phase 3's kv_len, median of 20 launches
+           with the L2 flushed, beside SDPA with a boolean mask; paged
+           output checked equal to the dense one; then ssd_scan at
+           chip_smoke.py phase 3c's shape (x [B, 512, 80, 64] bf16, N 64,
+           chunk 128, h0 f32) at B 8 and B 1
   groups   the device time of one full-width prefill group (B 8 x T 512 at
            the phase-3 offsets) for tinyllama_1_1b and zamba2_2_7b, by
            torch.profiler, and the chunk-attention and SSD-scan kernels'
@@ -41,6 +45,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "groups", "serve")
 POS_T512 = [0, 512, 1024, 1536, 100, 700, 1300, 7]
 POS_T8 = [0, 5, 100, 1000, 2040, 333, 1500, 17]
+KV_LEN = [0, 1, 77, 1000, 1537, 2047, 2048, 513]   # chip_smoke.py phase 3
+HOST_LEAD_CYCLES = 1_000_000   # device spin before a timed call (chip_smoke.py)
 
 
 def main() -> None:
@@ -93,13 +99,17 @@ def result(tag: str, msg: str) -> None:
 
 
 def time_ms(torch, fn, flush, iters: int = 20) -> float:
-    """Median device time of one call (CUDA events), L2 flushed before."""
+    """Median device time of one call (CUDA events), L2 flushed and the
+    card held busy before (so the host's enqueue time is not timed)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        # keep the card busy while the host enqueues the call, so the
+        # events time the device and not the wrapper's host overhead
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -160,6 +170,54 @@ def kernels(torch, tag: str) -> None:
                 del kp, vp
             result(tag, msg)
             del q, k, v, o
+    for Hq, Hkv, D in ((32, 4, 64), (32, 32, 80)):
+        q = rnd(B, Hq, D)
+        k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+        kv_len = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        dense = lambda: dec.decode_attention(q, k, v, kv_len=kv_len)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        o = dense()
+        perm = (torch.randperm(B * S // 64, generator=gen, device=dev)
+                + 1).to(torch.int32).reshape(B, S // 64)
+        kp, vp = arena(torch, k, 64, perm), arena(torch, v, 64, perm)
+        bt = perm.clone()
+        for b, n in enumerate(KV_LEN):
+            bt[b, -(-n // 64):] = 0
+        paged = lambda: dec.decode_attention_paged(q, kp, vp, block_table=bt,
+                                                   kv_len=kv_len)
+        same = torch.equal(paged(), o)
+        result(tag, f"decode D{D} G{Hq // Hkv}: dense "
+                    f"{time_ms(torch, dense, flush):.4f} ms, sdpa "
+                    f"{time_ms(torch, sdpa, flush):.4f} ms, paged ps 64 "
+                    f"{time_ms(torch, paged, flush):.4f} ms (equal to "
+                    f"dense: {same})")
+        del q, k, v, o, kp, vp
+    ssd_kernel(torch, tag, flush, gen)
+
+
+def ssd_kernel(torch, tag: str, flush, gen) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba_scan as ms
+
+    dev = "cuda"
+    L, H, P, N, chunk = 512, 80, 64, 64, 128
+    a = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
+    for B in (8, 1):
+        x = torch.randn(B, L, H, P, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        dt = F.softplus(torch.randn(B, L, H, generator=gen, device=dev) - 2)
+        b = torch.randn(B, L, N, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        c = torch.randn(B, L, N, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        h0 = torch.randn(B, H, N, P, generator=gen, device=dev)
+        run = lambda: ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+        result(tag, f"ssd_scan B{B} x L{L} x H{H} x P{P}: "
+                    f"{time_ms(torch, run, flush):.4f} ms")
+        del x, dt, b, c, h0
 
 
 def groups(torch, tag: str) -> None:

@@ -25,7 +25,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the equivalent contiguous cache, plus a page_size 16
               correctness case (bf16 chunk attention copies pages by TMA
               at 64 and gathers them at 16); paged chunk output must
-              equal the dense kernel's on the same K/V
+              equal the dense kernel's on the same K/V, and so must paged
+              decode at page sizes 64, 16 and 5; a decoded row alone
+              must equal the same row in the batch of 8, dense and paged
   4. forward  full-width tinyllama_1_1b (22 layers, bf16, seeded random
               weights): one 512-token prefill chunk and one decode step
               with the kernels and with the plain versions, logits compared
@@ -67,10 +69,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               device time by kernel and the device's busy share
   3c. hybrid kernels  the kernels of the hybrid path at its shapes: the
               SSD scan (ssd_scan) at the serving shape (x [8,512,80,64]
-              bf16, N 64, chunk 128) with and without a carried state, a
-              padded case (L 300) and a small-chunk case (L 16); chunk and
-              decode attention at Hq = Hkv = 32, head dim 80, and paged
-              chunk attention there at page sizes 16 and 64; rmsnorm_add
+              bf16, N 64, chunk 128) with and without a carried state, one
+              row (x [1,512,80,64], timed too), a padded case (L 300) and a
+              small-chunk case (L 16); chunk and decode attention at Hq =
+              Hkv = 32, head dim 80, and their paged twins there at page
+              sizes 16 and 64 (equal to the dense kernels); rmsnorm_add
               at [8,512,2560]; each against its plain version and timed
               beside it, its bound and (where one exists) a library call
   8. hybrid   full-width zamba2_2_7b (54 Mamba2 layers + a shared
@@ -116,6 +119,7 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate (data sheet)
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
 L2_FLUSH_BYTES = 256 << 20      # > the 50 MB L2: each timed launch starts cold
+HOST_LEAD_CYCLES = 1_000_000    # ~0.5 ms of device spin before each timed call
 
 # tolerances (kernel vs plain version, both bf16): one bf16 ulp near 1 is
 # 7.8e-3 and the kernels sum in another order -> 2e-2, as tests/test_kernels.py
@@ -274,13 +278,18 @@ def device_line() -> str:
 # ---------------------------------------------------------------- timing ----
 def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call, by CUDA events around each call,
-    with the L2 cache flushed before it (the flush is outside the events)."""
+    with the L2 cache flushed before it and the card held busy for
+    HOST_LEAD_CYCLES (both outside the events), so that a slow host
+    enqueueing the call does not leave the card idle inside them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        # keep the card busy while the host enqueues the call, so the
+        # events time the device and not the wrapper's host overhead
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -539,6 +548,7 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
             errs["chunk"].append(check_paged_chunk(
                 torch, qc, k, v, kp, vp, btc, pos,
                 f"chunk_attention_paged T={T} page_size {ps}"))
+    check_decode_identities(torch, q, k, v, kv_len, arenas, lens)
     kp, vp, perm = arenas[PAGE]
     nb = S // PAGE
     src = "src/repro_torch/kernels/csrc/decode_attention.cu"
@@ -580,6 +590,56 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
     e["short_chunk"] = sub_entry(short)
     entries.append(e)       # the prefill chunk, T = 512, with T = 8 inside
     return entries
+
+
+def check_decode_identities(torch, q, k, v, kv_len, arenas, lens):
+    """Decode's two identities: the paged instance equals the dense one on
+    the same K/V (torch.equal) at page sizes 64 (TMA), 16 and 5 (the
+    cp.async gather; 5 over the cache padded to 2050 rows), and a row
+    decoded alone equals the same row in the batch of 8, dense and
+    paged (the split plan follows S only)."""
+    from repro_torch.kernels import decode_attention as dec
+
+    dev = k.device
+    B, Hkv, S, D = k.shape
+    dense = dec.decode_attention(q, k, v, kv_len=kv_len)
+    cases = [(ps, kp, vp, tables(torch, perm, ps, lens), dense)
+             for ps, (kp, vp, perm) in arenas.items()]
+    pad = lambda t: torch.cat([t, t.new_zeros(B, Hkv, 2, D)], dim=2)
+    k5, v5 = pad(k), pad(v)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    perm5 = (torch.randperm(B * 410, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(B, 410)
+    cases.append((5, shred(torch, k5, 5, perm5), shred(torch, v5, 5, perm5),
+                  tables(torch, perm5, 5, lens),
+                  dec.decode_attention(q, k5, v5, kv_len=kv_len)))
+    for ps, kp, vp, bt, want in cases:
+        o = dec.decode_attention_paged(q, kp, vp, block_table=bt,
+                                       kv_len=kv_len)
+        torch.cuda.synchronize()
+        if not torch.equal(o, want):
+            fail(f"decode_attention_paged page_size {ps}: the output "
+                 f"differs from the dense kernel's on the same K/V")
+        for i in (3, 5, 7):
+            one = slice(i, i + 1)
+            alone = dec.decode_attention_paged(
+                q[one], kp, vp, block_table=bt[one].contiguous(),
+                kv_len=kv_len[one])
+            torch.cuda.synchronize()
+            if not torch.equal(alone, o[one]):
+                fail(f"decode_attention_paged page_size {ps}: row {i} "
+                     f"alone differs from row {i} in the batch")
+    for i in (3, 5, 7):
+        one = slice(i, i + 1)
+        alone = dec.decode_attention(q[one], k[one], v[one],
+                                     kv_len=kv_len[one])
+        torch.cuda.synchronize()
+        if not torch.equal(alone, dense[one]):
+            fail(f"decode_attention: row {i} alone differs from row {i} "
+                 f"in the batch")
+    log(f"[kernel] decode_attention: paged equals dense at page sizes "
+        f"{sorted(c[0] for c in cases)}; rows 3, 5, 7 alone equal "
+        f"themselves in the batch of {B}, dense and paged")
 
 
 def check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos, what: str) -> float:
@@ -1264,43 +1324,54 @@ def check_hybrid_kernels(torch, entries):
     # padded L (ops pads to the chunk) and a small chunk
     B, L, H, P, N, chunk = SSD_SHAPE
     a = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
-    errs, h_errs = [], []
-    for what, l, ch, with_h0 in (("L 512 h0 none", L, chunk, False),
-                                 ("L 512 h0 random", L, chunk, True),
-                                 ("L 300 padded", 300, chunk, True),
-                                 ("L 16 chunk 16", 16, 16, True)):
-        x = rnd(B, l, H, P)
-        dt = F.softplus(torch.randn(B, l, H, generator=gen, device=dev) - 2)
-        b, c = rnd(B, l, N), rnd(B, l, N)
-        h0 = torch.randn(B, H, N, P, generator=gen, device=dev) \
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, h_errs, timed = [], [], {}
+    for what, nb, l, ch, with_h0 in (("L 512 h0 none", B, L, chunk, False),
+                                     ("L 512 h0 random", B, L, chunk, True),
+                                     ("B 1 L 512 h0 random", 1, L, chunk,
+                                      True),
+                                     ("L 300 padded", B, 300, chunk, True),
+                                     ("L 16 chunk 16", B, 16, 16, True)):
+        x = rnd(nb, l, H, P)
+        dt = F.softplus(torch.randn(nb, l, H, generator=gen, device=dev) - 2)
+        b, c = rnd(nb, l, N), rnd(nb, l, N)
+        h0 = torch.randn(nb, H, N, P, generator=gen, device=dev) \
             if with_h0 else None
         y, h = ops.ssd_scan(x, dt, a, b, c, chunk=ch, h0=h0, impl="kernel")
         y_r, h_r = plain_ssd(torch, x, dt, a, b, c, ch, h0)
         errs.append(max_err(torch, y, y_r, f"ssd_scan y {what}"))
         h_errs.append(state_err(torch, h, h_r, f"ssd_scan h {what}"))
-        if what == "L 512 h0 random":
-            timed = (x, dt, b, c, h0)
+        if what.endswith("L 512 h0 random"):
+            timed[nb] = (x, dt, b, c, h0)
     log(f"[hybrid-kernels] ssd_scan max_abs_err per case: y "
         f"{[f'{e:.3e}' for e in errs]}, h {[f'{e:.3e}' for e in h_errs]} "
         f"(tolerance {STATE_TOL} abs + rel)")
-    x, dt, b, c, h0 = timed
-    # bytes: x, b, c (bf16), dt, h0 read; y (bf16), h written.  Operations:
-    # per (b, h, chunk) C B^T and S dtx over the T(T+1)/2 visible pairs,
-    # C h and the state update: 2(N+P)T(T+1)/2 + 4TNP
-    ops_ssd = B * H * (L // chunk) * (
-        (N + P) * chunk * (chunk + 1) + 4.0 * chunk * N * P)
-    e = record_kernel(
-        torch, flush, "ssd_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
-        "src/repro/kernels/mamba_scan.py:81",
-        f"x {B}x{L}x{H}x{P} b/c {B}x{L}x{N} chunk {chunk} h0 f32",
-        max(errs), lambda: ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
-        lambda: ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
-        None,   # no one PyTorch call computes the SSD scan
-        nbytes=2.0 * (2 * x.numel() + b.numel() + c.numel())
-        + 4.0 * (dt.numel() + a.numel() + 2 * h0.numel()), ops=ops_ssd)
+    ssd = []
+    for nb, (x, dt, b, c, h0) in timed.items():
+        hg, groups, slices = ms.ssd_plan(nb, H, P, sms)
+        log(f"[hybrid-kernels] ssd_scan B {nb}: {hg} head(s) a block, "
+            f"{nb * groups * slices} blocks on {sms} SMs")
+        # bytes: x, b, c (bf16), dt, h0 read; y (bf16), h written.
+        # Operations: per (b, h, chunk) C B^T and S dtx over the T(T+1)/2
+        # visible pairs, C h and the state update: 2(N+P)T(T+1)/2 + 4TNP
+        ops_ssd = nb * H * (L // chunk) * (
+            (N + P) * chunk * (chunk + 1) + 4.0 * chunk * N * P)
+        ssd.append(record_kernel(
+            torch, flush, "ssd_scan",
+            "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "src/repro/kernels/mamba_scan.py:81",
+            f"x {nb}x{L}x{H}x{P} b/c {nb}x{L}x{N} chunk {chunk} h0 f32",
+            max(errs),
+            lambda: ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
+            lambda: ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0),
+            None,   # no one PyTorch call computes the SSD scan
+            nbytes=2.0 * (2 * x.numel() + b.numel() + c.numel())
+            + 4.0 * (dt.numel() + a.numel() + 2 * h0.numel()), ops=ops_ssd))
+    e, one = ssd
+    e["batch_1"] = sub_entry(one)
     e["max_abs_err_state"] = max(h_errs)
     out.append(e)
-    del x, dt, b, c, h0, timed
+    del x, dt, b, c, h0, timed, ssd
     torch.cuda.empty_cache()
 
     # rmsnorm_add at the hybrid's hidden width; its launches here are the
@@ -1347,8 +1418,9 @@ def check_hybrid_kernels(torch, entries):
     lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
     cmask = (torch.arange(S, device=dev)[None, None, :]
              <= lim[:, :, None])[:, None]
-    # the paged twin over the same K/V at page sizes 64 and 16 (timed at 64)
-    perr = 0.0
+    # the paged twins over the same K/V at page sizes 64 and 16 (timed at
+    # 64); paged decode must equal the dense kernel's output
+    perr, dperr = 0.0, 0.0
     for ps in (16, PAGE):
         perm = (torch.randperm(Bq * (S // ps), generator=gen, device=dev)
                 + 1).to(torch.int32).reshape(Bq, S // ps)
@@ -1357,6 +1429,15 @@ def check_hybrid_kernels(torch, entries):
         perr = max(perr, check_paged_chunk(
             torch, qc, k, v, kp, vp, bt, pos,
             f"chunk_attention_paged D=80 page_size {ps}"))
+        dbt = tables(torch, perm, ps, lens)
+        od = dec.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                        kv_len=kv_len)
+        dperr = max(dperr, max_err(torch, od, ref.decode_attention_paged(
+            q, kp, vp, block_table=dbt, kv_len=kv_len),
+            f"decode_attention_paged D=80 page_size {ps}"))
+        if not torch.equal(od, dec.decode_attention(q, k, v, kv_len=kv_len)):
+            fail(f"decode_attention_paged D=80 page_size {ps}: the output "
+                 f"differs from the dense kernel's on the same K/V")
     cases = {
         "decode_attention": (
             f"q {Bq}x{Hq}x{D} kv {Bq}x{Hq}x{S}x{D} kv_len {lens}", derr,
@@ -1382,7 +1463,19 @@ def check_hybrid_kernels(torch, entries):
                                               pos=pos),
             None,
             dict(chunk_work(pos_l, T, S, Hq, Hq, D, page=PAGE),
-                 dense=lambda: dec.chunk_attention(qc, k, v, pos=pos)))}
+                 dense=lambda: dec.chunk_attention(qc, k, v, pos=pos))),
+        "decode_attention_paged": (
+            f"q {Bq}x{Hq}x{D} pages {kp.shape[0]}x{Hq}x{PAGE}x{D} "
+            f"bt {Bq}x{S // PAGE} kv_len {lens}", dperr,
+            lambda: dec.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                               kv_len=kv_len),
+            lambda: ref.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                               kv_len=kv_len),
+            None,
+            dict(nbytes=2.0 * q.numel() * 2 + 4 * Bq
+                 + 4 * sum(-(-n // PAGE) for n in lens)
+                 + sum(lens) * Hq * D * 2 * 2, ops=4.0 * sum(lens) * Hq * D,
+                 dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len)))}
     for e in entries:
         if e["name"] in cases:
             shape, err, fn, plain, lib, work = cases[e["name"]]

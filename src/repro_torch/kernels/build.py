@@ -47,7 +47,7 @@ SIGNATURES = {
                                    _F, _I, _P),
         "decode_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _I, _I,
-                                          _F, _I, _P),
+                                          _I, _F, _I, _P),
         "chunk_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _F, _I, _P),
@@ -62,7 +62,7 @@ SIGNATURES = {
     },
     "mamba_scan": {
         "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

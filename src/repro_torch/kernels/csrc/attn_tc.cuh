@@ -156,32 +156,35 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((kAlign - (mma::smem_addr(raw) & (kAlign - 1))) & (kAlign - 1));
 }
 
-// Two-stage ring of K/V tiles: stage j % 2 holds K, then V, of tile j
-// ([kBN, D] each, in the swizzled layout).  Filled by TMA, stage j % 2 is
-// complete when its mbarrier full[j % 2] completes its (j / 2)-th phase;
-// rows past the tensor map's bounds arrive as zeros.  (A kernel that fills
-// it by cp.async uses only the tiles.)
-template <int D>
+// Ring of NS K/V tile stages (two by default): stage j % NS holds K, then
+// V, of tile j ([kBN, D] each, in the swizzled layout).  Filled by TMA,
+// stage j % NS is complete when its mbarrier full[j % NS] completes its
+// (j / NS)-th phase; rows past the tensor map's bounds arrive as zeros.
+// (A kernel that fills it by cp.async uses only the tiles.)
+template <int D, int NS = 2>
 struct KvRing {
-  static constexpr size_t kBytes = 4 * kBN * D * sizeof(bf16) + 2 * sizeof(uint64_t);
+  static constexpr int kStages = NS;
+  static constexpr size_t kStageBytes = 2 * kBN * D * sizeof(bf16);
+  static constexpr size_t kBytes = NS * kStageBytes + NS * sizeof(uint64_t);
   bf16* tiles;
   uint64_t* full;
   __device__ explicit KvRing(void* at)
-      : tiles(static_cast<bf16*>(at)), full(reinterpret_cast<uint64_t*>(tiles + 4 * kBN * D)) {}
-  __device__ bf16* k(int j) const { return tiles + (j & 1) * 2 * kBN * D; }
+      : tiles(static_cast<bf16*>(at)),
+        full(reinterpret_cast<uint64_t*>(tiles + NS * 2 * kBN * D)) {}
+  __device__ bf16* k(int j) const { return tiles + (j % NS) * 2 * kBN * D; }
   __device__ bf16* v(int j) const { return k(j) + kBN * D; }
-  // One thread, before any use: the two barriers (a block barrier must
-  // follow before other threads wait).
+  // One thread, before any use: the barriers (a block barrier must follow
+  // before other threads wait).
   __device__ void init() const {
-    mma::mbar_init(full, 1);
-    mma::mbar_init(full + 1, 1);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) mma::mbar_init(full + i, 1);
     mma::mbar_init_fence();
   }
   // One thread: start loading tile j of kv head `head`, rows [row, row +
   // kBN) of the map, one box per swizzled column panel.
   __device__ void load_at(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j,
                           int row) const {
-    uint64_t* bar = full + (j & 1);
+    uint64_t* bar = full + (j % NS);
     mma::mbar_expect_tx(bar, 2 * kBN * D * sizeof(bf16));
 #pragma unroll
     for (int p = 0; p < D / kRowElems<D>; ++p) {
@@ -193,7 +196,7 @@ struct KvRing {
   __device__ void load(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j) const {
     load_at(tk, tv, head, j, j * kBN);
   }
-  __device__ void wait(int j) const { mma::mbar_wait(full + (j & 1), (j >> 1) & 1); }
+  __device__ void wait(int j) const { mma::mbar_wait(full + (j % NS), (j / NS) & 1); }
 };
 
 // One K/V tile of the online softmax, for this thread's two rows of a

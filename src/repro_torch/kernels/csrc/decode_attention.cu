@@ -3,26 +3,47 @@
 // decode_attention replaces the Pallas TPU kernel
 // repro/kernels/decode_attention.py::decode_attention (_decode_kernel):
 // one query token per (row, q head) against a [S, D] KV cache row with a
-// per-row valid length kv_len[b].  Bound on an H100: bytes.  Every visible
-// K/V row is read once and used for G q heads, about 2*G FLOPs per byte.
-// Design: the G q heads of a kv head share each 64-row K/V tile staged in
-// shared memory (f32), so K/V is read from device memory once per kv head,
-// not once per q head.  One block per (batch row, kv head) would give only
-// B*Hkv = 32 blocks at the serving shapes for 132 SMs, so S is also split
-// into ranges of whole tiles, one 128-thread block each (flash-decoding):
-// 8 ranges of 256 rows at S = 2048, 256 blocks.  A block streams tiles
-// only up to kv_len[b] and masks the ragged tail (no S % tile
-// requirement); blocks whose range starts past kv_len[b] exit at once.
-// Each block keeps an f32 online softmax; the last block of a (row, kv
-// head) to finish merges the ranges' (acc, m, l) partials, counted with
-// one atomic per block, so a decode step is still a single launch.  A row
-// with kv_len == 0 writes zeros (and m = -1e30, l = 0), as the Pallas
-// kernel does.  Optional (m, l) residuals feed split-K merges.
-// decode_attention_paged replaces ::decode_attention_paged
-// (_decode_paged_kernel): the same body templated on the row addressing
-// (dense, or a page arena through a block table, below).  Before each
-// 64-row tile the block stages the arena offsets of the pages the tile
-// touches in shared memory, one table load per page.
+// per-row valid length kv_len[b].  decode_attention_paged replaces
+// ::decode_attention_paged (_decode_paged_kernel): the same body, templated
+// on how a K/V row is addressed (dense, or a page arena through a block
+// table, below).  Bound on an H100: bytes.  Every visible K/V row is read
+// once and used for G q heads, about 2*G FLOPs per byte, far below the
+// ~295 where the card stops being memory-bound; so what matters is keeping
+// enough bytes in flight to approach 3.35 TB/s.
+// bf16 design (namespace tc, decode_kernel).  A block of 4 warps takes the
+// G q heads of one (row b, kv head), up to 16 of them (more G: one block
+// per group of 16), against one range of S.  K/V tiles of 64 rows stay
+// bf16 in shared memory, in a ring of 4 stages (3 at tile width 128: D 80
+// and 128), filled by TMA on mbarriers (dense; paged at page sizes that
+// are multiples of 64, one page per tile) or by a cp.async gather of
+// 16-byte chunks (any other page size; rows past the range zero-filled),
+// in the swizzled layout of attn_tc.cuh.  Every stage is loading from the
+// block's start, and a stage is refilled as soon as the four warps are
+// done with it: 64 KB (96 KB at width 128) in flight a block, with two or
+// three blocks per SM.  Each warp owns 16 rows of every tile: S = Q K^T is
+// mma.sync m16n8k16 with the q heads as the 16-row A operand (zero rows
+// past G) and K read by ldmatrix; an f32 online softmax in log2 units,
+// the scale applied to S in f32; O += P V with P rounded to bf16 (as the
+// chunk kernel) and V read by ldmatrix.trans.  At the end the four warps'
+// (acc, m, l) are merged in warp order through shared memory.
+// Split plan: S is cut into ranges of whole tiles whose length depends on
+// S only (decode_attention.py::decode_splits: 512 rows, longer past 64
+// ranges; 512 ran faster on the card than 128-384 at both serving
+// widths), never on B or kv_len, so a row's output does not depend on
+// the rows that share its batch.  A block whose range starts past
+// kv_len[b] exits at once.  A row with one live range writes its output
+// directly; otherwise each range writes its f32 (acc, m, l) partial and
+// the last to finish, counted with one atomic, merges them in range order
+// (deterministic, one launch) and resets its counter to 0, so the counters
+// are reused from launch to launch without a memset.  A row with
+// kv_len == 0 writes zeros (and m = -1e30, l = 0), as the Pallas kernel
+// does; the optional (m, l) residuals feed split-K merges.  All routes run
+// one arithmetic body and a masked entry adds exactly 0 (a select), so the
+// paged output equals the dense kernel's on the same K/V.
+// f32 keeps the FMA body (decode_kernel below: 128 threads, f32 tiles
+// with a D + 1 pitch, one table load per page before each tile) by an
+// explicit dispatch on dtype: a TF32 product would break the f32 tests'
+// 2e-5.  It takes the same split plan and also resets its counters.
 //
 // chunk_attention and chunk_attention_paged replace the Pallas TPU kernels
 // repro/kernels/decode_attention.py::chunk_attention (_chunk_kernel) and
@@ -78,7 +99,8 @@
 // starts past its tile's last column exits at once.  A tile with one live
 // range writes its output directly; otherwise each range writes its f32
 // (acc, m, l) partial and the last one to finish, counted by one atomic,
-// merges them in range order (one launch, deterministic).
+// merges them in range order (one launch, deterministic) and resets its
+// counter.  Unlike decode's, this plan still follows B (ROADMAP).
 // D 80 (zamba2's shared block) runs on the 128-column tile layout: Q K^T
 // skips the k-steps past column 80 (5 of 8 run), P V runs at n 128, and
 // only 80 output columns are stored.
@@ -284,6 +306,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     if (tid == 0) last = atomicAdd(done + head, 1) == active - 1;
     __syncthreads();
     if (!last) return;
+    if (tid == 0) done[head] = 0;   // every counter is 0 again for the next launch
     __threadfence();
     const float* all = part + head * nsplit * G * (D + 2);
     // w[s][g] = exp(m_s - m*) in p_s (nsplit <= 64 = kDecBK, host-capped)
@@ -775,10 +798,11 @@ chunk_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(done + static_cast<size_t>(head) * gridDim.y + tile, 1) == active - 1;
+  const size_t ctr = static_cast<size_t>(head) * gridDim.y + tile;
+  if (threadIdx.x == 0) last = atomicAdd(done + ctr, 1) == active - 1;
   __syncthreads();
   if (!last) return;
+  if (threadIdx.x == 0) done[ctr] = 0;   // every counter is 0 again for the next launch
   __threadfence();
   float* row_m = reinterpret_cast<float*>(q_s);   // per row: max over ranges, 1 / sum
   float* row_inv = row_m + kChM;
@@ -817,51 +841,357 @@ chunk_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   }
 }
 
+// ------------------------------------------------------------ decode, bf16 ----
+constexpr int kDecWarps = 4;    // decode block: 4 warps, each 16 rows of every K/V tile
+constexpr int kDecRows = 16;    // q heads per block: one m16 A tile (zero rows past G)
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Ring stages of the decode kernel: 16 KB a stage at D 64 (four stages,
+// three blocks per SM), 32 KB at tile width 128 (D 80, 128: three stages,
+// two blocks per SM).
+template <int D>
+__host__ __device__ constexpr int dec_stages() {
+  return tile_dim<D>() > 64 ? 3 : 4;
+}
+
+// What the decode kernel needs to know about the problem.
+struct DecodeProblem {
+  int hkv, G, hg;       // kv heads, q heads per kv head, blocks of kDecRows of them
+  int nb, ps;           // rows: dense nb = 1, ps = S; paged table width, page size
+  int split_rows;       // rows per split range, a multiple of kBN
+  float mul;            // softmax scale * log2(e): scores in log2 units
+};
+
+template <int D>
+size_t decode_smem(bool paged, int split_rows) {   // the ring, the range's page ids
+  return kAlign + KvRing<tile_dim<D>(), dec_stages<D>()>::kBytes +
+         (paged ? (split_rows + 2) * sizeof(int) : 0);
+}
+
+// One block: the q heads [16 grp, 16 grp + 16) of (row b, kv head h)
+// against split range blockIdx.y of the row's visible K/V (see the head
+// note).  unit = blockIdx.x = (b * hkv + h) * hg + grp.
+template <int D, int kRoute>
+__global__ void __launch_bounds__(kDecWarps * 32)
+decode_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const int* __restrict__ bt,
+              const int* __restrict__ kv_len, bf16* __restrict__ o, float* __restrict__ m_out,
+              float* __restrict__ l_out, float* __restrict__ part, int* __restrict__ done,
+              DecodeProblem pb) {
+  constexpr int DT = tile_dim<D>(), NS = dec_stages<D>(), NT = kDecWarps * 32;
+  constexpr int KS = D / 16;   // k-steps of Q K^T; also n-tile pairs of P V
+  constexpr int RW = D + 2;    // a reduced row: acc [D], m, l
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ int last;
+  __shared__ float row_m[kDecRows], row_l[kDecRows], row_w[kDecRows][kDecWarps];
+  const KvRing<DT, NS> ring(aligned_smem(tc_smem));
+  int* pid = reinterpret_cast<int*>(ring.full + NS);   // paged: the range's page ids
+
+  const int unit = blockIdx.x, grp = unit % pb.hg, head = unit / pb.hg;
+  const int b = head / pb.hkv, h = head % pb.hkv;
+  const int split = blockIdx.y;
+  const int S = pb.nb * pb.ps;
+  const int len = min(max(kv_len[b], 0), S);
+  // ranges that hold a visible row (at least one: an empty row writes zeros)
+  const int active = max((len + pb.split_rows - 1) / pb.split_rows, 1);
+  if (split >= active) return;
+  const int lo = split * pb.split_rows, hi = min(len, lo + pb.split_rows);
+  const int ntiles = max((hi - lo + kBN - 1) / kBN, 0);
+  const int rows = min(pb.G - grp * kDecRows, kDecRows);
+  const int R = min(pb.G, kDecRows);   // rows of a partial
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const int mi = lane >> 3;            // the ldmatrix matrix whose row this lane addresses
+  const size_t q0 = static_cast<size_t>(head) * pb.G + grp * kDecRows;   // q/o row of tile row 0
+  const int slot0 = lo / pb.ps;
+
+  if constexpr (kRoute != kDense) {
+    const int nslots = ntiles > 0 ? (hi - 1) / pb.ps - slot0 + 1 : 0;
+    const int* row = bt + static_cast<size_t>(b) * pb.nb + slot0;
+    for (int i = threadIdx.x; i < nslots; i += NT) pid[i] = row[i];
+  }
+  if (kRoute != kGather && threadIdx.x == 0) ring.init();
+  __syncthreads();   // page ids staged, barriers set
+
+  // start loading tile j (rows lo + j kBN ...) into its ring stage
+  auto issue = [&](int j) {
+    const int row0 = lo + j * kBN;
+    if constexpr (kRoute == kDense) {
+      if (threadIdx.x == 0) ring.load_at(&tk, &tv, head, j, row0);
+    } else if constexpr (kRoute == kPagedTma) {   // a tile lies in one page
+      if (threadIdx.x == 0)
+        ring.load_at(&tk, &tv, pid[row0 / pb.ps - slot0] * pb.hkv + h, j, row0 % pb.ps);
+    } else {   // kGather: 16-byte chunks, rows past hi zero-filled
+      constexpr int C = D / 8;
+      for (int i = threadIdx.x; i < kBN * C; i += NT) {
+        const int r = i / C, c = i % C, row = row0 + r;
+        const bool ok = row < hi;
+        long long off = 0;
+        if (ok)
+          off = ((static_cast<long long>(pid[row / pb.ps - slot0]) * pb.hkv + h) * pb.ps +
+                 row % pb.ps) * D + c * 8;
+        const int at = tile_off<DT, kBN>(r, c);
+        mma::cp_async16(ring.k(j) + at, k + off, ok);
+        mma::cp_async16(ring.v(j) + at, v + off, ok);
+      }
+    }
+  };
+  for (int j = 0; j < NS; ++j) {   // every stage in flight from the start
+    if (j < ntiles) issue(j);
+    if constexpr (kRoute == kGather) mma::cp_async_commit();
+  }
+
+  // Q rows g and g + 8 (q heads past G are zero) as the A operand, unscaled
+  uint32_t qa[KS][4];
+  {
+    const bf16* r0 = q + (q0 + g) * D;
+    const bf16* r1 = r0 + 8 * D;
+    const bool ok0 = g < rows, ok1 = g + 8 < rows;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = 16 * kk + 2 * qd;
+      qa[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(r0 + c) : 0u;
+      qa[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(r1 + c) : 0u;
+      qa[kk][2] = ok0 ? *reinterpret_cast<const uint32_t*>(r0 + c + 8) : 0u;
+      qa[kk][3] = ok1 ? *reinterpret_cast<const uint32_t*>(r1 + c + 8) : 0u;
+    }
+  }
+
+  const Log2Score score{pb.mul};
+  float acc[D / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
+  for (int j = 0; j < ntiles; ++j) {
+    if constexpr (kRoute == kGather) {
+      mma::cp_async_wait<NS - 1>();
+      __syncthreads();   // tile j has landed, for every thread
+    } else {
+      ring.wait(j);
+    }
+    const bf16* kt = ring.k(j);
+    const bf16* vt = ring.v(j);
+    // S = Q K^T over this warp's 16 rows of the tile (two n-tiles)
+    float s[2][4] = {}, alpha[2];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kb[4];
+      mma::ldsm_x4(kb, kt + tile_off<DT, kBN>(16 * warp + (mi >> 1) * 8 + (lane & 7),
+                                              2 * kk + (mi & 1)));
+      mma::mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+      mma::mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+    }
+    const int c0 = lo + j * kBN + 16 * warp;   // this warp's first column
+    const int lim[2] = {hi - 1, hi - 1};
+    if (c0 + 15 < hi)
+      online_softmax<false>(s, m, l, alpha, c0 + 2 * qd, lim, score);
+    else
+      online_softmax<true>(s, m, l, alpha, c0 + 2 * qd, lim, score);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // O += P V: P rounded to bf16 as the A operand (k = the warp's 16 rows)
+    const uint32_t pa[4] = {mma::pack_bf16(s[0][0], s[0][1]), mma::pack_bf16(s[0][2], s[0][3]),
+                            mma::pack_bf16(s[1][0], s[1][1]), mma::pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int np = 0; np < KS; ++np) {
+      uint32_t vb[4];
+      mma::ldsm_x4_t(vb, vt + tile_off<DT, kBN>(16 * warp + (mi & 1) * 8 + (lane & 7),
+                                                2 * np + (mi >> 1)));
+      mma::mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
+      mma::mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
+    }
+    __syncthreads();   // every warp is done with this stage: refill it
+    if (j + NS < ntiles) issue(j + NS);
+    if constexpr (kRoute == kGather) mma::cp_async_commit();
+  }
+  if constexpr (kRoute == kGather) mma::cp_async_wait<0>();
+
+  // Reduce the four warps' (acc, m, l) in warp order, through the ring
+  // (every load has landed and been read).
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  float* red = reinterpret_cast<float*>(ring.tiles);   // [warp][row][RW]
+  {
+    float* r0 = red + (warp * kDecRows + g) * RW;
+    float* r1 = r0 + 8 * RW;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(r0 + 8 * n + 2 * qd) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(r1 + 8 * n + 2 * qd) = make_float2(acc[n][2], acc[n][3]);
+    }
+    if (qd == 0) {
+      r0[D] = m[0];
+      r0[D + 1] = l[0];
+      r1[D] = m[1];
+      r1[D + 1] = l[1];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, red[(w * kDecRows + r) * RW + D]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float e = exp2f(red[(w * kDecRows + r) * RW + D] - mx);
+      row_w[r][w] = e;
+      sum += e * red[(w * kDecRows + r) * RW + D + 1];
+    }
+    row_m[r] = mx;
+    row_l[r] = sum;
+  }
+  __syncthreads();
+  auto reduced = [&](int r, int d) {   // the block's acc of row r, column d
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) a += row_w[r][w] * red[(w * kDecRows + r) * RW + d];
+    return a;
+  };
+  // write a row's output and residuals from its (m, l) and acc(d)
+  auto finish = [&](auto acc_of) {
+    for (int i = threadIdx.x; i < rows * D; i += NT) {
+      const int r = i / D, d = i % D;
+      const float lr = row_l[r];
+      o[(q0 + r) * D + d] = __float2bfloat16_rn(lr == 0.f ? 0.f : acc_of(r, d) / lr);
+    }
+    if (m_out != nullptr && threadIdx.x < rows) {
+      const int r = threadIdx.x;
+      m_out[q0 + r] = row_l[r] == 0.f ? kNegInf : row_m[r] * kLn2;
+      l_out[q0 + r] = row_l[r];
+    }
+  };
+  if (active == 1) {   // the row's only range
+    finish(reduced);
+    return;
+  }
+
+  // Split: publish this range's rows (acc, m, l); the last of the unit's
+  // live ranges to arrive merges them all, in range order.
+  const size_t base = static_cast<size_t>(unit) * gridDim.y;   // range 0's partial
+  {
+    float* mine = part + (base + split) * R * RW;
+    for (int i = threadIdx.x; i < rows * RW; i += NT) {
+      const int r = i / RW, d = i % RW;
+      mine[r * RW + d] = d < D ? reduced(r, d) : d == D ? row_m[r] : row_l[r];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done + unit, 1) == active - 1;
+  __syncthreads();
+  if (!last) return;
+  if (threadIdx.x == 0) done[unit] = 0;   // every counter is 0 again for the next launch
+  __threadfence();
+  const float* all = part + base * R * RW;
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    float mx = kNegInf;
+    for (int sp = 0; sp < active; ++sp) mx = fmaxf(mx, __ldcg(all + (sp * R + r) * RW + D));
+    float sum = 0.f;
+    for (int sp = 0; sp < active; ++sp)
+      sum += exp2f(__ldcg(all + (sp * R + r) * RW + D) - mx) *
+             __ldcg(all + (sp * R + r) * RW + D + 1);
+    row_m[r] = mx;
+    row_l[r] = sum;
+  }
+  __syncthreads();
+  finish([&](int r, int d) {
+    float a = 0.f;
+    for (int sp = 0; sp < active; ++sp)
+      a += exp2f(__ldcg(all + (sp * R + r) * RW + D) - row_m[r]) *
+           __ldcg(all + (sp * R + r) * RW + d);
+    return a;
+  });
+}
+
 }  // namespace tc
 
 namespace {
 
-// The decode kernel instance for (T, D, dense or paged).
-template <typename T, int D>
-cudaError_t decode_pick(const void* q, const void* k, const void* v, KvRows kv,
+// A paged K/V tile comes by TMA when it lies in one page (ps a multiple
+// of 64, as the serving pool's 64); every other page size takes the
+// cp.async gather, which was faster than one TMA box per page at 16.
+bool tma_pages(int ps) { return ps % tc::kBN == 0; }
+
+// What a decode launch takes besides its tensors (pages: the arena's page
+// count, paged only).
+struct DecodeArgs {
+  int B, hkv, G, nsplit, split_rows, pages;
+  float scale;
+};
+
+// bf16: the tensor-core kernel.  Grid: (b, kv head, group of 16 q heads)
+// x split ranges.
+template <int D, int kRoute>
+cudaError_t decode_bf16(const void* q, const void* k, const void* v, KvRows kv,
                         const int* kv_len, void* o, float* m, float* l, float* part, int* done,
-                        int B, int hkv, int G, int nsplit, int split_rows, float scale,
-                        cudaStream_t s) {
-  return kv.bt != nullptr
-             ? decode_launch_t<T, D, true>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G,
-                                           nsplit, split_rows, scale, s)
-             : decode_launch_t<T, D, false>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv,
-                                            G, nsplit, split_rows, scale, s);
+                        const DecodeArgs& a, cudaStream_t s) {
+  using tc::bf16;
+  constexpr int DT = tc::tile_dim<D>();
+  CUtensorMap tk{}, tv{};
+  cudaError_t err = cudaSuccess;
+  if constexpr (kRoute == tc::kDense)   // kv.ps is S
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D);
+  else if constexpr (kRoute == tc::kPagedTma)
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D);
+  if (err != cudaSuccess) return err;
+  const int hg = (a.G + tc::kDecRows - 1) / tc::kDecRows;
+  const tc::DecodeProblem pb{a.hkv, a.G, hg, kv.nb, kv.ps, a.split_rows, a.scale * tc::kLog2e};
+  const size_t smem = tc::decode_smem<D>(kRoute != tc::kDense, a.split_rows);
+  auto kernel = tc::decode_kernel<D, kRoute>;
+  static size_t granted = 48 * 1024;   // the paged ring grows with split_rows
+  if (smem > granted) {
+    err = rt::set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    granted = smem;
+  }
+  kernel<<<dim3(a.B * a.hkv * hg, a.nsplit), tc::kDecWarps * 32, smem, s>>>(
+      static_cast<const bf16*>(q), tk, tv, static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kv.bt, kv_len, static_cast<bf16*>(o), m, l, part, done, pb);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t decode_dispatch(int D, const void* q, const void* k, const void* v, KvRows kv,
-                            const int* kv_len, void* o, float* m, float* l, float* part,
-                            int* done, int B, int hkv, int G, int nsplit, int split_rows,
-                            float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return decode_pick<T, 32>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
-                                split_rows, scale, s);
-    case 64:
-      return decode_pick<T, 64>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
-                                split_rows, scale, s);
-    case 80:
-      return decode_pick<T, 80>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
-                                split_rows, scale, s);
-    case 128:
-      return decode_pick<T, 128>(q, k, v, kv, kv_len, o, m, l, part, done, B, hkv, G, nsplit,
-                                 split_rows, scale, s);
+// The decode kernel for (dtype, D, dense or paged): bf16 on the tensor
+// cores, f32 on the FMA body.
+template <int D>
+cudaError_t decode_pick(int dtype, const void* q, const void* k, const void* v, KvRows kv,
+                        const int* kv_len, void* o, float* m, float* l, float* part, int* done,
+                        const DecodeArgs& a, cudaStream_t s) {
+  const bool paged = kv.bt != nullptr;
+  switch (dtype) {
+    case rt::kBF16:
+      if (!paged) return decode_bf16<D, tc::kDense>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
+      return tma_pages(kv.ps)
+                 ? decode_bf16<D, tc::kPagedTma>(q, k, v, kv, kv_len, o, m, l, part, done, a, s)
+                 : decode_bf16<D, tc::kGather>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
+    case rt::kF32:
+      return paged ? decode_launch_t<float, D, true>(q, k, v, kv, kv_len, o, m, l, part, done,
+                                                     a.B, a.hkv, a.G, a.nsplit, a.split_rows,
+                                                     a.scale, s)
+                   : decode_launch_t<float, D, false>(q, k, v, kv, kv_len, o, m, l, part, done,
+                                                      a.B, a.hkv, a.G, a.nsplit, a.split_rows,
+                                                      a.scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int decode_common(const void* q, const void* k, const void* v, KvRows kv, const void* kv_len,
-                  void* o, void* m, void* l, void* part, void* done, int B, int hkv, int G,
-                  int D, int nsplit, int split_rows, float scale, int dtype, void* stream) {
-  if (B <= 0 || hkv <= 0 || G <= 0) return cudaSuccess;
-  if (kv.nb < 1 || kv.ps < 1 || nsplit < 1 || nsplit > kDecBK || split_rows % kDecBK != 0 ||
-      (nsplit > 1 && (part == nullptr || done == nullptr)))
+                  void* o, void* m, void* l, void* part, void* done, int D, const DecodeArgs& a,
+                  int dtype, void* stream) {
+  if (a.B <= 0 || a.hkv <= 0 || a.G <= 0) return cudaSuccess;
+  // the ranges are whole tiles and cover the row's length S = nb * ps
+  if (kv.nb < 1 || kv.ps < 1 || a.nsplit < 1 || a.nsplit > kDecBK || a.split_rows < kDecBK ||
+      a.split_rows % kDecBK != 0 ||
+      static_cast<long long>(a.nsplit) * a.split_rows < static_cast<long long>(kv.nb) * kv.ps ||
+      (a.nsplit > 1 && (part == nullptr || done == nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(kv_len);
@@ -869,13 +1199,11 @@ int decode_common(const void* q, const void* k, const void* v, KvRows kv, const 
   float* lf = static_cast<float*>(l);
   float* pf = static_cast<float*>(part);
   int* dn = static_cast<int*>(done);
-  switch (dtype) {
-    case rt::kBF16:
-      return decode_dispatch<__nv_bfloat16>(D, q, k, v, kv, len, o, mf, lf, pf, dn, B, hkv, G,
-                                            nsplit, split_rows, scale, s);
-    case rt::kF32:
-      return decode_dispatch<float>(D, q, k, v, kv, len, o, mf, lf, pf, dn, B, hkv, G, nsplit,
-                                    split_rows, scale, s);
+  switch (D) {
+    case 32: return decode_pick<32>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
+    case 64: return decode_pick<64>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
+    case 80: return decode_pick<80>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
+    case 128: return decode_pick<128>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -886,11 +1214,6 @@ struct ChunkArgs {
   int B, hkv, G, T, nsplit, split_cols, pages;
   float scale;
 };
-
-// A paged K/V tile comes by TMA when it lies in one page (ps a multiple
-// of 64, as the serving pool's 64); every other page size takes the
-// cp.async gather, which was faster than one TMA box per page at 16.
-bool tma_pages(int ps) { return ps % tc::kBN == 0; }
 
 // bf16: the tensor-core kernel.  Grid: (b, kv head) x query tiles x split
 // ranges.
@@ -969,16 +1292,18 @@ int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const v
 
 // q: [B, Hkv*G, D]; k, v: [B, Hkv, S, D]; kv_len: [B] int32; o like q;
 // m, l: [B, Hkv*G] f32 or both null.  S is cut into `nsplit` ranges of
-// `split_rows` rows (a multiple of 64; nsplit <= 64), one block each;
-// with nsplit > 1, `part` is f32 scratch of B*Hkv*nsplit*G*(D+2) values
-// and `done` B*Hkv int32 zeros.  Returns the launch's CUDA error.
+// `split_rows` rows (a multiple of 64, nsplit * split_rows >= S,
+// nsplit <= 64), one block each; with nsplit > 1, `part` is f32 scratch
+// of B*Hkv*ceil(G/16)*nsplit*min(G,16)*(D+2) values and `done` as many
+// int32 counters as there are (row, kv head, group of 16 q heads), all 0
+// (every launch leaves them 0).  Returns the launch's CUDA error.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* kv_len, void* o, void* m, void* l,
                                        void* part, void* done, int B, int hkv, int G, int S,
                                        int D, int nsplit, int split_rows, float scale,
                                        int dtype, void* stream) {
-  return decode_common(q, k, v, KvRows{nullptr, 1, S}, kv_len, o, m, l, part, done, B, hkv, G,
-                       D, nsplit, split_rows, scale, dtype, stream);
+  return decode_common(q, k, v, KvRows{nullptr, 1, S}, kv_len, o, m, l, part, done, D,
+                       DecodeArgs{B, hkv, G, nsplit, split_rows, 0, scale}, dtype, stream);
 }
 
 // As decode_attention_launch over a page arena: k, v: [P, Hkv, ps, D];
@@ -986,13 +1311,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
 extern "C" int decode_attention_paged_launch(const void* q, const void* k, const void* v,
                                              const void* bt, const void* kv_len, void* o,
                                              void* part, void* done, int B, int hkv, int G,
-                                             int nb, int ps, int D, int nsplit,
+                                             int P, int nb, int ps, int D, int nsplit,
                                              int split_rows, float scale, int dtype,
                                              void* stream) {
-  if (bt == nullptr) return cudaErrorInvalidValue;
+  if (bt == nullptr || P < 1) return cudaErrorInvalidValue;
   return decode_common(q, k, v, KvRows{static_cast<const int*>(bt), nb, ps}, kv_len, o,
-                       nullptr, nullptr, part, done, B, hkv, G, D, nsplit, split_rows, scale,
-                       dtype, stream);
+                       nullptr, nullptr, part, done, D,
+                       DecodeArgs{B, hkv, G, nsplit, split_rows, P, scale}, dtype, stream);
 }
 
 // q: [B, Hkv*G, T, D]; k, v: [B, Hkv, S, D]; pos: [B] int32; o like q.

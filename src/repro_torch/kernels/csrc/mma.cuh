@@ -1,6 +1,7 @@
 // PTX wrappers for the tensor-core kernels: cp.async and TMA copies,
-// mbarriers, and wgmma (warpgroup matrix multiply-accumulate, sm_90a) on
-// bf16 with f32 accumulation.
+// mbarriers, wgmma (warpgroup matrix multiply-accumulate, sm_90a) and the
+// one-warp mma.sync m16n8k16 with its ldmatrix loads, on bf16 with f32
+// accumulation.
 //
 // A wgmma of shape m64nNk16 is issued by the 128 threads of a warpgroup.
 // Register layouts (warp w of the warpgroup owns rows 16w .. 16w + 15;
@@ -216,10 +217,50 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[NT][4], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// mma.sync m16n8k16 (one warp): d += A B, bf16 in, f32 accumulate.  A in
+// the register layout above (a0..a3); B (16 x 8, k x n): b0 holds
+// [k 2q, 2q+1][n g], b1 [k 8+2q, 9+2q][n g]; d as one 16 x 8 D tile.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lanes 8i .. 8i + 7
+// giving the row addresses of matrix i; r[i] is this lane's pair of matrix
+// i ([row lane / 4][cols 2 (lane % 4), +1]; transposed: [rows 2 (lane % 4),
+// +1][col lane / 4]).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// Two matrices (lanes 0-15 give the row addresses), transposed.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
 // Two f32 values rounded (nearest even) to a bf16 pair, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two f32 values of a bf16 pair (low half first).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
 }
 
 // The A operand of a product over the 8N columns of a 16 x 8N D tile.

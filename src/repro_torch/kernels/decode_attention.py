@@ -8,10 +8,15 @@ kernel or raises; for CPU tensors it runs the plain version in `ref`.
 Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
-ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  bf16 chunk
-attention runs on the tensor cores (wgmma), f32 on the FMA pipes; when a
+ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  bf16 runs on
+the tensor cores (chunk attention: wgmma; decode: mma.sync), f32 on the
+FMA pipes.  Decode cuts S into the ranges of `decode_splits`, which
+follow S alone, so a row's output does not depend on its batch; when a
 chunk gives too few query tiles to fill the card, `chunk_splits` cuts its
-columns into ranges that the kernel merges (one launch).
+columns too.  Either kernel merges its ranges in the same launch, with
+per-device scratch (`scratch`) whose arrival counters every launch leaves
+at 0: no call allocates or clears anything but its outputs, once the
+scratch has grown to its size.
 
 The paged kernels read K/V row j of batch row b from
 `pages[block_table[b, j // page_size], :, j % page_size]`, any
@@ -26,7 +31,7 @@ that is the engine's contract.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +42,8 @@ HEAD_DIMS = (32, 64, 80, 128)
 TILE = 64           # K/V rows per tile in the kernels
 MAX_SPLITS = 64     # S ranges per (row, kv head) the merges take
 CHUNK_ROWS = 128    # query rows per block of the bf16 chunk kernel
+DECODE_RANGE = 8 * TILE   # rows per decode split range (more past MAX_SPLITS)
+DECODE_ROWS = 16    # q heads per block of the bf16 decode kernel
 
 
 def _whole(S: int) -> Tuple[int, int]:
@@ -53,11 +60,15 @@ def _cut(S: int, blocks: int, sms: int) -> Tuple[int, int]:
     return -(-tiles // per), per * TILE
 
 
-def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
-    """(nsplit, split_rows) for the decode kernel: S cut into whole tiles
-    so that B*Hkv*nsplit blocks give about two per SM, at most MAX_SPLITS
-    ranges."""
-    return _cut(S, B * Hkv, sms)
+def decode_splits(S: int) -> Tuple[int, int]:
+    """(nsplit, split_rows) for the decode kernels: S cut into ranges of
+    DECODE_RANGE rows (whole tiles; longer when S needs more than
+    MAX_SPLITS of them).  The plan follows S alone, never the batch or
+    kv_len, so a row's output does not depend on the rows beside it, and
+    planning needs no host sync."""
+    tiles = max(1, -(-S // TILE))
+    per = max(DECODE_RANGE // TILE, -(-tiles // MAX_SPLITS))
+    return -(-tiles // per), per * TILE
 
 
 def chunk_splits(B: int, Hkv: int, G: int, T: int, S: int,
@@ -65,11 +76,32 @@ def chunk_splits(B: int, Hkv: int, G: int, T: int, S: int,
     """(nsplit, split_cols) for the bf16 chunk kernel.  It runs one block
     per (row, kv head, tile of CHUNK_ROWS query rows); when that grid is
     below two blocks per SM (short chunks), S is cut into ranges of whole
-    tiles as for decode, one block each, and the kernel merges them.
-    Otherwise one range covers S.  Sizes only: pos is never read here, so
-    planning needs no host sync."""
+    tiles, one block each, and the kernel merges them.  Otherwise one
+    range covers S.  Sizes only: pos is never read here, so planning needs
+    no host sync."""
     blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
     return _whole(S) if blocks >= 2 * sms else _cut(S, blocks, sms)
+
+
+#: per device: (f32 partials, int32 arrival counters), grown on demand
+_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def scratch(device: torch.device, n_part: int, n_done: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split merges' scratch on `device`: f32 partials of at least
+    n_part values and at least n_done int32 arrival counters, kept from
+    call to call and grown when a launch needs more.  The counters are
+    zeroed once, when allocated: the block that merges a unit resets its
+    counter, so every launch leaves them all 0 and no call pays a memset.
+    Launches that share them run in stream order."""
+    part, done = _SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=device)
+    if done is None or done.numel() < n_done:
+        done = torch.zeros(max(n_done, 1), dtype=torch.int32, device=device)
+    _SCRATCH[device] = (part, done)
+    return part, done
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,16 +143,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_vectors(D, q, k, v)
 
 
+def decode_plan(B: int, Hkv: int, G: int, S: int, D: int):
+    """(grid units, nsplit, split_rows, partial values) of a decode launch
+    over a virtual length S: one unit per (row, kv head, group of
+    DECODE_ROWS q heads), split_rows from `decode_splits`; a unit's range
+    writes min(G, DECODE_ROWS) rows of (acc [D], m, l)."""
+    units = B * Hkv * -(-G // DECODE_ROWS)
+    nsplit, split_rows = decode_splits(S)
+    part = units * nsplit * min(G, DECODE_ROWS) * (D + 2) if nsplit > 1 else 0
+    return units, nsplit, split_rows, part
+
+
 def _decode_scratch(B: int, Hq: int, Hkv: int, S: int, D: int,
                     device: torch.device):
-    """(nsplit, split_rows, partials or None, arrival counters) for a
-    decode launch over a virtual length S."""
-    nsplit, split_rows = decode_splits(B, Hkv, S, sm_count(device.index))
-    part = None
-    if nsplit > 1:   # per-range (acc, m, l) partials
-        part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
-                           device=device)
-    done = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
+    """(nsplit, split_rows, partials, arrival counters) for a decode
+    launch over a virtual length S."""
+    units, nsplit, split_rows, n_part = decode_plan(B, Hkv, Hq // Hkv, S, D)
+    part, done = scratch(device, n_part, units)
     return nsplit, split_rows, part, done
 
 
@@ -136,9 +175,8 @@ def _chunk_scratch(q: torch.Tensor, Hkv: int, S: int):
         return nsplit, cols, None, None
     blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
     # per block: CHUNK_ROWS rows of (acc [D], m, l)
-    part = torch.empty(blocks * nsplit * CHUNK_ROWS * (D + 2),
-                       dtype=torch.float32, device=q.device)
-    done = torch.zeros(blocks, dtype=torch.int32, device=q.device)
+    part, done = scratch(q.device, blocks * nsplit * CHUNK_ROWS * (D + 2),
+                         blocks)
     return nsplit, cols, part, done
 
 
@@ -236,8 +274,8 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     err = build.load("decode_attention").decode_attention_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-        _ptr(part), done.data_ptr(),
-        B, Hkv, Hq // Hkv, NB, ps, D, nsplit, split_rows, float(scale),
+        _ptr(part), done.data_ptr(), B, Hkv, Hq // Hkv, k_pages.shape[0],
+        NB, ps, D, nsplit, split_rows, float(scale),
         DTYPES[q.dtype], stream(q))
     build.check(err, "decode_attention_paged")
     decode_attention_paged.launches += 1

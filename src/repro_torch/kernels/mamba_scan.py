@@ -4,9 +4,12 @@ Replaces the Pallas TPU kernel `repro/kernels/mamba_scan.py::ssd_scan`.
 The Pallas kernel takes dtx = dt·x and ldec = a·dt, pre-built by the
 reference's `ops.ssd_scan` in a head-major layout; this kernel reads x and
 dt in their own layout and forms both itself (dtx rounded to x's dtype as
-there), so the function is `ref.ssd_scan`.  For a CUDA tensor the
-wrapper launches the kernel or raises; for a CPU tensor it runs
-`ref.ssd_scan`.  `.launches` counts kernel launches, nothing else.
+there), so the function is `ref.ssd_scan`.  bf16 runs on the tensor
+cores, one block per (batch row, group of heads, 32 columns of P) as
+`ssd_plan` lays out; f32 keeps the FMA kernel, one block per (row,
+head).  For a CUDA tensor the wrapper launches the kernel or raises; for
+a CPU tensor it runs `ref.ssd_scan`.  `.launches` counts kernel
+launches, nothing else.
 """
 
 from __future__ import annotations
@@ -16,11 +19,30 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
+from .rmsnorm import DTYPES, check_cuda, check_vectors, sm_count, stream
 
 #: (N, P) pairs the kernel compiles (state size, head dim)
 SHAPES = ((16, 32), (16, 64), (32, 32), (32, 64), (64, 32), (64, 64))
 MAX_CHUNK = 128
+HEAD_COLS = 32      # head-dim columns per block of the bf16 kernel
+MAX_HEADS = 4       # heads per block of the bf16 kernel
+
+
+def ssd_plan(B: int, H: int, P: int, sms: int) -> Tuple[int, int, int]:
+    """(heads per block, head groups, P slices) of the bf16 kernel: one
+    block per (batch row, group of heads, HEAD_COLS columns of P), two
+    blocks per SM.  A block's time grows with its heads, plus about a
+    third of a head for C B^T (formed once per chunk for the group): the
+    group is the one with the fewest waves x (heads + 1/3), the larger
+    on a tie (B 8, H 80: 3 heads, 432 blocks; B 1: 1 head, 160 blocks,
+    so even one row fills the card).  The last group may hold fewer
+    heads.  Sizes only: no host sync."""
+    slices = max(1, P // HEAD_COLS)
+
+    def cost(hg):
+        return -(-B * -(-H // hg) * slices // (2 * sms)) * (3 * hg + 1)
+    hg = min(range(MAX_HEADS, 0, -1), key=cost)
+    return hg, -(-H // hg), slices
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -64,10 +86,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     check_vectors(N, b, c)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    hg, _, _ = ssd_plan(B, H, P, sm_count(x.device.index))
     err = build.load("mamba_scan").ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-        h.data_ptr(), B, L, H, P, N, chunk, DTYPES[x.dtype], stream(x))
+        h.data_ptr(), B, L, H, P, N, chunk, hg, DTYPES[x.dtype], stream(x))
     build.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return y, h

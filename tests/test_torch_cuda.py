@@ -288,6 +288,119 @@ def test_chunk_attention_paged_kernel_offsets(dtype, case):
     assert torch.equal(o, dense) and torch.equal(o, again)
 
 
+# (D, G, S): decode at every compiled head dim and G 1 / 4 / 8 (and 20:
+# two blocks of q heads), S not a multiple of 64; kv_len 0, 1, S and
+# the lengths on either side of the split ranges' edges
+DECODE_CASES = [(D, G, S) for D, S in ((32, 1000), (64, 2000), (80, 777),
+                                       (128, 600))
+                for G in (1, 4, 8)] + [(64, 20, 1000)]
+
+
+def decode_lengths(S):
+    rows = dec.decode_splits(S)[1]
+    edges = [n for r in range(1, S // rows + 1)
+             for n in (r * rows - 1, r * rows, r * rows + 1)]
+    return sorted({0, 1, S, S - 1, *[n for n in edges if n <= S]})
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,G,S", DECODE_CASES)
+def test_decode_attention_kernel_lengths(dtype, D, G, S):
+    """Decode against the plain version at empty, one-row, full and
+    range-edge lengths, with the (m, l) residuals."""
+    rng = np.random.default_rng(11)
+    lens = decode_lengths(S)
+    B, Hkv = len(lens), 2
+    q = arr(rng, B, Hkv * G, D, dtype=dtype)
+    k, v = arr(rng, B, Hkv, S, D, dtype=dtype), arr(rng, B, Hkv, S, D,
+                                                   dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, (m, l) = dec.decode_attention(q, k, v, kv_len=kv_len,
+                                     return_residuals=True)
+    o_r, (m_r, l_r) = ref.decode_attention(q, k, v, kv_len=kv_len,
+                                           return_residuals=True)
+    close(o, o_r, dtype)
+    assert torch.all(o[kv_len == 0] == 0)
+    close(m, m_r, torch.float32 if dtype == torch.float32 else dtype)
+    np.testing.assert_allclose(l.cpu().numpy(), l_r.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4)])
+def test_decode_attention_is_batch_invariant(dtype, D, G):
+    """A row decoded alone gives exactly (torch.equal) what it gives
+    inside a batch of 8 other rows, dense and paged: the split plan
+    follows S only, never B."""
+    rng = np.random.default_rng(12)
+    B, Hkv, NB, ps = 9, 2, 24, 64
+    S = NB * ps
+    lens = [S, 1, 0, 700, 1023, 511, 513, 1300, 64]
+    kp, vp, bt = paged_case(rng, B, Hkv, NB, ps, D, lens, dtype)
+    k, v = ref.gather_kv_pages(kp, bt), ref.gather_kv_pages(vp, bt)
+    q = arr(rng, B, Hkv * G, D, dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    batch = dec.decode_attention(q, k, v, kv_len=kv_len)
+    paged = dec.decode_attention_paged(q, kp, vp, block_table=bt,
+                                       kv_len=kv_len)
+    for i in (0, 3, 4, 7):
+        one = slice(i, i + 1)
+        alone = dec.decode_attention(q[one], k[one], v[one],
+                                     kv_len=kv_len[one])
+        alone_p = dec.decode_attention_paged(
+            q[one], kp, vp, block_table=bt[one].contiguous(),
+            kv_len=kv_len[one])
+        torch.cuda.synchronize()
+        assert torch.equal(alone, batch[one]), i
+        assert torch.equal(alone_p, paged[one]), i
+    close(batch, ref.decode_attention(q, k, v, kv_len=kv_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [5, 16, 64])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4)])
+def test_decode_attention_paged_equals_dense(dtype, ps, D, G):
+    """The paged instance is the dense body with other row addressing
+    (TMA at page size 64, the cp.async gather at 5 and 16): on the same
+    K/V its output equals the dense kernel's exactly."""
+    rng = np.random.default_rng(13)
+    B, Hkv = 5, 2
+    NB = -(-1000 // ps)
+    S = NB * ps
+    lens = [S, 0, 1, 999 if S > 999 else S - 1, 257]
+    kp, vp, bt = paged_case(rng, B, Hkv, NB, ps, D, lens, dtype)
+    q = arr(rng, B, Hkv * G, D, dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o = dec.decode_attention_paged(q, kp, vp, block_table=bt, kv_len=kv_len)
+    dense = dec.decode_attention(q, ref.gather_kv_pages(kp, bt),
+                                 ref.gather_kv_pages(vp, bt), kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense)
+    close(o, ref.decode_attention_paged(q, kp, vp, block_table=bt,
+                                        kv_len=kv_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_back_to_back_calls(dtype):
+    """The arrival counters are reused without a memset (the merging
+    block resets its own): calls with different kv_len, one after the
+    other, are each right, and repeating a call repeats its output."""
+    rng = np.random.default_rng(14)
+    B, Hkv, G, S, D = 4, 4, 8, 2048, 64
+    q = arr(rng, B, Hkv * G, D, dtype=dtype)
+    k, v = arr(rng, B, Hkv, S, D, dtype=dtype), arr(rng, B, Hkv, S, D,
+                                                   dtype=dtype)
+    outs = []
+    for lens in ([2048, 1000, 513, 0], [300, 2047, 2048, 1],
+                 [2048, 1000, 513, 0]):
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        o = dec.decode_attention(q, k, v, kv_len=kv_len)
+        close(o, ref.decode_attention(q, k, v, kv_len=kv_len), dtype)
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[2])
+
+
 def test_paged_kernels_refuse_bad_tables():
     rng = np.random.default_rng(6)
     kp, vp, bt = paged_case(rng, 2, 2, 4, 16, 64, [64, 64], torch.float32)
@@ -576,6 +689,39 @@ def test_ssd_scan_kernel(dtype, with_h0, B, L, H, P, N, chunk):
     y, h = ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
     y_r, h_r = ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
     assert ms.ssd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    scale = y_r.float().abs().max().item() if dtype == torch.float32 else 1.0
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_r.float().cpu().numpy(),
+                               atol=tol(dtype) * scale, rtol=tol(dtype))
+    np.testing.assert_allclose(h.cpu().numpy(), h_r.cpu().numpy(),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (1, 512, 80, 64, 64, 128),   # one prefill row at zamba2's width
+    (2, 256, 3, 64, 64, 128),    # H 3: fewer heads than a head group
+    (1, 96, 6, 64, 64, 32),      # H 6: a full group and a partial one
+    (2, 48, 6, 32, 16, 16),      # P 32 (one column slice), N 16
+    (1, 33, 5, 64, 32, 3),       # chunk 3
+    (3, 64, 9, 64, 64, 16),      # chunk 16, B 3
+])
+def test_ssd_scan_kernel_plans(dtype, with_h0, B, L, H, P, N, chunk):
+    """The SSD kernel at batch sizes and head counts whose launch plan
+    differs from the serving shape's (one head a block at B 1, partial
+    head groups) and at small chunks, against its plain version; the
+    tolerances of test_ssd_scan_kernel."""
+    rng = np.random.default_rng(16)
+    x = arr(rng, B, L, H, P, dtype=dtype)
+    b, c = arr(rng, B, L, N, dtype=dtype), arr(rng, B, L, N, dtype=dtype)
+    dt = torch.nn.functional.softplus(
+        arr(rng, B, L, H, dtype=torch.float32) - 2)
+    a = -torch.exp(0.5 * arr(rng, H, dtype=torch.float32))
+    h0 = arr(rng, B, H, N, P, dtype=torch.float32) if with_h0 else None
+    y, h = ms.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    y_r, h_r = ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
     torch.cuda.synchronize()
     scale = y_r.float().abs().max().item() if dtype == torch.float32 else 1.0
     np.testing.assert_allclose(y.float().cpu().numpy(),

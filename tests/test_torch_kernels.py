@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import mamba_scan as tssd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trms
@@ -183,17 +184,94 @@ class TestDispatch:
             tops.rmsnorm(torch.zeros(2, 8), torch.ones(8), impl="pallas")
 
     @pytest.mark.parametrize("B,Hkv,S,want", [
-        (8, 4, 2048, (8, 256)),      # the serving decode tick on 132 SMs
-        (1, 1, 2048, (32, 64)),      # one row: a range per tile
-        (1, 1, 8192, (64, 128)),     # capped at MAX_SPLITS ranges
-        (64, 8, 2048, (1, 2048)),    # enough rows already: no split
-        (3, 1, 1000, (16, 64)),      # ragged S: the last range is short
+        (8, 4, 2048, (4, 512)),      # the serving decode tick
+        (1, 1, 2048, (4, 512)),      # one row: the same ranges
+        (1, 1, 8192, (16, 512)),     # a longer cache: more ranges
+        (64, 8, 2048, (4, 512)),     # many rows: still the same ranges
+        (3, 1, 1000, (2, 512)),      # ragged S: the last range is short
     ])
     def test_decode_splits_cover_s_in_whole_tiles(self, B, Hkv, S, want):
-        nsplit, rows = tdec.decode_splits(B, Hkv, S, sms=132)
+        nsplit, rows = tdec.decode_splits(S)
         assert (nsplit, rows) == want
         assert rows % tdec.TILE == 0 and nsplit <= tdec.MAX_SPLITS
         assert (nsplit - 1) * rows < S <= nsplit * rows
+        # the launch plan takes these ranges at every batch size
+        _, n, r, _ = tdec.decode_plan(B, Hkv, 8, S, 64)
+        assert (n, r) == want
+
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 300, 1000, 2048, 4095,
+                                   16384, 16385, 70000])
+    def test_decode_plan_is_the_same_for_every_batch(self, S):
+        """The decode ranges cover [0, S) in whole tiles, at most
+        MAX_SPLITS of them, and depend on S only: every batch size, kv
+        head count and group size gets the same ranges, so a row's output
+        cannot depend on the rows beside it."""
+        plans = {tdec.decode_plan(B, Hkv, G, S, D)[1:3]
+                 for B in (1, 2, 3, 8, 64) for Hkv in (1, 4, 32)
+                 for G in (1, 5, 8, 16, 20) for D in (32, 64, 80, 128)}
+        assert len(plans) == 1
+        nsplit, rows = plans.pop()
+        assert rows % tdec.TILE == 0 and 1 <= nsplit <= tdec.MAX_SPLITS
+        ranges = [(i * rows, min(S, (i + 1) * rows)) for i in range(nsplit)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == S
+        assert all(a % tdec.TILE == 0 and a < z for a, z in ranges)
+        assert all(z == a2 for (_, z), (a2, _) in zip(ranges, ranges[1:]))
+        # a row of kv_len n runs the ranges that start below n (one if empty)
+        for n in {min(S, n) for n in (0, 1, rows - 1, rows, rows + 1, S)}:
+            active = max(1, -(-n // rows))
+            assert active <= nsplit and (n == 0 or (active - 1) * rows < n)
+
+    def test_decode_plan_sizes_its_scratch(self):
+        """One partial of min(G, 16) rows of (acc, m, l) per (row, kv head,
+        group of 16 q heads) and range; none when one range covers S."""
+        assert tdec.decode_plan(8, 4, 8, 2048, 64) == (32, 4, 512,
+                                                       32 * 4 * 8 * 66)
+        assert tdec.decode_plan(8, 32, 1, 2048, 80) == (256, 4, 512,
+                                                        256 * 4 * 82)
+        assert tdec.decode_plan(2, 2, 20, 1000, 64) == (8, 2, 512,
+                                                        8 * 2 * 16 * 66)
+        assert tdec.decode_plan(4, 4, 8, 200, 64)[1:] == (1, 512, 0)
+
+    def test_scratch_is_reused_and_grown(self):
+        """The split merges' scratch is kept per device: asked for no more
+        than it holds, the same tensors come back (no new allocation, no
+        memset); asked for more, it grows, with fresh zero counters."""
+        dev = torch.device("cpu")
+        tdec._SCRATCH.pop(dev, None)
+        try:
+            part, done = tdec.scratch(dev, 100, 10)
+            assert part.dtype == torch.float32 and part.numel() >= 100
+            assert done.dtype == torch.int32 and done.numel() >= 10
+            assert not done.any()
+            again = tdec.scratch(dev, 50, 3)
+            assert again[0] is part and again[1] is done
+            grown = tdec.scratch(dev, 1000, 40)
+            assert grown[0].numel() >= 1000 and grown[1].numel() >= 40
+            assert grown[1] is not done and not grown[1].any()
+        finally:
+            tdec._SCRATCH.pop(dev, None)
+
+    @pytest.mark.parametrize("B,H,P", [(8, 80, 64), (1, 80, 64), (2, 80, 64),
+                                       (1, 3, 64), (3, 6, 32), (2, 5, 32),
+                                       (64, 80, 64)])
+    def test_ssd_plan_covers_every_head_once(self, B, H, P):
+        """The bf16 SSD kernel's blocks (batch row, head group, 32 columns
+        of P) cover every (row, head, column) exactly once; at the serving
+        width (H 80, P 64) every SM gets a block even at B 1."""
+        hg, groups, slices = tssd.ssd_plan(B, H, P, sms=132)
+        assert 1 <= hg <= tssd.MAX_HEADS and slices * tssd.HEAD_COLS == P
+        seen = np.zeros((B, H, P), dtype=int)
+        for g in range(groups):
+            heads = range(g * hg, min(H, (g + 1) * hg))
+            assert len(heads) >= 1
+            for b in range(B):
+                for z in range(slices):
+                    for h in heads:
+                        seen[b, h, z * tssd.HEAD_COLS:
+                             (z + 1) * tssd.HEAD_COLS] += 1
+        assert (seen == 1).all()
+        if (H, P) == (80, 64):
+            assert B * groups * slices >= 132
 
     @pytest.mark.parametrize("B,Hkv,G,T,S,want", [
         (8, 4, 8, 8, 2048, (8, 256)),     # a short chunk deep in the cache
