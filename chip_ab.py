@@ -13,10 +13,17 @@ this, other, ...), so that drift of the card and its host shows as a
 spread rather than as a difference.  A checkout builds its kernels from
 source in its first process.  Phases:
 
-  kernels  chunk attention (dense, and paged at page sizes 64 and 16) at
-           the shapes of chip_smoke.py phases 3 and 3c (bf16, B 8, S 2048:
-           Hq 32 / Hkv 4 / D 64 and Hq = Hkv = 32 / D 80, T 512 and T 8),
-           and decode attention (dense, and paged at page size 64) at the
+  kernels  the launch floor (an empty kernel, a zero-cycle spin, timed
+           as the kernels are); rmsnorm at 8x1x2048, 8x1x2560, 8x512x2048
+           and 4x2048x2048 beside F.rms_norm, and rmsnorm_backward at
+           4x2048x2048, each also with its kernels' own device time per
+           call (torch.profiler, each launch apart), and the host's time
+           per ops.rmsnorm call at 8x1x2048 under no_grad; chunk attention (dense, and paged at page sizes
+           64 and 16) at the shapes of chip_smoke.py phases 3 and 3c
+           (bf16, B 8, S 2048: Hq 32 / Hkv 4 / D 64 and Hq = Hkv = 32 /
+           D 80, T 512 and T 8), and at B 1 (row 6 of the batch, dense and
+           paged at 64, checked equal to that row in the batch), and
+           decode attention (dense, and paged at page size 64) at the
            same two widths and phase 3's kv_len, median of 20 launches
            with the L2 flushed, beside SDPA with a boolean mask; paged
            output checked equal to the dense one; then ssd_scan at
@@ -131,6 +138,84 @@ def arena(torch, k, ps, perm):
     return out
 
 
+def dev_us(e) -> float:
+    """Device time of a profiler row, in us, across torch versions."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if getattr(e, attr, None):
+            return float(getattr(e, attr))
+    return 0.0
+
+
+def norm_kernels(torch, tag: str, flush, gen) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rms
+
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), flush)
+    result(tag, f"launch floor (an empty kernel): {floor:.4f} ms")
+    for shape in ((8, 1, 2048), (8, 1, 2560), (8, 512, 2048),
+                  (4, 2048, 2048)):
+        d = shape[-1]
+        x = rnd(*shape)
+        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)) \
+            .to(torch.bfloat16)
+        run = lambda: rms.rmsnorm(x, w)
+        lib = lambda: F.rms_norm(x, (d,), w, 1e-5)
+        result(tag, f"rmsnorm {'x'.join(map(str, shape))}: "
+                    f"{time_ms(torch, run, flush):.4f} ms (kernel "
+                    f"{launch_ms(torch, run, flush)}), F.rms_norm "
+                    f"{time_ms(torch, lib, flush):.4f} ms")
+    host_us(torch, tag)
+    x, dy = rnd(4, 2048, 2048), rnd(4, 2048, 2048)
+    w = (1.0 + 0.1 * torch.randn(2048, generator=gen, device=dev)) \
+        .to(torch.bfloat16)
+    run = lambda: rms.rmsnorm_backward(x, w, dy)
+    result(tag, f"rmsnorm_backward 4x2048x2048: "
+                f"{time_ms(torch, run, flush):.4f} ms; per launch "
+                f"{launch_ms(torch, run, flush)}")
+
+
+def host_us(torch, tag: str, calls: int = 2000) -> None:
+    """The host's time per `ops.rmsnorm` call at a decode tick's rows
+    (8 x 1 x 2048 bf16) under torch.no_grad, as the serving path calls
+    it: the wall time of enqueueing `calls` calls."""
+    import time
+    from repro_torch.kernels import ops
+
+    x = torch.randn(8, 1, 2048, device="cuda").to(torch.bfloat16)
+    w = torch.ones(2048, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(50):
+            ops.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ops.rmsnorm(x, w)
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    result(tag, f"ops.rmsnorm 8x1x2048 under no_grad: host {host:.2f} us "
+                f"a call (mean of {calls})")
+
+
+def launch_ms(torch, fn, flush) -> str:
+    """Each rmsnorm kernel's device time per call: torch.profiler over 20
+    calls, L2 flushed and the card held busy before each, as time_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(20):
+            flush.zero_()
+            torch.cuda._sleep(HOST_LEAD_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    return ", ".join(
+        f"{e.key.split('(')[0].split('::')[-1].split('<')[0]} "
+        f"{dev_us(e) / e.count / 1e3:.4f} ms"
+        for e in p.key_averages() if "rmsnorm" in e.key and dev_us(e) > 0)
+
+
 def kernels(torch, tag: str) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
@@ -140,6 +225,7 @@ def kernels(torch, tag: str) -> None:
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev) \
         .to(torch.bfloat16)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    norm_kernels(torch, tag, flush, gen)
     B, S = 8, 2048
     for Hq, Hkv, D in ((32, 4, 64), (32, 32, 80)):
         for T, pos_l in ((512, POS_T512), (8, POS_T8)):
@@ -167,8 +253,23 @@ def kernels(torch, tag: str) -> None:
                 same = torch.equal(run(), o)
                 msg += (f", paged ps {ps} {time_ms(torch, run, flush):.4f} "
                         f"ms (equal to dense: {same})")
+                if ps == 64:
+                    # one row alone (row 6), dense and paged
+                    one = slice(6, 7)
+                    q1, k1, v1 = (t[one].contiguous() for t in (q, k, v))
+                    bt1 = bt[one].contiguous()
+                    alone = lambda: dec.chunk_attention(q1, k1, v1,
+                                                        pos=pos[one])
+                    alone_p = lambda: dec.chunk_attention_paged(
+                        q1, kp, vp, block_table=bt1, pos=pos[one])
+                    same1 = torch.equal(alone(), o[one]) and \
+                        torch.equal(alone_p(), o[one])
+                    b1 = (f"; B1 (row 6) dense "
+                          f"{time_ms(torch, alone, flush):.4f} ms, paged ps "
+                          f"64 {time_ms(torch, alone_p, flush):.4f} ms "
+                          f"(equal to the row in the batch: {same1})")
                 del kp, vp
-            result(tag, msg)
+            result(tag, msg + b1)
             del q, k, v, o
     for Hq, Hkv, D in ((32, 4, 64), (32, 32, 80)):
         q = rnd(B, Hq, D)
@@ -224,12 +325,6 @@ def groups(torch, tag: str) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if getattr(e, attr, None):
-                return float(getattr(e, attr))
-        return 0.0
 
     for arch in ("tinyllama_1_1b", "zamba2_2_7b"):
         cfg = get_config(arch)

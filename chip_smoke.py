@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               at 64 and gathers them at 16); paged chunk output must
               equal the dense kernel's on the same K/V, and so must paged
               decode at page sizes 64, 16 and 5; a decoded row alone
-              must equal the same row in the batch of 8, dense and paged
+              must equal the same row in the batch of 8, dense and paged,
+              and so must a chunk row alone at T 8 and 512 (page sizes
+              64 and 16); rmsnorm at a decode tick's rows (8 x 2048, 8 x
+              2560), a prefill group and the train step's rows, with the
+              launch floor (an empty kernel timed the same way)
   4. forward  full-width tinyllama_1_1b (22 layers, bf16, seeded random
               weights): one 512-token prefill chunk and one decode step
               with the kernels and with the plain versions, logits compared
@@ -396,23 +400,44 @@ def check_kernels(torch):
     def record(*args, **kw):
         return record_kernel(torch, flush, *args, **kw)
 
-    # rmsnorm: decode-tick rows and a full prefill group
-    w = (1.0 + 0.1 * torch.randn(2048, generator=gen, device=dev)).to(bf16)
+    # rmsnorm: a decode tick's rows (tinyllama 2048, zamba2 2560), a full
+    # prefill group and the train step's hidden states
+    ws = {d: (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+          for d in (2048, 2560)}
     errs, rows = [], {}
-    for shape in ((8, 1, 2048), (8, 512, 2048)):
-        x = rnd(*shape)
+    for shape in ((8, 1, 2048), (8, 1, 2560), (8, 512, 2048),
+                  (4, 2048, 2048)):
+        x, w = rnd(*shape), ws[shape[-1]]
         errs.append(max_err(torch, rms.rmsnorm(x, w), ref.rmsnorm(x, w),
                             f"rmsnorm {shape}"))
         rows[shape] = x
+    # the launch floor: an empty kernel (a zero-cycle spin), timed the same way
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), flush)
+    timed = {}
     for shape, x in rows.items():
-        e = record(
+        d = shape[-1]
+        w = ws[d]
+        timed[shape] = record(
             "rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm.py:38", "x".join(map(str, shape)),
             max(errs), lambda: rms.rmsnorm(x, w), lambda: ref.rmsnorm(x, w),
-            (lambda: F.rms_norm(x, (2048,), w, 1e-5))
+            (lambda: F.rms_norm(x, (d,), w, 1e-5))
             if hasattr(F, "rms_norm") else None,
-            nbytes=2.0 * x.numel() * 2 + 2048 * 2, ops=4.0 * x.numel())
-    entries.append(e)       # the prefill-group shape: the one that moves bytes
+            nbytes=2.0 * x.numel() * 2 + d * 2, ops=4.0 * x.numel())
+    tick, tick_z = timed[(8, 1, 2048)], timed[(8, 1, 2560)]
+    log(f"[kernel] rmsnorm decode tick: 8x1x2048 {tick['ms']:.4f} ms, "
+        f"8x1x2560 {tick_z['ms']:.4f} ms; launch floor (an empty kernel, "
+        f"same timing) {floor:.4f} ms; bound {tick['bound_ms']:.6f} / "
+        f"{tick_z['bound_ms']:.6f} ms (bytes): "
+        f"{tick['ms'] - floor:.4f} / {tick_z['ms'] - floor:.4f} ms above "
+        f"the floor")
+    e = timed[(8, 512, 2048)]   # the prefill group: the shape that moves bytes
+    e["decode_tick"] = sub_entry(tick)
+    e["decode_tick_2560"] = sub_entry(tick_z)
+    e["train_rows"] = sub_entry(timed[(4, 2048, 2048)])
+    e["launch_floor_ms"] = floor
+    entries.append(e)
+    del rows, timed
 
     # decode_attention: mixed kv_len incl. an empty row, one row, ragged, full
     q, k, v = rnd(B, Hq, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
@@ -447,13 +472,12 @@ def check_kernels(torch):
     # chunk_attention: a short continuation chunk deep in the cache (the
     # split path: too few query tiles to fill the card) and a full
     # prefill chunk
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases, errs = [], []
     for T, pos_l in ((8, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
                      (512, [0, 512, 1024, 1536, 100, 700, 1300, 7])):
-        nsplit, cols = dec.chunk_splits(B, Hkv, Hq // Hkv, T, S, sms)
+        nsplit, cols = dec.chunk_splits(Hkv, Hq // Hkv, T, S)
         log(f"[kernel] chunk_attention T={T}: S cut into {nsplit} column "
-            f"range(s) of {cols} on {sms} SMs")
+            f"range(s) of {cols} (the plan of every batch size)")
         if T == 8 and nsplit == 1:
             fail("chunk_attention T=8: the planner did not split the columns")
         qc = rnd(B, Hq, T, D)
@@ -549,6 +573,7 @@ def check_paged_kernels(torch, record, k, v, lens, cases):
                 torch, qc, k, v, kp, vp, btc, pos,
                 f"chunk_attention_paged T={T} page_size {ps}"))
     check_decode_identities(torch, q, k, v, kv_len, arenas, lens)
+    check_chunk_identities(torch, k, v, arenas, cases)
     kp, vp, perm = arenas[PAGE]
     nb = S // PAGE
     src = "src/repro_torch/kernels/csrc/decode_attention.cu"
@@ -640,6 +665,38 @@ def check_decode_identities(torch, q, k, v, kv_len, arenas, lens):
     log(f"[kernel] decode_attention: paged equals dense at page sizes "
         f"{sorted(c[0] for c in cases)}; rows 3, 5, 7 alone equal "
         f"themselves in the batch of {B}, dense and paged")
+
+
+def check_chunk_identities(torch, k, v, arenas, cases):
+    """Chunk attention's batch invariance: a row computed alone equals
+    the same row in the batch of 8 (torch.equal), dense and paged at page
+    sizes 64 (TMA) and 16 (the gather), at T 8 (split columns) and T 512
+    (the split plan follows (Hkv, G, T, S), never B)."""
+    from repro_torch.kernels import decode_attention as dec
+
+    for T, pos_l, qc, pos, _ in cases:
+        runs = [("dense", lambda q_, p_, rows: dec.chunk_attention(
+            q_, k[rows], v[rows], pos=p_))]
+        for ps, (kp, vp, perm) in arenas.items():
+            bt = tables(torch, perm, ps, [p + T for p in pos_l])
+            runs.append((f"paged page_size {ps}",
+                         lambda q_, p_, rows, kp=kp, vp=vp, bt=bt:
+                         dec.chunk_attention_paged(
+                             q_, kp, vp, block_table=bt[rows].contiguous(),
+                             pos=p_)))
+        for what, run in runs:
+            every = slice(None)
+            batch = run(qc, pos, every)
+            for i in (3, 4, 6):
+                one = slice(i, i + 1)
+                alone = run(qc[one].contiguous(), pos[one], one)
+                torch.cuda.synchronize()
+                if not torch.equal(alone, batch[one]):
+                    fail(f"chunk_attention {what} T={T}: row {i} alone "
+                         f"differs from row {i} in the batch")
+    log(f"[kernel] chunk_attention: rows 3, 4, 6 alone equal themselves in "
+        f"the batch of 8 at T {[c[0] for c in cases]}, dense and paged at "
+        f"page sizes {sorted(arenas)}")
 
 
 def check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos, what: str) -> float:

@@ -33,11 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every entry point (all return the launch's cudaError_t)
 SIGNATURES = {
     "rmsnorm": {
-        "rmsnorm_launch": (_P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
+        "rmsnorm_launch": (_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _F,
+                           _I, _P),
         "rmsnorm_add_launch": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _F,
                                _I, _P),
         "rmsnorm_bwd_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                               _I, _I, _F, _I, _P),
+                               _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "decode_attention": {
         "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

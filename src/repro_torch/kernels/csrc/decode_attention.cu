@@ -92,15 +92,17 @@
 // kernel's on the same K/V.  Whole tiles or pages are read: cache rows
 // past a row's limit must be finite (the Pallas kernel reads whole blocks
 // too; caches start at zero).
-// Split columns.  With few query tiles (T = 8 at B = 8, Hkv = 4: 32 blocks
-// for 132 SMs) the planner (decode_attention.py::chunk_splits) cuts S into
-// `nsplit` ranges of whole 64-row tiles, so that the grid holds about two
-// blocks per SM (flash-decoding, as decode_kernel); a block whose range
-// starts past its tile's last column exits at once.  A tile with one live
-// range writes its output directly; otherwise each range writes its f32
-// (acc, m, l) partial and the last one to finish, counted by one atomic,
-// merges them in range order (one launch, deterministic) and resets its
-// counter.  Unlike decode's, this plan still follows B (ROADMAP).
+// Split columns.  With few query tiles a row (T = 8, Hkv = 4, G = 8: 4
+// blocks a row) the planner (decode_attention.py::chunk_splits) cuts S
+// into `nsplit` ranges of whole 64-row tiles (flash-decoding, as
+// decode_kernel), by a plan that follows (Hkv, G, T, S) alone: 8 ranges of
+// 256 at that shape, so a group of 8 rows gives two blocks per SM.  A
+// block whose range starts past its tile's last column exits at once.  A
+// tile with one live range writes its output directly; otherwise each
+// range writes its f32 (acc, m, l) partial and the last one to finish,
+// counted by one atomic, merges them in range order (one launch,
+// deterministic) and resets its counter.  The grid's B only places the
+// partials: a row's output is the same alone and in any batch.
 // D 80 (zamba2's shared block) runs on the 128-column tile layout: Q K^T
 // skips the k-steps past column 80 (5 of 8 run), P V runs at n 128, and
 // only 80 output columns are stored.

@@ -11,12 +11,13 @@ Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
 ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  bf16 runs on
 the tensor cores (chunk attention: wgmma; decode: mma.sync), f32 on the
 FMA pipes.  Decode cuts S into the ranges of `decode_splits`, which
-follow S alone, so a row's output does not depend on its batch; when a
-chunk gives too few query tiles to fill the card, `chunk_splits` cuts its
-columns too.  Either kernel merges its ranges in the same launch, with
-per-device scratch (`scratch`) whose arrival counters every launch leaves
-at 0: no call allocates or clears anything but its outputs, once the
-scratch has grown to its size.
+follow S alone; when a chunk gives a row few query tiles, `chunk_splits`
+cuts its columns too, by a plan that follows (Hkv, G, T, S) alone.
+Neither plan reads B or the offsets, so a row's output does not depend on
+the rows beside it.  Either kernel merges its ranges in the same launch,
+with per-device scratch (`scratch`) whose arrival counters every launch
+leaves at 0: no call allocates or clears anything but its outputs, once
+the scratch has grown to its size.
 
 The paged kernels read K/V row j of batch row b from
 `pages[block_table[b, j // page_size], :, j % page_size]`, any
@@ -36,7 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build, ref
-from .rmsnorm import DTYPES, check_cuda, check_vectors, sm_count, stream
+from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
 HEAD_DIMS = (32, 64, 80, 128)
 TILE = 64           # K/V rows per tile in the kernels
@@ -44,20 +45,15 @@ MAX_SPLITS = 64     # S ranges per (row, kv head) the merges take
 CHUNK_ROWS = 128    # query rows per block of the bf16 chunk kernel
 DECODE_RANGE = 8 * TILE   # rows per decode split range (more past MAX_SPLITS)
 DECODE_ROWS = 16    # q heads per block of the bf16 decode kernel
+#: blocks below which one row's chunk gets split columns: a full prefill
+#: group (8 rows, the engine's max_batch) then puts two blocks on each of
+#: an H100's 132 SMs
+CHUNK_ROW_BLOCKS = 33
 
 
 def _whole(S: int) -> Tuple[int, int]:
     """One range of whole tiles covering S."""
     return 1, max(1, -(-S // TILE)) * TILE
-
-
-def _cut(S: int, blocks: int, sms: int) -> Tuple[int, int]:
-    """S cut into ranges of whole tiles so that blocks * ranges give about
-    two blocks per SM, at most MAX_SPLITS ranges: (ranges, rows each)."""
-    tiles = max(1, -(-S // TILE))
-    want = min(MAX_SPLITS, max(1, -(-2 * sms // max(blocks, 1))))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * TILE
 
 
 def decode_splits(S: int) -> Tuple[int, int]:
@@ -71,16 +67,34 @@ def decode_splits(S: int) -> Tuple[int, int]:
     return -(-tiles // per), per * TILE
 
 
-def chunk_splits(B: int, Hkv: int, G: int, T: int, S: int,
-                 sms: int) -> Tuple[int, int]:
+def chunk_splits(Hkv: int, G: int, T: int, S: int) -> Tuple[int, int]:
     """(nsplit, split_cols) for the bf16 chunk kernel.  It runs one block
-    per (row, kv head, tile of CHUNK_ROWS query rows); when that grid is
-    below two blocks per SM (short chunks), S is cut into ranges of whole
-    tiles, one block each, and the kernel merges them.  Otherwise one
-    range covers S.  Sizes only: pos is never read here, so planning needs
-    no host sync."""
+    per (row, kv head, tile of CHUNK_ROWS query rows), so one row gives
+    Hkv * ceil(G*T / CHUNK_ROWS) blocks, each walking the columns its
+    rows see.  A short chunk deep in the cache gives few blocks with long
+    walks: below CHUNK_ROW_BLOCKS of them, S is cut into
+    ceil(CHUNK_ROW_BLOCKS / blocks) ranges of whole tiles (at most
+    MAX_SPLITS), one block each, and the kernel merges them in range
+    order; otherwise one range covers S.  The plan follows (Hkv, G, T, S)
+    alone, never B or pos, so a row's output is the same alone and in
+    any batch, and planning needs no host sync."""
+    per_row = Hkv * -(-G * T // CHUNK_ROWS)
+    if per_row >= CHUNK_ROW_BLOCKS:
+        return _whole(S)
+    tiles = max(1, -(-S // TILE))
+    per = -(-tiles // min(MAX_SPLITS, -(-CHUNK_ROW_BLOCKS // per_row)))
+    return -(-tiles // per), per * TILE
+
+
+def chunk_plan(B: int, Hkv: int, G: int, T: int, S: int, D: int):
+    """(grid blocks before the split, nsplit, split_cols, partial values)
+    of a bf16 chunk launch: one block per (row, kv head, query tile) and
+    range, the ranges from `chunk_splits`; a split block writes CHUNK_ROWS
+    rows of (acc [D], m, l)."""
     blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
-    return _whole(S) if blocks >= 2 * sms else _cut(S, blocks, sms)
+    nsplit, cols = chunk_splits(Hkv, G, T, S)
+    part = blocks * nsplit * CHUNK_ROWS * (D + 2) if nsplit > 1 else 0
+    return blocks, nsplit, cols, part
 
 
 #: per device: (f32 partials, int32 arrival counters), grown on demand
@@ -166,17 +180,14 @@ def _decode_scratch(B: int, Hq: int, Hkv: int, S: int, D: int,
 def _chunk_scratch(q: torch.Tensor, Hkv: int, S: int):
     """(nsplit, split_cols, partials or None, arrival counters or None)
     for a chunk launch over a length S.  bf16 plans its split
-    (chunk_splits); the f32 FMA kernel does not split."""
+    (chunk_plan); the f32 FMA kernel does not split."""
     B, Hq, T, D = q.shape
-    G = Hq // Hkv
-    nsplit, cols = _whole(S) if q.dtype != torch.bfloat16 else \
-        chunk_splits(B, Hkv, G, T, S, sm_count(q.device.index))
+    if q.dtype != torch.bfloat16:
+        return (*_whole(S), None, None)
+    blocks, nsplit, cols, n_part = chunk_plan(B, Hkv, Hq // Hkv, T, S, D)
     if nsplit == 1:
         return nsplit, cols, None, None
-    blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
-    # per block: CHUNK_ROWS rows of (acc [D], m, l)
-    part, done = scratch(q.device, blocks * nsplit * CHUNK_ROWS * (D + 2),
-                         blocks)
+    part, done = scratch(q.device, n_part, blocks)
     return nsplit, cols, part, done
 
 

@@ -1,9 +1,9 @@
 """Public wrappers for the port's kernels, with impl dispatch.
 
 impl='auto'   -> the kernel wrapper: the CUDA kernel for a CUDA tensor,
-                 the plain version for a CPU tensor; `attention` and
-                 `rmsnorm` go through their autograd Functions, whose
-                 backward is a kernel too
+                 the plain version for a CPU tensor; `attention`, and
+                 `rmsnorm` when a gradient is wanted, go through their
+                 autograd Functions, whose backward is a kernel too
 impl='kernel' -> the CUDA kernel; a CPU tensor raises
 impl='ref'    -> the plain PyTorch version (tests and chip_smoke.py)
 
@@ -131,7 +131,11 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
                   flops=4.0 * x.numel(), bytes=2.0 * _bytes(x))
     if _plain(impl, x):
         return ref.rmsnorm(x, w, eps=eps)
-    return _rms.RMSNorm.apply(x, w, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _rms.RMSNorm.apply(x, w, eps)
+    # no gradient wanted: the kernel wrapper itself, one launch as before,
+    # without the autograd Function's host cost
+    return _rms.rmsnorm(x, w, eps=eps)
 
 
 def rmsnorm_add(x, residual, w, *, eps: float = 1e-5, impl: str = "auto",

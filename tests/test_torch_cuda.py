@@ -60,6 +60,31 @@ def test_rmsnorm_kernel(dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 2048), (8, 1, 2048), (1, 2560),
+                                   (8, 1, 2560), (8, 512, 2048), (3, 5120),
+                                   (2, 8192)])
+def test_rmsnorm_kernel_rows(dtype, shape):
+    """The forward at a decode tick's rows (1 and 8 of tinyllama's 2048
+    and zamba2's 2560: a block a row, one warp or two), a prefill group,
+    and rows held by three, four and eight warps; two calls agree exactly."""
+    rng = np.random.default_rng(1)
+    x = arr(rng, *shape, dtype=dtype)
+    w = arr(rng, shape[-1], dtype=dtype)
+    before = rms.rmsnorm.launches
+    y = rms.rmsnorm(x, w, eps=1e-5)
+    close(y, ref.rmsnorm(x, w, eps=1e-5), dtype)
+    again = rms.rmsnorm(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm.launches == before + 2
+    assert torch.equal(y, again)
+    # a row alone gives what it gives among the others
+    alone = rms.rmsnorm(x.reshape(-1, shape[-1])[-1:].contiguous(), w,
+                        eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, y.reshape(-1, shape[-1])[-1:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [
     (4, 32, 4, 2048, 64),      # the serving shape (GQA, G = 8)
     (3, 8, 1, 1000, 32),       # MQA, S no tile divides
@@ -145,12 +170,11 @@ def test_chunk_attention_kernel_offsets(dtype, case):
 
 @pytest.mark.parametrize("case", CHUNK_CASES[-2:])
 def test_chunk_attention_split_path(case, monkeypatch):
-    """A short chunk deep in the cache splits its columns on this card,
-    and the merged output agrees with the same kernel run unsplit (one
+    """A short chunk deep in the cache splits its columns, and the merged
+    output agrees with the same kernel run unsplit (one
     range over S) and with the plain version."""
     B, Hq, Hkv, T, S, D, pos_l = case
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    nsplit, _ = dec.chunk_splits(B, Hkv, Hq // Hkv, T, S, sms)
+    nsplit, _ = dec.chunk_splits(Hkv, Hq // Hkv, T, S)
     assert nsplit > 1
     rng = np.random.default_rng(8)
     q = arr(rng, B, Hq, T, D, dtype=torch.bfloat16)
@@ -354,6 +378,40 @@ def test_decode_attention_is_batch_invariant(dtype, D, G):
         assert torch.equal(alone, batch[one]), i
         assert torch.equal(alone_p, paged[one]), i
     close(batch, ref.decode_attention(q, k, v, kv_len=kv_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [8, 512])
+@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2)])
+def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
+    """A chunk row computed alone gives exactly (torch.equal) what it
+    gives inside a batch of 8 other rows, dense and paged (page size 64,
+    TMA; 16, the gather): the split plan follows (Hkv, G, T, S), never
+    B."""
+    rng = np.random.default_rng(13)
+    B, S = 9, 2048
+    pos_l = ([2040, 0, 5, 100, 1000, 333, 1500, 17, 1900] if T == 8 else
+             [1536, 0, 512, 1024, 100, 700, 1300, 7, 1000])
+    q = arr(rng, B, Hkv * G, T, D, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    limits = [p + T for p in pos_l]
+    for ps in (64, 16):
+        kp, vp, bt = paged_case(rng, B, Hkv, S // ps, ps, D, limits, dtype)
+        k, v = ref.gather_kv_pages(kp, bt), ref.gather_kv_pages(vp, bt)
+        batch = dec.chunk_attention(q, k, v, pos=pos)
+        paged = dec.chunk_attention_paged(q, kp, vp, block_table=bt, pos=pos)
+        for i in (0, 3, 4, 7):
+            one = slice(i, i + 1)
+            alone = dec.chunk_attention(q[one], k[one].contiguous(),
+                                        v[one].contiguous(), pos=pos[one])
+            alone_p = dec.chunk_attention_paged(
+                q[one], kp, vp, block_table=bt[one].contiguous(),
+                pos=pos[one])
+            torch.cuda.synchronize()
+            assert torch.equal(alone, batch[one]), (ps, i)
+            assert torch.equal(alone_p, paged[one]), (ps, i)
+        close(batch, ref.chunk_attention(q, k, v, pos=pos), dtype)
+        del kp, vp, k, v
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -616,6 +674,30 @@ def test_rmsnorm_backward_kernel(dtype, shape):
     dx_r, dw_r = ref.rmsnorm_backward(x, w, dy, eps=1e-5)
     close(dx, dx_r, dtype)
     # dw sums over every row: compare relative to its scale
+    scale = float(dw_r.float().abs().max())
+    np.testing.assert_allclose(dw.float().cpu().numpy() / scale,
+                               dw_r.float().cpu().numpy() / scale,
+                               atol=tol(dtype), rtol=tol(dtype))
+    again = rms.rmsnorm_backward(x, w, dy, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 2048, 2048), (8, 300, 2560),
+                                   (1, 2048), (1, 2560), (7, 5120)])
+def test_rmsnorm_backward_kernel_plans(dtype, shape):
+    """The backward at the train step's 8192 rows of 2048 (one block per
+    SM, 8 rows in flight), at zamba2's 2560 (two warps a row), at one row
+    (one block) and at rows held by three warps: against the plain
+    version, and deterministic (two runs torch.equal)."""
+    rng = np.random.default_rng(11)
+    x = arr(rng, *shape, dtype=dtype)
+    w = arr(rng, shape[-1], dtype=dtype)
+    dy = arr(rng, *shape, dtype=dtype)
+    dx, dw = rms.rmsnorm_backward(x, w, dy, eps=1e-5)
+    dx_r, dw_r = ref.rmsnorm_backward(x, w, dy, eps=1e-5)
+    close(dx, dx_r, dtype)
     scale = float(dw_r.float().abs().max())
     np.testing.assert_allclose(dw.float().cpu().numpy() / scale,
                                dw_r.float().cpu().numpy() / scale,

@@ -275,23 +275,25 @@ class TestDispatch:
 
     @pytest.mark.parametrize("B,Hkv,G,T,S,want", [
         (8, 4, 8, 8, 2048, (8, 256)),     # a short chunk deep in the cache
-        (8, 4, 8, 512, 2048, (1, 2048)),  # the prefill chunk: 1024 blocks
-        (8, 32, 1, 512, 2048, (1, 2048)), # zamba2's shared block: 1024
+        (8, 4, 8, 512, 2048, (1, 2048)),  # the prefill chunk: 128 blocks a row
+        (8, 32, 1, 512, 2048, (1, 2048)), # zamba2's shared block: 128
         (8, 4, 8, 1, 2048, (8, 256)),     # T 1: one tile of 8 rows
-        (2, 32, 1, 8, 2048, (5, 448)),    # G 1, T 8: 64 blocks
-        (1, 1, 1, 1, 8192, (64, 128)),    # capped at MAX_SPLITS ranges
+        (2, 32, 1, 8, 2048, (2, 1024)),   # G 1, T 8: 32 blocks a row
+        (1, 1, 1, 1, 8192, (32, 256)),    # one block a row: 33 ranges wanted
         (3, 2, 5, 7, 300, (5, 64)),       # ragged S: the last range is short
     ])
     def test_chunk_splits_cover_s_in_whole_tiles(self, B, Hkv, G, T, S,
                                                  want):
-        nsplit, cols = tdec.chunk_splits(B, Hkv, G, T, S, sms=132)
+        nsplit, cols = tdec.chunk_splits(Hkv, G, T, S)
         assert (nsplit, cols) == want
         assert cols % tdec.TILE == 0 and 1 <= nsplit <= tdec.MAX_SPLITS
         assert (nsplit - 1) * cols < S <= nsplit * cols
-        # a split grid gives every SM a block at least, unless the ranges
-        # are capped or already one tile each
-        blocks = B * Hkv * -(-G * T // tdec.CHUNK_ROWS)
-        assert nsplit == 1 or blocks * nsplit >= 132 \
+        # the launch plan takes these ranges at this batch size too
+        assert tdec.chunk_plan(B, Hkv, G, T, S, 64)[1:3] == want
+        # a split row gives a full group of 8 rows a block per SM at least,
+        # unless the ranges are capped or already one tile each
+        per_row = Hkv * -(-G * T // tdec.CHUNK_ROWS)
+        assert nsplit == 1 or 8 * per_row * nsplit >= 132 \
             or nsplit in (tdec.MAX_SPLITS, -(-S // tdec.TILE))
         # a query tile whose rows see columns [0, ncols) runs the ranges
         # that start below ncols: whole tiles, disjoint, covering them
@@ -305,19 +307,68 @@ class TestDispatch:
             assert all(z == a2 for (_, z), (a2, _) in zip(ranges, ranges[1:]))
 
     def test_chunk_splits_only_when_the_grid_is_short(self):
-        """No split once the query tiles alone give two blocks per SM;
-        below that, at least one block per SM unless every range is one
-        tile already."""
-        for B in (1, 2, 4, 8, 16, 64):
-            for T in (1, 8, 64, 128, 512):
-                nsplit, _ = tdec.chunk_splits(B, 4, 8, T, 2048, sms=132)
-                blocks = B * 4 * -(-8 * T // tdec.CHUNK_ROWS)
-                if blocks >= 2 * 132:
-                    assert nsplit == 1
-                else:
-                    assert nsplit > 1
-                    assert blocks * nsplit >= 132 \
-                        or nsplit == 2048 // tdec.TILE
+        """No split once a row's query tiles alone give CHUNK_ROW_BLOCKS
+        blocks; below that, a row's blocks times its ranges reach
+        CHUNK_ROW_BLOCKS within one range's rounding, unless every range
+        is one tile already."""
+        for Hkv in (1, 4, 8, 32):
+            for G in (1, 5, 8):
+                for T in (1, 8, 64, 128, 512):
+                    nsplit, cols = tdec.chunk_splits(Hkv, G, T, 2048)
+                    per_row = Hkv * -(-G * T // tdec.CHUNK_ROWS)
+                    if per_row >= tdec.CHUNK_ROW_BLOCKS:
+                        assert nsplit == 1
+                    else:
+                        assert nsplit > 1
+                        want = -(-tdec.CHUNK_ROW_BLOCKS // per_row)
+                        assert nsplit == 2048 // tdec.TILE or \
+                            want / 2 < nsplit <= want
+
+    @pytest.mark.parametrize("B", [1, 2, 3, 8, 64])
+    @pytest.mark.parametrize("T", [1, 8, 16, 64, 512])
+    @pytest.mark.parametrize("S", [64, 300, 2048, 8192])
+    def test_chunk_plan_is_the_same_for_every_batch(self, B, T, S):
+        """The chunk ranges follow (Hkv, G, T, S) alone: a batch of B rows
+        gets the ranges of one row, so a row's chunk output cannot depend
+        on the rows beside it; only the grid and the partials scale with
+        B."""
+        for Hkv, G, D in ((4, 8, 64), (32, 1, 80), (8, 5, 128), (1, 16, 64)):
+            blocks, nsplit, cols, part = tdec.chunk_plan(B, Hkv, G, T, S, D)
+            one = tdec.chunk_plan(1, Hkv, G, T, S, D)
+            assert (nsplit, cols) == one[1:3] \
+                == tdec.chunk_splits(Hkv, G, T, S)
+            assert blocks == B * one[0]
+            assert part == B * one[3]
+            assert (part == 0) == (nsplit == 1)
+
+    def test_rmsnorm_without_grad_skips_the_autograd_function(
+            self, monkeypatch):
+        """Under torch.no_grad, or when neither input needs a gradient,
+        ops.rmsnorm calls the kernel wrapper itself (on the CPU its plain
+        version), not RMSNorm.apply; with a gradient wanted it takes the
+        Function, so the backward is the kernel's."""
+        rng = np.random.default_rng(6)
+        _, x = pair(rng, 3, 5, 64)
+        _, w = pair(rng, 64)
+        want = tref.rmsnorm(x, w)
+        calls = []
+        real = trms.RMSNorm.apply
+
+        def spy(*args):
+            calls.append(args)
+            return real(*args)
+        monkeypatch.setattr(trms.RMSNorm, "apply", spy)
+        with torch.no_grad():
+            torch.testing.assert_close(tops.rmsnorm(x, w), want, rtol=0,
+                                       atol=0)
+        torch.testing.assert_close(tops.rmsnorm(x, w), want, rtol=0, atol=0)
+        assert calls == []
+        xg = x.clone().requires_grad_()
+        y = tops.rmsnorm(xg, w)
+        assert len(calls) == 1 and y.grad_fn is not None
+        with torch.no_grad():
+            tops.rmsnorm(xg, w)
+        assert len(calls) == 1
 
     def test_wrappers_check_before_launching(self):
         """The CUDA path validates without a card: a CPU tensor never
@@ -327,3 +378,73 @@ class TestDispatch:
         with pytest.raises(ValueError, match="multiple of 8"):
             trms.check_vectors(12, torch.zeros(12, dtype=torch.bfloat16))
         assert tdec.HEAD_DIMS == (32, 64, 80, 128)
+
+
+class TestRMSNormPlans:
+    """The rmsnorm kernels' launch plans (shapes only, no card)."""
+
+    @pytest.mark.parametrize("D,elem,vpt,want", [
+        (2048, 2, 2, 128), (2048, 2, 8, 32), (2560, 2, 2, 160),
+        (2560, 2, 8, 64), (64, 2, 2, 4), (40, 2, 8, 1), (8, 2, 2, 1),
+        (2048, 4, 8, 64), (5120, 2, 4, 160), (5120, 2, 8, 96),
+        (16384, 2, 8, 256)])
+    def test_row_threads_hold_the_row(self, D, elem, vpt, want):
+        tpr = trms.row_threads(D, elem, vpt)
+        assert tpr == want
+        nvec = D * elem // 16
+        assert tpr * vpt >= nvec
+        # a power of two up to a warp, whole warps above
+        assert (tpr <= 32 and tpr & (tpr - 1) == 0) or tpr % 32 == 0
+
+    def test_rows_wider_than_a_block_are_refused(self):
+        with pytest.raises(ValueError, match="at most 16384"):
+            trms.check_width(16392, torch.zeros(1, dtype=torch.bfloat16))
+        trms.check_width(16384, torch.zeros(1, dtype=torch.bfloat16))
+
+    @pytest.mark.parametrize("rows", [1, 7, 8, 300, 4096, 8192, 100003])
+    @pytest.mark.parametrize("D,elem", [(2048, 2), (2560, 2), (64, 2),
+                                        (40, 2), (2048, 4), (5120, 2),
+                                        (16384, 2)])
+    def test_forward_plan_covers_every_row_once(self, rows, D, elem):
+        """The forward plan follows the width alone: whole warps a block,
+        the row held by its threads, and ceil(rows / rows a block) blocks
+        cover every row once; at a decode tick's widths each row gets a
+        block of its own."""
+        vpt, tpr, groups = trms.forward_plan(D, elem)
+        assert vpt in trms.VPTS and tpr == trms.row_threads(D, elem, vpt)
+        assert tpr * vpt >= D * elem // 16
+        threads = tpr * groups
+        assert threads % 32 == 0 and threads <= trms.MAX_THREADS
+        blocks = -(-rows // groups)   # block b: rows [b*groups, +groups)
+        assert blocks * groups >= rows > (blocks - 1) * groups
+        if D * elem >= 64 * 16:
+            assert groups == 1
+
+    @pytest.mark.parametrize("rows", [1, 2, 131, 132, 133, 1000, 8192,
+                                      100003])
+    @pytest.mark.parametrize("D,elem", [(2048, 2), (2560, 2), (40, 2),
+                                        (2048, 4), (5120, 2), (16384, 2)])
+    def test_backward_plan_covers_every_row_once(self, rows, D, elem):
+        """Block b takes rows [b*per, (b+1)*per), `groups` of them at a
+        time: every row is visited exactly once, no block is empty, and
+        the dw partials number at most one per SM."""
+        sms = 132
+        tpr, groups, per, nblk = trms.backward_plan(rows, D, elem, sms)
+        assert tpr == trms.row_threads(D, elem, trms.BWD_VPT)
+        assert tpr * trms.BWD_VPT >= D * elem // 16
+        threads = tpr * groups
+        assert threads % 32 == 0 and threads <= trms.MAX_THREADS
+        assert 1 <= nblk <= min(sms, rows)
+        # shared memory for the groups' dw at the end: at most 64 KB
+        assert groups * D * 4 <= 64 * 1024
+        seen = np.zeros(rows, dtype=int)
+        steps = -(-per // groups)
+        for b in range(nblk):
+            lo, hi = b * per, min(rows, (b + 1) * per)
+            assert lo < hi
+            for st in range(steps):
+                for g in range(groups):
+                    row = lo + st * groups + g
+                    if row < hi:
+                        seen[row] += 1
+        assert (seen == 1).all()
