@@ -93,6 +93,21 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               back, a second run with max_cache_pages set giving the same
               greedy tokens (the hybrid keeps the contiguous cache), and a
               torch.profiler window over a short third run
+  9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
+              a subprocess) over the profile dirs that phases 5 (tinyllama
+              serve), 6 (train) and 8 (zamba2 serve) kept: `diagnose
+              --json` and `report --json` on each, `timeline --json` on
+              the tinyllama serve dir; each must exit 0 with JSON that
+              parses, and the findings by severity, the first five, each
+              component's Wait share and the five edges with the most
+              self time are logged (findings are results, not failures).  Then the fleet stream: the
+              port's Collector on 127.0.0.1 in a thread, a tinyllama serve
+              of 8 requests x 16 new tokens and a 2-step train at batch
+              4 x 2048, both with xfa_collector set; every publish() must
+              report its deltas acked (no error, nothing pending), each
+              run's spool must reduce to the edges and counts of its local
+              profile dir, and `diagnose --fleet` over the spool must exit
+              0 and name both runs
 
 It prints the kernels line ({"kernels": [...]}), a summary of each serve
 phase (tok/s, TTFT p50 / p95, the XFA prefill_chunk mean), the card's
@@ -115,10 +130,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: one temporary root per run: the profile dirs phases 5-8 write, kept
+#: for phase 9 to diagnose, and the fleet spool (removed at exit)
+RUN_ROOT = Path()
 
 HBM_BYTES_S = 3.35e12           # H100 SXM device memory rate (data sheet)
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
@@ -185,6 +204,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    global RUN_ROOT
+    RUN_ROOT = Path(tempfile.mkdtemp(prefix="chip_smoke-"))
+    try:
+        run(torch)
+    finally:
+        shutil.rmtree(RUN_ROOT, ignore_errors=True)
+
+
+def run(torch) -> None:
     t_start = time.monotonic()
     smi = device_line()
     log(f"[device] {smi}  torch {torch.__version__} cuda {torch.version.cuda}")
@@ -207,6 +235,7 @@ def main() -> None:
     train_counts, train = train_phase(torch)
     profile_phase(torch)
     hybrid_counts, hybrid = hybrid_phase(torch)
+    diagnose_phase(torch)
 
     for k in kernels:
         # each kernel's launches in the run of its own path
@@ -277,6 +306,16 @@ def device_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextmanager
+def keep_dir(name: str):
+    """A fresh directory under the run's temporary root, kept after the
+    block (phase 9 reads the profile dirs)."""
+    d = RUN_ROOT / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    yield str(d)
 
 
 # ---------------------------------------------------------------- timing ----
@@ -946,10 +985,10 @@ PROMPT_LENS = [16, 1500, 700, 33, 1024, 511, 513, 90,
 
 
 def make_engine(torch, profile_dir: str, arch: str = "tinyllama_1_1b",
-                **paged):
-    """The serving engine of phases 5, 5b, 7 and 8 for `arch` (`paged`:
-    page_size and max_cache_pages for the paged pool) and its 16
-    prompts."""
+                **extra):
+    """The serving engine of phases 5, 5b, 7, 8 and 9 for `arch` (`extra`:
+    more ServeConfig fields — page_size and max_cache_pages for the paged
+    pool, xfa_collector for phase 9's fleet stream) and its 16 prompts."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
@@ -960,7 +999,7 @@ def make_engine(torch, profile_dir: str, arch: str = "tinyllama_1_1b",
     model = build_model(cfg, impl="auto", device="cuda")
     engine = ServingEngine(model, model.init(0), ServeConfig(
         max_batch=8, max_seq_len=2048, prefill_chunk=512, prefill_batch=8,
-        eos_token=-1, profile_dir=profile_dir, **paged))
+        eos_token=-1, profile_dir=profile_dir, **extra))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in PROMPT_LENS]
@@ -1016,7 +1055,7 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
     from repro_torch.serving import latency_stats, run_workload
 
     xfa.reset()          # this run's folds only, not an earlier run's
-    with tempfile.TemporaryDirectory() as prof:
+    with keep_dir(what) as prof:
         cfg, engine, prompts = make_engine(torch, prof, arch, **paged)
         if on_engine is not None:
             on_engine(engine)
@@ -1170,6 +1209,7 @@ def train_phase(torch):
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tracer as xfa
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1177,12 +1217,13 @@ def train_phase(torch):
     from repro_torch.runtime.trainer import Trainer, init_train_state
     from repro_torch.tree import leaves_with_path
 
+    xfa.reset()          # the shard phase 9 diagnoses: this run's folds only
     cfg = get_config("tinyllama_1_1b")
     model = build_model(cfg, impl="auto", device="cuda")
     B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[3]
     tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
                        ckpt_interval=TRAIN_STEPS)
-    with tempfile.TemporaryDirectory() as d:
+    with keep_dir("train") as d:
         trainer = Trainer(model, tcfg, CheckpointManager(
             os.path.join(d, "ckpt"), async_save=True),
             profile_dir=os.path.join(d, "prof"))
@@ -1224,6 +1265,7 @@ def train_phase(torch):
                       for f in fs) / 1e9
         restore_s = time.monotonic() - t1
         del restored
+        shutil.rmtree(os.path.join(d, "ckpt"))     # phase 9 keeps prof/
     step_s = statistics.median(h["step_s"] for h in hist[1:])
     flops = model_flops_per_token(cfg, S) * B * S
     stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
@@ -1309,7 +1351,7 @@ def profile_phase(torch):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import run_workload
 
-    with tempfile.TemporaryDirectory() as prof:
+    with keep_dir("profile-window") as prof:
         _, engine, prompts = make_engine(torch, prof)
         engine.warm_chunk_programs()
         torch.cuda.synchronize()
@@ -1666,7 +1708,7 @@ def hybrid_phase(torch):
         f"token streams equal the contiguous run")
     del engine
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as prof:
+    with keep_dir("hybrid-profile-window") as prof:
         _, engine, prompts = make_engine(torch, prof, arch)
         engine.warm_chunk_programs()
         torch.cuda.synchronize()
@@ -1680,6 +1722,180 @@ def hybrid_phase(torch):
     del engine
     torch.cuda.empty_cache()
     return counts, stats
+
+
+# -------------------------------------------------------------- diagnose ----
+#: the profile dirs phase 9 diagnoses: (what, dir under the run root)
+DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
+             ("zamba2 serve", "hybrid-serve"))
+FLEET_TRAIN_STEPS = 2
+
+
+def profile_cli(*args) -> dict:
+    """One `python -m repro_torch.profile ... --json` process; it must
+    exit 0 and print JSON that parses."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.profile", *map(str, args),
+           "--json"]
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    what = " ".join(cmd[3:5])
+    if out.returncode != 0:
+        fail(f"diagnose: `{what}` exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    try:
+        return json.loads(out.stdout)
+    except json.JSONDecodeError as e:
+        fail(f"diagnose: `{what}` printed no JSON ({e}): {out.stdout[:500]}")
+
+
+def log_diagnosis(what: str, diag: dict, report: dict) -> None:
+    """Findings by severity, the first five, and the five edges with the
+    most self time (total less time in traced children)."""
+    g = diag["graph"]
+    log(f"[diagnose] {what}: {g['edges']} edges, {g['components']} "
+        f"components, {g['shards']} shard(s), {g['rings']} ring(s); "
+        f"findings {json.dumps(diag['counts'])}")
+    for f in diag["findings"][:5]:
+        log(f"[diagnose] {what}: {f['severity']:4s} {f['detector']} "
+            f"{f['subject']}: {f['message']}")
+    inbound, wait = {}, {}
+    for e in report["edges"]:
+        c = e["component"]
+        inbound[c] = inbound.get(c, 0) + e["total_ns"]
+        wait[c] = wait.get(c, 0) + (e["total_ns"] if e["kind"] == "wait"
+                                    else 0)
+    log(f"[diagnose] {what}: Wait share of inbound time: " + ", ".join(
+        f"{c} {100 * wait[c] / inbound[c]:.1f}% of "
+        f"{inbound[c] / 1e6:.2f} ms" for c in sorted(wait) if wait[c]))
+    edges = sorted(report["edges"], reverse=True,
+                   key=lambda e: max(e["total_ns"] - e["child_ns"], 0))
+    for e in edges[:5]:
+        self_ms = max(e["total_ns"] - e["child_ns"], 0) / 1e6
+        log(f"[diagnose] {what}: self {self_ms:10.2f} ms  total "
+            f"{e['total_ns'] / 1e6:10.2f} ms  x{e['count']:<6d} "
+            f"{e['kind']:4s} {e['caller']} -> {e['component']}.{e['api']}")
+
+
+def recording(publisher) -> list:
+    """Wrap `publisher.publish` to keep each call's counters (the engine
+    and the Trainer drop them: publish() never raises)."""
+    stats, publish = [], publisher.publish
+
+    def recorded():
+        stats.append(publish())
+        return stats[-1]
+    publisher.publish = recorded
+    return stats
+
+
+def check_stream(what: str, stats: list, local: str, spool_run: Path):
+    """Every publish acked all its deltas, and the spooled run reduces to
+    the local run's edges and counts."""
+    from repro_torch.profile import load_profile
+
+    if not stats or not sum(st["shipped"] for st in stats):
+        fail(f"fleet {what}: nothing was published: {stats}")
+    for st in stats:
+        if st["errors"] or st["pending"]:
+            fail(f"fleet {what}: a publish left deltas unacked: {stats}")
+    if not spool_run.is_dir():
+        fail(f"fleet {what}: the collector spooled nothing at {spool_run}")
+    got = {k: (e.count, e.total_ns) for k, e in
+           load_profile(str(spool_run)).to_folded().edges.items()}
+    want = {k: (e.count, e.total_ns) for k, e in
+            load_profile(local).to_folded().edges.items()}
+    if got != want:
+        fail(f"fleet {what}: the spool reduces to other edges or counts "
+             f"than the local profile dir ({len(got)} vs {len(want)} edges)")
+    log(f"[fleet] {what}: {len(stats)} publish(es), "
+        f"{sum(st['shipped'] for st in stats)} snapshot(s) and "
+        f"{sum(st['bytes'] for st in stats)} bytes acked; the spool reduces "
+        f"to the local run's {len(want)} edges and counts")
+
+
+def fleet_check(torch):
+    """Phase 9, fleet: a serve and a train run stream their profile rings
+    to the port's Collector on a thread of this process."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tracer as xfa
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.profile import Collector
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.serving import run_workload
+
+    spool = RUN_ROOT / "spool"
+    col = Collector(str(spool), timeout=60.0).start()
+    addr = f"127.0.0.1:{col.port}"
+    try:
+        xfa.reset()
+        with keep_dir("fleet-serve") as serve_dir:
+            _, engine, prompts = make_engine(torch, serve_dir,
+                                             xfa_collector=addr)
+            serve_stats = recording(engine._publisher)
+            done = run_workload(engine, prompts[:8], 16, mode="closed")
+            engine._publisher.close()
+            if len(done) != 8 or any(len(r.output) != 16 for r in done):
+                fail(f"fleet serve: {len(done)} of 8 requests completed")
+        del engine
+        torch.cuda.empty_cache()
+
+        cfg = get_config("tinyllama_1_1b")
+        B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[3]
+        xfa.reset()
+        with keep_dir("fleet-train") as train_dir, \
+                keep_dir("fleet-train-ckpt") as ckpt_dir:
+            trainer = Trainer(
+                build_model(cfg, impl="auto", device="cuda"),
+                TrainConfig(total_steps=FLEET_TRAIN_STEPS, warmup_steps=1,
+                            ckpt_interval=0),
+                CheckpointManager(ckpt_dir), profile_dir=train_dir,
+                profile_interval=1, xfa_collector=addr)
+            train_stats = recording(trainer._publisher)
+            trainer.run(0, SyntheticLMData(cfg, B, S), FLEET_TRAIN_STEPS,
+                        resume=False)
+            if len(trainer.history) != FLEET_TRAIN_STEPS or not all(
+                    math.isfinite(h["loss"]) for h in trainer.history):
+                fail(f"fleet train: steps {trainer.history}")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        col.shutdown()
+    check_stream("serve", serve_stats, serve_dir, spool / "fleet-serve")
+    check_stream("train", train_stats, train_dir, spool / "fleet-train")
+    fleet = profile_cli("diagnose", spool, "--fleet")
+    names = sorted(os.path.basename(r["run_dir"]) for r in fleet["runs"])
+    if not {"fleet-serve", "fleet-train"} <= set(names):
+        fail(f"diagnose --fleet names the runs {names}, not both streamed "
+             f"runs")
+    log(f"[fleet] diagnose --fleet over the spool: runs {names}, findings "
+        f"{json.dumps(fleet['counts'])}")
+    for g in fleet["groups"][:5]:
+        f = g["findings"][0]
+        log(f"[fleet] {g['severity']:4s} {g['detector']} host {g['host']}: "
+            f"{f['subject']}: {f['message']}")
+
+
+def diagnose_phase(torch):
+    """Phase 9: diagnose the profile dirs of phases 5, 6 and 8 with the
+    port's CLI, then stream a serve and a train run to a collector."""
+    t0 = time.monotonic()
+    for what, rel in DIAGNOSED:
+        d = RUN_ROOT / rel
+        log_diagnosis(what, profile_cli("diagnose", d),
+                      profile_cli("report", d))
+    # closed-loop serving writes its ring once, at drain: one snapshot
+    tls = profile_cli("timeline", RUN_ROOT / "serve", "--min-snapshots", 1)
+    for tl in tls:
+        log(f"[diagnose] tinyllama serve timeline: shard {tl['stem']}, "
+            f"seqs {tl['seqs']}, {len(tl['edges'])} edges")
+    t1 = time.monotonic()
+    fleet_check(torch)
+    log(f"[diagnose] phase 9: {t1 - t0:.1f}s for the CLI over three runs, "
+        f"{time.monotonic() - t1:.1f}s for the fleet stream")
 
 
 def breakdown(p, wall_us: float, tag: str, what: str):

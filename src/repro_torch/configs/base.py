@@ -358,7 +358,8 @@ class ServeConfig:
     sample_seed: int = 0
     #: when set, the engine writes one XFA profile shard per process under
     #: this directory (refreshed every `profile_interval_ticks` decode ticks
-    #: and at drain); fleet replicas reduce via `python -m repro.profile`.
+    #: and at drain); fleet replicas reduce via
+    #: `python -m repro_torch.profile`.
     profile_dir: str = ""
     profile_interval_ticks: int = 256
     #: shard label; give replicas sharing a host+dir distinct labels (e.g.
@@ -372,11 +373,11 @@ class ServeConfig:
     profile_max_age_s: float = 0.0
     profile_max_bytes: int = 0
     #: free-form key=value metadata merged into the run manifest at engine
-    #: start (the run registry indexes it for `repro.profile query`)
+    #: start (the run registry indexes it for `repro_torch.profile query`)
     profile_meta: Tuple[Tuple[str, str], ...] = ()
     #: fleet collector address 'HOST:PORT'; when set (with profile_dir)
     #: every shard refresh also streams the ring's unacked entries to the
-    #: collector (repro.profile.FleetPublisher) — failures degrade to
+    #: collector (repro_torch.profile.FleetPublisher) — failures degrade to
     #: local-only rings, they never stall the serve loop
     xfa_collector: str = ""
     #: host-tracer overhead budget as a fraction of wall time (0 = governor

@@ -24,8 +24,9 @@ the reference does.
 
 --device defaults to cuda; without CUDA the launcher raises rather than
 fall back (pass --device cpu to run the plain versions on the CPU).
-The fleet collector (--xfa-collector) is not ported yet and raises
-NotImplementedError.
+--xfa-collector HOST:PORT (with --profile-dir) streams the profile
+ring's deltas to a fleet collector (`python -m repro_torch.profile
+collect`, or the reference's); failures degrade to the local ring.
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ def main() -> int:
     # -- profiling -----------------------------------------------------------
     ap.add_argument("--profile-dir", default="",
                     help="write this replica's XFA profile shard here "
-                         "(reduce with: python -m repro.profile report DIR)")
+                         "(reduce with: python -m repro_torch.profile report "
+                         "DIR)")
     ap.add_argument("--profile-interval", type=int, default=256,
                     help="decode ticks between shard refreshes")
     ap.add_argument("--profile-label", default="serve")
@@ -129,7 +131,9 @@ def main() -> int:
                     type=kv_pair, metavar="KEY=VALUE",
                     help="extra run-manifest metadata (repeatable)")
     ap.add_argument("--xfa-collector", default="", metavar="HOST:PORT",
-                    help="fleet collector stream (not ported yet)")
+                    help="stream snapshot-ring deltas to a fleet collector "
+                         "(python -m repro_torch.profile collect); failures "
+                         "degrade to the local ring, never stall serving")
     ap.add_argument("--xfa-host-label", default="",
                     help="override this replica's host label in shard "
                          "names and manifests (default: hostname)")

@@ -9,9 +9,11 @@ On the CPU, with the plain versions of the kernels and the smoke config:
         --smoke --device cpu --steps 4
 
 --device defaults to cuda; without CUDA the launcher raises rather than
-fall back.  The reference CLI reads the run's profile shards
-(`python -m repro.profile report DIR`).  Not ported yet: --mesh (one
-device only) and --xfa-collector raise NotImplementedError.
+fall back.  The port's CLI reads the run's profile shards
+(`python -m repro_torch.profile report DIR`), and so does the reference's;
+--xfa-collector HOST:PORT (with --profile-dir) streams them to a fleet
+collector.  Not ported yet: --mesh (one device only) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def main() -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--profile-dir", default="",
                     help="register the run + write XFA profile snapshot "
-                         "rings here (reduce with: python -m repro.profile "
-                         "report DIR)")
+                         "rings here (reduce with: python -m "
+                         "repro_torch.profile report DIR)")
     ap.add_argument("--profile-interval", type=int, default=0,
                     help="steps between snapshot-ring refreshes "
                          "(0: only at end)")
@@ -62,7 +64,9 @@ def main() -> int:
                     type=kv_pair, metavar="KEY=VALUE",
                     help="extra run-manifest metadata (repeatable)")
     ap.add_argument("--xfa-collector", default="", metavar="HOST:PORT",
-                    help="fleet collector stream (not ported yet)")
+                    help="stream snapshot-ring deltas to a fleet collector "
+                         "(python -m repro_torch.profile collect); failures "
+                         "degrade to the local ring, never kill the run")
     ap.add_argument("--xfa-host-label", default="",
                     help="override this process's host label in shard "
                          "names and manifests (default: hostname)")

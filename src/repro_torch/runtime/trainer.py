@@ -14,9 +14,10 @@ PyTorch runs eagerly: there is no compile step, and a step is dispatched
 op by op.  `deferred_grad_reduce` changes only where the reference's
 gradient all-reduce happens across devices; on one device it is the same
 arithmetic as the per-microbatch accumulation, which both settings run.
-Not ported: int8 gradient compression and the fleet collector stream
-(`xfa_collector`) raise NotImplementedError; the device fold table is
-None (`Model.table()`).
+With `profile_dir` and `xfa_collector` set, every shard refresh also
+streams the ring's unacked entries to a fleet collector.
+Not ported: int8 gradient compression raises NotImplementedError; the
+device fold table is None (`Model.table()`).
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ class Trainer:
     session: Optional[XFASession] = None
     #: when set, this process registers the run in `profile_dir`'s manifest
     #: and writes a ring of sequence-numbered profile snapshots there
-    #: (reduce with `python -m repro.profile report DIR`)
+    #: (reduce with `python -m repro_torch.profile report DIR`)
     profile_dir: Optional[str] = None
     #: steps between shard refreshes; 0 -> only the final shard at run end
     profile_interval: int = 0
@@ -112,26 +113,30 @@ class Trainer:
     profile_retention: Optional[Any] = None
     #: extra key=value metadata for the run manifest
     profile_meta: Optional[Dict[str, Any]] = None
-    #: fleet collector address: not ported (raises NotImplementedError)
+    #: collector address 'HOST:PORT' — when set (and profile_dir is set),
+    #: every shard refresh also streams the ring's unacked entries to the
+    #: fleet collector (profile.FleetPublisher).  Publish failures degrade
+    #: to local-only rings; they never interrupt the train loop.
     xfa_collector: str = ""
     #: one record per step run: {"step", "step_s" (dispatch + device
     #: sync, host clock), and the step's metrics as floats}
     history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
-        if self.xfa_collector:
-            raise NotImplementedError(
-                "the fleet collector stream (xfa_collector) is not ported "
-                "to PyTorch yet (ROADMAP.md: profile plane slice)")
         if self.session is None:
             self.session = XFASession()
         if self.tcfg.xfa_overhead_budget > 0:
             xfa.TRACER.set_overhead_budget(self.tcfg.xfa_overhead_budget)
         self._profile_store = None
+        self._publisher = None
         if self.profile_dir:
             from ..profile import ProfileStore
             self._profile_store = ProfileStore(
                 self.profile_dir, retention=self.profile_retention)
+            if self.xfa_collector:
+                from ..profile import FleetPublisher
+                self._publisher = FleetPublisher(self.xfa_collector,
+                                                 self.profile_dir)
 
     def _register_run(self, n_steps: int) -> None:
         if self._profile_store is None:
@@ -154,6 +159,11 @@ class Trainer:
                 self.session.folded_all(), label="train-r0",
                 meta={"step": step, "n_steps": self.session.n_steps,
                       "wall_ns": self.session.wall_ns, "rank": 0})
+        if self._publisher is not None:
+            # local ring first, then stream the delta; a dead collector
+            # costs one rate-limited connect attempt, nothing else
+            with xfa.scope("runtime", "profile_publish"):
+                self._publisher.publish()
 
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
@@ -211,4 +221,6 @@ class Trainer:
         self.ckpt.wait()
         self.session.finish_device(table)
         self._write_profile_shard(n_steps)
+        if self._publisher is not None:
+            self._publisher.close()
         return state, last_metrics

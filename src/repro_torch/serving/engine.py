@@ -51,8 +51,10 @@ the device once per forward call.  Pages in use, their high-water mark
 and the capacity fold as `serve.cache_pages_*` gauges.  A model without
 paged entry points (the hybrid family) keeps the contiguous cache.
 
-Not ported yet: the fleet collector stream (ServeConfig.xfa_collector)
-raises NotImplementedError.
+Fleet stream (ServeConfig.xfa_collector, with profile_dir set): every
+shard refresh also ships the ring's unacked entries to a collector
+(`python -m repro_torch.profile collect`, or the reference's) through
+profile.FleetPublisher; a dead collector degrades to local-only rings.
 
 Client API: `submit()` returns a Request handle immediately; tokens
 stream through an optional `on_token` callback and `handle.result()`
@@ -67,7 +69,8 @@ queue_wait (Wait kind), ttft, decode_token and e2e latency phases fold
 via tracer.record_duration; queue_depth is a gauge; truncated_prompt,
 clamped_max_new, deadline_met/deadline_miss and engine_error are count
 events.  Shards land in the profile store as the reference's do, so the
-reference CLI (`python -m repro.profile`) reads them.
+port's CLI (`python -m repro_torch.profile`) and the reference's
+(`python -m repro.profile`) both read them.
 """
 
 from __future__ import annotations
@@ -161,10 +164,6 @@ def _scatter_slot(pool, one, slot_idx: int) -> None:
 
 class ServingEngine:
     def __init__(self, model: Model, params, scfg: ServeConfig) -> None:
-        if scfg.xfa_collector:
-            raise NotImplementedError(
-                "the fleet collector stream (xfa_collector) is not ported "
-                "to PyTorch yet (ROADMAP.md: profile plane slice)")
         self.model = model
         self.params = params
         self.scfg = scfg
@@ -218,6 +217,7 @@ class ServingEngine:
         self._stop = False
         self._error: Optional[BaseException] = None   # terminal loop failure
         self._profile_store = None
+        self._publisher = None
         self._ticks = 0
         if scfg.profile_dir:
             from ..profile import ProfileStore, RetentionPolicy, register_run
@@ -240,6 +240,10 @@ class ServingEngine:
                           "max_cache_pages": scfg.max_cache_pages}
                          if self.paged else {}),
                       **dict(scfg.profile_meta)})
+            if scfg.xfa_collector:
+                from ..profile import FleetPublisher
+                self._publisher = FleetPublisher(scfg.xfa_collector,
+                                                 scfg.profile_dir)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -359,6 +363,8 @@ class ServingEngine:
         with self._lock:
             if self._thread is t:
                 self._thread = None
+        if self._publisher is not None:
+            self._publisher.close()
         return True
 
     # -- engine internals ---------------------------------------------------
@@ -754,6 +760,11 @@ class ServingEngine:
         self._profile_store.write_shard(
             tracer_folded(), label=self.scfg.profile_label,
             meta={"ticks": self._ticks, "completed": len(self.completed)})
+        if self._publisher is not None:
+            # local ring first, then the delta stream; publish() never
+            # raises — a dead collector degrades to local-only profiling
+            with xfa.scope("serve", "profile_publish"):
+                self._publisher.publish()
 
     # -- synchronous driver -------------------------------------------------
     def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:

@@ -345,10 +345,80 @@ class TestEngineSemantics:
             engine.stop()
 
 
-def test_unported_engine_options_raise(models):
-    """Only the fleet collector stream is still unported; the paged pool
-    (tests/test_torch_paging.py) builds."""
+def test_paged_engine_option_builds(models):
+    """max_cache_pages builds the paged pool (tests/test_torch_paging.py)."""
     _, _, tm, tp = models
     assert ServingEngine(tm, tp, ServeConfig(max_cache_pages=16)).paged
-    with pytest.raises(NotImplementedError, match="collector"):
-        ServingEngine(tm, tp, ServeConfig(xfa_collector="localhost:1"))
+
+
+def spool_matches_local(spool_run, local):
+    """The spooled run reduces to the local run's edges and counts, and
+    every local ring entry was spooled byte for byte."""
+    from repro_torch.profile import ProfileStore, load_profile
+    got = load_profile(spool_run).to_folded()
+    want = load_profile(local).to_folded()
+    assert {k: (e.count, e.total_ns) for k, e in got.edges.items()} == \
+        {k: (e.count, e.total_ns) for k, e in want.edges.items()}
+    spooled = {}
+    for d, _, files in os.walk(spool_run):
+        for f in files:
+            if f.endswith(".xfa.npz"):
+                spooled[f] = os.path.join(d, f)
+    ring = [p for r in ProfileStore(local).shards().values() for _, p in r]
+    assert ring and len(spooled) >= len(ring)
+    for p in ring:
+        with open(p, "rb") as a, open(spooled[os.path.basename(p)],
+                                      "rb") as b:
+            assert a.read() == b.read(), p
+
+
+def test_engine_streams_its_profile_ring_to_a_collector(models, tmp_path):
+    """xfa_collector with profile_dir: the open-loop engine ships every
+    shard refresh to an in-process collector, acked; the spool equals the
+    local profile dir, and stop() closes the stream."""
+    from repro_torch.profile import Collector
+    _, _, tm, tp = models
+    local = str(tmp_path / "serve-run")
+    with Collector(str(tmp_path / "spool"), timeout=10.0) as col:
+        engine = ServingEngine(tm, tp, ServeConfig(
+            max_batch=2, max_seq_len=64, profile_dir=local,
+            profile_interval_ticks=2,
+            xfa_collector="127.0.0.1:%d" % col.port))
+        published = []
+        publish = engine._publisher.publish
+        engine._publisher.publish = lambda: published.append(publish()) \
+            or published[-1]
+        engine.start()
+        try:
+            for p in mixed_prompts():
+                engine.submit(p, 4)
+            engine.run_until_drained()
+        finally:
+            assert engine.stop()
+        assert not engine._publisher.connected      # closed with the engine
+    assert len(published) >= 2
+    assert all(st["errors"] == 0 and st["pending"] == 0
+               for st in published), published
+    assert sum(st["shipped"] for st in published) >= 2
+    spool_matches_local(str(tmp_path / "spool" / "serve-run"), local)
+
+
+def test_engine_serves_on_with_a_dead_collector(models, tmp_path):
+    """publish() never raises: a collector that is gone leaves the local
+    ring written and every request served."""
+    from repro_torch.profile import Collector, load_profile
+    _, _, tm, tp = models
+    col = Collector(str(tmp_path / "spool")).start()
+    port = col.port
+    col.shutdown()
+    local = str(tmp_path / "serve-run")
+    engine = ServingEngine(tm, tp, ServeConfig(
+        max_batch=2, max_seq_len=64, profile_dir=local,
+        xfa_collector="127.0.0.1:%d" % port))
+    for p in mixed_prompts():
+        engine.submit(p, 3)
+    done = engine.run_until_drained()
+    assert len(done) == 4 and all(len(r.output) == 3 for r in done)
+    assert engine._publisher.last_error and not engine._publisher.connected
+    edges = load_profile(local).to_folded().edges
+    assert set(SERVE_PHASES) <= {k[2] for k in edges if k[1] == "serve"}

@@ -312,6 +312,35 @@ def test_trainer_resumes_from_its_checkpoint(tmp_path):
                                                   "step_00000003"]
 
 
+def test_trainer_streams_its_profile_ring_to_a_collector(tmp_path):
+    """xfa_collector with profile_dir: every shard refresh of a 2-step run
+    ships to an in-process collector under ("runtime", "profile_publish");
+    the spool reduces to the local profile dir's edges and counts."""
+    from repro_torch.profile import Collector, load_profile
+    cfg = tiny(torch_smoke, "tinyllama_1_1b")
+    local = str(tmp_path / "train-run")
+    with Collector(str(tmp_path / "spool"), timeout=10.0) as col:
+        t = Trainer(build_model(cfg, device="cpu"),
+                    TrainConfig(ckpt_interval=0),
+                    CheckpointManager(str(tmp_path / "ck")),
+                    profile_dir=local, profile_interval=1,
+                    xfa_collector="127.0.0.1:%d" % col.port)
+        published = []
+        publish = t._publisher.publish
+        t._publisher.publish = lambda: published.append(publish()) \
+            or published[-1]
+        t.run(0, SyntheticLMData(cfg, 2, 8), 2, resume=False)
+        assert not t._publisher.connected           # closed at run end
+    assert [st["errors"] for st in published] == [0, 0, 0]
+    assert all(st["pending"] == 0 for st in published)
+    spool = str(tmp_path / "spool" / "train-run")
+    got, want = (load_profile(d).to_folded() for d in (spool, local))
+    assert {k: (e.count, e.total_ns) for k, e in got.edges.items()} == \
+        {k: (e.count, e.total_ns) for k, e in want.edges.items()}
+    assert want.edges[("app", "runtime", "profile_publish")].count >= 2
+    assert os.path.exists(os.path.join(spool, "manifest.json"))
+
+
 # ----------------------------------------------------------- checkpoints ----
 def test_checkpoints_cross_restore_f32(tmp_path):
     """A reference train-state checkpoint restores into the port, and the
