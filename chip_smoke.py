@@ -93,9 +93,34 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               back, a second run with max_cache_pages set giving the same
               greedy tokens (the hybrid keeps the contiguous cache), and a
               torch.profiler window over a short third run
+  10. hybrid train  full-width zamba2_2_7b (54 Mamba2 layers, 9 shared-
+              block calls at 32 heads of 80, bf16, remat dots_saveable)
+              trained for HYBRID_TRAIN_STEPS steps of batch 4 x 2048 from
+              SyntheticLMData through the port's Trainer (AdamW at the
+              reference's defaults, no checkpoint), launch counters set to
+              0 just before and read just after (ssd_scan and its backward,
+              both flash kernels, rmsnorm and its backward must all run);
+              every loss and grad norm finite, dispatch_step x 4 in the
+              profile shard; step time, tokens/s, MFU by a hybrid
+              model-FLOPs count (checked against the static-cost layer's
+              FLOPs of one loss_fn) and peak memory; a torch.profiler
+              window over one more step (busy share, the SSD and flash
+              kernels' shares); one loss_fn + backward at batch 1 x 1024
+              with the kernels and with the plain versions, in f32 (loss
+              to 1e-4 relative, each gradient leaf to 1e-3 relative L2)
+              and in bf16 (each leaf no further from the f32 plain
+              gradient than the plain bf16 one, within 1.25x); then
+              ssd_scan_backward against its plain version at the training
+              shape (x [4,2048,80,64], bf16 and f32, with and without h0
+              and dh_final) and at 1 x 512, two launches bitwise equal,
+              and flash attention forward and backward at head dim 80
+              (q/k/v [4,32,2048,80] causal, bf16 and f32; Sq 1024 against
+              Sk 2048; non-causal Sq 512), each timed beside its plain
+              version, its bound and (flash) SDPA.  It runs before phase 9
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
-              serve), 6 (train) and 8 (zamba2 serve) kept: `diagnose
+              serve), 6 (train), 8 (zamba2 serve) and 10 (zamba2 train)
+              kept: `diagnose
               --json` and `report --json` on each, `timeline --json` on
               the tinyllama serve dir; each must exit 0 with JSON that
               parses, and the findings by severity, the first five, each
@@ -112,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
 It prints the kernels line ({"kernels": [...]}), a summary of each serve
 phase (tok/s, TTFT p50 / p95, the XFA prefill_chunk mean), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
-come from the serving or training run of its own path; rmsnorm_add has
+come from the serving or training run of its own path (ssd_scan_backward
+and the flash kernels' head-dim-80 numbers: phase 10); rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -135,7 +161,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-#: one temporary root per run: the profile dirs phases 5-8 write, kept
+#: one temporary root per run: the profile dirs phases 5-8 and 10 write, kept
 #: for phase 9 to diagnose, and the fleet spool (removed at exit)
 RUN_ROOT = Path()
 
@@ -235,6 +261,9 @@ def run(torch) -> None:
     train_counts, train = train_phase(torch)
     profile_phase(torch)
     hybrid_counts, hybrid = hybrid_phase(torch)
+    hybrid_train_counts, hybrid_train, ssd_bwd = hybrid_train_phase(torch,
+                                                                    kernels)
+    kernels.append(ssd_bwd)
     diagnose_phase(torch)
 
     for k in kernels:
@@ -245,11 +274,16 @@ def run(torch) -> None:
                 f"its launches are those of its phase 3c checks")
         k["launches"] = (train_counts if name in TRAIN_KERNELS
                          else hybrid_counts if name in HYBRID_KERNELS
+                         else hybrid_train_counts
+                         if name in HYBRID_TRAIN_KERNELS
                          else pathless_counts if name in PATHLESS_KERNELS
                          else paged_counts if name.endswith("_paged")
                          else counts)[name]
         if k["launches"] <= 0:
             fail(f"kernel {name} was not launched on its path")
+        if "head_dim_80" in k and name in TRAIN_KERNELS:
+            # the flash kernels at head dim 80: the zamba2 train run
+            k["head_dim_80"]["launches"] = hybrid_train_counts[name]
     log(json.dumps({"kernels": kernels}))
     for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
@@ -267,7 +301,15 @@ def run(torch) -> None:
         f"hybrid served {hybrid['throughput_tok_s']:.1f} tok/s, ttft mean "
         f"{hybrid['ttft_mean_s'] * 1e3:.1f} ms, decode gap "
         f"{hybrid['decode_s_per_tok'] * 1e3:.2f} ms/token, launches "
-        f"{json.dumps(hybrid_counts)} on {smi}")
+        f"{json.dumps(hybrid_counts)}; hybrid trained "
+        f"{hybrid_train['step_ms']:.1f} ms/step, "
+        f"{hybrid_train['tok_s']:.0f} tok/s, MFU "
+        f"{100 * hybrid_train['mfu']:.2f}%, peak "
+        f"{hybrid_train['peak_gb']:.1f} GB, busy "
+        f"{100 * hybrid_train['busy']:.1f}%, ssd "
+        f"{100 * hybrid_train['ssd_share']:.1f}% and flash "
+        f"{100 * hybrid_train['flash_share']:.1f}% of device time, launches "
+        f"{json.dumps(hybrid_train_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1724,10 +1766,387 @@ def hybrid_phase(torch):
     return counts, stats
 
 
+# ---------------------------------------------------------- hybrid train ----
+HYBRID_TRAIN_STEPS = 4
+HYBRID_TRAIN_SHAPE = (4, 2048)          # B, S of phase 10
+#: kernels whose launches come from phase 10 (the flash kernels' head-dim-80
+#: numbers take theirs from it too)
+HYBRID_TRAIN_KERNELS = ("ssd_scan_backward",)
+#: launches a phase 10 step should make: 54 Mamba2 layers (the scan again
+#: in each super-block's recompute) and 9 shared-block calls
+HYBRID_STEP_LAUNCHES = {"ssd_scan": 108, "ssd_scan_backward": 54,
+                        "flash_attention": 18, "flash_attention_backward": 9}
+#: the SSD kernels' device symbols (mamba_scan.cu)
+SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+# zamba2's full-width gradients (batch 1 x 1024), kernels vs plain: in
+# f32 only the order of sums differs (the f32 logits of phase 8 measured
+# 1.8e-5 on an NVIDIA H100 80GB HBM3 at 700.00 W): the loss to 1e-4
+# relative, each leaf to 1e-3 relative L2; in bf16 each
+# leaf is held against the f32 plain gradient within HYBRID_BF16_RATIO of
+# the plain bf16 gradient's distance (a fixed bf16 bound says nothing for
+# this random-weight model, see HYBRID_BF16_RATIO)
+HYBRID_LOSS_TOL = 1e-4
+HYBRID_GRAD_TOL = 1e-3
+
+
+def hybrid_model_flops_per_token(cfg, S: int) -> float:
+    """Training FLOPs per token of the zamba2 hybrid at sequence length S:
+    3x the forward's (forward + backward; no recompute counted), the
+    forward being what its static-cost edges register: per Mamba2 layer
+    in_proj, out_proj and the SSD scan (6 chunk (N + P) a head: its two
+    [T, T] x [T, *] product pairs), per shared-block call the q, k, v, o
+    projections, causal attention (4 head_dim S/2 a head) and the MLP,
+    and the lm head."""
+    d, di, n, H = cfg.d_model, cfg.d_inner_, cfg.ssm_state, cfg.n_ssm_heads
+    P, h, f = cfg.ssm_head_dim, cfg.head_dim_, cfg.d_ff
+    mamba = 2 * d * (2 * di + 2 * n + H) + 2 * di * d \
+        + 6 * H * min(cfg.ssm_chunk, S) * (n + P)
+    shared = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+        + 2 * cfg.n_heads * h * d + 2 * (3 if cfg.mlp_gated else 2) * d * f \
+        + 4 * cfg.n_heads * h * S / 2
+    return 3.0 * (cfg.n_layers * mamba + cfg.n_layers // cfg.attn_every
+                  * shared + 2 * d * cfg.vocab)
+
+
+def hybrid_train_phase(torch, entries):
+    """Phase 10: full-width zamba2_2_7b trained through the Trainer, its
+    gradients against the plain versions, and the kernels new to its path
+    against theirs.  Adds the head-dim-80 numbers to the flash entries of
+    `entries`; returns (launch counts of the run, its stats, the
+    ssd_scan_backward entry)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tracer as xfa
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.profile import load_profile
+    from repro_torch.runtime.trainer import Trainer, make_train_step
+
+    t_phase = time.monotonic()
+    xfa.reset()          # the shard phase 9 diagnoses: this run's folds only
+    cfg = get_config("zamba2_2_7b")
+    model = build_model(cfg, impl="auto", device="cuda")
+    B, S = HYBRID_TRAIN_SHAPE
+    tcfg = TrainConfig(total_steps=HYBRID_TRAIN_STEPS, warmup_steps=2,
+                       ckpt_interval=0)
+    with keep_dir("hybrid-train") as d:
+        trainer = Trainer(model, tcfg, CheckpointManager(
+            os.path.join(d, "ckpt")), profile_dir=os.path.join(d, "prof"))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        state, _ = trainer.run(0, SyntheticLMData(cfg, B, S),
+                               HYBRID_TRAIN_STEPS, resume=False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = trainer.history
+        if len(hist) != HYBRID_TRAIN_STEPS:
+            fail(f"hybrid-train: {len(hist)} of {HYBRID_TRAIN_STEPS} steps "
+                 f"recorded")
+        for h in hist:
+            if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm")):
+                fail(f"hybrid-train: step {h['step']} loss {h['loss']} grad "
+                     f"norm {h['grad_norm']} not finite")
+        for name in tuple(HYBRID_STEP_LAUNCHES) + ("rmsnorm",
+                                                   "rmsnorm_backward"):
+            if counts[name] <= 0:
+                fail(f"hybrid-train: kernel {name} was not launched: "
+                     f"{counts}")
+        folded = load_profile(os.path.join(d, "prof")).to_folded()
+        steps = [e.count for k, e in folded.edges.items()
+                 if k[1:] == ("runtime", "dispatch_step")]
+        if steps != [HYBRID_TRAIN_STEPS]:
+            fail(f"hybrid-train: profile shard holds dispatch_step counts "
+                 f"{steps}")
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+    flops = hybrid_model_flops_per_token(cfg, S) * B * S
+    stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
+             "mfu": flops / step_s / PEAK_OPS_S["bfloat16"],
+             "peak_gb": peak_gb}
+    log(f"[hybrid-train] {cfg.name} ({cfg.n_layers} Mamba2 layers + "
+        f"{cfg.n_layers // cfg.attn_every} shared-block calls, "
+        f"{n_params / 1e9:.3f}B params, {cfg.param_dtype}, remat "
+        f"{cfg.remat}), batch {B} x {S}: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}")
+    log(f"[hybrid-train] step times (s) {[round(h['step_s'], 4) for h in hist]}"
+        f"; median after the first {stats['step_ms']:.1f} ms = "
+        f"{stats['tok_s']:.0f} tokens/s; model FLOPs {flops / 1e12:.2f} "
+        f"TFLOP/step -> MFU {100 * stats['mfu']:.2f}% of 989 TFLOP/s; peak "
+        f"memory {peak_gb:.1f} GB; run wall {wall:.1f}s incl. init")
+    per_step = {k: v / HYBRID_TRAIN_STEPS for k, v in counts.items() if v}
+    log(f"[hybrid-train] launches over {HYBRID_TRAIN_STEPS} steps "
+        f"{json.dumps(counts)}; per step {json.dumps(per_step)} (expected "
+        f"{json.dumps(HYBRID_STEP_LAUNCHES)})")
+    # one more step of the same run under torch.profiler: where it goes
+    step_fn = make_train_step(model, tcfg)
+    batch = SyntheticLMData(cfg, B, S).generate(HYBRID_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.monotonic()
+        state, _, _ = step_fn(state, batch, None)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    rows, busy = breakdown(p, wall_us, "hybrid-train-profile",
+                           f"one step, batch {B} x {S}")
+    shares = {}
+    for what, names in (("ssd", SSD_KERNEL_NAMES),
+                        ("flash", FLASH_KERNEL_NAMES)):
+        us = sum(_dev_us(e) for e in rows if any(n in e.key for n in names))
+        shares[what] = us / busy
+        log(f"[hybrid-train-profile] {what} kernels {us / 1e3:.2f} ms, "
+            f"{100 * us / busy:.1f}% of device time")
+    stats.update(busy=busy / wall_us, ssd_share=shares["ssd"],
+                 flash_share=shares["flash"])
+    del state, trainer, p, model, step_fn, batch
+    torch.cuda.empty_cache()
+    hybrid_grads_check(torch, cfg)
+    ssd_entry = check_hybrid_train_kernels(torch, entries)
+    log(f"[hybrid-train] phase 10: {time.monotonic() - t_phase:.1f}s")
+    return counts, stats, ssd_entry
+
+
+def hybrid_grads_check(torch, cfg16):
+    """Phase 10: one loss_fn + backward at full width, batch 1 x 1024, with
+    the kernels and with the plain versions on the same params and batch,
+    in f32 (held to each other) and in bf16 (each held against the f32
+    plain gradient); and the static-cost layer's FLOPs of one loss_fn
+    against hybrid_model_flops_per_token."""
+    import dataclasses
+    from repro_torch.core.device_fold import STATIC_COSTS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import value_and_grad
+    from repro_torch.tree import leaves_with_path
+
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S = 1, 1024
+    batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
+
+    def grads(cfg, impl, params):
+        model = build_model(cfg, impl=impl, device="cuda")
+        loss, _, _, g = value_and_grad(model, params, batch, None)
+        torch.cuda.synchronize()
+        for name, leaf in leaves_with_path(g):
+            if not torch.isfinite(leaf).all():
+                fail(f"hybrid grads: {impl} {cfg.param_dtype} gradient "
+                     f"{name} is not finite")
+        return float(loss), leaves_with_path(g)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    # the same seeded draws in f32 (the bf16 params are their roundings)
+    p32 = build_model(cfg32, device="cuda").init(0)
+    STATIC_COSTS.reset()
+    l_r32, g_r32 = grads(cfg32, "ref", p32)
+    registered = sum(v.get("flops", 0.0) for k, v in
+                     STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
+    want = hybrid_model_flops_per_token(cfg16, S) / 3 * B * S
+    log(f"[hybrid-grads] forward FLOPs of one loss_fn: static-cost layer "
+        f"{registered:.6e} (without the norms), "
+        f"hybrid_model_flops_per_token / 3 {want:.6e}")
+    if abs(registered - want) > 1e-6 * want:
+        fail(f"hybrid grads: hybrid_model_flops_per_token disagrees with "
+             f"the static-cost layer ({want:.6e} against {registered:.6e})")
+    l_k32, g_k32 = grads(cfg32, "kernel", p32)
+    e32 = {n: rel(a, b) for (n, a), (_, b) in zip(g_k32, g_r32)}
+    del g_k32, p32
+    torch.cuda.empty_cache()
+    rel_loss = abs(l_k32 - l_r32) / abs(l_r32)
+    log(f"[hybrid-grads] f32, batch {B} x {S}: loss kernels {l_k32:.6f} "
+        f"plain {l_r32:.6f} (relative error {rel_loss:.3e}, tolerance "
+        f"{HYBRID_LOSS_TOL}); gradient relative L2 "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in e32.items()})} "
+        f"(tolerance {HYBRID_GRAD_TOL})")
+    if rel_loss > HYBRID_LOSS_TOL or max(e32.values()) > HYBRID_GRAD_TOL:
+        fail(f"hybrid grads: f32 kernels and plain versions disagree (loss "
+             f"{rel_loss:.3e}, worst leaf {max(e32.values()):.3e})")
+    p16 = build_model(cfg16, device="cuda").init(0)
+    l_k16, g_k16 = grads(cfg16, "kernel", p16)
+    ek = {n: rel(a, b) for (n, a), (_, b) in zip(g_k16, g_r32)}
+    del g_k16
+    torch.cuda.empty_cache()
+    l_r16, g_r16 = grads(cfg16, "ref", p16)
+    er = {n: rel(a, b) for (n, a), (_, b) in zip(g_r16, g_r32)}
+    del g_r16, g_r32, p16
+    torch.cuda.empty_cache()
+    ratio = {n: ek[n] / er[n] for n in ek}
+    log(f"[hybrid-grads] bf16: loss kernels {l_k16:.6f} plain {l_r16:.6f} "
+        f"(f32 plain {l_r32:.6f}); per leaf, relative L2 from the f32 plain "
+        f"gradient, kernels / plain bf16: " + json.dumps(
+            {n: f"{ek[n]:.3e} / {er[n]:.3e}" for n in ek})
+        + f"; worst ratio {max(ratio.values()):.3f} (limit "
+        f"{HYBRID_BF16_RATIO})")
+    bad = {n: r for n, r in ratio.items() if r > HYBRID_BF16_RATIO}
+    if bad:
+        fail(f"hybrid grads: bf16 kernel gradients further from the f32 "
+             f"plain gradients than the plain bf16 ones: {bad}")
+
+
+def ssd_bwd_work(B, L, H, P, N, chunk, elem):
+    """(bytes, operations) of the SSD backward: reads x, dy, b, c (elem
+    bytes), dt (f32), writes dx, db, dc (elem), ddt and da (f32); per
+    (row, head, chunk) the state recompute, C B^T, S^T dy, dy dtx^T, dG B
+    and dG^T C over the T(T+1)/2 visible pairs, and B dh, dy h^T, dtx dh^T,
+    C^T dy over the [T, N, P] products."""
+    nbytes = elem * (3 * B * L * H * P + 4 * B * L * N) \
+        + 4.0 * (2 * B * L * H + 2 * H)
+    ops = B * H * (L // chunk) * ((3 * N + 2 * P) * chunk * (chunk + 1)
+                                  + 10.0 * chunk * N * P)
+    return nbytes, ops
+
+
+def check_hybrid_train_kernels(torch, entries):
+    """Phase 10 kernels: ssd_scan_backward against ref.ssd_scan_backward at
+    the training shape (bf16, f32; with and without h0 and dh_final) and at
+    1 x 512, each twice and bitwise equal; flash attention forward and
+    backward at head dim 80 against the plain versions at the shared
+    block's training shape (causal, bf16 and f32) and at Sq != Sk; timed
+    beside the plain versions and SDPA.  Returns the ssd_scan_backward
+    entry; adds head_dim_80 to the flash entries of `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda dt, *s: torch.randn(s, generator=gen, device=dev).to(dt)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, P, N, chunk = 80, 64, 64, 128
+    B, L = HYBRID_TRAIN_SHAPE
+    errs, timed = [], None
+    for what, dtype, nb, l, with_h0 in (("training bf16", bf16, B, L, False),
+                                        ("training bf16 h0 dh", bf16, B, L,
+                                         True),
+                                        ("training f32", f32, B, L, False),
+                                        ("training f32 h0 dh", f32, B, L, True),
+                                        ("1x512 bf16 h0 dh", bf16, 1, 512,
+                                         True),
+                                        ("1x512 bf16", bf16, 1, 512, False)):
+        x, dy = rnd(dtype, nb, l, H, P), rnd(dtype, nb, l, H, P)
+        b, c = rnd(dtype, nb, l, N), rnd(dtype, nb, l, N)
+        dt = F.softplus(rnd(f32, nb, l, H) - 2)
+        a = -torch.exp(0.5 * rnd(f32, H))
+        h0 = rnd(f32, nb, H, N, P) if with_h0 else None
+        dh = rnd(f32, nb, H, N, P) if with_h0 else None
+        args = (x, dt, a, b, c, h0, dy, dh)
+        got = ms.ssd_scan_backward(*args, chunk=chunk)
+        again = ms.ssd_scan_backward(*args, chunk=chunk)
+        want = ref.ssd_scan_backward(*args, chunk=chunk)
+        names = ("dx", "ddt", "da", "db", "dc", "dh0")
+        for name, g, w in zip(names, got, want):
+            if w is not None:
+                errs.append(max_err(torch, g, w,
+                                    f"ssd_scan_backward {name} {what}"))
+        torch.cuda.synchronize()
+        if not all(g is None or torch.equal(g, h) for g, h in zip(got, again)):
+            fail(f"ssd_scan_backward {what}: two launches differ")
+        if what == "training bf16":
+            timed = args
+        del x, dy, b, c, dt, a, h0, dh, args, got, again, want
+        torch.cuda.empty_cache()
+    log(f"[hybrid-train-kernels] ssd_scan_backward max_abs_err per case and "
+        f"gradient {[f'{e:.3e}' for e in errs]}; two launches equal in "
+        f"every case")
+    nbytes, ops_ssd = ssd_bwd_work(B, L, H, P, N, chunk, 2)
+    ssd = record_kernel(
+        torch, flush, "ssd_scan_backward",
+        "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "src/repro/kernels/ref.py:505 (JAX autodiff of ssd_chunked; the "
+        "Pallas kernel src/repro/kernels/mamba_scan.py:81 is forward-only)",
+        f"x, dy {B}x{L}x{H}x{P} b/c {B}x{L}x{N} chunk {chunk}", max(errs),
+        lambda: ms.ssd_scan_backward(*timed, chunk=chunk),
+        lambda: ref.ssd_scan_backward(*timed, chunk=chunk),
+        None,   # no one PyTorch call computes the SSD scan's gradient
+        nbytes=nbytes, ops=ops_ssd)
+    del timed
+    torch.cuda.empty_cache()
+
+    # flash attention at the shared block's head dim
+    Bq, Hq, Sf, D = B, 32, L, 80
+    ferr = {"fwd": [], "bwd": []}
+    for what, dtype, sq, sk, causal in (("training bf16", bf16, Sf, Sf, True),
+                                        ("training f32", f32, Sf, Sf, True),
+                                        ("Sq 1024 Sk 2048 bf16", bf16, 1024,
+                                         Sf, True),
+                                        ("non-causal Sq 512 Sk 2048 bf16",
+                                         bf16, 512, Sf, False)):
+        q, do = rnd(dtype, Bq, Hq, sq, D), rnd(dtype, Bq, Hq, sq, D)
+        k, v = rnd(dtype, Bq, Hq, sk, D), rnd(dtype, Bq, Hq, sk, D)
+        off = dict(q_offset=sk - sq if causal else 0)
+        o, lse = fa.flash_attention(q, k, v, causal=causal)
+        o_r, lse_r = ref.attention(q, k, v, causal=causal, return_lse=True,
+                                   **off)
+        ferr["fwd"].append(max_err(torch, o, o_r, f"flash_attention D=80 "
+                                   f"{what}"))
+        max_err(torch, lse, lse_r, f"flash_attention lse D=80 {what}")
+        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do,
+                                            causal=causal)
+        want = ref.attention_backward(q, k, v, o_r, lse_r, do, causal=causal,
+                                      **off)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            ferr["bwd"].append(max_err(
+                torch, g, w, f"flash_attention_backward {name} D=80 {what}"))
+        if what == "training bf16":
+            timed = (q, k, v, do, o, lse)
+        del q, k, v, do, o, lse, o_r, lse_r, grads, want
+        torch.cuda.empty_cache()
+    log(f"[hybrid-train-kernels] flash D=80 max_abs_err: forward "
+        f"{[f'{e:.3e}' for e in ferr['fwd']]}, backward "
+        f"{[f'{e:.3e}' for e in ferr['bwd']]}")
+    q, k, v, do, o, lse = timed
+    shape = f"q {Bq}x{Hq}x{Sf}x{D} kv {Bq}x{Hq}x{Sf}x{D} causal"
+    fwd_ops, io = flash_work(q, k)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    cases = {
+        "flash_attention": (
+            max(ferr["fwd"]), lambda: fa.flash_attention(q, k, v),
+            lambda: ref.attention(q, k, v, q_offset=0, return_lse=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            dict(nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=fwd_ops)),
+        "flash_attention_backward": (
+            max(ferr["bwd"]),
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+            lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+            lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                        retain_graph=True),
+            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=2.5 * fwd_ops))}
+    for e in entries:
+        if e["name"] in cases:
+            err, fn, plain, lib, work = cases[e["name"]]
+            d80 = record_kernel(torch, flush, e["name"], e["source"],
+                                e["replaces"], shape, err, fn, plain, lib,
+                                **work)
+            e["head_dim_80"] = sub_entry(d80)
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"[hybrid-train-kernels] {e['name']} {shape}: "
+                f"{work['ops'] / d80['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * d80['bound_ms'] / d80['ms']:.1f}% of its bound, "
+                f"{d80['ms'] / d80['library_ms']:.2f}x SDPA")
+    del q, k, v, do, o, lse, qq, kk, vv, out, timed, flush
+    torch.cuda.empty_cache()
+    return ssd
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
-             ("zamba2 serve", "hybrid-serve"))
+             ("zamba2 serve", "hybrid-serve"),
+             ("zamba2 train", "hybrid-train/prof"))
 FLEET_TRAIN_STEPS = 2
 
 
@@ -1880,8 +2299,8 @@ def fleet_check(torch):
 
 
 def diagnose_phase(torch):
-    """Phase 9: diagnose the profile dirs of phases 5, 6 and 8 with the
-    port's CLI, then stream a serve and a train run to a collector."""
+    """Phase 9: diagnose the profile dirs of phases 5, 6, 8 and 10 with
+    the port's CLI, then stream a serve and a train run to a collector."""
     t0 = time.monotonic()
     for what, rel in DIAGNOSED:
         d = RUN_ROOT / rel
@@ -1894,7 +2313,8 @@ def diagnose_phase(torch):
             f"seqs {tl['seqs']}, {len(tl['edges'])} edges")
     t1 = time.monotonic()
     fleet_check(torch)
-    log(f"[diagnose] phase 9: {t1 - t0:.1f}s for the CLI over three runs, "
+    log(f"[diagnose] phase 9: {t1 - t0:.1f}s for the CLI over "
+        f"{len(DIAGNOSED)} runs, "
         f"{time.monotonic() - t1:.1f}s for the fleet stream")
 
 

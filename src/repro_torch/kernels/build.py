@@ -64,6 +64,7 @@ SIGNATURES = {
     "mamba_scan": {
         "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "ssd_scan_bwd_launch": (_P,) * 18 + (_I,) * 7 + (_P,),
     },
 }
 

@@ -37,6 +37,10 @@ constexpr int kRowElems = D >= 64 ? 64 : D;            // elements in one swizzl
 template <int D>
 constexpr uint32_t kSwizzle = D >= 64 ? 1 : 2;         // descriptor layout: 128B / 64B
 
+// Tile width of head dim D: 80 runs on the 128-column layout.
+template <int D>
+__host__ __device__ constexpr int tile_dim() { return D == 80 ? 128 : D; }
+
 // Element offset of 16-byte chunk c of row r.
 template <int D, int R>
 __device__ __forceinline__ int tile_off(int r, int c) {
@@ -73,10 +77,11 @@ template <int D, int R, int NT, int DS = D, typename RowOf>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int valid,
                                           RowOf row_of) {
   constexpr int C = DS / 8;
-  static_assert((R * C) % NT == 0, "a tile splits evenly over the threads");
+  constexpr bool kEven = (R * C) % NT == 0;   // else the last pass is partial
 #pragma unroll
-  for (int it = 0; it < R * C / NT; ++it) {
+  for (int it = 0; it < (R * C + NT - 1) / NT; ++it) {
     const int i = it * NT + static_cast<int>(threadIdx.x), r = i / C, c = i % C;
+    if (!kEven && i >= R * C) break;
     const bool ok = r < valid;
     mma::cp_async16(dst + tile_off<D, R>(r, c), ok ? src + row_of(r) * DS + c * 8 : src, ok);
   }

@@ -560,10 +560,6 @@ namespace tc {
 constexpr int kChWarps = 8;             // chunk block: 8 warps, two warpgroups
 constexpr int kChM = 16 * kChWarps;     // query rows per chunk block
 
-// Tile width of head dim D: 80 runs on the 128-column layout.
-template <int D>
-__host__ __device__ constexpr int tile_dim() { return D == 80 ? 128 : D; }
-
 // How a chunk block's K/V tiles reach shared memory.
 enum Route : int {
   kDense = 0,      // TMA from a [B*Hkv, S, D] map

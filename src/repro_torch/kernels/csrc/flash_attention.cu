@@ -41,6 +41,12 @@
 //     memory beside Q and dO.
 //   - dQ: 1 warpgroup, a 64-row query tile, K/V tiles of 64 rows: S = Q K^T,
 //     dP = dO V^T, dQ += dS K.
+// D 80 (zamba2's shared block) runs on the 128-column tile layout, as the
+// chunk kernels do: the K/V maps hold 80 columns, so TMA zero-fills
+// columns 80-127; the products over the head dim (S = Q K^T, dP = dO V^T
+// and their transposes) skip the k-steps past 80 (5 of 8 run); the
+// products into a [*, D] accumulator run at n 128, and only 80 columns
+// are stored.  Shared memory and registers are those of D 128.
 // Copy pipeline.  K/V tiles (forward, dQ) stream through a ring of two
 // stages filled by TMA (cp.async.bulk.tensor on a [heads, Sk, D] tensor
 // map, one box per swizzled panel, rows past Sk zero-filled) and
@@ -528,10 +534,10 @@ constexpr int kFwdM = 16 * kFwdWarps;      // query rows per forward block
 constexpr int kBwdWarps = 4;               // dK/dV and dQ blocks: 4 warps
 constexpr int kBwdM = 16 * kBwdWarps;      // K/V rows per dK/dV block, q rows per dQ block
 
-// q rows per step of the dK/dV loop: 32 at D = 128 keeps the four
-// accumulator tiles (dK, dV, S^T, dP^T) in registers
+// q rows per step of the dK/dV loop: 32 at tile width 128 (D 80 and 128)
+// keeps the four accumulator tiles (dK, dV, S^T, dP^T) in registers
 template <int D>
-__host__ __device__ constexpr int dkdv_q() { return D <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int dkdv_q() { return tile_dim<D>() <= 64 ? 64 : 32; }
 
 // A product's entry s as a score in log2 units, in place: s * scale *
 // log2(e), or under the softcap c * tanh(s * scale / c) * log2(e), so that
@@ -580,18 +586,18 @@ __device__ __forceinline__ void grad_tile(float (&s)[NS][4], float (&dp)[NS][4],
 // ---------------------------------------------------------------- forward ----
 template <int D>
 constexpr size_t fwd_smem() {   // Q tile + the K/V ring
-  return kFwdM * D * sizeof(bf16) + KvRing<D>::kBytes + kAlign;
+  return kFwdM * tile_dim<D>() * sizeof(bf16) + KvRing<tile_dim<D>()>::kBytes + kAlign;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdWarps * 32, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(kFwdWarps * 32, tile_dim<D>() <= 64 ? 2 : 1)
 fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, Problem pb) {
-  constexpr int NT = kFwdWarps * 32, NS = kBN / 8;
+  constexpr int NT = kFwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
-  const KvRing<D> ring(q_s + kFwdM * D);
+  const KvRing<DT> ring(q_s + kFwdM * DT);
 
   const int head = blockIdx.x;                             // b * hkv + h
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;     // longest tiles first
@@ -605,7 +611,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     ring.init();
     if (ntiles > 0) ring.load(&tk, &tv, head, 0);
   }
-  load_rows<D, kFwdM, NT>(q_s, q, nrows, q_of);
+  load_rows<DT, kFwdM, NT, D>(q_s, q, nrows, q_of);
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
   mma::fence_async_smem();
@@ -617,7 +623,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   // valid one may go unmasked: their zero Q gives finite p, never stored
   const int lim_lo = pb.limit(r0);
   const Score score(pb);
-  float acc[D / 8][4] = {};
+  float acc[DT / 8][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
 
   for (int j = 0; j < ntiles; ++j) {
@@ -628,7 +634,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     float s[NS][4] = {}, alpha[2];
     mma::fence_regs(s);
     mma::wgmma_fence();
-    issue_abt<D, kFwdM>(s, q_s, (warp >> 2) * 64, k_s);   // S = Q K^T, this warpgroup's rows
+    issue_abt<DT, kFwdM, D>(s, q_s, (warp >> 2) * 64, k_s);   // S = Q K^T, this warpgroup's rows
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(s);
@@ -638,7 +644,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     else
       online_softmax<true>(s, m, l, alpha, cb, lim, score);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DT / 8; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
@@ -649,7 +655,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     mma::fence_regs(acc);
     mma::fence_regs(pa);
     mma::wgmma_fence();
-    issue_pb<D>(acc, pa, ring.v(j));   // O += P V
+    issue_pb<DT>(acc, pa, ring.v(j));   // O += P V
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(acc);
@@ -663,9 +669,9 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = l[i] == 0.f ? 0.f : 1.f / l[i];
   }
-  acc_to_tile<D, kFwdM>(q_s, warp * 16, acc, inv[0], inv[1]);   // the warp's own Q rows
+  acc_to_tile<DT, kFwdM>(q_s, warp * 16, acc, inv[0], inv[1]);   // the warp's own Q rows
   __syncwarp();
-  store_rows<D, kFwdM>(q_s, o, warp * 16, nrows, q_of);
+  store_rows<DT, kFwdM, D>(q_s, o, warp * 16, nrows, q_of);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -677,7 +683,8 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
 // --------------------------------------------------------- backward: dK/dV ----
 template <int D>
 constexpr size_t dkdv_smem() {   // K, V; two stages of (Q, dO, lse, delta, limit)
-  return 2 * kBwdM * D * sizeof(bf16) + 2 * dkdv_q<D>() * (2 * D * sizeof(bf16) + 12) + kAlign;
+  constexpr int DT = tile_dim<D>();
+  return 2 * kBwdM * DT * sizeof(bf16) + 2 * dkdv_q<D>() * (2 * DT * sizeof(bf16) + 12) + kAlign;
 }
 
 template <int D>
@@ -686,11 +693,12 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
             const bf16* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
             Problem pb) {
-  constexpr int NT = kBwdWarps * 32, BQ = dkdv_q<D>(), NS = BQ / 8, ST = 2 * BQ * D;
+  constexpr int DT = tile_dim<D>();
+  constexpr int NT = kBwdWarps * 32, BQ = dkdv_q<D>(), NS = BQ / 8, ST = 2 * BQ * DT;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
-  bf16* v_s = k_s + kBwdM * D;
-  bf16* qd_s = v_s + kBwdM * D;   // stage s: Q at qd_s + s ST, dO after it
+  bf16* v_s = k_s + kBwdM * DT;
+  bf16* qd_s = v_s + kBwdM * DT;   // stage s: Q at qd_s + s ST, dO after it
   float* lse_s = reinterpret_cast<float*>(qd_s + 2 * ST);   // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;
   int* lim_s = reinterpret_cast<int*>(delta_s + 2 * BQ);
@@ -700,8 +708,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nk = min(pb.Sk - c0, kBwdM);
   auto kv_of = [&](int rr) { return head * pb.Sk + c0 + rr; };
-  load_rows<D, kBwdM, NT>(k_s, k, nk, kv_of);
-  load_rows<D, kBwdM, NT>(v_s, v, nk, kv_of);
+  load_rows<DT, kBwdM, NT, D>(k_s, k, nk, kv_of);
+  load_rows<DT, kBwdM, NT, D>(v_s, v, nk, kv_of);
 
   // causal: the first query position that sees column c0 is c0 - offset
   const int t_first = pb.causal ? max(c0 - pb.offset, 0) : 0;
@@ -712,8 +720,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   auto load_q = [&](int i) {
     const int s = i & 1, rq = (first + i) * BQ, n = min(rows - rq, BQ);
     auto q_of = [&](int rr) { return qrow(pb, head, rq + rr); };
-    load_rows<D, BQ, NT>(qd_s + s * ST, q, n, q_of);
-    load_rows<D, BQ, NT>(qd_s + s * ST + BQ * D, dout, n, q_of);
+    load_rows<DT, BQ, NT, D>(qd_s + s * ST, q, n, q_of);
+    load_rows<DT, BQ, NT, D>(qd_s + s * ST + BQ * DT, dout, n, q_of);
     for (int rr = threadIdx.x; rr < BQ; rr += NT) {
       const bool ok = rr < n;
       mma::cp_async4(lse_s + s * BQ + rr, ok ? lse + q_of(rr) : lse, ok);
@@ -727,7 +735,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int kr = warp * 16;                        // the warp's K/V rows
   const int kc = c0 + kr + (lane >> 2);            // this thread's columns: kc, kc + 8
   const Score score(pb);
-  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+  float dka[DT / 8][4] = {}, dva[DT / 8][4] = {};
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) load_q(i + 1);
     mma::cp_async_commit();
@@ -736,14 +744,14 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     __syncthreads();
     const int s = i & 1;
     const bf16* q_s = qd_s + s * ST;
-    const bf16* do_s = q_s + BQ * D;
+    const bf16* do_s = q_s + BQ * DT;
 
     float st[NS][4] = {}, dpt[NS][4] = {};   // S^T, dP^T: K/V rows x q rows
     mma::fence_regs(st);
     mma::fence_regs(dpt);
     mma::wgmma_fence();
-    issue_abt<D, kBwdM>(st, k_s, 0, q_s);
-    issue_abt<D, kBwdM>(dpt, v_s, 0, do_s);
+    issue_abt<DT, kBwdM, D>(st, k_s, 0, q_s);
+    issue_abt<DT, kBwdM, D>(dpt, v_s, 0, do_s);
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(st);
@@ -769,8 +777,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     mma::fence_regs(pa);
     mma::fence_regs(da);
     mma::wgmma_fence();
-    issue_pb<D>(dva, pa, do_s);   // dV += P^T dO
-    issue_pb<D>(dka, da, q_s);    // dK += dS^T Q
+    issue_pb<DT>(dva, pa, do_s);   // dV += P^T dO
+    issue_pb<DT>(dka, da, q_s);    // dK += dS^T Q
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(dva);
@@ -780,17 +788,17 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
 
   mma::cp_async_wait<0>();
   __syncthreads();
-  acc_to_tile<D, kBwdM>(k_s, kr, dka, pb.scale, pb.scale);   // dK takes the scale once
-  acc_to_tile<D, kBwdM>(v_s, kr, dva, 1.f, 1.f);
+  acc_to_tile<DT, kBwdM>(k_s, kr, dka, pb.scale, pb.scale);   // dK takes the scale once
+  acc_to_tile<DT, kBwdM>(v_s, kr, dva, 1.f, 1.f);
   __syncwarp();
-  store_rows<D, kBwdM>(k_s, dk, kr, nk, kv_of);
-  store_rows<D, kBwdM>(v_s, dv, kr, nk, kv_of);
+  store_rows<DT, kBwdM, D>(k_s, dk, kr, nk, kv_of);
+  store_rows<DT, kBwdM, D>(v_s, dv, kr, nk, kv_of);
 }
 
 // ------------------------------------------------------------ backward: dQ ----
 template <int D>
 constexpr size_t dq_smem() {   // Q, dO; the K/V ring
-  return 2 * kBwdM * D * sizeof(bf16) + KvRing<D>::kBytes + kAlign;
+  return 2 * kBwdM * tile_dim<D>() * sizeof(bf16) + KvRing<tile_dim<D>()>::kBytes + kAlign;
 }
 
 template <int D>
@@ -799,11 +807,11 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, Problem pb) {
-  constexpr int NT = kBwdWarps * 32, NS = kBN / 8;
+  constexpr int NT = kBwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
-  bf16* do_s = q_s + kBwdM * D;
-  const KvRing<D> ring(do_s + kBwdM * D);
+  bf16* do_s = q_s + kBwdM * DT;
+  const KvRing<DT> ring(do_s + kBwdM * DT);
 
   const int head = blockIdx.x;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBwdM;   // longest tiles first
@@ -817,8 +825,8 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     ring.init();
     if (ntiles > 0) ring.load(&tk, &tv, head, 0);
   }
-  load_rows<D, kBwdM, NT>(q_s, q, nrows, q_of);
-  load_rows<D, kBwdM, NT>(do_s, dout, nrows, q_of);
+  load_rows<DT, kBwdM, NT, D>(q_s, q, nrows, q_of);
+  load_rows<DT, kBwdM, NT, D>(do_s, dout, nrows, q_of);
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
   mma::fence_async_smem();
@@ -836,7 +844,7 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   }
   const int lim_lo = pb.limit(r0);   // as in the forward
   const Score score(pb);
-  float acc[D / 8][4] = {};
+  float acc[DT / 8][4] = {};
   for (int j = 0; j < ntiles; ++j) {
     if (threadIdx.x == 0 && j + 1 < ntiles) ring.load(&tk, &tv, head, j + 1);
     ring.wait(j);
@@ -846,8 +854,8 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     mma::fence_regs(s);
     mma::fence_regs(dp);
     mma::wgmma_fence();
-    issue_abt<D, kBwdM>(s, q_s, 0, k_s);
-    issue_abt<D, kBwdM>(dp, do_s, 0, ring.v(j));
+    issue_abt<DT, kBwdM, D>(s, q_s, 0, k_s);
+    issue_abt<DT, kBwdM, D>(dp, do_s, 0, ring.v(j));
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(s);
@@ -870,7 +878,7 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     mma::fence_regs(acc);
     mma::fence_regs(pa);
     mma::wgmma_fence();
-    issue_pb<D>(acc, pa, k_s);   // dQ += dS K
+    issue_pb<DT>(acc, pa, k_s);   // dQ += dS K
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(acc);
@@ -878,9 +886,9 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   }
 
   __syncthreads();
-  acc_to_tile<D, kBwdM>(q_s, warp * 16, acc, pb.scale, pb.scale);
+  acc_to_tile<DT, kBwdM>(q_s, warp * 16, acc, pb.scale, pb.scale);
   __syncwarp();
-  store_rows<D, kBwdM>(q_s, dq, warp * 16, nrows, q_of);
+  store_rows<DT, kBwdM, D>(q_s, dq, warp * 16, nrows, q_of);
 }
 
 }  // namespace tc
@@ -941,7 +949,7 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, float
                      const Problem& pb, cudaStream_t s) {
   using tc::bf16;
   CUtensorMap tk, tv;
-  const cudaError_t err = tc::kv_maps<D>(&tk, &tv, k, v, B * pb.hkv, pb.Sk);
+  const cudaError_t err = tc::kv_maps<tc::tile_dim<D>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = tc::fwd_smem<D>();
   auto kernel = tc::fwd_kernel<D>;
@@ -964,7 +972,7 @@ cudaError_t bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
                            tc::kBwdWarps * 32, smem_kv, s, q, k, v, dout, lse, delta, dk, dv, pb);
   if (err != cudaSuccess) return err;
   CUtensorMap tk, tv;
-  err = tc::kv_maps<D>(&tk, &tv, k, v, B * pb.hkv, pb.Sk);
+  err = tc::kv_maps<tc::tile_dim<D>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D);
   if (err != cudaSuccess) return err;
   constexpr size_t smem_q = tc::dq_smem<D>();
   auto q_kernel = tc::dq_kernel<D>;
@@ -1030,6 +1038,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   switch (D) {
     case 32: return fwd_t<32>(dtype, q, k, v, o, l, B, pb, s);
     case 64: return fwd_t<64>(dtype, q, k, v, o, l, B, pb, s);
+    case 80: return fwd_t<80>(dtype, q, k, v, o, l, B, pb, s);
     case 128: return fwd_t<128>(dtype, q, k, v, o, l, B, pb, s);
     default: return cudaErrorInvalidValue;
   }
@@ -1051,6 +1060,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   switch (D) {
     case 32: return bwd_t<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
     case 64: return bwd_t<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
+    case 80: return bwd_t<80>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
     case 128: return bwd_t<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
     default: return cudaErrorInvalidValue;
   }

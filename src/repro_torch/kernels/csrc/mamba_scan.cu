@@ -723,6 +723,580 @@ cudaError_t dispatch(int N, const void* x, const float* dt, const float* a, cons
 
 }  // namespace tc
 
+// ================================================================ backward ====
+// The gradient of the scan above (the function ref.ssd_scan), which the
+// Pallas kernel does not have: it replaces JAX autodiff of
+// repro/kernels/ref.py::ssd_chunked.  Its plain version is
+// kernels/ref.py::ssd_scan_backward, whose docstring derives the
+// recurrence this kernel follows.
+//
+// Bound on an H100: bytes.  At the training shape (B 4, L 2048, H 80,
+// P 64, N 64, T 128) it must read x and dy (2 x 84 MB in bf16), dt, b, c
+// and write dx (84 MB), ddt, db, dc: ~260 MB, ~78 us at 3.35 TB/s; its
+// products (~10 of the forward's [T, T] x [T, *] size a chunk) need about
+// 50 GFLOP, ~51 us at the bf16 tensor-core peak.
+//
+// Design: correct first, every product on the FMA pipes in f32 (bf16
+// inputs too), so this kernel is far from its bound; a later redesign
+// puts the products on the tensor cores as the forward's.  One 256-thread
+// block per (batch row, head), the 16 x 16 register tiles of the f32
+// forward.  The chunk states are recomputed, not saved by the forward:
+// the block first walks the chunks forward and writes the state before
+// each into a scratch [B, H, L / T, N, P] f32 (84 MB at the training
+// shape, live only during the call; saving it from the forward would
+// keep that much per layer alive across the recomputed super-block).
+// Then it walks the chunks in reverse carrying dh [N, P] in shared
+// memory, and per chunk (staged as f32: dtx, dy, b, c, the cumsum, and
+// S = (C B^T) (.) exp(cum_i - cum_j) in a [T, T] tile) forms d(dtx), dx
+// and ddt (which sums over P inside the block), dS and from it dG and the
+// decay terms, the per-head parts of dB and dC, and the new dh.
+// Cross-block sums have no atomics, so every run gives the same bits:
+// dB and dC sum over all H heads, so each block writes its head's f32
+// part [B, H, L, N] and a second launch sums the heads in order; dA sums
+// over rows and time, so each block writes its f32 sum and the second
+// launch sums the rows in order.  Inside a block the row and column sums
+// of dS (.) S, d(ldec)'s reverse cumsum and the decay term are reduced in
+// a fixed order (shuffles, per-row partials in shared memory).
+namespace bwd {
+
+constexpr int kThreads = 256;   // 16 x 16
+
+// Shared-memory floats of a chunk padded to Tp rows.
+template <int N, int P>
+constexpr size_t smem_floats(int Tp) {
+  return static_cast<size_t>(Tp) * (P + 1)       // dtx
+       + static_cast<size_t>(Tp) * P             // dy
+       + 2 * static_cast<size_t>(Tp) * (N + 1)   // b, c
+       + static_cast<size_t>(N) * (P + 1)        // dh (the state in the first walk)
+       + static_cast<size_t>(Tp) * (Tp + 1)      // S, then dG
+       + 16 * static_cast<size_t>(Tp)            // column partials of dS (.) S
+       + 7 * static_cast<size_t>(Tp) + 8;        // per-row vectors, a reduction
+}
+
+// Sum over the 16 threads (tx) that share a row of the 16 x 16 layout.
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+               const T* __restrict__ bm, const T* __restrict__ cm, const float* __restrict__ h0,
+               const T* __restrict__ dy, const float* __restrict__ dh_final,
+               float* __restrict__ hs, T* __restrict__ dx, float* __restrict__ ddt,
+               float* __restrict__ dbp, float* __restrict__ dcp, float* __restrict__ dap,
+               float* __restrict__ dh0, int L, int H, int chunk) {
+  constexpr int V = rt::Vec<T>::n, PV = P / V, NV = N / V;
+  constexpr int PP = P + 1, NP = N + 1;
+  constexpr int CP = P / 16, CN = N / 16, RN = N / 16;
+  constexpr int RT = kMaxT / 16;            // row tiles of the largest chunk
+  extern __shared__ float smem[];
+  const int Tp = (chunk + 15) / 16 * 16, TP = Tp + 1, R = Tp / 16;
+  float* dtx_s = smem;                      // [Tp][PP]
+  float* dy_s = dtx_s + Tp * PP;            // [Tp][P]
+  float* b_s = dy_s + Tp * P;               // [Tp][NP]
+  float* c_s = b_s + Tp * NP;               // [Tp][NP]
+  float* dh_s = c_s + Tp * NP;              // [N][PP]
+  float* s_s = dh_s + N * PP;               // [Tp][TP]
+  float* colq_s = s_s + Tp * TP;            // [16][Tp]
+  float* cum_s = colq_s + 16 * Tp;          // [Tp] each:
+  float* ecum_s = cum_s + Tp;               //   exp(cum)
+  float* w_s = ecum_s + Tp;                 //   exp(cum_last - cum)
+  float* dcum_s = w_s + Tp;                 //   row sums of dS (.) S
+  float* xd_s = dcum_s + Tp;                //   sum_p d(dtx) x
+  float* yi_s = xd_s + Tp;                  //   the C h term of dcum
+  float* wdw_s = yi_s + Tp;                 //   w (.) dw
+  float* red_s = wdw_s + Tp;                // [8]: the decay term by warp
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31;
+  const int nc = L / chunk;
+  const float ah = a[h];
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t st = bh * N * P;             // this (b, h)'s state
+
+  // dtx = round(dt x), b, c, ldec of the chunk at l0 (and dy), pad rows 0;
+  // then the cumsum, exp(cum) and the state weights w
+  auto stage = [&](int l0, bool with_dy) {
+    for (int i = tid; i < Tp * PV; i += kThreads) {
+      const int r = i / PV, p = (i % PV) * V;
+      float v[V], g[V];
+      if (r < chunk) {
+        const size_t row = static_cast<size_t>(b) * L + l0 + r;
+        const float d = dt[row * H + h];
+        rt::load_vec(x + (row * H + h) * P + p, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = rt::to_f(rt::from_f<T>(d * v[j]));
+        if (with_dy) rt::load_vec(dy + (row * H + h) * P + p, g);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = g[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        dtx_s[r * PP + p + j] = v[j];
+        if (with_dy) dy_s[r * P + p + j] = g[j];
+      }
+    }
+    for (int i = tid; i < Tp * NV; i += kThreads) {
+      const int r = i / NV, n = (i % NV) * V;
+      float bv[V], cv[V];
+      if (r < chunk) {
+        const size_t off = (static_cast<size_t>(b) * L + l0 + r) * N + n;
+        rt::load_vec(bm + off, bv);
+        rt::load_vec(cm + off, cv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) bv[j] = cv[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        b_s[r * NP + n + j] = bv[j];
+        c_s[r * NP + n + j] = cv[j];
+      }
+    }
+    for (int r = tid; r < Tp; r += kThreads)
+      cum_s[r] = r < chunk ? ah * dt[(static_cast<size_t>(b) * L + l0 + r) * H + h] : 0.f;
+    __syncthreads();
+    if (tid < 32) {   // inclusive cumsum, 4 rows a lane (as the forward)
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = tid * 4 + k;
+        run += r < Tp ? cum_s[r] : 0.f;
+        v[k] = run;
+      }
+      float pre = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, pre, off);
+        if (tid >= off) pre += o;
+      }
+      pre -= run;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = tid * 4 + k;
+        if (r < Tp) cum_s[r] = v[k] + pre;
+      }
+      __syncwarp();
+      const float last = cum_s[chunk - 1];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = tid * 4 + k;
+        if (r < Tp) {
+          ecum_s[r] = r < chunk ? expf(cum_s[r]) : 0.f;
+          w_s[r] = r < chunk ? expf(last - cum_s[r]) : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+  };
+
+  // ---- first walk: the state before every chunk, into hs
+  for (int i = tid; i < N * P; i += kThreads)
+    dh_s[(i / P) * PP + i % P] = h0 != nullptr ? h0[st + i] : 0.f;
+  __syncthreads();
+  for (int k = 0; k < nc; ++k) {
+    float* out = hs + (bh * nc + k) * N * P;
+    for (int i = tid; i < N * P; i += kThreads) out[i] = dh_s[(i / P) * PP + i % P];
+    if (k + 1 == nc) break;
+    stage(k * chunk, false);
+    float acc[RN][CP] = {};
+    for (int j = 0; j < chunk; ++j) {
+      float dv[CP];
+#pragma unroll
+      for (int q = 0; q < CP; ++q) dv[q] = w_s[j] * dtx_s[j * PP + tx + 16 * q];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        const float bv = b_s[j * NP + ty + 16 * r];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) acc[r][q] += bv * dv[q];
+      }
+    }
+    const float decay = expf(cum_s[chunk - 1]);
+#pragma unroll
+    for (int r = 0; r < RN; ++r)
+#pragma unroll
+      for (int q = 0; q < CP; ++q) {
+        float* e = dh_s + (ty + 16 * r) * PP + tx + 16 * q;
+        *e = decay * *e + acc[r][q];
+      }
+    __syncthreads();   // the state is whole before it is written out
+  }
+  __syncthreads();
+
+  // ---- reverse walk, carrying dh
+  for (int i = tid; i < N * P; i += kThreads)
+    dh_s[(i / P) * PP + i % P] = dh_final != nullptr ? dh_final[st + i] : 0.f;
+  float da_lane = 0.f;   // warp 0: this lane's rows' d(ldec) dt, summed over chunks
+  for (int k = nc - 1; k >= 0; --k) {
+    const int l0 = k * chunk;
+    stage(l0, true);
+    const float* hp = hs + (bh * nc + k) * N * P;   // the state before this chunk
+    const float decay = expf(cum_s[chunk - 1]);
+
+    // S[i][j] = (c_i . b_j) exp(cum_i - cum_j) for j <= i < T, else 0
+    {
+      float acc[RT][RT] = {};
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {
+        float cv[RT], bv[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          cv[r] = r < R ? c_s[(ty + 16 * r) * NP + n] : 0.f;
+          bv[r] = r < R ? b_s[(tx + 16 * r) * NP + n] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int q = 0; q < RT; ++q) acc[r][q] += cv[r] * bv[q];
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r >= R) continue;
+        const int i = ty + 16 * r;
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          if (q >= R) continue;
+          const int j = tx + 16 * q;
+          // mask first: exp of a positive cum_i - cum_j is never taken
+          s_s[i * TP + j] = (j <= i && i < chunk) ? acc[r][q] * expf(cum_s[i] - cum_s[j]) : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // d(dtx) = S^T dy + w (.) (B dh), rows j, columns p; dx = d(dtx) dt;
+    // per row j: sum_p d(dtx) x (ddt) and w_j sum_p dtx (B dh) (the w term)
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r >= R) continue;
+      const int j = ty + 16 * r;
+      float acc[CP] = {}, bdh[CP] = {};
+      for (int i = 0; i < chunk; ++i) {
+        const float sv = s_s[i * TP + j];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) acc[q] += sv * dy_s[i * P + tx + 16 * q];
+      }
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {
+        const float bv = b_s[j * NP + n];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) bdh[q] += bv * dh_s[n * PP + tx + 16 * q];
+      }
+      float xd = 0.f, dw = 0.f;
+      if (j < chunk) {
+        const size_t row = (static_cast<size_t>(b) * L + l0 + j) * H + h;
+        const float d = dt[row];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) {
+          const int p = tx + 16 * q;
+          const float g = acc[q] + w_s[j] * bdh[q];
+          dx[row * P + p] = rt::from_f<T>(g * d);
+          xd += g * rt::to_f(x[row * P + p]);
+          dw += dtx_s[j * PP + p] * bdh[q];
+        }
+      }
+      xd = row_sum(xd);
+      dw = row_sum(dw);
+      if (tx == 0) {
+        xd_s[j] = xd;
+        wdw_s[j] = w_s[j] * dw;
+      }
+    }
+    __syncthreads();   // every read of S is done
+
+    // dS = dy dtx^T on the causal part: dG = dS exp(cum_i - cum_j) replaces
+    // S; dS (.) S gives dcum_i its row sums and dcum_j its column sums
+    {
+      float acc[RT][RT] = {};
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        float gv[RT], xv[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          gv[r] = r < R ? dy_s[(ty + 16 * r) * P + p] : 0.f;
+          xv[r] = r < R ? dtx_s[(tx + 16 * r) * PP + p] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int q = 0; q < RT; ++q) acc[r][q] += gv[r] * xv[q];
+      }
+      float cs[RT] = {};
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r >= R) continue;
+        const int i = ty + 16 * r;
+        float rs = 0.f;
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          if (q >= R) continue;
+          const int j = tx + 16 * q;
+          float dg = 0.f;
+          if (j <= i && i < chunk) {
+            const float qv = acc[r][q] * s_s[i * TP + j];
+            dg = acc[r][q] * expf(cum_s[i] - cum_s[j]);
+            rs += qv;
+            cs[q] += qv;
+          }
+          s_s[i * TP + j] = dg;
+        }
+        rs = row_sum(rs);
+        if (tx == 0) dcum_s[i] = rs;
+      }
+#pragma unroll
+      for (int q = 0; q < RT; ++q)
+        if (q < R) colq_s[ty * Tp + tx + 16 * q] = cs[q];
+    }
+    __syncthreads();
+
+    // dC (this head's part) = dG B + exp(cum) (dy h^T), rows i, columns n;
+    // the C h term of dcum_i is c_i . (exp(cum_i) dy_i h^T)
+    const size_t part = bh * L + l0;   // row l0 of this (b, h)'s partials
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r >= R) continue;
+      const int i = ty + 16 * r;
+      float intra[CN] = {}, inter[CN] = {};
+      for (int j = 0; j <= i && j < chunk; ++j) {
+        const float g = s_s[i * TP + j];
+#pragma unroll
+        for (int q = 0; q < CN; ++q) intra[q] += g * b_s[j * NP + tx + 16 * q];
+      }
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        const float g = dy_s[i * P + p];
+#pragma unroll
+        for (int q = 0; q < CN; ++q) inter[q] += g * hp[(tx + 16 * q) * P + p];
+      }
+      float yi = 0.f;
+#pragma unroll
+      for (int q = 0; q < CN; ++q) {
+        inter[q] *= ecum_s[i];
+        yi += c_s[i * NP + tx + 16 * q] * inter[q];
+        if (i < chunk) dcp[(part + i) * N + tx + 16 * q] = intra[q] + inter[q];
+      }
+      yi = row_sum(yi);
+      if (tx == 0) yi_s[i] = yi;
+    }
+
+    // dB (this head's part) = dG^T C + w (.) (dtx dh^T), rows j, columns n
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r >= R) continue;
+      const int j = ty + 16 * r;
+      float intra[CN] = {}, inter[CN] = {};
+      for (int i = j; i < chunk; ++i) {
+        const float g = s_s[i * TP + j];
+#pragma unroll
+        for (int q = 0; q < CN; ++q) intra[q] += g * c_s[i * NP + tx + 16 * q];
+      }
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        const float g = dtx_s[j * PP + p];
+#pragma unroll
+        for (int q = 0; q < CN; ++q) inter[q] += g * dh_s[(tx + 16 * q) * PP + p];
+      }
+      if (j < chunk) {
+#pragma unroll
+        for (int q = 0; q < CN; ++q)
+          dbp[(part + j) * N + tx + 16 * q] = intra[q] + w_s[j] * inter[q];
+      }
+    }
+
+    // the new dh = decay dh + C^T (exp(cum) (.) dy); the decay term of
+    // dcum_last is decay sum(dh (.) h)
+    {
+      float acc[RN][CP] = {};
+      for (int i = 0; i < chunk; ++i) {
+        float gv[CP];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) gv[q] = ecum_s[i] * dy_s[i * P + tx + 16 * q];
+#pragma unroll
+        for (int r = 0; r < RN; ++r) {
+          const float cv = c_s[i * NP + ty + 16 * r];
+#pragma unroll
+          for (int q = 0; q < CP; ++q) acc[r][q] += cv * gv[q];
+        }
+      }
+      float dec = 0.f;
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int q = 0; q < CP; ++q) {
+          const int n = ty + 16 * r, p = tx + 16 * q;
+          const float g = dh_s[n * PP + p];
+          dec += g * hp[n * P + p];
+          acc[r][q] += decay * g;
+        }
+      dec = rt::warp_sum(dec);
+      if (lane == 0) red_s[tid >> 5] = dec;
+      __syncthreads();   // every read of dh is done
+#pragma unroll
+      for (int r = 0; r < RN; ++r)
+#pragma unroll
+        for (int q = 0; q < CP; ++q) dh_s[(ty + 16 * r) * PP + tx + 16 * q] = acc[r][q];
+    }
+    __syncthreads();
+
+    // dcum, then d(ldec) as its reverse cumsum (one warp, 4 rows a lane);
+    // ddt = sum_p d(dtx) x + a d(ldec); dA's part d(ldec) dt
+    if (tid < 32) {
+      float v[4], wsum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = lane * 4 + e;
+        v[e] = 0.f;
+        if (r < chunk) {
+          float cs = 0.f;
+          for (int y = 0; y < 16; ++y) cs += colq_s[y * Tp + r];
+          v[e] = dcum_s[r] - cs + yi_s[r] - wdw_s[r];
+          wsum += wdw_s[r];
+        }
+      }
+      wsum = rt::warp_sum(wsum);
+      float dec = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) dec += red_s[w];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (lane * 4 + e == chunk - 1) v[e] += wsum + decay * dec;
+      // reverse inclusive cumsum: within the lane, then over the lanes after it
+      float run = 0.f;
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+        run += v[e];
+        v[e] = run;
+      }
+      float post = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, post, off);
+        if (lane + off < 32) post += o;
+      }
+      post -= run;   // the sum of the lanes after this one
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = lane * 4 + e;
+        if (r < chunk) {
+          const size_t row = (static_cast<size_t>(b) * L + l0 + r) * H + h;
+          const float dl = v[e] + post;
+          ddt[row] = xd_s[r] + ah * dl;
+          da_lane += dl * dt[row];
+        }
+      }
+    }
+    __syncthreads();   // the next chunk's staging overwrites what was read
+  }
+
+  if (tid < 32) {
+    const float da = rt::warp_sum(da_lane);
+    if (lane == 0) dap[bh] = da;
+  }
+  if (dh0 != nullptr)
+    for (int i = tid; i < N * P; i += kThreads) dh0[st + i] = dh_s[(i / P) * PP + i % P];
+}
+
+// db[b, l, n] = sum_h dbp[b, h, l, n] (dc alike), heads in order; da[h] =
+// sum_b dap[b, h], rows in order.  No atomics: the same bits every run.
+template <typename T>
+__global__ void ssd_bwd_reduce(const float* __restrict__ dbp, const float* __restrict__ dcp,
+                               const float* __restrict__ dap, T* __restrict__ db,
+                               T* __restrict__ dc, float* __restrict__ da, int B, int L, int H,
+                               int N) {
+  const long long LN = static_cast<long long>(L) * N;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < B * LN) {
+    const long long bb = i / LN, rem = i % LN;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < H; ++h) {
+      const long long at = (bb * H + h) * LN + rem;
+      sb += dbp[at];
+      sc += dcp[at];
+    }
+    db[i] = rt::from_f<T>(sb);
+    dc[i] = rt::from_f<T>(sc);
+  }
+  if (blockIdx.x == 0)
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float s = 0.f;
+      for (int bb = 0; bb < B; ++bb) s += dap[bb * H + h];
+      da[h] = s;
+    }
+}
+
+template <typename T, int N, int P>
+cudaError_t launch_t(const void* x, const float* dt, const float* a, const void* b,
+                     const void* c, const float* h0, const void* dy, const float* dh_final,
+                     float* hs, float* dbp, float* dcp, float* dap, void* dx, float* ddt,
+                     void* db, void* dc, float* da, float* dh0, int B, int L, int H, int chunk,
+                     cudaStream_t stream) {
+  auto kernel = ssd_bwd_kernel<T, N, P>;
+  static const cudaError_t attr =   // once per process: the largest chunk's need
+      rt::set_smem(kernel, smem_floats<N, P>(kMaxT) * sizeof(float));
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = smem_floats<N, P>((chunk + 15) / 16 * 16) * sizeof(float);
+  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), dt, a, static_cast<const T*>(b), static_cast<const T*>(c), h0,
+      static_cast<const T*>(dy), dh_final, hs, static_cast<T*>(dx), ddt, dbp, dcp, dap, dh0, L,
+      H, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(B) * L * N;
+  ssd_bwd_reduce<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      dbp, dcp, dap, static_cast<T*>(db), static_cast<T*>(dc), da, B, L, H, N);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int N, int P, const void* x, const float* dt, const float* a, const void* b,
+                     const void* c, const float* h0, const void* dy, const float* dh_final,
+                     float* hs, float* dbp, float* dcp, float* dap, void* dx, float* ddt,
+                     void* db, void* dc, float* da, float* dh0, int B, int L, int H, int chunk,
+                     cudaStream_t s) {
+#define SSD_BWD_CASE(NN, PP)                                                                   \
+  if (N == NN && P == PP)                                                                      \
+    return launch_t<T, NN, PP>(x, dt, a, b, c, h0, dy, dh_final, hs, dbp, dcp, dap, dx, ddt,   \
+                               db, dc, da, dh0, B, L, H, chunk, s);
+  SSD_BWD_CASE(16, 32) SSD_BWD_CASE(16, 64) SSD_BWD_CASE(32, 32) SSD_BWD_CASE(32, 64)
+  SSD_BWD_CASE(64, 32) SSD_BWD_CASE(64, 64)
+#undef SSD_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
+
+// The backward of ssd_scan_launch.  x, b, c, dy and dx, db, dc in the
+// dtype; dt, a, h0, dh_final, ddt, da, dh0 f32; h0 / dh_final null for
+// zeros, dh0 null when not wanted.  Scratch (f32): hs [B, H, L / chunk,
+// N, P], dbp and dcp [B, H, L, N], dap [B, H].  Two launches on
+// `stream`: the scan backward and the reduction over heads and rows.
+extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* a, const void* b,
+                                   const void* c, const void* h0, const void* dy,
+                                   const void* dh_final, void* hs, void* dbp, void* dcp,
+                                   void* dap, void* dx, void* ddt, void* db, void* dc, void* da,
+                                   void* dh0, int B, int L, int H, int P, int N, int chunk,
+                                   int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0) return cudaSuccess;
+  if (chunk < 1 || chunk > kMaxT || L % chunk != 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto g = [](void* p) { return static_cast<float*>(p); };
+  switch (dtype) {
+    case rt::kBF16:
+      return bwd::dispatch<__nv_bfloat16>(N, P, x, f(dt), f(a), b, c, f(h0), dy, f(dh_final),
+                                          g(hs), g(dbp), g(dcp), g(dap), dx, g(ddt), db, dc,
+                                          g(da), g(dh0), B, L, H, chunk, s);
+    case rt::kF32:
+      return bwd::dispatch<float>(N, P, x, f(dt), f(a), b, c, f(h0), dy, f(dh_final), g(hs),
+                                  g(dbp), g(dcp), g(dap), dx, g(ddt), db, dc, g(da), g(dh0), B,
+                                  L, H, chunk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // x: [B, L, H, P] (dtype); dt: [B, L, H] f32; a: [H] f32; b, c: [B, L, N]
 // (dtype); h0: [B, H, N, P] f32 or null (zeros); y: [B, L, H, P] (dtype);
 // h: [B, H, N, P] f32.  L a multiple of chunk, 1 <= chunk <= 128; (N, P)

@@ -13,9 +13,10 @@ kernel launches, nothing else.
 
 Causal masking follows the reference oracle: query t sees columns
 <= t + Sk - Sq.  A row that sees no column (Sq > Sk) gives zeros and
-lse = -1e30.  S needs no tile multiple; head dims 32, 64 and 128 are
-compiled.  bf16 runs on the tensor cores (P and dS rounded to bf16 for
-their products, as FlashAttention-2 does), f32 on the FMA pipes in f32.
+lse = -1e30.  S needs no tile multiple; head dims 32, 64, 80 and 128
+are compiled (80 on the 128-column tile layout).  bf16 runs on the
+tensor cores (P and dS rounded to bf16 for their products, as
+FlashAttention-2 does), f32 on the FMA pipes in f32.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:

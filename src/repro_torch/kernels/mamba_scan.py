@@ -1,15 +1,23 @@
-"""Mamba2 SSD chunked scan: the CUDA kernel's wrapper (csrc/mamba_scan.cu).
+"""Mamba2 SSD chunked scan and its gradient: the CUDA kernels' wrappers
+(csrc/mamba_scan.cu).
 
-Replaces the Pallas TPU kernel `repro/kernels/mamba_scan.py::ssd_scan`.
-The Pallas kernel takes dtx = dt·x and ldec = a·dt, pre-built by the
-reference's `ops.ssd_scan` in a head-major layout; this kernel reads x and
-dt in their own layout and forms both itself (dtx rounded to x's dtype as
-there), so the function is `ref.ssd_scan`.  bf16 runs on the tensor
-cores, one block per (batch row, group of heads, 32 columns of P) as
-`ssd_plan` lays out; f32 keeps the FMA kernel, one block per (row,
-head).  For a CUDA tensor the wrapper launches the kernel or raises; for
-a CPU tensor it runs `ref.ssd_scan`.  `.launches` counts kernel
-launches, nothing else.
+`ssd_scan` replaces the Pallas TPU kernel
+`repro/kernels/mamba_scan.py::ssd_scan`.  The Pallas kernel takes
+dtx = dt·x and ldec = a·dt, pre-built by the reference's `ops.ssd_scan`
+in a head-major layout; this kernel reads x and dt in their own layout
+and forms both itself (dtx rounded to x's dtype as there), so the
+function is `ref.ssd_scan`.  bf16 runs on the tensor cores, one block per
+(batch row, group of heads, 32 columns of P) as `ssd_plan` lays out; f32
+keeps the FMA kernel, one block per (row, head).
+
+`ssd_scan_backward` is its gradient, which the Pallas kernel does not
+have (the reference differentiates `ref.ssd_chunked` with JAX autodiff);
+its plain version is `ref.ssd_scan_backward`.  `SSDScan` is the autograd
+Function that pairs the two kernels.
+
+For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
+tensor it runs the plain version.  Each wrapper's `.launches` counts its
+kernel launches, nothing else.
 """
 
 from __future__ import annotations
@@ -45,24 +53,16 @@ def ssd_plan(B: int, H: int, P: int, sms: int) -> Tuple[int, int, int]:
     return hg, -(-H // hg), slices
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
-             h0: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, L, H, P]; dt: [B, L, H] (read as f32); a: [H]; b, c:
-    [B, L, N] in x's dtype; h0: [B, H, N, P] (None = zeros).  L must be a
-    multiple of `chunk` (ops.ssd_scan pads).  Returns (y [B, L, H, P] in
-    x's dtype, h_final [B, H, N, P] f32)."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
-    check_cuda(x, "ssd_scan")
+def _check_inputs(what: str, x, dt, a, b, c, h0, chunk: int):
+    """The kernels' input rules; returns (dt, a, h0) as contiguous f32."""
+    check_cuda(x, what)
     B, L, H, P = x.shape
     N = b.shape[-1]
     if (N, P) not in SHAPES:
-        raise ValueError(f"ssd_scan kernel compiles (N, P) in {SHAPES}, got "
+        raise ValueError(f"{what} kernel compiles (N, P) in {SHAPES}, got "
                          f"({N}, {P})")
     if not 1 <= chunk <= MAX_CHUNK or L % chunk:
-        raise ValueError(f"ssd_scan kernel needs 1 <= chunk <= {MAX_CHUNK} "
+        raise ValueError(f"{what} kernel needs 1 <= chunk <= {MAX_CHUNK} "
                          f"dividing L = {L}, got chunk {chunk}")
     dt = dt.float().contiguous()
     a = a.float().contiguous()
@@ -74,16 +74,32 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         want["h0"] = (h0, (B, H, N, P))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"ssd_scan: {name} must be {shape} on "
+            raise ValueError(f"{what}: {name} must be {shape} on "
                              f"{x.device}, got {tuple(t.shape)} on {t.device}")
     for t in (b, c):
         if t.dtype != x.dtype:
-            raise ValueError(f"ssd_scan: b and c must be {x.dtype}, got "
+            raise ValueError(f"{what}: b and c must be {x.dtype}, got "
                              f"{t.dtype}")
     if not all(t.is_contiguous() for t in (x, b, c)):
-        raise ValueError("ssd_scan kernel needs contiguous x, b, c")
+        raise ValueError(f"{what} kernel needs contiguous x, b, c")
     check_vectors(P, x)
     check_vectors(N, b, c)
+    return dt, a, h0
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, L, H, P]; dt: [B, L, H] (read as f32); a: [H]; b, c:
+    [B, L, N] in x's dtype; h0: [B, H, N, P] (None = zeros).  L must be a
+    multiple of `chunk` (ops.ssd_scan pads).  Returns (y [B, L, H, P] in
+    x's dtype, h_final [B, H, N, P] f32)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+    dt, a, h0 = _check_inputs("ssd_scan", x, dt, a, b, c, h0, chunk)
+    B, L, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     hg, _, _ = ssd_plan(B, H, P, sm_count(x.device.index))
@@ -97,3 +113,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor], *, chunk: int = 128):
+    """The gradient of `ssd_scan` at its inputs, from dy (like x) and
+    dh_final ([B, H, N, P] or None for zeros): (dx, ddt, da, db, dc, dh0)
+    in the dtypes of (x, dt, a, b, c), dh0 f32 (None when h0 is None).
+    Inputs as `ssd_scan`.  On the card: the scan backward, then a
+    reduction of dB, dC over heads and dA over rows (no atomics: the same
+    bits on every run), counted as one launch."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh_final,
+                                     chunk=chunk)
+    dtf, af, h0f = _check_inputs("ssd_scan_backward", x, dt, a, b, c, h0,
+                                 chunk)
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_scan_backward: dy must be {x.dtype} "
+                         f"{tuple(x.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    dy = dy.contiguous()
+    if dh_final is not None:
+        dh_final = dh_final.float().contiguous()
+        if dh_final.shape != (B, H, N, P) or dh_final.device != x.device:
+            raise ValueError(f"ssd_scan_backward: dh_final must be "
+                             f"{(B, H, N, P)} on {x.device}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = torch.empty((B, H, L // chunk, N, P), **f32)   # the chunk states
+    dbp = torch.empty((B, H, L, N), **f32)              # per-head parts
+    dcp = torch.empty((B, H, L, N), **f32)
+    dap = torch.empty((B, H), **f32)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((B, L, H), **f32)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty((H,), **f32)
+    dh0 = torch.empty((B, H, N, P), **f32) if h0 is not None else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = build.load("mamba_scan").ssd_scan_bwd_launch(
+        x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b.data_ptr(),
+        c.data_ptr(), ptr(h0f), dy.data_ptr(), ptr(dh_final), hs.data_ptr(),
+        dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+        ptr(dh0), B, L, H, P, N, chunk, DTYPES[x.dtype], stream(x))
+    build.check(err, "ssd_scan_backward")
+    ssd_scan_backward.launches += 1
+    return (dx, ddt.to(dt.dtype), da.to(a.dtype), db, dc, dh0)
+
+
+ssd_scan_backward.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its backward kernel; the chunk states are
+    recomputed in the backward from the saved inputs.
+    apply(x, dt, a, b, c, h0, chunk) -> (y, h_final)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, chunk):
+        y, h = ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b, c, h0 = ctx.saved_tensors
+        dx, ddt, da, db, dc, dh0 = ssd_scan_backward(
+            x, dt, a, b, c, h0, dy.contiguous(), dh, chunk=ctx.chunk)
+        return dx, ddt, da, db, dc, dh0, None

@@ -2,8 +2,12 @@
 
 impl='auto'   -> the kernel wrapper: the CUDA kernel for a CUDA tensor,
                  the plain version for a CPU tensor; `attention`, and
-                 `rmsnorm` when a gradient is wanted, go through their
-                 autograd Functions, whose backward is a kernel too
+                 `rmsnorm` and `ssd_scan` when a gradient is wanted, go
+                 through their autograd Functions, whose backward is a
+                 kernel too.  The kernels with no backward (decode and
+                 chunk attention, their paged twins, rmsnorm_add) raise
+                 on a CUDA tensor when a gradient is wanted, rather than
+                 return outputs cut from the graph
 impl='kernel' -> the CUDA kernel; a CPU tensor raises
 impl='ref'    -> the plain PyTorch version (tests and chip_smoke.py)
 
@@ -37,6 +41,20 @@ def _plain(impl: str, x: torch.Tensor) -> bool:
     return impl == "ref"
 
 
+def _grad_wanted(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward(what: str, *ts) -> None:
+    """A kernel without a backward, on the card, must not be asked for a
+    gradient: its outputs would carry none, and every gradient upstream
+    of it would silently be zero."""
+    if ts[0].device.type == "cuda" and _grad_wanted(*ts):
+        raise RuntimeError(f"{what}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or with impl='ref'")
+
+
 def _bytes(*ts: torch.Tensor) -> float:
     return float(sum(t.numel() * t.element_size() for t in ts))
 
@@ -66,7 +84,11 @@ def decode_attention(q, k, v, *, kv_len=None, sm_scale=None,
     S = k.shape[2]
     annotate_cost(xfa.current_component(), component, "decode_attention",
                   flops=4.0 * B * Hq * S * D, bytes=_bytes(k, v))
-    fn = ref.decode_attention if _plain(impl, q) else _dec.decode_attention
+    if _plain(impl, q):
+        fn = ref.decode_attention
+    else:
+        _no_backward("decode_attention", q, k, v)
+        fn = _dec.decode_attention
     return fn(q, k, v, kv_len=kv_len, sm_scale=sm_scale,
               return_residuals=return_residuals)
 
@@ -81,7 +103,11 @@ def chunk_attention(q, k, v, *, pos, sm_scale=None, impl: str = "auto",
     S = k.shape[2]
     annotate_cost(xfa.current_component(), component, "chunk_attention",
                   flops=4.0 * B * Hq * T * S * D, bytes=_bytes(k, v))
-    fn = ref.chunk_attention if _plain(impl, q) else _dec.chunk_attention
+    if _plain(impl, q):
+        fn = ref.chunk_attention
+    else:
+        _no_backward("chunk_attention", q, k, v)
+        fn = _dec.chunk_attention
     return fn(q, k, v, pos=pos, sm_scale=sm_scale)
 
 
@@ -100,8 +126,11 @@ def decode_attention_paged(q, k_pages, v_pages, *, block_table, kv_len,
     annotate_cost(xfa.current_component(), component, "decode_attention_paged",
                   flops=4.0 * B * Hq * NB * ps * D,
                   bytes=2.0 * B * NB * ps * D * k_pages.element_size())
-    fn = ref.decode_attention_paged if _plain(impl, q) \
-        else _dec.decode_attention_paged
+    if _plain(impl, q):
+        fn = ref.decode_attention_paged
+    else:
+        _no_backward("decode_attention_paged", q, k_pages, v_pages)
+        fn = _dec.decode_attention_paged
     return fn(q, k_pages, v_pages, block_table=block_table, kv_len=kv_len,
               sm_scale=sm_scale)
 
@@ -119,8 +148,11 @@ def chunk_attention_paged(q, k_pages, v_pages, *, block_table, pos,
     annotate_cost(xfa.current_component(), component, "chunk_attention_paged",
                   flops=4.0 * B * Hq * T * NB * ps * D,
                   bytes=2.0 * B * NB * ps * D * k_pages.element_size())
-    fn = ref.chunk_attention_paged if _plain(impl, q) \
-        else _dec.chunk_attention_paged
+    if _plain(impl, q):
+        fn = ref.chunk_attention_paged
+    else:
+        _no_backward("chunk_attention_paged", q, k_pages, v_pages)
+        fn = _dec.chunk_attention_paged
     return fn(q, k_pages, v_pages, block_table=block_table, pos=pos,
               sm_scale=sm_scale)
 
@@ -131,7 +163,7 @@ def rmsnorm(x, w, *, eps: float = 1e-5, impl: str = "auto",
                   flops=4.0 * x.numel(), bytes=2.0 * _bytes(x))
     if _plain(impl, x):
         return ref.rmsnorm(x, w, eps=eps)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if _grad_wanted(x, w):
         return _rms.RMSNorm.apply(x, w, eps)
     # no gradient wanted: the kernel wrapper itself, one launch as before,
     # without the autograd Function's host cost
@@ -144,7 +176,11 @@ def rmsnorm_add(x, residual, w, *, eps: float = 1e-5, impl: str = "auto",
     residual).  No model of either package calls it."""
     annotate_cost(xfa.current_component(), component, "rmsnorm_add",
                   flops=5.0 * x.numel(), bytes=3.0 * _bytes(x))
-    fn = ref.rmsnorm_add if _plain(impl, x) else _rms.rmsnorm_add
+    if _plain(impl, x):
+        fn = ref.rmsnorm_add
+    else:
+        _no_backward("rmsnorm_add", x, residual, w)
+        fn = _rms.rmsnorm_add
     return fn(x, residual, w, eps=eps)
 
 
@@ -159,7 +195,10 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, h0=None,
     exp(0) = 1 and inject 0, so the state and the real rows are
     untouched.  The plain path is `ref.ssd_chunked`, as the reference's;
     the kernel path forms dtx = dt·x rounded to x's dtype, as the
-    reference does before its Pallas kernel (`ref.ssd_scan`)."""
+    reference does before its Pallas kernel (`ref.ssd_scan`).  When a
+    gradient is wanted the kernel path goes through `SSDScan` (the scan
+    backward kernel); otherwise it calls the wrapper, one launch with no
+    autograd host cost."""
     B, L, H, P = x.shape
     N = b.shape[-1]
     # 2 matmul pairs of [T,T]x[T,*] per chunk ~ 6*B*H*L*chunk*(N+P) flops
@@ -174,6 +213,9 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, h0=None,
         x, dt, b, c = zp(x), zp(dt), zp(b), zp(c)
     if _plain(impl, x):
         y, h = ref.ssd_chunked(x, dt, a, b, c, chunk=chunk, h0=h0)
+    elif _grad_wanted(x, dt, a, b, c, h0):
+        y, h = _ssd.SSDScan.apply(x.contiguous(), dt, a, b.contiguous(),
+                                  c.contiguous(), h0, chunk)
     else:
         y, h = _ssd.ssd_scan(x.contiguous(), dt, a, b.contiguous(),
                              c.contiguous(), chunk=chunk, h0=h0)
@@ -196,4 +238,5 @@ def reset_launch_counts() -> None:
 _KERNELS = (_rms.rmsnorm, _dec.decode_attention, _dec.chunk_attention,
             _dec.decode_attention_paged, _dec.chunk_attention_paged,
             _fa.flash_attention, _fa.flash_attention_backward,
-            _rms.rmsnorm_backward, _rms.rmsnorm_add, _ssd.ssd_scan)
+            _rms.rmsnorm_backward, _rms.rmsnorm_add, _ssd.ssd_scan,
+            _ssd.ssd_scan_backward)

@@ -8,8 +8,9 @@ causal attention row with Sq > Sk whose offset puts it before column 0)
 returns ZEROS, as the Pallas kernels do, where the reference oracle's
 finite NEG_INF mask gives the mean of v.
 
-The backward passes (`attention_backward`, `rmsnorm_backward`) compute
-in f32 and return gradients in the inputs' dtypes.
+The backward passes (`attention_backward`, `rmsnorm_backward`,
+`ssd_scan_backward`) compute in f32 and return gradients in the inputs'
+dtypes.
 
 The Mamba2 SSD scan has three plain versions: `ssd_naive` (the
 step-by-step recurrence) and `ssd_chunked` (the chunked algorithm) as the
@@ -255,6 +256,11 @@ def rmsnorm_add(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
 
 
 # ----------------------------------------------------------- mamba2 SSD ----
+def _wide(x: torch.Tensor) -> torch.dtype:
+    """The SSD versions' working dtype: f32, or f64 for f64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def ssd_naive(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *,
               h0: Optional[torch.Tensor] = None
@@ -282,17 +288,18 @@ def ssd_naive(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def _ssd_chunks(dtx: torch.Tensor, ldec: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor, chunk: int, h0: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunked SSD in f32 from dtx [B, L, H, P] and ldec [B, L, H]
-    (both f32): within a chunk a masked (C B^T * decay) @ dtx product,
-    across chunks the state recurrence.  Returns (y f32, h_final f32)."""
+    """The chunked SSD in dtx's dtype (f32, or f64 for f64 inputs) from
+    dtx [B, L, H, P] and ldec [B, L, H]: within a chunk a masked
+    (C B^T * decay) @ dtx product, across chunks the state recurrence.
+    Returns (y, h_final) in dtx's dtype."""
     B, L, H, P = dtx.shape
     N = b.shape[-1]
     if L % chunk:
         raise ValueError(f"L = {L} is not a multiple of chunk = {chunk}")
     nc = L // chunk
     dtx = dtx.reshape(B, nc, chunk, H, P)
-    bf = b.float().reshape(B, nc, chunk, N)
-    cf = c.float().reshape(B, nc, chunk, N)
+    bf = b.to(dtx.dtype).reshape(B, nc, chunk, N)
+    cf = c.to(dtx.dtype).reshape(B, nc, chunk, N)
     cum = torch.cumsum(ldec.reshape(B, nc, chunk, H), dim=2)     # inclusive
     # intra-chunk: y[i] = sum_{j<=i} exp(cum[i]-cum[j]) (c_i . b_j) dtx[j];
     # the mask is applied before the exponential (cum[i]-cum[j] > 0 for
@@ -307,8 +314,8 @@ def _ssd_chunks(dtx: torch.Tensor, ldec: torch.Tensor, b: torch.Tensor,
     decay = torch.exp(cum[:, :, -1])                             # [B,nc,H]
     w = torch.exp(cum[:, :, -1:] - cum)                          # [B,nc,T,H]
     s_in = torch.einsum("bktn,bkthp->bkhnp", bf, w[..., None] * dtx)
-    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=dtx.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros((B, H, N, P), dtype=dtx.dtype, device=dtx.device)
+         if h0 is None else h0.to(dtx.dtype))
     h_prev = []
     for k in range(nc):
         h_prev.append(h)
@@ -325,10 +332,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD (Mamba2's state-space dual algorithm), computing in
     f32: dtx = dt·x and ldec = a·dt unrounded.  Shapes as `ssd_naive`;
-    L a multiple of `chunk`.  Returns (y in x's dtype, h_final f32)."""
-    dtf = dt.float()
-    y, h = _ssd_chunks(dtf[..., None] * x.float(),
-                       a.float()[None, None, :] * dtf, b, c, chunk, h0)
+    L a multiple of `chunk`.  Returns (y in x's dtype, h_final f32; f64
+    for f64 inputs)."""
+    w = _wide(x)
+    dtf = dt.to(w)
+    y, h = _ssd_chunks(dtf[..., None] * x.to(w),
+                       a.to(w)[None, None, :] * dtf, b, c, chunk, h0)
     return y.to(x.dtype), h
 
 
@@ -340,7 +349,101 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     formed in f32 and rounded to x's dtype (the reference's `ops.ssd_scan`
     rounds it so before its Pallas kernel), ldec = a·dt in f32.  In f32
     it equals `ssd_chunked`."""
-    dtf = dt.float()
-    dtx = (dtf[..., None] * x.float()).to(x.dtype).float()
-    y, h = _ssd_chunks(dtx, a.float()[None, None, :] * dtf, b, c, chunk, h0)
+    w = _wide(x)
+    dtf = dt.to(w)
+    dtx = (dtf[..., None] * x.to(w)).to(x.dtype).to(w)
+    y, h = _ssd_chunks(dtx, a.to(w)[None, None, :] * dtf, b, c, chunk, h0)
     return y.to(x.dtype), h
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor], *, chunk: int = 128):
+    """Gradient of `ssd_scan` in f32, as the chunked reverse recurrence
+    the backward kernel follows.  The rounding of dtx = round(dt·x) passes
+    the gradient as the identity, as autograd of `ssd_scan` does; in f32
+    this is the gradient of `ssd_chunked`.
+
+    Per chunk, with cum the inclusive cumsum of ldec = a·dt, S = (C B^T) ⊙
+    exp(cum_i - cum_j) (j <= i), w_j = exp(cum_last - cum_j), decay =
+    exp(cum_last) and h the state before the chunk:
+      y = S dtx + exp(cum) ⊙ (C h),  h' = decay h + B^T (w ⊙ dtx).
+    First the states before every chunk (the forward recurrence), then a
+    reverse pass carrying dh, the gradient of the state after a chunk
+    (dh_final, or 0, after the last):
+      dh_before = decay dh + C^T (exp(cum) ⊙ dy).
+    With both known, every chunk's gradients are local: d(dtx) = S^T dy +
+    w ⊙ (B dh); dS = dy dtx^T, so dC and dB take (dS ⊙ exp(..)) summed
+    over heads and the C h / B^T (w dtx) terms; dcum_i collects the row
+    sums less the column sums of dS ⊙ S, the C h term, the w and decay
+    terms; d(ldec) is the reverse cumsum of dcum.  Then dx = d(dtx)·dt,
+    ddt = Σ_p d(dtx)·x + a·d(ldec), da = Σ_{b,t} d(ldec)·dt.
+
+    Shapes as `ssd_scan`; dy like x; dh_final [B, H, N, P] or None.
+    Returns (dx, ddt, da, db, dc, dh0) in the dtypes of (x, dt, a, b, c)
+    and f32 for dh0 (None when h0 is None); f64 inputs compute in f64."""
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    if L % chunk:
+        raise ValueError(f"L = {L} is not a multiple of chunk = {chunk}")
+    nc, T = L // chunk, chunk
+    dev, wd = x.device, _wide(x)
+    dtf, af = dt.to(wd), a.to(wd)
+    xf = x.to(wd).reshape(B, nc, T, H, P)
+    dtx = (dtf[..., None] * x.to(wd)).to(x.dtype).to(wd) \
+        .reshape(B, nc, T, H, P)
+    bf = b.to(wd).reshape(B, nc, T, N)
+    cf = c.to(wd).reshape(B, nc, T, N)
+    dyf = dy.to(wd).reshape(B, nc, T, H, P)
+    cum = torch.cumsum((af[None, None, :] * dtf).reshape(B, nc, T, H), dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,nc,T,T,H]
+    tri = torch.ones((T, T), dtype=torch.bool,
+                     device=dev).tril()[None, None, :, :, None]
+    m = torch.exp(torch.where(tri, seg, float("-inf")))
+    s = torch.einsum("bktn,bksn->bkts", cf, bf)[..., None] * m
+    ecum = torch.exp(cum)
+    decay = torch.exp(cum[:, :, -1])                             # [B,nc,H]
+    w = torch.exp(cum[:, :, -1:] - cum)                          # [B,nc,T,H]
+
+    # the states before each chunk, then dh after each chunk (reverse)
+    h = (torch.zeros((B, H, N, P), dtype=wd, device=dev)
+         if h0 is None else h0.to(wd))
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(h)
+        h = decay[:, k, :, None, None] * h + torch.einsum(
+            "btn,bthp->bhnp", bf[:, k], w[:, k, :, :, None] * dtx[:, k])
+    h_prev = torch.stack(h_prev, dim=1)                          # [B,nc,H,N,P]
+    dh = (torch.zeros((B, H, N, P), dtype=wd, device=dev)
+          if dh_final is None else dh_final.to(wd))
+    dh_after = [None] * nc
+    for k in reversed(range(nc)):
+        dh_after[k] = dh
+        dh = decay[:, k, :, None, None] * dh + torch.einsum(
+            "btn,bthp->bhnp", cf[:, k], ecum[:, k, :, :, None] * dyf[:, k])
+    dh_after = torch.stack(dh_after, dim=1)                      # [B,nc,H,N,P]
+
+    # chunk-local gradients
+    bdh = torch.einsum("bksn,bkhnp->bkshp", bf, dh_after)        # B dh
+    ddtx = torch.einsum("bktsh,bkthp->bkshp", s, dyf) + w[..., None] * bdh
+    ds = torch.where(tri, torch.einsum("bkthp,bkshp->bktsh", dyf, dtx), 0.0)
+    dg = (ds * m).sum(-1)                                        # [B,nc,T,T]
+    q = ds * s
+    ch = torch.einsum("bktn,bkhnp->bkthp", cf, h_prev)           # C h
+    dxh = torch.einsum("bkthp,bkhnp->bkthn", ecum[..., None] * dyf, h_prev)
+    dc = torch.einsum("bkts,bksn->bktn", dg, bf) + dxh.sum(3)
+    dtxdh = torch.einsum("bkshp,bkhnp->bkshn", dtx, dh_after)    # dtx dh^T
+    db = torch.einsum("bkts,bktn->bksn", dg, cf) \
+        + (w[..., None] * dtxdh).sum(3)
+    wdw = w * (dtx * bdh).sum(-1)                                # w ⊙ dw
+    dcum = q.sum(3) - q.sum(2) + ecum * (dyf * ch).sum(-1) - wdw
+    dcum[:, :, -1] += wdw.sum(2) + decay * (dh_after * h_prev).sum((-2, -1))
+    dldec = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddtx, dldec = ddtx.reshape(B, L, H, P), dldec.reshape(B, L, H)
+    dx = ddtx * dtf[..., None]
+    ddt = (ddtx * xf.reshape(B, L, H, P)).sum(-1) + af * dldec
+    da = (dldec * dtf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), da.to(a.dtype),
+            db.reshape(B, L, N).to(b.dtype), dc.reshape(B, L, N).to(c.dtype),
+            None if h0 is None else dh)

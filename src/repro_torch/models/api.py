@@ -32,9 +32,8 @@
     model.table()                               -> None (device fold not
                                                    ported yet)
 
-Ported families: "dense" (serving and training) and "hybrid" (serving
-only: its loss_fn raises NotImplementedError).  The other families raise
-NotImplementedError.
+Ported families: "dense" and "hybrid", serving and training.  The other
+families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -111,11 +110,7 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
         return mod.init_params(cfg, seed, rt.device)
 
     def loss_fn(params, batch, table):
-        if mod is mamba:
-            raise NotImplementedError(
-                "training the hybrid family is not ported yet (serving "
-                "only; ROADMAP.md)")
-        return transformer.loss_fn(params, batch, rt, table)
+        return mod.loss_fn(params, batch, rt, table)
 
     def init_cache(batch, max_len):
         return mod.init_cache(cfg, batch, max_len, rt.device)

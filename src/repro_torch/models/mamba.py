@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) blocks and the Zamba2 hybrid backbone for serving.
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid backbone: serving and
+training.
 
 The PyTorch counterpart of `repro/models/mamba.py` (family="hybrid"):
 the same param names, layouts and dtypes (the reference's leaf names load
@@ -25,8 +26,14 @@ IN PLACE (the reference returns a new cache that jit donation lets XLA
 write in place).  The hybrid has no paged entry points: its recurrent
 state is O(1) in sequence length, so the engine keeps the dense layout.
 
-Training (`forward`, `loss_fn` and a backward for the SSD kernel) is not
-ported yet.
+Training: `forward` runs every Mamba layer in full-sequence mode (a
+zero state; the SSD scan goes through `ops.ssd_scan`, whose autograd
+Function pairs the scan kernel with its backward kernel) and the shared
+block as causal attention without a cache (`ops.attention`: the flash
+kernels, head dim 80 at zamba2's width).  Each super-block (attn_every
+Mamba layers, then the shared block) is rematerialized per cfg.remat, as
+the reference checkpoints its `super_body`; `loss_fn` is the causal LM
+loss of `transformer.lm_loss`.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from ..core.device_fold import annotate_cost
 from ..kernels import ops
 from .layers import (Params, Runtime, attention, embed, last_valid, linear,
                      lm_head, mlp, norm, torch_dtype)
-from .transformer import F32, ONES, ZEROS, _layer, init_from_specs
+from .transformer import (F32, ONES, ZEROS, _layer, _remat, init_from_specs,
+                          lm_loss)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -222,15 +230,43 @@ def init_mamba_state(cfg: ModelConfig, batch: int, n_layers: int,
 
 # ---------------------------------------------------------- zamba2 hybrid ----
 def _shared_block(shared: Params, x: torch.Tensor, rt: Runtime,
-                  positions: torch.Tensor, cache: Params,
-                  pos: torch.Tensor) -> torch.Tensor:
-    """The weight-tied attention + MLP block; writes its cache rows in
-    place."""
+                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The weight-tied attention + MLP block.  With a cache it writes its
+    cache rows in place (serving); without one it attends causally over
+    the sequence (training)."""
     h = norm(shared["norm1"], x, rt)
     a, _ = attention(shared, h, rt, positions, cache=cache, pos=pos)
     x = x + a
     h = norm(shared["norm2"], x, rt)
     return x + mlp(shared, h, rt)
+
+
+def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
+    """tokens: [B, S] -> (hidden [B, S, d] after the final norm, table,
+    aux_total = 0).  Full-sequence mode, no cache; each super-block
+    rematerialized per cfg.remat."""
+    cfg = rt.cfg
+    x = embed(p, torch.as_tensor(tokens, device=rt.device), rt)
+    positions = torch.arange(x.shape[1], device=rt.device)
+
+    def super_body(seg: Params, shared: Params, x: torch.Tensor):
+        for j in range(cfg.attn_every):
+            y, _ = mamba_block(_layer(seg, j), x, rt)
+            x = x + y
+        return _shared_block(shared, x, rt, positions)
+
+    body = _remat(super_body, cfg)
+    stack = p["stack"]["stack"]
+    for s in range(cfg.n_layers // cfg.attn_every):
+        x = body(_layer(stack, s), p["shared_attn"], x)
+    x = norm(p["final_norm"], x, rt)
+    return x, table, torch.zeros((), dtype=torch.float32, device=rt.device)
+
+
+def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):
+    """The hybrid's causal LM loss (see `transformer.lm_loss`)."""
+    return lm_loss(forward, p, batch, rt, table)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -200,21 +200,28 @@ def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
     return x, table, torch.zeros((), dtype=torch.float32, device=rt.device)
 
 
-def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):
-    """batch: tokens [B, S], labels [B, S], mask [B, S] (numpy or
-    tensors) -> (loss + aux, (metrics, table)), metrics holding loss,
-    aux_loss and the count of tokens."""
+def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
+            table):
+    """The causal LM loss of a family's `forward_fn(p, tokens, rt,
+    table) -> (hidden, table, aux)`.  batch: tokens [B, S], labels [B, S],
+    mask [B, S] (numpy or tensors) -> (loss + aux, (metrics, table)),
+    metrics holding loss, aux_loss and the count of tokens."""
     labels = torch.as_tensor(batch["labels"], device=rt.device)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=rt.device)
-    x, table, aux = forward(p, batch["tokens"], rt, table)
+    x, table, aux = forward_fn(p, batch["tokens"], rt, table)
     logits = lm_head(p, x, rt)
     loss = cross_entropy(logits, labels, mask)
     tokens = (mask.float().sum() if mask is not None
               else torch.full((), float(labels.numel()), device=rt.device))
     metrics = {"loss": loss, "aux_loss": aux, "tokens": tokens}
     return loss + aux, (metrics, table)
+
+
+def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):
+    """The dense decoder's causal LM loss (see `lm_loss`)."""
+    return lm_loss(forward, p, batch, rt, table)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

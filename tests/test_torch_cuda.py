@@ -564,6 +564,10 @@ FLASH_CASES = [
     (1, 36, 4, 301, 301, 128, True, 0.0),     # G = 9 at D 128, ragged
     (1, 48, 1, 256, 256, 128, True, 0.0),     # G = 48 (MQA) at D 128
     (1, 16, 2, 1024, 1024, 64, True, 0.0),    # many 128-row tiles on the diagonal
+    (2, 8, 8, 200, 200, 80, True, 0.0),       # D 80 (zamba2's shared block), ragged
+    (1, 8, 2, 130, 130, 80, True, 0.0),       # D 80 at G = 4
+    (1, 8, 8, 96, 300, 80, False, 0.0),       # D 80 non-causal, Sq < Sk
+    (1, 8, 8, 300, 130, 80, True, 0.0),       # D 80 causal Sq > Sk
 ]
 
 
@@ -824,6 +828,111 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take():
     x = arr(rng, 1, 32, 2, 32, dtype=torch.float32)
     with pytest.raises(ValueError, match="chunk"):
         ms.ssd_scan(x, dt, a, b, b, chunk=12)               # 12 does not divide 32
+
+
+def ssd_inputs(rng, B, L, H, P, N, dtype, with_h0):
+    x = arr(rng, B, L, H, P, dtype=dtype)
+    b, c = arr(rng, B, L, N, dtype=dtype), arr(rng, B, L, N, dtype=dtype)
+    dt = torch.nn.functional.softplus(
+        arr(rng, B, L, H, dtype=torch.float32) - 2)
+    a = -torch.exp(0.5 * arr(rng, H, dtype=torch.float32))
+    h0 = arr(rng, B, H, N, P, dtype=torch.float32) if with_h0 else None
+    return x, dt, a, b, c, h0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_h0,with_dh", [(False, False), (True, True),
+                                             (True, False)])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (2, 512, 80, 64, 64, 128),   # zamba2's width, two rows
+    (2, 64, 8, 32, 16, 32),      # the smoke config: chunk 32
+    (1, 96, 3, 64, 32, 16),      # chunk 16
+    (2, 9, 3, 64, 32, 3),        # an odd chunk
+])
+def test_ssd_scan_backward_kernel(dtype, with_h0, with_dh, B, L, H, P, N,
+                                  chunk):
+    """The SSD backward kernel against its plain version
+    (ref.ssd_scan_backward), both f32 from the same inputs: each gradient
+    to the dtype's tolerance, the absolute part scaled by its largest
+    entry (dt, dA and the dB, dC sums collect many terms of their rows'
+    scale); two launches give the same bits (no atomics)."""
+    rng = np.random.default_rng(26)
+    x, dt, a, b, c, h0 = ssd_inputs(rng, B, L, H, P, N, dtype, with_h0)
+    dy = arr(rng, B, L, H, P, dtype=dtype)
+    dh = arr(rng, B, H, N, P, dtype=torch.float32) if with_dh else None
+    before = ms.ssd_scan_backward.launches
+    got = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    assert ms.ssd_scan_backward.launches == before + 1
+    want = ref.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (got[5] is None) == (h0 is None)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want):
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        t = tol(dtype)
+        scale = w.float().abs().max().item()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), atol=t * scale,
+                                   rtol=t, err_msg=name)
+    again = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+def test_ssd_scan_function_matches_autograd():
+    """SSDScan (both kernels) against torch autograd through the plain
+    chunked scan, f32, with a carried state and a gradient of h_final."""
+    rng = np.random.default_rng(27)
+    x, dt, a, b, c, h0 = ssd_inputs(rng, 2, 96, 4, 32, 16, torch.float32,
+                                    True)
+    dy = arr(rng, 2, 96, 4, 32, dtype=torch.float32)
+    dh = arr(rng, 2, 4, 16, 32, dtype=torch.float32)
+    grads = []
+    for fn in (lambda *t: ms.SSDScan.apply(*t, 32),
+               lambda *t: ref.ssd_chunked(*t[:5], chunk=32, h0=t[5])):
+        ins = [t.clone().requires_grad_() for t in (x, dt, a, b, c, h0)]
+        y, h = fn(*ins)
+        grads.append(torch.autograd.grad((y, h), ins, (dy, dh)))
+    for g, w in zip(*grads):
+        scale = w.abs().max().item()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", [
+    "decode_attention", "chunk_attention", "decode_attention_paged",
+    "chunk_attention_paged", "rmsnorm_add"])
+def test_kernel_without_a_backward_refuses_a_gradient(name):
+    """On the card a kernel with no backward raises when a gradient is
+    wanted, rather than return outputs cut from the graph; under no_grad
+    it runs."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(28)
+    q = arr(rng, 2, 4, 64, dtype=torch.float32).requires_grad_()
+    k = arr(rng, 2, 2, 128, 64, dtype=torch.float32)
+    qc = arr(rng, 2, 4, 8, 64, dtype=torch.float32).requires_grad_()
+    pages = arr(rng, 9, 2, 16, 64, dtype=torch.float32)
+    bt = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(2, 4)
+    lens = torch.tensor([5, 64], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 40], dtype=torch.int32, device="cuda")
+    x = arr(rng, 3, 64, dtype=torch.float32).requires_grad_()
+    w = arr(rng, 64, dtype=torch.float32)
+    call = {
+        "decode_attention": lambda: ops.decode_attention(q, k, k,
+                                                         kv_len=lens),
+        "chunk_attention": lambda: ops.chunk_attention(qc, k, k, pos=pos),
+        "decode_attention_paged": lambda: ops.decode_attention_paged(
+            q, pages, pages, block_table=bt, kv_len=lens),
+        "chunk_attention_paged": lambda: ops.chunk_attention_paged(
+            qc, pages, pages, block_table=bt, pos=pos),
+        "rmsnorm_add": lambda: ops.rmsnorm_add(x, x.detach(), w),
+    }[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

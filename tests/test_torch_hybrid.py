@@ -317,11 +317,11 @@ def test_f32_leaves_stay_f32_in_a_bf16_config():
     assert torch.all(init["d_skip"] == 1.0)
 
 
-def test_hybrid_loss_fn_is_not_ported_yet(models):
-    _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tm.loss_fn(tp, {"tokens": np.ones((1, 4), np.int32),
-                        "labels": np.ones((1, 4), np.int32)}, None)
+def test_hybrid_has_no_paged_entry_points(models):
+    """As in the reference: the hybrid's recurrent state is O(1) in
+    sequence length, so the engine keeps the dense layout.  (Its loss_fn
+    is ported: tests/test_torch_hybrid_training.py.)"""
+    _, _, tm, _ = models
     assert tm.init_paged_cache is None and tm.forward_chunk_paged is None \
         and tm.decode_step_paged is None
 
