@@ -28,7 +28,13 @@ source in its first process.  Phases:
            with the L2 flushed, beside SDPA with a boolean mask; paged
            output checked equal to the dense one; then ssd_scan at
            chip_smoke.py phase 3c's shape (x [B, 512, 80, 64] bf16, N 64,
-           chunk 128, h0 f32) at B 8 and B 1
+           chunk 128, h0 f32) at B 8 and B 1, and ssd_scan_backward at
+           the training shape (x, dy [4, 2048, 80, 64] bf16, N 64, chunk
+           128; without h0, and with h0 and dh_final), each also with its
+           kernels' own device time per call, and (where the checkout has
+           ssd_bwd_plan) the bf16 backward at every head group a block may
+           take, the planner's choice marked: the times its cost model is
+           fitted to
   groups   the device time of one full-width prefill group (B 8 x T 512 at
            the phase-3 offsets) for tinyllama_1_1b and zamba2_2_7b, by
            torch.profiler, and the chunk-attention and SSD-scan kernels'
@@ -43,6 +49,7 @@ power limit.  Exits non-zero if a process fails or there is no GPU.
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
 import sys
@@ -199,9 +206,10 @@ def host_us(torch, tag: str, calls: int = 2000) -> None:
                 f"a call (mean of {calls})")
 
 
-def launch_ms(torch, fn, flush) -> str:
-    """Each rmsnorm kernel's device time per call: torch.profiler over 20
-    calls, L2 flushed and the card held busy before each, as time_ms."""
+def launch_ms(torch, fn, flush, what: str = "rmsnorm") -> str:
+    """The device time per call of each kernel whose symbol holds `what`:
+    torch.profiler over 20 calls, L2 flushed and the card held busy before
+    each, as time_ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as p:
@@ -210,10 +218,10 @@ def launch_ms(torch, fn, flush) -> str:
             torch.cuda._sleep(HOST_LEAD_CYCLES)
             fn()
         torch.cuda.synchronize()
+    symbol = re.compile(re.escape(what) + r"\w*")
     return ", ".join(
-        f"{e.key.split('(')[0].split('::')[-1].split('<')[0]} "
-        f"{dev_us(e) / e.count / 1e3:.4f} ms"
-        for e in p.key_averages() if "rmsnorm" in e.key and dev_us(e) > 0)
+        f"{symbol.search(e.key).group(0)} {dev_us(e) / e.count / 1e3:.4f} ms"
+        for e in p.key_averages() if what in e.key and dev_us(e) > 0)
 
 
 def kernels(torch, tag: str) -> None:
@@ -319,6 +327,42 @@ def ssd_kernel(torch, tag: str, flush, gen) -> None:
         result(tag, f"ssd_scan B{B} x L{L} x H{H} x P{P}: "
                     f"{time_ms(torch, run, flush):.4f} ms")
         del x, dt, b, c, h0
+    ssd_backward(torch, tag, flush, gen)
+
+
+def ssd_backward(torch, tag: str, flush, gen) -> None:
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba_scan as ms
+
+    dev, bf16 = "cuda", torch.bfloat16
+    B, L, H, P, N, chunk = 4, 2048, 80, 64, 64, 128
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x, dy = rnd(B, L, H, P).to(bf16), rnd(B, L, H, P).to(bf16)
+    b, c = rnd(B, L, N).to(bf16), rnd(B, L, N).to(bf16)
+    dt = F.softplus(rnd(B, L, H) - 2)
+    a = -torch.exp(0.5 * rnd(H))
+    for what, h0, dh in (("no h0", None, None),
+                         ("h0 dh", rnd(B, H, N, P), rnd(B, H, N, P))):
+        run = lambda: ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh,
+                                           chunk=chunk)
+        result(tag, f"ssd_scan_backward B{B} x L{L} x H{H} x P{P} bf16 "
+                    f"{what}: {time_ms(torch, run, flush):.4f} ms; per "
+                    f"launch {launch_ms(torch, run, flush, 'ssd_bwd')}")
+    if not hasattr(ms, "ssd_bwd_plan"):
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen, times = ms.ssd_bwd_plan(B, L, H, chunk, sms)[0], []
+    keep = ms.ssd_bwd_plan
+    try:
+        for hg in range(1, ms.MAX_BWD_HEADS + 1):
+            ms.ssd_bwd_plan = lambda *_, hg=hg: (hg, -(-H // hg))
+            t = time_ms(torch, lambda: ms.ssd_scan_backward(
+                x, dt, a, b, c, None, dy, None, chunk=chunk), flush)
+            times.append(f"{hg}{'*' if hg == chosen else ''} {t:.4f}")
+    finally:
+        ms.ssd_bwd_plan = keep
+    result(tag, "ssd_scan_backward bf16 no h0 by heads a block (ms, * the "
+                "planner's choice): " + ", ".join(times))
 
 
 def groups(torch, tag: str) -> None:

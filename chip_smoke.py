@@ -113,9 +113,10 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               ssd_scan_backward against its plain version at the training
               shape (x [4,2048,80,64], bf16 and f32, with and without h0
               and dh_final) and at 1 x 512, two launches bitwise equal,
-              and flash attention forward and backward at head dim 80
-              (q/k/v [4,32,2048,80] causal, bf16 and f32; Sq 1024 against
-              Sk 2048; non-causal Sq 512), each timed beside its plain
+              each of its launches' own device time (torch.profiler) and
+              its plan, and flash attention forward and backward at head
+              dim 80 (q/k/v [4,32,2048,80] causal, bf16 and f32; Sq 1024
+              against Sk 2048; non-causal Sq 512), each timed beside its plain
               version, its bound and (flash) SDPA.  It runs before phase 9
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
@@ -1776,8 +1777,11 @@ HYBRID_TRAIN_KERNELS = ("ssd_scan_backward",)
 #: in each super-block's recompute) and 9 shared-block calls
 HYBRID_STEP_LAUNCHES = {"ssd_scan": 108, "ssd_scan_backward": 54,
                         "flash_attention": 18, "flash_attention_backward": 9}
-#: the SSD kernels' device symbols (mamba_scan.cu)
-SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce")
+#: the SSD kernels' device symbols (mamba_scan.cu): the scan, the f32
+#: backward and its sums, the bf16 backward's four launches
+SSD_KERNEL_NAMES = ("ssd_kernel", "ssd_bwd_kernel", "ssd_bwd_reduce",
+                    "ssd_bwd_states", "ssd_bwd_pass", "ssd_bwd_chunk",
+                    "ssd_bwd_sums")
 # zamba2's full-width gradients (batch 1 x 1024), kernels vs plain: in
 # f32 only the order of sums differs (the f32 logits of phase 8 measured
 # 1.8e-5 on an NVIDIA H100 80GB HBM3 at 700.00 W): the loss to 1e-4
@@ -2005,6 +2009,30 @@ def ssd_bwd_work(B, L, H, P, N, chunk, elem):
     return nbytes, ops
 
 
+def ssd_bwd_launches(torch, flush, fn, calls: int = 10):
+    """Each launch of one ssd_scan_backward call with its own device time
+    per call (torch.profiler over `calls` calls, L2 flushed and the card
+    held busy before each, as time_ms): {kernel symbol: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            flush.zero_()
+            torch.cuda._sleep(HOST_LEAD_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in p.key_averages():
+        m = re.search(r"ssd_bwd_\w+", e.key)
+        if m and _dev_us(e) > 0:
+            out[m.group(0)] = round(_dev_us(e) / e.count / 1e3, 4)
+    if not out:
+        fail("ssd_scan_backward: the profiler saw none of its launches")
+    return out
+
+
 def check_hybrid_train_kernels(torch, entries):
     """Phase 10 kernels: ssd_scan_backward against ref.ssd_scan_backward at
     the training shape (bf16, f32; with and without h0 and dh_final) and at
@@ -2070,6 +2098,17 @@ def check_hybrid_train_kernels(torch, entries):
         lambda: ref.ssd_scan_backward(*timed, chunk=chunk),
         None,   # no one PyTorch call computes the SSD scan's gradient
         nbytes=nbytes, ops=ops_ssd)
+    ssd["launch_ms"] = ssd_bwd_launches(
+        torch, flush, lambda: ms.ssd_scan_backward(*timed, chunk=chunk))
+    hg, groups = ms.ssd_bwd_plan(B, L, H, chunk,
+                                 torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    log(f"[hybrid-train-kernels] ssd_scan_backward bf16 plan: {hg} heads a "
+        f"block, {B * (L // chunk) * groups} blocks of states and chunk "
+        f"gradients; per launch (device ms a call) "
+        f"{json.dumps(ssd['launch_ms'])}, sum "
+        f"{sum(ssd['launch_ms'].values()):.4f} ms (event-timed call "
+        f"{ssd['ms']:.4f} ms)")
     del timed
     torch.cuda.empty_cache()
 

@@ -65,6 +65,8 @@ SIGNATURES = {
         "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "ssd_scan_bwd_launch": (_P,) * 18 + (_I,) * 7 + (_P,),
+        "ssd_scan_bwd_tc_launch": (_P,) * 20 + (_I,) * 7 + (_P,),
+        "ssd_scan_bwd_occupancy": (_I, _I, _I),
     },
 }
 

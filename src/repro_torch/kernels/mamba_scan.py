@@ -12,8 +12,11 @@ keeps the FMA kernel, one block per (row, head).
 
 `ssd_scan_backward` is its gradient, which the Pallas kernel does not
 have (the reference differentiates `ref.ssd_chunked` with JAX autodiff);
-its plain version is `ref.ssd_scan_backward`.  `SSDScan` is the autograd
-Function that pairs the two kernels.
+its plain version is `ref.ssd_scan_backward`.  bf16 runs chunk-parallel
+on the tensor cores (chunk states, state passing, chunk gradients, fixed-
+order sums; `ssd_bwd_plan` picks the head group); f32 keeps the FMA
+kernel, one block per (row, head).  `SSDScan` is the autograd Function
+that pairs the two kernels.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
 tensor it runs the plain version.  Each wrapper's `.launches` counts its
@@ -22,7 +25,7 @@ kernel launches, nothing else.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +37,7 @@ SHAPES = ((16, 32), (16, 64), (32, 32), (32, 64), (64, 32), (64, 64))
 MAX_CHUNK = 128
 HEAD_COLS = 32      # head-dim columns per block of the bf16 kernel
 MAX_HEADS = 4       # heads per block of the bf16 kernel
+MAX_BWD_HEADS = 8   # heads per block of the bf16 backward (csrc kMaxHeads)
 
 
 def ssd_plan(B: int, H: int, P: int, sms: int) -> Tuple[int, int, int]:
@@ -51,6 +55,37 @@ def ssd_plan(B: int, H: int, P: int, sms: int) -> Tuple[int, int, int]:
         return -(-B * -(-H // hg) * slices // (2 * sms)) * (3 * hg + 1)
     hg = min(range(MAX_HEADS, 0, -1), key=cost)
     return hg, -(-H // hg), slices
+
+
+def ssd_bwd_plan(B: int, L: int, H: int, chunk: int,
+                 sms: int) -> Tuple[int, int]:
+    """(heads per block, head groups) of the bf16 backward: its states and
+    chunk-gradient launches run one block per (batch row, chunk, group of
+    heads), two blocks per SM.  A block's time grows with its heads, plus
+    about a head and a half for what it does once per chunk (b, c and
+    their products G^T, dB and dC over the summed dG, and its syncs; fitted
+    to the H100 times of every group at the training shape, which
+    chip_ab.py's kernels phase logs): the group is the one with the fewest
+    waves x (heads + 3/2), the larger on a tie (B 4, L 2048, chunk 128,
+    H 80: 7 heads, 768 blocks).  The last group may hold fewer heads."""
+    nc = L // chunk
+
+    def cost(hg):
+        return -(-B * nc * -(-H // hg) // (2 * sms)) * (2 * hg + 3)
+    hg = min(range(MAX_BWD_HEADS, 0, -1), key=cost)
+    return hg, -(-H // hg)
+
+
+def ssd_bwd_scratch(B: int, L: int, H: int, P: int, N: int, chunk: int,
+                    hg: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the bf16 backward's f32 scratch: the chunk states s / h
+    and u / dh (the state-passing launch writes h and dh over s and u),
+    each chunk's decay and dA part, and each head group's dB and dC
+    parts."""
+    nc, groups = L // chunk, -(-H // hg)
+    return {"states": (B, nc, H, N, P), "dstates": (B, nc, H, N, P),
+            "decay": (B, nc, H), "dap": (B, nc, H),
+            "dbp": (B, groups, L, N), "dcp": (B, groups, L, N)}
 
 
 def _check_inputs(what: str, x, dt, a, b, c, h0, chunk: int):
@@ -122,9 +157,10 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """The gradient of `ssd_scan` at its inputs, from dy (like x) and
     dh_final ([B, H, N, P] or None for zeros): (dx, ddt, da, db, dc, dh0)
     in the dtypes of (x, dt, a, b, c), dh0 f32 (None when h0 is None).
-    Inputs as `ssd_scan`.  On the card: the scan backward, then a
-    reduction of dB, dC over heads and dA over rows (no atomics: the same
-    bits on every run), counted as one launch."""
+    Inputs as `ssd_scan`.  On the card, bf16: four launches (chunk
+    states, state passing, chunk gradients, the sums over head groups and
+    rows); f32: the FMA kernel, then its sums over heads and rows.  No
+    atomics: the same bits on every run.  Counted as one launch."""
     if x.device.type == "cpu":
         return ref.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh_final,
                                      chunk=chunk)
@@ -143,28 +179,47 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             raise ValueError(f"ssd_scan_backward: dh_final must be "
                              f"{(B, H, N, P)} on {x.device}")
     f32 = dict(dtype=torch.float32, device=x.device)
-    hs = torch.empty((B, H, L // chunk, N, P), **f32)   # the chunk states
-    dbp = torch.empty((B, H, L, N), **f32)              # per-head parts
-    dcp = torch.empty((B, H, L, N), **f32)
-    dap = torch.empty((B, H), **f32)
     dx = torch.empty_like(x)
     ddt = torch.empty((B, L, H), **f32)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     da = torch.empty((H,), **f32)
     dh0 = torch.empty((B, H, N, P), **f32) if h0 is not None else None
     ptr = lambda t: t.data_ptr() if t is not None else None
-    err = build.load("mamba_scan").ssd_scan_bwd_launch(
-        x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b.data_ptr(),
-        c.data_ptr(), ptr(h0f), dy.data_ptr(), ptr(dh_final), hs.data_ptr(),
-        dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-        ptr(dh0), B, L, H, P, N, chunk, DTYPES[x.dtype], stream(x))
+    lib = build.load("mamba_scan")
+    ins = (x.data_ptr(), dtf.data_ptr(), af.data_ptr(), b.data_ptr(),
+           c.data_ptr(), ptr(h0f), dy.data_ptr(), ptr(dh_final))
+    outs = (dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            da.data_ptr(), ptr(dh0))
+    if x.dtype == torch.bfloat16:
+        hg, _ = ssd_bwd_plan(B, L, H, chunk, sm_count(x.device.index))
+        scratch = {k: torch.empty(s, **f32) for k, s in
+                   ssd_bwd_scratch(B, L, H, P, N, chunk, hg).items()}
+        err = lib.ssd_scan_bwd_tc_launch(
+            *ins, *(scratch[k].data_ptr() for k in (
+                "states", "dstates", "decay", "dbp", "dcp", "dap")),
+            *outs, B, L, H, P, N, chunk, hg, stream(x))
+    else:
+        hs = torch.empty((B, H, L // chunk, N, P), **f32)   # chunk states
+        dbp = torch.empty((B, H, L, N), **f32)              # per-head parts
+        dcp = torch.empty((B, H, L, N), **f32)
+        dap = torch.empty((B, H), **f32)
+        err = lib.ssd_scan_bwd_launch(
+            *ins, hs.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
+            dap.data_ptr(), *outs, B, L, H, P, N, chunk, DTYPES[x.dtype],
+            stream(x))
     build.check(err, "ssd_scan_backward")
     ssd_scan_backward.launches += 1
     return (dx, ddt.to(dt.dtype), da.to(a.dtype), db, dc, dh0)
 
 
 ssd_scan_backward.launches = 0
+
+
+def ssd_bwd_occupancy(N: int, P: int, hg: int) -> int:
+    """Resident blocks per SM of the bf16 backward's chunk-gradient launch
+    at hg heads a block, as the CUDA occupancy calculator gives it (for
+    the tests, which hold it to two at every group)."""
+    return build.load("mamba_scan").ssd_scan_bwd_occupancy(N, P, hg)
 
 
 class SSDScan(torch.autograd.Function):

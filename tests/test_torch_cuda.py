@@ -848,6 +848,9 @@ def ssd_inputs(rng, B, L, H, P, N, dtype, with_h0):
     (2, 64, 8, 32, 16, 32),      # the smoke config: chunk 32
     (1, 96, 3, 64, 32, 16),      # chunk 16
     (2, 9, 3, 64, 32, 3),        # an odd chunk
+    (2, 2048, 4, 64, 64, 16),    # 128 chunks of state passing
+    (1, 128, 8, 64, 64, 128),    # a single chunk (L == chunk)
+    (4, 2048, 80, 64, 64, 128),  # zamba2's training width at B 4
 ])
 def test_ssd_scan_backward_kernel(dtype, with_h0, with_dh, B, L, H, P, N,
                                   chunk):
@@ -878,6 +881,67 @@ def test_ssd_scan_backward_kernel(dtype, with_h0, with_dh, B, L, H, P, N,
     again = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
     torch.cuda.synchronize()
     assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("H,hg", [(5, 2), (5, 4), (3, 2), (80, 3)])
+def test_ssd_scan_backward_kernel_groups(monkeypatch, with_h0, H, hg):
+    """The bf16 backward with head groups that do not divide H (the last
+    group holds fewer heads), the group forced through the planner: each
+    gradient to the bf16 tolerance of test_ssd_scan_backward_kernel, and
+    two launches give the same bits."""
+    B, L, P, N, chunk = 2, 256, 64, 64, 64
+    monkeypatch.setattr(ms, "ssd_bwd_plan", lambda *_: (hg, -(-H // hg)))
+    rng = np.random.default_rng(28)
+    x, dt, a, b, c, h0 = ssd_inputs(rng, B, L, H, P, N, torch.bfloat16,
+                                    with_h0)
+    dy = arr(rng, B, L, H, P, dtype=torch.bfloat16)
+    dh = arr(rng, B, H, N, P, dtype=torch.float32) if with_h0 else None
+    got = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    want = ref.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want):
+        if w is None:
+            continue
+        t = tol(torch.bfloat16)
+        scale = w.float().abs().max().item()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), atol=t * scale,
+                                   rtol=t, err_msg=name)
+    again = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_backward_kernel_elementwise(with_h0):
+    """The bf16 backward at zamba2's training shape, each entry of each
+    gradient within 2e-2 abs + rel of the plain version (chip_smoke.py's
+    check, with no scaling by the largest entry): d(dtx) = S^T dy and the
+    dB, dC terms of the summed dG hold it only with S and dG entering as
+    bf16 high + low parts."""
+    B, L, H, P, N, chunk = 4, 2048, 80, 64, 64, 128
+    rng = np.random.default_rng(29)
+    x, dt, a, b, c, h0 = ssd_inputs(rng, B, L, H, P, N, torch.bfloat16,
+                                    with_h0)
+    dy = arr(rng, B, L, H, P, dtype=torch.bfloat16)
+    dh = arr(rng, B, H, N, P, dtype=torch.float32) if with_h0 else None
+    got = ms.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    want = ref.ssd_scan_backward(x, dt, a, b, c, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    t = tol(torch.bfloat16)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want):
+        if w is not None:
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       w.float().cpu().numpy(), atol=t,
+                                       rtol=t, err_msg=name)
+
+
+def test_ssd_scan_backward_kernel_fills_the_card():
+    """The bf16 backward's chunk-gradient launch keeps two blocks on an SM
+    at every head group the planner may choose, at zamba2's width."""
+    for hg in range(1, ms.MAX_BWD_HEADS + 1):
+        assert ms.ssd_bwd_occupancy(64, 64, hg) >= 2, hg
 
 
 def test_ssd_scan_function_matches_autograd():

@@ -273,6 +273,42 @@ class TestDispatch:
         if (H, P) == (80, 64):
             assert B * groups * slices >= 132
 
+    @pytest.mark.parametrize("B,L,H,chunk", [
+        (4, 2048, 80, 128),   # zamba2's training shape
+        (1, 512, 80, 128),    # one row
+        (2, 2048, 4, 16),     # 128 chunks
+        (1, 128, 8, 128),     # a single chunk
+        (2, 256, 5, 64),      # H 5
+        (3, 96, 3, 32),       # H 3
+        (2, 9, 3, 3),         # an odd chunk
+    ])
+    def test_ssd_bwd_plan_covers_every_chunk_once(self, B, L, H, chunk):
+        """The bf16 SSD backward's blocks (batch row, chunk, head group)
+        cover every (row, chunk, head) exactly once, and its scratch has
+        the shapes the kernel indexes; at the training shape every SM gets
+        two blocks at least twice over, and the dB/dC parts are smaller
+        than the per-head parts of the f32 kernel."""
+        P, N = 64, 64
+        hg, groups = tssd.ssd_bwd_plan(B, L, H, chunk, sms=132)
+        assert 1 <= hg <= tssd.MAX_BWD_HEADS and groups == -(-H // hg)
+        nc = L // chunk
+        seen = np.zeros((B, nc, H), dtype=int)
+        for g in range(groups):
+            heads = range(g * hg, min(H, (g + 1) * hg))
+            assert len(heads) >= 1
+            for b in range(B):
+                for k in range(nc):
+                    seen[b, k, list(heads)] += 1
+        assert (seen == 1).all()
+        shapes = tssd.ssd_bwd_scratch(B, L, H, P, N, chunk, hg)
+        assert shapes == {"states": (B, nc, H, N, P),
+                          "dstates": (B, nc, H, N, P),
+                          "decay": (B, nc, H), "dap": (B, nc, H),
+                          "dbp": (B, groups, L, N), "dcp": (B, groups, L, N)}
+        if (B, L, H, chunk) == (4, 2048, 80, 128):
+            assert B * nc * groups >= 2 * 2 * 132
+            assert groups < H
+
     @pytest.mark.parametrize("B,Hkv,G,T,S,want", [
         (8, 4, 8, 8, 2048, (8, 256)),     # a short chunk deep in the cache
         (8, 4, 8, 512, 2048, (1, 2048)),  # the prefill chunk: 128 blocks a row
