@@ -118,11 +118,50 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               dim 80 (q/k/v [4,32,2048,80] causal, bf16 and f32; Sq 1024
               against Sk 2048; non-causal Sq 512), each timed beside its plain
               version, its bound and (flash) SDPA.  It runs before phase 9
+  3d. moe kernels  the attention kernels at phi3.5-moe's shapes (32 q / 8
+              kv heads of 128, G 4): decode (q [8,32,128], k/v
+              [8,8,2048,128]), chunk attention at T 512 and T 8, their
+              paged twins at page size 64 (equal to the dense kernels on
+              the same K/V) and the flash pair at q [4,32,2048,128], k/v
+              [4,8,2048,128] causal, each against its plain version, timed
+              beside it, its bound and SDPA
+  11. moe serve  phi3_5_moe_42b at its published widths, cut to
+              MOE_SERVE_LAYERS of its 32 layers (the whole model does not
+              fit the card; seeded random weights, shared by the runs):
+              one MoE layer's forward and emits at [8, 512] and [8, 1]
+              under torch.cuda.set_sync_debug_mode("error"); the 16
+              requests of phase 5 contiguous, then paged (257 pages), with
+              tok/s, TTFT, decode gap and peak memory, and from
+              engine.table each expert's load share, max/mean load and
+              the dropped choices, the loads summing to top_k x the
+              tokens the engine ran through the model (pad rows and
+              columns included) x the MoE layers and the count to its
+              forward calls x the MoE layers; a torch.profiler window
+              over a short run; the same pair at capacity_factor
+              MOE_DROP_FREE (nothing drops; MOE_DROP_FREE_LAYERS layers)
+              must give 16 of 16 equal token streams (at the config's 1.25
+              the count is logged: pad columns past a row's granted pages
+              read scratch page 0 and take capacity); then the model at
+              MOE_CHECK_LAYERS layers,
+              kernels vs plain logits in f32 (1e-3) and bf16 (no further
+              from the f32 plain model than the plain bf16 model, within
+              1.25x), with the share of top-k choices the runs differ on
+  12. moe train  phi3_5_moe_42b at its widths and MOE_TRAIN_LAYERS layers,
+              batch 4 x 2048, MOE_TRAIN_STEPS steps through the port's
+              Trainer (remat dots_saveable, AdamW) with its XFA session:
+              launch counters set to 0 just before and read just after;
+              losses, aux losses and grad norms finite; the profile
+              shard's device group holds train_step x MOE_TRAIN_STEPS and
+              loads summing to top_k x 4 x 2048 x the layers x the steps;
+              step time, tokens/s, MFU by the active parameters' FLOPs
+              (held to the static-cost layer's FLOPs of one loss_fn) and
+              peak memory; a torch.profiler window over one more step
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
-              serve), 6 (train), 8 (zamba2 serve) and 10 (zamba2 train)
-              kept: `diagnose
-              --json` and `report --json` on each, `timeline --json` on
+              serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
+              and 12 (phi3.5-moe serve and train) kept: `diagnose
+              --json` and `report --json` on each (the phi3.5-moe train
+              report must show the device group), `timeline --json` on
               the tinyllama serve dir; each must exit 0 with JSON that
               parses, and the findings by severity, the first five, each
               component's Wait share and the five edges with the most
@@ -139,7 +178,8 @@ It prints the kernels line ({"kernels": [...]}), a summary of each serve
 phase (tok/s, TTFT p50 / p95, the XFA prefill_chunk mean), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
 come from the serving or training run of its own path (ssd_scan_backward
-and the flash kernels' head-dim-80 numbers: phase 10); rmsnorm_add has
+and the flash kernels' head-dim-80 numbers: phase 10; the head-dim-128
+numbers: phases 11 and 12); rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -147,6 +187,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -256,6 +297,7 @@ def run(torch) -> None:
     kernels = check_kernels(torch) + check_train_kernels(torch)
     hybrid_entries, pathless_counts = check_hybrid_kernels(torch, kernels)
     kernels += hybrid_entries
+    check_moe_kernels(torch, kernels)
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
@@ -265,6 +307,8 @@ def run(torch) -> None:
     hybrid_train_counts, hybrid_train, ssd_bwd = hybrid_train_phase(torch,
                                                                     kernels)
     kernels.append(ssd_bwd)
+    moe_counts, moe_paged_counts, moe = moe_serve_phase(torch)
+    moe_train_counts, moe_train = moe_train_phase(torch)
     diagnose_phase(torch)
 
     for k in kernels:
@@ -285,8 +329,18 @@ def run(torch) -> None:
         if "head_dim_80" in k and name in TRAIN_KERNELS:
             # the flash kernels at head dim 80: the zamba2 train run
             k["head_dim_80"]["launches"] = hybrid_train_counts[name]
+        if "head_dim_128" in k:
+            # G 4 at head dim 128: the phi3.5-moe serve (paged: its paged
+            # run) and train runs
+            k["head_dim_128"]["launches"] = (
+                moe_train_counts if name in TRAIN_KERNELS
+                else moe_paged_counts if name.endswith("_paged")
+                else moe_counts)[name]
+            if k["head_dim_128"]["launches"] <= 0:
+                fail(f"kernel {name} was not launched on phi3.5-moe's path")
     log(json.dumps({"kernels": kernels}))
-    for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid)):
+    for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid),
+                     (f"phi3_5_moe_42b at {MOE_SERVE_LAYERS} layers", moe)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
             f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
             f"{st['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk mean "
@@ -310,7 +364,19 @@ def run(torch) -> None:
         f"{100 * hybrid_train['busy']:.1f}%, ssd "
         f"{100 * hybrid_train['ssd_share']:.1f}% and flash "
         f"{100 * hybrid_train['flash_share']:.1f}% of device time, launches "
-        f"{json.dumps(hybrid_train_counts)} on {smi}")
+        f"{json.dumps(hybrid_train_counts)}; phi3.5-moe served "
+        f"{moe['throughput_tok_s']:.1f} tok/s, ttft p50 "
+        f"{moe['ttft_p50_s'] * 1e3:.1f} ms, decode gap "
+        f"{moe['decode_s_per_tok'] * 1e3:.2f} ms/token, peak "
+        f"{moe['peak_gb']:.1f} GB, expert load max/mean "
+        f"{moe['fold']['max_over_mean']:.3f}, dropped "
+        f"{100 * moe['fold']['dropped_share']:.2f}% of choices, launches "
+        f"{json.dumps(moe_counts)}; phi3.5-moe trained "
+        f"{moe_train['step_ms']:.1f} ms/step, {moe_train['tok_s']:.0f} "
+        f"tok/s, MFU {100 * moe_train['mfu']:.2f}%, peak "
+        f"{moe_train['peak_gb']:.1f} GB, busy "
+        f"{100 * moe_train['busy']:.1f}%, launches "
+        f"{json.dumps(moe_train_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1028,19 +1094,22 @@ PROMPT_LENS = [16, 1500, 700, 33, 1024, 511, 513, 90,
 
 
 def make_engine(torch, profile_dir: str, arch: str = "tinyllama_1_1b",
-                **extra):
-    """The serving engine of phases 5, 5b, 7, 8 and 9 for `arch` (`extra`:
-    more ServeConfig fields — page_size and max_cache_pages for the paged
-    pool, xfa_collector for phase 9's fleet stream) and its 16 prompts."""
+                cfg=None, params=None, **extra):
+    """The serving engine of phases 5, 5b, 7, 8, 9 and 11 for `arch` (or
+    `cfg`, a config cut from it), on `params` or seeded random weights
+    (`extra`: more ServeConfig fields — page_size and max_cache_pages for
+    the paged pool, xfa_collector for phase 9's fleet stream) and its 16
+    prompts."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = build_model(cfg, impl="auto", device="cuda")
-    engine = ServingEngine(model, model.init(0), ServeConfig(
+    engine = ServingEngine(model, model.init(0) if params is None else params,
+                           ServeConfig(
         max_batch=8, max_seq_len=2048, prefill_chunk=512, prefill_batch=8,
         eos_token=-1, profile_dir=profile_dir, **extra))
     rng = np.random.default_rng(0)
@@ -1085,13 +1154,13 @@ def check_launch_counts(cfg, engine, counts, what: str):
 
 
 def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
-              **paged):
+              cfg=None, params=None, **paged):
     """Serve the 16 prompts (32 new tokens each) through a fresh engine
-    for `arch` (handed to `on_engine` first, if given), with the launch
-    counters set to 0 just before and read just after.  Checks every
-    request, the cache and the launch counts, and loads the profile shard
-    back.  Returns (engine, done, launch counts, latency stats, serve
-    edges of the shard)."""
+    for `arch` or `cfg` (on `params`, if given; handed to `on_engine`
+    first, if given), with the launch counters set to 0 just before and
+    read just after.  Checks every request, the cache and the launch
+    counts, and loads the profile shard back.  Returns (engine, done,
+    launch counts, latency stats, serve edges of the shard)."""
     from repro_torch.core import tracer as xfa
     from repro_torch.kernels import ops
     from repro_torch.profile import load_profile
@@ -1099,7 +1168,8 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
 
     xfa.reset()          # this run's folds only, not an earlier run's
     with keep_dir(what) as prof:
-        cfg, engine, prompts = make_engine(torch, prof, arch, **paged)
+        cfg, engine, prompts = make_engine(torch, prof, arch, cfg, params,
+                                           **paged)
         if on_engine is not None:
             on_engine(engine)
         t0 = time.monotonic()
@@ -1325,27 +1395,11 @@ def train_phase(torch):
         f"{wall:.1f}s incl. init and the async checkpoint of "
         f"{ckpt_gb:.2f} GB (restored equal in {restore_s:.1f}s)")
     log(f"[train] launches over {TRAIN_STEPS} steps {json.dumps(counts)}")
-    # one more step of the same run under torch.profiler: where it goes
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime.trainer import make_train_step
-    step_fn = make_train_step(model, tcfg)
-    batch = SyntheticLMData(cfg, B, S).generate(TRAIN_STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        t0 = time.monotonic()
-        state, _, _ = step_fn(state, batch, None)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    rows, busy = breakdown(p, wall_us, "train-profile",
-                           f"one step, batch {B} x {S}")
-    flash_us = sum(_dev_us(e) for e in rows
-                   if any(n in e.key for n in FLASH_KERNEL_NAMES))
-    stats["busy"] = busy / wall_us
-    stats["flash_share"] = flash_us / busy
-    log(f"[train-profile] flash kernels {flash_us / 1e3:.2f} ms, "
-        f"{100 * stats['flash_share']:.1f}% of device time")
-    del state, trainer, p
+    state, shares = profiled_step(
+        torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
+            TRAIN_STEPS), "train-profile", {"flash": FLASH_KERNEL_NAMES})
+    stats.update(busy=shares["busy"], flash_share=shares["flash"])
+    del state, trainer
     torch.cuda.empty_cache()
     grads_check(torch, cfg)
     return counts, stats
@@ -1631,6 +1685,170 @@ def check_hybrid_kernels(torch, entries):
     return out, pathless
 
 
+# ----------------------------------------------------------- moe kernels ----
+#: phi3.5-moe's attention: 32 q heads over 8 kv heads (G 4) of head dim 128
+MOE_HEADS = (32, 8, 128)                # Hq, Hkv, D
+
+
+def check_moe_kernels(torch, entries):
+    """Phase 3d: the attention kernels of phi3.5-moe's path at its shapes
+    (G 4, head dim 128): decode, chunk attention at T 512 and T 8, their
+    paged twins at page size 64 (equal to the dense kernels on the same
+    K/V), and the flash pair at the training shape (q [4,32,2048,128],
+    k/v [4,8,2048,128], causal); each against its plain version, timed
+    beside it, its bound and SDPA.  Adds a head_dim_128 entry (T 8 as its
+    short_chunk) to each kernel's entry of `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    Hq, Hkv, D = MOE_HEADS
+    B, S = 8, 2048
+    k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    q = rnd(B, Hq, D)
+    lens = [0, 1, 77, 1000, 1537, 2047, 2048, 513]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    dmask = (torch.arange(S, device=dev)[None, :] < kv_len[:, None])
+    dmask = dmask[:, None, None, :]
+    nb = S // PAGE
+    perm = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(B, nb)
+    kp, vp = shred(torch, k, PAGE, perm), shred(torch, v, PAGE, perm)
+    dbt = tables(torch, perm, PAGE, lens)
+    od = dec.decode_attention(q, k, v, kv_len=kv_len)
+    derr = max_err(torch, od, ref.decode_attention(q, k, v, kv_len=kv_len),
+                   "decode_attention D=128 G=4")
+    odp = dec.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                     kv_len=kv_len)
+    dperr = max_err(torch, odp, ref.decode_attention_paged(
+        q, kp, vp, block_table=dbt, kv_len=kv_len),
+        "decode_attention_paged D=128 G=4")
+    if not torch.equal(odp, od):
+        fail("decode_attention_paged D=128 G=4: the output differs from the "
+             "dense kernel's on the same K/V")
+    sdpa = lambda qq, kk, vv, **kw: F.scaled_dot_product_attention(
+        qq, kk, vv, enable_gqa=True, **kw)
+    cases = {
+        "decode_attention": [(
+            f"q {B}x{Hq}x{D} kv {B}x{Hkv}x{S}x{D} kv_len {lens}", derr,
+            lambda: dec.decode_attention(q, k, v, kv_len=kv_len),
+            lambda: ref.decode_attention(q, k, v, kv_len=kv_len),
+            lambda: sdpa(q[:, :, None], k, v, attn_mask=dmask),
+            dict(nbytes=2.0 * q.numel() * 2 + 4 * B
+                 + sum(lens) * Hkv * D * 2 * 2,
+                 ops=4.0 * sum(lens) * Hq * D))],
+        "decode_attention_paged": [(
+            f"q {B}x{Hq}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} bt "
+            f"{B}x{nb} kv_len {lens}", dperr,
+            lambda: dec.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                               kv_len=kv_len),
+            lambda: ref.decode_attention_paged(q, kp, vp, block_table=dbt,
+                                               kv_len=kv_len),
+            None,
+            dict(nbytes=2.0 * q.numel() * 2 + 4 * B
+                 + 4 * sum(-(-n // PAGE) for n in lens)
+                 + sum(lens) * Hkv * D * 2 * 2, ops=4.0 * sum(lens) * Hq * D,
+                 dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len)))],
+        "chunk_attention": [], "chunk_attention_paged": []}
+    for T, pos_l in ((512, [0, 512, 1024, 1536, 100, 700, 1300, 7]),
+                     (8, [0, 5, 100, 1000, 2040, 333, 1500, 17])):
+        qc = rnd(B, Hq, T, D)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        bt = tables(torch, perm, PAGE, [p + T for p in pos_l])
+        cerr = max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
+                       ref.chunk_attention(qc, k, v, pos=pos),
+                       f"chunk_attention D=128 G=4 T={T}")
+        perr = check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos,
+                                 f"chunk_attention_paged D=128 G=4 T={T}")
+        lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
+        cmask = (torch.arange(S, device=dev)[None, None, :]
+                 <= lim[:, :, None])[:, None]
+        cases["chunk_attention"].append((
+            f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}", cerr,
+            lambda qc=qc, pos=pos: dec.chunk_attention(qc, k, v, pos=pos),
+            lambda qc=qc, pos=pos: ref.chunk_attention(qc, k, v, pos=pos),
+            lambda qc=qc, cmask=cmask: sdpa(qc, k, v, attn_mask=cmask),
+            chunk_work(pos_l, T, S, Hq, Hkv, D)))
+        cases["chunk_attention_paged"].append((
+            f"q {B}x{Hq}x{T}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} bt "
+            f"{B}x{nb} pos {pos_l}", perr,
+            lambda qc=qc, pos=pos, bt=bt: dec.chunk_attention_paged(
+                qc, kp, vp, block_table=bt, pos=pos),
+            lambda qc=qc, pos=pos, bt=bt: ref.chunk_attention_paged(
+                qc, kp, vp, block_table=bt, pos=pos),
+            None,
+            dict(chunk_work(pos_l, T, S, Hq, Hkv, D, page=PAGE),
+                 dense=lambda qc=qc, pos=pos: dec.chunk_attention(
+                     qc, k, v, pos=pos))))
+    for e in entries:
+        for i, (shape, err, fn, plain, lib, work) in enumerate(
+                cases.get(e["name"], ())):
+            sub = sub_entry(record_kernel(torch, flush, e["name"],
+                                          e["source"], e["replaces"], shape,
+                                          err, fn, plain, lib, **work))
+            if i == 0:
+                e["head_dim_128"] = sub
+            else:
+                e["head_dim_128"]["short_chunk"] = sub
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+    del k, v, q, kp, vp, cases
+    torch.cuda.empty_cache()
+
+    # the flash pair at the training shape
+    Bt, St = 4, 2048
+    q, k, v, do = rnd(Bt, Hq, St, D), rnd(Bt, Hkv, St, D), \
+        rnd(Bt, Hkv, St, D), rnd(Bt, Hq, St, D)
+    o, lse = fa.flash_attention(q, k, v)
+    o_r, lse_r = ref.attention(q, k, v, q_offset=0, return_lse=True)
+    ferr = max_err(torch, o, o_r, "flash_attention D=128 G=4")
+    max_err(torch, lse, lse_r, "flash_attention lse D=128 G=4")
+    berr = max(max_err(torch, g, w, f"flash_attention_backward {n} D=128 G=4")
+               for n, g, w in zip(("dq", "dk", "dv"),
+                                  fa.flash_attention_backward(q, k, v, o_r,
+                                                              lse_r, do),
+                                  ref.attention_backward(q, k, v, o_r, lse_r,
+                                                         do, q_offset=0)))
+    del o_r, lse_r
+    shape = f"q {Bt}x{Hq}x{St}x{D} kv {Bt}x{Hkv}x{St}x{D} causal"
+    fwd_ops, io = flash_work(q, k)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qq, kk, vv, is_causal=True)
+    flash = {
+        "flash_attention": (
+            ferr, lambda: fa.flash_attention(q, k, v),
+            lambda: ref.attention(q, k, v, q_offset=0, return_lse=True),
+            lambda: sdpa(q, k, v, is_causal=True),
+            dict(nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=fwd_ops)),
+        "flash_attention_backward": (
+            berr, lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+            lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+            lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                        retain_graph=True),
+            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=2.5 * fwd_ops))}
+    for e in entries:
+        if e["name"] in flash:
+            err, fn, plain, lib, work = flash[e["name"]]
+            d128 = record_kernel(torch, flush, e["name"], e["source"],
+                                 e["replaces"], shape, err, fn, plain, lib,
+                                 **work)
+            e["head_dim_128"] = sub_entry(d128)
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"[moe-kernels] {e['name']} {shape}: "
+                f"{work['ops'] / d128['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * d128['bound_ms'] / d128['ms']:.1f}% of its bound, "
+                f"{d128['ms'] / d128['library_ms']:.2f}x SDPA")
+    del q, k, v, do, o, lse, qq, kk, vv, out, flash, flush
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- hybrid ----
 def hybrid_forward(torch):
     """Phase 8a: full-width zamba2_2_7b logits, kernels vs plain versions
@@ -1681,25 +1899,7 @@ def hybrid_forward(torch):
     p32 = build_model(cfg32, device="cuda").init(0)
     k32 = run(cfg32, "kernel", p32)
     r32 = run(cfg32, "ref", p32)
-    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
-    for i, what in enumerate(("prefill chunk T=512", "decode step")):
-        for name, got in (("kernels bf16", k16[i]), ("plain bf16", r16[i]),
-                          ("kernels f32", k32[i]), ("plain f32", r32[i])):
-            if tuple(got.shape) != (B, cfg16.vocab) \
-                    or not torch.isfinite(got).all():
-                fail(f"hybrid {what}: {name} logits are not finite "
-                     f"[{B}, {cfg16.vocab}]")
-        e32 = rel(k32[i], r32[i])
-        ek, er = rel(k16[i], r32[i]), rel(r16[i], r32[i])
-        log(f"[hybrid] {what}: relative L2, kernels vs plain: f32 "
-            f"{e32:.3e} (tolerance {HYBRID_F32_TOL}), bf16 "
-            f"{rel(k16[i], r16[i]):.3e}; against the f32 plain model: "
-            f"kernels bf16 {ek:.3e}, plain bf16 {er:.3e} (ratio "
-            f"{ek / er:.3f}, limit {HYBRID_BF16_RATIO})")
-        if e32 > HYBRID_F32_TOL or ek > HYBRID_BF16_RATIO * er:
-            fail(f"hybrid {what}: kernels and plain versions disagree (f32 "
-                 f"{e32:.3e}; bf16 {ek:.3e} against {er:.3e} from the f32 "
-                 f"model)")
+    check_precisions(torch, "hybrid", (B, cfg16.vocab), k16, r16, k32, r32)
     # the same prompt as 4 x 128-token chunks: the carried state resumes
     m = build_model(cfg32, impl="kernel", device="cuda")
     cc, whole = m.init_cache(B, 2048), m.init_cache(B, 2048)
@@ -1708,6 +1908,7 @@ def hybrid_forward(torch):
                                     None, cc, zero + 128 * i)
     lw, whole, _ = m.forward_chunk(p32, tokens, None, whole, zero)
     torch.cuda.synchronize()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     errs = {"logits": rel(lc.float(), lw.float())}
     for name in ("h", "conv"):
         errs[name] = rel(cc["ssm"][name].float(), whole["ssm"][name].float())
@@ -1720,6 +1921,31 @@ def hybrid_forward(torch):
              f"the whole prompt's: {errs}")
     del p32, cc, whole
     torch.cuda.empty_cache()
+
+
+def check_precisions(torch, tag: str, shape, k16, r16, k32, r32):
+    """Kernels (k) vs plain (r) logits of one model in bf16 and f32, each
+    a (prefill chunk, decode step) pair of `shape`: finite; in f32 held
+    to each other within HYBRID_F32_TOL relative L2; in bf16 the kernels
+    no further from the f32 plain model than the plain bf16 model is,
+    within HYBRID_BF16_RATIO."""
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    for i, what in enumerate(("prefill chunk T=512", "decode step")):
+        for name, got in (("kernels bf16", k16[i]), ("plain bf16", r16[i]),
+                          ("kernels f32", k32[i]), ("plain f32", r32[i])):
+            if tuple(got.shape) != shape or not torch.isfinite(got).all():
+                fail(f"{tag} {what}: {name} logits are not finite {shape}")
+        e32 = rel(k32[i], r32[i])
+        ek, er = rel(k16[i], r32[i]), rel(r16[i], r32[i])
+        log(f"[{tag}] {what}: relative L2, kernels vs plain: f32 "
+            f"{e32:.3e} (tolerance {HYBRID_F32_TOL}), bf16 "
+            f"{rel(k16[i], r16[i]):.3e}; against the f32 plain model: "
+            f"kernels bf16 {ek:.3e}, plain bf16 {er:.3e} (ratio "
+            f"{ek / er:.3f}, limit {HYBRID_BF16_RATIO})")
+        if e32 > HYBRID_F32_TOL or ek > HYBRID_BF16_RATIO * er:
+            fail(f"{tag} {what}: kernels and plain versions disagree (f32 "
+                 f"{e32:.3e}; bf16 {ek:.3e} against {er:.3e} from the f32 "
+                 f"model)")
 
 
 def hybrid_phase(torch):
@@ -1818,7 +2044,6 @@ def hybrid_train_phase(torch, entries):
     against theirs.  Adds the head-dim-80 numbers to the flash entries of
     `entries`; returns (launch counts of the run, its stats, the
     ssd_scan_backward entry)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -1827,7 +2052,7 @@ def hybrid_train_phase(torch, entries):
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.profile import load_profile
-    from repro_torch.runtime.trainer import Trainer, make_train_step
+    from repro_torch.runtime.trainer import Trainer
 
     t_phase = time.monotonic()
     xfa.reset()          # the shard phase 9 diagnoses: this run's folds only
@@ -1888,28 +2113,13 @@ def hybrid_train_phase(torch, entries):
     log(f"[hybrid-train] launches over {HYBRID_TRAIN_STEPS} steps "
         f"{json.dumps(counts)}; per step {json.dumps(per_step)} (expected "
         f"{json.dumps(HYBRID_STEP_LAUNCHES)})")
-    # one more step of the same run under torch.profiler: where it goes
-    step_fn = make_train_step(model, tcfg)
-    batch = SyntheticLMData(cfg, B, S).generate(HYBRID_TRAIN_STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        t0 = time.monotonic()
-        state, _, _ = step_fn(state, batch, None)
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    rows, busy = breakdown(p, wall_us, "hybrid-train-profile",
-                           f"one step, batch {B} x {S}")
-    shares = {}
-    for what, names in (("ssd", SSD_KERNEL_NAMES),
-                        ("flash", FLASH_KERNEL_NAMES)):
-        us = sum(_dev_us(e) for e in rows if any(n in e.key for n in names))
-        shares[what] = us / busy
-        log(f"[hybrid-train-profile] {what} kernels {us / 1e3:.2f} ms, "
-            f"{100 * us / busy:.1f}% of device time")
-    stats.update(busy=busy / wall_us, ssd_share=shares["ssd"],
+    state, shares = profiled_step(
+        torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
+            HYBRID_TRAIN_STEPS), "hybrid-train-profile",
+        {"ssd": SSD_KERNEL_NAMES, "flash": FLASH_KERNEL_NAMES})
+    stats.update(busy=shares["busy"], ssd_share=shares["ssd"],
                  flash_share=shares["flash"])
-    del state, trainer, p, model, step_fn, batch
+    del state, trainer, model
     torch.cuda.empty_cache()
     hybrid_grads_check(torch, cfg)
     ssd_entry = check_hybrid_train_kernels(torch, entries)
@@ -2181,11 +2391,414 @@ def check_hybrid_train_kernels(torch, entries):
     return ssd
 
 
+# ------------------------------------------------------------------- moe ----
+MOE_ARCH = "phi3_5_moe_42b"
+#: depth cuts of phi3.5-moe (32 layers of 1.300B params, 83.7 GB in bf16,
+#: do not fit the 80 GB card): serving keeps 24 layers (62.9 GB of weights
+#: and a 1.6 GB cache); training 2 (2.86B params x 16 B of state = 45.8
+#: GB at batch 4 x 2048); the f32 logits check 4 (21.9 GB of f32 weights
+#: beside their bf16 copy)
+MOE_SERVE_LAYERS = 24
+MOE_TRAIN_LAYERS = 2
+MOE_CHECK_LAYERS = 4
+#: capacity_factor at which nothing drops: C = max(4, int(T top_k / E cf))
+#: reaches T at cf = E / top_k = 8, and no expert receives more than T
+#: choices (a token picks an expert once).  The drop-free serve pair runs
+#: at MOE_DROP_FREE_LAYERS: its [E, T, d_ff] expert activations took the
+#: 24-layer serve to a 77.3 GB peak (NVIDIA H100 80GB HBM3)
+MOE_DROP_FREE = 8.0
+MOE_DROP_FREE_LAYERS = 12
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_SHAPE = (4, 2048)             # B, S of phase 12
+DISPATCH = ("decoder", "moe", "dispatch")
+ROUTER = ("decoder", "moe", "router")
+
+
+def release(torch) -> None:
+    """Free what the code before left: a paged engine holds itself in a
+    reference cycle (its scheduler's page gate is its bound method), which
+    only the cyclic collector frees, with the weights it serves."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_cfg(layers: int, **kw):
+    """phi3.5-moe at its published widths, cut to `layers` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=layers, **kw)
+
+
+def moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.first_dense_layers
+
+
+def moe_fold(cfg, folded, what: str, tokens: int, calls: int) -> dict:
+    """Hold a folded device table to the MoE layer's invariants: the loads
+    sum to top_k x `tokens` x the MoE layers (every routed token, pad rows
+    and columns included), the count is `calls` x the MoE layers, the
+    router losses are finite.  Logs each expert's share of the load,
+    max/mean, the dropped choices and the mean router losses; returns
+    them."""
+    d, r = folded.edges[DISPATCH], folded.edges[ROUTER]
+    L = moe_layers(cfg)
+    loads = [d.metrics[f"expert_load[{e}]"] for e in range(cfg.n_experts)]
+    want = cfg.top_k * tokens * L
+    if sum(loads) != want or d.count != calls * L:
+        fail(f"{what}: the fold holds loads summing to {sum(loads)} (want "
+             f"top_k x {tokens} tokens x {L} layers = {want}) and count "
+             f"{d.count} (want {calls * L})")
+    aux, z = r.metrics["aux_loss"], r.metrics["z_loss"]
+    if not (math.isfinite(aux) and math.isfinite(z)):
+        fail(f"{what}: router losses aux {aux} z {z} not finite")
+    dropped = d.metrics["dropped_tokens"]
+    out = {"load_share": [round(x / want, 5) for x in loads],
+           "max_over_mean": max(loads) / (want / cfg.n_experts),
+           "dropped": dropped, "dropped_share": dropped / want,
+           "aux_mean": aux / d.count, "z_mean": z / d.count}
+    log(f"[{what}] fold: {d.count} MoE layer calls, {int(sum(loads))} "
+        f"routed choices; load share per expert {out['load_share']}; "
+        f"max/mean {out['max_over_mean']:.3f}; dropped {int(dropped)} "
+        f"({100 * out['dropped_share']:.2f}% of choices); mean aux "
+        f"{out['aux_mean']:.4f}, z {out['z_mean']:.3f} a call")
+    return out
+
+
+def engine_fold(cfg, engine, what: str) -> dict:
+    """The serving engine's fold table against the tokens and calls the
+    engine counted (warm-up included)."""
+    return moe_fold(cfg, engine.model.fold_spec.fold(engine.table), what,
+                    engine.forward_tokens, engine.forward_calls)
+
+
+def moe_sync_free(torch, cfg, params):
+    """One MoE layer's forward and its five emits, at a prefill group's
+    rows and a decode tick's, under torch.cuda.set_sync_debug_mode
+    ("error"): any host sync raises."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import _layer
+
+    model = build_model(cfg, device="cuda")
+    lp = _layer(params["stack_moe"]["stack"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for B, S in ((8, 512), (8, 1)):
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            moe_lib.moe(lp, x, model.rt, model.table())   # cuBLAS set-up
+            table = model.table()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y, table, aux = moe_lib.moe(lp, x, model.rt, table)
+            except RuntimeError as e:
+                fail(f"moe layer [{B}, {S}]: a host sync in the forward: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        f = model.fold_spec.fold(table)
+        loads = sum(v for k, v in f.edges[DISPATCH].metrics.items()
+                    if k.startswith("expert_load"))
+        if loads != cfg.top_k * B * S or f.edges[DISPATCH].count != 1 \
+                or not torch.isfinite(y).all() or not math.isfinite(aux):
+            fail(f"moe layer [{B}, {S}]: loads {loads}, count "
+                 f"{f.edges[DISPATCH].count}, y or aux not finite")
+    log(f"[moe-serve] one MoE layer's forward and its five emits at [8, 512] "
+        f"and [8, 1] x {cfg.d_model} ran under set_sync_debug_mode('error') "
+        f"without a host sync")
+
+
+def moe_serve_phase(torch):
+    """Phase 11: phi3.5-moe served at its published widths and
+    MOE_SERVE_LAYERS layers: the sync-free check, contiguous, then paged
+    (257 pages), each with the fold's invariants, and a profiled window;
+    the same pair drop-free (capacity_factor MOE_DROP_FREE, at
+    MOE_DROP_FREE_LAYERS layers), whose 16 token streams must be equal;
+    then the logits check.  Returns (launch counts of the contiguous run,
+    of the paged run, the contiguous run's stats)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build_model
+    from repro_torch.serving import run_workload
+
+    t_phase = time.monotonic()
+    release(torch)
+    log(f"[moe-serve] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"at the start of phase 11")
+    cfg = moe_cfg(MOE_SERVE_LAYERS)
+    t0 = time.monotonic()
+    params = build_model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[moe-serve] {cfg.name} at {cfg.n_layers} of 32 layers (d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top {cfg.top_k} of d_ff "
+        f"{cfg.moe_d_ff}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim_}, capacity_factor {cfg.capacity_factor}): "
+        f"{n_params / 1e9:.3f}B params, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.1f}"
+        f" GB, initialised in {time.monotonic() - t0:.1f}s")
+    moe_sync_free(torch, cfg, params)
+    runs = {}
+
+    def serve(what, c, p, **paged):
+        torch.cuda.reset_peak_memory_stats()
+        engine, done, counts, stats, _ = serve_run(torch, what, cfg=c,
+                                                   params=p, **paged)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if engine.paged != bool(paged):
+            fail(f"{what}: engine.paged is {engine.paged}")
+        if engine.paged and engine.allocator.in_use != 0:
+            fail(f"{what}: {engine.allocator.in_use} pages in use at drain")
+        fold = engine_fold(c, engine, what)
+        if c.capacity_factor == MOE_DROP_FREE and fold["dropped"]:
+            fail(f"{what}: {fold['dropped']} choices dropped at capacity "
+                 f"factor {MOE_DROP_FREE}")
+        log(f"[{what}] {stats['throughput_tok_s']:.1f} tok/s, ttft p50 "
+            f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+            f"{stats['ttft_p95_s'] * 1e3:.1f} ms, decode "
+            f"{stats['decode_s_per_tok'] * 1e3:.2f} ms/token; peak memory "
+            f"{peak:.1f} GB; {engine.forward_calls} forward calls, "
+            f"{engine.forward_tokens} tokens through the model")
+        runs[what] = (streams(done), counts, dict(stats, peak_gb=peak,
+                                                  fold=fold))
+        del engine, done
+        release(torch)
+
+    paged = dict(page_size=PAGE, max_cache_pages=257)
+    serve("moe-serve", cfg, params)
+    serve("moe-paged", cfg, params, **paged)
+    # a profiled window over a short contiguous run: where it goes
+    with keep_dir("moe-profile-window") as prof:
+        _, engine, prompts = make_engine(torch, prof, cfg=cfg, params=params)
+        engine.warm_chunk_programs()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t0 = time.monotonic()
+            run_workload(engine, prompts[:8], 16, mode="closed")
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    breakdown(p, wall_us, "moe-profile", "8 requests x 16 tokens")
+    del engine, params, p
+    release(torch)
+    free = moe_cfg(MOE_DROP_FREE_LAYERS, capacity_factor=MOE_DROP_FREE)
+    params = build_model(free, device="cuda").init(0)
+    serve("moe-serve-drop-free", free, params)
+    serve("moe-paged-drop-free", free, params, **paged)
+    del params
+    release(torch)
+    same = sum(a == b for a, b in zip(runs["moe-serve"][0],
+                                      runs["moe-paged"][0]))
+    same_free = sum(a == b for a, b in zip(runs["moe-serve-drop-free"][0],
+                                           runs["moe-paged-drop-free"][0]))
+    log(f"[moe-paged] capacity_factor {cfg.capacity_factor}: {same} of 16 "
+        f"token streams equal the contiguous run (pad columns past a row's "
+        f"granted pages read scratch page 0 and are routed, so they may take "
+        f"other capacity than in the contiguous run); drop-free at "
+        f"{free.n_layers} layers: {same_free} of 16")
+    if same_free != 16:
+        fail(f"moe: drop-free, paged gives other tokens than contiguous "
+             f"({same_free} of 16 streams equal)")
+    moe_logits_check(torch)
+    log(f"[moe-serve] phase 11: {time.monotonic() - t_phase:.1f}s")
+    return runs["moe-serve"][1], runs["moe-paged"][1], runs["moe-serve"][2]
+
+
+def moe_logits_check(torch):
+    """Phase 11: phi3.5-moe at its widths and MOE_CHECK_LAYERS layers, one
+    512-token prefill chunk and one decode step with the kernels and with
+    the plain versions, in f32 (held to each other) and in bf16 (held
+    against the f32 plain model within HYBRID_BF16_RATIO of the plain bf16
+    model's distance: routing on rounded values makes a fixed bf16 bound
+    meaningless), and the share of top-k choices on which the kernel and
+    plain runs differ."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
+    cfg16 = moe_cfg(MOE_CHECK_LAYERS)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, T = 4, 512
+    tokens = torch.randint(0, cfg16.vocab, (B, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    nxt = torch.randint(0, cfg16.vocab, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    at = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    router = moe_lib._router
+
+    def run(cfg, impl, params):
+        """(prefill logits, decode logits, every call's top-k indices)."""
+        picks = []
+
+        def spy(w, x2, c):
+            out = router(w, x2, c)
+            picks.append(out[1].sort(dim=-1).values)
+            return out
+        m = build_model(cfg, impl=impl, device="cuda")
+        cache = m.init_cache(B, 2048)
+        moe_lib._router = spy
+        try:
+            lp, cache, _ = m.forward_chunk(params, tokens, m.table(), cache,
+                                           zero)
+            ld, _, _ = m.decode_step(params, nxt, m.table(), cache, at)
+        finally:
+            moe_lib._router = router
+        torch.cuda.synchronize()
+        return lp.float(), ld.float(), picks
+
+    def differ(a, b):
+        n = sum(x.numel() for x in a)
+        return sum((x != y).sum().item() for x, y in zip(a, b)) / n
+
+    p32 = build_model(cfg32, device="cuda").init(0)
+    k32 = run(cfg32, "kernel", p32)
+    r32 = run(cfg32, "ref", p32)
+    del p32
+    torch.cuda.empty_cache()
+    # the same seeded draws in bf16 (their roundings)
+    p16 = build_model(cfg16, device="cuda").init(0)
+    k16 = run(cfg16, "kernel", p16)
+    r16 = run(cfg16, "ref", p16)
+    del p16
+    torch.cuda.empty_cache()
+    log(f"[moe-logits] {cfg16.name} at {cfg16.n_layers} layers: top-k "
+        f"choices on which kernels and plain versions differ: f32 "
+        f"{100 * differ(k32[2], r32[2]):.4f}%, bf16 "
+        f"{100 * differ(k16[2], r16[2]):.4f}%; bf16 plain vs f32 plain "
+        f"{100 * differ(r16[2], r32[2]):.4f}% ({len(r32[2])} MoE calls of "
+        f"{B * T} and {B} tokens)")
+    check_precisions(torch, "moe-logits", (B, cfg16.vocab), k16, r16, k32,
+                     r32)
+
+
+def moe_model_flops_per_token(cfg, S: int) -> float:
+    """Training FLOPs per token of the MoE decoder at sequence length S:
+    3x the forward's (forward + backward; no recompute counted), the
+    forward being what its static-cost edges register: the active
+    parameters only (per MoE layer the top_k routed experts' SwiGLU, 6 d
+    moe_d_ff each, and any shared experts; the dense layers' MLP), the
+    attention projections and causal attention (4 head_dim S/2 a head),
+    and the lm head.  The router's d x E product registers no cost, as
+    in the reference."""
+    d, h = cfg.d_model, cfg.head_dim_
+    attn = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+        + 2 * cfg.n_heads * h * d + 4 * cfg.n_heads * h * S / 2
+    moe = 6 * d * cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts)
+    dense = 2 * (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+    return 3.0 * (cfg.n_layers * attn + moe_layers(cfg) * moe
+                  + cfg.first_dense_layers * dense + 2 * d * cfg.vocab)
+
+
+def moe_train_phase(torch):
+    """Phase 12: phi3.5-moe trained at its widths and MOE_TRAIN_LAYERS
+    layers, batch 4 x 2048, through the port's Trainer and its XFA
+    session; the profile shard's device group; MFU by the active-parameter
+    FLOPs (checked against the static-cost layer); a profiled step.
+    Returns (launch counts of the run, its stats)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tracer as xfa
+    from repro_torch.core.device_fold import STATIC_COSTS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.profile import load_profile
+    from repro_torch.runtime.trainer import Trainer
+
+    t_phase = time.monotonic()
+    release(torch)
+    log(f"[moe-train] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"at the start of phase 12")
+    xfa.reset()          # the shard phase 9 reads: this run's folds only
+    cfg = moe_cfg(MOE_TRAIN_LAYERS)
+    model = build_model(cfg, impl="auto", device="cuda")
+    B, S = MOE_TRAIN_SHAPE
+    steps = MOE_TRAIN_STEPS
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, ckpt_interval=0)
+    with keep_dir("moe-train") as d:
+        trainer = Trainer(model, tcfg, CheckpointManager(
+            os.path.join(d, "ckpt")), profile_dir=os.path.join(d, "prof"))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        state, _ = trainer.run(0, SyntheticLMData(cfg, B, S), steps,
+                               resume=False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = trainer.history
+        if len(hist) != steps:
+            fail(f"moe-train: {len(hist)} of {steps} steps recorded")
+        for h in hist:
+            if not all(math.isfinite(h[k]) for k in ("loss", "aux_loss",
+                                                     "grad_norm")):
+                fail(f"moe-train: step {h['step']} loss {h['loss']} aux "
+                     f"{h['aux_loss']} grad norm {h['grad_norm']} not finite")
+        for name in TRAIN_KERNELS + ("rmsnorm",):
+            if counts[name] <= 0:
+                fail(f"moe-train: kernel {name} was not launched: {counts}")
+        folded = load_profile(os.path.join(d, "prof")).to_folded()
+        if [e.count for k, e in folded.edges.items()
+                if k[1:] == ("runtime", "dispatch_step")] != [steps]:
+            fail("moe-train: profile shard lacks dispatch_step x "
+                 f"{steps}")
+        step_edge = folded.edges.get(("app", "loss", "train_step"))
+        if step_edge is None or step_edge.count != steps:
+            fail(f"moe-train: the shard's device group holds train_step "
+                 f"{step_edge and step_edge.count}, not {steps}")
+        fold = moe_fold(cfg, folded, "moe-train", B * S * steps,
+                        steps)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+    flops = moe_model_flops_per_token(cfg, S) * B * S
+    stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
+             "mfu": flops / step_s / PEAK_OPS_S["bfloat16"],
+             "peak_gb": peak_gb, "fold": fold}
+    log(f"[moe-train] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.3f}"
+        f"B params, {cfg.param_dtype}, remat {cfg.remat}), batch {B} x {S}: "
+        f"losses {[round(h['loss'], 4) for h in hist]}, aux "
+        f"{[round(h['aux_loss'], 6) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}")
+    log(f"[moe-train] step times (s) {[round(h['step_s'], 4) for h in hist]}"
+        f"; median after the first {stats['step_ms']:.1f} ms = "
+        f"{stats['tok_s']:.0f} tokens/s; model FLOPs (active parameters) "
+        f"{flops / 1e12:.2f} TFLOP/step -> MFU {100 * stats['mfu']:.2f}% of "
+        f"989 TFLOP/s; peak memory {peak_gb:.1f} GB; run wall {wall:.1f}s "
+        f"incl. init; launches {json.dumps(counts)}")
+    # the active-parameter FLOPs against the static-cost layer: one loss_fn
+    batch = SyntheticLMData(cfg, 1, 1024, seed=1).generate(0)
+    STATIC_COSTS.reset()
+    with torch.no_grad():
+        model.loss_fn(state["params"], batch, model.table())
+    registered = sum(v.get("flops", 0.0) for k, v in
+                     STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
+    want = moe_model_flops_per_token(cfg, 1024) / 3 * 1024
+    log(f"[moe-train] forward FLOPs of one loss_fn at 1 x 1024: static-cost "
+        f"layer {registered:.6e} (without the norms), "
+        f"moe_model_flops_per_token / 3 {want:.6e}")
+    if abs(registered - want) > 1e-6 * want:
+        fail(f"moe-train: moe_model_flops_per_token disagrees with the "
+             f"static-cost layer ({want:.6e} against {registered:.6e})")
+    state, shares = profiled_step(
+        torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
+            steps), "moe-train-profile", {"flash": FLASH_KERNEL_NAMES})
+    stats.update(busy=shares["busy"], flash_share=shares["flash"])
+    del state, trainer, model
+    release(torch)
+    log(f"[moe-train] phase 12: {time.monotonic() - t_phase:.1f}s")
+    return counts, stats
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("zamba2 serve", "hybrid-serve"),
-             ("zamba2 train", "hybrid-train/prof"))
+             ("zamba2 train", "hybrid-train/prof"),
+             ("phi3.5-moe serve", "moe-serve"),
+             ("phi3.5-moe train", "moe-train/prof"))
 FLEET_TRAIN_STEPS = 2
 
 
@@ -2343,8 +2956,28 @@ def diagnose_phase(torch):
     t0 = time.monotonic()
     for what, rel in DIAGNOSED:
         d = RUN_ROOT / rel
-        log_diagnosis(what, profile_cli("diagnose", d),
-                      profile_cli("report", d))
+        report = profile_cli("report", d)
+        log_diagnosis(what, profile_cli("diagnose", d), report)
+        if rel == "moe-train/prof":
+            # the device group, as the CLI reads it back from the shard
+            edges = {(e["caller"], e["component"], e["api"]): e
+                     for e in report["edges"]}
+            step, disp = edges.get(("app", "loss", "train_step")), \
+                edges.get(DISPATCH)
+            B, S = MOE_TRAIN_SHAPE
+            cfg = moe_cfg(MOE_TRAIN_LAYERS)
+            want = cfg.top_k * B * S * moe_layers(cfg) * MOE_TRAIN_STEPS
+            loads = sum(v for k, v in (disp or {}).get("metrics", {}).items()
+                        if k.startswith("expert_load"))
+            if step is None or step["count"] != MOE_TRAIN_STEPS \
+                    or loads != want:
+                fail(f"diagnose: `report` of the phi3.5-moe train shard "
+                     f"shows train_step {step and step['count']} and loads "
+                     f"{loads} (want {MOE_TRAIN_STEPS} and {want})")
+            log(f"[diagnose] phi3.5-moe train: report shows the device "
+                f"group: train_step x{step['count']}, dispatch "
+                f"x{disp['count']} with loads summing to {int(loads)}, "
+                f"router {edges[ROUTER]['metrics']}")
     # closed-loop serving writes its ring once, at drain: one snapshot
     tls = profile_cli("timeline", RUN_ROOT / "serve", "--min-snapshots", 1)
     for tl in tls:
@@ -2379,6 +3012,33 @@ def breakdown(p, wall_us: float, tag: str, what: str):
         log(f"[{tag}] host {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:70]}")
     return rows, busy
+
+
+def profiled_step(torch, model, tcfg, state, batch, tag: str, kernels):
+    """One more step of a train run under torch.profiler: where it goes.
+    `kernels` maps a name to device symbols whose share of the device
+    time is logged.  Returns (the new state, {"busy": device busy share
+    of the wall, name: share of the device time})."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.trainer import make_train_step
+
+    step_fn = make_train_step(model, tcfg)
+    B, S = batch["tokens"].shape
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.monotonic()
+        state, _, _ = step_fn(state, batch, model.table())
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    rows, busy = breakdown(p, wall_us, tag, f"one step, batch {B} x {S}")
+    shares = {"busy": busy / wall_us}
+    for what, names in kernels.items():
+        us = sum(_dev_us(e) for e in rows if any(n in e.key for n in names))
+        shares[what] = us / busy
+        log(f"[{tag}] {what} kernels {us / 1e3:.2f} ms, "
+            f"{100 * us / busy:.1f}% of device time")
+    return state, shares
 
 
 def _dev_us(e) -> float:

@@ -5,7 +5,8 @@
   folding.py              Relation-Aware Data Folding algebra
   histogram.py            bounded log-bucket latency histograms
   sampler.py              adaptive 1-in-k timing governor
-  device_fold.py          static per-call costs (annotate_cost)
+  device_fold.py          the device fold table (DeviceFoldSpec) and
+                          static per-call costs (annotate_cost)
   views.py, attribution.py, session.py
                           component / API views, serial-parallel
                           attribution, and XFASession (report, shards)
@@ -20,4 +21,5 @@ from .folding import EdgeStats, FoldedTable, fold_event_log
 from .tracer import (TRACER, Tracer, api, count_event, current_component,
                      reset, scope, set_enabled, set_thread_group, set_timing,
                      wait, wrap)
-from .device_fold import STATIC_COSTS, annotate_cost, scan_multiplier
+from .device_fold import (STATIC_COSTS, DeviceFoldSpec, annotate_cost,
+                          scan_multiplier)

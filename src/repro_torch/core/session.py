@@ -1,10 +1,11 @@
 """XFASession — wire the XFA layers around a training/serving step.
 
-The port's copy of `repro/core/session.py`.  Two layers of the reference
-are not ported yet: the in-graph device fold (`DeviceFoldSpec`; the
-port's models carry `table = None`, and `finish_device(None)` folds
-nothing) and the compiled-HLO collective flows (`attach_hlo` raises
-NotImplementedError; ROADMAP.md).
+The port's copy of `repro/core/session.py`.  The device layer is the
+port's `DeviceFoldSpec`: the model's fold table is a torch tensor on its
+device, fetched and folded once by `finish_device`, and the fold merges
+into `report()` and into the shards the run writes, as in the
+reference.  One layer is not ported yet: the compiled-HLO collective
+flows (`attach_hlo` raises NotImplementedError; ROADMAP.md).
 
 The session is the user-facing object (the paper's 'Scaler runtime' +
 'offline visualizer' pair):
@@ -30,7 +31,7 @@ import numpy as np
 from . import tracer as xfa
 from .attribution import (attribute_parallel, attribute_serial,
                           combine_phases, imbalance_report, wait_split)
-from .device_fold import STATIC_COSTS
+from .device_fold import STATIC_COSTS, DeviceFoldSpec
 from .folding import FoldedTable
 from .views import (View, api_view, api_view_by_caller, component_view,
                     flow_matrix, metric_view, render_flow_matrix)
@@ -90,7 +91,7 @@ class XFASession:
         report = sess.report()
     """
 
-    def __init__(self, device_spec: Any = None,
+    def __init__(self, device_spec: Optional[DeviceFoldSpec] = None,
                  dp_degree: int = 1, tracer=None) -> None:
         self.device_spec = device_spec
         self.dp_degree = dp_degree
@@ -102,14 +103,15 @@ class XFASession:
         self._static_snapshot: Optional[FoldedTable] = None
 
     # -- device table ------------------------------------------------------
-    def init_device_table(self):
+    def init_device_table(self, device=None):
         if self.device_spec is None:
             raise RuntimeError("no DeviceFoldSpec attached")
-        return self.device_spec.init_table()
+        return self.device_spec.init_table(device)
 
     def finish_device(self, table) -> None:
-        if table is None:          # no device fold table (not ported)
-            return
+        """Fetch the fold table (one copy to the host) and fold it."""
+        if hasattr(table, "detach"):           # a torch tensor
+            table = table.detach().cpu().numpy()
         arr = np.asarray(table, dtype=np.float64)
         self._device_fold = self.device_spec.fold(arr, group="device")
 

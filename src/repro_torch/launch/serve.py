@@ -22,6 +22,8 @@ the reference does.
         --requests 16 --max-batch 8 --max-seq 2048 \
         --max-cache-pages 257 --page-size 64
 
+--layers N keeps the published widths and cuts the depth, for a model
+whose weights do not fit the card (phi3_5_moe_42b: --layers 24).
 --device defaults to cuda; without CUDA the launcher raises rather than
 fall back (pass --device cpu to run the plain versions on the CPU).
 --xfa-collector HOST:PORT (with --profile-dir) streams the profile
@@ -32,6 +34,7 @@ collect`, or the reference's); failures degrade to the local ring.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -81,6 +84,9 @@ def main() -> int:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ckpt", default="",
                     help="reference checkpoint dir (repro.ckpt layout)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, widths as "
+                         "published (0: the config's own depth)")
     ap.add_argument("--seed", type=int, default=0,
                     help="random-weight seed when no --ckpt is given")
     # -- workload ------------------------------------------------------------
@@ -146,6 +152,8 @@ def main() -> int:
         from ..profile import set_host_label
         set_host_label(args.xfa_host_label)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, impl="auto", device=args.device)
     params = load_params(model, args.ckpt) if args.ckpt \
         else model.init(args.seed)
@@ -179,6 +187,10 @@ def main() -> int:
     done = run_workload(engine, prompts, args.max_new, mode=args.mode,
                         rate=args.rate, rng=rng)
     print(summarize(done, time.monotonic() - t0))
+    for key, e in model.fold_spec.fold(engine.table).edges.items():
+        if key[1] != "loss":       # the train_step count: training only
+            print(f"device fold {'/'.join(key)}: "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in e.metrics.items()))
     return 0
 
 

@@ -11,6 +11,10 @@ On the CPU, with the plain versions of the kernels and the smoke config:
 --device defaults to cuda; without CUDA the launcher raises rather than
 fall back.  The port's CLI reads the run's profile shards
 (`python -m repro_torch.profile report DIR`), and so does the reference's;
+the final shard carries the device fold (the `device` group: the
+train_step count and, for an MoE model, each expert's load, the dropped
+tokens and the router losses).  --layers N keeps the published widths
+and cuts the depth (a model whose training state does not fit the card).
 --xfa-collector HOST:PORT (with --profile-dir) streams them to a fleet
 collector.  Not ported yet: --mesh (one device only) raises
 NotImplementedError.
@@ -19,10 +23,12 @@ NotImplementedError.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from ..ckpt.manager import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..configs.base import TrainConfig
+from ..core.session import XFASession
 from ..data.pipeline import SyntheticLMData
 from ..models import build_model
 from ..runtime.trainer import Trainer
@@ -36,6 +42,9 @@ def main() -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random initial weights")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, widths as "
+                         "published (0: the config's own depth)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -82,6 +91,8 @@ def main() -> int:
         from ..profile import set_host_label
         set_host_label(args.xfa_host_label)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, impl="auto", device=args.device)
     tcfg = TrainConfig(total_steps=args.steps, learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
@@ -92,6 +103,7 @@ def main() -> int:
     from ..profile import RetentionPolicy
     trainer = Trainer(model, tcfg,
                       CheckpointManager(args.ckpt_dir, async_save=True),
+                      session=XFASession(device_spec=model.fold_spec),
                       profile_dir=args.profile_dir or None,
                       profile_interval=args.profile_interval,
                       profile_retention=RetentionPolicy(

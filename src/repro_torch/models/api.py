@@ -29,11 +29,15 @@
         (ServeConfig.max_cache_pages > 0) runs through these.  None for
         the hybrid family, as in the reference: its recurrent state is
         O(1) in sequence length, and the engine keeps the dense layout.
-    model.table()                               -> None (device fold not
-                                                   ported yet)
+    model.table()                               -> the zeroed device fold
+                                                   table on model.device
+    model.fold_spec                             -> the frozen
+                                                   DeviceFoldSpec whose
+                                                   slots the family emits
 
-Ported families: "dense" and "hybrid", serving and training.  The other
-families raise NotImplementedError.
+Ported families: "dense", "moe" (without multi-head latent attention)
+and "hybrid", serving and training.  The other families, and an MoE
+config with mla=True, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..core.device_fold import DeviceFoldSpec
 from ..kernels.ops import IMPLS
 from . import mamba, transformer
 from .layers import Runtime
@@ -53,6 +58,7 @@ from .layers import Runtime
 class Model:
     cfg: ModelConfig
     rt: Runtime
+    fold_spec: DeviceFoldSpec
     init: Callable
     loss_fn: Callable
     init_cache: Callable
@@ -67,8 +73,8 @@ class Model:
     def device(self) -> torch.device:
         return self.rt.device
 
-    def table(self):
-        return None
+    def table(self) -> torch.Tensor:
+        return self.fold_spec.init_table(self.device)
 
     def batch_spec(self, shape: ShapeConfig
                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -92,19 +98,31 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def _fold_spec(cfg: ModelConfig, declare) -> DeviceFoldSpec:
+    spec = DeviceFoldSpec()
+    declare(spec, cfg)
+    return spec.freeze()
+
+
 def build_model(cfg: ModelConfig, impl: str = "auto",
                 device: Optional[Union[str, torch.device]] = None) -> Model:
     """impl: 'auto' (kernels on CUDA, plain versions on the CPU),
     'kernel' or 'ref'; device: None means cuda."""
     cfg = cfg.validate()
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense and "
-            f"hybrid only; see ROADMAP.md)")
+            f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
+            f"moe and hybrid only; see ROADMAP.md)")
+    if cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention (mla) is not ported "
+            f"to PyTorch yet (see ROADMAP.md)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    rt = Runtime(cfg=cfg, device=resolve_device(device), impl=impl)
-    mod = transformer if cfg.family == "dense" else mamba
+    mod = mamba if cfg.family == "hybrid" else transformer
+    spec = _fold_spec(cfg, mod.declare_fold_slots)
+    rt = Runtime(cfg=cfg, device=resolve_device(device), impl=impl,
+                 fold_spec=spec)
 
     def init(seed: int = 0):
         return mod.init_params(cfg, seed, rt.device)
@@ -147,6 +165,6 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
                  "forward_chunk_paged": forward_chunk_paged,
                  "decode_step_paged": decode_step_paged}
 
-    return Model(cfg=cfg, rt=rt, init=init, loss_fn=loss_fn,
+    return Model(cfg=cfg, rt=rt, fold_spec=spec, init=init, loss_fn=loss_fn,
                  init_cache=init_cache, forward_chunk=forward_chunk,
                  prefill=prefill, decode_step=decode_step, **paged)

@@ -42,6 +42,7 @@ class Runtime:
     cfg: ModelConfig
     device: torch.device
     impl: str = "auto"            # kernel impl: auto | kernel | ref
+    fold_spec: Any = None         # DeviceFoldSpec or None
 
     @property
     def cdtype(self) -> torch.dtype:

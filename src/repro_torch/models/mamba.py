@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..core.device_fold import annotate_cost
+from ..core.device_fold import DeviceFoldSpec, annotate_cost
 from ..kernels import ops
 from .layers import (Params, Runtime, attention, embed, last_valid, linear,
                      lm_head, mlp, norm, torch_dtype)
@@ -339,3 +339,7 @@ def decode_step(p: Params, token: torch.Tensor, rt: Runtime, table,
     """Pooled decode = forward_chunk at width T = 1.  token: [B]."""
     token = torch.as_tensor(token, device=rt.device)
     return forward_chunk(p, token[:, None], rt, table, cache, pos)
+
+
+def declare_fold_slots(spec: DeviceFoldSpec, cfg: ModelConfig) -> None:
+    spec.declare("app", "loss", "train_step", "count")

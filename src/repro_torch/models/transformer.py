@@ -1,13 +1,18 @@
-"""Decoder-only dense transformer LM: params, training loss, cache and
-forward_chunk.
+"""Decoder-only transformer LM (dense and MoE): params, training loss,
+cache and forward_chunk.
 
 The PyTorch counterpart of `repro/models/transformer.py` for
-family="dense".  Layer params are stacked [L, ...] under
-p["stack"]["stack"], as the reference's scan-over-layers lays them out,
-and the KV cache is stacked [L, B, Hkv, S, h].  Where the reference scans
-one traced layer body (and scales its static costs by L), the port runs
-an explicit loop over the L layers: each layer registers its own costs,
-so the loop is NOT wrapped in scan_multiplier.
+family="dense" and family="moe" (without MLA).  Layer params are stacked
+[L, ...] under p["stack"]["stack"], as the reference's scan-over-layers
+lays them out; an MoE model has one stack per layer kind,
+p["stack_dense"]["stack"] (its first_dense_layers) and
+p["stack_moe"]["stack"], whose layers run the MoE layer of `moe.py` in
+place of the MLP.  The KV cache is stacked [L, B, Hkv, S, h] over all
+layers.  Where the reference scans one traced layer body (and scales its
+static costs by L), the port runs an explicit loop over the layers: each
+layer registers its own costs, so the loop is NOT wrapped in
+scan_multiplier.  The device fold table goes through every layer, as
+the reference's scan carry takes it: the MoE layers emit into it.
 
 Training (`forward`, `loss_fn`) runs the same layers without a cache and
 is differentiated by torch autograd.  `cfg.remat` is honoured per layer
@@ -26,13 +31,15 @@ block tables.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
-from ..core.device_fold import scan_multiplier
+from ..core.device_fold import DeviceFoldSpec, scan_multiplier
+from . import moe as moe_lib
 from .layers import (Params, Runtime, attention, cross_entropy, embed,
                      init_kv_cache, last_valid, lm_head, mlp, norm,
                      torch_dtype)
@@ -45,16 +52,23 @@ ZEROS = ("fill", 0.0)
 F32 = "float32"
 
 
-def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested dict mirroring the params: each leaf is (shape, scale), with
-    scale the normal's std (fan_in ** -0.5 by default, 1.0 for the
-    embedding — the reference's layers._init) or ONES for norm scales; a
-    third entry F32 keeps the leaf in f32 (`leaf_dtype`).  Stacked layer
-    leaves carry the leading L."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"yet (dense only)")
-    d, h, L, f = cfg.d_model, cfg.head_dim_, cfg.n_layers, cfg.d_ff
+def _layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
+    """Layer stacks in order: ((kind, count), ...).  An MoE model runs its
+    first_dense_layers dense layers, then the MoE layers."""
+    if cfg.moe:
+        k = cfg.first_dense_layers
+        return ((("dense", k),) if k else ()) + (("moe", cfg.n_layers - k),)
+    return (("dense", cfg.n_layers),)
+
+
+def _stack_name(cfg: ModelConfig, kind: str) -> str:
+    return f"stack_{kind}" if cfg.moe else "stack"
+
+
+def _layer_specs(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
+    """Spec leaves of a stack of L layers of `kind` ("dense": attention +
+    MLP; "moe": attention + the MoE layer)."""
+    d, h, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
 
     def w(fan_in, *shape):
         return (shape, fan_in ** -0.5)
@@ -66,18 +80,43 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.qk_norm:
         attn["q_norm"] = ((L, h), ONES)
         attn["k_norm"] = ((L, h), ONES)
-    mlp_p = {"w_up": w(d, L, d, f), "w_down": w(f, L, f, d)}
-    if cfg.mlp_gated:
-        mlp_p["w_gate"] = w(d, L, d, f)
+    layer: Dict[str, Any] = {"norm1": {"scale": ((L, d), ONES)},
+                             "norm2": {"scale": ((L, d), ONES)},
+                             "attn": attn}
+    if kind == "moe":
+        layer.update(moe_lib.param_specs(cfg, L))
+    else:
+        layer["mlp"] = {"w_up": w(d, L, d, f), "w_down": w(f, L, f, d)}
+        if cfg.mlp_gated:
+            layer["mlp"]["w_gate"] = w(d, L, d, f)
+    return layer
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Nested dict mirroring the params: each leaf is (shape, scale), with
+    scale the normal's std (fan_in ** -0.5 by default, 1.0 for the
+    embedding — the reference's layers._init) or ONES for norm scales; a
+    third entry F32 keeps the leaf in f32 (`leaf_dtype`).  Stacked layer
+    leaves carry the leading L: p["stack"]["stack"] for the dense family,
+    p["stack_dense"]["stack"] (first_dense_layers) and
+    p["stack_moe"]["stack"] for the MoE family, as the reference names
+    them."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported "
+                                  f"yet (dense and moe only)")
+    if cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: multi-head latent "
+                                  f"attention (mla) is not ported yet")
+    d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"table": ((cfg.vocab, d), 1.0)},
         "final_norm": {"scale": ((d,), ONES)},
-        "stack": {"stack": {"norm1": {"scale": ((L, d), ONES)},
-                            "norm2": {"scale": ((L, d), ONES)},
-                            "attn": attn, "mlp": mlp_p}},
     }
+    for kind, count in _layer_kinds(cfg):
+        specs[_stack_name(cfg, kind)] = {
+            "stack": _layer_specs(cfg, kind, count)}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = {"w": w(d, d, cfg.vocab)}
+        specs["lm_head"] = {"w": ((d, cfg.vocab), d ** -0.5)}
     return specs
 
 
@@ -96,20 +135,35 @@ def leaf_dtype(spec, cfg: ModelConfig) -> torch.dtype:
         else torch_dtype(cfg.param_dtype)
 
 
+#: a normal draw larger than this in f32 is drawn slice by slice along
+#: the leaf's leading (layer) dim: phi3.5-moe's stacked expert weights
+#: at 24 layers are 40 GB in f32, which do not fit beside the model
+SLICED_DRAW_BYTES = 8 << 30
+
+
 def init_from_specs(specs, cfg: ModelConfig, seed: int,
                     device: torch.device) -> Params:
     """Seeded random params with the reference's distributions: normal
     draws in f32 times the leaf's scale, or the leaf's constant fill, in
-    the leaf's dtype."""
+    the leaf's dtype.  Which leaves are drawn by slices follows their
+    shapes alone, so a model's draws in f32 and in bf16 are the same."""
     gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device) * scale
 
     def leaf(_, spec):
         shape, scale = spec[:2]
         dtype = leaf_dtype(spec, cfg)
         if isinstance(scale, tuple):
             return torch.full(shape, scale[1], dtype=dtype, device=device)
-        return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=device) * scale).to(dtype)
+        if 4 * math.prod(shape) <= SLICED_DRAW_BYTES:
+            return draw(shape, scale).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in out:
+            part.copy_(draw(part.shape, scale))
+        return out
     return map_specs(leaf, specs)
 
 
@@ -134,17 +188,23 @@ def _unstack(stack: Params, n: int) -> List[Params]:
 
 
 def decoder_layer(p: Params, x: torch.Tensor, rt: Runtime,
-                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  positions: torch.Tensor, kind: str = "dense", table=None,
+                  cache: Optional[Params] = None,
                   pos: Optional[torch.Tensor] = None,
-                  block_table: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  block_table: Optional[torch.Tensor] = None):
     """Pre-norm block; with a cache, writes this layer's cache rows in
-    place."""
+    place.  Returns (x, table, aux): an MoE layer emits into the fold
+    table and returns its router loss, a dense layer returns the table
+    as given and aux None."""
     h = norm(p["norm1"], x, rt)
     a, _ = attention(p, h, rt, positions, cache, pos, block_table)
     x = x + a
     h = norm(p["norm2"], x, rt)
-    return x + mlp(p, h, rt)
+    if kind == "moe":
+        y, table, aux = moe_lib.moe(p, h, rt, table)
+    else:
+        y, aux = mlp(p, h, rt), None
+    return x + y, table, aux
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -163,7 +223,8 @@ def _remat(fn, cfg: ModelConfig):
     """fn wrapped per cfg.remat.  The static costs register once, on the
     first run of the layer: the recompute in the backward runs under a
     zero multiplier, so one loss_fn call counts one forward, as one trace
-    does in the reference."""
+    does in the reference.  A fold table passed in and returned by fn
+    counts once too: the recompute's outputs are thrown away."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots_saveable"):
@@ -186,18 +247,32 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
+def _stacks(p: Params, cfg: ModelConfig):
+    """(kind, count, stacked params) of each layer stack, in order."""
+    for kind, count in _layer_kinds(cfg):
+        yield kind, count, p[_stack_name(cfg, kind)]["stack"]
+
+
 def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
     """tokens: [B, S] -> (hidden [B, S, d] after the final norm, table,
-    aux_total = 0 for the dense family).  Causal attention over the S
-    positions, no cache; each layer rematerialized per cfg.remat."""
+    aux_total: the MoE layers' router losses summed, 0 for the dense
+    family).  Causal attention over the S positions, no cache; each layer
+    rematerialized per cfg.remat.  The fold table goes in and out of each
+    layer's checkpointed body, so the recompute in the backward emits
+    into a table nobody keeps."""
     cfg = rt.cfg
     x = embed(p, torch.as_tensor(tokens, device=rt.device), rt)
     positions = torch.arange(x.shape[1], device=rt.device)
-    body = _remat(lambda lp, h: decoder_layer(lp, h, rt, positions), cfg)
-    for layer_p in _unstack(p["stack"]["stack"], cfg.n_layers):
-        x = body(layer_p, x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=rt.device)
+    for kind, count, stack in _stacks(p, cfg):
+        body = _remat(lambda lp, h, t, kind=kind: decoder_layer(
+            lp, h, rt, positions, kind, t), cfg)
+        for layer_p in _unstack(stack, count):
+            x, table, aux = body(layer_p, x, table)
+            if aux is not None:
+                aux_total = aux_total + aux
     x = norm(p["final_norm"], x, rt)
-    return x, table, torch.zeros((), dtype=torch.float32, device=rt.device)
+    return x, table, aux_total
 
 
 def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
@@ -243,7 +318,8 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
     bucket-padded chunks mask the pad).  The cache is updated in place.
     block_table: [B, NB] page ids when `cache` is a page arena (one int32
     copy to the device per call).  `table` is the device fold table,
-    passed through unchanged (the in-graph fold is not ported yet).
+    carried layer by layer: each MoE layer emits into it (None folds
+    nothing).
     Returns (last-valid-token logits [B, V], cache, table)."""
     dev = rt.device
     tokens = torch.as_tensor(tokens, device=dev)
@@ -257,11 +333,13 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
     if block_table is not None:
         block_table = torch.as_tensor(block_table, dtype=torch.int32,
                                       device=dev).contiguous()
-    stack = p["stack"]["stack"]
-    for i in range(rt.cfg.n_layers):
-        x = decoder_layer(_layer(stack, i), x, rt, positions,
-                          {"k": cache["k"][i], "v": cache["v"][i]}, pos,
-                          block_table)
+    i = 0                       # layer index into the stacked [L] cache
+    for kind, count, stack in _stacks(p, rt.cfg):
+        for j in range(count):
+            x, table, _ = decoder_layer(
+                _layer(stack, j), x, rt, positions, kind, table,
+                {"k": cache["k"][i], "v": cache["v"][i]}, pos, block_table)
+            i += 1
     x = norm(p["final_norm"], x, rt)
     logits = lm_head(p, last_valid(x, valid), rt)[:, 0]
     return logits, cache, table
@@ -309,3 +387,9 @@ def decode_step_paged(p: Params, token: torch.Tensor, rt: Runtime, table,
     token = torch.as_tensor(token, device=rt.device)
     return forward_chunk_paged(p, token[:, None], rt, table, cache, pos,
                                block_table)
+
+
+def declare_fold_slots(spec: DeviceFoldSpec, cfg: ModelConfig) -> None:
+    if cfg.moe:
+        moe_lib.declare_moe_slots(spec, cfg)
+    spec.declare("app", "loss", "train_step", "count")

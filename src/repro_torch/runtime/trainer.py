@@ -5,10 +5,14 @@ The port of `repro/runtime/trainer.py`.  `make_train_step` builds
   (train_state, batch, table) -> (train_state, metrics, table)
 
 with gradient microbatching (accumulation in f32), torch autograd for the
-gradients and the port's AdamW; `Trainer.run` is the loop: prefetching
-data, the `runtime/dispatch_step` and `runtime/device_sync` scopes,
-periodic (async) checkpoints, resume from the latest one, and XFA profile
-shards through the port's ProfileStore and run manifest.
+gradients, the port's AdamW and the XFA device fold table threaded
+through (the model's layers emit into it; the step adds one
+("app", "loss", "train_step") count); `Trainer.run` is the loop:
+prefetching data, the `runtime/dispatch_step` and `runtime/device_sync`
+scopes, periodic (async) checkpoints, resume from the latest one, and XFA
+profile shards through the port's ProfileStore and run manifest.  The
+table is fetched and folded once, at the end of the run, so the final
+shard carries the `device` group, as in the reference.
 
 PyTorch runs eagerly: there is no compile step, and a step is dispatched
 op by op.  `deferred_grad_reduce` changes only where the reference's
@@ -16,8 +20,7 @@ gradient all-reduce happens across devices; on one device it is the same
 arithmetic as the per-microbatch accumulation, which both settings run.
 With `profile_dir` and `xfa_collector` set, every shard refresh also
 streams the ring's unacked entries to a fleet collector.
-Not ported: int8 gradient compression raises NotImplementedError; the
-device fold table is None (`Model.table()`).
+Not ported: int8 gradient compression raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def value_and_grad(model: Model, params, batch, table):
 def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     """The step.  Microbatching splits the batch on axis 0 into
     tcfg.microbatches parts and accumulates their gradients in f32, each
-    divided by the count, as the reference does."""
+    divided by the count, as the reference does; the fold table runs
+    through every microbatch.  A `table` of None folds nothing."""
     _no_compression(tcfg)
 
     def step(state, batch, table):
@@ -91,6 +95,9 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         params, opt, opt_metrics = adamw.apply_updates(params, state["opt"],
                                                        grads, tcfg)
         metrics.update(opt_metrics)
+        if table is not None:
+            table = model.fold_spec.emit(table, "app", "loss", "train_step",
+                                         "count", 1.0)
         return dict(state, params=params, opt=opt), metrics, table
 
     return step
@@ -124,7 +131,7 @@ class Trainer:
 
     def __post_init__(self):
         if self.session is None:
-            self.session = XFASession()
+            self.session = XFASession(device_spec=self.model.fold_spec)
         if self.tcfg.xfa_overhead_budget > 0:
             xfa.TRACER.set_overhead_budget(self.tcfg.xfa_overhead_budget)
         self._profile_store = None

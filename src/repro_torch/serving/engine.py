@@ -70,7 +70,12 @@ via tracer.record_duration; queue_depth is a gauge; truncated_prompt,
 clamped_max_new, deadline_met/deadline_miss and engine_error are count
 events.  Shards land in the profile store as the reference's do, so the
 port's CLI (`python -m repro_torch.profile`) and the reference's
-(`python -m repro.profile`) both read them.
+(`python -m repro.profile`) both read them.  The device fold table
+(`engine.table`, from `Model.table()`) stays on the device and is
+carried through every forward call, warm-up, prefill groups and decode
+ticks, contiguous and paged: an MoE model folds each expert's load,
+the dropped tokens and the router losses into it
+(`model.fold_spec.fold(engine.table)` reads it).
 """
 
 from __future__ import annotations
@@ -175,6 +180,11 @@ class ServingEngine:
         self.scheduler = Scheduler(scfg)
         self.sampler = PooledSampler(scfg.max_batch)
         self.table = model.table()
+        #: forward_chunk calls and the tokens they ran (rows x width, pad
+        #: rows and columns included: every one is routed) since the
+        #: engine was built, warm-up included
+        self.forward_calls = 0
+        self.forward_tokens = 0
         # paged pool: a page arena + per-slot block tables in place of the
         # contiguous [max_batch, max_seq_len] cache, admission gated by
         # free pages.  A family without paged entry points (the hybrid:
@@ -251,6 +261,10 @@ class ServingEngine:
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _forwarded(self, rows: int, width: int) -> None:
+        self.forward_calls += 1
+        self.forward_tokens += rows * width
 
     # -- client API ---------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -398,7 +412,9 @@ class ServingEngine:
         """Run every (batch bucket, width) prefill shape once on scratch
         caches, so a timed window measures serving, not the kernels'
         first-use build or the allocator's growth.  Warm shapes do NOT
-        count toward chunk_programs."""
+        count toward chunk_programs; they run through the fold table, as
+        in the reference, and count in forward_calls and
+        forward_tokens."""
         scfg = self.scfg
         # paged: a scratch arena of the same size; the all-zero block
         # tables route every write to its scratch page
@@ -412,12 +428,14 @@ class ServingEngine:
                 if self.paged:
                     bt = self._to_device(
                         np.zeros((b, self._n_blocks), np.int32))
-                    self._chunk(self.params, tokens, self.table, arena, pos,
-                                bt, valid)
+                    _, _, self.table = self._chunk(
+                        self.params, tokens, self.table, arena, pos, bt,
+                        valid)
                 else:
                     cache = self.model.init_cache(b, scfg.max_seq_len)
-                    self._chunk(self.params, tokens, self.table, cache, pos,
-                                valid)
+                    _, _, self.table = self._chunk(
+                        self.params, tokens, self.table, cache, pos, valid)
+                self._forwarded(b, w)
         self._sync()
 
     @property
@@ -525,6 +543,7 @@ class ServingEngine:
             logits, gathered, self.table = self._chunk(
                 self.params, self._to_device(tokens), self.table, gathered,
                 self._to_device(pos), self._to_device(valid))
+        self._forwarded(Bb, width)
         # sync before the end timestamp: kernels return before the device
         # finishes, and mid-prompt chunks have no host read to wait on
         self._sync()
@@ -608,6 +627,7 @@ class ServingEngine:
         logits, self.cache, self.table = self._decode(
             self.params, self._to_device(tokens), self.table, self.cache,
             self._to_device(pos), *extra)
+        self._forwarded(self.scfg.max_batch, 1)
         nxt = self.sampler(logits, step=pos + 1)     # waits for the device
         tick_ns = time.perf_counter_ns() - t0
         now = time.monotonic()

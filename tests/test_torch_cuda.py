@@ -90,6 +90,7 @@ def test_rmsnorm_kernel_rows(dtype, shape):
     (3, 8, 1, 1000, 32),       # MQA, S no tile divides
     (2, 4, 4, 130, 128),       # MHA, wide head
     (4, 32, 32, 2048, 80),     # zamba2's shared block: MHA, head dim 80
+    (4, 32, 8, 2048, 128),     # phi3.5-moe's decode tick: G 4, head dim 128
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -117,6 +118,8 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (1, 2, 2, 5, 77, 128),
     (2, 32, 32, 512, 2048, 80),  # zamba2's shared block: MHA, head dim 80
     (2, 4, 4, 67, 300, 80),
+    (2, 32, 8, 512, 2048, 128),  # phi3.5-moe's prefill chunk: G 4, D 128
+    (2, 32, 8, 8, 2048, 128),    # phi3.5-moe's short chunk
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -220,6 +223,7 @@ def scrubbed(pages):
     (3, 8, 1, 8, 128, 32),     # MQA, a page spans two tiles
     (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
     (2, 8, 8, 5, 64, 80),      # head dim 80 (the shared template)
+    (8, 32, 8, 32, 64, 128),   # phi3.5-moe's paged decode tick: G 4, D 128
 ])
 def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     rng = np.random.default_rng(4)
@@ -251,6 +255,8 @@ def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     (2, 6, 2, 67, 3, 128, 32),     # ragged T, a page spans two tiles
     (2, 2, 2, 5, 11, 16, 128),
     (2, 8, 8, 67, 5, 64, 80),      # head dim 80 (the shared template)
+    (2, 32, 8, 512, 32, 64, 128),  # phi3.5-moe's paged prefill chunk
+    (2, 32, 8, 8, 32, 64, 128),    # phi3.5-moe's paged short chunk
 ])
 def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
     rng = np.random.default_rng(5)
@@ -568,6 +574,7 @@ FLASH_CASES = [
     (1, 8, 2, 130, 130, 80, True, 0.0),       # D 80 at G = 4
     (1, 8, 8, 96, 300, 80, False, 0.0),       # D 80 non-causal, Sq < Sk
     (1, 8, 8, 300, 130, 80, True, 0.0),       # D 80 causal Sq > Sk
+    (1, 32, 8, 2048, 2048, 128, True, 0.0),   # phi3.5-moe's training: G 4, D 128
 ]
 
 

@@ -182,9 +182,27 @@ def test_params_from_numpy_is_strict():
         params_from_numpy(dict(flat, extra=np.zeros(1)), tm.cfg, "cpu")
 
 
-def test_other_families_are_not_ported_yet():
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "internvl2_1b",
+                                  "seamless_m4t_large_v2",
+                                  "deepseek_v2_lite_16b"])
+def test_other_families_are_not_ported_yet(arch):
+    """ssm, vlm and audio are not ported; neither is multi-head latent
+    attention, so deepseek (moe with mla) raises rather than run as
+    GQA."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(torch_smoke("xlstm_1_3b"), device="cpu")
+        build_model(torch_smoke(arch), device="cpu")
+
+
+def test_moe_family_builds_with_its_fold_slots():
+    """phi3.5-moe (moe without mla) builds; its fold spec holds the MoE
+    slots and the trainer's, in the reference's order and widths."""
+    tm = build_model(torch_smoke("phi3_5_moe_42b"), device="cpu")
+    jm = jax_build(jax_smoke("phi3_5_moe_42b"), impl="ref")
+    assert [(s.key, s.offset, s.width) for s in tm.fold_spec.slots()] == \
+        [(s.key, s.offset, s.width) for s in jm.fold_spec.slots()]
+    table = tm.table()
+    assert table.shape == (jm.fold_spec.size,) and not table.any()
+    assert table.device == tm.device
 
 
 def test_cuda_is_the_default_and_never_falls_back():
