@@ -161,23 +161,24 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((kAlign - (mma::smem_addr(raw) & (kAlign - 1))) & (kAlign - 1));
 }
 
-// Ring of NS K/V tile stages (two by default): stage j % NS holds K, then
-// V, of tile j ([kBN, D] each, in the swizzled layout).  Filled by TMA,
-// stage j % NS is complete when its mbarrier full[j % NS] completes its
-// (j / NS)-th phase; rows past the tensor map's bounds arrive as zeros.
-// (A kernel that fills it by cp.async uses only the tiles.)
-template <int D, int NS = 2>
+// Ring of NS K/V tile stages (two by default) of BN rows (kBN by
+// default): stage j % NS holds K, then V, of tile j ([BN, D] each, in the
+// swizzled layout).  Filled by TMA, stage j % NS is complete when its
+// mbarrier full[j % NS] completes its (j / NS)-th phase; rows past the
+// tensor map's bounds arrive as zeros.  (A kernel that fills it by
+// cp.async uses only the tiles.)
+template <int D, int NS = 2, int BN = kBN>
 struct KvRing {
   static constexpr int kStages = NS;
-  static constexpr size_t kStageBytes = 2 * kBN * D * sizeof(bf16);
+  static constexpr size_t kStageBytes = 2 * BN * D * sizeof(bf16);
   static constexpr size_t kBytes = NS * kStageBytes + NS * sizeof(uint64_t);
   bf16* tiles;
   uint64_t* full;
   __device__ explicit KvRing(void* at)
       : tiles(static_cast<bf16*>(at)),
-        full(reinterpret_cast<uint64_t*>(tiles + NS * 2 * kBN * D)) {}
-  __device__ bf16* k(int j) const { return tiles + (j % NS) * 2 * kBN * D; }
-  __device__ bf16* v(int j) const { return k(j) + kBN * D; }
+        full(reinterpret_cast<uint64_t*>(tiles + NS * 2 * BN * D)) {}
+  __device__ bf16* k(int j) const { return tiles + (j % NS) * 2 * BN * D; }
+  __device__ bf16* v(int j) const { return k(j) + BN * D; }
   // One thread, before any use: the barriers (a block barrier must follow
   // before other threads wait).
   __device__ void init() const {
@@ -186,20 +187,20 @@ struct KvRing {
     mma::mbar_init_fence();
   }
   // One thread: start loading tile j of kv head `head`, rows [row, row +
-  // kBN) of the map, one box per swizzled column panel.
+  // BN) of the map, one box per swizzled column panel.
   __device__ void load_at(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j,
                           int row) const {
     uint64_t* bar = full + (j % NS);
-    mma::mbar_expect_tx(bar, 2 * kBN * D * sizeof(bf16));
+    mma::mbar_expect_tx(bar, 2 * BN * D * sizeof(bf16));
 #pragma unroll
     for (int p = 0; p < D / kRowElems<D>; ++p) {
-      mma::tma_load_3d(k(j) + p * kBN * 64, tk, p * 64, row, head, bar);
-      mma::tma_load_3d(v(j) + p * kBN * 64, tv, p * 64, row, head, bar);
+      mma::tma_load_3d(k(j) + p * BN * 64, tk, p * 64, row, head, bar);
+      mma::tma_load_3d(v(j) + p * BN * 64, tv, p * 64, row, head, bar);
     }
   }
-  // Tile j = rows [j kBN, (j + 1) kBN).
+  // Tile j = rows [j BN, (j + 1) BN).
   __device__ void load(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j) const {
-    load_at(tk, tv, head, j, j * kBN);
+    load_at(tk, tv, head, j, j * BN);
   }
   __device__ void wait(int j) const { mma::mbar_wait(full + (j % NS), (j / NS) & 1); }
 };
@@ -268,10 +269,10 @@ inline EncodeTiled tensor_map_encoder() {
 }
 
 // TMA maps of k and v, [heads, rows, cols] bf16 (cols <= D): a box is one
-// swizzled column panel of a K/V tile (kBN rows) of a [kBN, D] tile, in
-// the layout the kernels' wgmma descriptors read; rows past `rows` and
-// columns past `cols` load as zeros.
-template <int D>
+// swizzled column panel of a [BN, D] K/V tile (BN rows, kBN by default),
+// in the layout the kernels' wgmma descriptors and ldmatrix loads read;
+// rows past `rows` and columns past `cols` load as zeros.
+template <int D, int BN = kBN>
 cudaError_t kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int heads,
                     int rows, int cols = D) {
   const EncodeTiled encode = tensor_map_encoder();
@@ -280,7 +281,7 @@ cudaError_t kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void*
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {cols * sizeof(bf16),
                                  static_cast<cuuint64_t>(rows) * cols * sizeof(bf16)};
-  const cuuint32_t box[3] = {kRowElems<D>, kBN, 1}, unit[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {kRowElems<D>, BN, 1}, unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   for (auto [map, base] : {std::pair{tk, k}, std::pair{tv, v}}) {

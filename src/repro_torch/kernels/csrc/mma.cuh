@@ -245,6 +245,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* row) {
                : "r"(smem_addr(row)));
 }
 
+// Two matrices (lanes 0-15 give the row addresses).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
 // Two matrices (lanes 0-15 give the row addresses), transposed.
 __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"

@@ -8,11 +8,13 @@ kernel or raises; for CPU tensors it runs the plain version in `ref`.
 Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
-ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  bf16 runs on
-the tensor cores (chunk attention: wgmma; decode: mma.sync), f32 on the
-FMA pipes.  Decode cuts S into the ranges of `decode_splits`, which
-follow S alone; when a chunk gives a row few query tiles, `chunk_splits`
-cuts its columns too, by a plan that follows (Hkv, G, T, S) alone.
+ragged tail.  Head dims 32, 64, 80 and 128 are compiled, and 576 (MLA's
+latent attention: 512 latent + 64 rope columns, one latent kv head).
+bf16 runs on the tensor cores (chunk attention: wgmma; decode: mma.sync;
+D 576, both: one mma.sync kernel, see csrc), f32 on the FMA pipes.
+Decode cuts S into the ranges of `decode_splits`, which follow (S, D)
+alone; when a chunk gives a row few query tiles, `chunk_splits` cuts its
+columns too, by a plan that follows (Hkv, G, T, S, D) alone.
 Neither plan reads B or the offsets, so a row's output does not depend on
 the rows beside it.  Either kernel merges its ranges in the same launch,
 with per-device scratch (`scratch`) whose arrival counters every launch
@@ -39,11 +41,16 @@ import torch
 from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
-HEAD_DIMS = (32, 64, 80, 128)
-TILE = 64           # K/V rows per tile in the kernels
+HEAD_DIMS = (32, 64, 80, 128, 576)
+TILE = 64           # K/V rows per tile in the kernels (the split ranges' unit)
 MAX_SPLITS = 64     # S ranges per (row, kv head) the merges take
 CHUNK_ROWS = 128    # query rows per block of the bf16 chunk kernel
+WIDE_CHUNK_ROWS = 64   # ... at a wide head dim (D 576)
 DECODE_RANGE = 8 * TILE   # rows per decode split range (more past MAX_SPLITS)
+#: ... at a wide head dim: one block per (row, kv head) and range, so
+#: shorter ranges put 128 blocks on the card for a decode tick of 8 rows
+#: at S 2048
+WIDE_DECODE_RANGE = 2 * TILE
 DECODE_ROWS = 16    # q heads per block of the bf16 decode kernel
 #: blocks below which one row's chunk gets split columns: a full prefill
 #: group (8 rows, the engine's max_batch) then puts two blocks on each of
@@ -56,29 +63,42 @@ def _whole(S: int) -> Tuple[int, int]:
     return 1, max(1, -(-S // TILE)) * TILE
 
 
-def decode_splits(S: int) -> Tuple[int, int]:
-    """(nsplit, split_rows) for the decode kernels: S cut into ranges of
-    DECODE_RANGE rows (whole tiles; longer when S needs more than
-    MAX_SPLITS of them).  The plan follows S alone, never the batch or
-    kv_len, so a row's output does not depend on the rows beside it, and
-    planning needs no host sync."""
+def wide(D: int) -> bool:
+    """True for a head dim the wide kernel takes (past 128: D 576)."""
+    return D > 128
+
+
+def decode_splits(S: int, D: int = 64) -> Tuple[int, int]:
+    """(nsplit, split_rows) for the decode kernels at head dim D: S cut
+    into ranges of DECODE_RANGE rows (WIDE_DECODE_RANGE at a wide D;
+    whole tiles, longer when S needs more than MAX_SPLITS of them).  The
+    plan follows (S, D) alone, never the batch or kv_len, so a row's
+    output does not depend on the rows beside it, and planning needs no
+    host sync."""
     tiles = max(1, -(-S // TILE))
-    per = max(DECODE_RANGE // TILE, -(-tiles // MAX_SPLITS))
+    rng = WIDE_DECODE_RANGE if wide(D) else DECODE_RANGE
+    per = max(rng // TILE, -(-tiles // MAX_SPLITS))
     return -(-tiles // per), per * TILE
 
 
-def chunk_splits(Hkv: int, G: int, T: int, S: int) -> Tuple[int, int]:
-    """(nsplit, split_cols) for the bf16 chunk kernel.  It runs one block
-    per (row, kv head, tile of CHUNK_ROWS query rows), so one row gives
-    Hkv * ceil(G*T / CHUNK_ROWS) blocks, each walking the columns its
-    rows see.  A short chunk deep in the cache gives few blocks with long
-    walks: below CHUNK_ROW_BLOCKS of them, S is cut into
+def chunk_rows(D: int) -> int:
+    """Query rows per block of the bf16 chunk kernel at head dim D."""
+    return WIDE_CHUNK_ROWS if wide(D) else CHUNK_ROWS
+
+
+def chunk_splits(Hkv: int, G: int, T: int, S: int, D: int = 64
+                 ) -> Tuple[int, int]:
+    """(nsplit, split_cols) for the bf16 chunk kernel at head dim D.  It
+    runs one block per (row, kv head, tile of chunk_rows(D) query rows),
+    so one row gives Hkv * ceil(G*T / chunk_rows(D)) blocks, each walking
+    the columns its rows see.  A short chunk deep in the cache gives few
+    blocks with long walks: below CHUNK_ROW_BLOCKS of them, S is cut into
     ceil(CHUNK_ROW_BLOCKS / blocks) ranges of whole tiles (at most
     MAX_SPLITS), one block each, and the kernel merges them in range
-    order; otherwise one range covers S.  The plan follows (Hkv, G, T, S)
-    alone, never B or pos, so a row's output is the same alone and in
+    order; otherwise one range covers S.  The plan follows (Hkv, G, T, S,
+    D) alone, never B or pos, so a row's output is the same alone and in
     any batch, and planning needs no host sync."""
-    per_row = Hkv * -(-G * T // CHUNK_ROWS)
+    per_row = Hkv * -(-G * T // chunk_rows(D))
     if per_row >= CHUNK_ROW_BLOCKS:
         return _whole(S)
     tiles = max(1, -(-S // TILE))
@@ -89,11 +109,12 @@ def chunk_splits(Hkv: int, G: int, T: int, S: int) -> Tuple[int, int]:
 def chunk_plan(B: int, Hkv: int, G: int, T: int, S: int, D: int):
     """(grid blocks before the split, nsplit, split_cols, partial values)
     of a bf16 chunk launch: one block per (row, kv head, query tile) and
-    range, the ranges from `chunk_splits`; a split block writes CHUNK_ROWS
-    rows of (acc [D], m, l)."""
-    blocks = B * Hkv * -(-G * T // CHUNK_ROWS)
-    nsplit, cols = chunk_splits(Hkv, G, T, S)
-    part = blocks * nsplit * CHUNK_ROWS * (D + 2) if nsplit > 1 else 0
+    range, the ranges from `chunk_splits`; a split block writes
+    chunk_rows(D) rows of (acc [D], m, l)."""
+    rows = chunk_rows(D)
+    blocks = B * Hkv * -(-G * T // rows)
+    nsplit, cols = chunk_splits(Hkv, G, T, S, D)
+    part = blocks * nsplit * rows * (D + 2) if nsplit > 1 else 0
     return blocks, nsplit, cols, part
 
 
@@ -161,10 +182,12 @@ def decode_plan(B: int, Hkv: int, G: int, S: int, D: int):
     """(grid units, nsplit, split_rows, partial values) of a decode launch
     over a virtual length S: one unit per (row, kv head, group of
     DECODE_ROWS q heads), split_rows from `decode_splits`; a unit's range
-    writes min(G, DECODE_ROWS) rows of (acc [D], m, l)."""
+    writes min(G, DECODE_ROWS) rows of (acc [D], m, l), DECODE_ROWS at a
+    wide D (the wide kernel's block)."""
     units = B * Hkv * -(-G // DECODE_ROWS)
-    nsplit, split_rows = decode_splits(S)
-    part = units * nsplit * min(G, DECODE_ROWS) * (D + 2) if nsplit > 1 else 0
+    nsplit, split_rows = decode_splits(S, D)
+    rows = DECODE_ROWS if wide(D) else min(G, DECODE_ROWS)
+    part = units * nsplit * rows * (D + 2) if nsplit > 1 else 0
     return units, nsplit, split_rows, part
 
 

@@ -8,8 +8,9 @@
     model.batch_spec(shape)                     -> {name: (shape, dtype)}
         of a training batch for a ShapeConfig
     model.init_cache(batch, max_len)            -> the serving cache: dense
-        {"k", "v"} [L,B,Hkv,S,h]; hybrid {"ssm": {"conv", "h"},
-        "attn_k", "attn_v"} (batch axis 1 in every leaf)
+        {"k", "v"} [L,B,Hkv,S,h]; MLA {"ckv" [L,B,S,r], "krope"
+        [L,B,S,dr]}; hybrid {"ssm": {"conv", "h"}, "attn_k", "attn_v"}
+        (batch axis 1 in every leaf)
     model.forward_chunk(params, tokens, table, cache, pos[, valid])
                                                 -> (logits, cache, table)
         THE serving entry point: tokens [B, T] written at per-slot cache
@@ -20,6 +21,8 @@
     model.decode_step(params, tok, table, cache, pos)
     model.init_paged_cache(pages, page_size)    -> {"k", "v"}
                                                    [L,P,Hkv,page_size,h]
+                                                   (MLA: {"ckv", "krope"}
+                                                   [L,P,page_size,r|dr])
     model.forward_chunk_paged(params, tokens, table, cache, pos,
                               block_table[, valid])
     model.decode_step_paged(params, tok, table, cache, pos, block_table)
@@ -35,9 +38,12 @@
                                                    DeviceFoldSpec whose
                                                    slots the family emits
 
-Ported families: "dense", "moe" (without multi-head latent attention)
-and "hybrid", serving and training.  The other families, and an MoE
-config with mla=True, raise NotImplementedError.
+Ported families: "dense", "moe" (with or without multi-head latent
+attention) and "hybrid", serving and training.  The other families raise
+NotImplementedError.  MLA serves through the decode and chunk kernels at
+head dim r + dr (576); its training runs causal attention at head dim
+dn + dr (192), which the flash kernels do not compile yet: on the card
+that raises, on the CPU it runs the plain version.
 """
 
 from __future__ import annotations
@@ -113,10 +119,6 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
             f"moe and hybrid only; see ROADMAP.md)")
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention (mla) is not ported "
-            f"to PyTorch yet (see ROADMAP.md)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mod = mamba if cfg.family == "hybrid" else transformer

@@ -1,6 +1,8 @@
 """Dense-transformer building blocks on torch tensors, params as dicts.
 
-The PyTorch counterpart of `repro/models/layers.py` for the dense family:
+The PyTorch counterpart of `repro/models/layers.py` for the dense and MoE
+families, with GQA attention and DeepSeek-V2's multi-head latent
+attention (`mla_attention`):
 the same param names and layouts (the reference's leaf names load as
 they are), the same dtype policy (params in cfg.param_dtype, compute in
 cfg.compute_dtype, reductions and softmax in f32) and the same static
@@ -171,7 +173,14 @@ def last_valid(x: torch.Tensor, valid: Optional[torch.Tensor]
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   n_layers: int, dtype: torch.dtype,
                   device: torch.device) -> Params:
-    """Stacked KV cache: k, v [n_layers, batch, Hkv, max_len, head_dim]."""
+    """Stacked KV cache: k, v [n_layers, batch, Hkv, max_len, head_dim];
+    with MLA the latent cache, ckv [n_layers, batch, max_len, r] and
+    krope [n_layers, batch, max_len, dr], as the reference lays it out."""
+    if cfg.mla:
+        def z(width):
+            return torch.zeros((n_layers, batch, max_len, width), dtype=dtype,
+                               device=device)
+        return {"ckv": z(cfg.kv_lora_rank), "krope": z(cfg.qk_rope_dim)}
     shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -194,7 +203,10 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     kernel).  block_table: [B, NB] int32 page ids — when given, `cache`
     is one layer's PAGE ARENA [P, Hkv, page_size, h]: writes scatter and
     reads go through the table, so a row only touches the pages it was
-    granted.  Returns (y [B, S, d], cache)."""
+    granted.  With cfg.mla the layer is `mla_attention`.  Returns
+    (y [B, S, d], cache)."""
+    if rt.cfg.mla:
+        return mla_attention(p, x, rt, positions, cache, pos, block_table)
     cfg = rt.cfg
     ap = p["attn"]
     B, S, d = x.shape
@@ -247,6 +259,100 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     annotate_cost("attention", "attention", "o_proj",
                   flops=2.0 * B * S * cfg.n_heads * h * d)
     return y, new_cache
+
+
+def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
+                  positions: torch.Tensor, cache: Optional[Params] = None,
+                  pos: Optional[torch.Tensor] = None,
+                  block_table: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention (DeepSeek-V2), as the reference's
+    `mla_attention`.  x: [B, S, d].
+
+    Without a cache (training): the latent is expanded into per-head K/V,
+    k = [k_nope | k_rope broadcast over the heads] at D = dn + dr, v
+    zero-padded from dv to dn + dr, causal attention at sm_scale
+    (dn + dr) ** -0.5; returns (y, None).
+
+    With a cache: the matrix-absorbed latent path.  The cache holds only
+    one layer's {"ckv" [B, S_max, r], "krope" [B, S_max, dr]} (a page
+    arena [P, page_size, r] / [P, page_size, dr] with block_table), and
+    the chunk's latent rows are written in place at [pos, pos+S).  The
+    queries are absorbed through wk_b in f32 into the latent space, and
+    the decode (S == 1) or chunk kernel, or its paged twin, runs against
+    one latent kv head: k = [ckv | krope], v = ckv zero-padded to r + dr,
+    D = r + dr, sm_scale (dn + dr) ** -0.5.  The first r output columns
+    are un-absorbed through wv_b in f32.  Returns (y, cache)."""
+    cfg = rt.cfg
+    ap = p["attn"]
+    B, S, d = x.shape
+    nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                      cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    q = linear(ap["wq"], x).reshape(B, S, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = linear(ap["wkv_a"], x)                        # [B, S, r + dr]
+    c_kv, k_rope = kv_a[..., :r], kv_a[..., r:]
+    cos, sin = rope_tables(cfg, positions, dr)
+    if cos.dim() == 3:                                   # per-row positions
+        cos, sin = cos[:, None], sin[:, None]
+    q_rope = apply_rope(q_rope.transpose(1, 2), cos, sin)   # [B, nh, S, dr]
+    k_rope = apply_rope(k_rope[:, None], cos, sin)          # [B, 1, S, dr]
+    annotate_cost("attention", "attention", "mla_proj",
+                  flops=2.0 * B * S * d * (nh * (dn + dr) + r + dr))
+    wkv_b = ap["wkv_b"].reshape(r, nh, dn + dv)
+    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]        # [r,nh,dn], [r,nh,dv]
+    scale = (dn + dr) ** -0.5
+    if cache is None:          # training: expand the latent
+        k_nope = torch.einsum("bsr,rhd->bhsd", c_kv, wk_b.to(c_kv.dtype))
+        v = torch.einsum("bsr,rhd->bhsd", c_kv, wv_b.to(c_kv.dtype))
+        k = torch.cat([k_nope, k_rope.expand(B, nh, S, dr)], dim=-1)
+        qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
+        v_p = F.pad(v, (0, dn + dr - dv))    # equal head dims for the kernel
+        o = ops.attention(qq, k, v_p, causal=True, sm_scale=scale,
+                          impl=rt.impl)[..., :dv]
+        y = linear(ap["wo"], o.transpose(1, 2).reshape(B, S, nh * dv))
+        return y, None
+    if block_table is not None:
+        cc = update_cache_pages(cache["ckv"], c_kv, pos, block_table,
+                                seq_axis=1)
+        cr = update_cache_pages(cache["krope"], k_rope[:, 0], pos,
+                                block_table, seq_axis=1)
+    else:
+        cc = update_cache_rows(cache["ckv"], c_kv, pos, seq_axis=1)
+        cr = update_cache_rows(cache["krope"], k_rope[:, 0], pos, seq_axis=1)
+    # absorb: q_latent = q_nope wk_b^T, in f32 -> [B, nh, S, r]
+    q_lat = torch.einsum("bhtd,rhd->bhtr", q_nope.transpose(1, 2).float(),
+                         wk_b.float()).to(x.dtype)
+    q_full = torch.cat([q_lat, q_rope], dim=-1)          # [B, nh, S, r + dr]
+    # one latent kv head: [B, 1, S_max, r + dr] dense, [P, 1, page, r + dr]
+    # paged; v is the latent, padded to r + dr so k and v share a shape
+    k_full = torch.cat([cc, cr], dim=-1)[:, None]
+    v_lat = F.pad(cc, (0, dr))[:, None]
+    if S == 1:                 # decode width: the decode kernel
+        if block_table is not None:
+            o_lat = ops.decode_attention_paged(
+                q_full[:, :, 0], k_full, v_lat, block_table=block_table,
+                kv_len=pos + 1, sm_scale=scale, impl=rt.impl)
+        else:
+            o_lat = ops.decode_attention(q_full[:, :, 0], k_full, v_lat,
+                                         kv_len=pos + 1, sm_scale=scale,
+                                         impl=rt.impl)
+        o_lat = o_lat[:, None]                           # [B, 1, nh, r + dr]
+    else:                      # prefill chunk at per-row offsets
+        if block_table is not None:
+            o_lat = ops.chunk_attention_paged(
+                q_full, k_full, v_lat, block_table=block_table, pos=pos,
+                sm_scale=scale, impl=rt.impl)
+        else:
+            o_lat = ops.chunk_attention(q_full, k_full, v_lat, pos=pos,
+                                        sm_scale=scale, impl=rt.impl)
+        o_lat = o_lat.transpose(1, 2)                    # [B, S, nh, r + dr]
+    # un-absorb the first r columns through wv_b, in f32
+    o = torch.einsum("bthr,rhd->bthd", o_lat[..., :r].float(),
+                     wv_b.float()).to(x.dtype)
+    y = linear(ap["wo"], o.reshape(B, S, nh * dv))
+    return y, {"ckv": cc, "krope": cr}
 
 
 # ------------------------------------------------------------------- mlp ----

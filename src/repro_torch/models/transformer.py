@@ -2,13 +2,15 @@
 cache and forward_chunk.
 
 The PyTorch counterpart of `repro/models/transformer.py` for
-family="dense" and family="moe" (without MLA).  Layer params are stacked
+family="dense" and family="moe", with GQA attention or (cfg.mla)
+DeepSeek-V2's multi-head latent attention.  Layer params are stacked
 [L, ...] under p["stack"]["stack"], as the reference's scan-over-layers
 lays them out; an MoE model has one stack per layer kind,
 p["stack_dense"]["stack"] (its first_dense_layers) and
 p["stack_moe"]["stack"], whose layers run the MoE layer of `moe.py` in
 place of the MLP.  The KV cache is stacked [L, B, Hkv, S, h] over all
-layers.  Where the reference scans one traced layer body (and scales its
+layers ({"k", "v"}; MLA: the latent {"ckv" [L, B, S, r], "krope" [L, B,
+S, dr]}).  Where the reference scans one traced layer body (and scales its
 static costs by L), the port runs an explicit loop over the layers: each
 layer registers its own costs, so the loop is NOT wrapped in
 scan_multiplier.  The device fold table goes through every layer, as
@@ -24,8 +26,9 @@ Prefill and decode share ONE positioned-chunk body (forward_chunk): a
 chunk of T tokens lands at per-row cache offsets, T = 1 being the pooled
 decode tick and pos = 0, T = S bulk prefill.  The paged entry points
 (`init_paged_cache`, `forward_chunk_paged`, `decode_step_paged`) run the
-same body against a page arena [L, P, Hkv, page_size, h] through per-row
-block tables.
+same body against a page arena [L, P, Hkv, page_size, h] (MLA:
+[L, P, page_size, r] and [L, P, page_size, dr]) through per-row block
+tables.
 """
 
 from __future__ import annotations
@@ -73,11 +76,19 @@ def _layer_specs(cfg: ModelConfig, kind: str, L: int) -> Dict[str, Any]:
     def w(fan_in, *shape):
         return (shape, fan_in ** -0.5)
 
-    attn = {"wq": w(d, L, d, cfg.n_heads * h),
-            "wk": w(d, L, d, cfg.n_kv_heads * h),
-            "wv": w(d, L, d, cfg.n_kv_heads * h),
-            "wo": w(cfg.n_heads * h, L, cfg.n_heads * h, d)}
-    if cfg.qk_norm:
+    if cfg.mla:
+        nh, r = cfg.n_heads, cfg.kv_lora_rank
+        qd, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        attn = {"wq": w(d, L, d, nh * qd),
+                "wkv_a": w(d, L, d, r + cfg.qk_rope_dim),
+                "wkv_b": w(r, L, r, nh * (cfg.qk_nope_dim + dv)),
+                "wo": w(nh * dv, L, nh * dv, d)}
+    else:
+        attn = {"wq": w(d, L, d, cfg.n_heads * h),
+                "wk": w(d, L, d, cfg.n_kv_heads * h),
+                "wv": w(d, L, d, cfg.n_kv_heads * h),
+                "wo": w(cfg.n_heads * h, L, cfg.n_heads * h, d)}
+    if cfg.qk_norm and not cfg.mla:
         attn["q_norm"] = ((L, h), ONES)
         attn["k_norm"] = ((L, h), ONES)
     layer: Dict[str, Any] = {"norm1": {"scale": ((L, d), ONES)},
@@ -104,9 +115,6 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
                                   f"yet (dense and moe only)")
-    if cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: multi-head latent "
-                                  f"attention (mla) is not ported yet")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"table": ((cfg.vocab, d), 1.0)},
@@ -338,7 +346,8 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
         for j in range(count):
             x, table, _ = decoder_layer(
                 _layer(stack, j), x, rt, positions, kind, table,
-                {"k": cache["k"][i], "v": cache["v"][i]}, pos, block_table)
+                {name: leaf[i] for name, leaf in cache.items()}, pos,
+                block_table)
             i += 1
     x = norm(p["final_norm"], x, rt)
     logits = lm_head(p, last_valid(x, valid), rt)[:, 0]
@@ -365,7 +374,8 @@ def init_paged_cache(cfg: ModelConfig, pages: int, page_size: int,
                      device: torch.device,
                      dtype: Optional[torch.dtype] = None) -> Params:
     """Page-arena KV cache: init_cache's per-slot batch dim becomes the
-    PAGE dim, k, v [L, P, Hkv, page_size, h].  The engine's block tables
+    PAGE dim, k, v [L, P, Hkv, page_size, h] (MLA: ckv [L, P, page_size,
+    r], krope [L, P, page_size, dr]).  The engine's block tables
     map (slot, virtual page) -> arena page; page 0 is reserved scratch."""
     return init_cache(cfg, pages, page_size, device, dtype)
 

@@ -91,6 +91,8 @@ def test_rmsnorm_kernel_rows(dtype, shape):
     (2, 4, 4, 130, 128),       # MHA, wide head
     (4, 32, 32, 2048, 80),     # zamba2's shared block: MHA, head dim 80
     (4, 32, 8, 2048, 128),     # phi3.5-moe's decode tick: G 4, head dim 128
+    (4, 16, 1, 2048, 576),     # deepseek's latent decode tick: G 16, D 576
+    (3, 16, 1, 1000, 576),     # ... S no tile divides
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -120,6 +122,9 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (2, 4, 4, 67, 300, 80),
     (2, 32, 8, 512, 2048, 128),  # phi3.5-moe's prefill chunk: G 4, D 128
     (2, 32, 8, 8, 2048, 128),    # phi3.5-moe's short chunk
+    (2, 16, 1, 512, 2048, 576),  # deepseek's latent prefill chunk: G 16
+    (2, 16, 1, 8, 2048, 576),    # ... its short chunk (split columns)
+    (2, 16, 1, 67, 300, 576),    # ... ragged T and S
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -150,9 +155,13 @@ CHUNK_CASES = [
     (3, 40, 8, 8, 1000, 128, [0, 995, 500]),   # G 5, D 128, T 8, past S
     (1, 5, 1, 512, 1100, 128, [300]),          # G 5 (MQA), D 128, T 512
     (3, 4, 4, 1, 130, 128, [0, 129, 64]),      # G 1, D 128, T 1
+    (2, 16, 1, 64, 300, 576, [0, 250]),        # G 16, D 576, past S
+    (3, 16, 1, 1, 700, 576, [0, 699, 64]),     # D 576, T 1
+    (1, 32, 1, 512, 1100, 576, [300]),         # G 32, D 576, T 512
     # short chunks deep in the cache: the split path (tests below)
     (8, 32, 4, 8, 2048, 64, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
     (4, 32, 32, 8, 2048, 80, [0, 2000, 64, 1023]),
+    (8, 16, 1, 8, 2048, 576, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
 ]
 
 
@@ -171,13 +180,13 @@ def test_chunk_attention_kernel_offsets(dtype, case):
     assert dec.chunk_attention.launches == before + 1
 
 
-@pytest.mark.parametrize("case", CHUNK_CASES[-2:])
+@pytest.mark.parametrize("case", CHUNK_CASES[-3:])
 def test_chunk_attention_split_path(case, monkeypatch):
     """A short chunk deep in the cache splits its columns, and the merged
     output agrees with the same kernel run unsplit (one
     range over S) and with the plain version."""
     B, Hq, Hkv, T, S, D, pos_l = case
-    nsplit, _ = dec.chunk_splits(Hkv, Hq // Hkv, T, S)
+    nsplit, _ = dec.chunk_splits(Hkv, Hq // Hkv, T, S, D)
     assert nsplit > 1
     rng = np.random.default_rng(8)
     q = arr(rng, B, Hq, T, D, dtype=torch.bfloat16)
@@ -224,6 +233,9 @@ def scrubbed(pages):
     (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
     (2, 8, 8, 5, 64, 80),      # head dim 80 (the shared template)
     (8, 32, 8, 32, 64, 128),   # phi3.5-moe's paged decode tick: G 4, D 128
+    (8, 16, 1, 32, 64, 576),   # deepseek's paged latent decode tick
+    (4, 16, 1, 128, 16, 576),  # ... at page size 16: the gather
+    (3, 16, 1, 200, 5, 576),   # ... at page size 5
 ])
 def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     rng = np.random.default_rng(4)
@@ -257,6 +269,8 @@ def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     (2, 8, 8, 67, 5, 64, 80),      # head dim 80 (the shared template)
     (2, 32, 8, 512, 32, 64, 128),  # phi3.5-moe's paged prefill chunk
     (2, 32, 8, 8, 32, 64, 128),    # phi3.5-moe's paged short chunk
+    (2, 16, 1, 512, 32, 64, 576),  # deepseek's paged latent prefill chunk
+    (2, 16, 1, 8, 128, 16, 576),   # ... its short chunk at page size 16
 ])
 def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
     rng = np.random.default_rng(5)
@@ -295,6 +309,8 @@ PAGED_CHUNK_CASES = [
     (3, 32, 32, 8, 16, 128, 80, [0, 2040, 900]),   # G 1, D 80, split
     (2, 10, 2, 512, 50, 16, 128, [0, 300]),        # G 5, D 128
     (3, 8, 8, 1, 9, 8, 32, [0, 71, 30]),           # T 1, D 32
+    (2, 16, 1, 64, 40, 24, 576, [0, 700]),         # D 576, gather, past S
+    (3, 16, 1, 8, 8, 256, 576, [0, 2040, 900]),    # D 576, TMA pages, split
 ]
 
 
@@ -320,14 +336,16 @@ def test_chunk_attention_paged_kernel_offsets(dtype, case):
 
 # (D, G, S): decode at every compiled head dim and G 1 / 4 / 8 (and 20:
 # two blocks of q heads), S not a multiple of 64; kv_len 0, 1, S and
-# the lengths on either side of the split ranges' edges
+# the lengths on either side of the split ranges' edges; D 576 at G 16
+# (deepseek's latent decode) and 4
 DECODE_CASES = [(D, G, S) for D, S in ((32, 1000), (64, 2000), (80, 777),
                                        (128, 600))
-                for G in (1, 4, 8)] + [(64, 20, 1000)]
+                for G in (1, 4, 8)] + [(64, 20, 1000), (576, 16, 700),
+                                       (576, 4, 300)]
 
 
-def decode_lengths(S):
-    rows = dec.decode_splits(S)[1]
+def decode_lengths(S, D=64):
+    rows = dec.decode_splits(S, D)[1]
     edges = [n for r in range(1, S // rows + 1)
              for n in (r * rows - 1, r * rows, r * rows + 1)]
     return sorted({0, 1, S, S - 1, *[n for n in edges if n <= S]})
@@ -339,7 +357,7 @@ def test_decode_attention_kernel_lengths(dtype, D, G, S):
     """Decode against the plain version at empty, one-row, full and
     range-edge lengths, with the (m, l) residuals."""
     rng = np.random.default_rng(11)
-    lens = decode_lengths(S)
+    lens = decode_lengths(S, D)
     B, Hkv = len(lens), 2
     q = arr(rng, B, Hkv * G, D, dtype=dtype)
     k, v = arr(rng, B, Hkv, S, D, dtype=dtype), arr(rng, B, Hkv, S, D,
@@ -357,7 +375,7 @@ def test_decode_attention_kernel_lengths(dtype, D, G, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4), (576, 16)])
 def test_decode_attention_is_batch_invariant(dtype, D, G):
     """A row decoded alone gives exactly (torch.equal) what it gives
     inside a batch of 8 other rows, dense and paged: the split plan
@@ -388,7 +406,8 @@ def test_decode_attention_is_batch_invariant(dtype, D, G):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T", [8, 512])
-@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2)])
+@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2),
+                                     (576, 16, 1)])
 def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
     """A chunk row computed alone gives exactly (torch.equal) what it
     gives inside a batch of 8 other rows, dense and paged (page size 64,
@@ -422,7 +441,7 @@ def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ps", [5, 16, 64])
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4), (576, 16)])
 def test_decode_attention_paged_equals_dense(dtype, ps, D, G):
     """The paged instance is the dense body with other row addressing
     (TMA at page size 64, the cp.async gather at 5 and 16): on the same
@@ -642,6 +661,20 @@ def test_flash_attention_function_matches_autograd():
         grads.append(torch.autograd.grad(fn(*ins), ins, do))
     for g, w in zip(*grads):
         close(g, w, torch.float32)
+
+
+def test_flash_attention_refuses_mla_training_head_dim():
+    """MLA's expanded training attention runs at head dim dn + dr = 192,
+    which the flash kernels do not compile yet: on the card ops.attention
+    raises, with and without a gradient wanted, rather than run the plain
+    version."""
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 16, 64, 192, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(q, q, q, causal=True, sm_scale=192 ** -0.5)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(qg, q, q, causal=True, sm_scale=192 ** -0.5)
 
 
 def test_flash_attention_bf16_explicit_scale():
