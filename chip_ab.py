@@ -42,6 +42,27 @@ source in its first process.  Phases:
   serve    chip_smoke.py's serve runs of the checkout (tinyllama on the
            contiguous and the paged pool, zamba2): tok/s, TTFT p50 / p95,
            the XFA prefill_chunk mean
+  mla      MLA's latent attention at chip_smoke.py phase 3e's shapes (bf16,
+           B 8, 16 q heads over ckv [8, 2048, 512] and krope [8, 2048, 64],
+           sm_scale 192 ** -0.5): decode at phase 3's kv_len, chunk at T 512
+           and T 8, dense and paged (page size 64), median of 20 launches
+           with the L2 flushed.  A checkout with kernels/mla_attention.py
+           runs its latent entry points on the cache in place; one without
+           runs the k/v wrappers on k = [ckv | krope] and v = ckv
+           zero-padded, built outside the timed call, and also times the
+           call with those two copies inside it, as its MLA layer paid.
+           Then where a decode's time goes: the launch floor, decode with
+           every kv_len 0 (no tile: the block's fixed cost), 1 (one tile a
+           row, no merge), 128 (one range of
+           two tiles, no merge) and 2048 (16 ranges a row merged in the
+           launch), and at phase 3's kv_len; one MLA attention layer of
+           deepseek at full width (a prefill chunk [8, 512] and a decode
+           tick [8, 1] against an [8, 2048] latent cache): its device time
+           a call, its attention kernel's and its copy and fill kernels'
+           (torch.profiler); with the latent entry points,
+           decode at ranges of 128, 256 and 512 rows and chunk T 8 at a
+           target of 8, 16 and 33 blocks a row (the split plans'
+           constants, set for the run)
 
 Prints one `RESULT <tag> ...` line per measurement and the card's name and
 power limit.  Exits non-zero if a process fails or there is no GPU.
@@ -56,7 +77,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "groups", "serve")
+PHASES = ("kernels", "groups", "serve", "mla")
 POS_T512 = [0, 512, 1024, 1536, 100, 700, 1300, 7]
 POS_T8 = [0, 5, 100, 1000, 2040, 333, 1500, 17]
 KV_LEN = [0, 1, 77, 1000, 1537, 2047, 2048, 513]   # chip_smoke.py phase 3
@@ -104,8 +125,8 @@ def worker(root: Path, tag: str, phases) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for phase in phases:
-        {"kernels": kernels, "groups": groups, "serve": serve}[phase](
-            torch, tag)
+        {"kernels": kernels, "groups": groups, "serve": serve,
+         "mla": mla}[phase](torch, tag)
 
 
 def result(tag: str, msg: str) -> None:
@@ -414,6 +435,163 @@ def serve(torch, tag: str) -> None:
                     f" decode {stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
         del engine
         torch.cuda.empty_cache()
+
+
+def mla(torch, tag: str) -> None:
+    import importlib.util
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    B, S, G, r, dr, ps = 8, 2048, 16, 512, 64, 64
+    scale = (128 + 64) ** -0.5
+    ckv, krope = rnd(B, S, r), rnd(B, S, dr)
+    perm = (torch.randperm(B * S // ps, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(B, S // ps)
+
+    def pages(x):
+        out = torch.full((1 + perm.numel(), ps, x.shape[-1]), 1e4,
+                         dtype=x.dtype, device=dev)
+        out[perm.reshape(-1).long()] = x.reshape(-1, ps, x.shape[-1])
+        return out
+    cp, rp = pages(ckv), pages(krope)
+    latent = importlib.util.find_spec("repro_torch.kernels.mla_attention")
+    if latent is not None:
+        from repro_torch.kernels import mla_attention as m
+        calls = {
+            "decode": lambda q, n: m.decode_attention_latent(
+                q, ckv, krope, kv_len=n, sm_scale=scale),
+            "decode_paged": lambda q, n: m.decode_attention_latent_paged(
+                q, cp, rp, block_table=perm, kv_len=n, sm_scale=scale),
+            "chunk": lambda q, p: m.chunk_attention_latent(
+                q, ckv, krope, pos=p, sm_scale=scale),
+            "chunk_paged": lambda q, p: m.chunk_attention_latent_paged(
+                q, cp, rp, block_table=perm, pos=p, sm_scale=scale)}
+        copies = {}
+    else:
+        kv = lambda c, x: (torch.cat([c, x], dim=-1)[:, None],
+                           F.pad(c, (0, dr))[:, None])
+        k, v = kv(ckv, krope)
+        kp, vp = kv(cp, rp)
+        calls = {
+            "decode": lambda q, n: dec.decode_attention(
+                q, k, v, kv_len=n, sm_scale=scale),
+            "decode_paged": lambda q, n: dec.decode_attention_paged(
+                q, kp, vp, block_table=perm, kv_len=n, sm_scale=scale),
+            "chunk": lambda q, p: dec.chunk_attention(
+                q, k, v, pos=p, sm_scale=scale),
+            "chunk_paged": lambda q, p: dec.chunk_attention_paged(
+                q, kp, vp, block_table=perm, pos=p, sm_scale=scale)}
+        copies = {  # the call as the PR 23 layer made it: copies inside
+            "decode": lambda q, n: dec.decode_attention(
+                q, *kv(ckv, krope), kv_len=n, sm_scale=scale),
+            "decode_paged": lambda q, n: dec.decode_attention_paged(
+                q, *kv(cp, rp), block_table=perm, kv_len=n, sm_scale=scale),
+            "chunk": lambda q, p: dec.chunk_attention(
+                q, *kv(ckv, krope), pos=p, sm_scale=scale),
+            "chunk_paged": lambda q, p: dec.chunk_attention_paged(
+                q, *kv(cp, rp), block_table=perm, pos=p, sm_scale=scale)}
+    q1 = rnd(B, G, r + dr)
+    lens = torch.tensor(KV_LEN, dtype=torch.int32, device=dev)
+    runs = [(f"{name} kv_len {KV_LEN}", name, q1, lens)
+            for name in ("decode", "decode_paged")]
+    for T, pos_l in ((512, POS_T512), (8, POS_T8)):
+        qc = rnd(B, G, T, r + dr)
+        p = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        runs += [(f"{name} T {T}", name, qc, p)
+                 for name in ("chunk", "chunk_paged")]
+    form = "latent, in place" if latent is not None else "k/v form"
+    for what, name, q, arg in runs:
+        ms = time_ms(torch, lambda: calls[name](q, arg), flush)
+        extra = ""
+        if name in copies:
+            with_copies = time_ms(torch, lambda: copies[name](q, arg), flush)
+            extra = f"; with the k/v copies inside {with_copies:.4f} ms"
+        result(tag, f"mla {what} ({form}): {ms:.4f} ms{extra}")
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), flush)
+    split = [f"launch floor {floor:.4f} ms"]
+    for n in (0, 1, 128, 2048):
+        lens_n = torch.full((B,), n, dtype=torch.int32, device=dev)
+        ms = time_ms(torch, lambda: calls["decode"](q1, lens_n), flush)
+        split.append(f"kv_len {n} {ms:.4f} ms")
+    result(tag, f"mla decode ({form}), where the time goes: "
+                + ", ".join(split))
+    mla_layer(torch, tag)
+    if latent is None:
+        return
+    # the split plans' constants: decode range length, the chunk's target
+    # blocks a row (each run checked against the plan in force)
+    base = calls["decode"](q1, lens), calls["chunk"](runs[-1][2], runs[-1][3])
+    for rng in (128, 256, 512):
+        dec.WIDE_DECODE_RANGE = rng
+        got = calls["decode"](q1, lens)
+        ms = time_ms(torch, lambda: calls["decode"](q1, lens), flush)
+        err = (got.float() - base[0].float()).abs().max().item()
+        result(tag, f"mla decode ranges of {rng}: {ms:.4f} ms, "
+                    f"{m.plan(B, G, 1, S, decode=True)[1]} ranges, max abs "
+                    f"diff to the plan in force {err:.2e}")
+    for blocks in (8, 16, 33):
+        dec.WIDE_ROW_BLOCKS = blocks
+        qc, p = runs[-1][2], runs[-1][3]
+        got = calls["chunk"](qc, p)
+        ms = time_ms(torch, lambda: calls["chunk"](qc, p), flush)
+        err = (got.float() - base[1].float()).abs().max().item()
+        result(tag, f"mla chunk T 8, target {blocks} blocks a row: "
+                    f"{ms:.4f} ms, {m.plan(B, G, 8, S, decode=False)[1:3]} "
+                    f"(ranges, columns), max abs diff {err:.2e}")
+
+
+def mla_layer(torch, tag: str, calls: int = 10) -> None:
+    """One MLA attention layer of deepseek-v2-lite (its first layer, full
+    width) at a prefill chunk [8, 512] at offset 0 and a decode tick
+    [8, 1] at offset 2047 against an [8, 2048] latent cache, under
+    torch.profiler: the layer's device time a call, its attention
+    kernel's, and its copy and fill kernels' (count and time a call)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import attention
+    from repro_torch.models.transformer import _layer
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"), n_layers=2)
+    model = build_model(cfg, device="cuda")
+    lp = _layer(model.init(0)["stack_dense"]["stack"], 0)
+    cache = {k: v[0] for k, v in model.init_cache(8, 2048).items()}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    attn_names = ("latent_kernel", "wide_kernel")
+    copy_names = ("copy", "Copy", "fill", "Fill")
+    with torch.no_grad():
+        for S, at in ((512, 0), (1, 2047)):
+            x = torch.randn((8, S, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            pos = torch.full((8,), at, dtype=torch.int32, device="cuda")
+            positions = pos[:, None] + torch.arange(S, device="cuda")[None]
+            run = lambda: attention(lp, x, model.rt, positions, cache, pos)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+            rows = [e for e in p.key_averages() if dev_us(e) > 0]
+            part = lambda names: [e for e in rows
+                                  if any(n in e.key for n in names)]
+            us = lambda es: sum(dev_us(e) for e in es) / calls
+            n = lambda es: sum(e.count for e in es) / calls
+            what = "decode tick [8, 1]" if S == 1 else "prefill chunk [8, 512]"
+            result(tag, f"mla layer {what}: {us(rows) / 1e3:.4f} ms of "
+                        f"device time a call; attention kernel "
+                        f"{us(part(attn_names)) / 1e3:.4f} ms; copy and fill "
+                        f"kernels x{n(part(copy_names)):.0f}, "
+                        f"{us(part(copy_names)) / 1e3:.4f} ms")
+    del model, lp, cache
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

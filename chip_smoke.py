@@ -125,16 +125,22 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the same K/V) and the flash pair at q [4,32,2048,128], k/v
               [4,8,2048,128] causal, each against its plain version, timed
               beside it, its bound and SDPA
-  3e. mla kernels  the four serving attention kernels at deepseek's
-              latent shapes (16 q heads over one latent kv head, head dim
-              576 = 512 + 64, sm_scale 192 ** -0.5), in f32 and bf16:
-              decode (q [8,16,576], k/v [8,1,2048,576], v the latent
-              zero-padded, kv_len 0, 1, ragged and 2048), chunk at T 512
-              and T 8 at per-row offsets, their paged twins at page sizes
-              64 (TMA) and 16 (the gather; decode also 5), each against
-              its plain version (2e-2 bf16, 2e-5 f32); paged equal to
-              dense and a row alone equal to its batch row; the bf16
-              kernels timed beside their plain versions, bounds and SDPA
+  3e. mla kernels  the four serving attention kernels in their latent
+              form (csrc/mla_attention.cu: 16 q heads over one latent kv
+              head read in place, K rows [ckv | krope] of 512 + 64 columns,
+              V rows ckv, 512 columns out, sm_scale 192 ** -0.5), in f32
+              and bf16: decode (q [8,16,576], ckv [8,2048,512], krope
+              [8,2048,64], kv_len 0, 1, ragged and 2048), chunk at T 512
+              and T 8 at per-row offsets, their paged twins over two
+              arenas through one block table at page sizes 64 (TMA) and
+              16 (the gather; decode also 5), each against its plain
+              version, the reference's k/v route (2e-2 bf16, 2e-5 f32);
+              paged equal to dense and a row alone equal to its batch
+              row; ptxas's registers, spills and shared memory for the
+              library; the bf16 kernels timed beside their plain
+              versions, both bounds (in place and the k/v form) and SDPA
+              on the k/v form built outside the timed call, its backend
+              named
   11. moe serve  phi3_5_moe_42b at its published widths, cut to
               MOE_SERVE_LAYERS of its 32 layers (the whole model does not
               fit the card; seeded random weights, shared by the runs):
@@ -174,7 +180,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               pages), with tok/s, TTFT, decode gap, peak memory (under 75
               GB) and the fold's invariants (loads summing to top_k x
               tokens x 26 MoE layers, the count to calls x 26); a
-              torch.profiler window (busy share); the same pair at
+              torch.profiler window (busy share, the latent kernels'
+              and the copy kernels' launches and shares); the same pair at
               capacity_factor MLA_DROP_FREE (nothing drops) must give 16
               of 16 equal token streams; then the model at 4 layers,
               kernels vs plain logits in f32 and bf16, as phase 11's,
@@ -426,9 +433,10 @@ def run(torch) -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def ptxas_report(text: str):
-    """(kernel, registers, spill store bytes) of each entry function in
-    nvcc's -Xptxas -v report, names demangled where c++filt exists."""
+def ptxas_report(text: str, with_smem: bool = False):
+    """(kernel, registers, spill store bytes[, static shared memory bytes])
+    of each entry function in nvcc's -Xptxas -v report, names demangled
+    where c++filt exists."""
     entries, name, spills = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -440,7 +448,10 @@ def ptxas_report(text: str):
             spills = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            entries.append([name, int(m.group(1)), spills])
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries.append([name, int(m.group(1)), spills]
+                           + ([int(smem.group(1)) if smem else 0]
+                              if with_smem else []))
             name = None
     filt = shutil.which("c++filt")
     if filt and entries:
@@ -890,19 +901,18 @@ def check_chunk_identities(torch, k, v, arenas, cases):
         f"page sizes {sorted(arenas)}")
 
 
-def check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos, what: str,
-                      tol: float = KERNEL_TOL, **kw) -> float:
+def check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos, what: str) -> float:
     """The paged chunk kernel against its plain version, and equal to the
     dense kernel on the contiguous cache k, v that the arena holds (one
-    arithmetic body; a masked entry adds exactly 0).  `kw`: sm_scale.
-    Returns the max abs error."""
+    arithmetic body; a masked entry adds exactly 0).  Returns the max abs
+    error."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ref
 
-    o = dec.chunk_attention_paged(qc, kp, vp, block_table=bt, pos=pos, **kw)
+    o = dec.chunk_attention_paged(qc, kp, vp, block_table=bt, pos=pos)
     err = max_err(torch, o, ref.chunk_attention_paged(
-        qc, kp, vp, block_table=bt, pos=pos, **kw), what, tol)
-    if not torch.equal(o, dec.chunk_attention(qc, k, v, pos=pos, **kw)):
+        qc, kp, vp, block_table=bt, pos=pos), what)
+    if not torch.equal(o, dec.chunk_attention(qc, k, v, pos=pos)):
         fail(f"{what}: the paged output differs from the dense kernel's on "
              f"the same K/V")
     return err
@@ -1894,33 +1904,92 @@ def check_moe_kernels(torch, entries):
 
 
 # ----------------------------------------------------------- mla kernels ----
-#: deepseek-v2-lite's served latent attention: 16 q heads over one latent
-#: kv head of r + dr = 512 + 64 columns (v: the latent, zero-padded), at
+#: deepseek-v2-lite's served latent attention: 16 q heads over one latent kv
+#: head whose K rows are [ckv | krope] (512 + 64 columns) and V rows ckv, at
 #: sm_scale (dn + dr) ** -0.5, not D ** -0.5
-MLA_HEADS = (16, 1, 576)                # Hq, Hkv, D
+MLA_HEADS = (16, 512, 64)               # Hq, r, dr
 MLA_SCALE = (128 + 64) ** -0.5
 # f32 kernels vs their plain versions: they differ by the order of f32
 # sums only -> 2e-5 abs + rel, as tests/test_torch_cuda.py
 F32_KERNEL_TOL = 2e-5
+MLA_SRC = "src/repro_torch/kernels/csrc/mla_attention.cu"
+
+
+def shred_latent(torch, x, ps, perm):
+    """A latent cache x [B, S, W] as a page arena [1 + B*S/ps, ps, W]: row
+    b's virtual page j is arena page perm[b, j]; page 0 is scratch, large
+    finite garbage."""
+    B, S, W = x.shape
+    arena = torch.full((1 + B * (S // ps), ps, W), 1e4, dtype=x.dtype,
+                       device=x.device)
+    arena[perm.reshape(-1).long()] = x.reshape(-1, ps, W)
+    return arena
+
+
+def latent_work(lens_seen, rows, B: int, Hq: int, T: int, page: int = 0):
+    """Bytes and FLOPs of latent attention (bf16) in both forms.  In place:
+    q read (576 columns) and o written (512), the lengths, each visible
+    latent row once (1152 bytes; and its table slots when paged); Q K^T at
+    576 and P V at 512 over the visible pairs.  The k/v form PR 23 ran: o
+    at 576, a 1152-byte K row and a 1152-byte V row, both products at 576.
+    `lens_seen`: visible (query, column) pairs per q head; `rows`: each
+    row's visible cache rows."""
+    r, dr = MLA_HEADS[1:]
+    D = r + dr
+    tables = 4 * sum(-(-n // page) for n in rows) if page else 0
+    inplace = {"nbytes": 2.0 * B * Hq * T * (D + r) + 4 * B
+               + sum(rows) * D * 2 + tables,
+               "ops": 2.0 * Hq * lens_seen * (D + r)}
+    kv = {"nbytes": 2.0 * 2 * B * Hq * T * D + 4 * B + sum(rows) * D * 2 * 2
+          + tables, "ops": 4.0 * Hq * lens_seen * D}
+    return inplace, kv
+
+
+def sdpa_backend(torch, fn) -> str:
+    """Which SDPA backend runs `fn`, by the kernels one call launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in p.key_averages() if _dev_us(e) > 0]
+    low = " ".join(names).lower()
+    kind = ("flash" if "flash" in low else "cudnn" if "cudnn" in low
+            else "memory-efficient" if "fmha" in low or "efficient" in low
+            else "math (matmuls and a softmax)")
+    return f"{kind}: {'; '.join(n[:50] for n in names[:4])}"
 
 
 def check_mla_kernels(torch, entries):
-    """Phase 3e: the four serving attention kernels at deepseek's latent
-    shapes (D 576, G 16, Hkv 1, sm_scale 192 ** -0.5), in f32 and bf16:
-    decode at kv_len 0, 1, ragged and 2048 (with its residuals), chunk at
-    T 512 and T 8 at per-row offsets, their paged twins at page sizes 64
-    (TMA) and 16 (the gather; decode also 5), each against its plain
-    version; paged equal to dense and a row alone equal to its batch row
-    (torch.equal).  The bf16 kernels are timed beside their plain
-    versions, their bounds and SDPA (bool mask).  Adds a head_dim_576
-    entry (T 8 as its short_chunk) to each kernel's entry of `entries`."""
+    """Phase 3e: the four latent attention kernels at deepseek's shapes (16
+    q heads over one latent kv head read in place: ckv [8, 2048, 512],
+    krope [8, 2048, 64]; sm_scale 192 ** -0.5), in f32 and bf16: decode at
+    kv_len 0, 1, ragged and 2048 (with its residuals), chunk at T 512 and
+    T 8 at per-row offsets, their paged twins over two arenas through one
+    block table at page sizes 64 (TMA) and 16 (the gather; decode also 5),
+    each against its plain version (the reference's k/v route); paged
+    equal to dense and a row alone equal to its batch row (torch.equal).
+    The bf16 kernels are timed beside their plain versions, both bounds
+    (in place and the k/v form) and SDPA on the k/v form built before the
+    timed call (its backend named).  Adds a head_dim_576 entry (T 8 as its
+    short_chunk) to each kernel's entry of `entries`."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import mla_attention as mla
     from repro_torch.kernels import ref
 
+    for kernel, regs, spills, smem in ptxas_report(
+            build.build_log("mla_attention"), with_smem=True):
+        log(f"[mla-kernels] ptxas: {kernel}: {regs} registers, {spills} bytes "
+            f"spill stores, {smem} bytes static shared memory")
+    log(f"[mla-kernels] the bf16 kernel asks for {mla.SMEM_BYTES} bytes of "
+        f"dynamic shared memory a block")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
-    Hq, Hkv, D = MLA_HEADS
+    Hq, r, dr = MLA_HEADS
+    D = r + dr
     B, S = 8, 2048
     kw = dict(sm_scale=MLA_SCALE)
     lens = [0, 1, 77, 1000, 1537, 2047, 2048, 513]
@@ -1934,132 +2003,237 @@ def check_mla_kernels(torch, entries):
         errs = {n: [] for n in names}       # the bf16 errors go on the line
         tag = f"D=576 G=16 {str(dtype)[6:]}"
         rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
-        k = rnd(B, Hkv, S, D)
-        v = F.pad(k[..., :512], (0, D - 512))     # the latent, zero-padded
+        ckv, krope = rnd(B, S, r), rnd(B, S, dr)
         q = rnd(B, Hq, D)
-        o, (m, l) = dec.decode_attention(q, k, v, kv_len=kv_len,
-                                         return_residuals=True, **kw)
-        o_r, (m_r, l_r) = ref.decode_attention(q, k, v, kv_len=kv_len,
-                                               return_residuals=True, **kw)
+        o, (m, l) = mla.decode_attention_latent(q, ckv, krope, kv_len=kv_len,
+                                                return_residuals=True, **kw)
+        o_r, (m_r, l_r) = ref.decode_attention_latent(
+            q, ckv, krope, kv_len=kv_len, return_residuals=True, **kw)
         errs["decode_attention"].append(
-            max_err(torch, o, o_r, f"decode_attention {tag}", tol))
+            max_err(torch, o, o_r, f"decode_attention_latent {tag}", tol))
         if not bool((o[0] == 0).all()):
-            fail(f"decode_attention {tag}: the kv_len == 0 row is not zeros")
-        max_err(torch, m, m_r, f"decode_attention m {tag}", tol)
+            fail(f"decode_attention_latent {tag}: the kv_len == 0 row is not "
+                 f"zeros")
+        max_err(torch, m, m_r, f"decode_attention_latent m {tag}", tol)
         if not torch.allclose(l, l_r, rtol=1e-3, atol=1e-3):
-            fail(f"decode_attention {tag}: residual l disagrees with the "
-                 f"plain version")
+            fail(f"decode_attention_latent {tag}: residual l disagrees with "
+                 f"the plain version")
         arenas = {}
         for ps in (PAGE, 16):
             nb = S // ps
             perm = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
                 .to(torch.int32).reshape(B, nb)
-            kp, vp = shred(torch, k, ps, perm), shred(torch, v, ps, perm)
-            arenas[ps] = (kp, vp, perm)
+            cp = shred_latent(torch, ckv, ps, perm)
+            rp = shred_latent(torch, krope, ps, perm)
+            arenas[ps] = (cp, rp, perm)
             bt = tables(torch, perm, ps, lens)
             errs["decode_attention_paged"].append(max_err(
-                torch, dec.decode_attention_paged(
-                    q, kp, vp, block_table=bt, kv_len=kv_len, **kw),
-                ref.decode_attention_paged(q, kp, vp, block_table=bt,
-                                           kv_len=kv_len, **kw),
-                f"decode_attention_paged {tag} page_size {ps}", tol))
+                torch, mla.decode_attention_latent_paged(
+                    q, cp, rp, block_table=bt, kv_len=kv_len, **kw),
+                ref.decode_attention_latent_paged(q, cp, rp, block_table=bt,
+                                                  kv_len=kv_len, **kw),
+                f"decode_attention_latent_paged {tag} page_size {ps}", tol))
         cases = []
         for T, pos_l in chunks:
             qc = rnd(B, Hq, T, D)
             pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            dense = mla.chunk_attention_latent(qc, ckv, krope, pos=pos, **kw)
             errs["chunk_attention"].append(max_err(
-                torch, dec.chunk_attention(qc, k, v, pos=pos, **kw),
-                ref.chunk_attention(qc, k, v, pos=pos, **kw),
-                f"chunk_attention {tag} T={T}", tol))
-            for ps, (kp, vp, perm) in arenas.items():
+                torch, dense, ref.chunk_attention_latent(qc, ckv, krope,
+                                                         pos=pos, **kw),
+                f"chunk_attention_latent {tag} T={T}", tol))
+            for ps, (cp, rp, perm) in arenas.items():
                 btc = tables(torch, perm, ps, [p + T for p in pos_l])
-                errs["chunk_attention_paged"].append(check_paged_chunk(
-                    torch, qc, k, v, kp, vp, btc, pos,
-                    f"chunk_attention_paged {tag} T={T} page_size {ps}",
-                    tol, **kw))
-            cases.append((T, pos_l, qc, pos, None))
-        check_decode_identities(torch, q, k, v, kv_len, arenas, lens)
-        check_chunk_identities(torch, k, v, arenas, cases)
+                what = (f"chunk_attention_latent_paged {tag} T={T} "
+                        f"page_size {ps}")
+                o = mla.chunk_attention_latent_paged(
+                    qc, cp, rp, block_table=btc, pos=pos, **kw)
+                errs["chunk_attention_paged"].append(max_err(
+                    torch, o, ref.chunk_attention_latent_paged(
+                        qc, cp, rp, block_table=btc, pos=pos, **kw), what,
+                    tol))
+                if not torch.equal(o, dense):
+                    fail(f"{what}: the paged output differs from the dense "
+                         f"kernel's on the same cache")
+            cases.append((T, pos_l, qc, pos))
+        check_latent_identities(torch, q, ckv, krope, kv_len, arenas, lens,
+                                cases)
         log(f"[mla-kernels] {tag}: max abs err "
             + ", ".join(f"{n} {max(e):.3e}" for n, e in errs.items())
             + f" (tolerance {tol} abs + rel)")
-        del o, o_r, m, m_r, l, l_r
+        del o, o_r, m, m_r, l, l_r, dense
         if dtype == torch.float32:
-            del k, v, q, arenas, cases
+            del ckv, krope, q, arenas, cases
             torch.cuda.empty_cache()
 
-    # bf16 times, beside the plain versions, the bounds and SDPA
+    # bf16 times, beside the plain versions, both bounds and SDPA on the
+    # k/v form (built here, outside the timed call)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    sdpa = lambda qq, kk, vv, **a: F.scaled_dot_product_attention(
-        qq, kk, vv, enable_gqa=True, scale=MLA_SCALE, **a)
+    k_full = torch.cat([ckv, krope], dim=-1)[:, None]
+    v_lat = F.pad(ckv, (0, dr))[:, None]
+    sdpa = lambda qq, **a: F.scaled_dot_product_attention(
+        qq, k_full, v_lat, scale=MLA_SCALE, enable_gqa=True, **a)
     dmask = (torch.arange(S, device=dev)[None, :]
              < kv_len[:, None])[:, None, None, :]
-    kp, vp, perm = arenas[PAGE]
+    log(f"[mla-kernels] SDPA on the k/v form: decode ran "
+        f"{sdpa_backend(torch, lambda: sdpa(q[:, :, None], attn_mask=dmask))}")
+    cp, rp, perm = arenas[PAGE]
     nb = S // PAGE
     dbt = tables(torch, perm, PAGE, lens)
-    dec_work = dict(nbytes=2.0 * q.numel() * 2 + 4 * B
-                    + sum(lens) * Hkv * D * 2 * 2,
-                    ops=4.0 * sum(lens) * Hq * D)
+    dec_in, dec_kv = latent_work(sum(lens), lens, B, Hq, 1)
+    dec_pin, dec_pkv = latent_work(sum(lens), lens, B, Hq, 1, page=PAGE)
     timed = {
         "decode_attention": [(
-            f"q {B}x{Hq}x{D} kv {B}x{Hkv}x{S}x{D} kv_len {lens}",
-            lambda: dec.decode_attention(q, k, v, kv_len=kv_len, **kw),
-            lambda: ref.decode_attention(q, k, v, kv_len=kv_len, **kw),
-            lambda: sdpa(q[:, :, None], k, v, attn_mask=dmask), dec_work)],
+            f"q {B}x{Hq}x{D} ckv {B}x{S}x{r} krope {B}x{S}x{dr} kv_len "
+            f"{lens}",
+            lambda: mla.decode_attention_latent(q, ckv, krope, kv_len=kv_len,
+                                                **kw),
+            lambda: ref.decode_attention_latent(q, ckv, krope, kv_len=kv_len,
+                                                **kw),
+            lambda: sdpa(q[:, :, None], attn_mask=dmask), dec_in, dec_kv, {})],
         "decode_attention_paged": [(
-            f"q {B}x{Hq}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} bt "
-            f"{B}x{nb} kv_len {lens}",
-            lambda: dec.decode_attention_paged(q, kp, vp, block_table=dbt,
-                                               kv_len=kv_len, **kw),
-            lambda: ref.decode_attention_paged(q, kp, vp, block_table=dbt,
-                                               kv_len=kv_len, **kw),
-            None,
-            dict(dec_work, nbytes=dec_work["nbytes"]
-                 + 4 * sum(-(-n // PAGE) for n in lens),
-                 dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len,
-                                                    **kw)))],
+            f"q {B}x{Hq}x{D} pages {cp.shape[0]}x{PAGE}x{r} + "
+            f"{rp.shape[0]}x{PAGE}x{dr} bt {B}x{nb} kv_len {lens}",
+            lambda: mla.decode_attention_latent_paged(
+                q, cp, rp, block_table=dbt, kv_len=kv_len, **kw),
+            lambda: ref.decode_attention_latent_paged(
+                q, cp, rp, block_table=dbt, kv_len=kv_len, **kw),
+            None, dec_pin, dec_pkv,
+            dict(dense=lambda: mla.decode_attention_latent(
+                q, ckv, krope, kv_len=kv_len, **kw)))],
         "chunk_attention": [], "chunk_attention_paged": []}
-    for T, pos_l, qc, pos, _ in cases:
+    for T, pos_l, qc, pos in cases:
         bt = tables(torch, perm, PAGE, [p + T for p in pos_l])
         lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
         cmask = (torch.arange(S, device=dev)[None, None, :]
                  <= lim[:, :, None])[:, None]
+        seen = sum(min(p + t + 1, S) for p in pos_l for t in range(T))
+        rows = [min(p + T, S) for p in pos_l]
+        c_in, c_kv = latent_work(seen, rows, B, Hq, T)
+        p_in, p_kv = latent_work(seen, rows, B, Hq, T, page=PAGE)
         timed["chunk_attention"].append((
-            f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}",
-            lambda qc=qc, pos=pos: dec.chunk_attention(qc, k, v, pos=pos,
-                                                       **kw),
-            lambda qc=qc, pos=pos: ref.chunk_attention(qc, k, v, pos=pos,
-                                                       **kw),
-            lambda qc=qc, cmask=cmask: sdpa(qc, k, v, attn_mask=cmask),
-            chunk_work(pos_l, T, S, Hq, Hkv, D)))
+            f"q {B}x{Hq}x{T}x{D} ckv {B}x{S}x{r} krope {B}x{S}x{dr} pos "
+            f"{pos_l}",
+            lambda qc=qc, pos=pos: mla.chunk_attention_latent(
+                qc, ckv, krope, pos=pos, **kw),
+            lambda qc=qc, pos=pos: ref.chunk_attention_latent(
+                qc, ckv, krope, pos=pos, **kw),
+            lambda qc=qc, cmask=cmask: sdpa(qc, attn_mask=cmask), c_in, c_kv,
+            {}))
         timed["chunk_attention_paged"].append((
-            f"q {B}x{Hq}x{T}x{D} pages {kp.shape[0]}x{Hkv}x{PAGE}x{D} bt "
-            f"{B}x{nb} pos {pos_l}",
-            lambda qc=qc, pos=pos, bt=bt: dec.chunk_attention_paged(
-                qc, kp, vp, block_table=bt, pos=pos, **kw),
-            lambda qc=qc, pos=pos, bt=bt: ref.chunk_attention_paged(
-                qc, kp, vp, block_table=bt, pos=pos, **kw),
-            None,
-            dict(chunk_work(pos_l, T, S, Hq, Hkv, D, page=PAGE),
-                 dense=lambda qc=qc, pos=pos: dec.chunk_attention(
-                     qc, k, v, pos=pos, **kw))))
+            f"q {B}x{Hq}x{T}x{D} pages {cp.shape[0]}x{PAGE}x{r} + "
+            f"{rp.shape[0]}x{PAGE}x{dr} bt {B}x{nb} pos {pos_l}",
+            lambda qc=qc, pos=pos, bt=bt: mla.chunk_attention_latent_paged(
+                qc, cp, rp, block_table=bt, pos=pos, **kw),
+            lambda qc=qc, pos=pos, bt=bt: ref.chunk_attention_latent_paged(
+                qc, cp, rp, block_table=bt, pos=pos, **kw),
+            None, p_in, p_kv,
+            dict(dense=lambda qc=qc, pos=pos: mla.chunk_attention_latent(
+                qc, ckv, krope, pos=pos, **kw))))
+    log(f"[mla-kernels] SDPA on the k/v form: chunk T={cases[0][0]} ran "
+        f"{sdpa_backend(torch, timed['chunk_attention'][0][3])}")
     for e in entries:
-        for i, (shape, fn, plain, lib, work) in enumerate(
+        for i, (shape, fn, plain, lib, work, kv, extra) in enumerate(
                 timed.get(e["name"], ())):
             err = max(errs[e["name"]])
-            sub = sub_entry(record_kernel(torch, flush, e["name"],
-                                          e["source"], e["replaces"], shape,
-                                          err, fn, plain, lib, **work))
+            full = record_kernel(torch, flush, e["name"], MLA_SRC,
+                                 e["replaces"], shape, err, fn, plain, lib,
+                                 **work, **extra)
+            sub = sub_entry(full)
+            sub["source"] = MLA_SRC
+            sub["bound_kv_ms"], sub["bound_kv_by"] = bound(
+                kv["nbytes"], kv["ops"], "bfloat16")
+            log(f"[mla-kernels] {e['name']} {shape}: bound in place "
+                f"{sub['bound_ms']:.4f} ms ({sub['bound_by']}), in the k/v "
+                f"form {sub['bound_kv_ms']:.4f} ms ({sub['bound_kv_by']})")
             if i == 0:
                 e["head_dim_576"] = sub
             else:
                 e["head_dim_576"]["short_chunk"] = sub
             e["max_abs_err"] = max(e["max_abs_err"], err)
-    log(f"[mla-kernels] decode: S cut into {dec.decode_splits(S, D)} "
-        f"(ranges, rows); chunk at T 8: {dec.chunk_splits(Hkv, Hq, 8, S, D)}, "
-        f"at T 512: {dec.chunk_splits(Hkv, Hq, 512, S, D)}")
-    del k, v, q, kp, vp, arenas, cases, timed, flush
+    log(f"[mla-kernels] decode: S cut into "
+        f"{mla.plan(B, Hq, 1, S, decode=True)[1:3]} (ranges, rows); chunk at "
+        f"T 8: {mla.plan(B, Hq, 8, S, decode=False)[1:3]}, at T 512: "
+        f"{mla.plan(B, Hq, 512, S, decode=False)[1:3]}")
+    del ckv, krope, q, cp, rp, arenas, cases, timed, flush, k_full, v_lat
     torch.cuda.empty_cache()
+
+
+def check_latent_identities(torch, q, ckv, krope, kv_len, arenas, lens,
+                            cases):
+    """The latent kernels' identities: paged decode equals dense decode on
+    the same cache (torch.equal) at page sizes 64 (TMA), 16 and 5 (the
+    cp.async gather; 5 over the cache padded to 2050 rows); a row decoded
+    alone equals the same row in the batch of 8, dense and paged; and a
+    chunk row alone equals its batch row, dense and paged, at T 8 (split
+    columns) and 512."""
+    from repro_torch.kernels import mla_attention as mla
+
+    dev = q.device
+    B, S, r = ckv.shape
+    kw = dict(sm_scale=MLA_SCALE)
+    dense = mla.decode_attention_latent(q, ckv, krope, kv_len=kv_len, **kw)
+    runs = [(ps, cp, rp, tables(torch, perm, ps, lens), dense)
+            for ps, (cp, rp, perm) in arenas.items()]
+    pad = lambda t: torch.cat([t, t.new_zeros(B, 2, t.shape[-1])], dim=1)
+    c5, r5 = pad(ckv), pad(krope)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    perm5 = (torch.randperm(B * 410, generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(B, 410)
+    runs.append((5, shred_latent(torch, c5, 5, perm5),
+                 shred_latent(torch, r5, 5, perm5),
+                 tables(torch, perm5, 5, lens),
+                 mla.decode_attention_latent(q, c5, r5, kv_len=kv_len, **kw)))
+    for ps, cp, rp, bt, want in runs:
+        o = mla.decode_attention_latent_paged(q, cp, rp, block_table=bt,
+                                              kv_len=kv_len, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, want):
+            fail(f"decode_attention_latent_paged page_size {ps}: the output "
+                 f"differs from the dense kernel's on the same cache")
+        for i in (3, 5, 7):
+            one = slice(i, i + 1)
+            alone = mla.decode_attention_latent_paged(
+                q[one], cp, rp, block_table=bt[one].contiguous(),
+                kv_len=kv_len[one], **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(alone, o[one]):
+                fail(f"decode_attention_latent_paged page_size {ps}: row {i} "
+                     f"alone differs from row {i} in the batch")
+    for i in (3, 5, 7):
+        one = slice(i, i + 1)
+        alone = mla.decode_attention_latent(q[one], ckv[one], krope[one],
+                                            kv_len=kv_len[one], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, dense[one]):
+            fail(f"decode_attention_latent: row {i} alone differs from row "
+                 f"{i} in the batch")
+    for T, pos_l, qc, pos in cases:
+        chunk_runs = [("dense", lambda q_, p_, rows:
+                       mla.chunk_attention_latent(q_, ckv[rows], krope[rows],
+                                                  pos=p_, **kw))]
+        for ps, (cp, rp, perm) in arenas.items():
+            bt = tables(torch, perm, ps, [p + T for p in pos_l])
+            chunk_runs.append((
+                f"paged page_size {ps}",
+                lambda q_, p_, rows, cp=cp, rp=rp, bt=bt:
+                mla.chunk_attention_latent_paged(
+                    q_, cp, rp, block_table=bt[rows].contiguous(), pos=p_,
+                    **kw)))
+        for what, run in chunk_runs:
+            batch = run(qc, pos, slice(None))
+            for i in (3, 4, 6):
+                one = slice(i, i + 1)
+                alone = run(qc[one].contiguous(), pos[one], one)
+                torch.cuda.synchronize()
+                if not torch.equal(alone, batch[one]):
+                    fail(f"chunk_attention_latent {what} T={T}: row {i} "
+                         f"alone differs from row {i} in the batch")
+    log(f"[mla-kernels] decode: paged equals dense at page sizes "
+        f"{sorted(run[0] for run in runs)}; rows 3, 5, 7 alone equal "
+        f"themselves in the batch of {B}, dense and paged; chunk rows 3, 4, "
+        f"6 alone equal themselves at T {[c[0] for c in cases]}, dense and "
+        f"paged at page sizes {sorted(arenas)}")
 
 
 # ---------------------------------------------------------------- hybrid ----
@@ -2751,10 +2925,11 @@ def moe_serve(torch, runs, what, cfg, params, drop_free=False, **paged):
     release(torch)
 
 
-def profile_window(torch, tag, cfg, params):
+def profile_window(torch, tag, cfg, params, groups=None):
     """A torch.profiler window over a short contiguous serving run (8
-    requests x 16 tokens): where it goes.  Returns the device's busy
-    share of the wall."""
+    requests x 16 tokens): where it goes, and for each of `groups` (a
+    label: substrings of device kernel names) its launches and share of
+    the device time.  Returns the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import run_workload
 
@@ -2768,7 +2943,12 @@ def profile_window(torch, tag, cfg, params):
             run_workload(engine, prompts[:8], 16, mode="closed")
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
-    _, busy = breakdown(p, wall_us, tag, "8 requests x 16 tokens")
+    rows, busy = breakdown(p, wall_us, tag, "8 requests x 16 tokens")
+    for label, names in (groups or {}).items():
+        hit = [e for e in rows if any(n in e.key for n in names)]
+        us = sum(_dev_us(e) for e in hit)
+        log(f"[{tag}] {label}: x{sum(e.count for e in hit)}, "
+            f"{us / 1e3:.2f} ms, {100 * us / busy:.1f}% of device time")
     del engine, p
     release(torch)
     return busy / wall_us
@@ -3158,7 +3338,11 @@ def mla_serve_phase(torch):
     paged = dict(page_size=PAGE, max_cache_pages=257)
     moe_serve(torch, runs, "mla-serve", cfg, params)
     moe_serve(torch, runs, "mla-paged", cfg, params, **paged)
-    busy = profile_window(torch, "mla-profile", cfg, params)
+    # the latent kernels' shares, and the copies: PR 23's k_full / v_lat
+    # (a cat and a pad of the layer's cache every call) are gone
+    busy = profile_window(torch, "mla-profile", cfg, params, groups={
+        "latent attention kernels": ("latent_kernel",),
+        "copy kernels": ("copy", "Copy")})
     free = dataclasses.replace(cfg, capacity_factor=MLA_DROP_FREE)
     moe_serve(torch, runs, "mla-serve-drop-free", free, params,
               drop_free=True)

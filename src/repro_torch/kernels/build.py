@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("rmsnorm", "decode_attention", "flash_attention", "mamba_scan")
+SOURCES = ("rmsnorm", "decode_attention", "mla_attention", "flash_attention",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -52,6 +53,14 @@ SIGNATURES = {
         "chunk_attention_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                          _I, _I, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _F, _I, _P),
+    },
+    "mla_attention": {
+        "mla_decode_attention_launch": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
+        "mla_decode_attention_paged_launch": (_P,) * 8 + (_I,) * 7
+        + (_F, _I, _P),
+        "mla_chunk_attention_launch": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+        "mla_chunk_attention_paged_launch": (_P,) * 8 + (_I,) * 8
+        + (_F, _I, _P),
     },
     "flash_attention": {
         "flash_attention_fwd_launch": (_P, _P, _P, _P, _P,

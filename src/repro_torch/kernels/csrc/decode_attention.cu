@@ -116,32 +116,8 @@
 // would break the f32 tests' 2e-5.  A bf16 tensor always takes the tensor
 // cores.
 //
-// Wide heads (D 576: MLA's latent attention, 16 q heads over one latent kv
-// head; bf16 in namespace tc, wide_kernel).  What bounds it on an H100:
-// bytes at decode (a 1152-byte K row and V row feed 16 q heads, ~28 FLOPs
-// a byte), operations for a 512-token chunk (a K/V row feeds up to 8192
-// query rows).  The narrow designs do not fit at this width: one 64-row
-// K+V stage is 147 KB, the chunk kernel's 128-row Q tile another 147 KB,
-// and a warpgroup's 64 x 576 f32 accumulator 288 registers a thread.  So
-// one kernel serves decode and chunk, on mma.sync m16n8k16: M query rows a
-// block (decode: the 16 q heads of a (row, kv head), 4 warps; chunk: 64
-// rows in (t, g) order, 8 warps), its Q tile resident in shared memory,
-// and K/V tiles of 32 rows in a two-stage ring (73.7 KB a stage; the copy
-// routes of the chunk kernel: TMA dense and at page sizes that are
-// multiples of 64, the cp.async gather at any other), 227 KB in all at
-// M 64.  S = Q K^T runs once over all D columns, each warp taking one or
-// two 8-row n-tiles of K against one 16-row m-tile, into an f32 score tile
-// in shared memory.  Then the D output columns are split across warps
-// (decode: 4 x 144; chunk: 2 x 288 for each m-tile), so a thread holds 72
-// or 144 f32 accumulators: every warp of an m-tile reads the same scores
-// and runs the same online softmax (m and l agree exactly), and multiplies
-// P, rounded to bf16, into its own columns of V.  Decode is the one-token
-// chunk whose rows see [0, kv_len): the two share the causal limits, the
-// split ranges (whole 64-column tiles, planned by decode_splits and
-// chunk_splits from S, or (Hkv, G, T, S), alone) and the in-launch merge
-// of the chunk kernel.  v is an input and all D output columns are
-// computed.  f32 at D 576 runs the FMA bodies on smaller tiles (decode: 16
-// K/V rows; chunk: 32 query rows against 16 K/V rows).
+// Head dim 576 (MLA's latent attention) is not compiled here: it runs in
+// mla_attention.cu, which reads the latent cache in place.
 //
 // Paged addressing, both kernels: a row stops at its own limit (kv_len,
 // or pos + t) clamped to NB * ps, so it never reads a table slot past
@@ -197,14 +173,9 @@ __device__ __forceinline__ long long kv_offset(const KvRows& kv, const long long
 constexpr int kDecThreads = 128;
 constexpr int kDecBK = 64;   // K/V rows per tile (two per lane in the softmax); most ranges merged
 
-// K/V rows per tile of the f32 decode kernel: 16 at a wide head dim (D 576),
-// where 64 f32 rows of K and of V alone would pass a block's 227 KB.
-template <int D>
-__host__ __device__ constexpr int dec_bk() { return D > 128 ? 16 : kDecBK; }
-
 template <int D>
 size_t decode_smem_floats(int G) {
-  constexpr int BK = dec_bk<D>();
+  constexpr int BK = kDecBK;
   return static_cast<size_t>(G) * D           // q (pre-scaled)
        + BK * (D + 1)                         // k tile (padded: no bank conflicts)
        + BK * D                               // v tile
@@ -222,7 +193,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               int hkv, int G, int split_rows, float scale) {
   constexpr int V = rt::Vec<T>::n;
   constexpr int DV = D / V;
-  constexpr int BK = dec_bk<D>();
+  constexpr int BK = kDecBK;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + G * D;
@@ -404,13 +375,11 @@ cudaError_t decode_launch_t(const void* q, const void* k, const void* v, KvRows 
 constexpr int kChThreads = 256;   // 16 x 16 threads, an RI x CJ register tile each
 
 // Tiles of the f32 chunk kernel: 64 query rows against 64-row K/V tiles
-// (a 4 x 4 register tile a thread); at a wide head dim (D 576) 32 query
-// rows against 16-row tiles (2 x 1), so the tiles fit a block's 227 KB
-// and the D / 16 output columns of RI rows fit a thread's registers.
+// (a 4 x 4 register tile a thread).
 template <int D>
 struct ChTile {
-  static constexpr int BQ = D > 128 ? 32 : 64;   // query rows per block
-  static constexpr int BK = D > 128 ? 16 : 64;   // K/V rows per tile
+  static constexpr int BQ = 64;   // query rows per block
+  static constexpr int BK = 64;   // K/V rows per tile
   static constexpr int RI = BQ / 16;             // a thread's query rows
   static constexpr int CJ = BK / 16;             // a thread's columns of a tile
 };
@@ -1159,348 +1128,6 @@ decode_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk
   });
 }
 
-// ---------------------------------------------------- wide heads, bf16 ----
-// Head dims past 128 (MLA's latent attention: D = 512 + 64 = 576, 16 q
-// heads over one latent kv head) take one kernel for decode and chunk
-// attention; see the head note.
-constexpr int kWideBN = 32;   // K/V rows per tile at a wide head dim
-
-template <int D>
-__host__ __device__ constexpr bool wide() { return D > 128; }
-
-// Warps of a wide block: 4 for decode's 16 rows, 8 for chunk's 64.
-template <int M>
-__host__ __device__ constexpr int wide_warps() { return M == 16 ? 4 : 8; }
-
-constexpr int kWidePitch = kWideBN + 2;   // f32 score row pitch
-
-template <int D, int M>
-constexpr size_t wide_smem() {   // Q tile, the K/V ring, scores, paged row offsets
-  return kAlign + M * D * sizeof(bf16) + KvRing<D, 2, kWideBN>::kBytes +
-         M * kWidePitch * sizeof(float) + 2 * kWideBN * sizeof(long long);
-}
-
-// What the wide kernel needs to know about the problem.  Decode is the
-// chunk of one token (T = 1) whose rows see [0, kv_len): `lens` holds
-// kv_len, and the row's offset is kv_len - 1.
-struct WideProblem {
-  int hkv, G, T;
-  int S;            // the row's length: dense S, or nb * ps
-  int nb, ps;       // paged: block-table width and page size
-  int split_cols;   // columns per split range, a multiple of kBN
-  float mul;        // softmax scale * log2(e): scores in log2 units
-  int decode;       // 1: lens are kv_len (T = 1)
-  __device__ int rows() const { return G * T; }
-  __device__ int offset(int len) const {   // the row's causal offset
-    return decode ? min(max(len, 0), S) - 1 : len;
-  }
-  // the last column tile row r = (t, g) sees at offset p0 (-1: none)
-  __device__ int limit(int p0, int r) const {
-    if (r >= rows()) return -1;
-    const int lim = p0 + r / G;
-    return lim < S - 1 ? lim : S - 1;
-  }
-};
-
-// One block: M query rows (tile blockIdx.y from the last) of (row b, kv
-// head h) = blockIdx.x, columns of split range blockIdx.z.
-template <int D, int M, int kRoute>
-__global__ void __launch_bounds__(wide_warps<M>() * 32, 1)
-wide_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const int* __restrict__ bt,
-            const int* __restrict__ lens, bf16* __restrict__ o, float* __restrict__ m_out,
-            float* __restrict__ l_out, float* __restrict__ part, int* __restrict__ done,
-            WideProblem pb) {
-  constexpr int BN = kWideBN, NW = wide_warps<M>(), NT = NW * 32, KS = D / 16;
-  constexpr int WM = M / 16;                // m-tiles of 16 rows
-  constexpr int SN = (BN / 8) * WM / NW;    // a warp's score n-tiles (8 K rows each)
-  constexpr int SG = (BN / 8) / SN;         // warps on one m-tile's scores
-  constexpr int WN = NW / WM;               // column groups of the output
-  constexpr int NC = D / WN;                // a warp's output columns
-  constexpr int NO = NC / 8;                // ... as n-tiles
-  constexpr int SP = kWidePitch;
-  static_assert(D % 64 == 0 && (SN == 1 || SN == 2) && NO % 2 == 0, "wide tile shape");
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  __shared__ int last;
-  bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
-  const KvRing<D, 2, BN> ring(q_s + M * D);
-  float* s_s = reinterpret_cast<float*>(ring.full + 2);             // [M][SP] f32 scores
-  long long* koff = reinterpret_cast<long long*>(s_s + M * SP);     // kGather: [2][BN]
-  int* pages = reinterpret_cast<int*>(koff);                         // kPagedTma: [2]
-
-  const int head = blockIdx.x;                           // b * hkv + h
-  const int b = head / pb.hkv, h = head % pb.hkv;
-  const int tile = gridDim.y - 1 - blockIdx.y;           // longest tiles first
-  const int r0 = tile * M;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-  const int mi = lane >> 3;           // the ldmatrix matrix whose row this lane addresses
-  const int nrows = min(pb.rows() - r0, M);
-  const int p0 = pb.offset(lens[b]);
-  const int ncols = pb.limit(p0, r0 + nrows - 1) + 1;   // columns any row sees
-  const int active = max((ncols + pb.split_cols - 1) / pb.split_cols, 1);   // live ranges
-  if (static_cast<int>(blockIdx.z) >= active) return;
-  const int lo = blockIdx.z * pb.split_cols;             // this block's columns [lo, hi)
-  const int hi = min(ncols, lo + pb.split_cols);
-  const int ntiles = max((hi - lo + BN - 1) / BN, 0);
-  auto q_of = [&](int rr) {   // q / o row of tile row rr = (t, g), q head h * G + g
-    const int r = r0 + rr;
-    return (static_cast<size_t>(head) * pb.G + r % pb.G) * pb.T + r / pb.G;
-  };
-  // kGather, threads < BN: the arena offset of row threadIdx.x of tile j
-  // into koff[j % 2] (-1 past hi: zero-filled), one table read per row
-  auto stage_rows = [&](int j) {
-    const int col = lo + j * BN + static_cast<int>(threadIdx.x);
-    long long off = -1;
-    if (col < hi) {
-      const long long page = bt[static_cast<size_t>(b) * pb.nb + col / pb.ps];
-      off = ((page * pb.hkv + h) * pb.ps + col % pb.ps) * D;
-    }
-    koff[(j & 1) * BN + threadIdx.x] = off;
-  };
-  // kPagedTma, one thread: tile j lies in one page; its table read
-  auto stage_page = [&](int j) {
-    pages[j & 1] = bt[static_cast<size_t>(b) * pb.nb + (lo + j * BN) / pb.ps];
-  };
-  auto load_page = [&](int j) {
-    ring.load_at(&tk, &tv, pages[j & 1] * pb.hkv + h, j, (lo + j * BN) % pb.ps);
-  };
-  // kGather: start copying tile j into its ring stage, 16 bytes a thread
-  auto gather = [&](int j) {
-    constexpr int C = D / 8;
-    for (int i = threadIdx.x; i < BN * C; i += NT) {
-      const int r = i / C, c = i % C;
-      const long long off = koff[(j & 1) * BN + r];
-      const bool ok = off >= 0;
-      const int at = tile_off<D, BN>(r, c);
-      mma::cp_async16(ring.k(j) + at, ok ? k + off + c * 8 : k, ok);
-      mma::cp_async16(ring.v(j) + at, ok ? v + off + c * 8 : v, ok);
-    }
-  };
-
-  if constexpr (kRoute == kGather) {
-    if (threadIdx.x < BN) {
-      stage_rows(0);
-      stage_rows(1);
-    }
-    __syncthreads();
-    if (ntiles > 0) gather(0);
-  } else if constexpr (kRoute == kPagedTma) {
-    if (threadIdx.x == 0) {
-      ring.init();
-      if (ntiles > 0) {
-        stage_page(0);
-        load_page(0);
-      }
-      if (ntiles > 1) stage_page(1);
-    }
-  } else if (threadIdx.x == 0) {
-    ring.init();
-    if (ntiles > 0) ring.load_at(&tk, &tv, head, 0, lo);
-  }
-  load_rows<D, M, NT, D>(q_s, q, nrows, q_of);
-  mma::cp_async_commit();
-  mma::cp_async_wait<0>();
-  __syncthreads();   // Q (kGather: and tile 0) has landed, the ring's barriers are set
-
-  // this warp's share: the scores of m-tile sm against K rows
-  // [8 SN sn, 8 SN (sn + 1)); the output of m-tile om, columns
-  // [NC oc, NC (oc + 1)), rows rw and rw + 8
-  const int sm = warp / SG, sn = warp % SG;
-  const int om = warp % WM, oc = warp / WM;
-  const int rw = om * 16 + g;
-  const int lim[2] = {pb.limit(p0, r0 + rw), pb.limit(p0, r0 + rw + 8)};
-  // the tile's first row sees the fewest columns; rows past the last
-  // valid one may go unmasked: their zero Q gives finite p, never stored
-  const int lim_lo = pb.limit(p0, r0);
-  const Log2Score score{pb.mul};
-  float acc[NO][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
-
-  for (int j = 0; j < ntiles; ++j) {
-    if constexpr (kRoute == kGather) {
-      if (j + 1 < ntiles) gather(j + 1);
-      mma::cp_async_commit();
-      mma::cp_async_wait<1>();
-      __syncthreads();   // tile j has landed
-    } else {
-      if (threadIdx.x == 0 && j + 1 < ntiles) {
-        if constexpr (kRoute == kPagedTma)
-          load_page(j + 1);
-        else
-          ring.load_at(&tk, &tv, head, j + 1, lo + (j + 1) * BN);
-      }
-      ring.wait(j);
-    }
-    const bf16* kt = ring.k(j);
-    const bf16* vt = ring.v(j);
-    {   // S = Q K^T over all D columns, this warp's share, into s_s
-      float s[SN][4] = {};
-#pragma unroll 4
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t qa[4];
-        mma::ldsm_x4(qa, q_s + tile_off<D, M>(16 * sm + (lane & 15), 2 * kk + (lane >> 4)));
-        if constexpr (SN == 2) {
-          uint32_t kb[4];
-          mma::ldsm_x4(kb, kt + tile_off<D, BN>(16 * sn + (mi >> 1) * 8 + (lane & 7),
-                                                2 * kk + (mi & 1)));
-          mma::mma_bf16(s[0], qa, kb[0], kb[1]);
-          mma::mma_bf16(s[1], qa, kb[2], kb[3]);
-        } else {
-          uint32_t kb[2];
-          mma::ldsm_x2(kb, kt + tile_off<D, BN>(8 * sn + (lane & 7), 2 * kk + (mi & 1)));
-          mma::mma_bf16(s[0], qa, kb[0], kb[1]);
-        }
-      }
-      float* s0 = s_s + (16 * sm + g) * SP + 8 * SN * sn + 2 * qd;
-#pragma unroll
-      for (int n = 0; n < SN; ++n) {
-        *reinterpret_cast<float2*>(s0 + 8 * n) = make_float2(s[n][0], s[n][1]);
-        *reinterpret_cast<float2*>(s0 + 8 * SP + 8 * n) = make_float2(s[n][2], s[n][3]);
-      }
-    }
-    // tile j + 2's table reads, under the scores' barrier
-    if constexpr (kRoute == kGather) {
-      if (threadIdx.x < BN && j + 2 < ntiles) stage_rows(j + 2);
-    } else if constexpr (kRoute == kPagedTma) {
-      if (threadIdx.x == 0 && j + 2 < ntiles) stage_page(j + 2);
-    }
-    __syncthreads();   // the tile's scores are in s_s
-    {   // the online softmax of this warp's output rows (every warp of an
-        // m-tile computes the same m and l), then O += P V on its columns
-      float p[BN / 8][4], alpha[2];
-      const float* s0 = s_s + rw * SP + 2 * qd;
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        const float2 a = *reinterpret_cast<const float2*>(s0 + 8 * n);
-        const float2 c = *reinterpret_cast<const float2*>(s0 + 8 * SP + 8 * n);
-        p[n][0] = a.x;
-        p[n][1] = a.y;
-        p[n][2] = c.x;
-        p[n][3] = c.y;
-      }
-      const int c0 = lo + j * BN;
-      if (c0 + BN - 1 <= lim_lo)   // every row sees the whole tile
-        online_softmax<false>(p, m, l, alpha, c0 + 2 * qd, lim, score);
-      else
-        online_softmax<true>(p, m, l, alpha, c0 + 2 * qd, lim, score);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-      uint32_t pa[BN / 16][4];   // P rounded to bf16 as the A operand
-      mma::to_a<BN / 8>(pa, p);
-#pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) {
-#pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          uint32_t vb[4];
-          mma::ldsm_x4_t(vb, vt + tile_off<D, BN>(16 * ks + (mi & 1) * 8 + (lane & 7),
-                                                  oc * (NC / 8) + 2 * np + (mi >> 1)));
-          mma::mma_bf16(acc[2 * np], pa[ks], vb[0], vb[1]);
-          mma::mma_bf16(acc[2 * np + 1], pa[ks], vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();   // stage j & 1 and the scores are free
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  if (active == 1) {   // the tile's only range: normalize and store
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rw + 8 * i;
-      if (r >= nrows) continue;
-      const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-      bf16* orow = o + q_of(r) * D + oc * NC + 2 * qd;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-            __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-      if (m_out != nullptr && oc == 0 && qd == 0) {
-        m_out[q_of(r)] = l[i] == 0.f ? kNegInf : m[i] * kLn2;
-        l_out[q_of(r)] = l[i];
-      }
-    }
-    return;
-  }
-
-  // Split: publish this range's (acc, m, l) rows; the last of the tile's
-  // live ranges to arrive merges them all, in range order.  part holds
-  // every block's [M, D] accumulators, then every block's [M, 2] (m, l).
-  const size_t base = (static_cast<size_t>(head) * gridDim.y + tile) * gridDim.z;   // range 0
-  float* pml = part + static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z * M * D;
-  {
-    const size_t slot = base + blockIdx.z;
-    float* pacc = part + slot * M * D;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rw + 8 * i;
-      if (r >= nrows) continue;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<float2*>(pacc + r * D + oc * NC + 8 * n + 2 * qd) =
-            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
-      if (oc == 0 && qd == 0)
-        *reinterpret_cast<float2*>(pml + (slot * M + r) * 2) = make_float2(m[i], l[i]);
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  const size_t ctr = static_cast<size_t>(head) * gridDim.y + tile;
-  if (threadIdx.x == 0) last = atomicAdd(done + ctr, 1) == active - 1;
-  __syncthreads();
-  if (!last) return;
-  if (threadIdx.x == 0) done[ctr] = 0;   // every counter is 0 again for the next launch
-  __threadfence();
-  float* row_m = s_s;   // per row: max over ranges, 1 / sum
-  float* row_inv = s_s + M;
-  auto ml_of = [&](int sp, int r) {   // range sp's (m, l) of row r
-    return __ldcg(reinterpret_cast<const float2*>(pml + ((base + sp) * M + r) * 2));
-  };
-  for (int r = threadIdx.x; r < nrows; r += NT) {
-    float mx = kNegInf;
-    for (int sp = 0; sp < active; ++sp) mx = fmaxf(mx, ml_of(sp, r).x);
-    float sum = 0.f;
-    for (int sp = 0; sp < active; ++sp) {
-      const float2 ml = ml_of(sp, r);
-      sum += exp2f(ml.x - mx) * ml.y;
-    }
-    row_m[r] = mx;
-    row_inv[r] = sum == 0.f ? 0.f : 1.f / sum;
-    if (m_out != nullptr) {
-      m_out[q_of(r)] = sum == 0.f ? kNegInf : mx * kLn2;
-      l_out[q_of(r)] = sum;
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * (D / 4); i += NT) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int sp = 0; sp < active; ++sp) {
-      const float w = exp2f(ml_of(sp, r).x - row_m[r]);
-      const float4 x =
-          __ldcg(reinterpret_cast<const float4*>(part + ((base + sp) * M + r) * D + c));
-      a.x += w * x.x;
-      a.y += w * x.y;
-      a.z += w * x.z;
-      a.w += w * x.w;
-    }
-    const float inv = row_inv[r];
-    uint2 u;
-    u.x = mma::pack_bf16(a.x * inv, a.y * inv);
-    u.y = mma::pack_bf16(a.z * inv, a.w * inv);
-    *reinterpret_cast<uint2*>(o + q_of(r) * D + c) = u;
-  }
-}
-
 }  // namespace tc
 
 namespace {
@@ -1548,57 +1175,8 @@ cudaError_t decode_bf16(const void* q, const void* k, const void* v, KvRows kv,
   return cudaGetLastError();
 }
 
-// What a wide-head launch takes besides its tensors: decode is the
-// one-token chunk (T = 1) whose lens are kv_len.
-struct WideArgs {
-  int B, hkv, G, T, nsplit, split_cols, pages;
-  float scale;
-  bool decode;
-};
-
-// bf16 at a wide head dim: the wide kernel, M rows a block (16: decode,
-// 64: chunk).  Grid: (b, kv head) x tiles of M rows x split ranges.
-template <int D, int M, int kRoute>
-cudaError_t wide_bf16(const void* q, const void* k, const void* v, KvRows kv, const int* lens,
-                      void* o, float* m, float* l, float* part, int* done, const WideArgs& a,
-                      cudaStream_t s) {
-  using tc::bf16;
-  CUtensorMap tk{}, tv{};
-  cudaError_t err = cudaSuccess;
-  if constexpr (kRoute == tc::kDense)   // kv.ps is S
-    err = tc::kv_maps<D, tc::kWideBN>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D);
-  else if constexpr (kRoute == tc::kPagedTma)
-    err = tc::kv_maps<D, tc::kWideBN>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D);
-  if (err != cudaSuccess) return err;
-  const tc::WideProblem pb{a.hkv,        a.G,   a.T,   kv.nb * kv.ps, kv.nb, kv.ps,
-                           a.split_cols, a.scale * tc::kLog2e, a.decode ? 1 : 0};
-  constexpr size_t smem = tc::wide_smem<D, M>();
-  auto kernel = tc::wide_kernel<D, M, kRoute>;
-  static const cudaError_t attr = rt::set_smem(kernel, smem);   // once per process
-  if (attr != cudaSuccess) return attr;
-  const int tiles = (a.G * a.T + M - 1) / M;
-  kernel<<<dim3(a.B * a.hkv, tiles, a.nsplit), tc::wide_warps<M>() * 32, smem, s>>>(
-      static_cast<const bf16*>(q), tk, tv, static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kv.bt, lens, static_cast<bf16*>(o), m, l, part, done, pb);
-  return cudaGetLastError();
-}
-
-// The wide kernel's copy route: TMA (dense; paged at page sizes that are
-// multiples of 64) or the cp.async gather (any other page size).
-template <int D, int M>
-cudaError_t wide_pick(const void* q, const void* k, const void* v, KvRows kv, const int* lens,
-                      void* o, float* m, float* l, float* part, int* done, const WideArgs& a,
-                      cudaStream_t s) {
-  if (kv.bt == nullptr)
-    return wide_bf16<D, M, tc::kDense>(q, k, v, kv, lens, o, m, l, part, done, a, s);
-  return tma_pages(kv.ps)
-             ? wide_bf16<D, M, tc::kPagedTma>(q, k, v, kv, lens, o, m, l, part, done, a, s)
-             : wide_bf16<D, M, tc::kGather>(q, k, v, kv, lens, o, m, l, part, done, a, s);
-}
-
 // The decode kernel for (dtype, D, dense or paged): bf16 on the tensor
-// cores (a wide head dim: the wide kernel, 16 rows a block), f32 on the
-// FMA body.
+// cores, f32 on the FMA body.
 template <int D>
 cudaError_t decode_pick(int dtype, const void* q, const void* k, const void* v, KvRows kv,
                         const int* kv_len, void* o, float* m, float* l, float* part, int* done,
@@ -1606,17 +1184,11 @@ cudaError_t decode_pick(int dtype, const void* q, const void* k, const void* v, 
   const bool paged = kv.bt != nullptr;
   switch (dtype) {
     case rt::kBF16:
-      if constexpr (tc::wide<D>()) {
-        return wide_pick<D, tc::kDecRows>(
-            q, k, v, kv, kv_len, o, m, l, part, done,
-            WideArgs{a.B, a.hkv, a.G, 1, a.nsplit, a.split_rows, a.pages, a.scale, true}, s);
-      } else {
-        if (!paged)
-          return decode_bf16<D, tc::kDense>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
-        return tma_pages(kv.ps)
-                   ? decode_bf16<D, tc::kPagedTma>(q, k, v, kv, kv_len, o, m, l, part, done, a, s)
-                   : decode_bf16<D, tc::kGather>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
-      }
+      if (!paged)
+        return decode_bf16<D, tc::kDense>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
+      return tma_pages(kv.ps)
+                 ? decode_bf16<D, tc::kPagedTma>(q, k, v, kv, kv_len, o, m, l, part, done, a, s)
+                 : decode_bf16<D, tc::kGather>(q, k, v, kv, kv_len, o, m, l, part, done, a, s);
     case rt::kF32:
       return paged ? decode_launch_t<float, D, true>(q, k, v, kv, kv_len, o, m, l, part, done,
                                                      a.B, a.hkv, a.G, a.nsplit, a.split_rows,
@@ -1649,7 +1221,6 @@ int decode_common(const void* q, const void* k, const void* v, KvRows kv, const 
     case 64: return decode_pick<64>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
     case 80: return decode_pick<80>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
     case 128: return decode_pick<128>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
-    case 576: return decode_pick<576>(dtype, q, k, v, kv, len, o, mf, lf, pf, dn, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1689,8 +1260,7 @@ cudaError_t chunk_bf16(const void* q, const void* k, const void* v, KvRows kv, c
 }
 
 // The chunk kernel for (dtype, D, dense or paged): bf16 on the tensor
-// cores (a wide head dim: the wide kernel, 64 rows a block), f32 on the
-// FMA body (which does not split).
+// cores, f32 on the FMA body (which does not split).
 template <int D>
 cudaError_t chunk_pick(int dtype, const void* q, const void* k, const void* v, KvRows kv,
                        const int* pos, void* o, float* part, int* done, const ChunkArgs& a,
@@ -1698,16 +1268,10 @@ cudaError_t chunk_pick(int dtype, const void* q, const void* k, const void* v, K
   const bool paged = kv.bt != nullptr;
   switch (dtype) {
     case rt::kBF16:
-      if constexpr (tc::wide<D>()) {
-        return wide_pick<D, 64>(
-            q, k, v, kv, pos, o, nullptr, nullptr, part, done,
-            WideArgs{a.B, a.hkv, a.G, a.T, a.nsplit, a.split_cols, a.pages, a.scale, false}, s);
-      } else {
-        if (!paged) return chunk_bf16<D, tc::kDense>(q, k, v, kv, pos, o, part, done, a, s);
-        return tma_pages(kv.ps)
-                   ? chunk_bf16<D, tc::kPagedTma>(q, k, v, kv, pos, o, part, done, a, s)
-                   : chunk_bf16<D, tc::kGather>(q, k, v, kv, pos, o, part, done, a, s);
-      }
+      if (!paged) return chunk_bf16<D, tc::kDense>(q, k, v, kv, pos, o, part, done, a, s);
+      return tma_pages(kv.ps)
+                 ? chunk_bf16<D, tc::kPagedTma>(q, k, v, kv, pos, o, part, done, a, s)
+                 : chunk_bf16<D, tc::kGather>(q, k, v, kv, pos, o, part, done, a, s);
     case rt::kF32:
       if (a.nsplit != 1) return cudaErrorInvalidValue;
       return paged ? chunk_launch_t<float, D, true>(q, k, v, kv, pos, o, a.B, a.hkv, a.G, a.T,
@@ -1737,7 +1301,6 @@ int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const v
     case 64: return chunk_pick<64>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
     case 80: return chunk_pick<80>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
     case 128: return chunk_pick<128>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
-    case 576: return chunk_pick<576>(dtype, q, k, v, kv, p, o, pf, dn, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1748,7 +1311,7 @@ int chunk_common(const void* q, const void* k, const void* v, KvRows kv, const v
 // m, l: [B, Hkv*G] f32 or both null.  S is cut into `nsplit` ranges of
 // `split_rows` rows (a multiple of 64, nsplit * split_rows >= S,
 // nsplit <= 64), one block each; with nsplit > 1, `part` is f32 scratch
-// of B*Hkv*ceil(G/16)*nsplit*R*(D+2) values (R = min(G, 16); 16 at D 576)
+// of B*Hkv*ceil(G/16)*nsplit*R*(D+2) values (R = min(G, 16))
 // and `done` as many int32 counters as there are (row, kv head, group of
 // 16 q heads), all 0 (every launch leaves them 0).  Returns the launch's
 // CUDA error.
@@ -1778,8 +1341,8 @@ extern "C" int decode_attention_paged_launch(const void* q, const void* k, const
 // q: [B, Hkv*G, T, D]; k, v: [B, Hkv, S, D]; pos: [B] int32; o like q.
 // bf16 cuts S into `nsplit` ranges of `split_cols` columns (a multiple of
 // 64, nsplit * split_cols >= S, nsplit <= 64), one block each; with
-// nsplit > 1, `part` is f32 scratch of B*Hkv*tiles*nsplit*M*(D+2)
-// values (tiles = ceil(G*T / M); M = 128, or 64 at D 576) and `done`
+// nsplit > 1, `part` is f32 scratch of B*Hkv*tiles*nsplit*128*(D+2)
+// values (tiles = ceil(G*T / 128)) and `done`
 // B*Hkv*tiles int32 zeros.
 // f32 takes nsplit = 1 only.  Returns the launch's CUDA error.
 extern "C" int chunk_attention_launch(const void* q, const void* k, const void* v,

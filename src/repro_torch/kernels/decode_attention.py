@@ -8,13 +8,16 @@ kernel or raises; for CPU tensors it runs the plain version in `ref`.
 Each wrapper's `.launches` counts its kernel launches, nothing else.
 
 Unlike the Pallas kernels, S needs no tile multiple: the kernels mask the
-ragged tail.  Head dims 32, 64, 80 and 128 are compiled, and 576 (MLA's
-latent attention: 512 latent + 64 rope columns, one latent kv head).
-bf16 runs on the tensor cores (chunk attention: wgmma; decode: mma.sync;
-D 576, both: one mma.sync kernel, see csrc), f32 on the FMA pipes.
-Decode cuts S into the ranges of `decode_splits`, which follow (S, D)
-alone; when a chunk gives a row few query tiles, `chunk_splits` cuts its
-columns too, by a plan that follows (Hkv, G, T, S, D) alone.
+ragged tail.  Head dims 32, 64, 80 and 128 are compiled.  MLA's latent
+attention (head dim 576: 512 latent + 64 rope columns over one latent kv
+head) has its own entry points in `mla_attention`, which read the latent
+cache in place; on the card these wrappers refuse head dim 576 and name
+them (their plain versions, on the CPU, take every head dim).  bf16 runs
+on the tensor cores (chunk attention: wgmma; decode: mma.sync), f32 on the
+FMA pipes.  Decode cuts S into the ranges of `decode_splits`, which follow
+(S, D) alone; when a chunk gives a row few query tiles, `chunk_splits`
+cuts its columns too, by a plan that follows (Hkv, G, T, S, D) alone (at
+D 576 both plan the latent kernel's ranges).
 Neither plan reads B or the offsets, so a row's output does not depend on
 the rows beside it.  Either kernel merges its ranges in the same launch,
 with per-device scratch (`scratch`) whose arrival counters every launch
@@ -41,21 +44,28 @@ import torch
 from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
-HEAD_DIMS = (32, 64, 80, 128, 576)
+HEAD_DIMS = (32, 64, 80, 128)
+LATENT_DIM = 576    # MLA's latent head dim: `mla_attention`'s entry points
 TILE = 64           # K/V rows per tile in the kernels (the split ranges' unit)
 MAX_SPLITS = 64     # S ranges per (row, kv head) the merges take
 CHUNK_ROWS = 128    # query rows per block of the bf16 chunk kernel
 WIDE_CHUNK_ROWS = 64   # ... at a wide head dim (D 576)
 DECODE_RANGE = 8 * TILE   # rows per decode split range (more past MAX_SPLITS)
-#: ... at a wide head dim: one block per (row, kv head) and range, so
-#: shorter ranges put 128 blocks on the card for a decode tick of 8 rows
-#: at S 2048
-WIDE_DECODE_RANGE = 2 * TILE
+#: ... at a wide head dim (the latent kernel, one block an SM): each range
+#: adds a partial to the row's in-launch merge; at S 2048 and B 8, 8 ranges
+#: of 256 ran 7% faster on the card than 16 of 128, and 4 of 512 17%
+#: slower (chip_ab.py phase mla)
+WIDE_DECODE_RANGE = 4 * TILE
 DECODE_ROWS = 16    # q heads per block of the bf16 decode kernel
 #: blocks below which one row's chunk gets split columns: a full prefill
 #: group (8 rows, the engine's max_batch) then puts two blocks on each of
 #: an H100's 132 SMs
 CHUNK_ROW_BLOCKS = 33
+#: ... at a wide head dim: the latent kernel runs one block an SM, and
+#: each range it adds costs its tile's merge (at T 8, 8 ranges of 256 ran
+#: 27% faster on the card than 16 of 128, and 4 of 512 2% slower;
+#: chip_ab.py phase mla)
+WIDE_ROW_BLOCKS = 16
 
 
 def _whole(S: int) -> Tuple[int, int]:
@@ -64,7 +74,7 @@ def _whole(S: int) -> Tuple[int, int]:
 
 
 def wide(D: int) -> bool:
-    """True for a head dim the wide kernel takes (past 128: D 576)."""
+    """True for a head dim past 128: D 576, the latent kernel's plans."""
     return D > 128
 
 
@@ -99,10 +109,11 @@ def chunk_splits(Hkv: int, G: int, T: int, S: int, D: int = 64
     D) alone, never B or pos, so a row's output is the same alone and in
     any batch, and planning needs no host sync."""
     per_row = Hkv * -(-G * T // chunk_rows(D))
-    if per_row >= CHUNK_ROW_BLOCKS:
+    target = WIDE_ROW_BLOCKS if wide(D) else CHUNK_ROW_BLOCKS
+    if per_row >= target:
         return _whole(S)
     tiles = max(1, -(-S // TILE))
-    per = -(-tiles // min(MAX_SPLITS, -(-CHUNK_ROW_BLOCKS // per_row)))
+    per = -(-tiles // min(MAX_SPLITS, -(-target // per_row)))
     return -(-tiles // per), per * TILE
 
 
@@ -146,6 +157,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block table [P, Hkv, page_size, D] pages and block_table [B, NB]."""
     check_cuda(q, what)
     D = q.shape[-1]
+    if D == LATENT_DIM:
+        latent = what.replace("_attention", "_attention_latent")
+        raise ValueError(
+            f"{what}: head dim {D} is MLA's latent attention; on the card "
+            f"call mla_attention.{latent} with the latent cache (ckv, "
+            f"krope), which the kernel reads in place")
     if D not in HEAD_DIMS:
         raise ValueError(f"{what} kernel compiles head dims {HEAD_DIMS}, "
                          f"got {D}")
@@ -182,12 +199,10 @@ def decode_plan(B: int, Hkv: int, G: int, S: int, D: int):
     """(grid units, nsplit, split_rows, partial values) of a decode launch
     over a virtual length S: one unit per (row, kv head, group of
     DECODE_ROWS q heads), split_rows from `decode_splits`; a unit's range
-    writes min(G, DECODE_ROWS) rows of (acc [D], m, l), DECODE_ROWS at a
-    wide D (the wide kernel's block)."""
+    writes min(G, DECODE_ROWS) rows of (acc [D], m, l)."""
     units = B * Hkv * -(-G // DECODE_ROWS)
     nsplit, split_rows = decode_splits(S, D)
-    rows = DECODE_ROWS if wide(D) else min(G, DECODE_ROWS)
-    part = units * nsplit * rows * (D + 2) if nsplit > 1 else 0
+    part = units * nsplit * min(G, DECODE_ROWS) * (D + 2) if nsplit > 1 else 0
     return units, nsplit, split_rows, part
 
 

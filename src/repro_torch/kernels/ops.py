@@ -5,7 +5,8 @@ impl='auto'   -> the kernel wrapper: the CUDA kernel for a CUDA tensor,
                  `rmsnorm` and `ssd_scan` when a gradient is wanted, go
                  through their autograd Functions, whose backward is a
                  kernel too.  The kernels with no backward (decode and
-                 chunk attention, their paged twins, rmsnorm_add) raise
+                 chunk attention, their paged twins and latent forms,
+                 rmsnorm_add) raise
                  on a CUDA tensor when a gradient is wanted, rather than
                  return outputs cut from the graph
 impl='kernel' -> the CUDA kernel; a CPU tensor raises
@@ -26,6 +27,7 @@ from ..core.device_fold import annotate_cost
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import mamba_scan as _ssd
+from . import mla_attention as _mla
 from . import ref
 from . import rmsnorm as _rms
 
@@ -154,6 +156,99 @@ def chunk_attention_paged(q, k_pages, v_pages, *, block_table, pos,
         _no_backward("chunk_attention_paged", q, k_pages, v_pages)
         fn = _dec.chunk_attention_paged
     return fn(q, k_pages, v_pages, block_table=block_table, pos=pos,
+              sm_scale=sm_scale)
+
+
+# MLA's latent attention: q against one latent kv head whose K rows are
+# [ckv | krope] and V rows ckv, read from the cache in place; the first r
+# output columns of the reference's k/v form (`ref.*_latent`).  Each
+# registers the reference's cost of the k/v call it stands for (k and its
+# zero-padded v at D = r + dr) under the same edge.
+def _latent_cost(component: str, kernel: str, flops: float, rows: float,
+                 D: int, elem: int) -> None:
+    annotate_cost(xfa.current_component(), component, kernel, flops=flops,
+                  bytes=2.0 * rows * D * elem)
+
+
+def decode_attention_latent(q, ckv, krope, *, kv_len=None, sm_scale=None,
+                            impl: str = "auto", return_residuals: bool = False,
+                            component: str = "attention"):
+    """Latent decode: q [B, Hq, r + dr]; ckv [B, S, r], krope [B, S, dr];
+    kv_len [B] -> [B, Hq, r] (+ (m, l) with return_residuals)."""
+    B, Hq, D = q.shape
+    S = ckv.shape[1]
+    _latent_cost(component, "decode_attention", 4.0 * B * Hq * S * D, B * S,
+                 D, ckv.element_size())
+    if _plain(impl, q):
+        fn = ref.decode_attention_latent
+    else:
+        _no_backward("decode_attention_latent", q, ckv, krope)
+        fn = _mla.decode_attention_latent
+    return fn(q, ckv, krope, kv_len=kv_len, sm_scale=sm_scale,
+              return_residuals=return_residuals)
+
+
+def chunk_attention_latent(q, ckv, krope, *, pos, sm_scale=None,
+                           impl: str = "auto",
+                           component: str = "attention") -> torch.Tensor:
+    """Latent positioned chunk: q [B, Hq, T, r + dr] at per-row offsets
+    pos [B]; ckv [B, S, r], krope [B, S, dr] the full cache ->
+    [B, Hq, T, r].  Query t of row b attends columns <= pos[b] + t."""
+    B, Hq, T, D = q.shape
+    S = ckv.shape[1]
+    _latent_cost(component, "chunk_attention", 4.0 * B * Hq * T * S * D,
+                 B * S, D, ckv.element_size())
+    if _plain(impl, q):
+        fn = ref.chunk_attention_latent
+    else:
+        _no_backward("chunk_attention_latent", q, ckv, krope)
+        fn = _mla.chunk_attention_latent
+    return fn(q, ckv, krope, pos=pos, sm_scale=sm_scale)
+
+
+def decode_attention_latent_paged(q, ckv_pages, krope_pages, *, block_table,
+                                  kv_len, sm_scale=None, impl: str = "auto",
+                                  component: str = "attention"
+                                  ) -> torch.Tensor:
+    """Paged latent decode: q [B, Hq, r + dr] against the arenas
+    ckv_pages [P, page_size, r], krope_pages [P, page_size, dr] through
+    block_table [B, NB]; kv_len [B] -> [B, Hq, r]."""
+    B, Hq, D = q.shape
+    ps = ckv_pages.shape[1]
+    NB = block_table.shape[1]
+    _latent_cost(component, "decode_attention_paged",
+                 4.0 * B * Hq * NB * ps * D, B * NB * ps, D,
+                 ckv_pages.element_size())
+    if _plain(impl, q):
+        fn = ref.decode_attention_latent_paged
+    else:
+        _no_backward("decode_attention_latent_paged", q, ckv_pages,
+                     krope_pages)
+        fn = _mla.decode_attention_latent_paged
+    return fn(q, ckv_pages, krope_pages, block_table=block_table,
+              kv_len=kv_len, sm_scale=sm_scale)
+
+
+def chunk_attention_latent_paged(q, ckv_pages, krope_pages, *, block_table,
+                                 pos, sm_scale=None, impl: str = "auto",
+                                 component: str = "attention"
+                                 ) -> torch.Tensor:
+    """Paged latent chunk: q [B, Hq, T, r + dr] at per-row offsets pos
+    [B] against the arenas of `decode_attention_latent_paged` ->
+    [B, Hq, T, r]."""
+    B, Hq, T, D = q.shape
+    ps = ckv_pages.shape[1]
+    NB = block_table.shape[1]
+    _latent_cost(component, "chunk_attention_paged",
+                 4.0 * B * Hq * T * NB * ps * D, B * NB * ps, D,
+                 ckv_pages.element_size())
+    if _plain(impl, q):
+        fn = ref.chunk_attention_latent_paged
+    else:
+        _no_backward("chunk_attention_latent_paged", q, ckv_pages,
+                     krope_pages)
+        fn = _mla.chunk_attention_latent_paged
+    return fn(q, ckv_pages, krope_pages, block_table=block_table, pos=pos,
               sm_scale=sm_scale)
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -204,6 +205,71 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return decode_attention(q, gather_kv_pages(k_pages, block_table),
                             gather_kv_pages(v_pages, block_table),
                             kv_len=kv_len, sm_scale=sm_scale)
+
+
+def _latent_kv(ckv: torch.Tensor, krope: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One latent kv head in the k/v form the reference's mla_attention
+    builds: k = [ckv | krope], v = ckv zero-padded to the same width, each
+    with a kv head axis: [.., S, r], [.., S, dr] -> [.., 1, S, r + dr]."""
+    return (torch.cat([ckv, krope], dim=-1)[:, None],
+            F.pad(ckv, (0, krope.shape[-1]))[:, None])
+
+
+def decode_attention_latent(q: torch.Tensor, ckv: torch.Tensor,
+                            krope: torch.Tensor, *,
+                            kv_len: Optional[torch.Tensor] = None,
+                            sm_scale: Optional[float] = None,
+                            return_residuals: bool = False):
+    """MLA's latent decode: q [B, Hq, r + dr] against one latent kv head
+    whose K rows are [ckv | krope] and V rows ckv (ckv [B, S, r], krope
+    [B, S, dr]) -> [B, Hq, r] (+ (m, l) [B, Hq] f32 with
+    return_residuals).  As the reference computes it: `decode_attention`
+    with v zero-padded to r + dr, the padding's output columns dropped."""
+    k, v = _latent_kv(ckv, krope)
+    out = decode_attention(q, k, v, kv_len=kv_len, sm_scale=sm_scale,
+                           return_residuals=return_residuals)
+    r = ckv.shape[-1]
+    return (out[0][..., :r], out[1]) if return_residuals else out[..., :r]
+
+
+def chunk_attention_latent(q: torch.Tensor, ckv: torch.Tensor,
+                           krope: torch.Tensor, *, pos: torch.Tensor,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """MLA's latent positioned chunk: q [B, Hq, T, r + dr] at per-row
+    offsets pos [B] against ckv [B, S, r], krope [B, S, dr] ->
+    [B, Hq, T, r]; `chunk_attention` in the k/v form, as
+    `decode_attention_latent`."""
+    k, v = _latent_kv(ckv, krope)
+    return chunk_attention(q, k, v, pos=pos,
+                           sm_scale=sm_scale)[..., :ckv.shape[-1]]
+
+
+def decode_attention_latent_paged(q: torch.Tensor, ckv_pages: torch.Tensor,
+                                  krope_pages: torch.Tensor, *,
+                                  block_table: torch.Tensor,
+                                  kv_len: Optional[torch.Tensor] = None,
+                                  sm_scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """`decode_attention_latent` over two page arenas, ckv_pages
+    [P, page_size, r] and krope_pages [P, page_size, dr], through one
+    block_table [B, NB] -> [B, Hq, r]."""
+    k, v = _latent_kv(ckv_pages, krope_pages)
+    return decode_attention_paged(q, k, v, block_table=block_table,
+                                  kv_len=kv_len,
+                                  sm_scale=sm_scale)[..., :ckv_pages.shape[-1]]
+
+
+def chunk_attention_latent_paged(q: torch.Tensor, ckv_pages: torch.Tensor,
+                                 krope_pages: torch.Tensor, *,
+                                 block_table: torch.Tensor, pos: torch.Tensor,
+                                 sm_scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """`chunk_attention_latent` over two page arenas through one
+    block_table, as `decode_attention_latent_paged` -> [B, Hq, T, r]."""
+    k, v = _latent_kv(ckv_pages, krope_pages)
+    return chunk_attention_paged(q, k, v, block_table=block_table, pos=pos,
+                                 sm_scale=sm_scale)[..., :ckv_pages.shape[-1]]
 
 
 def combine_decode_partials(o_parts: torch.Tensor, m_parts: torch.Tensor,

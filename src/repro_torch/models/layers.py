@@ -279,10 +279,12 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
     arena [P, page_size, r] / [P, page_size, dr] with block_table), and
     the chunk's latent rows are written in place at [pos, pos+S).  The
     queries are absorbed through wk_b in f32 into the latent space, and
-    the decode (S == 1) or chunk kernel, or its paged twin, runs against
-    one latent kv head: k = [ckv | krope], v = ckv zero-padded to r + dr,
-    D = r + dr, sm_scale (dn + dr) ** -0.5.  The first r output columns
-    are un-absorbed through wv_b in f32.  Returns (y, cache)."""
+    the latent decode (S == 1) or chunk attention, or its paged twin,
+    reads the cache as it lies: one latent kv head whose K rows are
+    [ckv | krope] (D = r + dr) and V rows ckv, sm_scale (dn + dr) ** -0.5,
+    r output columns (the reference builds k = [ckv | krope] and v = ckv
+    zero-padded to r + dr, and keeps the same r columns).  They are
+    un-absorbed through wv_b in f32.  Returns (y, cache)."""
     cfg = rt.cfg
     ap = p["attn"]
     B, S, d = x.shape
@@ -325,31 +327,29 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
     q_lat = torch.einsum("bhtd,rhd->bhtr", q_nope.transpose(1, 2).float(),
                          wk_b.float()).to(x.dtype)
     q_full = torch.cat([q_lat, q_rope], dim=-1)          # [B, nh, S, r + dr]
-    # one latent kv head: [B, 1, S_max, r + dr] dense, [P, 1, page, r + dr]
-    # paged; v is the latent, padded to r + dr so k and v share a shape
-    k_full = torch.cat([cc, cr], dim=-1)[:, None]
-    v_lat = F.pad(cc, (0, dr))[:, None]
+    # one latent kv head, read in place: cc [B, S_max, r] and cr
+    # [B, S_max, dr] dense, [P, page, r] and [P, page, dr] paged
     if S == 1:                 # decode width: the decode kernel
         if block_table is not None:
-            o_lat = ops.decode_attention_paged(
-                q_full[:, :, 0], k_full, v_lat, block_table=block_table,
+            o_lat = ops.decode_attention_latent_paged(
+                q_full[:, :, 0], cc, cr, block_table=block_table,
                 kv_len=pos + 1, sm_scale=scale, impl=rt.impl)
         else:
-            o_lat = ops.decode_attention(q_full[:, :, 0], k_full, v_lat,
-                                         kv_len=pos + 1, sm_scale=scale,
-                                         impl=rt.impl)
-        o_lat = o_lat[:, None]                           # [B, 1, nh, r + dr]
+            o_lat = ops.decode_attention_latent(
+                q_full[:, :, 0], cc, cr, kv_len=pos + 1, sm_scale=scale,
+                impl=rt.impl)
+        o_lat = o_lat[:, None]                           # [B, 1, nh, r]
     else:                      # prefill chunk at per-row offsets
         if block_table is not None:
-            o_lat = ops.chunk_attention_paged(
-                q_full, k_full, v_lat, block_table=block_table, pos=pos,
+            o_lat = ops.chunk_attention_latent_paged(
+                q_full, cc, cr, block_table=block_table, pos=pos,
                 sm_scale=scale, impl=rt.impl)
         else:
-            o_lat = ops.chunk_attention(q_full, k_full, v_lat, pos=pos,
-                                        sm_scale=scale, impl=rt.impl)
-        o_lat = o_lat.transpose(1, 2)                    # [B, S, nh, r + dr]
-    # un-absorb the first r columns through wv_b, in f32
-    o = torch.einsum("bthr,rhd->bthd", o_lat[..., :r].float(),
+            o_lat = ops.chunk_attention_latent(q_full, cc, cr, pos=pos,
+                                               sm_scale=scale, impl=rt.impl)
+        o_lat = o_lat.transpose(1, 2)                    # [B, S, nh, r]
+    # un-absorb through wv_b, in f32
+    o = torch.einsum("bthr,rhd->bthd", o_lat.float(),
                      wv_b.float()).to(x.dtype)
     y = linear(ap["wo"], o.reshape(B, S, nh * dv))
     return y, {"ckv": cc, "krope": cr}

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import mla_attention as mla
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rms
 
@@ -91,8 +92,6 @@ def test_rmsnorm_kernel_rows(dtype, shape):
     (2, 4, 4, 130, 128),       # MHA, wide head
     (4, 32, 32, 2048, 80),     # zamba2's shared block: MHA, head dim 80
     (4, 32, 8, 2048, 128),     # phi3.5-moe's decode tick: G 4, head dim 128
-    (4, 16, 1, 2048, 576),     # deepseek's latent decode tick: G 16, D 576
-    (3, 16, 1, 1000, 576),     # ... S no tile divides
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -122,9 +121,6 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (2, 4, 4, 67, 300, 80),
     (2, 32, 8, 512, 2048, 128),  # phi3.5-moe's prefill chunk: G 4, D 128
     (2, 32, 8, 8, 2048, 128),    # phi3.5-moe's short chunk
-    (2, 16, 1, 512, 2048, 576),  # deepseek's latent prefill chunk: G 16
-    (2, 16, 1, 8, 2048, 576),    # ... its short chunk (split columns)
-    (2, 16, 1, 67, 300, 576),    # ... ragged T and S
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -155,13 +151,9 @@ CHUNK_CASES = [
     (3, 40, 8, 8, 1000, 128, [0, 995, 500]),   # G 5, D 128, T 8, past S
     (1, 5, 1, 512, 1100, 128, [300]),          # G 5 (MQA), D 128, T 512
     (3, 4, 4, 1, 130, 128, [0, 129, 64]),      # G 1, D 128, T 1
-    (2, 16, 1, 64, 300, 576, [0, 250]),        # G 16, D 576, past S
-    (3, 16, 1, 1, 700, 576, [0, 699, 64]),     # D 576, T 1
-    (1, 32, 1, 512, 1100, 576, [300]),         # G 32, D 576, T 512
     # short chunks deep in the cache: the split path (tests below)
     (8, 32, 4, 8, 2048, 64, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
     (4, 32, 32, 8, 2048, 80, [0, 2000, 64, 1023]),
-    (8, 16, 1, 8, 2048, 576, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
 ]
 
 
@@ -180,7 +172,7 @@ def test_chunk_attention_kernel_offsets(dtype, case):
     assert dec.chunk_attention.launches == before + 1
 
 
-@pytest.mark.parametrize("case", CHUNK_CASES[-3:])
+@pytest.mark.parametrize("case", CHUNK_CASES[-2:])
 def test_chunk_attention_split_path(case, monkeypatch):
     """A short chunk deep in the cache splits its columns, and the merged
     output agrees with the same kernel run unsplit (one
@@ -233,9 +225,6 @@ def scrubbed(pages):
     (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
     (2, 8, 8, 5, 64, 80),      # head dim 80 (the shared template)
     (8, 32, 8, 32, 64, 128),   # phi3.5-moe's paged decode tick: G 4, D 128
-    (8, 16, 1, 32, 64, 576),   # deepseek's paged latent decode tick
-    (4, 16, 1, 128, 16, 576),  # ... at page size 16: the gather
-    (3, 16, 1, 200, 5, 576),   # ... at page size 5
 ])
 def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     rng = np.random.default_rng(4)
@@ -269,8 +258,6 @@ def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     (2, 8, 8, 67, 5, 64, 80),      # head dim 80 (the shared template)
     (2, 32, 8, 512, 32, 64, 128),  # phi3.5-moe's paged prefill chunk
     (2, 32, 8, 8, 32, 64, 128),    # phi3.5-moe's paged short chunk
-    (2, 16, 1, 512, 32, 64, 576),  # deepseek's paged latent prefill chunk
-    (2, 16, 1, 8, 128, 16, 576),   # ... its short chunk at page size 16
 ])
 def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
     rng = np.random.default_rng(5)
@@ -309,8 +296,6 @@ PAGED_CHUNK_CASES = [
     (3, 32, 32, 8, 16, 128, 80, [0, 2040, 900]),   # G 1, D 80, split
     (2, 10, 2, 512, 50, 16, 128, [0, 300]),        # G 5, D 128
     (3, 8, 8, 1, 9, 8, 32, [0, 71, 30]),           # T 1, D 32
-    (2, 16, 1, 64, 40, 24, 576, [0, 700]),         # D 576, gather, past S
-    (3, 16, 1, 8, 8, 256, 576, [0, 2040, 900]),    # D 576, TMA pages, split
 ]
 
 
@@ -336,12 +321,10 @@ def test_chunk_attention_paged_kernel_offsets(dtype, case):
 
 # (D, G, S): decode at every compiled head dim and G 1 / 4 / 8 (and 20:
 # two blocks of q heads), S not a multiple of 64; kv_len 0, 1, S and
-# the lengths on either side of the split ranges' edges; D 576 at G 16
-# (deepseek's latent decode) and 4
+# the lengths on either side of the split ranges' edges
 DECODE_CASES = [(D, G, S) for D, S in ((32, 1000), (64, 2000), (80, 777),
                                        (128, 600))
-                for G in (1, 4, 8)] + [(64, 20, 1000), (576, 16, 700),
-                                       (576, 4, 300)]
+                for G in (1, 4, 8)] + [(64, 20, 1000)]
 
 
 def decode_lengths(S, D=64):
@@ -375,7 +358,7 @@ def test_decode_attention_kernel_lengths(dtype, D, G, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4), (576, 16)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4)])
 def test_decode_attention_is_batch_invariant(dtype, D, G):
     """A row decoded alone gives exactly (torch.equal) what it gives
     inside a batch of 8 other rows, dense and paged: the split plan
@@ -406,8 +389,7 @@ def test_decode_attention_is_batch_invariant(dtype, D, G):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T", [8, 512])
-@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2),
-                                     (576, 16, 1)])
+@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2)])
 def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
     """A chunk row computed alone gives exactly (torch.equal) what it
     gives inside a batch of 8 other rows, dense and paged (page size 64,
@@ -441,7 +423,7 @@ def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ps", [5, 16, 64])
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4), (576, 16)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4)])
 def test_decode_attention_paged_equals_dense(dtype, ps, D, G):
     """The paged instance is the dense body with other row addressing
     (TMA at page size 64, the cp.async gather at 5 and 16): on the same
@@ -573,6 +555,373 @@ def test_paged_engine_on_the_card_matches_the_plain_path():
             assert engine.allocator.in_use == 0
             assert engine.allocator.hwm <= engine.allocator.usable
     assert len({str(o) for o in outs.values()}) == 1, outs
+
+
+# ------------------------------------------------- MLA latent attention ----
+# deepseek's served latent attention: G q heads over one latent kv head,
+# K rows [ckv | krope] (512 + 64 columns), V rows ckv, read in place from
+# ckv [B, S, 512] and krope [B, S, 64] (paged: two arenas through one
+# block table); sm_scale (dn + dr) ** -0.5.  The plain versions are the
+# reference's k/v route (tests/test_torch_mla_kernels.py).
+R, DR = 512, 64
+MLA_SCALE = 192 ** -0.5
+
+
+def latent_cache(rng, B, S, dtype):
+    return arr(rng, B, S, R, dtype=dtype), arr(rng, B, S, DR, dtype=dtype)
+
+
+def latent_paged_case(rng, B, NB, ps, limits, dtype, apart=False):
+    """Two page arenas, ckv [P, ps, 512] and krope [P, ps, 64], behind one
+    block table that is a random permutation of pages 1..B*NB; slots past
+    each row's limit point at scratch page 0, large finite garbage in
+    both.  `apart`: the krope arena lies before the ckv arena in one
+    allocation, so neither arena's address follows from the other's.
+    Returns (ckv_pages, krope_pages, block_table)."""
+    P = 1 + B * NB
+    if apart:
+        buf = torch.empty(P * ps * (R + DR) + 4096, dtype=dtype,
+                          device="cuda")
+        rp = buf[:P * ps * DR].view(P, ps, DR)
+        cp = buf[4096 + P * ps * DR:].view(P, ps, R)
+        cp.copy_(arr(rng, P, ps, R, dtype=dtype))
+        rp.copy_(arr(rng, P, ps, DR, dtype=dtype))
+    else:
+        cp, rp = arr(rng, P, ps, R, dtype=dtype), arr(rng, P, ps, DR,
+                                                     dtype=dtype)
+    cp[0], rp[0] = 1e4, -1e4
+    bt = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    for b, lim in enumerate(limits):
+        bt[b, -(-lim // ps):] = 0
+    return cp, rp, torch.tensor(bt, device="cuda")
+
+
+def gather_latent(pages, bt):
+    """A page arena [P, ps, W] as per-row dense caches [B, NB*ps, W]."""
+    g = pages[bt.long()]
+    return g.reshape(g.shape[0], -1, g.shape[-1]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,G,S", [
+    (4, 16, 2048),     # deepseek's latent decode tick
+    (3, 16, 1000),     # S no tile divides
+])
+def test_decode_attention_latent_kernel(dtype, B, G, S):
+    rng = np.random.default_rng(1)
+    q = arr(rng, B, G, R + DR, dtype=dtype)
+    ckv, krope = latent_cache(rng, B, S, dtype)
+    lens = [0, 1, S - 37, S][:B] if B > 3 else [0, S - 37, S][:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = dec.decode_attention.launches
+    o, (m, l) = mla.decode_attention_latent(
+        q, ckv, krope, kv_len=kv_len, sm_scale=MLA_SCALE,
+        return_residuals=True)
+    assert dec.decode_attention.launches == before + 1
+    o_r, (m_r, l_r) = ref.decode_attention_latent(
+        q, ckv, krope, kv_len=kv_len, sm_scale=MLA_SCALE,
+        return_residuals=True)
+    close(o, o_r, dtype)
+    assert torch.all(o[kv_len == 0] == 0)
+    close(m, m_r, torch.float32 if dtype == torch.float32 else dtype)
+    np.testing.assert_allclose(l.cpu().numpy(), l_r.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,G,T,S", [
+    (2, 16, 512, 2048),   # deepseek's latent prefill chunk
+    (2, 16, 8, 2048),     # its short chunk (split columns)
+    (2, 16, 67, 300),     # ragged T and S
+])
+def test_chunk_attention_latent_kernel(dtype, B, G, T, S):
+    rng = np.random.default_rng(2)
+    q = arr(rng, B, G, T, R + DR, dtype=dtype)
+    ckv, krope = latent_cache(rng, B, S, dtype)
+    pos = torch.tensor(rng.integers(0, S - T + 1, B), dtype=torch.int32,
+                       device="cuda")
+    pos[0] = 0
+    before = dec.chunk_attention.launches
+    close(mla.chunk_attention_latent(q, ckv, krope, pos=pos,
+                                     sm_scale=MLA_SCALE),
+          ref.chunk_attention_latent(q, ckv, krope, pos=pos,
+                                     sm_scale=MLA_SCALE), dtype)
+    assert dec.chunk_attention.launches == before + 1
+
+
+# (B, G, T, S, pos): rows near S and rows whose pos + T passes S, G 16 and
+# 32, T 1, 8, 64 and 512; the last, a short chunk deep in the cache, takes
+# the split path
+LATENT_CHUNK_CASES = [
+    (2, 16, 64, 300, [0, 250]),        # past S
+    (3, 16, 1, 700, [0, 699, 64]),     # T 1
+    (1, 32, 512, 1100, [300]),         # G 32, T 512
+    (8, 16, 8, 2048, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", LATENT_CHUNK_CASES)
+def test_chunk_attention_latent_kernel_offsets(dtype, case):
+    B, G, T, S, pos_l = case
+    rng = np.random.default_rng(7)
+    q = arr(rng, B, G, T, R + DR, dtype=dtype)
+    ckv, krope = latent_cache(rng, B, S, dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    close(mla.chunk_attention_latent(q, ckv, krope, pos=pos,
+                                     sm_scale=MLA_SCALE),
+          ref.chunk_attention_latent(q, ckv, krope, pos=pos,
+                                     sm_scale=MLA_SCALE), dtype)
+
+
+def test_chunk_attention_latent_split_path(monkeypatch):
+    """A short chunk deep in the cache splits its columns, and the merged
+    output agrees with the plain version and with the same kernel run
+    unsplit; two calls give the same bits."""
+    B, G, T, S, pos_l = LATENT_CHUNK_CASES[-1]
+    assert mla.plan(B, G, T, S, decode=False)[1] > 1
+    rng = np.random.default_rng(8)
+    q = arr(rng, B, G, T, R + DR, dtype=torch.bfloat16)
+    ckv, krope = latent_cache(rng, B, S, torch.bfloat16)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    kw = dict(pos=pos, sm_scale=MLA_SCALE)
+    split = mla.chunk_attention_latent(q, ckv, krope, **kw)
+    close(split, ref.chunk_attention_latent(q, ckv, krope, **kw),
+          torch.bfloat16)
+    again = mla.chunk_attention_latent(q, ckv, krope, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(split, again)   # the merge runs in range order
+    monkeypatch.setattr(dec, "chunk_splits",
+                        lambda *a: (1, -(-S // dec.TILE) * dec.TILE))
+    close(split, mla.chunk_attention_latent(q, ckv, krope, **kw),
+          torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,G,NB,ps,apart", [
+    (8, 16, 32, 64, False),   # deepseek's paged latent decode tick (TMA)
+    (4, 16, 128, 16, False),  # page size 16: the gather
+    (3, 16, 200, 5, False),   # page size 5
+    (8, 16, 32, 64, True),    # the krope arena before the ckv arena
+])
+def test_decode_attention_latent_paged_kernel(dtype, B, G, NB, ps, apart):
+    rng = np.random.default_rng(4)
+    S = NB * ps
+    lens = ([S - 37, 0, 1, S] * 2)[:B]
+    cp, rp, bt = latent_paged_case(rng, B, NB, ps, lens, dtype, apart)
+    q = arr(rng, B, G, R + DR, dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(kv_len=kv_len, sm_scale=MLA_SCALE)
+    before = dec.decode_attention_paged.launches
+    o = mla.decode_attention_latent_paged(q, cp, rp, block_table=bt, **kw)
+    close(o, ref.decode_attention_latent_paged(q, cp, rp, block_table=bt,
+                                               **kw), dtype)
+    assert dec.decode_attention_paged.launches == before + 1
+    assert torch.all(o[kv_len == 0] == 0)
+    # the dense kernel on the gathered cache, and no leak from page 0
+    dense = mla.decode_attention_latent(q, gather_latent(cp, bt),
+                                        gather_latent(rp, bt), **kw)
+    again = mla.decode_attention_latent_paged(q, scrubbed(cp), scrubbed(rp),
+                                              block_table=bt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense) and torch.equal(o, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,G,T,NB,ps", [
+    (2, 16, 512, 32, 64),   # deepseek's paged latent prefill chunk
+    (2, 16, 8, 128, 16),    # its short chunk at page size 16
+])
+def test_chunk_attention_latent_paged_kernel(dtype, B, G, T, NB, ps):
+    rng = np.random.default_rng(5)
+    S = NB * ps
+    pos_l = [0] + list(rng.integers(0, S - T + 1, B - 1))
+    cp, rp, bt = latent_paged_case(rng, B, NB, ps, [p + T for p in pos_l],
+                                   dtype)
+    q = arr(rng, B, G, T, R + DR, dtype=dtype)
+    kw = dict(pos=torch.tensor(pos_l, dtype=torch.int32, device="cuda"),
+              sm_scale=MLA_SCALE)
+    before = dec.chunk_attention_paged.launches
+    o = mla.chunk_attention_latent_paged(q, cp, rp, block_table=bt, **kw)
+    close(o, ref.chunk_attention_latent_paged(q, cp, rp, block_table=bt,
+                                              **kw), dtype)
+    assert dec.chunk_attention_paged.launches == before + 1
+    again = mla.chunk_attention_latent_paged(q, scrubbed(cp), scrubbed(rp),
+                                             block_table=bt, **kw)
+    # one arithmetic body: the dense kernel on the gathered cache
+    dense = mla.chunk_attention_latent(q, gather_latent(cp, bt),
+                                       gather_latent(rp, bt), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again) and torch.equal(o, dense)
+
+
+# (B, G, T, NB, ps, pos): the gather route past S, TMA pages on the split
+# path
+LATENT_PAGED_CHUNK_CASES = [
+    (2, 16, 64, 40, 24, [0, 700]),
+    (3, 16, 8, 8, 256, [0, 2040, 900]),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", LATENT_PAGED_CHUNK_CASES)
+def test_chunk_attention_latent_paged_kernel_offsets(dtype, case):
+    B, G, T, NB, ps, pos_l = case
+    rng = np.random.default_rng(9)
+    cp, rp, bt = latent_paged_case(rng, B, NB, ps, [p + T for p in pos_l],
+                                   dtype)
+    q = arr(rng, B, G, T, R + DR, dtype=dtype)
+    kw = dict(pos=torch.tensor(pos_l, dtype=torch.int32, device="cuda"),
+              sm_scale=MLA_SCALE)
+    o = mla.chunk_attention_latent_paged(q, cp, rp, block_table=bt, **kw)
+    close(o, ref.chunk_attention_latent_paged(q, cp, rp, block_table=bt,
+                                              **kw), dtype)
+    dense = mla.chunk_attention_latent(q, gather_latent(cp, bt),
+                                       gather_latent(rp, bt), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,S", [(16, 700), (4, 300)])
+def test_decode_attention_latent_kernel_lengths(dtype, G, S):
+    """Decode against the plain version at empty, one-row, full and
+    range-edge lengths, with the (m, l) residuals."""
+    rng = np.random.default_rng(11)
+    lens = decode_lengths(S, R + DR)
+    B = len(lens)
+    q = arr(rng, B, G, R + DR, dtype=dtype)
+    ckv, krope = latent_cache(rng, B, S, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(kv_len=kv_len, sm_scale=MLA_SCALE, return_residuals=True)
+    o, (m, l) = mla.decode_attention_latent(q, ckv, krope, **kw)
+    o_r, (m_r, l_r) = ref.decode_attention_latent(q, ckv, krope, **kw)
+    close(o, o_r, dtype)
+    assert torch.all(o[kv_len == 0] == 0)
+    close(m, m_r, torch.float32 if dtype == torch.float32 else dtype)
+    np.testing.assert_allclose(l.cpu().numpy(), l_r.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_latent_is_batch_invariant(dtype):
+    """A row decoded alone gives exactly what it gives inside a batch of
+    8 other rows, dense and paged: the split plan follows S only."""
+    rng = np.random.default_rng(12)
+    B, NB, ps, G = 9, 24, 64, 16
+    S = NB * ps
+    lens = [S, 1, 0, 700, 1023, 511, 513, 1300, 64]
+    cp, rp, bt = latent_paged_case(rng, B, NB, ps, lens, dtype)
+    ckv, krope = gather_latent(cp, bt), gather_latent(rp, bt)
+    q = arr(rng, B, G, R + DR, dtype=dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(sm_scale=MLA_SCALE)
+    batch = mla.decode_attention_latent(q, ckv, krope, kv_len=kv_len, **kw)
+    paged = mla.decode_attention_latent_paged(q, cp, rp, block_table=bt,
+                                              kv_len=kv_len, **kw)
+    for i in (0, 3, 4, 7):
+        one = slice(i, i + 1)
+        alone = mla.decode_attention_latent(
+            q[one], ckv[one].contiguous(), krope[one].contiguous(),
+            kv_len=kv_len[one], **kw)
+        alone_p = mla.decode_attention_latent_paged(
+            q[one], cp, rp, block_table=bt[one].contiguous(),
+            kv_len=kv_len[one], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone, batch[one]), i
+        assert torch.equal(alone_p, paged[one]), i
+    close(batch, ref.decode_attention_latent(q, ckv, krope, kv_len=kv_len,
+                                             **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [8, 512])
+def test_chunk_attention_latent_is_batch_invariant(dtype, T):
+    """A chunk row computed alone gives exactly what it gives inside a
+    batch of 8 other rows, dense and paged (page size 64, TMA; 16, the
+    gather): the split plan follows (G, T, S), never B."""
+    rng = np.random.default_rng(13)
+    B, S, G = 9, 2048, 16
+    pos_l = ([2040, 0, 5, 100, 1000, 333, 1500, 17, 1900] if T == 8 else
+             [1536, 0, 512, 1024, 100, 700, 1300, 7, 1000])
+    q = arr(rng, B, G, T, R + DR, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    limits = [p + T for p in pos_l]
+    kw = dict(sm_scale=MLA_SCALE)
+    for ps in (64, 16):
+        cp, rp, bt = latent_paged_case(rng, B, S // ps, ps, limits, dtype)
+        ckv, krope = gather_latent(cp, bt), gather_latent(rp, bt)
+        batch = mla.chunk_attention_latent(q, ckv, krope, pos=pos, **kw)
+        paged = mla.chunk_attention_latent_paged(q, cp, rp, block_table=bt,
+                                                 pos=pos, **kw)
+        for i in (0, 3, 4, 7):
+            one = slice(i, i + 1)
+            alone = mla.chunk_attention_latent(
+                q[one], ckv[one].contiguous(), krope[one].contiguous(),
+                pos=pos[one], **kw)
+            alone_p = mla.chunk_attention_latent_paged(
+                q[one], cp, rp, block_table=bt[one].contiguous(),
+                pos=pos[one], **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(alone, batch[one]), (ps, i)
+            assert torch.equal(alone_p, paged[one]), (ps, i)
+        close(batch, ref.chunk_attention_latent(q, ckv, krope, pos=pos,
+                                                **kw), dtype)
+        del cp, rp, ckv, krope
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [5, 16, 64])
+def test_decode_attention_latent_paged_equals_dense(dtype, ps):
+    """The paged instance is the dense body with other row addressing
+    (TMA at page size 64, the cp.async gather at 5 and 16): on the same
+    cache its output equals the dense kernel's exactly."""
+    rng = np.random.default_rng(13)
+    B, G = 5, 16
+    NB = -(-1000 // ps)
+    S = NB * ps
+    lens = [S, 0, 1, 999 if S > 999 else S - 1, 257]
+    cp, rp, bt = latent_paged_case(rng, B, NB, ps, lens, dtype)
+    q = arr(rng, B, G, R + DR, dtype=dtype)
+    kw = dict(kv_len=torch.tensor(lens, dtype=torch.int32, device="cuda"),
+              sm_scale=MLA_SCALE)
+    o = mla.decode_attention_latent_paged(q, cp, rp, block_table=bt, **kw)
+    dense = mla.decode_attention_latent(q, gather_latent(cp, bt),
+                                        gather_latent(rp, bt), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense)
+    close(o, ref.decode_attention_latent_paged(q, cp, rp, block_table=bt,
+                                               **kw), dtype)
+
+
+def test_attention_wrappers_refuse_the_latent_head_dim():
+    """At head dim 576 the k/v wrappers raise on the card and name the
+    latent entry points, which read the cache in place: no model path of
+    either package calls them there with a v that is not the padded
+    latent."""
+    q = torch.zeros(2, 16, 576, dtype=torch.bfloat16, device="cuda")
+    qc = torch.zeros(2, 16, 8, 576, dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros(2, 1, 64, 576, dtype=torch.bfloat16, device="cuda")
+    pages = torch.zeros(3, 1, 64, 576, dtype=torch.bfloat16, device="cuda")
+    bt = torch.ones(2, 1, dtype=torch.int32, device="cuda")
+    lens = torch.tensor([3, 64], dtype=torch.int32, device="cuda")
+    calls = {
+        "decode_attention_latent": lambda: dec.decode_attention(
+            q, k, k, kv_len=lens),
+        "chunk_attention_latent": lambda: dec.chunk_attention(
+            qc, k, k, pos=lens),
+        "decode_attention_latent_paged": lambda: dec.decode_attention_paged(
+            q, pages, pages, block_table=bt, kv_len=lens),
+        "chunk_attention_latent_paged": lambda: dec.chunk_attention_paged(
+            qc, pages, pages, block_table=bt, pos=lens),
+    }
+    before = {n: getattr(dec, n).launches for n in (
+        "decode_attention", "chunk_attention", "decode_attention_paged",
+        "chunk_attention_paged")}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=name):
+            call()
+    assert before == {n: getattr(dec, n).launches for n in before}
 
 
 # ------------------------------------------------------ training kernels ----
@@ -1006,7 +1355,9 @@ def test_ssd_scan_function_matches_autograd():
 
 @pytest.mark.parametrize("name", [
     "decode_attention", "chunk_attention", "decode_attention_paged",
-    "chunk_attention_paged", "rmsnorm_add"])
+    "chunk_attention_paged", "decode_attention_latent",
+    "chunk_attention_latent", "decode_attention_latent_paged",
+    "chunk_attention_latent_paged", "rmsnorm_add"])
 def test_kernel_without_a_backward_refuses_a_gradient(name):
     """On the card a kernel with no backward raises when a gradient is
     wanted, rather than return outputs cut from the graph; under no_grad
@@ -1022,6 +1373,10 @@ def test_kernel_without_a_backward_refuses_a_gradient(name):
     pos = torch.tensor([0, 40], dtype=torch.int32, device="cuda")
     x = arr(rng, 3, 64, dtype=torch.float32).requires_grad_()
     w = arr(rng, 64, dtype=torch.float32)
+    ql = arr(rng, 2, 16, R + DR, dtype=torch.float32).requires_grad_()
+    qlc = arr(rng, 2, 16, 8, R + DR, dtype=torch.float32).requires_grad_()
+    ckv, krope = latent_cache(rng, 2, 128, torch.float32)
+    cp, rp = latent_cache(rng, 9, 16, torch.float32)
     call = {
         "decode_attention": lambda: ops.decode_attention(q, k, k,
                                                          kv_len=lens),
@@ -1031,6 +1386,16 @@ def test_kernel_without_a_backward_refuses_a_gradient(name):
         "chunk_attention_paged": lambda: ops.chunk_attention_paged(
             qc, pages, pages, block_table=bt, pos=pos),
         "rmsnorm_add": lambda: ops.rmsnorm_add(x, x.detach(), w),
+        "decode_attention_latent": lambda: ops.decode_attention_latent(
+            ql, ckv, krope, kv_len=lens),
+        "chunk_attention_latent": lambda: ops.chunk_attention_latent(
+            qlc, ckv, krope, pos=pos),
+        "decode_attention_latent_paged":
+            lambda: ops.decode_attention_latent_paged(
+                ql, cp, rp, block_table=bt, kv_len=lens),
+        "chunk_attention_latent_paged":
+            lambda: ops.chunk_attention_latent_paged(
+                qlc, cp, rp, block_table=bt, pos=pos),
     }[name]
     with pytest.raises(RuntimeError, match="no backward"):
         call()

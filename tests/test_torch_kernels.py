@@ -19,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import mamba_scan as tssd
+from repro_torch.kernels import mla_attention as tmla
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trms
@@ -378,28 +379,29 @@ class TestDispatch:
             assert (part == 0) == (nsplit == 1)
 
     @pytest.mark.parametrize("S,want", [
-        (2048, (16, 128)),    # deepseek's decode tick: 128 blocks for 8 rows
-        (1000, (8, 128)),     # ragged S: the last range is short
+        (2048, (8, 256)),     # deepseek's decode tick: 64 blocks for 8 rows
+        (1000, (4, 256)),     # ragged S: the last range is short
         (16384, (64, 256)),   # a longer cache: ranges capped at MAX_SPLITS
-        (1, (1, 128)),
+        (1, (1, 256)),
     ])
     def test_wide_decode_splits_follow_s_alone(self, S, want):
         """At D 576 decode cuts S into shorter ranges (one latent kv head
         gives one block a row and range), the same for every batch."""
         assert tdec.decode_splits(S, 576) == want
-        plans = {tdec.decode_plan(B, 1, G, S, 576)
+        plans = {tmla.plan(B, G, 1, S, decode=True)
                  for B in (1, 8) for G in (4, 16)}
         assert {p[1:3] for p in plans} == {want}
-        for units, nsplit, rows, part in plans:
-            # the wide kernel's partials: 16 rows a unit and range
-            assert part == (units * nsplit * tdec.DECODE_ROWS * 578
+        for blocks, nsplit, rows, part in plans:
+            # the latent kernel's partials: 64 rows of (acc [512], m, l)
+            # a block and range
+            assert part == (blocks * nsplit * tmla.ROWS * 514
                             if nsplit > 1 else 0)
 
     @pytest.mark.parametrize("T,S,want", [
         (512, 2048, (1, 2048)),   # the prefill chunk: 128 blocks a row
-        (8, 2048, (16, 128)),     # a short chunk: two 64-row tiles a row
-        (1, 2048, (32, 64)),      # one token: one tile, ranges of a tile
-        (64, 300, (3, 128)),      # ragged S: the last range is short
+        (8, 2048, (8, 256)),      # a short chunk: two 64-row tiles a row
+        (1, 2048, (16, 128)),     # one token: one tile a row
+        (64, 300, (1, 320)),      # 16 blocks a row: one range over S
     ])
     def test_wide_chunk_splits_take_64_row_blocks(self, T, S, want):
         """At D 576 a chunk block holds 64 query rows, and the plan
@@ -407,10 +409,10 @@ class TestDispatch:
         assert tdec.chunk_rows(576) == 64 and tdec.chunk_rows(128) == 128
         assert tdec.chunk_splits(1, 16, T, S, 576) == want
         for B in (1, 3, 8):
-            blocks, nsplit, cols, part = tdec.chunk_plan(B, 1, 16, T, S, 576)
+            blocks, nsplit, cols, part = tmla.plan(B, 16, T, S, decode=False)
             assert (nsplit, cols) == want
             assert blocks == B * -(-16 * T // 64)
-            assert part == (blocks * nsplit * 64 * 578 if nsplit > 1 else 0)
+            assert part == (blocks * nsplit * 64 * 514 if nsplit > 1 else 0)
 
     def test_rmsnorm_without_grad_skips_the_autograd_function(
             self, monkeypatch):
@@ -448,7 +450,7 @@ class TestDispatch:
             trms.check_cuda(torch.zeros(2), "rmsnorm")
         with pytest.raises(ValueError, match="multiple of 8"):
             trms.check_vectors(12, torch.zeros(12, dtype=torch.bfloat16))
-        assert tdec.HEAD_DIMS == (32, 64, 80, 128, 576)
+        assert tdec.HEAD_DIMS == (32, 64, 80, 128)
 
 
 class TestRMSNormPlans:
