@@ -141,6 +141,16 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               versions, both bounds (in place and the k/v form) and SDPA
               on the k/v form built outside the timed call, its backend
               named
+  3f. mla train kernels  the flash pair at MLA training's head dims: q/k
+              at dn + dr = 192, v at its own width dv = 128 (q/k
+              [4,16,2048,192], v [4,16,2048,128], causal, sm_scale 192 **
+              -0.5), in bf16 and f32, also Sq 1024 against Sk 2048 and a
+              ragged S 1000, against the plain versions (2e-2 bf16, 2e-5
+              f32), two backward launches bitwise equal; ptxas's registers
+              and spills of the (192, 128) kernels; the bf16 pair timed
+              beside its plain version, its bound (the useful FLOPs) and
+              SDPA on the padded form (v zero-padded to 192), its backend
+              named
   11. moe serve  phi3_5_moe_42b at its published widths, cut to
               MOE_SERVE_LAYERS of its 32 layers (the whole model does not
               fit the card; seeded random weights, shared by the runs):
@@ -187,12 +197,33 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               kernels vs plain logits in f32 and bf16, as phase 11's,
               the bf16 pair held to the ratio with its top-k choices
               pinned to the f32 plain model's (unpinned numbers logged)
+  14. mla train  deepseek_v2_lite_16b at its published widths, cut to
+              MLA_TRAIN_LAYERS of its 27 layers (1 dense + 3 MoE, 2.25B
+              params), batch 4 x 2048 from SyntheticLMData, MLA_TRAIN_STEPS
+              steps through the port's Trainer (remat dots_saveable,
+              AdamW) with its XFA session: the expanded MLA branch runs
+              the flash pair at q/k 192 and v 128; launch counters set to
+              0 just before and read just after (both flash kernels,
+              rmsnorm and its backward must run); losses, aux losses and
+              grad norms finite; the shard's device group holds
+              train_step x steps and loads summing to top_k x 4 x 2048 x
+              3 x steps; step time, tokens/s, MFU (the static-cost FLOPs,
+              held to the static-cost layer's FLOPs of one loss_fn, plus
+              the wkv_b expansion and o_proj, which register none) and
+              peak memory (under 80 GB); a torch.profiler window over one
+              more step; one loss_fn + backward at batch 1 x 1024 with the
+              kernels and with the plain versions, in f32 (loss to 1e-4
+              relative, each leaf to 1e-3 relative L2) and in bf16 (each
+              leaf no further from the f32 plain gradient than the plain
+              bf16 one, within 1.25x, top-k choices pinned to the f32
+              plain model's; the unpinned numbers logged)
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
-              and 12 (phi3.5-moe serve and train) kept: `diagnose
-              --json` and `report --json` on each (the phi3.5-moe train
-              report must show the device group), `timeline --json` on
+              and 12 (phi3.5-moe serve and train) and 14 (deepseek train)
+              kept: `diagnose --json` and `report --json` on each (the
+              phi3.5-moe and deepseek train reports must show the device
+              group), `timeline --json` on
               the tinyllama serve dir; each must exit 0 with JSON that
               parses, and the findings by severity, the first five, each
               component's Wait share and the five edges with the most
@@ -210,7 +241,8 @@ phase (tok/s, TTFT p50 / p95, the XFA prefill_chunk mean), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Each kernel's launches
 come from the serving or training run of its own path (ssd_scan_backward
 and the flash kernels' head-dim-80 numbers: phase 10; the head-dim-128
-numbers: phases 11 and 12; the head-dim-576 numbers: phase 13);
+numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
+(192, 128) numbers, and every kernel's mla_train_launches: phase 14);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -331,6 +363,7 @@ def run(torch) -> None:
     kernels += hybrid_entries
     check_moe_kernels(torch, kernels)
     check_mla_kernels(torch, kernels)
+    check_mla_train_kernels(torch, kernels)
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
@@ -341,8 +374,11 @@ def run(torch) -> None:
                                                                     kernels)
     kernels.append(ssd_bwd)
     moe_counts, moe_paged_counts, moe = moe_serve_phase(torch)
-    moe_train_counts, moe_train = moe_train_phase(torch)
+    moe_train_counts, moe_train = moe_train_phase(
+        torch, moe_cfg(MOE_TRAIN_LAYERS), "moe-train", 12, MOE_TRAIN_SHAPE,
+        MOE_TRAIN_STEPS)
     mla_counts, mla_paged_counts, mla = mla_serve_phase(torch)
+    mla_train_counts, mla_train = mla_train_phase(torch)
     diagnose_phase(torch)
 
     for k in kernels:
@@ -379,6 +415,15 @@ def run(torch) -> None:
                 else mla_counts)[name]
             if k["head_dim_576"]["launches"] <= 0:
                 fail(f"kernel {name} was not launched on deepseek's path")
+        if "head_dim_192" in k:
+            # q/k 192, v 128: the deepseek train run
+            k["head_dim_192"]["launches"] = mla_train_counts[name]
+            if k["head_dim_192"]["launches"] <= 0:
+                fail(f"kernel {name} was not launched on deepseek's "
+                     f"training path")
+        if mla_train_counts.get(name):
+            # every kernel of the deepseek training path, by its run
+            k["mla_train_launches"] = mla_train_counts[name]
     log(json.dumps({"kernels": kernels}))
     for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid),
                      (f"phi3_5_moe_42b at {MOE_SERVE_LAYERS} layers", moe),
@@ -425,8 +470,13 @@ def run(torch) -> None:
         f"peak {mla['peak_gb']:.1f} GB, busy {100 * mla['busy']:.1f}%, "
         f"expert load max/mean {mla['fold']['max_over_mean']:.3f}, dropped "
         f"{100 * mla['fold']['dropped_share']:.2f}% of choices, launches "
-        f"{json.dumps(mla_counts)}, paged {json.dumps(mla_paged_counts)} on "
-        f"{smi}")
+        f"{json.dumps(mla_counts)}, paged {json.dumps(mla_paged_counts)}; "
+        f"deepseek trained at {MLA_TRAIN_LAYERS} layers "
+        f"{mla_train['step_ms']:.1f} ms/step, {mla_train['tok_s']:.0f} tok/s, "
+        f"MFU {100 * mla_train['mfu']:.2f}%, peak "
+        f"{mla_train['peak_gb']:.1f} GB, busy {100 * mla_train['busy']:.1f}%, "
+        f"flash {100 * mla_train['flash_share']:.1f}% of device time, "
+        f"launches {json.dumps(mla_train_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -975,7 +1025,7 @@ def check_train_kernels(torch):
 
     q, k, v, do, o, lse = timed
     shape = f"q {B}x{Hq}x{S}x{D} kv {B}x{Hkv}x{S}x{D} causal"
-    fwd_ops, io = flash_work(q, k)
+    fwd_ops, bwd_ops, io = flash_work(q, k, v)
     entries = [record_kernel(
         torch, flush, "flash_attention", src,
         "src/repro/kernels/flash_attention.py:94", shape, max(errs["fwd"]),
@@ -998,8 +1048,8 @@ def check_train_kernels(torch):
         # reads q, k, v, o, dO, lse; writes dq, dk, dv.  Operations: S and
         # dP recomputed, dV, dK, dQ: five products, 2.5x the forward's
         nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
-        ops=2.5 * fwd_ops))
-    for e, ops in zip(entries, (fwd_ops, 2.5 * fwd_ops)):
+        ops=bwd_ops))
+    for e, ops in zip(entries, (fwd_ops, bwd_ops)):
         log(f"[train-kernels] {e['name']} {shape}: {ops / e['ms'] / 1e9:.1f} "
             f"TFLOP/s, {100 * e['bound_ms'] / e['ms']:.1f}% of its bound, "
             f"{e['ms'] / e['library_ms']:.2f}x SDPA")
@@ -1034,12 +1084,17 @@ def check_train_kernels(torch):
     return entries
 
 
-def flash_work(q, k):
-    """(FLOPs of the causal forward's QK^T and PV over the visible pairs,
-    bytes of bf16 q, k, v) for q [B, Hq, S, D], k [B, Hkv, S, D]."""
+def flash_work(q, k, v):
+    """(FLOPs of the causal forward, of the backward's five products, and
+    bytes of bf16 q, k, v) for q [B, Hq, S, D], k [B, Hkv, S, D], v
+    [B, Hkv, S, Dv]: the forward's Q K^T and P V over the visible pairs;
+    the backward's S and dP recomputed, dV, dK and dQ (at Dv = D, 2.5x
+    the forward's)."""
     B, Hq, S, D = q.shape
+    Dv = v.shape[-1]
     pairs = B * Hq * S * (S + 1) / 2
-    return 4.0 * D * pairs, 2.0 * (q.numel() + 2 * k.numel())
+    return (2.0 * pairs * (D + Dv), 2.0 * pairs * (3 * D + 2 * Dv),
+            2.0 * (q.numel() + k.numel() + v.numel()))
 
 
 def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
@@ -1052,7 +1107,7 @@ def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
     q, k, v, do = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D), \
         rnd(B, Hq, S, D)
     o, lse = fa.flash_attention(q, k, v)
-    fwd_ops, io = flash_work(q, k)
+    fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
                                          enable_gqa=True)
@@ -1062,9 +1117,9 @@ def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
              time_ms(torch, lambda: fa.flash_attention(q, k, v), flush),
              time_ms(torch, lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, enable_gqa=True), flush)),
-            ("flash_attention_backward", 2.5 * fwd_ops,
+            ("flash_attention_backward", bwd_ops,
              bound(2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
-                   2.5 * fwd_ops, "bfloat16")[0],
+                   bwd_ops, "bfloat16")[0],
              time_ms(torch, lambda: fa.flash_attention_backward(
                  q, k, v, o, lse, do), flush),
              time_ms(torch, lambda: torch.autograd.grad(
@@ -1870,7 +1925,7 @@ def check_moe_kernels(torch, entries):
                                                          do, q_offset=0)))
     del o_r, lse_r
     shape = f"q {Bt}x{Hq}x{St}x{D} kv {Bt}x{Hkv}x{St}x{D} causal"
-    fwd_ops, io = flash_work(q, k)
+    fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = sdpa(qq, kk, vv, is_causal=True)
     flash = {
@@ -1886,7 +1941,7 @@ def check_moe_kernels(torch, entries):
             lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                         retain_graph=True),
             dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
-                 ops=2.5 * fwd_ops))}
+                 ops=bwd_ops))}
     for e in entries:
         if e["name"] in flash:
             err, fn, plain, lib, work = flash[e["name"]]
@@ -1954,8 +2009,10 @@ def sdpa_backend(torch, fn) -> str:
         fn()
         torch.cuda.synchronize()
     names = [e.key for e in p.key_averages() if _dev_us(e) > 0]
+    if not names:
+        return "not named: the profiler saw no device time"
     low = " ".join(names).lower()
-    kind = ("flash" if "flash" in low else "cudnn" if "cudnn" in low
+    kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
             else "memory-efficient" if "fmha" in low or "efficient" in low
             else "math (matmuls and a softmax)")
     return f"{kind}: {'; '.join(n[:50] for n in names[:4])}"
@@ -2236,6 +2293,120 @@ def check_latent_identities(torch, q, ckv, krope, kv_len, arenas, lens,
         f"paged at page sizes {sorted(arenas)}")
 
 
+# ----------------------------------------------------- mla train kernels ----
+#: deepseek-v2-lite's training attention (the expanded branch): 16 heads,
+#: q/k head dim dn + dr = 192, v at its own width dv = 128, G 1, causal,
+#: sm_scale 192 ** -0.5, at batch 4 x 2048
+MLA_TRAIN_ATTN = (4, 16, 2048, 192, 128)   # B, H, S, Dqk, Dv
+
+
+def check_mla_train_kernels(torch, entries):
+    """Phase 3f: the flash pair at MLA training's head dims (q/k 192, v
+    128: q/k [4,16,2048,192], v [4,16,2048,128], causal, sm_scale 192 **
+    -0.5) in bf16 and f32, also at Sq 1024 against Sk 2048 and at a ragged
+    S 1000, against the plain versions (2e-2 abs + rel in bf16, 2e-5 in
+    f32), two backward launches bitwise equal; ptxas's registers and
+    spills of the (192, 128) kernels; the bf16 pair timed beside its plain
+    version, its bound (the useful FLOPs: v's 128 columns) and SDPA on the
+    padded form (v zero-padded to 192, built outside the timed call), its
+    backend named.  Adds a head_dim_192 entry to the flash entries of
+    `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t0 = time.monotonic()
+    for name, regs, spills in ptxas_report(build.build_log("flash_attention")):
+        if "192" in name:
+            log(f"[mla-train-kernels] ptxas {name}: {regs} registers, "
+                f"{spills} bytes spill stores")
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda dt, *s: torch.randn(s, generator=gen, device=dev).to(dt)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    B, H, S, Dqk, Dv = MLA_TRAIN_ATTN
+    opts = dict(causal=True, sm_scale=MLA_SCALE)
+    errs = {"fwd": [], "bwd": []}
+    for what, dtype, b, sq, sk in (
+            ("training bf16", bf16, B, S, S), ("training f32", f32, B, S, S),
+            ("Sq 1024 Sk 2048 bf16", bf16, 2, 1024, S),
+            ("Sq 1024 Sk 2048 f32", f32, 2, 1024, S),
+            ("ragged S 1000 bf16", bf16, 2, 1000, 1000),
+            ("ragged S 1000 f32", f32, 2, 1000, 1000)):
+        tol = KERNEL_TOL if dtype == bf16 else F32_KERNEL_TOL
+        tag = f"D 192/128 {what}"
+        q, k = rnd(dtype, b, H, sq, Dqk), rnd(dtype, b, H, sk, Dqk)
+        v, do = rnd(dtype, b, H, sk, Dv), rnd(dtype, b, H, sq, Dv)
+        off = dict(q_offset=sk - sq)
+        o, lse = fa.flash_attention(q, k, v, **opts)
+        o_r, lse_r = ref.attention(q, k, v, return_lse=True, **opts, **off)
+        errs["fwd"].append(max_err(torch, o, o_r, f"flash_attention {tag}",
+                                   tol))
+        max_err(torch, lse, lse_r, f"flash_attention lse {tag}", tol)
+        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+        want = ref.attention_backward(q, k, v, o_r, lse_r, do, **opts, **off)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            errs["bwd"].append(max_err(
+                torch, g, w, f"flash_attention_backward {name} {tag}", tol))
+        again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            fail(f"flash_attention_backward {tag}: two launches differ")
+        if what == "training bf16":
+            timed = (q, k, v, do, o, lse)
+        del q, k, v, do, o, lse, o_r, lse_r, grads, want, again
+        torch.cuda.empty_cache()
+    log(f"[mla-train-kernels] flash D 192/128 max_abs_err (bf16 2e-2, f32 "
+        f"2e-5 abs + rel): forward {[f'{e:.3e}' for e in errs['fwd']]}, "
+        f"backward (dq, dk, dv per case) "
+        f"{[f'{e:.3e}' for e in errs['bwd']]}; two backward launches "
+        f"bitwise equal in every case")
+    q, k, v, do, o, lse = timed
+    shape = (f"q/k {B}x{H}x{S}x{Dqk} v {B}x{H}x{S}x{Dv} causal, sm_scale "
+             f"192^-0.5")
+    fwd_ops, bwd_ops, io = flash_work(q, k, v)
+    # SDPA on the reference's padded form, built outside the timed calls
+    vp, dop = F.pad(v, (0, Dqk - Dv)), F.pad(do, (0, Dqk - Dv))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, vp, is_causal=True,
+                                                  scale=MLA_SCALE)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, vp))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                         scale=MLA_SCALE)
+    log(f"[mla-train-kernels] SDPA on the padded form (v at 192) runs "
+        f"{sdpa_backend(torch, sdpa)}")
+    cases = {
+        "flash_attention": (
+            max(errs["fwd"]), lambda: fa.flash_attention(q, k, v, **opts),
+            lambda: ref.attention(q, k, v, return_lse=True, **opts), sdpa,
+            dict(nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=fwd_ops)),
+        "flash_attention_backward": (
+            max(errs["bwd"]),
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do, **opts),
+            lambda: ref.attention_backward(q, k, v, o, lse, do, **opts),
+            lambda: torch.autograd.grad(out, (qq, kk, vv), dop,
+                                        retain_graph=True),
+            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+                 ops=bwd_ops))}
+    for e in entries:
+        if e["name"] in cases:
+            err, fn, plain, lib, work = cases[e["name"]]
+            d192 = record_kernel(torch, flush, e["name"], e["source"],
+                                 e["replaces"], shape, err, fn, plain, lib,
+                                 **work)
+            e["head_dim_192"] = sub_entry(d192)
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"[mla-train-kernels] {e['name']} {shape}: "
+                f"{work['ops'] / d192['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * d192['bound_ms'] / d192['ms']:.1f}% of its bound, "
+                f"{d192['ms'] / d192['library_ms']:.2f}x SDPA")
+    del q, k, v, do, o, lse, vp, dop, qq, kk, vv, out, timed, cases, flush
+    torch.cuda.empty_cache()
+    log(f"[mla-train-kernels] phase 3f: {time.monotonic() - t0:.1f}s")
+
+
 # ---------------------------------------------------------------- hybrid ----
 def hybrid_forward(torch):
     """Phase 8a: full-width zamba2_2_7b logits, kernels vs plain versions
@@ -2508,22 +2679,34 @@ def hybrid_train_phase(torch, entries):
                  flash_share=shares["flash"])
     del state, trainer, model
     torch.cuda.empty_cache()
-    hybrid_grads_check(torch, cfg)
+    grads_precision_check(torch, cfg, "hybrid-grads",
+                          flops_per_token=hybrid_model_flops_per_token)
     ssd_entry = check_hybrid_train_kernels(torch, entries)
     log(f"[hybrid-train] phase 10: {time.monotonic() - t_phase:.1f}s")
     return counts, stats, ssd_entry
 
 
-def hybrid_grads_check(torch, cfg16):
-    """Phase 10: one loss_fn + backward at full width, batch 1 x 1024, with
-    the kernels and with the plain versions on the same params and batch,
-    in f32 (held to each other) and in bf16 (each held against the f32
-    plain gradient); and the static-cost layer's FLOPs of one loss_fn
-    against hybrid_model_flops_per_token."""
+def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
+                          table: bool = False, pin: bool = False):
+    """Phases 10 and 14: one loss_fn + backward of `cfg16` (bf16, at its
+    widths), batch 1 x 1024, with the kernels and with the plain versions
+    on the same params and batch.  In f32 they are held to each other (the
+    loss to HYBRID_LOSS_TOL relative, each gradient leaf to
+    HYBRID_GRAD_TOL relative L2); in bf16 each leaf must be no further
+    from the f32 plain gradient than the plain bf16 leaf, within
+    HYBRID_BF16_RATIO.  `table`: loss_fn carries the model's fold table.
+    With `pin` the bf16 pair held to the ratio runs again with every top-k
+    choice pinned to the f32 plain model's (pinned_router: routing on
+    rounded values flips choices, as in phase 13); the unpinned numbers
+    and the share of choices the runs differ on are logged.  With
+    `flops_per_token`, the static-cost layer's FLOPs of the f32 plain
+    loss_fn (without the norms) are held to flops_per_token(cfg16, S) / 3
+    at 1e-6."""
     import dataclasses
     from repro_torch.core.device_fold import STATIC_COSTS
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
     from repro_torch.runtime.trainer import value_and_grad
     from repro_torch.tree import leaves_with_path
 
@@ -2531,66 +2714,107 @@ def hybrid_grads_check(torch, cfg16):
                                 compute_dtype="float32")
     B, S = 1, 1024
     batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
+    router = moe_lib._router
 
-    def grads(cfg, impl, params):
+    def grads(cfg, impl, params, pinned=None):
+        """(loss, [(leaf name, gradient)], every router call's top-k
+        indices); `pinned`: every call's top-k indices to route by."""
+        picks = []
+        route = router if pinned is None else pinned_router(router, pinned)
+
+        def spy(w, x2, c):
+            out = route(w, x2, c)
+            picks.append(out[1])
+            return out
         model = build_model(cfg, impl=impl, device="cuda")
-        loss, _, _, g = value_and_grad(model, params, batch, None)
+        moe_lib._router = spy
+        try:
+            loss, _, _, g = value_and_grad(model, params, batch,
+                                           model.table() if table else None)
+        finally:
+            moe_lib._router = router
         torch.cuda.synchronize()
         for name, leaf in leaves_with_path(g):
             if not torch.isfinite(leaf).all():
-                fail(f"hybrid grads: {impl} {cfg.param_dtype} gradient "
-                     f"{name} is not finite")
-        return float(loss), leaves_with_path(g)
+                fail(f"{tag}: {impl} {cfg.param_dtype} gradient {name} is "
+                     f"not finite")
+        return float(loss), leaves_with_path(g), picks
 
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
+    def differ(a, b):
+        n = sum(x.numel() for x in a)
+        return sum((x.sort(dim=-1).values != y.sort(dim=-1).values).sum()
+                   .item() for x, y in zip(a, b)) / n
+
+    def dist(run, g_ref):
+        """Each leaf's relative L2 from the f32 plain gradient."""
+        return {n: rel(a, b) for (n, a), (_, b) in zip(run[1], g_ref)}
+
     # the same seeded draws in f32 (the bf16 params are their roundings)
     p32 = build_model(cfg32, device="cuda").init(0)
     STATIC_COSTS.reset()
-    l_r32, g_r32 = grads(cfg32, "ref", p32)
-    registered = sum(v.get("flops", 0.0) for k, v in
-                     STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
-    want = hybrid_model_flops_per_token(cfg16, S) / 3 * B * S
-    log(f"[hybrid-grads] forward FLOPs of one loss_fn: static-cost layer "
-        f"{registered:.6e} (without the norms), "
-        f"hybrid_model_flops_per_token / 3 {want:.6e}")
-    if abs(registered - want) > 1e-6 * want:
-        fail(f"hybrid grads: hybrid_model_flops_per_token disagrees with "
-             f"the static-cost layer ({want:.6e} against {registered:.6e})")
-    l_k32, g_k32 = grads(cfg32, "kernel", p32)
-    e32 = {n: rel(a, b) for (n, a), (_, b) in zip(g_k32, g_r32)}
-    del g_k32, p32
-    torch.cuda.empty_cache()
-    rel_loss = abs(l_k32 - l_r32) / abs(l_r32)
-    log(f"[hybrid-grads] f32, batch {B} x {S}: loss kernels {l_k32:.6f} "
-        f"plain {l_r32:.6f} (relative error {rel_loss:.3e}, tolerance "
-        f"{HYBRID_LOSS_TOL}); gradient relative L2 "
+    l_r32, g_r32, pick_r32 = grads(cfg32, "ref", p32)
+    if flops_per_token is not None:
+        registered = sum(v.get("flops", 0.0) for k, v in
+                         STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
+        want = flops_per_token(cfg16, S) / 3 * B * S
+        log(f"[{tag}] forward FLOPs of one loss_fn: static-cost layer "
+            f"{registered:.6e} (without the norms), "
+            f"{flops_per_token.__name__} / 3 {want:.6e}")
+        if abs(registered - want) > 1e-6 * want:
+            fail(f"{tag}: {flops_per_token.__name__} disagrees with the "
+                 f"static-cost layer ({want:.6e} against {registered:.6e})")
+    routed = bool(pick_r32)
+    k32 = grads(cfg32, "kernel", p32)
+    e32 = dist(k32, g_r32)
+    rel_loss = abs(k32[0] - l_r32) / abs(l_r32)
+    log(f"[{tag}] f32, batch {B} x {S}: loss kernels {k32[0]:.6f} plain "
+        f"{l_r32:.6f} (relative error {rel_loss:.3e}, tolerance "
+        f"{HYBRID_LOSS_TOL}); "
+        + (f"top-k choices that differ {100 * differ(k32[2], pick_r32):.4f}"
+           f"%; " if routed else "")
+        + f"gradient relative L2 "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in e32.items()})} "
         f"(tolerance {HYBRID_GRAD_TOL})")
+    del k32, p32
+    torch.cuda.empty_cache()
     if rel_loss > HYBRID_LOSS_TOL or max(e32.values()) > HYBRID_GRAD_TOL:
-        fail(f"hybrid grads: f32 kernels and plain versions disagree (loss "
+        fail(f"{tag}: f32 kernels and plain versions disagree (loss "
              f"{rel_loss:.3e}, worst leaf {max(e32.values()):.3e})")
     p16 = build_model(cfg16, device="cuda").init(0)
-    l_k16, g_k16 = grads(cfg16, "kernel", p16)
-    ek = {n: rel(a, b) for (n, a), (_, b) in zip(g_k16, g_r32)}
-    del g_k16
+    pins = (False, True) if pin else (False,)
+    out = {}
+    for pinned in pins:
+        for impl in ("kernel", "ref"):
+            run = grads(cfg16, impl, p16, pick_r32 if pinned else None)
+            out[pinned, impl] = (run[0], dist(run, g_r32), run[2])
+            del run
+            torch.cuda.empty_cache()
+    del p16, g_r32
     torch.cuda.empty_cache()
-    l_r16, g_r16 = grads(cfg16, "ref", p16)
-    er = {n: rel(a, b) for (n, a), (_, b) in zip(g_r16, g_r32)}
-    del g_r16, g_r32, p16
-    torch.cuda.empty_cache()
-    ratio = {n: ek[n] / er[n] for n in ek}
-    log(f"[hybrid-grads] bf16: loss kernels {l_k16:.6f} plain {l_r16:.6f} "
-        f"(f32 plain {l_r32:.6f}); per leaf, relative L2 from the f32 plain "
-        f"gradient, kernels / plain bf16: " + json.dumps(
-            {n: f"{ek[n]:.3e} / {er[n]:.3e}" for n in ek})
-        + f"; worst ratio {max(ratio.values()):.3f} (limit "
-        f"{HYBRID_BF16_RATIO})")
-    bad = {n: r for n, r in ratio.items() if r > HYBRID_BF16_RATIO}
+    for pinned in pins:
+        (lk, ek, pk), (lr, er, pr) = out[pinned, "kernel"], out[pinned, "ref"]
+        ratio = {n: ek[n] / er[n] for n in ek}
+        how = ("" if not pin else " pinned to the f32 plain choices"
+               if pinned else " unpinned")
+        log(f"[{tag}] bf16{how}: loss kernels {lk:.6f} plain {lr:.6f} (f32 "
+            f"plain {l_r32:.6f}); "
+            + (f"top-k choices that differ from the f32 plain model's: "
+               f"kernels {100 * differ(pk, pick_r32):.4f}%, plain "
+               f"{100 * differ(pr, pick_r32):.4f}%; " if routed else "")
+            + "per leaf, relative L2 from the f32 plain gradient, kernels / "
+            "plain bf16: " + json.dumps(
+                {n: f"{ek[n]:.3e} / {er[n]:.3e}" for n in ek})
+            + f"; worst ratio {max(ratio.values()):.3f} (limit "
+            f"{HYBRID_BF16_RATIO}{', logged only' if pin != pinned else ''})")
+    ek, er = out[pin, "kernel"][1], out[pin, "ref"][1]
+    bad = {n: ek[n] / er[n] for n in ek if ek[n] > HYBRID_BF16_RATIO * er[n]}
     if bad:
-        fail(f"hybrid grads: bf16 kernel gradients further from the f32 "
-             f"plain gradients than the plain bf16 ones: {bad}")
+        fail(f"{tag}: {'pinned ' if pin else ''}bf16 kernel gradients "
+             f"further from the f32 plain gradients than the plain bf16 "
+             f"ones: {bad}")
 
 
 def ssd_bwd_work(B, L, H, P, N, chunk, elem):
@@ -2743,7 +2967,7 @@ def check_hybrid_train_kernels(torch, entries):
         f"{[f'{e:.3e}' for e in ferr['bwd']]}")
     q, k, v, do, o, lse = timed
     shape = f"q {Bq}x{Hq}x{Sf}x{D} kv {Bq}x{Hq}x{Sf}x{D} causal"
-    fwd_ops, io = flash_work(q, k)
+    fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
     cases = {
@@ -2760,7 +2984,7 @@ def check_hybrid_train_kernels(torch, entries):
             lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                         retain_graph=True),
             dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
-                 ops=2.5 * fwd_ops))}
+                 ops=bwd_ops))}
     for e in entries:
         if e["name"] in cases:
             err, fn, plain, lib, work = cases[e["name"]]
@@ -2797,6 +3021,7 @@ MOE_DROP_FREE = 8.0
 MOE_DROP_FREE_LAYERS = 12
 MOE_TRAIN_STEPS = 4
 MOE_TRAIN_SHAPE = (4, 2048)             # B, S of phase 12
+MOE_TRAIN_PEAK_GB = 80.0                # the card's memory (phases 12, 14)
 DISPATCH = ("decoder", "moe", "dispatch")
 ROUTER = ("decoder", "moe", "router")
 
@@ -3130,23 +3355,49 @@ def moe_model_flops_per_token(cfg, S: int) -> float:
     parameters only (per MoE layer the top_k routed experts' SwiGLU, 6 d
     moe_d_ff each, and any shared experts; the dense layers' MLP), the
     attention projections and causal attention (4 head_dim S/2 a head),
-    and the lm head.  The router's d x E product registers no cost, as
-    in the reference."""
-    d, h = cfg.d_model, cfg.head_dim_
-    attn = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
-        + 2 * cfg.n_heads * h * d + 4 * cfg.n_heads * h * S / 2
+    and the lm head.  Under MLA the attention is its mla_proj edge, 2 d
+    (nh (dn + dr) + r + dr), and flash at head dim dn + dr; the products
+    it registers no cost for are mla_unregistered_flops_per_token's.  The
+    router's d x E product registers no cost, as in the reference."""
+    d = cfg.d_model
+    if cfg.mla:
+        dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        attn = 2 * d * (cfg.n_heads * dqk + cfg.kv_lora_rank
+                        + cfg.qk_rope_dim) + 4 * cfg.n_heads * dqk * S / 2
+    else:
+        h = cfg.head_dim_
+        attn = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+            + 2 * cfg.n_heads * h * d + 4 * cfg.n_heads * h * S / 2
     moe = 6 * d * cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts)
     dense = 2 * (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
     return 3.0 * (cfg.n_layers * attn + moe_layers(cfg) * moe
                   + cfg.first_dense_layers * dense + 2 * d * cfg.vocab)
 
 
-def moe_train_phase(torch):
-    """Phase 12: phi3.5-moe trained at its widths and MOE_TRAIN_LAYERS
-    layers, batch 4 x 2048, through the port's Trainer and its XFA
-    session; the profile shard's device group; MFU by the active-parameter
-    FLOPs (checked against the static-cost layer); a profiled step.
-    Returns (launch counts of the run, its stats)."""
+def mla_unregistered_flops_per_token(cfg) -> float:
+    """Training FLOPs per token (3x the forward's) of the two MLA products
+    the reference registers no static cost for: the latent's expansion
+    through wkv_b, 2 r nh (dn + dv), and o_proj, 2 nh dv d, each layer."""
+    nh, dv = cfg.n_heads, cfg.v_head_dim
+    return 3.0 * cfg.n_layers * (2 * cfg.kv_lora_rank * nh
+                                 * (cfg.qk_nope_dim + dv)
+                                 + 2 * nh * dv * cfg.d_model)
+
+
+def moe_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
+                    unregistered=None):
+    """Phases 12 and 14: an MoE model (`cfg`: phi3.5-moe, or deepseek-v2-lite,
+    whose expanded MLA branch runs the flash pair at q/k head dim 192 and v
+    128) trained at its widths, batch `shape`, `steps` steps through the
+    port's Trainer and its XFA session.  Launch counters set to 0 just
+    before and read just after: both flash kernels, rmsnorm and its
+    backward must have run; losses, aux losses and grad norms finite; peak
+    memory under MOE_TRAIN_PEAK_GB; the profile shard's device group and
+    the fold's invariants; step time, tokens/s, MFU by the static-cost
+    FLOPs (moe_model_flops_per_token, held to the static-cost layer of one
+    loss_fn at 1e-6) plus `unregistered(cfg)` FLOPs a token that the
+    reference registers no cost for; a profiled step.  Returns (launch
+    counts of the run, its stats)."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import tracer as xfa
@@ -3159,15 +3410,13 @@ def moe_train_phase(torch):
 
     t_phase = time.monotonic()
     release(torch)
-    log(f"[moe-train] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
-        f"at the start of phase 12")
+    log(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"at the start of phase {phase}")
     xfa.reset()          # the shard phase 9 reads: this run's folds only
-    cfg = moe_cfg(MOE_TRAIN_LAYERS)
     model = build_model(cfg, impl="auto", device="cuda")
-    B, S = MOE_TRAIN_SHAPE
-    steps = MOE_TRAIN_STEPS
+    B, S = shape
     tcfg = TrainConfig(total_steps=steps, warmup_steps=2, ckpt_interval=0)
-    with keep_dir("moe-train") as d:
+    with keep_dir(tag) as d:
         trainer = Trainer(model, tcfg, CheckpointManager(
             os.path.join(d, "ckpt")), profile_dir=os.path.join(d, "prof"))
         torch.cuda.reset_peak_memory_stats()
@@ -3181,64 +3430,70 @@ def moe_train_phase(torch):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         hist = trainer.history
         if len(hist) != steps:
-            fail(f"moe-train: {len(hist)} of {steps} steps recorded")
+            fail(f"{tag}: {len(hist)} of {steps} steps recorded")
         for h in hist:
             if not all(math.isfinite(h[k]) for k in ("loss", "aux_loss",
                                                      "grad_norm")):
-                fail(f"moe-train: step {h['step']} loss {h['loss']} aux "
+                fail(f"{tag}: step {h['step']} loss {h['loss']} aux "
                      f"{h['aux_loss']} grad norm {h['grad_norm']} not finite")
         for name in TRAIN_KERNELS + ("rmsnorm",):
             if counts[name] <= 0:
-                fail(f"moe-train: kernel {name} was not launched: {counts}")
+                fail(f"{tag}: kernel {name} was not launched: {counts}")
+        if peak_gb >= MOE_TRAIN_PEAK_GB:
+            fail(f"{tag}: peak memory {peak_gb:.1f} GB")
         folded = load_profile(os.path.join(d, "prof")).to_folded()
         if [e.count for k, e in folded.edges.items()
                 if k[1:] == ("runtime", "dispatch_step")] != [steps]:
-            fail("moe-train: profile shard lacks dispatch_step x "
-                 f"{steps}")
+            fail(f"{tag}: profile shard lacks dispatch_step x {steps}")
         step_edge = folded.edges.get(("app", "loss", "train_step"))
         if step_edge is None or step_edge.count != steps:
-            fail(f"moe-train: the shard's device group holds train_step "
+            fail(f"{tag}: the shard's device group holds train_step "
                  f"{step_edge and step_edge.count}, not {steps}")
-        fold = moe_fold(cfg, folded, "moe-train", B * S * steps,
-                        steps)
+        fold = moe_fold(cfg, folded, tag, B * S * steps, steps)
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     step_s = statistics.median(h["step_s"] for h in hist[1:])
-    flops = moe_model_flops_per_token(cfg, S) * B * S
+    registered = moe_model_flops_per_token(cfg, S) * B * S
+    extra = unregistered(cfg) * B * S if unregistered else 0.0
+    flops = registered + extra
     stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
              "mfu": flops / step_s / PEAK_OPS_S["bfloat16"],
              "peak_gb": peak_gb, "fold": fold}
-    log(f"[moe-train] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.3f}"
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.3f}"
         f"B params, {cfg.param_dtype}, remat {cfg.remat}), batch {B} x {S}: "
         f"losses {[round(h['loss'], 4) for h in hist]}, aux "
         f"{[round(h['aux_loss'], 6) for h in hist]}, grad norms "
         f"{[round(h['grad_norm'], 4) for h in hist]}")
-    log(f"[moe-train] step times (s) {[round(h['step_s'], 4) for h in hist]}"
+    log(f"[{tag}] step times (s) {[round(h['step_s'], 4) for h in hist]}"
         f"; median after the first {stats['step_ms']:.1f} ms = "
-        f"{stats['tok_s']:.0f} tokens/s; model FLOPs (active parameters) "
-        f"{flops / 1e12:.2f} TFLOP/step -> MFU {100 * stats['mfu']:.2f}% of "
-        f"989 TFLOP/s; peak memory {peak_gb:.1f} GB; run wall {wall:.1f}s "
-        f"incl. init; launches {json.dumps(counts)}")
-    # the active-parameter FLOPs against the static-cost layer: one loss_fn
+        f"{stats['tok_s']:.0f} tokens/s; model FLOPs {flops / 1e12:.3f} "
+        f"TFLOP/step"
+        + (f" ({registered / 1e12:.3f} registered as static costs + "
+           f"{extra / 1e12:.3f} of {unregistered.__name__})"
+           if unregistered else "")
+        + f" -> MFU {100 * stats['mfu']:.2f}% of 989 TFLOP/s; peak memory "
+        f"{peak_gb:.1f} GB; run wall {wall:.1f}s incl. init; launches "
+        f"{json.dumps(counts)}")
+    # the registered FLOPs against the static-cost layer: one loss_fn
     batch = SyntheticLMData(cfg, 1, 1024, seed=1).generate(0)
     STATIC_COSTS.reset()
     with torch.no_grad():
         model.loss_fn(state["params"], batch, model.table())
-    registered = sum(v.get("flops", 0.0) for k, v in
-                     STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
+    got = sum(v.get("flops", 0.0) for k, v in STATIC_COSTS.costs.items()
+              if k[2] != "rmsnorm")
     want = moe_model_flops_per_token(cfg, 1024) / 3 * 1024
-    log(f"[moe-train] forward FLOPs of one loss_fn at 1 x 1024: static-cost "
-        f"layer {registered:.6e} (without the norms), "
-        f"moe_model_flops_per_token / 3 {want:.6e}")
-    if abs(registered - want) > 1e-6 * want:
-        fail(f"moe-train: moe_model_flops_per_token disagrees with the "
-             f"static-cost layer ({want:.6e} against {registered:.6e})")
+    log(f"[{tag}] forward FLOPs of one loss_fn at 1 x 1024: static-cost "
+        f"layer {got:.6e} (without the norms), moe_model_flops_per_token / "
+        f"3 {want:.6e}")
+    if abs(got - want) > 1e-6 * want:
+        fail(f"{tag}: moe_model_flops_per_token disagrees with the "
+             f"static-cost layer ({want:.6e} against {got:.6e})")
     state, shares = profiled_step(
         torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
-            steps), "moe-train-profile", {"flash": FLASH_KERNEL_NAMES})
+            steps), f"{tag}-profile", {"flash": FLASH_KERNEL_NAMES})
     stats.update(busy=shares["busy"], flash_share=shares["flash"])
     del state, trainer, model
     release(torch)
-    log(f"[moe-train] phase 12: {time.monotonic() - t_phase:.1f}s")
+    log(f"[{tag}] phase {phase}: {time.monotonic() - t_phase:.1f}s")
     return counts, stats
 
 
@@ -3373,13 +3628,55 @@ def mla_serve_phase(torch):
             dict(runs["mla-serve"][2], busy=busy))
 
 
+# ------------------------------------------------------------- mla train ----
+#: deepseek-v2-lite trained at its published widths, cut to 4 of 27 layers
+#: (1 dense + 3 MoE): 2.25B params x 16 B of state (bf16 params, f32
+#: master weights and AdamW moments) ~36 GB, where all 27 layers' ~251 GB
+#: do not fit the 80 GB card
+MLA_TRAIN_LAYERS = 4
+MLA_TRAIN_STEPS = 4
+MLA_TRAIN_SHAPE = (4, 2048)             # B, S of phase 14
+
+
+def mla_train_cfg():
+    """deepseek-v2-lite at its published widths, cut to MLA_TRAIN_LAYERS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MLA_ARCH),
+                               n_layers=MLA_TRAIN_LAYERS)
+
+
+def mla_train_phase(torch):
+    """Phase 14: deepseek-v2-lite trained at its widths and
+    MLA_TRAIN_LAYERS layers through moe_train_phase, with the wkv_b
+    expansion and o_proj counted into its MFU; then grads_precision_check
+    with the fold table and the router pinned, without remat (the router
+    runs once a layer).  Returns (launch counts of the run, its stats)."""
+    import dataclasses
+    cfg = mla_train_cfg()
+    out = moe_train_phase(torch, cfg, "mla-train", 14, MLA_TRAIN_SHAPE,
+                          MLA_TRAIN_STEPS,
+                          unregistered=mla_unregistered_flops_per_token)
+    grads_precision_check(torch, dataclasses.replace(cfg, remat="none"),
+                          "mla-grads", table=True, pin=True)
+    return out
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("zamba2 serve", "hybrid-serve"),
              ("zamba2 train", "hybrid-train/prof"),
              ("phi3.5-moe serve", "moe-serve"),
-             ("phi3.5-moe train", "moe-train/prof"))
+             ("phi3.5-moe train", "moe-train/prof"),
+             ("deepseek train", "mla-train/prof"))
+#: the MoE train dirs whose report must show the device group: their
+#: (config, batch shape, steps)
+DEVICE_GROUPS = {
+    "moe-train/prof": lambda: (moe_cfg(MOE_TRAIN_LAYERS), MOE_TRAIN_SHAPE,
+                               MOE_TRAIN_STEPS),
+    "mla-train/prof": lambda: (mla_train_cfg(), MLA_TRAIN_SHAPE,
+                               MLA_TRAIN_STEPS)}
 FLEET_TRAIN_STEPS = 2
 
 
@@ -3539,26 +3836,24 @@ def diagnose_phase(torch):
         d = RUN_ROOT / rel
         report = profile_cli("report", d)
         log_diagnosis(what, profile_cli("diagnose", d), report)
-        if rel == "moe-train/prof":
+        if rel in DEVICE_GROUPS:
             # the device group, as the CLI reads it back from the shard
             edges = {(e["caller"], e["component"], e["api"]): e
                      for e in report["edges"]}
             step, disp = edges.get(("app", "loss", "train_step")), \
                 edges.get(DISPATCH)
-            B, S = MOE_TRAIN_SHAPE
-            cfg = moe_cfg(MOE_TRAIN_LAYERS)
-            want = cfg.top_k * B * S * moe_layers(cfg) * MOE_TRAIN_STEPS
+            cfg, (B, S), steps = DEVICE_GROUPS[rel]()
+            want = cfg.top_k * B * S * moe_layers(cfg) * steps
             loads = sum(v for k, v in (disp or {}).get("metrics", {}).items()
                         if k.startswith("expert_load"))
-            if step is None or step["count"] != MOE_TRAIN_STEPS \
-                    or loads != want:
-                fail(f"diagnose: `report` of the phi3.5-moe train shard "
-                     f"shows train_step {step and step['count']} and loads "
-                     f"{loads} (want {MOE_TRAIN_STEPS} and {want})")
-            log(f"[diagnose] phi3.5-moe train: report shows the device "
-                f"group: train_step x{step['count']}, dispatch "
-                f"x{disp['count']} with loads summing to {int(loads)}, "
-                f"router {edges[ROUTER]['metrics']}")
+            if step is None or step["count"] != steps or loads != want:
+                fail(f"diagnose: `report` of the {what} shard shows "
+                     f"train_step {step and step['count']} and loads "
+                     f"{loads} (want {steps} and {want})")
+            log(f"[diagnose] {what}: report shows the device group: "
+                f"train_step x{step['count']}, dispatch x{disp['count']} "
+                f"with loads summing to {int(loads)}, router "
+                f"{edges[ROUTER]['metrics']}")
     # closed-loop serving writes its ring once, at drain: one snapshot
     tls = profile_cli("timeline", RUN_ROOT / "serve", "--min-snapshots", 1)
     for tl in tls:

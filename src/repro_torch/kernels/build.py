@@ -64,10 +64,10 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd_launch": (_P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I,
                                        _F, _F, _I, _P),
         "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                        _F, _F, _I, _P),
     },
     "mamba_scan": {

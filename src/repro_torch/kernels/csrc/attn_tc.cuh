@@ -7,10 +7,10 @@
 // Shared-memory tiles are [R, DT] bf16 in wgmma's canonical swizzled
 // layout, each at a 1024-byte boundary.  DT is the tile width: the head
 // dim, or 128 for head dim 80 (columns 80-127 are never read by a score
-// product and never stored).  DT >= 64: panels of 64 columns ([R, 64] each,
-// 128-byte rows, 128-byte swizzle: 16-byte chunk c of row r at chunk
-// c ^ (r % 8)); DT = 32: 64-byte rows, 64-byte swizzle (chunk
-// c ^ (r / 2 % 4)).  The swizzle is what the hardware applies to the
+// product and never stored); 192 is three panels.  DT >= 64: panels of 64
+// columns ([R, 64] each, 128-byte rows, 128-byte swizzle: 16-byte chunk c
+// of row r at chunk c ^ (r % 8)); DT = 32: 64-byte rows, 64-byte swizzle
+// (chunk c ^ (r / 2 % 4)).  The swizzle is what the hardware applies to the
 // address, so the 8 rows a wgmma core matrix reads lie in 8 different bank
 // groups; cp.async writes a tile with the same XOR and TMA with the same
 // swizzle mode.
@@ -19,8 +19,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <utility>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -137,19 +135,20 @@ __device__ __forceinline__ void issue_abt(float (&c)[NC][4], const bf16* a, int 
 }
 
 // Issue c += P B for this warpgroup: P a 64 x 16KS bf16 A operand in
-// registers, B the 16KS rows of tile b ([16KS, D], MN-major); c is 64 x D.
+// registers, B the 16KS rows of tile b ([16KS, D], MN-major); c is 64 x D,
+// one n64 product per 64-column panel (D 64, 128, 192) or one n32 (D 32).
 template <int D, int KS>
 __device__ __forceinline__ void issue_pb(float (&c)[D / 8][4], const uint32_t (&pa)[KS][4],
                                          const bf16* b) {
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192, "tile width");
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    if constexpr (D == 128) {
-      mma::wgmma_rs_n64<0>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 0));
-      mma::wgmma_rs_n64<8>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 1));
-    } else if constexpr (D == 64) {
-      mma::wgmma_rs_n64<0>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 0));
-    } else {
+    if constexpr (D == 32) {
       mma::wgmma_rs_n32<0>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 0));
+    } else {
+      mma::wgmma_rs_n64<0>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 0));
+      if constexpr (D >= 128) mma::wgmma_rs_n64<8>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 1));
+      if constexpr (D >= 192) mma::wgmma_rs_n64<16>(c, pa[ks], ndesc<D, 16 * KS>(b, ks, 2));
     }
   }
 }
@@ -162,22 +161,23 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 }
 
 // Ring of NS K/V tile stages (two by default) of BN rows (kBN by
-// default): stage j % NS holds K, then V, of tile j ([BN, D] each, in the
-// swizzled layout).  Filled by TMA, stage j % NS is complete when its
-// mbarrier full[j % NS] completes its (j / NS)-th phase; rows past the
-// tensor map's bounds arrive as zeros.  (A kernel that fills it by
-// cp.async uses only the tiles.)
-template <int D, int NS = 2, int BN = kBN>
+// default): stage j % NS holds K, then V, of tile j ([BN, D] and [BN, DV],
+// DV = D by default, in the swizzled layout).  Filled by TMA, stage j % NS
+// is complete when its mbarrier full[j % NS] completes its (j / NS)-th
+// phase; rows past the tensor map's bounds arrive as zeros.  (A kernel
+// that fills it by cp.async uses only the tiles.)
+template <int D, int NS = 2, int BN = kBN, int DV = D>
 struct KvRing {
   static constexpr int kStages = NS;
-  static constexpr size_t kStageBytes = 2 * BN * D * sizeof(bf16);
+  static constexpr int kStageElems = BN * (D + DV);
+  static constexpr size_t kStageBytes = kStageElems * sizeof(bf16);
   static constexpr size_t kBytes = NS * kStageBytes + NS * sizeof(uint64_t);
   bf16* tiles;
   uint64_t* full;
   __device__ explicit KvRing(void* at)
       : tiles(static_cast<bf16*>(at)),
-        full(reinterpret_cast<uint64_t*>(tiles + NS * 2 * BN * D)) {}
-  __device__ bf16* k(int j) const { return tiles + (j % NS) * 2 * BN * D; }
+        full(reinterpret_cast<uint64_t*>(tiles + NS * kStageElems)) {}
+  __device__ bf16* k(int j) const { return tiles + (j % NS) * kStageElems; }
   __device__ bf16* v(int j) const { return k(j) + BN * D; }
   // One thread, before any use: the barriers (a block barrier must follow
   // before other threads wait).
@@ -191,12 +191,13 @@ struct KvRing {
   __device__ void load_at(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j,
                           int row) const {
     uint64_t* bar = full + (j % NS);
-    mma::mbar_expect_tx(bar, 2 * BN * D * sizeof(bf16));
+    mma::mbar_expect_tx(bar, kStageBytes);
 #pragma unroll
-    for (int p = 0; p < D / kRowElems<D>; ++p) {
+    for (int p = 0; p < D / kRowElems<D>; ++p)
       mma::tma_load_3d(k(j) + p * BN * 64, tk, p * 64, row, head, bar);
+#pragma unroll
+    for (int p = 0; p < DV / kRowElems<DV>; ++p)
       mma::tma_load_3d(v(j) + p * BN * 64, tv, p * 64, row, head, bar);
-    }
   }
   // Tile j = rows [j BN, (j + 1) BN).
   __device__ void load(const CUtensorMap* tk, const CUtensorMap* tv, int head, int j) const {
@@ -268,13 +269,12 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// TMA maps of k and v, [heads, rows, cols] bf16 (cols <= D): a box is one
-// swizzled column panel of a [BN, D] K/V tile (BN rows, kBN by default),
-// in the layout the kernels' wgmma descriptors and ldmatrix loads read;
-// rows past `rows` and columns past `cols` load as zeros.
+// TMA map of a [heads, rows, cols] bf16 tensor (cols <= D): a box is one
+// swizzled column panel of a [BN, D] tile (BN rows, kBN by default), in
+// the layout the kernels' wgmma descriptors and ldmatrix loads read; rows
+// past `rows` and columns past `cols` load as zeros.
 template <int D, int BN = kBN>
-cudaError_t kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int heads,
-                    int rows, int cols = D) {
+cudaError_t tile_map(CUtensorMap* map, const void* base, int heads, int rows, int cols = D) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
@@ -284,14 +284,21 @@ cudaError_t kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void*
   const cuuint32_t box[3] = {kRowElems<D>, BN, 1}, unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  for (auto [map, base] : {std::pair{tk, k}, std::pair{tv, v}}) {
-    if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return cudaErrorInvalidValue;
-  }
-  return cudaSuccess;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The TMA maps of k [heads, rows, cols] at tile width D and v [heads,
+// rows, vcols] at tile width DV (see tile_map).
+template <int D, int DV = D, int BN = kBN>
+cudaError_t kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int heads,
+                    int rows, int cols, int vcols) {
+  const cudaError_t err = tile_map<D, BN>(tk, k, heads, rows, cols);
+  return err != cudaSuccess ? err : tile_map<DV, BN>(tv, v, heads, rows, vcols);
 }
 
 }  // namespace tc

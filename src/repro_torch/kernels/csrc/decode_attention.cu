@@ -1155,9 +1155,9 @@ cudaError_t decode_bf16(const void* q, const void* k, const void* v, KvRows kv,
   CUtensorMap tk{}, tv{};
   cudaError_t err = cudaSuccess;
   if constexpr (kRoute == tc::kDense)   // kv.ps is S
-    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D);
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D, D);
   else if constexpr (kRoute == tc::kPagedTma)
-    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D);
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D, D);
   if (err != cudaSuccess) return err;
   const int hg = (a.G + tc::kDecRows - 1) / tc::kDecRows;
   const tc::DecodeProblem pb{a.hkv, a.G, hg, kv.nb, kv.ps, a.split_rows, a.scale * tc::kLog2e};
@@ -1242,9 +1242,9 @@ cudaError_t chunk_bf16(const void* q, const void* k, const void* v, KvRows kv, c
   CUtensorMap tk{}, tv{};
   cudaError_t err = cudaSuccess;
   if constexpr (kRoute == tc::kDense)   // kv.ps is S
-    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D);
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.B * a.hkv, kv.ps, D, D);
   else if constexpr (kRoute == tc::kPagedTma)
-    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D);
+    err = tc::kv_maps<DT>(&tk, &tv, k, v, a.pages * a.hkv, kv.ps, D, D);
   if (err != cudaSuccess) return err;
   const tc::ChunkProblem pb{a.hkv, a.G, a.T, kv.nb * kv.ps, kv.nb, kv.ps, a.split_cols,
                             a.scale * tc::kLog2e};

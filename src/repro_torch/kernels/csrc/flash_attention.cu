@@ -34,7 +34,7 @@
 //   - forward: 2 warpgroups, a 128-row query tile (64 rows each), K/V
 //     tiles of 64 rows.
 //   - dK/dV: 1 warpgroup, a 64-row K/V tile; query steps of 64 rows (32
-//     at D = 128, for registers).  The products are transposed so that
+//     at D 80, 128 and 192, for registers).  The products are transposed so that
 //     kv rows are the M dimension: S^T = K Q^T, dP^T = V dO^T, then
 //     dS^T = P^T o (dP^T - delta), dV += P^T dO, dK += dS^T Q; lse, delta
 //     and each query row's last visible column are staged in shared
@@ -47,6 +47,22 @@
 // and their transposes) skip the k-steps past 80 (5 of 8 run); the
 // products into a [*, D] accumulator run at n 128, and only 80 columns
 // are stored.  Shared memory and registers are those of D 128.
+// MLA training (deepseek-v2's expanded branch) attends at q/k head dim
+// D = dn + dr = 192 with v at dv = 128.  The reference pads v to 192 so
+// that its Pallas kernel sees equal head dims, and drops o's zero columns
+// 128-191; these kernels take v at its own width (Dv) and compute the same
+// function on v's real columns.  Every kernel is templated on (D, Dv):
+// S = Q K^T, dK and dQ run at D (three 64-column panels at 192), while the
+// forward's O accumulator, the delta pre-pass, dP = dO V^T, dV and the
+// stored o / dv run at Dv.  Why not a padded v: dK/dV holds dK and dV in
+// registers for its 64 K/V rows, 96 + 96 f32 a thread at 192, which with
+// S^T and dP^T leaves nothing for addressing; at Dv 128 they take 96 + 64.
+// The K/V ring holds K at D's width and V at Dv's.  Shared memory at
+// (192, 128): forward Q 48 KB + two 40 KB stages; dK/dV K and V 40 KB +
+// two stages of 32 query rows (Q, dO) 40 KB; dQ Q and dO 40 KB + the
+// ring 80 KB.  The f32 kernels stage K, Q at pitch D + 1 and V, dO at
+// Dv + 1 (145-194 KB, past the default 48 KB: opted in).  Equal head dims
+// run as before; (192, 192) is not compiled.
 // Copy pipeline.  K/V tiles (forward, dQ) stream through a ring of two
 // stages filled by TMA (cp.async.bulk.tensor on a [heads, Sk, D] tensor
 // map, one box per swizzled panel, rows past Sk zero-filled) and
@@ -214,21 +230,22 @@ __device__ __forceinline__ void tile_mm(const float* w, const float* m, float ac
 }
 
 // ---------------------------------------------------------------- forward ----
-template <int D>
+// D: q / k head dim; DV: v / o head dim (DV <= D).
+template <int D, int DV>
 constexpr size_t fwd_smem_floats() {
-  return 3 * kBQ * (D + 1) + kBQ * kPP;   // q, k, v tiles + probabilities
+  return 2 * kBQ * (D + 1) + kBQ * (DV + 1) + kBQ * kPP;   // q, k, v tiles + probabilities
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, Problem pb) {
-  constexpr int NC = D / 16;
+  constexpr int NC = DV / 16;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kBQ * (D + 1);
   float* v_s = k_s + kBK * (D + 1);
-  float* p_s = v_s + kBK * (D + 1);
+  float* p_s = v_s + kBK * (DV + 1);
 
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -236,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int nrows = pb.rows() - r0 < kBQ ? pb.rows() - r0 : kBQ;
   const size_t head = static_cast<size_t>(b) * pb.hkv + h;
   const T* kh = k + head * pb.Sk * D;
-  const T* vh = v + head * pb.Sk * D;
+  const T* vh = v + head * pb.Sk * DV;
 
   stage<T, D>(q_s, q, nrows, [&](int rr) { return qrow(pb, head, r0 + rr); }, pb.scale);
   // columns any row of this tile may see: [0, limit of its last row]
@@ -257,7 +274,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int nk = ncols - c0 < kBK ? ncols - c0 : kBK;
     __syncthreads();   // the previous tile's readers are done
     stage<T, D>(k_s, kh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
-    stage<T, D>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
+    stage<T, DV>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
     __syncthreads();
 
     float s[4][4], th[4][4];
@@ -294,7 +311,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    tile_mm<D, false>(p_s, v_s, acc);
+    tile_mm<DV, false>(p_s, v_s, acc);
   }
 
 #pragma unroll
@@ -305,7 +322,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float l = l_i[i];
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      o[row * D + tx + 16 * c] = rt::from_f<T>(l == 0.f ? 0.f : acc[i][c] / l);
+      o[row * DV + tx + 16 * c] = rt::from_f<T>(l == 0.f ? 0.f : acc[i][c] / l);
     if (tx == 0) lse[row] = l == 0.f ? kNegInf : m_i[i] + logf(l);
   }
 }
@@ -335,7 +352,7 @@ __global__ void flash_delta_kernel(const T* __restrict__ o, const T* __restrict_
 // rows ty*4+i of the query tile staged in q_s / do_s, columns tx+16j of the
 // K/V tile staged in k_s / v_s starting at column c0.  lse_s / delta_s hold
 // the query tile's rows; lim[i] is row i's last visible column.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void recompute(const Problem& pb, const float* q_s, const float* do_s,
                                           const float* k_s, const float* v_s,
                                           const float* lse_s, const float* delta_s,
@@ -345,7 +362,7 @@ __device__ __forceinline__ void recompute(const Problem& pb, const float* q_s, c
   float th[4][4], dp[4][4];
   dot_tile<D>(q_s, k_s, p);
   softcap(p, th, pb.softcap);
-  dot_tile<D>(do_s, v_s, dp);
+  dot_tile<DV>(do_s, v_s, dp);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int rr = ty * 4 + i;
@@ -361,7 +378,7 @@ __device__ __forceinline__ void recompute(const Problem& pb, const float* q_s, c
 }
 
 // Stage a query tile's q (times scale), dO, lse and delta; returns its rows.
-template <typename T, int D>
+template <typename T, int D, int DV>
 __device__ __forceinline__ int stage_queries(const Problem& pb, size_t head, int r0,
                                              const T* __restrict__ q, const T* __restrict__ dout,
                                              const float* __restrict__ lse,
@@ -370,7 +387,7 @@ __device__ __forceinline__ int stage_queries(const Problem& pb, size_t head, int
   const int nrows = pb.rows() - r0 < kBQ ? pb.rows() - r0 : kBQ;
   auto row_of = [&](int rr) { return qrow(pb, head, r0 + rr); };
   stage<T, D>(q_s, q, nrows, row_of, pb.scale);
-  stage<T, D>(do_s, dout, nrows, row_of, 1.f);
+  stage<T, DV>(do_s, dout, nrows, row_of, 1.f);
   for (int rr = threadIdx.x; rr < kBQ; rr += kThreads) {
     const bool ok = rr < nrows;
     lse_s[rr] = ok ? lse[row_of(rr)] : 0.f;
@@ -380,24 +397,24 @@ __device__ __forceinline__ int stage_queries(const Problem& pb, size_t head, int
 }
 
 // --------------------------------------------------------- backward: dK/dV ----
-template <int D>
-constexpr size_t dkdv_smem_floats() {
-  return 4 * kBQ * (D + 1) + 2 * kBQ * kPP + 2 * kBQ;   // k, v, q, dO; p, dS; lse, delta
+template <int D, int DV>
+constexpr size_t dkdv_smem_floats() {   // k, v, q, dO; p, dS; lse, delta
+  return 2 * kBQ * (D + 1) + 2 * kBQ * (DV + 1) + 2 * kBQ * kPP + 2 * kBQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       Problem pb) {
-  constexpr int NC = D / 16;
+  constexpr int NC = D / 16, NV = DV / 16;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kBK * (D + 1);
-  float* q_s = v_s + kBK * (D + 1);
+  float* q_s = v_s + kBK * (DV + 1);
   float* do_s = q_s + kBQ * (D + 1);
-  float* p_s = do_s + kBQ * (D + 1);
+  float* p_s = do_s + kBQ * (DV + 1);
   float* ds_s = p_s + kBQ * kPP;
   float* lse_s = ds_s + kBQ * kPP;
   float* delta_s = lse_s + kBQ;
@@ -407,15 +424,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int nk = pb.Sk - c0 < kBK ? pb.Sk - c0 : kBK;
   const size_t head = static_cast<size_t>(b) * pb.hkv + h;
   const T* kh = k + head * pb.Sk * D;
-  const T* vh = v + head * pb.Sk * D;
+  const T* vh = v + head * pb.Sk * DV;
   stage<T, D>(k_s, kh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
-  stage<T, D>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
+  stage<T, DV>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
 
-  float dk_acc[4][NC], dv_acc[4][NC];
+  float dk_acc[4][NC], dv_acc[4][NV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) dk_acc[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dv_acc[i][c] = 0.f;
+  }
 
   // causal: the first query position that sees column c0 is c0 - offset
   int t_first = pb.causal ? c0 - pb.offset : 0;
@@ -423,13 +443,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int rows = pb.rows();
   for (int r0 = (t_first * pb.G) / kBQ * kBQ; r0 < rows; r0 += kBQ) {
     __syncthreads();   // the previous tile's readers are done
-    stage_queries<T, D>(pb, head, r0, q, dout, lse, delta, q_s, do_s, lse_s, delta_s);
+    stage_queries<T, D, DV>(pb, head, r0, q, dout, lse, delta, q_s, do_s, lse_s, delta_s);
     __syncthreads();
     int lim[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) lim[i] = pb.limit(r0 + ty * 4 + i);
     float p[4][4], ds[4][4];
-    recompute<D>(pb, q_s, do_s, k_s, v_s, lse_s, delta_s, lim, c0, p, ds);
+    recompute<D, DV>(pb, q_s, do_s, k_s, v_s, lse_s, delta_s, lim, c0, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -439,7 +459,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       }
     __syncthreads();
     // this thread's K/V rows are ty*4+i: dV += P^T dO, dK += dS^T (q*scale)
-    tile_mm<D, true>(p_s, do_s, dv_acc);
+    tile_mm<DV, true>(p_s, do_s, dv_acc);
     tile_mm<D, true>(ds_s, q_s, dk_acc);
   }
 
@@ -447,22 +467,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int i = 0; i < 4; ++i) {
     const int kr = ty * 4 + i;
     if (kr >= nk) continue;
-    const size_t row = (head * pb.Sk + c0 + kr) * static_cast<size_t>(D);
+    const size_t row = head * pb.Sk + c0 + kr;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[row + tx + 16 * c] = rt::from_f<T>(dk_acc[i][c]);
-      dv[row + tx + 16 * c] = rt::from_f<T>(dv_acc[i][c]);
-    }
+    for (int c = 0; c < NC; ++c) dk[row * D + tx + 16 * c] = rt::from_f<T>(dk_acc[i][c]);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) dv[row * DV + tx + 16 * c] = rt::from_f<T>(dv_acc[i][c]);
   }
 }
 
 // ------------------------------------------------------------ backward: dQ ----
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 4 * kBQ * (D + 1) + kBQ * kPP + 2 * kBQ;   // q, dO, k, v; dS; lse, delta
+template <int D, int DV>
+constexpr size_t dq_smem_floats() {   // q, dO, k, v; dS; lse, delta
+  return 2 * kBQ * (D + 1) + 2 * kBQ * (DV + 1) + kBQ * kPP + 2 * kBQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -471,9 +490,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kBQ * (D + 1);
-  float* k_s = do_s + kBQ * (D + 1);
+  float* k_s = do_s + kBQ * (DV + 1);
   float* v_s = k_s + kBK * (D + 1);
-  float* ds_s = v_s + kBK * (D + 1);
+  float* ds_s = v_s + kBK * (DV + 1);
   float* lse_s = ds_s + kBQ * kPP;
   float* delta_s = lse_s + kBQ;
 
@@ -482,9 +501,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int r0 = tile * kBQ;
   const size_t head = static_cast<size_t>(b) * pb.hkv + h;
   const T* kh = k + head * pb.Sk * D;
-  const T* vh = v + head * pb.Sk * D;
+  const T* vh = v + head * pb.Sk * DV;
   const int nrows =
-      stage_queries<T, D>(pb, head, r0, q, dout, lse, delta, q_s, do_s, lse_s, delta_s);
+      stage_queries<T, D, DV>(pb, head, r0, q, dout, lse, delta, q_s, do_s, lse_s, delta_s);
   const int ncols = pb.limit(r0 + nrows - 1) + 1;
 
   float acc[4][NC];
@@ -500,10 +519,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int nk = ncols - c0 < kBK ? ncols - c0 : kBK;
     __syncthreads();   // the previous tile's readers are done
     stage<T, D>(k_s, kh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
-    stage<T, D>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
+    stage<T, DV>(v_s, vh, nk, [&](int rr) { return static_cast<size_t>(c0 + rr); }, 1.f);
     __syncthreads();
     float p[4][4], ds[4][4];
-    recompute<D>(pb, q_s, do_s, k_s, v_s, lse_s, delta_s, lim, c0, p, ds);
+    recompute<D, DV>(pb, q_s, do_s, k_s, v_s, lse_s, delta_s, lim, c0, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -534,8 +553,11 @@ constexpr int kFwdM = 16 * kFwdWarps;      // query rows per forward block
 constexpr int kBwdWarps = 4;               // dK/dV and dQ blocks: 4 warps
 constexpr int kBwdM = 16 * kBwdWarps;      // K/V rows per dK/dV block, q rows per dQ block
 
-// q rows per step of the dK/dV loop: 32 at tile width 128 (D 80 and 128)
-// keeps the four accumulator tiles (dK, dV, S^T, dP^T) in registers
+// q rows per step of the dK/dV loop: 32 at tile widths 128 and 192 (D 80,
+// 128, 192) keeps the four accumulator tiles (dK, dV, S^T, dP^T) in
+// registers.  At (192, 128) ptxas gives 255 registers and spills 8 bytes;
+// a 16-row step spills nothing but ran slower on the card (its S^T and
+// dP^T products at n 16, twice the steps and barriers).
 template <int D>
 __host__ __device__ constexpr int dkdv_q() { return tile_dim<D>() <= 64 ? 64 : 32; }
 
@@ -584,20 +606,25 @@ __device__ __forceinline__ void grad_tile(float (&s)[NS][4], float (&dp)[NS][4],
 }
 
 // ---------------------------------------------------------------- forward ----
-template <int D>
+// D: q / k head dim; DV: v / o head dim (DV <= D).  The ring holds K at
+// D's tile width and V at DV's.
+template <int D, int DV>
+using FlashRing = KvRing<tile_dim<D>(), 2, kBN, tile_dim<DV>()>;
+
+template <int D, int DV>
 constexpr size_t fwd_smem() {   // Q tile + the K/V ring
-  return kFwdM * tile_dim<D>() * sizeof(bf16) + KvRing<tile_dim<D>()>::kBytes + kAlign;
+  return kFwdM * tile_dim<D>() * sizeof(bf16) + FlashRing<D, DV>::kBytes + kAlign;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kFwdWarps * 32, tile_dim<D>() <= 64 ? 2 : 1)
 fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, Problem pb) {
-  constexpr int NT = kFwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>();
+  constexpr int NT = kFwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>(), DVT = tile_dim<DV>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
-  const KvRing<DT> ring(q_s + kFwdM * DT);
+  const FlashRing<D, DV> ring(q_s + kFwdM * DT);
 
   const int head = blockIdx.x;                             // b * hkv + h
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;     // longest tiles first
@@ -623,7 +650,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   // valid one may go unmasked: their zero Q gives finite p, never stored
   const int lim_lo = pb.limit(r0);
   const Score score(pb);
-  float acc[DT / 8][4] = {};
+  float acc[DVT / 8][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
 
   for (int j = 0; j < ntiles; ++j) {
@@ -644,7 +671,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     else
       online_softmax<true>(s, m, l, alpha, cb, lim, score);
 #pragma unroll
-    for (int n = 0; n < DT / 8; ++n) {
+    for (int n = 0; n < DVT / 8; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
@@ -655,7 +682,7 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     mma::fence_regs(acc);
     mma::fence_regs(pa);
     mma::wgmma_fence();
-    issue_pb<DT>(acc, pa, ring.v(j));   // O += P V
+    issue_pb<DVT>(acc, pa, ring.v(j));   // O += P V
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(acc);
@@ -669,9 +696,10 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = l[i] == 0.f ? 0.f : 1.f / l[i];
   }
-  acc_to_tile<DT, kFwdM>(q_s, warp * 16, acc, inv[0], inv[1]);   // the warp's own Q rows
+  // the warp's own Q rows, as a [kFwdM, DVT] tile
+  acc_to_tile<DVT, kFwdM>(q_s, warp * 16, acc, inv[0], inv[1]);
   __syncwarp();
-  store_rows<DT, kFwdM, D>(q_s, o, warp * 16, nrows, q_of);
+  store_rows<DVT, kFwdM, DV>(q_s, o, warp * 16, nrows, q_of);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -681,24 +709,24 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
 }
 
 // --------------------------------------------------------- backward: dK/dV ----
-template <int D>
+template <int D, int DV>
 constexpr size_t dkdv_smem() {   // K, V; two stages of (Q, dO, lse, delta, limit)
-  constexpr int DT = tile_dim<D>();
-  return 2 * kBwdM * DT * sizeof(bf16) + 2 * dkdv_q<D>() * (2 * DT * sizeof(bf16) + 12) + kAlign;
+  constexpr int W = tile_dim<D>() + tile_dim<DV>();
+  return kBwdM * W * sizeof(bf16) + 2 * dkdv_q<D>() * (W * sizeof(bf16) + 12) + kAlign;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
             Problem pb) {
-  constexpr int DT = tile_dim<D>();
-  constexpr int NT = kBwdWarps * 32, BQ = dkdv_q<D>(), NS = BQ / 8, ST = 2 * BQ * DT;
+  constexpr int DT = tile_dim<D>(), DVT = tile_dim<DV>();
+  constexpr int NT = kBwdWarps * 32, BQ = dkdv_q<D>(), NS = BQ / 8, ST = BQ * (DT + DVT);
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
   bf16* v_s = k_s + kBwdM * DT;
-  bf16* qd_s = v_s + kBwdM * DT;   // stage s: Q at qd_s + s ST, dO after it
+  bf16* qd_s = v_s + kBwdM * DVT;   // stage s: Q at qd_s + s ST, dO after it
   float* lse_s = reinterpret_cast<float*>(qd_s + 2 * ST);   // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;
   int* lim_s = reinterpret_cast<int*>(delta_s + 2 * BQ);
@@ -709,7 +737,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int nk = min(pb.Sk - c0, kBwdM);
   auto kv_of = [&](int rr) { return head * pb.Sk + c0 + rr; };
   load_rows<DT, kBwdM, NT, D>(k_s, k, nk, kv_of);
-  load_rows<DT, kBwdM, NT, D>(v_s, v, nk, kv_of);
+  load_rows<DVT, kBwdM, NT, DV>(v_s, v, nk, kv_of);
 
   // causal: the first query position that sees column c0 is c0 - offset
   const int t_first = pb.causal ? max(c0 - pb.offset, 0) : 0;
@@ -721,7 +749,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     const int s = i & 1, rq = (first + i) * BQ, n = min(rows - rq, BQ);
     auto q_of = [&](int rr) { return qrow(pb, head, rq + rr); };
     load_rows<DT, BQ, NT, D>(qd_s + s * ST, q, n, q_of);
-    load_rows<DT, BQ, NT, D>(qd_s + s * ST + BQ * DT, dout, n, q_of);
+    load_rows<DVT, BQ, NT, DV>(qd_s + s * ST + BQ * DT, dout, n, q_of);
     for (int rr = threadIdx.x; rr < BQ; rr += NT) {
       const bool ok = rr < n;
       mma::cp_async4(lse_s + s * BQ + rr, ok ? lse + q_of(rr) : lse, ok);
@@ -735,7 +763,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int kr = warp * 16;                        // the warp's K/V rows
   const int kc = c0 + kr + (lane >> 2);            // this thread's columns: kc, kc + 8
   const Score score(pb);
-  float dka[DT / 8][4] = {}, dva[DT / 8][4] = {};
+  float dka[DT / 8][4] = {}, dva[DVT / 8][4] = {};
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) load_q(i + 1);
     mma::cp_async_commit();
@@ -751,7 +779,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     mma::fence_regs(dpt);
     mma::wgmma_fence();
     issue_abt<DT, kBwdM, D>(st, k_s, 0, q_s);
-    issue_abt<DT, kBwdM, D>(dpt, v_s, 0, do_s);
+    issue_abt<DVT, kBwdM, DV>(dpt, v_s, 0, do_s);
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(st);
@@ -777,7 +805,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     mma::fence_regs(pa);
     mma::fence_regs(da);
     mma::wgmma_fence();
-    issue_pb<DT>(dva, pa, do_s);   // dV += P^T dO
+    issue_pb<DVT>(dva, pa, do_s);   // dV += P^T dO
     issue_pb<DT>(dka, da, q_s);    // dK += dS^T Q
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
@@ -789,29 +817,30 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   mma::cp_async_wait<0>();
   __syncthreads();
   acc_to_tile<DT, kBwdM>(k_s, kr, dka, pb.scale, pb.scale);   // dK takes the scale once
-  acc_to_tile<DT, kBwdM>(v_s, kr, dva, 1.f, 1.f);
+  acc_to_tile<DVT, kBwdM>(v_s, kr, dva, 1.f, 1.f);
   __syncwarp();
   store_rows<DT, kBwdM, D>(k_s, dk, kr, nk, kv_of);
-  store_rows<DT, kBwdM, D>(v_s, dv, kr, nk, kv_of);
+  store_rows<DVT, kBwdM, DV>(v_s, dv, kr, nk, kv_of);
 }
 
 // ------------------------------------------------------------ backward: dQ ----
-template <int D>
+template <int D, int DV>
 constexpr size_t dq_smem() {   // Q, dO; the K/V ring
-  return 2 * kBwdM * tile_dim<D>() * sizeof(bf16) + KvRing<tile_dim<D>()>::kBytes + kAlign;
+  return kBwdM * (tile_dim<D>() + tile_dim<DV>()) * sizeof(bf16) + FlashRing<D, DV>::kBytes +
+         kAlign;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, Problem pb) {
-  constexpr int NT = kBwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>();
+  constexpr int NT = kBwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>(), DVT = tile_dim<DV>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
   bf16* do_s = q_s + kBwdM * DT;
-  const KvRing<DT> ring(do_s + kBwdM * DT);
+  const FlashRing<D, DV> ring(do_s + kBwdM * DVT);
 
   const int head = blockIdx.x;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBwdM;   // longest tiles first
@@ -826,7 +855,7 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     if (ntiles > 0) ring.load(&tk, &tv, head, 0);
   }
   load_rows<DT, kBwdM, NT, D>(q_s, q, nrows, q_of);
-  load_rows<DT, kBwdM, NT, D>(do_s, dout, nrows, q_of);
+  load_rows<DVT, kBwdM, NT, DV>(do_s, dout, nrows, q_of);
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
   mma::fence_async_smem();
@@ -855,7 +884,7 @@ dq_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
     mma::fence_regs(dp);
     mma::wgmma_fence();
     issue_abt<DT, kBwdM, D>(s, q_s, 0, k_s);
-    issue_abt<DT, kBwdM, D>(dp, do_s, 0, ring.v(j));
+    issue_abt<DVT, kBwdM, DV>(dp, do_s, 0, ring.v(j));
     mma::wgmma_commit();
     mma::wgmma_wait<0>();
     mma::fence_regs(s);
@@ -914,29 +943,29 @@ cudaError_t launch(K kernel, const cudaError_t& attr, dim3 grid, int threads, si
 }
 
 // f32: the FMA kernels
-template <int D>
+template <int D, int DV>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     const Problem& pb, cudaStream_t s) {
-  constexpr size_t smem = fwd_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<float, D>;
+  constexpr size_t smem = fwd_smem_floats<D, DV>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<float, D, DV>;
   static const cudaError_t attr = rt::set_smem(kernel, smem);   // once per process
   return launch(kernel, attr, dim3((pb.rows() + kBQ - 1) / kBQ, pb.hkv, B), kThreads, smem, s,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o), lse, pb);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                     const float* lse, const float* delta, float* dq, float* dk, float* dv, int B,
                     const Problem& pb, cudaStream_t s) {
-  constexpr size_t smem_kv = dkdv_smem_floats<D>() * sizeof(float);
-  auto kv_kernel = flash_bwd_dkdv_kernel<float, D>;
+  constexpr size_t smem_kv = dkdv_smem_floats<D, DV>() * sizeof(float);
+  auto kv_kernel = flash_bwd_dkdv_kernel<float, D, DV>;
   static const cudaError_t attr_kv = rt::set_smem(kv_kernel, smem_kv);
   cudaError_t err = launch(kv_kernel, attr_kv, dim3((pb.Sk + kBK - 1) / kBK, pb.hkv, B),
                            kThreads, smem_kv, s, q, k, v, dout, lse, delta, dk, dv, pb);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem_q = dq_smem_floats<D>() * sizeof(float);
-  auto q_kernel = flash_bwd_dq_kernel<float, D>;
+  constexpr size_t smem_q = dq_smem_floats<D, DV>() * sizeof(float);
+  auto q_kernel = flash_bwd_dq_kernel<float, D, DV>;
   static const cudaError_t attr_q = rt::set_smem(q_kernel, smem_q);
   return launch(q_kernel, attr_q, dim3((pb.rows() + kBQ - 1) / kBQ, pb.hkv, B), kThreads,
                 smem_q, s, q, k, v, dout, lse, delta, dq, pb);
@@ -944,60 +973,62 @@ cudaError_t bwd_f32(const float* q, const float* k, const float* v, const float*
 
 // bf16: the tensor-core kernels.  Grid x: (b, kv head); y: tiles, which
 // each kernel walks longest first.
-template <int D>
+template <int D, int DV>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      const Problem& pb, cudaStream_t s) {
   using tc::bf16;
   CUtensorMap tk, tv;
-  const cudaError_t err = tc::kv_maps<tc::tile_dim<D>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D);
+  const cudaError_t err =
+      tc::kv_maps<tc::tile_dim<D>(), tc::tile_dim<DV>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D, DV);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = tc::fwd_smem<D>();
-  auto kernel = tc::fwd_kernel<D>;
+  constexpr size_t smem = tc::fwd_smem<D, DV>();
+  auto kernel = tc::fwd_kernel<D, DV>;
   static const cudaError_t attr = rt::set_smem(kernel, smem);
   return launch(kernel, attr, dim3(B * pb.hkv, (pb.rows() + tc::kFwdM - 1) / tc::kFwdM),
                 tc::kFwdWarps * 32, smem, s, static_cast<const bf16*>(q), tk, tv,
                 static_cast<bf16*>(o), lse, pb);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                      const __nv_bfloat16* dout, const float* lse, const float* delta,
                      __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int B,
                      const Problem& pb, cudaStream_t s) {
-  constexpr size_t smem_kv = tc::dkdv_smem<D>();
-  auto kv_kernel = tc::dkdv_kernel<D>;
+  constexpr size_t smem_kv = tc::dkdv_smem<D, DV>();
+  auto kv_kernel = tc::dkdv_kernel<D, DV>;
   static const cudaError_t attr_kv = rt::set_smem(kv_kernel, smem_kv);
   cudaError_t err = launch(kv_kernel, attr_kv,
                            dim3(B * pb.hkv, (pb.Sk + tc::kBwdM - 1) / tc::kBwdM),
                            tc::kBwdWarps * 32, smem_kv, s, q, k, v, dout, lse, delta, dk, dv, pb);
   if (err != cudaSuccess) return err;
   CUtensorMap tk, tv;
-  err = tc::kv_maps<tc::tile_dim<D>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D);
+  err = tc::kv_maps<tc::tile_dim<D>(), tc::tile_dim<DV>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D,
+                                                           DV);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem_q = tc::dq_smem<D>();
-  auto q_kernel = tc::dq_kernel<D>;
+  constexpr size_t smem_q = tc::dq_smem<D, DV>();
+  auto q_kernel = tc::dq_kernel<D, DV>;
   static const cudaError_t attr_q = rt::set_smem(q_kernel, smem_q);
   return launch(q_kernel, attr_q, dim3(B * pb.hkv, (pb.rows() + tc::kBwdM - 1) / tc::kBwdM),
                 tc::kBwdWarps * 32, smem_q, s, q, tk, tv, dout, lse, delta, dq, pb);
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t fwd_t(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                   int B, const Problem& pb, cudaStream_t s) {
   switch (dtype) {
-    case rt::kBF16: return fwd_bf16<D>(q, k, v, o, lse, B, pb, s);
-    case rt::kF32: return fwd_f32<D>(q, k, v, o, lse, B, pb, s);
+    case rt::kBF16: return fwd_bf16<D, DV>(q, k, v, o, lse, B, pb, s);
+    case rt::kF32: return fwd_f32<D, DV>(q, k, v, o, lse, B, pb, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The delta pre-pass, then dK/dV and dQ.
-template <typename T, int D, typename Bwd>
+// The delta pre-pass (over o's DV columns), then dK/dV and dQ.
+template <typename T, int DV, typename Bwd>
 cudaError_t bwd_typed(Bwd bwd, const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
                       void* dv, int B, const Problem& pb, cudaStream_t s) {
   const long long rows = static_cast<long long>(B) * pb.hkv * pb.rows();
-  flash_delta_kernel<T, D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0, s>>>(
+  flash_delta_kernel<T, DV><<<static_cast<unsigned>((rows + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1006,35 +1037,39 @@ cudaError_t bwd_typed(Bwd bwd, const void* q, const void* k, const void* v, cons
              static_cast<T*>(dv), B, pb, s);
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t bwd_t(int dtype, const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
                   int B, const Problem& pb, cudaStream_t s) {
   switch (dtype) {
     case rt::kBF16:
-      return bwd_typed<__nv_bfloat16, D>(bwd_bf16<D>, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                         B, pb, s);
+      return bwd_typed<__nv_bfloat16, DV>(bwd_bf16<D, DV>, q, k, v, o, dout, lse, delta, dq, dk,
+                                          dv, B, pb, s);
     case rt::kF32:
-      return bwd_typed<float, D>(bwd_f32<D>, q, k, v, o, dout, lse, delta, dq, dk, dv, B, pb,
-                                 s);
+      return bwd_typed<float, DV>(bwd_f32<D, DV>, q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                  pb, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, o: [B, hkv*G, Sq, D]; k, v: [B, hkv, Sk, D]; lse: [B, hkv*G, Sq] f32.
+// q: [B, hkv*G, Sq, D]; k: [B, hkv, Sk, D]; v: [B, hkv, Sk, Dv];
+// o: [B, hkv*G, Sq, Dv]; lse: [B, hkv*G, Sq] f32.  Head dims (D, Dv):
+// (32, 32), (64, 64), (80, 80), (128, 128) and MLA's (192, 128).
 // causal: query t sees columns <= t + Sk - Sq.  softcap <= 0: none.
 // bf16 runs on the tensor cores, f32 on the FMA pipes.  Returns the
 // launch's CUDA error.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                           void* lse, int B, int hkv, int G, int Sq, int Sk,
-                                          int D, int causal, float scale, float softcap,
+                                          int D, int Dv, int causal, float scale, float softcap,
                                           int dtype, void* stream) {
   if (!valid(B, hkv, G, Sq, Sk)) return cudaSuccess;
   const Problem pb = make_problem(hkv, G, Sq, Sk, causal, scale, softcap);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (D == 192 && Dv == 128) return fwd_t<192, 128>(dtype, q, k, v, o, l, B, pb, s);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return fwd_t<32>(dtype, q, k, v, o, l, B, pb, s);
     case 64: return fwd_t<64>(dtype, q, k, v, o, l, B, pb, s);
@@ -1045,18 +1080,23 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
 }
 
 // The backward of flash_attention_fwd_launch from its inputs, o and lse:
-// dout, dq like q; dk, dv like k; delta: f32 scratch of B*hkv*G*Sq values.
-// Three launches on `stream`: the delta pre-pass, dK/dV, dQ.
+// dout like o; dq like q; dk like k; dv like v; delta: f32 scratch of
+// B*hkv*G*Sq values.  Three launches on `stream`: the delta pre-pass,
+// dK/dV, dQ.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* lse, const void* dout,
                                           void* delta, void* dq, void* dk, void* dv, int B,
-                                          int hkv, int G, int Sq, int Sk, int D, int causal,
-                                          float scale, float softcap, int dtype, void* stream) {
+                                          int hkv, int G, int Sq, int Sk, int D, int Dv,
+                                          int causal, float scale, float softcap, int dtype,
+                                          void* stream) {
   if (!valid(B, hkv, G, Sq, Sk)) return cudaSuccess;
   const Problem pb = make_problem(hkv, G, Sq, Sk, causal, scale, softcap);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (D == 192 && Dv == 128)
+    return bwd_t<192, 128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return bwd_t<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);
     case 64: return bwd_t<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, B, pb, s);

@@ -13,10 +13,13 @@ kernel launches, nothing else.
 
 Causal masking follows the reference oracle: query t sees columns
 <= t + Sk - Sq.  A row that sees no column (Sq > Sk) gives zeros and
-lse = -1e30.  S needs no tile multiple; head dims 32, 64, 80 and 128
-are compiled (80 on the 128-column tile layout).  bf16 runs on the
-tensor cores (P and dS rounded to bf16 for their products, as
-FlashAttention-2 does), f32 on the FMA pipes in f32.
+lse = -1e30.  S needs no tile multiple.  The compiled (q/k, v) head dims
+are HEAD_DIMS: equal at 32, 64, 80 and 128 (80 on the 128-column tile
+layout), and MLA training's (192, 128), where v keeps its own width: the
+reference pads v to 192 and drops o's zero columns, and o and dv here
+are that function's first 128 columns.  bf16 runs on the tensor cores
+(P and dS rounded to bf16 for their products, as FlashAttention-2 does),
+f32 on the FMA pipes in f32.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from . import build, ref
 from .rmsnorm import DTYPES, check_cuda, check_vectors, stream
 
-HEAD_DIMS = (32, 64, 80, 128)
+#: compiled (q/k head dim, v head dim) pairs
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
@@ -37,34 +41,37 @@ def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *rest: torch.Tensor) -> None:
-    """q [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D]; `rest` like q (o, dO)."""
+    """q [B, Hq, Sq, D]; k [B, Hkv, Sk, D]; v [B, Hkv, Sk, Dv]; `rest`
+    [B, Hq, Sq, Dv] (o, dO)."""
     check_cuda(q, what)
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1] \
-            or q.shape[1] % k.shape[1]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3] or k.shape[0] != q.shape[0] \
+            or k.shape[-1] != q.shape[-1] or q.shape[1] % k.shape[1]:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{what} kernel compiles head dims {HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+    if (q.shape[-1], v.shape[-1]) not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel compiles (q/k, v) head dims "
+                         f"{HEAD_DIMS}, got ({q.shape[-1]}, {v.shape[-1]})")
     for t in (k, v) + rest:
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{what}: operands must share dtype and device")
+    want = q.shape[:3] + v.shape[-1:]
     for t in rest:
-        if t.shape != q.shape:
-            raise ValueError(f"{what}: {tuple(t.shape)} is not q's shape "
-                             f"{tuple(q.shape)}")
+        if t.shape != want:
+            raise ValueError(f"{what}: {tuple(t.shape)} is not o's shape "
+                             f"{tuple(want)}")
     for t in (q, k, v) + rest:
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel needs contiguous operands")
-    check_vectors(q.shape[-1], q, k, v, *rest)
+    check_vectors(q.shape[-1], q, k)
+    check_vectors(v.shape[-1], v, *rest)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     logit_softcap: float = 0.0):
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] -> (o [B, Hq, Sq, D] in
-    q's dtype, lse [B, Hq, Sq] f32)."""
+    """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv] ->
+    (o [B, Hq, Sq, Dv] in q's dtype, lse [B, Hq, Sq] f32)."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
     if q.device.type == "cpu":
@@ -73,12 +80,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              q_offset=Sk - Sq if causal else 0,
                              return_lse=True)
     _check("flash_attention", q, k, v)
-    Hkv = k.shape[1]
-    o = torch.empty_like(q)
+    Hkv, Dv = k.shape[1], v.shape[-1]
+    o = q.new_empty((B, Hq, Sq, Dv))
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     err = build.load("flash_attention").flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D, int(causal),
+        lse.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D, Dv, int(causal),
         _scale(q, sm_scale), float(logit_softcap), DTYPES[q.dtype],
         stream(q))
     build.check(err, "flash_attention")
@@ -118,7 +125,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D,
-        int(causal), _scale(q, sm_scale), float(logit_softcap),
+        v.shape[-1], int(causal), _scale(q, sm_scale), float(logit_softcap),
         DTYPES[q.dtype], stream(q))
     build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1

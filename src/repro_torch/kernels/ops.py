@@ -64,14 +64,18 @@ def _bytes(*ts: torch.Tensor) -> float:
 def attention(q, k, v, *, causal: bool = True, sm_scale=None,
               logit_softcap: float = 0.0, impl: str = "auto",
               component: str = "attention") -> torch.Tensor:
-    """Training / no-cache attention: q [B, Hq, Sq, D] against k, v
-    [B, Hkv, Sk, D]; causal rows see columns <= t + Sk - Sq, as the
-    reference oracle's q_offset puts them."""
+    """Training / no-cache attention: q [B, Hq, Sq, D] against k
+    [B, Hkv, Sk, D] and v [B, Hkv, Sk, Dv] (Dv <= D: MLA's v at its own
+    width, where the reference pads it to D) -> [B, Hq, Sq, Dv]; causal
+    rows see columns <= t + Sk - Sq, as the reference oracle's q_offset
+    puts them.  The registered cost is the reference's: its FLOPs at D,
+    its bytes with v counted at D (padded)."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
     flops = 4.0 * B * Hq * Sq * Sk * D * (0.5 if causal and Sq == Sk else 1.0)
+    v_bytes = _bytes(v) * D / v.shape[-1]
     annotate_cost(xfa.current_component(), component, "flash_attention",
-                  flops=flops, bytes=_bytes(q, k, v) * 2)
+                  flops=flops, bytes=(_bytes(q, k) + v_bytes) * 2)
     if _plain(impl, q):
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
                              logit_softcap=logit_softcap,

@@ -54,12 +54,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: Optional[float] = None,
               logit_softcap: float = 0.0, q_offset: int = 0,
               return_lse: bool = False):
-    """GQA attention.  q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D];
+    """GQA attention.  q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v:
+    [B, Hkv, Sk, Dv] -> o [B, Hq, Sq, Dv].  v narrower than q/k (MLA
+    training: D 192, Dv 128) gives the first Dv columns of the reference's
+    attention on v zero-padded to D, which are those columns exactly.
     q_offset: absolute position of q[0] (causal: query t sees columns
     <= t + q_offset).  With return_lse=True also returns the f32
     log-sum-exp of each row's scores, lse [B, Hq, Sq] (NEG_INF for a row
     that sees no column; that row's output is zeros)."""
-    B, Hq, Sq, D = q.shape
+    B, Hq, Sq, _ = q.shape
     _, s, _, mask = _scores(q, k, causal, sm_scale, logit_softcap, q_offset)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
@@ -69,7 +72,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(mask, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    o = (o / torch.where(l == 0.0, 1.0, l)).reshape(B, Hq, Sq, D).to(q.dtype)
+    o = (o / torch.where(l == 0.0, 1.0, l)).reshape(B, Hq, Sq, -1).to(q.dtype)
     if not return_lse:
         return o
     lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l))
@@ -87,7 +90,10 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = exp(s - lse), delta = rowsum(dO * O), dS = p * (dP - delta),
     plus the softcap's chain factor 1 - tanh^2(s/c), which the reference
     gets from autodiff of its softcap path.  Returns (dq, dk, dv) in the
-    dtypes of q, k, v; dk, dv sum over the q heads of each kv head."""
+    dtypes of q, k, v; dk, dv sum over the q heads of each kv head.  v,
+    o and do may be narrower than q/k (Dv < D): dv is then the first Dv
+    columns of the padded-v gradient, and the padding's zero columns of o
+    and do add nothing to delta or dP."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     g = Hq // Hkv
@@ -98,8 +104,8 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - lse.float().reshape(shape)[..., None])
     if mask is not None:
         p = torch.where(mask, p, 0.0)
-    dof = do.float().reshape(shape + (D,))
-    delta = (dof * o.float().reshape(shape + (D,))).sum(-1, keepdim=True)
+    dof = do.float().reshape(shape + (-1,))
+    delta = (dof * o.float().reshape(shape + (-1,))).sum(-1, keepdim=True)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
     ds = p * (dp - delta)

@@ -270,9 +270,10 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
     `mla_attention`.  x: [B, S, d].
 
     Without a cache (training): the latent is expanded into per-head K/V,
-    k = [k_nope | k_rope broadcast over the heads] at D = dn + dr, v
-    zero-padded from dv to dn + dr, causal attention at sm_scale
-    (dn + dr) ** -0.5; returns (y, None).
+    k = [k_nope | k_rope broadcast over the heads] at D = dn + dr and v at
+    dv, causal attention at sm_scale (dn + dr) ** -0.5 with v at its own
+    width (the reference pads v to dn + dr for its kernel and keeps o's
+    first dv columns: the same values); returns (y, None).
 
     With a cache: the matrix-absorbed latent path.  The cache holds only
     one layer's {"ckv" [B, S_max, r], "krope" [B, S_max, dr]} (a page
@@ -310,9 +311,8 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
         v = torch.einsum("bsr,rhd->bhsd", c_kv, wv_b.to(c_kv.dtype))
         k = torch.cat([k_nope, k_rope.expand(B, nh, S, dr)], dim=-1)
         qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
-        v_p = F.pad(v, (0, dn + dr - dv))    # equal head dims for the kernel
-        o = ops.attention(qq, k, v_p, causal=True, sm_scale=scale,
-                          impl=rt.impl)[..., :dv]
+        o = ops.attention(qq, k, v.contiguous(), causal=True, sm_scale=scale,
+                          impl=rt.impl)
         y = linear(ap["wo"], o.transpose(1, 2).reshape(B, S, nh * dv))
         return y, None
     if block_table is not None:

@@ -1012,18 +1012,71 @@ def test_flash_attention_function_matches_autograd():
         close(g, w, torch.float32)
 
 
-def test_flash_attention_refuses_mla_training_head_dim():
-    """MLA's expanded training attention runs at head dim dn + dr = 192,
-    which the flash kernels do not compile yet: on the card ops.attention
-    raises, with and without a gradient wanted, rather than run the plain
-    version."""
+#: MLA training's pair: q/k head dim dn + dr = 192, v at dv = 128, G 1,
+#: causal, sm_scale 192 ** -0.5 (B, H, Sq, Sk)
+MLA_FLASH_CASES = [
+    (2, 4, 256, 256),
+    (1, 4, 128, 256),       # Sq < Sk: query t sees columns <= t + 128
+    (1, 3, 1000, 1000),     # ragged: no tile multiple
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+def test_flash_attention_mla_training_pair(dtype, case):
+    """The (192, 128) pair: o and lse against the plain forward, dq, dk
+    and dv (at 128) against the plain backward from the plain (o, lse),
+    two backward launches with the same bits, and ops.attention with a
+    gradient wanted going through both kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, H, Sq, Sk = case
+    rng = np.random.default_rng(12)
+    q, k = arr(rng, B, H, Sq, 192, dtype=dtype), arr(rng, B, H, Sk, 192,
+                                                     dtype=dtype)
+    v, do = arr(rng, B, H, Sk, 128, dtype=dtype), arr(rng, B, H, Sq, 128,
+                                                      dtype=dtype)
+    opts = dict(causal=True, sm_scale=192 ** -0.5)
+    o, lse = fa.flash_attention(q, k, v, **opts)
+    o_r, lse_r = ref.attention(q, k, v, q_offset=Sk - Sq, return_lse=True,
+                               **opts)
+    assert o.shape == (B, H, Sq, 128)
+    close(o, o_r, dtype)
+    close(lse, lse_r, torch.float32 if dtype == torch.float32 else dtype)
+    got = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+    want = ref.attention_backward(q, k, v, o_r, lse_r, do, q_offset=Sk - Sq,
+                                  **opts)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        close(g, w, dtype)
+    again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    before = (fa.flash_attention.launches,
+              fa.flash_attention_backward.launches)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(ops.attention(*ins, **opts), ins, do)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for g, w in zip(grads, got):
+        close(g, w, dtype)
+
+
+def test_flash_attention_refuses_a_padded_mla_head_dim():
+    """MLA's training attention is compiled with v at its own width, 128:
+    v padded to q's 192 raises, naming the pairs that are compiled, with
+    and without a gradient wanted, rather than run the plain version."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     q = torch.zeros(1, 16, 64, 192, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
         ops.attention(q, q, q, causal=True, sm_scale=192 ** -0.5)
     qg = q.clone().requires_grad_()
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
         ops.attention(qg, q, q, causal=True, sm_scale=192 ** -0.5)
+    assert fa.flash_attention.launches == before
 
 
 def test_flash_attention_bf16_explicit_scale():
