@@ -119,12 +119,11 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               against Sk 2048; non-causal Sq 512), each timed beside its plain
               version, its bound and (flash) SDPA.  It runs before phase 9
   3d. moe kernels  the attention kernels at phi3.5-moe's shapes (32 q / 8
-              kv heads of 128, G 4): decode (q [8,32,128], k/v
-              [8,8,2048,128]), chunk attention at T 512 and T 8, their
-              paged twins at page size 64 (equal to the dense kernels on
-              the same K/V) and the flash pair at q [4,32,2048,128], k/v
-              [4,8,2048,128] causal, each against its plain version, timed
-              beside it, its bound and SDPA
+              kv heads of 128, G 4), with every check of phase 3g: decode
+              (q [8,32,128], k/v [8,8,2048,128]), chunk attention at T 512
+              and T 8, their paged twins at page sizes 64 and 16 and the
+              flash pair at q [4,32,2048,128], k/v [4,8,2048,128] causal,
+              each timed beside its plain version, its bound and SDPA
   3e. mla kernels  the four serving attention kernels in their latent
               form (csrc/mla_attention.cu: 16 q heads over one latent kv
               head read in place, K rows [ckv | krope] of 512 + 64 columns,
@@ -151,6 +150,29 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               beside its plain version, its bound (the useful FLOPs) and
               SDPA on the padded form (v zero-padded to 192), its backend
               named
+  3g. dense kernels  the attention kernels at the dense family's new head
+              layouts: granite-20b's MQA (48 q heads over one kv head of
+              128: three decode blocks a (row, kv head)) and internvl2-1b's
+              14 q over 2 kv heads of 64 (G 7), bf16: decode (q [8,Hq,D],
+              k/v [8,Hkv,2048,D], kv_len 0, 1, ragged and 2048; the empty
+              row zeros), chunk at T 512 and T 8 (the split path) at
+              per-row offsets, the paged twins at page sizes 64 and 16,
+              equal (torch.equal) to the dense kernel on the same K/V
+              (decode also at 5), a row alone equal to its batch row
+              (decode and chunk, dense and paged), the flash pair at q
+              [4,Hq,2048,D] causal with two backward launches bitwise
+              equal; the same kernels in f32 (the flash pair at q
+              [1,Hq,1024,D]); rmsnorm at a decode tick's and a prefill
+              group's rows and its backward at the training rows, 6144
+              (granite) and 896 (internvl) wide, bf16 and f32; each
+              against its plain version per entry (2e-2 bf16, 2e-5 f32;
+              the bf16 flash dk and dv, sums over G x 2048 products an
+              entry, against the plain backward with p and dS rounded to
+              bf16 as the kernel's tensor-core operands are), the bf16
+              cases timed beside their plain versions, their bounds and
+              SDPA or F.rms_norm; ptxas's registers and spills of the
+              instantiations these shapes launch (G and the width are
+              runtime arguments)
   11. moe serve  phi3_5_moe_42b at its published widths, cut to
               MOE_SERVE_LAYERS of its 32 layers (the whole model does not
               fit the card; seeded random weights, shared by the runs):
@@ -217,10 +239,55 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               leaf no further from the f32 plain gradient than the plain
               bf16 one, within 1.25x, top-k choices pinned to the f32
               plain model's; the unpinned numbers logged)
+  15. granite serve  granite_20b at its published widths and all 52
+              layers (20.3B params, 40.6 GB bf16, seeded random weights):
+              one dense MQA layer's forward at [8, 512] and [8, 1],
+              contiguous and paged, under set_sync_debug_mode("error"); the
+              16 requests of phase 5 contiguous, then paged (257 pages),
+              whose 16 token streams must be equal, with the launch
+              counters read around each run, tok/s, TTFT, decode gap
+              (against the 12.1 ms a tick takes to read the weights) and
+              peak memory (under 75 GB); a torch.profiler window (busy
+              share, the attention and rmsnorm kernels' shares); then
+              granite, qwen3_14b (G 5, qk-norm) and starcoder2_7b (G 9,
+              ungated) at their widths and 4 layers: one prefill chunk and
+              one decode step, kernels vs plain logits in f32 (1e-3) and
+              bf16 (no further from the f32 plain model than the plain
+              bf16 model, within 1.25x)
+  16. granite train  granite_20b at its widths, cut to 4 of 52 layers
+              (2.12B params, ~34 GB of state), batch 4 x 2048, 4 steps
+              through the port's Trainer with its XFA session: the flash
+              pair at G 48, D 128, rmsnorm and its backward must run;
+              losses and grad norms finite; the shard holds dispatch_step
+              x 4; step time, tokens/s, MFU (its FLOPs held to the
+              static-cost layer's of one loss_fn at 1e-6) and peak memory
+              (under 80 GB); a profiled step; one loss_fn + backward at
+              batch 1 x 1024, kernels vs plain, in f32 (loss 1e-4, leaves
+              1e-3) and bf16 (ratio 1.25)
+  17. internvl  internvl2_1b (the vlm: the dense stack behind a patch
+              projection) at its published widths and all 24 layers,
+              bf16.  Serve, through the model API: 8 rows of 256 patches
+              of 1024 features projected into the prefix, bulk-prefilled
+              with a 512-token text chunk, a bucket-padded 512-token
+              continuation at per-row valid lengths 16..512, 32 greedy
+              decode ticks at per-row offsets; contiguous, then paged
+              (page size 64, the prefix through forward_chunk_paged),
+              launch counters read around each (rmsnorm, chunk and decode
+              attention or their paged twins); the tokens must be equal;
+              prefill time and decode tok/s logged; the logits of the
+              prefill, the continuation and the first tick, kernels vs
+              plain, in f32 (1e-3) and bf16 (ratio 1.25) at full depth.
+              Train: batch 4 x 2048 (1792 text and 256 patch positions a
+              row), 6 steps through the Trainer (the flash pair at G 7,
+              D 64; MFU held to the static costs, plus the patch
+              projection, which registers none; peak memory), a profiled
+              step, and the batch 1 x 1024 gradient check with the
+              frontend/w leaf among the leaves
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
-              and 12 (phi3.5-moe serve and train) and 14 (deepseek train)
+              and 12 (phi3.5-moe serve and train), 14 (deepseek train),
+              15 and 16 (granite serve and train) and 17 (internvl train)
               kept: `diagnose --json` and `report --json` on each (the
               phi3.5-moe and deepseek train reports must show the device
               group), `timeline --json` on
@@ -242,7 +309,9 @@ name and power limit, and last {"ok": true, "device": {...}}.  Each kernel's lau
 come from the serving or training run of its own path (ssd_scan_backward
 and the flash kernels' head-dim-80 numbers: phase 10; the head-dim-128
 numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
-(192, 128) numbers, and every kernel's mla_train_launches: phase 14);
+(192, 128) numbers, and every kernel's mla_train_launches: phase 14;
+the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
+width_896 numbers: phase 17);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -361,9 +430,10 @@ def run(torch) -> None:
     kernels = check_kernels(torch) + check_train_kernels(torch)
     hybrid_entries, pathless_counts = check_hybrid_kernels(torch, kernels)
     kernels += hybrid_entries
-    check_moe_kernels(torch, kernels)
+    check_layout(torch, kernels, "head_dim_128", *MOE_HEADS, seed=7)
     check_mla_kernels(torch, kernels)
     check_mla_train_kernels(torch, kernels)
+    check_dense_kernels(torch, kernels, build.build_log)
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
@@ -374,12 +444,25 @@ def run(torch) -> None:
                                                                     kernels)
     kernels.append(ssd_bwd)
     moe_counts, moe_paged_counts, moe = moe_serve_phase(torch)
-    moe_train_counts, moe_train = moe_train_phase(
+    moe_train_counts, moe_train = cut_train_phase(
         torch, moe_cfg(MOE_TRAIN_LAYERS), "moe-train", 12, MOE_TRAIN_SHAPE,
         MOE_TRAIN_STEPS)
     mla_counts, mla_paged_counts, mla = mla_serve_phase(torch)
     mla_train_counts, mla_train = mla_train_phase(torch)
+    granite_counts, granite_paged_counts, granite = granite_serve_phase(torch)
+    granite_train_counts, granite_train = granite_train_phase(torch)
+    vlm_counts, vlm_paged_counts, vlm = vlm_serve_phase(torch)
+    vlm_train_counts, vlm_train = vlm_train_phase(torch)
     diagnose_phase(torch)
+    # each new layout's and width's launches: the run of the model that
+    # serves or trains at it (paged kernels: its paged run)
+    layout_runs = {
+        "g48_d128": (granite_counts, granite_paged_counts,
+                     granite_train_counts),
+        "g7_d64": (vlm_counts, vlm_paged_counts, vlm_train_counts),
+        "width_6144": (granite_counts, granite_paged_counts,
+                       granite_train_counts),
+        "width_896": (vlm_counts, vlm_paged_counts, vlm_train_counts)}
 
     for k in kernels:
         # each kernel's launches in the run of its own path
@@ -424,10 +507,20 @@ def run(torch) -> None:
         if mla_train_counts.get(name):
             # every kernel of the deepseek training path, by its run
             k["mla_train_launches"] = mla_train_counts[name]
+        for key, (serve_c, paged_c, train_c) in layout_runs.items():
+            if key in k:
+                k[key]["launches"] = (
+                    train_c if name in TRAIN_KERNELS
+                    else paged_c if name.endswith("_paged")
+                    else serve_c)[name]
+                if k[key]["launches"] <= 0:
+                    fail(f"kernel {name} was not launched on the path of "
+                         f"its {key} entry")
     log(json.dumps({"kernels": kernels}))
     for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid),
                      (f"phi3_5_moe_42b at {MOE_SERVE_LAYERS} layers", moe),
-                     ("deepseek_v2_lite_16b at 27 layers", mla)):
+                     ("deepseek_v2_lite_16b at 27 layers", mla),
+                     ("granite_20b at 52 layers", granite)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
             f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
             f"{st['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk mean "
@@ -476,7 +569,29 @@ def run(torch) -> None:
         f"MFU {100 * mla_train['mfu']:.2f}%, peak "
         f"{mla_train['peak_gb']:.1f} GB, busy {100 * mla_train['busy']:.1f}%, "
         f"flash {100 * mla_train['flash_share']:.1f}% of device time, "
-        f"launches {json.dumps(mla_train_counts)} on {smi}")
+        f"launches {json.dumps(mla_train_counts)}; granite served "
+        f"{granite['throughput_tok_s']:.1f} tok/s, ttft p50 "
+        f"{granite['ttft_p50_s'] * 1e3:.1f} ms p95 "
+        f"{granite['ttft_p95_s'] * 1e3:.1f} ms, decode gap "
+        f"{granite['decode_s_per_tok'] * 1e3:.2f} ms/token, peak "
+        f"{granite['peak_gb']:.1f} GB, busy {100 * granite['busy']:.1f}%, "
+        f"launches {json.dumps(granite_counts)}, paged "
+        f"{json.dumps(granite_paged_counts)}; granite trained at "
+        f"{GRANITE_TRAIN_LAYERS} layers {granite_train['step_ms']:.1f} "
+        f"ms/step, {granite_train['tok_s']:.0f} tok/s, MFU "
+        f"{100 * granite_train['mfu']:.2f}%, peak "
+        f"{granite_train['peak_gb']:.1f} GB, busy "
+        f"{100 * granite_train['busy']:.1f}%, flash "
+        f"{100 * granite_train['flash_share']:.1f}% of device time, launches "
+        f"{json.dumps(granite_train_counts)}; internvl served prefill "
+        f"{vlm['prefill_ms']:.1f} ms, decode {vlm['decode_tok_s']:.1f} "
+        f"tok/s, launches {json.dumps(vlm_counts)}, paged "
+        f"{json.dumps(vlm_paged_counts)}; internvl trained "
+        f"{vlm_train['step_ms']:.1f} ms/step, {vlm_train['tok_s']:.0f} "
+        f"tok/s, MFU {100 * vlm_train['mfu']:.2f}%, peak "
+        f"{vlm_train['peak_gb']:.1f} GB, busy "
+        f"{100 * vlm_train['busy']:.1f}%, launches "
+        f"{json.dumps(vlm_train_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1799,48 +1914,82 @@ def check_hybrid_kernels(torch, entries):
 MOE_HEADS = (32, 8, 128)                # Hq, Hkv, D
 
 
-def check_moe_kernels(torch, entries):
-    """Phase 3d: the attention kernels of phi3.5-moe's path at its shapes
-    (G 4, head dim 128): decode, chunk attention at T 512 and T 8, their
-    paged twins at page size 64 (equal to the dense kernels on the same
-    K/V), and the flash pair at the training shape (q [4,32,2048,128],
-    k/v [4,8,2048,128], causal); each against its plain version, timed
-    beside it, its bound and SDPA.  Adds a head_dim_128 entry (T 8 as its
-    short_chunk) to each kernel's entry of `entries`."""
+#: the dense family's head layouts of phase 3g: sub-entry key -> (Hq, Hkv,
+#: D).  granite-20b is MQA: 48 q heads over one kv head of 128, so a
+#: decode (row, kv head) takes three blocks of DECODE_ROWS q heads;
+#: internvl2-1b has 14 q over 2 kv heads of 64 (G 7)
+DENSE_LAYOUTS = {"g48_d128": (48, 1, 128), "g7_d64": (14, 2, 64)}
+#: rmsnorm row widths of phase 3g: sub-entry key -> (width, model)
+DENSE_WIDTHS = {"width_6144": (6144, "granite_20b"),
+                "width_896": (896, "internvl2_1b")}
+DECODE_LENS = [0, 1, 77, 1000, 1537, 2047, 2048, 513]
+CHUNK_CASES = ((512, [0, 512, 1024, 1536, 100, 700, 1300, 7]),
+               (8, [0, 5, 100, 1000, 2040, 333, 1500, 17]))
+
+
+def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
+                 seed: int):
+    """Phases 3d (phi3.5-moe's layout, MOE_HEADS: G 4 at head dim 128,
+    sub-entry head_dim_128) and 3g (DENSE_LAYOUTS): the attention kernels
+    at one head layout (Hq q over Hkv kv heads of D), bf16: decode (kv_len
+    DECODE_LENS: 0, 1, ragged and 2048; the empty row gives zeros), chunk
+    attention at T 512 and T 8, their paged twins at page sizes 64 (TMA)
+    and 16 (the gather), each equal to the dense kernel on the same K/V
+    (decode also at page size 5), a row alone equal to its batch row
+    (decode and chunk, dense and paged), and the flash pair at q
+    [4,Hq,2048,D], k/v [4,Hkv,2048,D] causal with two backward launches
+    bitwise equal; each against its plain version per entry at KERNEL_TOL
+    (the flash backward's dk and dv against attention_backward_tc: see
+    flash_backward_errs), timed beside it, its bound and SDPA; and each
+    kernel in f32 against its plain version at F32_KERNEL_TOL (decode and
+    chunk at the same shapes, the flash pair at q [1,Hq,1024,D]).  Adds a
+    `key` sub-entry (T 8 as its short_chunk) to each kernel's entry of
+    `entries`."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    t_phase = time.monotonic()
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(7)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf16)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    Hq, Hkv, D = MOE_HEADS
+    tag = f"D={D} G={Hq // Hkv}"
     B, S = 8, 2048
+    lens = DECODE_LENS
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    check_layout_f32(torch, gen, Hq, Hkv, D, tag)
     k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
     q = rnd(B, Hq, D)
-    lens = [0, 1, 77, 1000, 1537, 2047, 2048, 513]
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     dmask = (torch.arange(S, device=dev)[None, :] < kv_len[:, None])
     dmask = dmask[:, None, None, :]
     nb = S // PAGE
-    perm = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
-        .to(torch.int32).reshape(B, nb)
-    kp, vp = shred(torch, k, PAGE, perm), shred(torch, v, PAGE, perm)
+    arenas = {}
+    for ps in (PAGE, 16):
+        perm = (torch.randperm(B * (S // ps), generator=gen, device=dev)
+                + 1).to(torch.int32).reshape(B, S // ps)
+        arenas[ps] = (shred(torch, k, ps, perm), shred(torch, v, ps, perm),
+                      perm)
+    kp, vp, perm = arenas[PAGE]
     dbt = tables(torch, perm, PAGE, lens)
     od = dec.decode_attention(q, k, v, kv_len=kv_len)
     derr = max_err(torch, od, ref.decode_attention(q, k, v, kv_len=kv_len),
-                   "decode_attention D=128 G=4")
-    odp = dec.decode_attention_paged(q, kp, vp, block_table=dbt,
-                                     kv_len=kv_len)
-    dperr = max_err(torch, odp, ref.decode_attention_paged(
-        q, kp, vp, block_table=dbt, kv_len=kv_len),
-        "decode_attention_paged D=128 G=4")
-    if not torch.equal(odp, od):
-        fail("decode_attention_paged D=128 G=4: the output differs from the "
-             "dense kernel's on the same K/V")
+                   f"decode_attention {tag}")
+    if not bool((od[0] == 0).all()):
+        fail(f"decode_attention {tag}: the kv_len == 0 row is not zeros")
+    dperr = 0.0
+    for ps, (kp_, vp_, perm_) in arenas.items():
+        bt_ = tables(torch, perm_, ps, lens)
+        odp = dec.decode_attention_paged(q, kp_, vp_, block_table=bt_,
+                                         kv_len=kv_len)
+        dperr = max(dperr, max_err(torch, odp, ref.decode_attention_paged(
+            q, kp_, vp_, block_table=bt_, kv_len=kv_len),
+            f"decode_attention_paged {tag} page_size {ps}"))
+        if not torch.equal(odp, od):
+            fail(f"decode_attention_paged {tag} page_size {ps}: the output "
+                 f"differs from the dense kernel's on the same K/V")
     sdpa = lambda qq, kk, vv, **kw: F.scaled_dot_product_attention(
         qq, kk, vv, enable_gqa=True, **kw)
     cases = {
@@ -1865,19 +2014,26 @@ def check_moe_kernels(torch, entries):
                  + sum(lens) * Hkv * D * 2 * 2, ops=4.0 * sum(lens) * Hq * D,
                  dense=lambda: dec.decode_attention(q, k, v, kv_len=kv_len)))],
         "chunk_attention": [], "chunk_attention_paged": []}
-    for T, pos_l in ((512, [0, 512, 1024, 1536, 100, 700, 1300, 7]),
-                     (8, [0, 5, 100, 1000, 2040, 333, 1500, 17])):
+    chunks = []
+    for T, pos_l in CHUNK_CASES:
+        if T == 8 and dec.chunk_splits(Hkv, Hq // Hkv, T, S, D)[0] == 1:
+            fail(f"chunk_attention {tag} T=8: the planner did not split the "
+                 f"columns")
         qc = rnd(B, Hq, T, D)
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
         bt = tables(torch, perm, PAGE, [p + T for p in pos_l])
         cerr = max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
                        ref.chunk_attention(qc, k, v, pos=pos),
-                       f"chunk_attention D=128 G=4 T={T}")
-        perr = check_paged_chunk(torch, qc, k, v, kp, vp, bt, pos,
-                                 f"chunk_attention_paged D=128 G=4 T={T}")
+                       f"chunk_attention {tag} T={T}")
+        perr = max(check_paged_chunk(
+            torch, qc, k, v, kp_, vp_,
+            tables(torch, perm_, ps, [p + T for p in pos_l]), pos,
+            f"chunk_attention_paged {tag} T={T} page_size {ps}")
+            for ps, (kp_, vp_, perm_) in arenas.items())
         lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
         cmask = (torch.arange(S, device=dev)[None, None, :]
                  <= lim[:, :, None])[:, None]
+        chunks.append((T, pos_l, qc, pos, cmask))
         cases["chunk_attention"].append((
             f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}", cerr,
             lambda qc=qc, pos=pos: dec.chunk_attention(qc, k, v, pos=pos),
@@ -1895,6 +2051,8 @@ def check_moe_kernels(torch, entries):
             dict(chunk_work(pos_l, T, S, Hq, Hkv, D, page=PAGE),
                  dense=lambda qc=qc, pos=pos: dec.chunk_attention(
                      qc, k, v, pos=pos))))
+    check_decode_identities(torch, q, k, v, kv_len, arenas, lens)
+    check_chunk_identities(torch, k, v, arenas, chunks)
     for e in entries:
         for i, (shape, err, fn, plain, lib, work) in enumerate(
                 cases.get(e["name"], ())):
@@ -1902,11 +2060,11 @@ def check_moe_kernels(torch, entries):
                                           e["source"], e["replaces"], shape,
                                           err, fn, plain, lib, **work))
             if i == 0:
-                e["head_dim_128"] = sub
+                e[key] = sub
             else:
-                e["head_dim_128"]["short_chunk"] = sub
+                e[key]["short_chunk"] = sub
             e["max_abs_err"] = max(e["max_abs_err"], err)
-    del k, v, q, kp, vp, cases
+    del k, v, q, kp, vp, arenas, cases, chunks
     torch.cuda.empty_cache()
 
     # the flash pair at the training shape
@@ -1915,15 +2073,15 @@ def check_moe_kernels(torch, entries):
         rnd(Bt, Hkv, St, D), rnd(Bt, Hq, St, D)
     o, lse = fa.flash_attention(q, k, v)
     o_r, lse_r = ref.attention(q, k, v, q_offset=0, return_lse=True)
-    ferr = max_err(torch, o, o_r, "flash_attention D=128 G=4")
-    max_err(torch, lse, lse_r, "flash_attention lse D=128 G=4")
-    berr = max(max_err(torch, g, w, f"flash_attention_backward {n} D=128 G=4")
-               for n, g, w in zip(("dq", "dk", "dv"),
-                                  fa.flash_attention_backward(q, k, v, o_r,
-                                                              lse_r, do),
-                                  ref.attention_backward(q, k, v, o_r, lse_r,
-                                                         do, q_offset=0)))
-    del o_r, lse_r
+    ferr = max_err(torch, o, o_r, f"flash_attention {tag}")
+    max_err(torch, lse, lse_r, f"flash_attention lse {tag}")
+    grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do)
+    berr = flash_backward_errs(torch, grads, (q, k, v, o_r, lse_r, do), tag)
+    again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail(f"flash_attention_backward {tag}: two launches differ")
+    del o_r, lse_r, grads, again
     shape = f"q {Bt}x{Hq}x{St}x{D} kv {Bt}x{Hkv}x{St}x{D} causal"
     fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1945,17 +2103,240 @@ def check_moe_kernels(torch, entries):
     for e in entries:
         if e["name"] in flash:
             err, fn, plain, lib, work = flash[e["name"]]
-            d128 = record_kernel(torch, flush, e["name"], e["source"],
-                                 e["replaces"], shape, err, fn, plain, lib,
-                                 **work)
-            e["head_dim_128"] = sub_entry(d128)
+            timed = record_kernel(torch, flush, e["name"], e["source"],
+                                  e["replaces"], shape, err, fn, plain, lib,
+                                  **work)
+            e[key] = sub_entry(timed)
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            log(f"[moe-kernels] {e['name']} {shape}: "
-                f"{work['ops'] / d128['ms'] / 1e9:.1f} TFLOP/s, "
-                f"{100 * d128['bound_ms'] / d128['ms']:.1f}% of its bound, "
-                f"{d128['ms'] / d128['library_ms']:.2f}x SDPA")
+            log(f"[layout {tag}] {e['name']} {shape}: "
+                f"{work['ops'] / timed['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * timed['bound_ms'] / timed['ms']:.1f}% of its bound, "
+                f"{timed['ms'] / timed['library_ms']:.2f}x SDPA")
     del q, k, v, do, o, lse, qq, kk, vv, out, flash, flush
     torch.cuda.empty_cache()
+    log(f"[layout {tag}] {key}: {time.monotonic() - t_phase:.1f}s")
+
+
+def attention_backward_tc(torch, q, k, v, o, lse, do):
+    """The plain causal backward of ref.attention_backward with the bf16
+    flash kernel's tensor-core operands: p rounded to bf16 before dV =
+    P^T dO, and dS rounded to bf16 before dK = scale dS^T q and dQ =
+    scale dS K, as the kernel (and FlashAttention-2) feeds its wgmma
+    products; every product accumulates in f32.  Returns (dq, dk, dv) in
+    the dtypes of q, k, v."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    shape = (B, Hkv, Hq // Hkv, S)
+    qs = (q.float() * D ** -0.5).reshape(shape + (D,))
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.float())
+    cols = torch.arange(S, device=q.device)
+    mask = cols[None, :] <= cols[:, None]
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(shape)[..., None]),
+                    0.0)
+    del s
+    dof = do.float().reshape(shape + (-1,))
+    delta = (dof * o.float().reshape(shape + (-1,))).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(torch.bfloat16).float(), dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    ds = (p * (dp - delta)).to(torch.bfloat16).float()
+    del p, dp
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * D ** -0.5
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qs)
+    return (dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_backward_errs(torch, grads, args, tag: str) -> float:
+    """The bf16 flash backward's (dq, dk, dv) per entry at KERNEL_TOL abs +
+    rel: dq against its plain version (ref.attention_backward), dk and dv
+    against attention_backward_tc.  Each dk, dv entry sums the G q heads'
+    products over every query of its kv head (98304 at G 48, 2048
+    queries), so where such a sum cancels to a small entry the bf16
+    rounding of p and dS, which the plain f32 version leaves out, is a
+    large share of it: at G 48 one dv entry of 1048576 missed the plain
+    version by 0.031 (kernel 0.2266, plain 0.1953, with p rounded 0.2268;
+    NVIDIA H100 80GB HBM3, 700.00 W).  The plain version's dk, dv errors
+    are logged beside.  Returns the largest abs error checked."""
+    from repro_torch.kernels import ref
+
+    want = ref.attention_backward(*args, q_offset=0)
+    errs = [max_err(torch, grads[0], want[0],
+                    f"flash_attention_backward dq {tag}")]
+    plain = [(grads[i].float() - want[i].float()).abs().max().item()
+             for i in (1, 2)]
+    del want
+    tc = attention_backward_tc(torch, *args)
+    for i, name in ((1, "dk"), (2, "dv")):
+        errs.append(max_err(torch, grads[i], tc[i],
+                            f"flash_attention_backward {name} {tag} (bf16 "
+                            f"tensor-core operands)"))
+    log(f"[layout {tag}] flash_attention_backward: max abs err dq "
+        f"{errs[0]:.3e} (plain), dk {errs[1]:.3e} dv {errs[2]:.3e} (bf16 "
+        f"operands; plain: {plain[0]:.3e}, {plain[1]:.3e})")
+    return max(errs)
+
+
+def check_layout_f32(torch, gen, Hq: int, Hkv: int, D: int, tag: str):
+    """Phase 3g in f32 (the FMA kernels): decode, chunk at T 512 and T 8
+    and their paged twins at page size 16 at the serving shapes, and the
+    flash pair at q [1,Hq,1024,D] causal, against their plain versions at
+    F32_KERNEL_TOL: only the order of f32 sums differs."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    B, S, ps = 8, 2048, 16
+    k, v, q = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D), rnd(B, Hq, D)
+    kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    perm = (torch.randperm(B * (S // ps), generator=gen, device=dev) + 1) \
+        .to(torch.int32).reshape(B, S // ps)
+    kp, vp = shred(torch, k, ps, perm), shred(torch, v, ps, perm)
+    bt = tables(torch, perm, ps, DECODE_LENS)
+    errs = [max_err(torch, dec.decode_attention(q, k, v, kv_len=kv_len),
+                    ref.decode_attention(q, k, v, kv_len=kv_len),
+                    f"decode_attention f32 {tag}", F32_KERNEL_TOL),
+            max_err(torch, dec.decode_attention_paged(
+                q, kp, vp, block_table=bt, kv_len=kv_len),
+                ref.decode_attention_paged(q, kp, vp, block_table=bt,
+                                           kv_len=kv_len),
+                f"decode_attention_paged f32 {tag}", F32_KERNEL_TOL)]
+    for T, pos_l in CHUNK_CASES:
+        qc = rnd(B, Hq, T, D)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        btc = tables(torch, perm, ps, [p + T for p in pos_l])
+        errs.append(max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
+                            ref.chunk_attention(qc, k, v, pos=pos),
+                            f"chunk_attention f32 {tag} T={T}",
+                            F32_KERNEL_TOL))
+        errs.append(max_err(torch, dec.chunk_attention_paged(
+            qc, kp, vp, block_table=btc, pos=pos), ref.chunk_attention_paged(
+            qc, kp, vp, block_table=btc, pos=pos),
+            f"chunk_attention_paged f32 {tag} T={T}", F32_KERNEL_TOL))
+    del k, v, q, kp, vp
+    Sf = 1024
+    q, k, v, do = rnd(1, Hq, Sf, D), rnd(1, Hkv, Sf, D), rnd(1, Hkv, Sf, D), \
+        rnd(1, Hq, Sf, D)
+    o, lse = fa.flash_attention(q, k, v)
+    o_r, lse_r = ref.attention(q, k, v, q_offset=0, return_lse=True)
+    errs.append(max_err(torch, o, o_r, f"flash_attention f32 {tag}",
+                        F32_KERNEL_TOL))
+    for n, g, w in zip(("dq", "dk", "dv"),
+                       fa.flash_attention_backward(q, k, v, o_r, lse_r, do),
+                       ref.attention_backward(q, k, v, o_r, lse_r, do,
+                                              q_offset=0)):
+        errs.append(max_err(torch, g, w, f"flash_attention_backward f32 {n} "
+                            f"{tag}", F32_KERNEL_TOL))
+    log(f"[layout {tag}] f32 kernels vs plain (tolerance {F32_KERNEL_TOL}): "
+        f"decode, paged decode (page size {ps}), chunk and paged chunk at "
+        f"T 512 and 8, flash forward and dq/dk/dv at q 1x{Hq}x{Sf}x{D}: "
+        f"max abs err {[f'{e:.2e}' for e in errs]}")
+    del q, k, v, do, o, lse, o_r, lse_r
+    torch.cuda.empty_cache()
+
+
+def check_dense_kernels(torch, entries, build_logs):
+    """Phase 3g: the attention kernels at the dense family's new head
+    layouts (check_layout, each of DENSE_LAYOUTS), and rmsnorm
+    and its backward at the new row widths (DENSE_WIDTHS): the forward at
+    a decode tick's rows (8 x 1) and a prefill group's (8 x 512), the
+    backward at the training rows (4 x 2048), in bf16 (timed beside the
+    plain version, the bound and F.rms_norm) and f32 against their plain
+    versions; and ptxas's registers and spills of the instantiations these
+    shapes launch (G and the row width are runtime arguments: no new
+    instantiation is compiled for them).  Adds the DENSE_LAYOUTS and
+    DENSE_WIDTHS sub-entries to `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    t_phase = time.monotonic()
+    for i, (key, (Hq, Hkv, D)) in enumerate(DENSE_LAYOUTS.items()):
+        check_layout(torch, entries, key, Hq, Hkv, D, seed=20 + i)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    by_name = {e["name"]: e for e in entries}
+    src = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+    for key, (d, arch) in DENSE_WIDTHS.items():
+        w32 = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        timed = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = F32_KERNEL_TOL if dtype == torch.float32 else KERNEL_TOL
+            w = w32.to(dtype)
+            for shape in ((8, 1, d), (8, 512, d)):
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                err = max_err(torch, rms.rmsnorm(x, w), ref.rmsnorm(x, w),
+                              f"rmsnorm {shape} {dtype}", tol)
+                if dtype == torch.bfloat16:
+                    timed[shape] = record_kernel(
+                        torch, flush, "rmsnorm", src,
+                        "src/repro/kernels/rmsnorm.py:38",
+                        "x".join(map(str, shape)), err,
+                        lambda x=x, w=w: rms.rmsnorm(x, w),
+                        lambda x=x, w=w: ref.rmsnorm(x, w),
+                        lambda x=x, w=w: F.rms_norm(x, (d,), w, 1e-5),
+                        nbytes=2.0 * x.numel() * 2 + d * 2,
+                        ops=4.0 * x.numel())
+            x = torch.randn((4, 2048, d), generator=gen, device=dev).to(dtype)
+            dy = torch.randn((4, 2048, d), generator=gen,
+                             device=dev).to(dtype)
+            dx, dw = rms.rmsnorm_backward(x, w, dy)
+            dx_r, dw_r = ref.rmsnorm_backward(x, w, dy)
+            err = max_err(torch, dx, dx_r,
+                          f"rmsnorm_backward dx 4x2048x{d} {dtype}", tol)
+            scale = dw_r.float().abs().max()
+            err = max(err, max_err(
+                torch, dw.float() / scale, dw_r.float() / scale,
+                f"rmsnorm_backward dw 4x2048x{d} {dtype} (relative to max "
+                f"|dw|)", tol))
+            again = rms.rmsnorm_backward(x, w, dy)
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+                fail(f"rmsnorm_backward 4x2048x{d} {dtype}: two launches "
+                     f"differ")
+            if dtype == torch.bfloat16:
+                xx, ww = x.detach().requires_grad_(), \
+                    w.detach().requires_grad_()
+                y = F.rms_norm(xx, (d,), ww, 1e-5)
+                bwd = record_kernel(
+                    torch, flush, "rmsnorm_backward", src,
+                    "src/repro/kernels/rmsnorm.py:38 (backward)",
+                    f"x 4x2048x{d}", err,
+                    lambda: rms.rmsnorm_backward(x, w, dy),
+                    lambda: ref.rmsnorm_backward(x, w, dy),
+                    lambda: torch.autograd.grad(y, (xx, ww), dy,
+                                                retain_graph=True),
+                    nbytes=2.0 * (3 * x.numel() + 2 * d),
+                    ops=10.0 * x.numel())
+                del xx, ww, y
+            del x, dy, dx, dw, dx_r, dw_r, again
+        e = by_name["rmsnorm"]
+        e[key] = sub_entry(timed[(8, 512, d)])
+        e[key]["decode_tick"] = sub_entry(timed[(8, 1, d)])
+        e["max_abs_err"] = max(e["max_abs_err"], e[key]["max_abs_err"])
+        by_name["rmsnorm_backward"][key] = sub_entry(bwd)
+        log(f"[dense-kernels] rmsnorm at {arch}'s width {d}: plan (vectors a "
+            f"thread, threads a row, rows a block) "
+            f"{rms.forward_plan(d, 2)}; decode tick 8x1x{d} "
+            f"{timed[(8, 1, d)]['ms']:.4f} ms, prefill group 8x512x{d} "
+            f"{timed[(8, 512, d)]['ms']:.4f} ms, backward 4x2048x{d} "
+            f"{bwd['ms']:.4f} ms")
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    wanted = {"rmsnorm": ("rmsnorm_kernel", "rmsnorm_bwd"),
+              "decode_attention": ("<128", "<64", "128>", "64>"),
+              "flash_attention": ("<128", "<64", "128>", "64>")}
+    for lib, keys in wanted.items():
+        for kernel, regs, spills in ptxas_report(build_logs(lib)):
+            if any(s in kernel for s in keys):
+                log(f"[dense-kernels] ptxas {lib}: {kernel}: {regs} "
+                    f"registers, {spills} bytes spill stores (compiled "
+                    f"for every layout: G and the width are runtime "
+                    f"arguments)")
+    log(f"[dense-kernels] phase 3g: {time.monotonic() - t_phase:.1f}s")
 
 
 # ----------------------------------------------------------- mla kernels ----
@@ -2481,14 +2862,15 @@ def hybrid_forward(torch):
     torch.cuda.empty_cache()
 
 
-def check_precisions(torch, tag: str, shape, k16, r16, k32, r32):
+def check_precisions(torch, tag: str, shape, k16, r16, k32, r32,
+                     whats=("prefill chunk T=512", "decode step")):
     """Kernels (k) vs plain (r) logits of one model in bf16 and f32, each
-    a (prefill chunk, decode step) pair of `shape`: finite; in f32 held
-    to each other within HYBRID_F32_TOL relative L2; in bf16 the kernels
-    no further from the f32 plain model than the plain bf16 model is,
-    within HYBRID_BF16_RATIO."""
+    a tuple of logits of `shape`, one for each step of `whats`: finite; in
+    f32 held to each other within HYBRID_F32_TOL relative L2; in bf16 the
+    kernels no further from the f32 plain model than the plain bf16 model
+    is, within HYBRID_BF16_RATIO."""
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
-    for i, what in enumerate(("prefill chunk T=512", "decode step")):
+    for i, what in enumerate(whats):
         for name, got in (("kernels bf16", k16[i]), ("plain bf16", r16[i]),
                           ("kernels f32", k32[i]), ("plain f32", r32[i])):
             if tuple(got.shape) != shape or not torch.isfinite(got).all():
@@ -2687,8 +3069,9 @@ def hybrid_train_phase(torch, entries):
 
 
 def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
-                          table: bool = False, pin: bool = False):
-    """Phases 10 and 14: one loss_fn + backward of `cfg16` (bf16, at its
+                          table: bool = False, pin: bool = False,
+                          require=()):
+    """Phases 10, 14, 16 and 17: one loss_fn + backward of `cfg16` (bf16, at its
     widths), batch 1 x 1024, with the kernels and with the plain versions
     on the same params and batch.  In f32 they are held to each other (the
     loss to HYBRID_LOSS_TOL relative, each gradient leaf to
@@ -2701,7 +3084,8 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
     and the share of choices the runs differ on are logged.  With
     `flops_per_token`, the static-cost layer's FLOPs of the f32 plain
     loss_fn (without the norms) are held to flops_per_token(cfg16, S) / 3
-    at 1e-6."""
+    at 1e-6.  Every leaf name of `require` must be among the gradients
+    compared."""
     import dataclasses
     from repro_torch.core.device_fold import STATIC_COSTS
     from repro_torch.data.pipeline import SyntheticLMData
@@ -2756,6 +3140,9 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
     p32 = build_model(cfg32, device="cuda").init(0)
     STATIC_COSTS.reset()
     l_r32, g_r32, pick_r32 = grads(cfg32, "ref", p32)
+    missing = set(require) - {n for n, _ in g_r32}
+    if missing:
+        fail(f"{tag}: no gradient of {sorted(missing)}")
     if flops_per_token is not None:
         registered = sum(v.get("flops", 0.0) for k, v in
                          STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
@@ -3120,12 +3507,13 @@ def moe_sync_free(torch, cfg, params):
         f"without a host sync")
 
 
-def moe_serve(torch, runs, what, cfg, params, drop_free=False, **paged):
-    """Serve phase 5's requests through an MoE model (`paged`: the page
-    pool's fields), with the engine's fold held to its invariants (and,
-    `drop_free`, nothing dropped); logs tok/s, TTFT, decode gap and peak
-    memory, and adds (token streams, launch counts, stats with peak_gb
-    and fold) to `runs` under `what`."""
+def serve_model(torch, runs, what, cfg, params, drop_free=False, **paged):
+    """Serve phase 5's requests through a model of seeded weights `params`
+    (`paged`: the page pool's fields), an MoE model with the engine's
+    fold held to its invariants (and, `drop_free`, nothing dropped); logs
+    tok/s, TTFT, decode gap and peak memory, and adds (token streams,
+    launch counts, stats with peak_gb and, for an MoE model, fold) to
+    `runs` under `what`."""
     torch.cuda.reset_peak_memory_stats()
     engine, done, counts, stats, _ = serve_run(torch, what, cfg=cfg,
                                                params=params, **paged)
@@ -3134,7 +3522,7 @@ def moe_serve(torch, runs, what, cfg, params, drop_free=False, **paged):
         fail(f"{what}: engine.paged is {engine.paged}")
     if engine.paged and engine.allocator.in_use != 0:
         fail(f"{what}: {engine.allocator.in_use} pages in use at drain")
-    fold = engine_fold(cfg, engine, what)
+    fold = engine_fold(cfg, engine, what) if cfg.moe else None
     if drop_free and fold["dropped"]:
         fail(f"{what}: {fold['dropped']} choices dropped at capacity "
              f"factor {cfg.capacity_factor}")
@@ -3208,16 +3596,16 @@ def moe_serve_phase(torch):
     moe_sync_free(torch, cfg, params)
     runs = {}
     paged = dict(page_size=PAGE, max_cache_pages=257)
-    moe_serve(torch, runs, "moe-serve", cfg, params)
-    moe_serve(torch, runs, "moe-paged", cfg, params, **paged)
+    serve_model(torch, runs, "moe-serve", cfg, params)
+    serve_model(torch, runs, "moe-paged", cfg, params, **paged)
     profile_window(torch, "moe-profile", cfg, params)
     del params
     release(torch)
     free = moe_cfg(MOE_DROP_FREE_LAYERS, capacity_factor=MOE_DROP_FREE)
     params = build_model(free, device="cuda").init(0)
-    moe_serve(torch, runs, "moe-serve-drop-free", free, params,
+    serve_model(torch, runs, "moe-serve-drop-free", free, params,
               drop_free=True)
-    moe_serve(torch, runs, "moe-paged-drop-free", free, params,
+    serve_model(torch, runs, "moe-paged-drop-free", free, params,
               drop_free=True, **paged)
     del params
     release(torch)
@@ -3348,8 +3736,8 @@ def moe_logits_check(torch, cfg16, tag: str, pin: bool = False):
     check_precisions(torch, tag, (B, cfg16.vocab), k16, r16, k32, r32)
 
 
-def moe_model_flops_per_token(cfg, S: int) -> float:
-    """Training FLOPs per token of the MoE decoder at sequence length S:
+def moe_model_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs of the MoE decoder on a batch of B rows of S tokens:
     3x the forward's (forward + backward; no recompute counted), the
     forward being what its static-cost edges register: the active
     parameters only (per MoE layer the top_k routed experts' SwiGLU, 6 d
@@ -3357,7 +3745,7 @@ def moe_model_flops_per_token(cfg, S: int) -> float:
     attention projections and causal attention (4 head_dim S/2 a head),
     and the lm head.  Under MLA the attention is its mla_proj edge, 2 d
     (nh (dn + dr) + r + dr), and flash at head dim dn + dr; the products
-    it registers no cost for are mla_unregistered_flops_per_token's.  The
+    it registers no cost for are mla_unregistered_flops'.  The
     router's d x E product registers no cost, as in the reference."""
     d = cfg.d_model
     if cfg.mla:
@@ -3370,34 +3758,60 @@ def moe_model_flops_per_token(cfg, S: int) -> float:
             + 2 * cfg.n_heads * h * d + 4 * cfg.n_heads * h * S / 2
     moe = 6 * d * cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts)
     dense = 2 * (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
-    return 3.0 * (cfg.n_layers * attn + moe_layers(cfg) * moe
-                  + cfg.first_dense_layers * dense + 2 * d * cfg.vocab)
+    return 3.0 * B * S * (cfg.n_layers * attn + moe_layers(cfg) * moe
+                          + cfg.first_dense_layers * dense
+                          + 2 * d * cfg.vocab)
 
 
-def mla_unregistered_flops_per_token(cfg) -> float:
-    """Training FLOPs per token (3x the forward's) of the two MLA products
-    the reference registers no static cost for: the latent's expansion
-    through wkv_b, 2 r nh (dn + dv), and o_proj, 2 nh dv d, each layer."""
+def dense_model_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's; no recompute counted) of a batch
+    of B rows of S positions of the dense or vlm decoder, as its
+    static-cost edges register them: per position and layer the attention
+    projections, causal attention (4 head_dim S/2 a head) and the MLP (2
+    or 3 matmuls: ungated, as granite and starcoder2, or gated); the lm
+    head on the text positions only (the vlm's first n_patches positions
+    are its patch prefix, whose projection registers no cost, as in the
+    reference: vlm_frontend_flops)."""
+    d, h = cfg.d_model, cfg.head_dim_
+    per_pos = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+        + 2 * cfg.n_heads * h * d + 4 * cfg.n_heads * h * S / 2 \
+        + 2 * (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+    text = S - (cfg.n_patches if cfg.family == "vlm" else 0)
+    return 3.0 * B * (cfg.n_layers * S * per_pos + text * 2 * d * cfg.vocab)
+
+
+def vlm_frontend_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's) of the vlm's patch projection,
+    which registers no static cost: 2 frontend_dim d a patch."""
+    return 3.0 * 2 * cfg.frontend_dim * cfg.d_model * cfg.n_patches * B
+
+
+def mla_unregistered_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's) on a batch of B rows of S tokens
+    of the two MLA products the reference registers no static cost for:
+    a token's latent expansion through wkv_b, 2 r nh (dn + dv), and
+    o_proj, 2 nh dv d, each layer."""
     nh, dv = cfg.n_heads, cfg.v_head_dim
-    return 3.0 * cfg.n_layers * (2 * cfg.kv_lora_rank * nh
-                                 * (cfg.qk_nope_dim + dv)
-                                 + 2 * nh * dv * cfg.d_model)
+    return 3.0 * B * S * cfg.n_layers * (2 * cfg.kv_lora_rank * nh
+                                         * (cfg.qk_nope_dim + dv)
+                                         + 2 * nh * dv * cfg.d_model)
 
 
-def moe_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
-                    unregistered=None):
-    """Phases 12 and 14: an MoE model (`cfg`: phi3.5-moe, or deepseek-v2-lite,
+def cut_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
+                    flops=moe_model_flops, unregistered=None):
+    """Phases 12, 14, 16 and 17: a model (`cfg`: phi3.5-moe, deepseek-v2-lite,
     whose expanded MLA branch runs the flash pair at q/k head dim 192 and v
-    128) trained at its widths, batch `shape`, `steps` steps through the
-    port's Trainer and its XFA session.  Launch counters set to 0 just
-    before and read just after: both flash kernels, rmsnorm and its
-    backward must have run; losses, aux losses and grad norms finite; peak
-    memory under MOE_TRAIN_PEAK_GB; the profile shard's device group and
-    the fold's invariants; step time, tokens/s, MFU by the static-cost
-    FLOPs (moe_model_flops_per_token, held to the static-cost layer of one
-    loss_fn at 1e-6) plus `unregistered(cfg)` FLOPs a token that the
-    reference registers no cost for; a profiled step.  Returns (launch
-    counts of the run, its stats)."""
+    128, granite-20b cut in depth, or internvl2-1b) trained at its widths,
+    batch `shape`, `steps` steps through the port's Trainer and its XFA
+    session.  Launch counters set to 0 just before and read just after:
+    both flash kernels, rmsnorm and its backward must have run; losses,
+    aux losses and grad norms finite; peak memory under MOE_TRAIN_PEAK_GB;
+    the profile shard's device group (and an MoE model's fold invariants);
+    step time, tokens/s, MFU by the static-cost FLOPs (`flops(cfg, B, S)`
+    of a batch, held to the static-cost layer of one loss_fn at 1e-6) plus
+    `unregistered(cfg, B, S)` FLOPs that the reference registers no cost
+    for; a profiled step.  Returns (launch counts of the run, its
+    stats)."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import tracer as xfa
@@ -3449,14 +3863,15 @@ def moe_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
         if step_edge is None or step_edge.count != steps:
             fail(f"{tag}: the shard's device group holds train_step "
                  f"{step_edge and step_edge.count}, not {steps}")
-        fold = moe_fold(cfg, folded, tag, B * S * steps, steps)
+        fold = (moe_fold(cfg, folded, tag, B * S * steps, steps)
+                if cfg.moe else None)
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     step_s = statistics.median(h["step_s"] for h in hist[1:])
-    registered = moe_model_flops_per_token(cfg, S) * B * S
-    extra = unregistered(cfg) * B * S if unregistered else 0.0
-    flops = registered + extra
+    registered = flops(cfg, B, S)
+    extra = unregistered(cfg, B, S) if unregistered else 0.0
+    total = registered + extra
     stats = {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
-             "mfu": flops / step_s / PEAK_OPS_S["bfloat16"],
+             "mfu": total / step_s / PEAK_OPS_S["bfloat16"],
              "peak_gb": peak_gb, "fold": fold}
     log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.3f}"
         f"B params, {cfg.param_dtype}, remat {cfg.remat}), batch {B} x {S}: "
@@ -3465,7 +3880,7 @@ def moe_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
         f"{[round(h['grad_norm'], 4) for h in hist]}")
     log(f"[{tag}] step times (s) {[round(h['step_s'], 4) for h in hist]}"
         f"; median after the first {stats['step_ms']:.1f} ms = "
-        f"{stats['tok_s']:.0f} tokens/s; model FLOPs {flops / 1e12:.3f} "
+        f"{stats['tok_s']:.0f} tokens/s; model FLOPs {total / 1e12:.3f} "
         f"TFLOP/step"
         + (f" ({registered / 1e12:.3f} registered as static costs + "
            f"{extra / 1e12:.3f} of {unregistered.__name__})"
@@ -3480,12 +3895,12 @@ def moe_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
         model.loss_fn(state["params"], batch, model.table())
     got = sum(v.get("flops", 0.0) for k, v in STATIC_COSTS.costs.items()
               if k[2] != "rmsnorm")
-    want = moe_model_flops_per_token(cfg, 1024) / 3 * 1024
+    want = flops(cfg, 1, 1024) / 3
     log(f"[{tag}] forward FLOPs of one loss_fn at 1 x 1024: static-cost "
-        f"layer {got:.6e} (without the norms), moe_model_flops_per_token / "
-        f"3 {want:.6e}")
+        f"layer {got:.6e} (without the norms), {flops.__name__} / 3 "
+        f"{want:.6e}")
     if abs(got - want) > 1e-6 * want:
-        fail(f"{tag}: moe_model_flops_per_token disagrees with the "
+        fail(f"{tag}: {flops.__name__} disagrees with the "
              f"static-cost layer ({want:.6e} against {got:.6e})")
     state, shares = profiled_step(
         torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
@@ -3507,17 +3922,19 @@ MLA_CHECK_LAYERS = 4                    # 1 dense + 3 MoE layers
 MLA_PEAK_GB = 75.0                      # the serve runs' ceiling
 
 
-def mla_sync_free(torch, cfg, params):
-    """One MLA + MoE layer (the first MoE layer: latent attention, then 64
-    experts top 6 and 2 shared experts) at a prefill group's rows [8, 512]
-    and then a decode tick's [8, 1], against a contiguous latent cache and
-    a page arena, under torch.cuda.set_sync_debug_mode("error"): any host
-    sync raises."""
+def layer_sync_free(torch, cfg, params, tag: str, what: str,
+                    kind: str = "moe"):
+    """The first layer of `kind` (phase 13: MLA + MoE, latent attention,
+    then 64 experts top 6 and 2 shared experts; phase 15: a dense MQA
+    layer) at a prefill group's rows [8, 512] and then a decode tick's
+    [8, 1], against a contiguous cache and a page arena, under
+    torch.cuda.set_sync_debug_mode("error"): any host sync raises."""
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import _layer, decoder_layer
+    from repro_torch.models.transformer import _layer, _stack_name, \
+        decoder_layer
 
     model = build_model(cfg, device="cuda")
-    lp = _layer(params["stack_moe"]["stack"], 0)
+    lp = _layer(params[_stack_name(cfg, kind)]["stack"], 0)
     gen = torch.Generator(device="cuda").manual_seed(11)
     dev = torch.device("cuda")
     B = 8
@@ -3536,25 +3953,25 @@ def mla_sync_free(torch, cfg, params):
             steps.append((x, pos, positions))
         with torch.no_grad():
             x, pos, positions = steps[0]
-            decoder_layer(lp, x, model.rt, positions, "moe", model.table(),
+            decoder_layer(lp, x, model.rt, positions, kind, model.table(),
                           cache, pos, bt if paged else None)   # set-up
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 for x, pos, positions in steps:
-                    y, _, _ = decoder_layer(lp, x, model.rt, positions, "moe",
+                    y, _, _ = decoder_layer(lp, x, model.rt, positions, kind,
                                             model.table(), cache, pos,
                                             bt if paged else None)
             except RuntimeError as e:
-                fail(f"mla layer ({'paged' if paged else 'contiguous'}): a "
+                fail(f"{tag} layer ({'paged' if paged else 'contiguous'}): a "
                      f"host sync in the forward: {e}")
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         if not torch.isfinite(y).all():
-            fail("mla layer: the output is not finite")
-    log(f"[mla-serve] one MLA + MoE layer's forward at [8, 512] and [8, 1] "
-        f"x {cfg.d_model}, contiguous and paged, ran under "
-        f"set_sync_debug_mode('error') without a host sync")
+            fail(f"{tag} layer: the output is not finite")
+    log(f"[{tag}] {what}'s forward at [8, 512] and [8, 1] x {cfg.d_model}, "
+        f"contiguous and paged, ran under set_sync_debug_mode('error') "
+        f"without a host sync")
 
 
 def mla_serve_phase(torch):
@@ -3588,20 +4005,20 @@ def mla_serve_phase(torch):
         f"{n_params / 1e9:.3f}B params, "
         f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.1f}"
         f" GB, initialised in {time.monotonic() - t0:.1f}s")
-    mla_sync_free(torch, cfg, params)
+    layer_sync_free(torch, cfg, params, "mla-serve", "one MLA + MoE layer")
     runs = {}
     paged = dict(page_size=PAGE, max_cache_pages=257)
-    moe_serve(torch, runs, "mla-serve", cfg, params)
-    moe_serve(torch, runs, "mla-paged", cfg, params, **paged)
+    serve_model(torch, runs, "mla-serve", cfg, params)
+    serve_model(torch, runs, "mla-paged", cfg, params, **paged)
     # the latent kernels' shares, and the copies: PR 23's k_full / v_lat
     # (a cat and a pad of the layer's cache every call) are gone
     busy = profile_window(torch, "mla-profile", cfg, params, groups={
         "latent attention kernels": ("latent_kernel",),
         "copy kernels": ("copy", "Copy")})
     free = dataclasses.replace(cfg, capacity_factor=MLA_DROP_FREE)
-    moe_serve(torch, runs, "mla-serve-drop-free", free, params,
+    serve_model(torch, runs, "mla-serve-drop-free", free, params,
               drop_free=True)
-    moe_serve(torch, runs, "mla-paged-drop-free", free, params,
+    serve_model(torch, runs, "mla-paged-drop-free", free, params,
               drop_free=True, **paged)
     del params
     release(torch)
@@ -3648,17 +4065,351 @@ def mla_train_cfg():
 
 def mla_train_phase(torch):
     """Phase 14: deepseek-v2-lite trained at its widths and
-    MLA_TRAIN_LAYERS layers through moe_train_phase, with the wkv_b
+    MLA_TRAIN_LAYERS layers through cut_train_phase, with the wkv_b
     expansion and o_proj counted into its MFU; then grads_precision_check
     with the fold table and the router pinned, without remat (the router
     runs once a layer).  Returns (launch counts of the run, its stats)."""
     import dataclasses
     cfg = mla_train_cfg()
-    out = moe_train_phase(torch, cfg, "mla-train", 14, MLA_TRAIN_SHAPE,
+    out = cut_train_phase(torch, cfg, "mla-train", 14, MLA_TRAIN_SHAPE,
                           MLA_TRAIN_STEPS,
-                          unregistered=mla_unregistered_flops_per_token)
+                          unregistered=mla_unregistered_flops)
     grads_precision_check(torch, dataclasses.replace(cfg, remat="none"),
                           "mla-grads", table=True, pin=True)
+    return out
+
+
+# ----------------------------------------------------------- granite ----
+GRANITE_ARCH = "granite_20b"
+GRANITE_PEAK_GB = 75.0                  # the serve runs' ceiling
+#: the logits checks of phase 15 (granite, and the two dense archs that no
+#: other phase runs on the card) at their widths, cut to 4 layers
+DENSE_CHECK_LAYERS = 4
+DENSE_CHECK_ARCHS = (GRANITE_ARCH, "qwen3_14b", "starcoder2_7b")
+#: granite-20b trained at its published widths, cut to 4 of 52 layers:
+#: 2.12B params x 16 B of state (bf16 params, f32 master weights and
+#: AdamW moments) ~34 GB, where all 52 layers' ~325 GB do not fit 80 GB
+GRANITE_TRAIN_LAYERS = 4
+GRANITE_TRAIN_STEPS = 4
+GRANITE_TRAIN_SHAPE = (4, 2048)         # B, S of phase 16
+
+
+def dense_logits_check(torch, cfg16, tag: str):
+    """Phase 15: a dense model (`cfg16`, bf16, at its widths), one
+    512-token prefill chunk and one decode step at batch 4 with the
+    kernels and with the plain versions, in f32 (held to each other) and
+    in bf16 (held against the f32 plain model within HYBRID_BF16_RATIO of
+    the plain bf16 model's distance), by check_precisions."""
+    import dataclasses
+    from repro_torch.models import build_model
+
+    t0 = time.monotonic()
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, T = 4, 512
+    tokens = torch.randint(0, cfg16.vocab, (B, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    nxt = torch.randint(0, cfg16.vocab, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    at = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    def run(cfg, impl, params):
+        m = build_model(cfg, impl=impl, device="cuda")
+        cache = m.init_cache(B, 2048)
+        lp, cache, _ = m.forward_chunk(params, tokens, None, cache, zero)
+        ld, _, _ = m.decode_step(params, nxt, None, cache, at)
+        torch.cuda.synchronize()
+        return lp.float(), ld.float()
+
+    out = {}
+    for cfg in (cfg16, cfg32):
+        # the same seeded draws in both dtypes (bf16: their roundings)
+        params = build_model(cfg, device="cuda").init(0)
+        out[cfg.param_dtype] = (run(cfg, "kernel", params),
+                                run(cfg, "ref", params))
+        del params
+        release(torch)
+    (k16, r16), (k32, r32) = out["bfloat16"], out["float32"]
+    log(f"[{tag}] {cfg16.name} at {cfg16.n_layers} layers (d_model "
+        f"{cfg16.d_model}, {cfg16.n_heads} q / {cfg16.n_kv_heads} kv heads "
+        f"of {cfg16.head_dim_}, d_ff {cfg16.d_ff}, "
+        f"{'gated' if cfg16.mlp_gated else 'ungated'}"
+        f"{', qk-norm' if cfg16.qk_norm else ''}), batch {B}:")
+    check_precisions(torch, tag, (B, cfg16.vocab), k16, r16, k32, r32)
+    log(f"[{tag}] {time.monotonic() - t0:.1f}s")
+
+
+def granite_serve_phase(torch):
+    """Phase 15: granite-20b served at its published widths and all 52
+    layers: one dense MQA layer sync-free; phase 5's requests contiguous,
+    then paged (257 pages), whose 16 token streams must be equal, each
+    with peak memory under GRANITE_PEAK_GB; a profiled window; the decode
+    gap against the weights' read; then the logits checks of
+    DENSE_CHECK_ARCHS at DENSE_CHECK_LAYERS layers.  Returns (launch
+    counts of the contiguous run, of the paged run, the contiguous run's
+    stats with the window's busy share)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.monotonic()
+    release(torch)
+    cfg = get_config(GRANITE_ARCH)
+    t0 = time.monotonic()
+    params = build_model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    log(f"[granite-serve] {cfg.name} at all {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv_heads} kv "
+        f"head of {cfg.head_dim_}, ungated d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}): {n_params / 1e9:.3f}B params, {weight_gb:.1f} GB, "
+        f"initialised in {time.monotonic() - t0:.1f}s")
+    layer_sync_free(torch, cfg, params, "granite-serve",
+                    "one dense MQA layer", kind="dense")
+    runs = {}
+    serve_model(torch, runs, "granite-serve", cfg, params)
+    serve_model(torch, runs, "granite-paged", cfg, params, page_size=PAGE,
+                max_cache_pages=257)
+    busy = profile_window(torch, "granite-profile", cfg, params, groups={
+        "attention kernels": ("chunk_kernel", "decode_kernel"),
+        "rmsnorm kernels": ("rmsnorm_kernel",)})
+    del params
+    release(torch)
+    for what, (_, _, st) in runs.items():
+        if st["peak_gb"] >= GRANITE_PEAK_GB:
+            fail(f"{what}: peak memory {st['peak_gb']:.1f} GB, not under "
+                 f"{GRANITE_PEAK_GB} GB")
+    same = sum(a == b for a, b in zip(runs["granite-serve"][0],
+                                      runs["granite-paged"][0]))
+    if same != 16:
+        fail(f"granite: paged gives other tokens than contiguous ({same} of "
+             f"16 streams equal)")
+    st = runs["granite-serve"][2]
+    floor_ms = weight_gb * 1e9 / HBM_BYTES_S * 1e3
+    log(f"[granite-paged] 16 of 16 token streams equal the contiguous run; "
+        f"decode gap {st['decode_s_per_tok'] * 1e3:.2f} ms/token against "
+        f"{floor_ms:.2f} ms to read the {weight_gb:.1f} GB of weights once "
+        f"a tick ({st['decode_s_per_tok'] * 1e3 / floor_ms:.2f}x); busy "
+        f"{100 * busy:.1f}%")
+    for arch in DENSE_CHECK_ARCHS:
+        dense_logits_check(torch, dataclasses.replace(
+            get_config(arch), n_layers=DENSE_CHECK_LAYERS), f"{arch}-logits")
+    log(f"[granite-serve] phase 15: {time.monotonic() - t_phase:.1f}s")
+    return (runs["granite-serve"][1], runs["granite-paged"][1],
+            dict(st, busy=busy))
+
+
+def granite_train_cfg():
+    """granite-20b at its published widths, cut to GRANITE_TRAIN_LAYERS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(GRANITE_ARCH),
+                               n_layers=GRANITE_TRAIN_LAYERS)
+
+
+def granite_train_phase(torch):
+    """Phase 16: granite-20b trained at its widths and
+    GRANITE_TRAIN_LAYERS layers through cut_train_phase (the flash pair at
+    48 q heads over one kv head of 128); then grads_precision_check.
+    Returns (launch counts of the run, its stats)."""
+    cfg = granite_train_cfg()
+    out = cut_train_phase(torch, cfg, "granite-train", 16,
+                          GRANITE_TRAIN_SHAPE, GRANITE_TRAIN_STEPS,
+                          flops=dense_model_flops)
+    t0 = time.monotonic()
+    grads_precision_check(torch, cfg, "granite-grads")
+    log(f"[granite-grads] {time.monotonic() - t0:.1f}s")
+    return out
+
+
+# ------------------------------------------------------------------ vlm ----
+VLM_ARCH = "internvl2_1b"
+#: the vlm's served sequence: VLM_ROWS rows, each its patch prefix and a
+#: VLM_TEXT-token text chunk in one bulk prefill, a continuation
+#: bucket-padded to VLM_TEXT tokens at these per-row valid lengths, then
+#: VLM_TICKS greedy decode ticks at per-row offsets
+VLM_ROWS = 8
+VLM_TEXT = 512
+VLM_VALID = [16, 512, 100, 333, 47, 260, 511, 128]
+VLM_TICKS = 32
+VLM_MAX_LEN = 2048
+VLM_TRAIN_STEPS = 6
+VLM_TRAIN_SHAPE = (4, 2048)             # B, S (256 of S the patch prefix)
+
+
+def vlm_sequence(torch, model, params, inputs, paged: bool,
+                 ticks: int = VLM_TICKS):
+    """The served sequence through the model API, contiguous or through
+    a page arena (PAGE rows a page, a shuffled block table): prefill of
+    the projected patches and the text, the bucket-padded continuation,
+    `ticks` greedy decode ticks.  Returns (logits of the prefill, of the
+    continuation and of the first tick, the greedy tokens [B, 1 + ticks],
+    prefill ms, decode ms)."""
+    patches, text, cont, valid = inputs
+    dev = text.device
+    B = text.shape[0]
+    P = patches.shape[1]
+    nb = VLM_MAX_LEN // PAGE
+    if paged:
+        gen = torch.Generator(device=dev).manual_seed(17)
+        bt = (torch.randperm(B * nb, generator=gen, device=dev) + 1) \
+            .to(torch.int32).reshape(B, nb)
+        cache = model.init_paged_cache(1 + B * nb, PAGE)
+        chunk = lambda *a, **kw: model.forward_chunk_paged(
+            *a[:5], bt, **kw)
+        step = lambda *a: model.decode_step_paged(*a, bt)
+    else:
+        cache = model.init_cache(B, VLM_MAX_LEN)
+        chunk, step = model.forward_chunk, model.decode_step
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    prefix = model.project_patches(params, patches)
+    l0, cache, _ = chunk(params, text, None, cache, zero,
+                         prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    at = zero + P + text.shape[1]
+    l1, cache, _ = chunk(params, cont, None, cache, at, valid=valid)
+    at = at + valid
+    tok = torch.argmax(l1, dim=-1).to(torch.int32)
+    out, first = [tok], None
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(ticks):
+        logits, cache, _ = step(params, tok, None, cache, at)
+        first = logits if first is None else first
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        at = at + 1
+    torch.cuda.synchronize()
+    decode_ms = (time.monotonic() - t0) * 1e3
+    return (l0.float(), l1.float(), first.float()), torch.stack(out, 1), \
+        prefill_ms, decode_ms
+
+
+def vlm_inputs(torch, cfg, seed: int = 19):
+    """Seeded patches [VLM_ROWS, n_patches, frontend_dim] f32, text and
+    continuation tokens [VLM_ROWS, VLM_TEXT] and the valid lengths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = VLM_ROWS
+    patches = torch.randn((B, cfg.n_patches, cfg.frontend_dim),
+                          generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, B, VLM_TEXT), generator=gen,
+                         device=dev, dtype=torch.int32)
+    valid = torch.tensor(VLM_VALID, dtype=torch.int32, device=dev)
+    cont = toks[1] * (torch.arange(VLM_TEXT, device=dev)[None, :]
+                      < valid[:, None])           # the pad past valid: 0
+    return patches, toks[0].contiguous(), cont.contiguous(), valid
+
+
+def vlm_serve_phase(torch):
+    """Phase 17, serve: internvl2-1b at its published widths and all 24
+    layers, bf16, through the model API (vlm_sequence), contiguous and
+    then paged (page size PAGE) with the prefix through
+    forward_chunk_paged, the launch counters set to 0 just before each
+    and read just after (rmsnorm, chunk and decode attention, or their
+    paged twins, must run); the greedy tokens must be equal; prefill time
+    and decode tok/s logged; then the logits of the prefill, the
+    continuation and the first tick with the kernels against the plain
+    versions, in f32 (held to each other) and bf16 (check_precisions), at
+    full depth.  Returns (launch counts of the contiguous run, of the
+    paged run, its stats)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    t_phase = time.monotonic()
+    release(torch)
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    inputs = vlm_inputs(torch, cfg)
+    log(f"[internvl-serve] {cfg.name} at all {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim_}, patches {cfg.n_patches} x {cfg.frontend_dim} "
+        f"projected to the prefix): {n_params / 1e9:.3f}B params; "
+        f"{VLM_ROWS} rows of {cfg.n_patches} patches + {VLM_TEXT} tokens, a "
+        f"{VLM_TEXT}-token continuation at valid {VLM_VALID}, {VLM_TICKS} "
+        f"decode ticks")
+    vlm_sequence(torch, model, params, inputs, False, ticks=2)   # warm-up
+    runs = {}
+    for paged in (False, True):
+        ops.reset_launch_counts()
+        _, toks, prefill_ms, decode_ms = vlm_sequence(torch, model, params,
+                                                      inputs, paged)
+        counts = ops.launch_counts()
+        sfx, other = ("_paged", "") if paged else ("", "_paged")
+        L = cfg.n_layers
+        want = {"rmsnorm": (2 * L + 1) * (2 + VLM_TICKS),
+                "chunk_attention" + sfx: 2 * L,
+                "decode_attention" + sfx: VLM_TICKS * L,
+                "chunk_attention" + other: 0, "decode_attention" + other: 0}
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"internvl-serve ({'paged' if paged else 'contiguous'}): launch "
+                 f"counts {counts}, want {want}")
+        if not ((0 <= toks) & (toks < cfg.vocab)).all():
+            fail("internvl-serve: a greedy token is out of the vocabulary")
+        runs[paged] = (toks, counts, {
+            "prefill_ms": prefill_ms,
+            "decode_tok_s": VLM_ROWS * VLM_TICKS / (decode_ms / 1e3)})
+        log(f"[internvl-serve] {'paged' if paged else 'contiguous'}: prefill of "
+            f"{cfg.n_patches} patches + {VLM_TEXT} tokens x {VLM_ROWS} rows "
+            f"{prefill_ms:.1f} ms, {VLM_TICKS} decode ticks "
+            f"{decode_ms:.1f} ms ({runs[paged][2]['decode_tok_s']:.1f} "
+            f"tok/s, {decode_ms / VLM_TICKS:.2f} ms a tick); launches "
+            f"{json.dumps(counts)}")
+    if not torch.equal(runs[False][0], runs[True][0]):
+        fail(f"internvl-serve: paged tokens differ from contiguous "
+             f"({int((runs[False][0] != runs[True][0]).sum())} of "
+             f"{runs[False][0].numel()})")
+    log(f"[internvl-serve] paged tokens equal the contiguous ones "
+        f"({runs[False][0].numel()} tokens)")
+    del params, model
+    release(torch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    out = {}
+    for c in (cfg, cfg32):
+        params = build_model(c, device="cuda").init(0)
+        out[c.param_dtype] = tuple(vlm_sequence(
+            torch, build_model(c, impl=impl, device="cuda"), params, inputs,
+            False, ticks=1)[0] for impl in ("kernel", "ref"))
+        del params
+        release(torch)
+    (k16, r16), (k32, r32) = out["bfloat16"], out["float32"]
+    check_precisions(torch, "internvl-logits", (VLM_ROWS, cfg.vocab), k16, r16,
+                     k32, r32, whats=(
+                         f"prefill {cfg.n_patches} patches + {VLM_TEXT} "
+                         f"tokens", "continuation at valid lengths",
+                         "first decode tick"))
+    log(f"[internvl-serve] phase 17 serve: {time.monotonic() - t_phase:.1f}s")
+    return runs[False][1], runs[True][1], runs[False][2]
+
+
+def vlm_train_phase(torch):
+    """Phase 17, train: internvl2-1b at its published widths and all 24
+    layers, batch VLM_TRAIN_SHAPE (n_patches of each row's positions the
+    patch prefix), VLM_TRAIN_STEPS steps through cut_train_phase (the
+    flash pair at 14 q over 2 kv heads of 64; MFU adds the patch
+    projection, which registers no cost); then grads_precision_check,
+    frontend/w among its leaves.  Returns (launch counts of the run, its
+    stats)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    out = cut_train_phase(torch, cfg, "internvl-train", 17, VLM_TRAIN_SHAPE,
+                          VLM_TRAIN_STEPS, flops=dense_model_flops,
+                          unregistered=vlm_frontend_flops)
+    t0 = time.monotonic()
+    grads_precision_check(torch, cfg, "internvl-grads", require=("frontend/w",))
+    log(f"[internvl-grads] {time.monotonic() - t0:.1f}s")
     return out
 
 
@@ -3669,7 +4420,10 @@ DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("zamba2 train", "hybrid-train/prof"),
              ("phi3.5-moe serve", "moe-serve"),
              ("phi3.5-moe train", "moe-train/prof"),
-             ("deepseek train", "mla-train/prof"))
+             ("deepseek train", "mla-train/prof"),
+             ("granite serve", "granite-serve"),
+             ("granite train", "granite-train/prof"),
+             ("internvl train", "internvl-train/prof"))
 #: the MoE train dirs whose report must show the device group: their
 #: (config, batch shape, steps)
 DEVICE_GROUPS = {

@@ -3,28 +3,36 @@
     model.init(seed=0)                          -> params on model.device
     model.loss_fn(params, batch, table)         -> (loss, (metrics, table))
         causal LM loss over batch tokens/labels/mask [B, S] (numpy or
-        tensors); differentiable by torch autograd (the kernels carry
-        their own backward passes)
+        tensors; the vlm's also patches); differentiable by torch
+        autograd (the kernels carry their own backward passes)
     model.batch_spec(shape)                     -> {name: (shape, dtype)}
-        of a training batch for a ShapeConfig
+        of a training batch for a ShapeConfig (the vlm's: tokens,
+        labels, mask [B, S - n_patches] and patches [B, n_patches,
+        frontend_dim] f32)
     model.init_cache(batch, max_len)            -> the serving cache: dense
         {"k", "v"} [L,B,Hkv,S,h]; MLA {"ckv" [L,B,S,r], "krope"
         [L,B,S,dr]}; hybrid {"ssm": {"conv", "h"}, "attn_k", "attn_v"}
         (batch axis 1 in every leaf)
-    model.forward_chunk(params, tokens, table, cache, pos[, valid])
-                                                -> (logits, cache, table)
+    model.forward_chunk(params, tokens, table, cache, pos[, valid,
+                        prefix_embeds])         -> (logits, cache, table)
         THE serving entry point: tokens [B, T] written at per-slot cache
         offsets pos [B] int32, offset-causal against existing cache
         content; valid [B] masks a bucket-padded chunk.  The cache is
         updated in place and returned.
     model.prefill(params, batch, table, cache)  -> (logits, cache, table)
+        = forward_chunk at pos 0 over batch["tokens"]; the vlm's prefill
+        projects batch["patches"] [B, P, frontend_dim] and writes them
+        before the tokens, so the cache then holds P + T rows a row
+    model.project_patches(params, patches)      -> [B, P, d] (vlm; None
+        elsewhere): the prefix embeddings that forward_chunk and
+        forward_chunk_paged take as prefix_embeds=
     model.decode_step(params, tok, table, cache, pos)
     model.init_paged_cache(pages, page_size)    -> {"k", "v"}
                                                    [L,P,Hkv,page_size,h]
                                                    (MLA: {"ckv", "krope"}
                                                    [L,P,page_size,r|dr])
     model.forward_chunk_paged(params, tokens, table, cache, pos,
-                              block_table[, valid])
+                              block_table[, valid, prefix_embeds])
     model.decode_step_paged(params, tok, table, cache, pos, block_table)
         the same steps against a page arena: block_table [B, NB] int32
         maps row b's virtual page i to arena page block_table[b, i]
@@ -39,11 +47,13 @@
                                                    slots the family emits
 
 Ported families: "dense", "moe" (with or without multi-head latent
-attention) and "hybrid", serving and training.  The other families raise
-NotImplementedError.  MLA serves through the decode and chunk kernels at
-head dim r + dr (576); its training runs causal attention at head dim
-dn + dr (192), which the flash kernels do not compile yet: on the card
-that raises, on the CPU it runs the plain version.
+attention), "hybrid" and "vlm" (the dense stack behind a patch
+projection), serving and training.  The other families ("ssm",
+"audio") raise NotImplementedError.  MLA serves through its latent
+kernels at head dim r + dr (576) and trains through the flash pair at
+q/k head dim dn + dr (192) and v head dim dv (128).  The serving engine's
+clients send token prompts only, in both packages: the vlm serves its
+patches through prefill or forward_chunk(prefix_embeds=...).
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ class Model:
     init_paged_cache: Optional[Callable]
     forward_chunk_paged: Optional[Callable]
     decode_step_paged: Optional[Callable]
+    project_patches: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
@@ -85,10 +96,16 @@ class Model:
     def batch_spec(self, shape: ShapeConfig
                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """(shape, dtype) of each entry of a training batch."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
-        return {"tokens": ((B, S), torch.int32),
-                "labels": ((B, S), torch.int32),
-                "mask": ((B, S), torch.float32)}
+        text_s = S - cfg.n_patches if cfg.family == "vlm" else S
+        spec = {"tokens": ((B, text_s), torch.int32),
+                "labels": ((B, text_s), torch.int32),
+                "mask": ((B, text_s), torch.float32)}
+        if cfg.family == "vlm":
+            spec["patches"] = ((B, cfg.n_patches, cfg.frontend_dim),
+                               torch.float32)
+        return spec
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -115,10 +132,10 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     """impl: 'auto' (kernels on CUDA, plain versions on the CPU),
     'kernel' or 'ref'; device: None means cuda."""
     cfg = cfg.validate()
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
-            f"moe and hybrid only; see ROADMAP.md)")
+            f"moe, hybrid and vlm only; see ROADMAP.md)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mod = mamba if cfg.family == "hybrid" else transformer
@@ -135,12 +152,23 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     def init_cache(batch, max_len):
         return mod.init_cache(cfg, batch, max_len, rt.device)
 
-    def forward_chunk(params, tokens, table, cache, pos, valid=None):
+    vlm = cfg.family == "vlm"
+
+    def forward_chunk(params, tokens, table, cache, pos, valid=None,
+                      prefix_embeds=None):
+        extra = {} if prefix_embeds is None else {
+            "prefix_embeds": prefix_embeds}
         return mod.forward_chunk(params, tokens, rt, table, cache, pos,
-                                 valid=valid)
+                                 valid=valid, **extra)
+
+    def project_patches(params, patches):
+        return transformer._project_patches(params, patches, rt)
 
     def prefill(params, batch, table, cache):
         tokens = torch.as_tensor(batch["tokens"], device=rt.device)
+        if vlm:
+            return mod.prefill(params, tokens, rt, table, cache,
+                               project_patches(params, batch["patches"]))
         return mod.prefill(params, tokens, rt, table, cache)
 
     def decode_step(params, token, table, cache, pos):
@@ -154,10 +182,10 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
                                                 rt.device)
 
         def forward_chunk_paged(params, tokens, table, cache, pos,
-                                block_table, valid=None):
+                                block_table, valid=None, prefix_embeds=None):
             return transformer.forward_chunk_paged(
                 params, tokens, rt, table, cache, pos, block_table,
-                valid=valid)
+                valid=valid, prefix_embeds=prefix_embeds)
 
         def decode_step_paged(params, token, table, cache, pos, block_table):
             return transformer.decode_step_paged(params, token, rt, table,
@@ -169,4 +197,5 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
 
     return Model(cfg=cfg, rt=rt, fold_spec=spec, init=init, loss_fn=loss_fn,
                  init_cache=init_cache, forward_chunk=forward_chunk,
-                 prefill=prefill, decode_step=decode_step, **paged)
+                 prefill=prefill, decode_step=decode_step,
+                 project_patches=project_patches if vlm else None, **paged)

@@ -1,11 +1,15 @@
-"""Decoder-only transformer LM (dense and MoE): params, training loss,
-cache and forward_chunk.
+"""Decoder-only transformer LM (dense, MoE and vlm): params, training
+loss, cache and forward_chunk.
 
 The PyTorch counterpart of `repro/models/transformer.py` for
-family="dense" and family="moe", with GQA attention or (cfg.mla)
-DeepSeek-V2's multi-head latent attention.  Layer params are stacked
-[L, ...] under p["stack"]["stack"], as the reference's scan-over-layers
-lays them out; an MoE model has one stack per layer kind,
+family="dense", family="moe" and family="vlm", with GQA attention or
+(cfg.mla) DeepSeek-V2's multi-head latent attention.  The vlm is the
+dense stack behind a patch projection, p["frontend"]["w"] [frontend_dim,
+d_model]: the projected patches are a prefix of the text (`forward`,
+`forward_chunk(prefix_embeds=...)`), and the loss counts the text
+positions only.  Layer params are stacked [L, ...] under
+p["stack"]["stack"], as the reference's scan-over-layers lays them
+out; an MoE model has one stack per layer kind,
 p["stack_dense"]["stack"] (its first_dense_layers) and
 p["stack_moe"]["stack"], whose layers run the MoE layer of `moe.py` in
 place of the MLP.  The KV cache is stacked [L, B, Hkv, S, h] over all
@@ -44,8 +48,8 @@ from ..configs.base import ModelConfig
 from ..core.device_fold import DeviceFoldSpec, scan_multiplier
 from . import moe as moe_lib
 from .layers import (Params, Runtime, attention, cross_entropy, embed,
-                     init_kv_cache, last_valid, lm_head, mlp, norm,
-                     torch_dtype)
+                     init_kv_cache, last_valid, linear, lm_head, mlp,
+                     norm, torch_dtype)
 
 #: init markers: a constant fill in place of a scaled normal draw
 ONES = ("fill", 1.0)
@@ -112,9 +116,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     p["stack_dense"]["stack"] (first_dense_layers) and
     p["stack_moe"]["stack"] for the MoE family, as the reference names
     them."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"yet (dense and moe only)")
+                                  f"yet (dense, moe and vlm only)")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"table": ((cfg.vocab, d), 1.0)},
@@ -125,6 +129,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             "stack": _layer_specs(cfg, kind, count)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"w": ((d, cfg.vocab), d ** -0.5)}
+    if cfg.family == "vlm":
+        f = cfg.frontend_dim
+        specs["frontend"] = {"w": ((f, d), f ** -0.5)}
     return specs
 
 
@@ -261,15 +268,34 @@ def _stacks(p: Params, cfg: ModelConfig):
         yield kind, count, p[_stack_name(cfg, kind)]["stack"]
 
 
-def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
-    """tokens: [B, S] -> (hidden [B, S, d] after the final norm, table,
-    aux_total: the MoE layers' router losses summed, 0 for the dense
-    family).  Causal attention over the S positions, no cache; each layer
-    rematerialized per cfg.remat.  The fold table goes in and out of each
-    layer's checkpointed body, so the recompute in the backward emits
-    into a table nobody keeps."""
+def _project_patches(p: Params, patches, rt: Runtime) -> torch.Tensor:
+    """The vlm's patch features [B, P, frontend_dim] (numpy or a tensor)
+    -> prefix embeddings [B, P, d] in the compute dtype.  Like the
+    reference's, the projection registers no static cost."""
+    x = torch.as_tensor(patches, device=rt.device).to(rt.cdtype)
+    return linear(p["frontend"]["w"], x)
+
+
+def _with_prefix(x: torch.Tensor, prefix_embeds: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The token embeddings x [B, T, d] behind the prefix [B, P, d]."""
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
+def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """tokens: [B, S] -> (hidden [B, P + S, d] after the final norm,
+    table, aux_total: the MoE layers' router losses summed, 0 for the
+    dense family).  prefix_embeds: [B, P, d], the vlm's projected patches
+    put before the text (P = 0 without).  Causal attention over the
+    P + S positions, no cache; each layer rematerialized per cfg.remat.
+    The fold table goes in and out of each layer's checkpointed body, so
+    the recompute in the backward emits into a table nobody keeps."""
     cfg = rt.cfg
-    x = embed(p, torch.as_tensor(tokens, device=rt.device), rt)
+    x = _with_prefix(embed(p, torch.as_tensor(tokens, device=rt.device), rt),
+                     prefix_embeds)
     positions = torch.arange(x.shape[1], device=rt.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=rt.device)
     for kind, count, stack in _stacks(p, cfg):
@@ -284,16 +310,24 @@ def forward(p: Params, tokens: torch.Tensor, rt: Runtime, table):
 
 
 def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
-            table):
+            table, prefix_embeds: Optional[torch.Tensor] = None):
     """The causal LM loss of a family's `forward_fn(p, tokens, rt,
-    table) -> (hidden, table, aux)`.  batch: tokens [B, S], labels [B, S],
-    mask [B, S] (numpy or tensors) -> (loss + aux, (metrics, table)),
-    metrics holding loss, aux_loss and the count of tokens."""
+    table[, prefix_embeds]) -> (hidden, table, aux)`.  batch: tokens
+    [B, S], labels [B, S], mask [B, S] (numpy or tensors) -> (loss + aux,
+    (metrics, table)), metrics holding loss, aux_loss and the count of
+    tokens.  With prefix_embeds [B, P, d] the hidden states of the P
+    prefix positions are dropped before the lm head: the loss counts the
+    text positions only."""
     labels = torch.as_tensor(batch["labels"], device=rt.device)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=rt.device)
-    x, table, aux = forward_fn(p, batch["tokens"], rt, table)
+    if prefix_embeds is None:
+        x, table, aux = forward_fn(p, batch["tokens"], rt, table)
+    else:
+        x, table, aux = forward_fn(p, batch["tokens"], rt, table,
+                                   prefix_embeds)
+        x = x[:, prefix_embeds.shape[1]:]
     logits = lm_head(p, x, rt)
     loss = cross_entropy(logits, labels, mask)
     tokens = (mask.float().sum() if mask is not None
@@ -303,8 +337,11 @@ def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
 
 
 def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):
-    """The dense decoder's causal LM loss (see `lm_loss`)."""
-    return lm_loss(forward, p, batch, rt, table)
+    """The decoder's causal LM loss (see `lm_loss`); the vlm's batch also
+    holds patches [B, P, frontend_dim], projected into its prefix."""
+    prefix = (_project_patches(p, batch["patches"], rt)
+              if rt.cfg.family == "vlm" else None)
+    return lm_loss(forward, p, batch, rt, table, prefix)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -317,7 +354,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
                   cache: Params, pos: torch.Tensor,
                   valid: Optional[torch.Tensor] = None,
-                  block_table: Optional[torch.Tensor] = None
+                  block_table: Optional[torch.Tensor] = None,
+                  prefix_embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Params, Any]:
     """THE serving entry point: write a T-token chunk at per-slot offsets.
 
@@ -327,11 +365,13 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
     block_table: [B, NB] page ids when `cache` is a page arena (one int32
     copy to the device per call).  `table` is the device fold table,
     carried layer by layer: each MoE layer emits into it (None folds
-    nothing).
+    nothing).  prefix_embeds: [B, P, d] (the vlm's projected patches) go
+    before the tokens: the chunk is then P + T rows written from pos, and
+    valid counts its rows, prefix included.
     Returns (last-valid-token logits [B, V], cache, table)."""
     dev = rt.device
     tokens = torch.as_tensor(tokens, device=dev)
-    x = embed(p, tokens, rt)
+    x = _with_prefix(embed(p, tokens, rt), prefix_embeds)
     B, T = x.shape[:2]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B) \
         .contiguous()
@@ -355,11 +395,13 @@ def forward_chunk(p: Params, tokens: torch.Tensor, rt: Runtime, table,
 
 
 def prefill(p: Params, tokens: torch.Tensor, rt: Runtime, table,
-            cache: Params):
-    """Bulk prefill = forward_chunk at offset 0 with T = prompt length."""
+            cache: Params, prefix_embeds: Optional[torch.Tensor] = None):
+    """Bulk prefill = forward_chunk at offset 0 with T = prompt length
+    (behind the vlm's prefix, when given)."""
     zero = torch.zeros((tokens.shape[0],), dtype=torch.int32,
                        device=rt.device)
-    return forward_chunk(p, tokens, rt, table, cache, zero)
+    return forward_chunk(p, tokens, rt, table, cache, zero,
+                         prefix_embeds=prefix_embeds)
 
 
 def decode_step(p: Params, token: torch.Tensor, rt: Runtime, table,
@@ -383,11 +425,13 @@ def init_paged_cache(cfg: ModelConfig, pages: int, page_size: int,
 def forward_chunk_paged(p: Params, tokens: torch.Tensor, rt: Runtime, table,
                         cache: Params, pos: torch.Tensor,
                         block_table: torch.Tensor,
-                        valid: Optional[torch.Tensor] = None):
+                        valid: Optional[torch.Tensor] = None,
+                        prefix_embeds: Optional[torch.Tensor] = None):
     """forward_chunk against the page arena: the same math, every cache
     write and read through block_table [B, NB]."""
     return forward_chunk(p, tokens, rt, table, cache, pos, valid=valid,
-                         block_table=block_table)
+                         block_table=block_table,
+                         prefix_embeds=prefix_embeds)
 
 
 def decode_step_paged(p: Params, token: torch.Tensor, rt: Runtime, table,

@@ -5,7 +5,8 @@ The reference names every param leaf by its path, as
 `lm_head/w`, `final_norm/scale`, `stack/stack/attn/wq`, ...; an MoE
 model's `stack_moe/stack/moe/{router,w_gate,w_up,w_down}`,
 `stack_moe/stack/moe/shared/*` and `stack_dense/stack/...`; an MLA
-model's `stack_*/stack/attn/{wq,wkv_a,wkv_b,wo}`), with layer leaves
+model's `stack_*/stack/attn/{wq,wkv_a,wkv_b,wo}`; a vlm's patch
+projection `frontend/w`), with layer leaves
 stacked [L, ...].  `params_from_numpy` turns such a flat dict into
 the port's params; `load_reference_checkpoint` reads a reference
 checkpoint directory (`manifest.json` + `<i>.npy`).  A reference TRAIN

@@ -63,11 +63,15 @@ def test_rmsnorm_kernel(dtype, shape):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 2048), (8, 1, 2048), (1, 2560),
                                    (8, 1, 2560), (8, 512, 2048), (3, 5120),
-                                   (2, 8192)])
+                                   (2, 8192), (8, 1, 6144), (4, 512, 6144),
+                                   (8, 1, 896), (4, 512, 896),
+                                   (8, 40, 128), (2, 512, 8, 128)])
 def test_rmsnorm_kernel_rows(dtype, shape):
     """The forward at a decode tick's rows (1 and 8 of tinyllama's 2048
     and zamba2's 2560: a block a row, one warp or two), a prefill group,
-    and rows held by three, four and eight warps; two calls agree exactly."""
+    and rows held by three, four and eight warps; granite's 6144 and
+    internvl's 896 at a decode tick and a prefill group, and qwen3's
+    qk-norm rows of 128; two calls agree exactly."""
     rng = np.random.default_rng(1)
     x = arr(rng, *shape, dtype=dtype)
     w = arr(rng, shape[-1], dtype=dtype)
@@ -92,6 +96,9 @@ def test_rmsnorm_kernel_rows(dtype, shape):
     (2, 4, 4, 130, 128),       # MHA, wide head
     (4, 32, 32, 2048, 80),     # zamba2's shared block: MHA, head dim 80
     (4, 32, 8, 2048, 128),     # phi3.5-moe's decode tick: G 4, head dim 128
+    (4, 48, 1, 2048, 128),     # granite's decode tick: MQA, G 48 (3 blocks)
+    (4, 14, 2, 2048, 64),      # internvl's decode tick: G 7
+    (4, 36, 4, 2048, 128),     # starcoder2's decode tick: G 9 (2 blocks)
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -121,6 +128,11 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (2, 4, 4, 67, 300, 80),
     (2, 32, 8, 512, 2048, 128),  # phi3.5-moe's prefill chunk: G 4, D 128
     (2, 32, 8, 8, 2048, 128),    # phi3.5-moe's short chunk
+    (2, 48, 1, 512, 2048, 128),  # granite's prefill chunk: MQA, G 48
+    (2, 48, 1, 8, 2048, 128),    # granite's short chunk
+    (2, 14, 2, 512, 2048, 64),   # internvl's prefill chunk: G 7
+    (2, 14, 2, 8, 2048, 64),     # internvl's short chunk
+    (2, 36, 4, 512, 2048, 128),  # starcoder2's prefill chunk: G 9
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -154,6 +166,9 @@ CHUNK_CASES = [
     # short chunks deep in the cache: the split path (tests below)
     (8, 32, 4, 8, 2048, 64, [0, 5, 100, 1000, 2040, 333, 1500, 17]),
     (4, 32, 32, 8, 2048, 80, [0, 2000, 64, 1023]),
+    (4, 48, 1, 8, 2048, 128, [0, 2040, 64, 1023]),   # granite: G 48
+    (4, 14, 2, 8, 2048, 64, [0, 2040, 64, 1023]),    # internvl: G 7
+    (4, 36, 4, 8, 2048, 128, [0, 2040, 64, 1023]),   # starcoder2: G 9
 ]
 
 
@@ -225,6 +240,9 @@ def scrubbed(pages):
     (2, 4, 4, 7, 48, 128),     # MHA, pages straddle tile edges
     (2, 8, 8, 5, 64, 80),      # head dim 80 (the shared template)
     (8, 32, 8, 32, 64, 128),   # phi3.5-moe's paged decode tick: G 4, D 128
+    (8, 48, 1, 32, 64, 128),   # granite: MQA, G 48
+    (8, 14, 2, 32, 64, 64),    # internvl: G 7
+    (4, 36, 4, 128, 16, 128),  # starcoder2: G 9, four pages per tile
 ])
 def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     rng = np.random.default_rng(4)
@@ -258,6 +276,11 @@ def test_decode_attention_paged_kernel(dtype, B, Hq, Hkv, NB, ps, D):
     (2, 8, 8, 67, 5, 64, 80),      # head dim 80 (the shared template)
     (2, 32, 8, 512, 32, 64, 128),  # phi3.5-moe's paged prefill chunk
     (2, 32, 8, 8, 32, 64, 128),    # phi3.5-moe's paged short chunk
+    (2, 48, 1, 512, 32, 64, 128),  # granite's paged prefill chunk: G 48
+    (2, 48, 1, 8, 128, 16, 128),   # granite's short chunk, gathered pages
+    (2, 14, 2, 512, 32, 64, 64),   # internvl's paged prefill chunk: G 7
+    (2, 14, 2, 8, 128, 16, 64),    # internvl's short chunk, gathered pages
+    (2, 36, 4, 512, 32, 64, 128),  # starcoder2's paged prefill chunk: G 9
 ])
 def test_chunk_attention_paged_kernel(dtype, B, Hq, Hkv, T, NB, ps, D):
     rng = np.random.default_rng(5)
@@ -320,11 +343,13 @@ def test_chunk_attention_paged_kernel_offsets(dtype, case):
 
 
 # (D, G, S): decode at every compiled head dim and G 1 / 4 / 8 (and 20:
-# two blocks of q heads), S not a multiple of 64; kv_len 0, 1, S and
+# two blocks of q heads; 48, granite's MQA: three; 7 and 9, internvl's and
+# starcoder2's), S not a multiple of 64; kv_len 0, 1, S and
 # the lengths on either side of the split ranges' edges
 DECODE_CASES = [(D, G, S) for D, S in ((32, 1000), (64, 2000), (80, 777),
                                        (128, 600))
-                for G in (1, 4, 8)] + [(64, 20, 1000)]
+                for G in (1, 4, 8)] + [(64, 20, 1000), (128, 48, 1000),
+                                       (64, 7, 1000), (128, 9, 1000)]
 
 
 def decode_lengths(S, D=64):
@@ -358,7 +383,8 @@ def test_decode_attention_kernel_lengths(dtype, D, G, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (128, 4), (128, 48),
+                                 (64, 7)])
 def test_decode_attention_is_batch_invariant(dtype, D, G):
     """A row decoded alone gives exactly (torch.equal) what it gives
     inside a batch of 8 other rows, dense and paged: the split plan
@@ -389,7 +415,8 @@ def test_decode_attention_is_batch_invariant(dtype, D, G):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T", [8, 512])
-@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2)])
+@pytest.mark.parametrize("D,G,Hkv", [(64, 8, 4), (80, 1, 32), (128, 4, 2),
+                                     (128, 48, 1), (64, 7, 2)])
 def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
     """A chunk row computed alone gives exactly (torch.equal) what it
     gives inside a batch of 8 other rows, dense and paged (page size 64,
@@ -423,7 +450,8 @@ def test_chunk_attention_is_batch_invariant(dtype, T, D, G, Hkv):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ps", [5, 16, 64])
-@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4)])
+@pytest.mark.parametrize("D,G", [(64, 8), (80, 1), (32, 4), (128, 48),
+                                 (64, 7)])
 def test_decode_attention_paged_equals_dense(dtype, ps, D, G):
     """The paged instance is the dense body with other row addressing
     (TMA at page size 64, the cp.async gather at 5 and 16): on the same
@@ -943,6 +971,9 @@ FLASH_CASES = [
     (1, 8, 8, 96, 300, 80, False, 0.0),       # D 80 non-causal, Sq < Sk
     (1, 8, 8, 300, 130, 80, True, 0.0),       # D 80 causal Sq > Sk
     (1, 32, 8, 2048, 2048, 128, True, 0.0),   # phi3.5-moe's training: G 4, D 128
+    (1, 48, 1, 1024, 1024, 128, True, 0.0),   # granite's training: MQA, G 48
+    (1, 14, 2, 2048, 2048, 64, True, 0.0),    # internvl's training: G 7
+    (1, 14, 2, 301, 301, 64, True, 0.0),      # G 7, ragged
 ]
 
 
@@ -1131,12 +1162,16 @@ def test_rmsnorm_backward_kernel(dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(4, 2048, 2048), (8, 300, 2560),
-                                   (1, 2048), (1, 2560), (7, 5120)])
+                                   (1, 2048), (1, 2560), (7, 5120),
+                                   (4, 2048, 6144), (4, 2048, 896),
+                                   (2, 1024, 8, 128)])
 def test_rmsnorm_backward_kernel_plans(dtype, shape):
     """The backward at the train step's 8192 rows of 2048 (one block per
     SM, 8 rows in flight), at zamba2's 2560 (two warps a row), at one row
-    (one block) and at rows held by three warps: against the plain
-    version, and deterministic (two runs torch.equal)."""
+    (one block) and at rows held by three warps; at granite's and
+    internvl's training rows (6144 and 896 wide) and qwen3's qk-norm rows
+    of 128: against the plain version, and deterministic (two runs
+    torch.equal)."""
     rng = np.random.default_rng(11)
     x = arr(rng, *shape, dtype=dtype)
     w = arr(rng, shape[-1], dtype=dtype)

@@ -271,9 +271,10 @@ def test_mfu_flops_match_the_static_cost_layer(v_head_dim):
         model.loss_fn(params, batch, model.table())
     registered = sum(v.get("flops", 0.0) for k, v in
                      STATIC_COSTS.costs.items() if k[2] != "rmsnorm")
-    assert smoke.moe_model_flops_per_token(cfg, S) / 3 * B * S \
+    assert smoke.moe_model_flops(cfg, B, S) / 3 \
         == pytest.approx(registered, rel=1e-12)
     nh, d, dv = cfg.n_heads, cfg.d_model, cfg.v_head_dim
-    assert smoke.mla_unregistered_flops_per_token(cfg) == pytest.approx(
-        3.0 * cfg.n_layers * (2 * cfg.kv_lora_rank * nh
-                              * (cfg.qk_nope_dim + dv) + 2 * nh * dv * d))
+    assert smoke.mla_unregistered_flops(cfg, B, S) == pytest.approx(
+        3.0 * B * S * cfg.n_layers * (2 * cfg.kv_lora_rank * nh
+                                      * (cfg.qk_nope_dim + dv)
+                                      + 2 * nh * dv * d))

@@ -30,7 +30,8 @@ from repro_torch.models import (build_model, load_reference_checkpoint,
                                 params_from_numpy)
 from repro_torch.models.layers import update_cache_rows
 
-DENSE_ARCHS = ["tinyllama_1_1b", "qwen3_14b", "starcoder2_7b"]
+DENSE_ARCHS = ["tinyllama_1_1b", "qwen3_14b", "starcoder2_7b",
+               "granite_20b"]
 
 
 def tiny(getter, arch, **kw):
@@ -182,10 +183,9 @@ def test_params_from_numpy_is_strict():
         params_from_numpy(dict(flat, extra=np.zeros(1)), tm.cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["xlstm_1_3b", "internvl2_1b",
-                                  "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "seamless_m4t_large_v2"])
 def test_other_families_are_not_ported_yet(arch):
-    """ssm, vlm and audio are not ported: they raise rather than run as
+    """ssm and audio are not ported: they raise rather than run as
     another family."""
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(torch_smoke(arch), device="cpu")

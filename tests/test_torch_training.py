@@ -48,7 +48,8 @@ from repro_torch.runtime.trainer import (Trainer, init_train_state,
 from repro_torch.tree import leaves_with_path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DENSE_ARCHS = ["tinyllama_1_1b", "qwen3_14b", "starcoder2_7b"]
+DENSE_ARCHS = ["tinyllama_1_1b", "qwen3_14b", "starcoder2_7b",
+               "granite_20b"]
 ATOL, RTOL = 1e-5, 1e-4
 
 
