@@ -63,6 +63,18 @@ source in its first process.  Phases:
            decode at ranges of 128, 256 and 512 rows and chunk T 8 at a
            target of 8, 16 and 33 blocks a row (the split plans'
            constants, set for the run)
+  flash    the flash pair (bf16) at tinyllama's training layout (q
+           [4,32,2048,64] over 4 kv heads, causal) and seamless's (q
+           [4,16,2048,64] over 16 kv heads, non-causal): the forward,
+           training's forward (flash_attention(keep_f32=True), where the
+           checkout has it: the forward that also keeps o in f32 for the
+           backward) and the backward from that forward's o, median of 20
+           launches with the L2 flushed; then the gradients of attention
+           on K, Q and V rows that share one large component (as a
+           cross-attention's K from an encoder; D 64 G 1, D 128 G 4, D 80
+           G 1): the relative L2 of dq, dk and dv from the f64 gradient,
+           for the FlashAttention Function, for the backward kernel given
+           the forward's o rounded to bf16, and for the plain path in bf16
 
 Prints one `RESULT <tag> ...` line per measurement and the card's name and
 power limit.  Exits non-zero if a process fails or there is no GPU.
@@ -77,7 +89,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "groups", "serve", "mla")
+PHASES = ("kernels", "groups", "serve", "mla", "flash")
 POS_T512 = [0, 512, 1024, 1536, 100, 700, 1300, 7]
 POS_T8 = [0, 5, 100, 1000, 2040, 333, 1500, 17]
 KV_LEN = [0, 1, 77, 1000, 1537, 2047, 2048, 513]   # chip_smoke.py phase 3
@@ -126,7 +138,7 @@ def worker(root: Path, tag: str, phases) -> None:
     torch.backends.cudnn.allow_tf32 = False
     for phase in phases:
         {"kernels": kernels, "groups": groups, "serve": serve,
-         "mla": mla}[phase](torch, tag)
+         "mla": mla, "flash": flash}[phase](torch, tag)
 
 
 def result(tag: str, msg: str) -> None:
@@ -592,6 +604,66 @@ def mla_layer(torch, tag: str, calls: int = 10) -> None:
                         f"{us(part(copy_names)) / 1e3:.4f} ms")
     del model, lp, cache
     torch.cuda.empty_cache()
+
+
+
+def flash(torch, tag: str) -> None:
+    import inspect
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    keep = "keep_f32" in inspect.signature(fa.flash_attention).parameters
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    bf = lambda t: t.to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    for what, Hq, Hkv, causal in (("tinyllama", 32, 4, True),
+                                  ("seamless", 16, 16, False)):
+        q, k, v = bf(rnd(4, Hq, 2048, 64)), bf(rnd(4, Hkv, 2048, 64)), \
+            bf(rnd(4, Hkv, 2048, 64))
+        do = bf(rnd(4, Hq, 2048, 64))
+        fwd = lambda **kw: fa.flash_attention(q, k, v, causal=causal, **kw)
+        out = fwd(keep_f32=True) if keep else fwd()
+        o, lse = (out[2] if keep else out[0]), out[1]
+        t_fwd = time_ms(torch, fwd, flush)
+        t_train = time_ms(torch, lambda: fwd(keep_f32=True), flush) \
+            if keep else t_fwd
+        t_bwd = time_ms(torch, lambda: fa.flash_attention_backward(
+            q, k, v, o, lse, do, causal=causal), flush)
+        result(tag, f"flash {what} q 4x{Hq}x2048x64 kv 4x{Hkv}x2048x64 "
+                    f"{'causal' if causal else 'non-causal'}: forward "
+                    f"{t_fwd:.4f} ms, training's forward {t_train:.4f} ms, "
+                    f"backward {t_bwd:.4f} ms")
+        del q, k, v, do, out, o, lse
+    for D, G in ((64, 1), (128, 4), (80, 1)):
+        Hkv, S = 2, 512
+        common = 4.0 * rnd(1, 1, 1, D)
+        q = bf(0.3 * rnd(1, Hkv * G, S, D) + 0.5 * common)
+        k = bf(0.3 * rnd(1, Hkv, S, D) + common)
+        v = bf(rnd(1, Hkv, S, D) + common)
+        do = bf(rnd(1, Hkv * G, S, D))
+        ins = [a.double().requires_grad_() for a in (q, k, v)]
+        want = torch.autograd.grad(ref.attention(*ins, causal=False), ins,
+                                   do.double())
+        runs = {}
+        ins = [a.clone().requires_grad_() for a in (q, k, v)]
+        runs["kernels"] = torch.autograd.grad(fa.FlashAttention.apply(
+            *ins, False, None, 0.0), ins, do)
+        out = fa.flash_attention(q, k, v, causal=False)
+        runs["o rounded"] = fa.flash_attention_backward(
+            q, k, v, out[0].float() if keep else out[0], out[1], do,
+            causal=False)
+        ins = [a.clone().requires_grad_() for a in (q, k, v)]
+        runs["plain bf16"] = torch.autograd.grad(
+            ref.attention(*ins, causal=False), ins, do)
+        rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+        result(tag, f"flash grads, K rows sharing one component (D {D}, "
+                    f"G {G}, S {S}): relative L2 of dq / dk / dv from f64: "
+                    + "; ".join(f"{name} " + " / ".join(
+                        f"{rel(g, w):.3e}" for g, w in zip(run, want))
+                        for name, run in runs.items()))
 
 
 if __name__ == "__main__":

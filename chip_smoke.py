@@ -57,7 +57,14 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               autograd backward, F.rms_norm's backward) and their bounds,
               with the flash kernels' TFLOP/s and share of the bound; both
               flash kernels also timed beside SDPA at q [1,40,2048,128],
-              k/v [1,8,2048,128] causal (a log line)
+              k/v [1,8,2048,128] causal (a log line).  The flash forward
+              also as training runs it (keep_f32: o kept in f32 for the
+              backward's delta), in every case: its o and lse the
+              inference kernel's bits, o32 rounding to o and within the
+              tolerance of the plain version computed in f32; timed at
+              the training shape as the entry's `training` sub-entry (and
+              so at each training layout: phases 3d, 3f, 3g, 3h and the
+              head-dim-80 case of phase 10's kernels)
   6. train    full-width tinyllama_1_1b (22 layers, bf16, the config's own
               remat) trained for TRAIN_STEPS steps of batch 4 x 2048 from
               SyntheticLMData through the port's Trainer, launch counters
@@ -167,8 +174,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               (granite) and 896 (internvl) wide, bf16 and f32; each
               against its plain version per entry (2e-2 bf16, 2e-5 f32;
               the bf16 flash dk and dv, sums over G x 2048 products an
-              entry, against the plain backward with p and dS rounded to
-              bf16 as the kernel's tensor-core operands are), the bf16
+              entry, against the plain backward with p rounded to bf16
+              as the kernel's tensor-core operand is), the bf16
               cases timed beside their plain versions, their bounds and
               SDPA or F.rms_norm; ptxas's registers and spills of the
               instantiations these shapes launch (G and the width are
@@ -283,11 +290,68 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               projection, which registers none; peak memory), a profiled
               step, and the batch 1 x 1024 gradient check with the
               frontend/w leaf among the leaves
+  3h. audio kernels  the kernels of the enc-dec's path at seamless's
+              shapes (16 q over 16 kv heads of 64, G 1), f32 and bf16:
+              decode against the whole source (q [8,16,64], k/v
+              [8,16,1024,64] and a ragged 1000 rows, every kv_len = S),
+              chunk attention at T 128 and T 8 at per-row offsets in a
+              1024-row cache, the flash forward non-causal at the serving
+              cross-attention (Sq 128 against Sk 1024, Sq 8 against 1000),
+              the flash pair non-causal at q, k, v [4,16,2048,64] (f32 at
+              [1,16,2048,64]) with two backward launches bitwise equal,
+              rmsnorm and its backward 1024 wide; each against its plain
+              version per entry (2e-2 bf16, 2e-5 f32), the bf16 cases
+              timed beside their plain versions, their bounds (non-causal
+              FLOPs) and SDPA or F.rms_norm
+  18. seamless serve  seamless_m4t_large_v2 (the enc-dec: 24 encoder and
+              24 decoder layers, d_model 1024, 16 heads of 64, ungated
+              d_ff 8192, vocab 256206, a stub frames frontend of 1024
+              features) at its published widths and full depth, bf16,
+              served through the model API (the engine's clients send
+              token prompts only): 8 rows of 1024 seeded frames encoded
+              once with a prompt bucket-padded to 128 at valid 8..128, a
+              64-token continuation without frames (the cross cache read
+              as it lies), 32 greedy decode ticks (self-attention at pos +
+              1, cross-attention at kv_len = 1024 for every row); launch
+              counts exact; prefill ms, decode tok/s, peak memory, busy
+              share (a profiler window); logits kernels vs plain in f32
+              (1e-3) and bf16 (ratio 1.25); rows 0 and 5 alone give their
+              batch rows' tokens (f32; the bf16 count logged)
+  18b. seamless train  the same model at full depth, batch 4 x 2048 (2048
+              frames and 2048 tokens a row), 6 steps through the Trainer:
+              the flash pair non-causal in the encoder and the
+              cross-attention, causal in the decoder; MFU held to the
+              static costs at 1e-6, plus the frontend projection, which
+              registers none; peak memory; a profiled step; the batch 1 x
+              1024 gradient check with frontend/w, the encoder's and the
+              cross-attention's leaves among the leaves
+  19. xlstm serve  xlstm_1_3b (48 blocks as 6 super-blocks of 7 mLSTM +
+              1 sLSTM, d_model 2048, 4 heads, mLSTM head width 1024, chunk
+              128, vocab 50304) at its widths and full depth: the prompt
+              whole vs in 4 chunks (f32: logits and the carried mLSTM and
+              sLSTM state within 1e-3); then the 16 requests of phase 5
+              through the engine's contiguous recurrent state (rmsnorm
+              the only kernel: its launches exact for the engine's
+              forwards), tok/s, TTFT, decode gap, peak memory
+  19b. xlstm train  the same model, batch 4 x 1024 (cut from 4 x 2048:
+              the sLSTM loop's eager launches set the step time), 3 steps
+              through the Trainer with each super-block rematerialized
+              whole (remat full, see XLSTM_TRAIN_REMAT): step time, peak
+              memory, MFU by the static costs (held at 1e-6) plus the
+              cells' chunkwise products and the sLSTM FFN, which register
+              none; no profiled step (a step launches ~0.4M kernels, more
+              than a profiler window should hold); the gradient check at
+              the fixed limits (f32 1e-4 / 1e-3, bf16 ratio 1.25) at one
+              super-block (8 blocks) and 1 x 256 (XLSTM_GRAD_LAYERS,
+              XLSTM_GRAD_SHAPE), where a one-ulp move of the norms must
+              move the plain f32 gradient less than 1e-3; the same
+              readings at all 48 blocks logged
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
               and 12 (phi3.5-moe serve and train), 14 (deepseek train),
-              15 and 16 (granite serve and train) and 17 (internvl train)
+              15 and 16 (granite serve and train), 17 (internvl train),
+              18b (seamless train) and 19 and 19b (xlstm serve and train)
               kept: `diagnose --json` and `report --json` on each (the
               phi3.5-moe and deepseek train reports must show the device
               group), `timeline --json` on
@@ -311,7 +375,8 @@ and the flash kernels' head-dim-80 numbers: phase 10; the head-dim-128
 numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
 (192, 128) numbers, and every kernel's mla_train_launches: phase 14;
 the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
-width_896 numbers: phase 17);
+width_896 numbers: phase 17; the g1_d64 and width_1024 numbers: phases
+18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -434,6 +499,7 @@ def run(torch) -> None:
     check_mla_kernels(torch, kernels)
     check_mla_train_kernels(torch, kernels)
     check_dense_kernels(torch, kernels, build.build_log)
+    check_audio_kernels(torch, kernels)
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
@@ -453,6 +519,10 @@ def run(torch) -> None:
     granite_train_counts, granite_train = granite_train_phase(torch)
     vlm_counts, vlm_paged_counts, vlm = vlm_serve_phase(torch)
     vlm_train_counts, vlm_train = vlm_train_phase(torch)
+    audio_counts, audio = audio_serve_phase(torch)
+    audio_train_counts, audio_train = audio_train_phase(torch)
+    xlstm_counts, xlstm = xlstm_serve_phase(torch)
+    xlstm_train_counts, xlstm_train = xlstm_train_phase(torch)
     diagnose_phase(torch)
     # each new layout's and width's launches: the run of the model that
     # serves or trains at it (paged kernels: its paged run)
@@ -462,7 +532,9 @@ def run(torch) -> None:
         "g7_d64": (vlm_counts, vlm_paged_counts, vlm_train_counts),
         "width_6144": (granite_counts, granite_paged_counts,
                        granite_train_counts),
-        "width_896": (vlm_counts, vlm_paged_counts, vlm_train_counts)}
+        "width_896": (vlm_counts, vlm_paged_counts, vlm_train_counts),
+        AUDIO_KEY: (audio_counts, None, audio_train_counts),
+        AUDIO_WIDTH[0]: (audio_counts, None, audio_train_counts)}
 
     for k in kernels:
         # each kernel's launches in the run of its own path
@@ -516,11 +588,18 @@ def run(torch) -> None:
                 if k[key]["launches"] <= 0:
                     fail(f"kernel {name} was not launched on the path of "
                          f"its {key} entry")
+        if name in ("rmsnorm", "rmsnorm_backward"):
+            # xlstm's norms run the kernel at width 2048 (the entry's
+            # width), in its serve and train runs
+            k["xlstm_launches"] = {"serve": xlstm_counts[name],
+                                   "train": xlstm_train_counts[name]}
+            log(f"[kernels] {name}: xlstm launches {k['xlstm_launches']}")
     log(json.dumps({"kernels": kernels}))
     for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid),
                      (f"phi3_5_moe_42b at {MOE_SERVE_LAYERS} layers", moe),
                      ("deepseek_v2_lite_16b at 27 layers", mla),
-                     ("granite_20b at 52 layers", granite)):
+                     ("granite_20b at 52 layers", granite),
+                     ("xlstm_1_3b at 48 blocks", xlstm)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
             f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
             f"{st['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk mean "
@@ -591,7 +670,23 @@ def run(torch) -> None:
         f"tok/s, MFU {100 * vlm_train['mfu']:.2f}%, peak "
         f"{vlm_train['peak_gb']:.1f} GB, busy "
         f"{100 * vlm_train['busy']:.1f}%, launches "
-        f"{json.dumps(vlm_train_counts)} on {smi}")
+        f"{json.dumps(vlm_train_counts)}; seamless served prefill "
+        f"{audio['prefill_ms']:.1f} ms, decode {audio['decode_tok_s']:.1f} "
+        f"tok/s, busy {100 * audio['busy']:.1f}%, peak "
+        f"{audio['peak_gb']:.1f} GB, launches {json.dumps(audio_counts)}; "
+        f"seamless trained {audio_train['step_ms']:.1f} ms/step, "
+        f"{audio_train['tok_s']:.0f} tok/s, MFU "
+        f"{100 * audio_train['mfu']:.2f}%, peak "
+        f"{audio_train['peak_gb']:.1f} GB, busy "
+        f"{100 * audio_train['busy']:.1f}%, launches "
+        f"{json.dumps(audio_train_counts)}; xlstm served "
+        f"{xlstm['throughput_tok_s']:.1f} tok/s, decode gap "
+        f"{xlstm['decode_s_per_tok'] * 1e3:.2f} ms/token, peak "
+        f"{xlstm['peak_gb']:.1f} GB; xlstm trained "
+        f"{xlstm_train['step_ms']:.1f} ms/step, {xlstm_train['tok_s']:.0f} "
+        f"tok/s, MFU {100 * xlstm_train['mfu']:.2f}%, peak "
+        f"{xlstm_train['peak_gb']:.1f} GB, launches "
+        f"{json.dumps(xlstm_train_counts)} on {smi}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1103,7 +1198,7 @@ def check_train_kernels(torch):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     B, Hq, Hkv, S, D = TRAIN_SHAPE
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
-    errs = {"fwd": [], "bwd": []}
+    errs = {"fwd": [], "train": [], "bwd": []}
     # (what, B, Hq, Hkv, Sq, Sk, D, causal, softcap, sm_scale): the
     # training shape first
     cases = [("training", B, Hq, Hkv, S, S, D, True, 0.0, None),
@@ -1120,25 +1215,30 @@ def check_train_kernels(torch):
             rnd(b, hkv, sk, d), rnd(b, hq, sq, d)
         opts = dict(causal=causal, logit_softcap=cap, sm_scale=scale)
         off = dict(q_offset=sk - sq if causal else 0)
-        o, lse = fa.flash_attention(q, k, v, **opts)
+        o, lse, _ = fa.flash_attention(q, k, v, **opts)
         o_r, lse_r = ref.attention(q, k, v, return_lse=True, **opts, **off)
         errs["fwd"].append(max_err(torch, o, o_r, f"flash_attention {what}"))
         max_err(torch, lse, lse_r, f"flash_attention lse {what}")
-        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+        o32, terr = training_forward(torch, q, k, v, o, lse,
+                                     f"flash_attention {what}", **opts)
+        errs["train"].append(terr)
+        grads = fa.flash_attention_backward(q, k, v, o_r.float(), lse_r, do,
+                                            **opts)
         want = ref.attention_backward(q, k, v, o_r, lse_r, do, **opts, **off)
         for name, g, w in zip(("dq", "dk", "dv"), grads, want):
             errs["bwd"].append(max_err(
                 torch, g, w, f"flash_attention_backward {name} {what}"))
         if what == "training":
-            timed = (q, k, v, do, o, lse)
-        del q, k, v, do, o, lse, o_r, lse_r, grads, want
+            timed = (q, k, v, do, o, lse, o32)
+        del q, k, v, do, o, lse, o32, o_r, lse_r, grads, want
         torch.cuda.empty_cache()
     log(f"[train-kernels] flash cases {[c[0] for c in cases]}: forward "
         f"max_abs_err per case {[f'{e:.3e}' for e in errs['fwd']]}, "
+        f"training's forward (o32) {[f'{e:.3e}' for e in errs['train']]}, "
         f"backward (dq, dk, dv per case) "
         f"{[f'{e:.3e}' for e in errs['bwd']]}")
 
-    q, k, v, do, o, lse = timed
+    q, k, v, do, o, lse, o32 = timed
     shape = f"q {B}x{Hq}x{S}x{D} kv {B}x{Hkv}x{S}x{D} causal"
     fwd_ops, bwd_ops, io = flash_work(q, k, v)
     entries = [record_kernel(
@@ -1156,19 +1256,27 @@ def check_train_kernels(torch):
         torch, flush, "flash_attention_backward", src,
         "src/repro/kernels/flash_attention.py:94 (backward of "
         "src/repro/kernels/ref.py:183)", shape, max(errs["bwd"]),
-        lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
-        lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+        lambda: fa.flash_attention_backward(q, k, v, o32, lse, do),
+        lambda: ref.attention_backward(q, k, v, o32, lse, do, q_offset=0),
         lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                     retain_graph=True),
-        # reads q, k, v, o, dO, lse; writes dq, dk, dv.  Operations: S and
-        # dP recomputed, dV, dK, dQ: five products, 2.5x the forward's
-        nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+        # reads q, k, v, o (f32), dO, lse; writes dq, dk, dv.  Operations:
+        # S and dP recomputed, dV, dK, dQ: five products, 2.5x the
+        # forward's
+        nbytes=2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
         ops=bwd_ops))
-    for e, ops in zip(entries, (fwd_ops, bwd_ops)):
-        log(f"[train-kernels] {e['name']} {shape}: {ops / e['ms'] / 1e9:.1f} "
+    entries[0]["training"] = record_training_forward(
+        torch, flush, entries[0], shape, max(errs["train"]), q, k, v, o, lse,
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True))
+    for what, e, ops in (("flash_attention", entries[0], fwd_ops),
+                         ("flash_attention training",
+                          entries[0]["training"], fwd_ops),
+                         ("flash_attention_backward", entries[1], bwd_ops)):
+        log(f"[train-kernels] {what} {shape}: {ops / e['ms'] / 1e9:.1f} "
             f"TFLOP/s, {100 * e['bound_ms'] / e['ms']:.1f}% of its bound, "
             f"{e['ms'] / e['library_ms']:.2f}x SDPA")
-    del out, qq, kk, vv, timed, q, k, v, do, o, lse
+    del out, qq, kk, vv, timed, q, k, v, do, o, lse, o32
     torch.cuda.empty_cache()
     time_flash_shape(torch, flush, rnd, 1, 40, 8, 2048, 128)
 
@@ -1199,17 +1307,60 @@ def check_train_kernels(torch):
     return entries
 
 
-def flash_work(q, k, v):
-    """(FLOPs of the causal forward, of the backward's five products, and
-    bytes of bf16 q, k, v) for q [B, Hq, S, D], k [B, Hkv, S, D], v
-    [B, Hkv, S, Dv]: the forward's Q K^T and P V over the visible pairs;
-    the backward's S and dP recomputed, dV, dK and dQ (at Dv = D, 2.5x
-    the forward's)."""
+def flash_work(q, k, v, causal: bool = True):
+    """(FLOPs of the forward, of the backward's five products, and bytes
+    of bf16 q, k, v) for q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv,
+    Sk, Dv] (causal: Sq == Sk): the forward's Q K^T and P V over the
+    visible pairs (causal: S (S + 1) / 2 a head, else Sq Sk); the
+    backward's S and dP recomputed, dV, dK and dQ (at Dv = D, 2.5x the
+    forward's)."""
     B, Hq, S, D = q.shape
     Dv = v.shape[-1]
-    pairs = B * Hq * S * (S + 1) / 2
+    pairs = B * Hq * (S * (S + 1) / 2 if causal else S * k.shape[2])
     return (2.0 * pairs * (D + Dv), 2.0 * pairs * (3 * D + 2 * Dv),
             2.0 * (q.numel() + k.numel() + v.numel()))
+
+
+def training_forward(torch, q, k, v, o, lse, what: str, tol=KERNEL_TOL,
+                     **opts):
+    """Training's flash forward (keep_f32: o also in f32 before its
+    rounding, which the backward's delta reads) on the inputs whose
+    inference forward gave (o, lse): o and lse the same bits, o32 rounds
+    to o, and o32 is within `tol` of the plain version computed in f32.
+    Returns (o32, its max abs error)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    o_t, lse_t, o32 = fa.flash_attention(q, k, v, keep_f32=True, **opts)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_t, o) and torch.equal(lse_t, lse)
+            and torch.equal(o32.to(o.dtype), o)):
+        fail(f"{what}: training's forward (keep_f32) differs from "
+             f"inference's o or lse, or its o32 does not round to o")
+    off = k.shape[2] - q.shape[2] if opts.get("causal", True) else 0
+    want = ref.attention(q.float(), k.float(), v.float(), q_offset=off,
+                         **opts)
+    return o32, max_err(torch, o32, want, f"{what} o32 (plain in f32)", tol)
+
+
+def record_training_forward(torch, flush, e, shape, err, q, k, v, o, lse,
+                            library, **opts):
+    """Time training's flash forward (keep_f32) at one shape beside its
+    plain version, `library` and its bound (the inference forward's, plus
+    o written once more in f32): the sub-entry of entry `e`."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    fwd_ops, _, io = flash_work(q, k, v, causal=opts.get("causal", True))
+    off = k.shape[2] - q.shape[2] if opts.get("causal", True) else 0
+    return sub_entry(record_kernel(
+        torch, flush, e["name"], e["source"], e["replaces"],
+        shape + ", training (keep_f32)", err,
+        lambda: fa.flash_attention(q, k, v, keep_f32=True, **opts),
+        lambda: ref.attention(q, k, v, q_offset=off, return_lse=True,
+                              **opts),
+        library, nbytes=io + 6.0 * o.numel() + 4.0 * lse.numel(),
+        ops=fwd_ops))
 
 
 def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
@@ -1221,7 +1372,7 @@ def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
 
     q, k, v, do = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D), \
         rnd(B, Hq, S, D)
-    o, lse = fa.flash_attention(q, k, v)
+    o, lse, o32 = fa.flash_attention(q, k, v, keep_f32=True)
     fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
@@ -1233,10 +1384,10 @@ def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
              time_ms(torch, lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, enable_gqa=True), flush)),
             ("flash_attention_backward", bwd_ops,
-             bound(2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+             bound(2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
                    bwd_ops, "bfloat16")[0],
              time_ms(torch, lambda: fa.flash_attention_backward(
-                 q, k, v, o, lse, do), flush),
+                 q, k, v, o32, lse, do), flush),
              time_ms(torch, lambda: torch.autograd.grad(
                  out, (qq, kk, vv), do, retain_graph=True), flush))]
     for name, ops, b_ms, ms, sdpa_ms in rows:
@@ -1244,7 +1395,7 @@ def time_flash_shape(torch, flush, rnd, B, Hq, Hkv, S, D):
             f"causal: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
             f"{100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} ms), SDPA "
             f"{sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x SDPA)")
-    del q, k, v, do, o, lse, qq, kk, vv, out
+    del q, k, v, do, o, lse, o32, qq, kk, vv, out
     torch.cuda.empty_cache()
 
 
@@ -1348,14 +1499,25 @@ PAGE_GAUGES = ("cache_pages_in_use", "cache_page_hwm",
                "cache_pages_capacity")
 
 
-def check_launch_counts(cfg, engine, counts, what: str):
+def check_launch_counts(cfg, engine, counts, what: str, forwards: int = 0):
     """The launch counts of a serving run must fit the model's depth: per
     forward, the dense family runs its attention pair once per layer and
     rmsnorm 2L+1 times; the hybrid runs chunk or decode attention once per
     shared-block call (n_super), ssd_scan once per Mamba layer of a
     prefill group, and rmsnorm 2L + 2 n_super + 1 times.  The other
-    attention pair (paged or dense) never runs.  Returns (prefill groups,
-    decode ticks, a note on the per-forward counts)."""
+    attention pair (paged or dense) never runs.  The ssm family (xLSTM)
+    runs no attention: rmsnorm n_mLSTM + 2 n_sLSTM + 1 times a forward,
+    of the engine's `forwards`.  Returns (prefill groups, decode
+    ticks, a note on the per-forward counts); for the ssm family (the
+    forwards, 0, the note)."""
+    if cfg.family == "ssm":
+        n_s = cfg.n_layers // cfg.slstm_every
+        norms = cfg.n_layers + n_s + 1
+        if forwards <= 0 or counts["rmsnorm"] != norms * forwards or any(
+                n for k, n in counts.items() if k != "rmsnorm"):
+            fail(f"{what}: launch counts inconsistent with {cfg.name}'s "
+                 f"{forwards} forwards: {counts}")
+        return forwards, 0, f"per forward: rmsnorm {norms}, nothing else"
     sfx = "_paged" if engine.paged else ""
     other = "" if engine.paged else "_paged"
     L = cfg.n_layers
@@ -1402,11 +1564,13 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
             f"{len(engine.batch_buckets())} batch buckets in "
             f"{time.monotonic() - t0:.1f}s")
         ops.reset_launch_counts()
+        forwards = engine.forward_calls
         t0 = time.monotonic()
         done = run_workload(engine, prompts, 32, mode="closed")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = ops.launch_counts()
+        forwards = engine.forward_calls - forwards
         if len(done) != len(prompts) or not all(r.done for r in done):
             fail(f"{what}: {len(done)} of {len(prompts)} requests completed")
         for r in done:
@@ -1417,7 +1581,8 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
             if not torch.isfinite(leaf).all():
                 fail(f"{what}: the cache leaf {name} holds non-finite "
                      f"values")
-        groups, ticks, note = check_launch_counts(cfg, engine, counts, what)
+        groups, ticks, note = check_launch_counts(cfg, engine, counts, what,
+                                                  forwards)
         folded = load_profile(prof).to_folded()
         serve = {k[2]: e for k, e in folded.edges.items() if k[1] == "serve"}
         for phase in SERVE_EDGES + (PAGE_GAUGES if engine.paged else ()):
@@ -1436,8 +1601,9 @@ def serve_run(torch, what: str, on_engine=None, arch: str = "tinyllama_1_1b",
         f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
         f"{stats['ttft_p95_s'] * 1e3:.1f} ms; decode "
         f"{stats['decode_s_per_tok'] * 1e3:.2f} ms/token")
-    log(f"[{what}] prefill groups {groups}, decode ticks {ticks}, "
-        f"launches {json.dumps(counts)} ({note})")
+    log(f"[{what}] " + (f"forwards {groups}" if cfg.family == "ssm" else
+                         f"prefill groups {groups}, decode ticks {ticks}")
+        + f", launches {json.dumps(counts)} ({note})")
     log(f"[{what}] xfa prefill_chunk mean {stats['prefill_chunk_ms']:.2f}"
         f" ms x {serve['prefill_chunk'].count}, decode_token mean "
         f"{serve['decode_token'].total_ns / serve['decode_token'].count / 1e6:.3f}"
@@ -2071,10 +2237,13 @@ def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
     Bt, St = 4, 2048
     q, k, v, do = rnd(Bt, Hq, St, D), rnd(Bt, Hkv, St, D), \
         rnd(Bt, Hkv, St, D), rnd(Bt, Hq, St, D)
-    o, lse = fa.flash_attention(q, k, v)
+    o, lse, _ = fa.flash_attention(q, k, v)
     o_r, lse_r = ref.attention(q, k, v, q_offset=0, return_lse=True)
     ferr = max_err(torch, o, o_r, f"flash_attention {tag}")
     max_err(torch, lse, lse_r, f"flash_attention lse {tag}")
+    o32, terr = training_forward(torch, q, k, v, o, lse,
+                                 f"flash_attention {tag}")
+    o_r = o_r.float()
     grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do)
     berr = flash_backward_errs(torch, grads, (q, k, v, o_r, lse_r, do), tag)
     again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do)
@@ -2094,11 +2263,11 @@ def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
             dict(nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(),
                  ops=fwd_ops)),
         "flash_attention_backward": (
-            berr, lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
-            lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+            berr, lambda: fa.flash_attention_backward(q, k, v, o32, lse, do),
+            lambda: ref.attention_backward(q, k, v, o32, lse, do, q_offset=0),
             lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                         retain_graph=True),
-            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+            dict(nbytes=2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
                  ops=bwd_ops))}
     for e in entries:
         if e["name"] in flash:
@@ -2112,27 +2281,36 @@ def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
                 f"{work['ops'] / timed['ms'] / 1e9:.1f} TFLOP/s, "
                 f"{100 * timed['bound_ms'] / timed['ms']:.1f}% of its bound, "
                 f"{timed['ms'] / timed['library_ms']:.2f}x SDPA")
-    del q, k, v, do, o, lse, qq, kk, vv, out, flash, flush
+            if e["name"] == "flash_attention":
+                e[key]["training"] = train = record_training_forward(
+                    torch, flush, e, shape, terr, q, k, v, o, lse,
+                    lambda: sdpa(q, k, v, is_causal=True))
+                e["max_abs_err"] = max(e["max_abs_err"], terr)
+                log(f"[layout {tag}] flash_attention training {shape}: "
+                    f"{100 * train['bound_ms'] / train['ms']:.1f}% of its "
+                    f"bound, {train['ms'] / timed['ms']:.2f}x inference's "
+                    f"forward")
+    del q, k, v, do, o, lse, o32, qq, kk, vv, out, flash, flush
     torch.cuda.empty_cache()
     log(f"[layout {tag}] {key}: {time.monotonic() - t_phase:.1f}s")
 
 
-def attention_backward_tc(torch, q, k, v, o, lse, do):
-    """The plain causal backward of ref.attention_backward with the bf16
-    flash kernel's tensor-core operands: p rounded to bf16 before dV =
-    P^T dO, and dS rounded to bf16 before dK = scale dS^T q and dQ =
-    scale dS K, as the kernel (and FlashAttention-2) feeds its wgmma
-    products; every product accumulates in f32.  Returns (dq, dk, dv) in
-    the dtypes of q, k, v."""
+def attention_backward_tc(torch, q, k, v, o, lse, do, causal=True):
+    """The plain backward of ref.attention_backward (causal at Sq == Sk, or
+    not causal at any Sq, Sk) with the bf16 flash kernel's tensor-core
+    operands: p rounded to bf16 before dV = P^T dO, and dS rounded to bf16
+    before dK = scale dS^T q and dQ = scale dS K, as the kernel (and
+    FlashAttention-2) feeds its wgmma products; every product accumulates
+    in f32.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     shape = (B, Hkv, Hq // Hkv, S)
     qs = (q.float() * D ** -0.5).reshape(shape + (D,))
     s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.float())
-    cols = torch.arange(S, device=q.device)
-    mask = cols[None, :] <= cols[:, None]
-    p = torch.where(mask, torch.exp(s - lse.float().reshape(shape)[..., None]),
-                    0.0)
+    p = torch.exp(s - lse.float().reshape(shape)[..., None])
+    if causal:
+        cols = torch.arange(S, device=q.device)
+        p = torch.where(cols[None, :] <= cols[:, None], p, 0.0)
     del s
     dof = do.float().reshape(shape + (-1,))
     delta = (dof * o.float().reshape(shape + (-1,))).sum(-1, keepdim=True)
@@ -2146,26 +2324,27 @@ def attention_backward_tc(torch, q, k, v, o, lse, do):
             dv.to(v.dtype))
 
 
-def flash_backward_errs(torch, grads, args, tag: str) -> float:
+def flash_backward_errs(torch, grads, args, tag: str,
+                        causal: bool = True) -> float:
     """The bf16 flash backward's (dq, dk, dv) per entry at KERNEL_TOL abs +
     rel: dq against its plain version (ref.attention_backward), dk and dv
     against attention_backward_tc.  Each dk, dv entry sums the G q heads'
     products over every query of its kv head (98304 at G 48, 2048
     queries), so where such a sum cancels to a small entry the bf16
-    rounding of p and dS, which the plain f32 version leaves out, is a
-    large share of it: at G 48 one dv entry of 1048576 missed the plain
-    version by 0.031 (kernel 0.2266, plain 0.1953, with p rounded 0.2268;
-    NVIDIA H100 80GB HBM3, 700.00 W).  The plain version's dk, dv errors
-    are logged beside.  Returns the largest abs error checked."""
+    rounding of p, which the plain f32 version leaves out, is a large
+    share of it: at G 48 one dv entry of 1048576 missed the plain version
+    by 0.031 (kernel 0.2266, plain 0.1953, with p rounded 0.2268; NVIDIA
+    H100 80GB HBM3, 700.00 W).  The plain version's dk, dv errors are
+    logged beside.  Returns the largest abs error checked."""
     from repro_torch.kernels import ref
 
-    want = ref.attention_backward(*args, q_offset=0)
+    want = ref.attention_backward(*args, causal=causal, q_offset=0)
     errs = [max_err(torch, grads[0], want[0],
                     f"flash_attention_backward dq {tag}")]
     plain = [(grads[i].float() - want[i].float()).abs().max().item()
              for i in (1, 2)]
     del want
-    tc = attention_backward_tc(torch, *args)
+    tc = attention_backward_tc(torch, *args, causal=causal)
     for i, name in ((1, "dk"), (2, "dv")):
         errs.append(max_err(torch, grads[i], tc[i],
                             f"flash_attention_backward {name} {tag} (bf16 "
@@ -2218,7 +2397,7 @@ def check_layout_f32(torch, gen, Hq: int, Hkv: int, D: int, tag: str):
     Sf = 1024
     q, k, v, do = rnd(1, Hq, Sf, D), rnd(1, Hkv, Sf, D), rnd(1, Hkv, Sf, D), \
         rnd(1, Hq, Sf, D)
-    o, lse = fa.flash_attention(q, k, v)
+    o, lse, _ = fa.flash_attention(q, k, v)
     o_r, lse_r = ref.attention(q, k, v, q_offset=0, return_lse=True)
     errs.append(max_err(torch, o, o_r, f"flash_attention f32 {tag}",
                         F32_KERNEL_TOL))
@@ -2239,91 +2418,19 @@ def check_layout_f32(torch, gen, Hq: int, Hkv: int, D: int, tag: str):
 def check_dense_kernels(torch, entries, build_logs):
     """Phase 3g: the attention kernels at the dense family's new head
     layouts (check_layout, each of DENSE_LAYOUTS), and rmsnorm
-    and its backward at the new row widths (DENSE_WIDTHS): the forward at
-    a decode tick's rows (8 x 1) and a prefill group's (8 x 512), the
-    backward at the training rows (4 x 2048), in bf16 (timed beside the
-    plain version, the bound and F.rms_norm) and f32 against their plain
-    versions; and ptxas's registers and spills of the instantiations these
-    shapes launch (G and the row width are runtime arguments: no new
-    instantiation is compiled for them).  Adds the DENSE_LAYOUTS and
+    and its backward at the new row widths (check_width, each of
+    DENSE_WIDTHS); and ptxas's registers and spills of the instantiations
+    these shapes launch (G and the row width are runtime arguments: no
+    new instantiation is compiled for them).  Adds the DENSE_LAYOUTS and
     DENSE_WIDTHS sub-entries to `entries`."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as rms
-
     t_phase = time.monotonic()
     for i, (key, (Hq, Hkv, D)) in enumerate(DENSE_LAYOUTS.items()):
         check_layout(torch, entries, key, Hq, Hkv, D, seed=20 + i)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(23)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    by_name = {e["name"]: e for e in entries}
-    src = "src/repro_torch/kernels/csrc/rmsnorm.cu"
     for key, (d, arch) in DENSE_WIDTHS.items():
-        w32 = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        timed = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            tol = F32_KERNEL_TOL if dtype == torch.float32 else KERNEL_TOL
-            w = w32.to(dtype)
-            for shape in ((8, 1, d), (8, 512, d)):
-                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-                err = max_err(torch, rms.rmsnorm(x, w), ref.rmsnorm(x, w),
-                              f"rmsnorm {shape} {dtype}", tol)
-                if dtype == torch.bfloat16:
-                    timed[shape] = record_kernel(
-                        torch, flush, "rmsnorm", src,
-                        "src/repro/kernels/rmsnorm.py:38",
-                        "x".join(map(str, shape)), err,
-                        lambda x=x, w=w: rms.rmsnorm(x, w),
-                        lambda x=x, w=w: ref.rmsnorm(x, w),
-                        lambda x=x, w=w: F.rms_norm(x, (d,), w, 1e-5),
-                        nbytes=2.0 * x.numel() * 2 + d * 2,
-                        ops=4.0 * x.numel())
-            x = torch.randn((4, 2048, d), generator=gen, device=dev).to(dtype)
-            dy = torch.randn((4, 2048, d), generator=gen,
-                             device=dev).to(dtype)
-            dx, dw = rms.rmsnorm_backward(x, w, dy)
-            dx_r, dw_r = ref.rmsnorm_backward(x, w, dy)
-            err = max_err(torch, dx, dx_r,
-                          f"rmsnorm_backward dx 4x2048x{d} {dtype}", tol)
-            scale = dw_r.float().abs().max()
-            err = max(err, max_err(
-                torch, dw.float() / scale, dw_r.float() / scale,
-                f"rmsnorm_backward dw 4x2048x{d} {dtype} (relative to max "
-                f"|dw|)", tol))
-            again = rms.rmsnorm_backward(x, w, dy)
-            torch.cuda.synchronize()
-            if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
-                fail(f"rmsnorm_backward 4x2048x{d} {dtype}: two launches "
-                     f"differ")
-            if dtype == torch.bfloat16:
-                xx, ww = x.detach().requires_grad_(), \
-                    w.detach().requires_grad_()
-                y = F.rms_norm(xx, (d,), ww, 1e-5)
-                bwd = record_kernel(
-                    torch, flush, "rmsnorm_backward", src,
-                    "src/repro/kernels/rmsnorm.py:38 (backward)",
-                    f"x 4x2048x{d}", err,
-                    lambda: rms.rmsnorm_backward(x, w, dy),
-                    lambda: ref.rmsnorm_backward(x, w, dy),
-                    lambda: torch.autograd.grad(y, (xx, ww), dy,
-                                                retain_graph=True),
-                    nbytes=2.0 * (3 * x.numel() + 2 * d),
-                    ops=10.0 * x.numel())
-                del xx, ww, y
-            del x, dy, dx, dw, dx_r, dw_r, again
-        e = by_name["rmsnorm"]
-        e[key] = sub_entry(timed[(8, 512, d)])
-        e[key]["decode_tick"] = sub_entry(timed[(8, 1, d)])
-        e["max_abs_err"] = max(e["max_abs_err"], e[key]["max_abs_err"])
-        by_name["rmsnorm_backward"][key] = sub_entry(bwd)
-        log(f"[dense-kernels] rmsnorm at {arch}'s width {d}: plan (vectors a "
-            f"thread, threads a row, rows a block) "
-            f"{rms.forward_plan(d, 2)}; decode tick 8x1x{d} "
-            f"{timed[(8, 1, d)]['ms']:.4f} ms, prefill group 8x512x{d} "
-            f"{timed[(8, 512, d)]['ms']:.4f} ms, backward 4x2048x{d} "
-            f"{bwd['ms']:.4f} ms")
-        torch.cuda.empty_cache()
+        check_width(torch, entries, key, d, arch, gen, flush)
     del flush
     torch.cuda.empty_cache()
     wanted = {"rmsnorm": ("rmsnorm_kernel", "rmsnorm_bwd"),
@@ -2337,6 +2444,86 @@ def check_dense_kernels(torch, entries, build_logs):
                     f"for every layout: G and the width are runtime "
                     f"arguments)")
     log(f"[dense-kernels] phase 3g: {time.monotonic() - t_phase:.1f}s")
+
+
+def check_width(torch, entries, key: str, d: int, arch: str, gen, flush):
+    """Phases 3g and 3h: rmsnorm at `arch`'s row width d, the forward at a
+    decode tick's rows (8 x 1) and a prefill group's (8 x 512), the
+    backward at the training rows (4 x 2048), in bf16 (timed beside the
+    plain version, the bound and F.rms_norm) and f32 against their plain
+    versions; adds the `key` sub-entries to rmsnorm's and
+    rmsnorm_backward's entries of `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    dev = torch.device("cuda")
+    by_name = {e["name"]: e for e in entries}
+    src = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+    w32 = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_KERNEL_TOL if dtype == torch.float32 else KERNEL_TOL
+        w = w32.to(dtype)
+        for shape in ((8, 1, d), (8, 512, d)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            err = max_err(torch, rms.rmsnorm(x, w), ref.rmsnorm(x, w),
+                          f"rmsnorm {shape} {dtype}", tol)
+            if dtype == torch.bfloat16:
+                timed[shape] = record_kernel(
+                    torch, flush, "rmsnorm", src,
+                    "src/repro/kernels/rmsnorm.py:38",
+                    "x".join(map(str, shape)), err,
+                    lambda x=x, w=w: rms.rmsnorm(x, w),
+                    lambda x=x, w=w: ref.rmsnorm(x, w),
+                    lambda x=x, w=w: F.rms_norm(x, (d,), w, 1e-5),
+                    nbytes=2.0 * x.numel() * 2 + d * 2,
+                    ops=4.0 * x.numel())
+        x = torch.randn((4, 2048, d), generator=gen, device=dev).to(dtype)
+        dy = torch.randn((4, 2048, d), generator=gen,
+                         device=dev).to(dtype)
+        dx, dw = rms.rmsnorm_backward(x, w, dy)
+        dx_r, dw_r = ref.rmsnorm_backward(x, w, dy)
+        err = max_err(torch, dx, dx_r,
+                      f"rmsnorm_backward dx 4x2048x{d} {dtype}", tol)
+        scale = dw_r.float().abs().max()
+        err = max(err, max_err(
+            torch, dw.float() / scale, dw_r.float() / scale,
+            f"rmsnorm_backward dw 4x2048x{d} {dtype} (relative to max "
+            f"|dw|)", tol))
+        again = rms.rmsnorm_backward(x, w, dy)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+            fail(f"rmsnorm_backward 4x2048x{d} {dtype}: two launches "
+                 f"differ")
+        if dtype == torch.bfloat16:
+            xx, ww = x.detach().requires_grad_(), \
+                w.detach().requires_grad_()
+            y = F.rms_norm(xx, (d,), ww, 1e-5)
+            bwd = record_kernel(
+                torch, flush, "rmsnorm_backward", src,
+                "src/repro/kernels/rmsnorm.py:38 (backward)",
+                f"x 4x2048x{d}", err,
+                lambda: rms.rmsnorm_backward(x, w, dy),
+                lambda: ref.rmsnorm_backward(x, w, dy),
+                lambda: torch.autograd.grad(y, (xx, ww), dy,
+                                            retain_graph=True),
+                nbytes=2.0 * (3 * x.numel() + 2 * d),
+                ops=10.0 * x.numel())
+            del xx, ww, y
+        del x, dy, dx, dw, dx_r, dw_r, again
+    e = by_name["rmsnorm"]
+    e[key] = sub_entry(timed[(8, 512, d)])
+    e[key]["decode_tick"] = sub_entry(timed[(8, 1, d)])
+    e["max_abs_err"] = max(e["max_abs_err"], e[key]["max_abs_err"])
+    by_name["rmsnorm_backward"][key] = sub_entry(bwd)
+    log(f"[width-{d}] rmsnorm at {arch}'s width {d}: plan (vectors a "
+        f"thread, threads a row, rows a block) "
+        f"{rms.forward_plan(d, 2)}; decode tick 8x1x{d} "
+        f"{timed[(8, 1, d)]['ms']:.4f} ms, prefill group 8x512x{d} "
+        f"{timed[(8, 512, d)]['ms']:.4f} ms, backward 4x2048x{d} "
+        f"{bwd['ms']:.4f} ms")
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------- mla kernels ----
@@ -2709,7 +2896,7 @@ def check_mla_train_kernels(torch, entries):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     B, H, S, Dqk, Dv = MLA_TRAIN_ATTN
     opts = dict(causal=True, sm_scale=MLA_SCALE)
-    errs = {"fwd": [], "bwd": []}
+    errs = {"fwd": [], "train": [], "bwd": []}
     for what, dtype, b, sq, sk in (
             ("training bf16", bf16, B, S, S), ("training f32", f32, B, S, S),
             ("Sq 1024 Sk 2048 bf16", bf16, 2, 1024, S),
@@ -2721,11 +2908,15 @@ def check_mla_train_kernels(torch, entries):
         q, k = rnd(dtype, b, H, sq, Dqk), rnd(dtype, b, H, sk, Dqk)
         v, do = rnd(dtype, b, H, sk, Dv), rnd(dtype, b, H, sq, Dv)
         off = dict(q_offset=sk - sq)
-        o, lse = fa.flash_attention(q, k, v, **opts)
+        o, lse, _ = fa.flash_attention(q, k, v, **opts)
         o_r, lse_r = ref.attention(q, k, v, return_lse=True, **opts, **off)
         errs["fwd"].append(max_err(torch, o, o_r, f"flash_attention {tag}",
                                    tol))
         max_err(torch, lse, lse_r, f"flash_attention lse {tag}", tol)
+        o32, terr = training_forward(torch, q, k, v, o, lse,
+                                     f"flash_attention {tag}", tol, **opts)
+        errs["train"].append(terr)
+        o_r = o_r.float()
         grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
         want = ref.attention_backward(q, k, v, o_r, lse_r, do, **opts, **off)
         for name, g, w in zip(("dq", "dk", "dv"), grads, want):
@@ -2736,15 +2927,16 @@ def check_mla_train_kernels(torch, entries):
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             fail(f"flash_attention_backward {tag}: two launches differ")
         if what == "training bf16":
-            timed = (q, k, v, do, o, lse)
-        del q, k, v, do, o, lse, o_r, lse_r, grads, want, again
+            timed = (q, k, v, do, o, lse, o32)
+        del q, k, v, do, o, lse, o32, o_r, lse_r, grads, want, again
         torch.cuda.empty_cache()
     log(f"[mla-train-kernels] flash D 192/128 max_abs_err (bf16 2e-2, f32 "
         f"2e-5 abs + rel): forward {[f'{e:.3e}' for e in errs['fwd']]}, "
+        f"training's forward (o32) {[f'{e:.3e}' for e in errs['train']]}, "
         f"backward (dq, dk, dv per case) "
         f"{[f'{e:.3e}' for e in errs['bwd']]}; two backward launches "
         f"bitwise equal in every case")
-    q, k, v, do, o, lse = timed
+    q, k, v, do, o, lse, o32 = timed
     shape = (f"q/k {B}x{H}x{S}x{Dqk} v {B}x{H}x{S}x{Dv} causal, sm_scale "
              f"192^-0.5")
     fwd_ops, bwd_ops, io = flash_work(q, k, v)
@@ -2765,11 +2957,12 @@ def check_mla_train_kernels(torch, entries):
                  ops=fwd_ops)),
         "flash_attention_backward": (
             max(errs["bwd"]),
-            lambda: fa.flash_attention_backward(q, k, v, o, lse, do, **opts),
-            lambda: ref.attention_backward(q, k, v, o, lse, do, **opts),
+            lambda: fa.flash_attention_backward(q, k, v, o32, lse, do,
+                                                **opts),
+            lambda: ref.attention_backward(q, k, v, o32, lse, do, **opts),
             lambda: torch.autograd.grad(out, (qq, kk, vv), dop,
                                         retain_graph=True),
-            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+            dict(nbytes=2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
                  ops=bwd_ops))}
     for e in entries:
         if e["name"] in cases:
@@ -2783,7 +2976,18 @@ def check_mla_train_kernels(torch, entries):
                 f"{work['ops'] / d192['ms'] / 1e9:.1f} TFLOP/s, "
                 f"{100 * d192['bound_ms'] / d192['ms']:.1f}% of its bound, "
                 f"{d192['ms'] / d192['library_ms']:.2f}x SDPA")
-    del q, k, v, do, o, lse, vp, dop, qq, kk, vv, out, timed, cases, flush
+            if e["name"] == "flash_attention":
+                e["head_dim_192"]["training"] = train = \
+                    record_training_forward(torch, flush, e, shape,
+                                            max(errs["train"]), q, k, v, o,
+                                            lse, sdpa, **opts)
+                e["max_abs_err"] = max(e["max_abs_err"], max(errs["train"]))
+                log(f"[mla-train-kernels] flash_attention training {shape}: "
+                    f"{100 * train['bound_ms'] / train['ms']:.1f}% of its "
+                    f"bound, {train['ms'] / d192['ms']:.2f}x inference's "
+                    f"forward")
+    del q, k, v, do, o, lse, o32, vp, dop, qq, kk, vv, out, timed, cases, \
+        flush
     torch.cuda.empty_cache()
     log(f"[mla-train-kernels] phase 3f: {time.monotonic() - t0:.1f}s")
 
@@ -3070,7 +3274,7 @@ def hybrid_train_phase(torch, entries):
 
 def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
                           table: bool = False, pin: bool = False,
-                          require=()):
+                          require=(), shape=(1, 1024)):
     """Phases 10, 14, 16 and 17: one loss_fn + backward of `cfg16` (bf16, at its
     widths), batch 1 x 1024, with the kernels and with the plain versions
     on the same params and batch.  In f32 they are held to each other (the
@@ -3085,7 +3289,7 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
     `flops_per_token`, the static-cost layer's FLOPs of the f32 plain
     loss_fn (without the norms) are held to flops_per_token(cfg16, S) / 3
     at 1e-6.  Every leaf name of `require` must be among the gradients
-    compared."""
+    compared.  `shape`: the batch (B, S)."""
     import dataclasses
     from repro_torch.core.device_fold import STATIC_COSTS
     from repro_torch.data.pipeline import SyntheticLMData
@@ -3096,13 +3300,14 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
 
     cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
                                 compute_dtype="float32")
-    B, S = 1, 1024
+    B, S = shape
     batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
     router = moe_lib._router
 
     def grads(cfg, impl, params, pinned=None):
         """(loss, [(leaf name, gradient)], every router call's top-k
         indices); `pinned`: every call's top-k indices to route by."""
+        t0 = time.monotonic()
         picks = []
         route = router if pinned is None else pinned_router(router, pinned)
 
@@ -3110,6 +3315,7 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
             out = route(w, x2, c)
             picks.append(out[1])
             return out
+
         model = build_model(cfg, impl=impl, device="cuda")
         moe_lib._router = spy
         try:
@@ -3118,6 +3324,8 @@ def grads_precision_check(torch, cfg16, tag: str, flops_per_token=None,
         finally:
             moe_lib._router = router
         torch.cuda.synchronize()
+        log(f"[{tag}] {impl} {cfg.param_dtype}: loss_fn + backward at {B} x "
+            f"{S} in {time.monotonic() - t0:.1f}s")
         for name, leaf in leaves_with_path(g):
             if not torch.isfinite(leaf).all():
                 fail(f"{tag}: {impl} {cfg.param_dtype} gradient {name} is "
@@ -3322,7 +3530,7 @@ def check_hybrid_train_kernels(torch, entries):
 
     # flash attention at the shared block's head dim
     Bq, Hq, Sf, D = B, 32, L, 80
-    ferr = {"fwd": [], "bwd": []}
+    ferr = {"fwd": [], "train": [], "bwd": []}
     for what, dtype, sq, sk, causal in (("training bf16", bf16, Sf, Sf, True),
                                         ("training f32", f32, Sf, Sf, True),
                                         ("Sq 1024 Sk 2048 bf16", bf16, 1024,
@@ -3332,13 +3540,18 @@ def check_hybrid_train_kernels(torch, entries):
         q, do = rnd(dtype, Bq, Hq, sq, D), rnd(dtype, Bq, Hq, sq, D)
         k, v = rnd(dtype, Bq, Hq, sk, D), rnd(dtype, Bq, Hq, sk, D)
         off = dict(q_offset=sk - sq if causal else 0)
-        o, lse = fa.flash_attention(q, k, v, causal=causal)
+        o, lse, _ = fa.flash_attention(q, k, v, causal=causal)
         o_r, lse_r = ref.attention(q, k, v, causal=causal, return_lse=True,
                                    **off)
         ferr["fwd"].append(max_err(torch, o, o_r, f"flash_attention D=80 "
                                    f"{what}"))
         max_err(torch, lse, lse_r, f"flash_attention lse D=80 {what}")
-        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do,
+        tol = KERNEL_TOL if dtype == bf16 else F32_KERNEL_TOL
+        o32, terr = training_forward(torch, q, k, v, o, lse,
+                                     f"flash_attention D=80 {what}", tol,
+                                     causal=causal)
+        ferr["train"].append(terr)
+        grads = fa.flash_attention_backward(q, k, v, o_r.float(), lse_r, do,
                                             causal=causal)
         want = ref.attention_backward(q, k, v, o_r, lse_r, do, causal=causal,
                                       **off)
@@ -3346,13 +3559,14 @@ def check_hybrid_train_kernels(torch, entries):
             ferr["bwd"].append(max_err(
                 torch, g, w, f"flash_attention_backward {name} D=80 {what}"))
         if what == "training bf16":
-            timed = (q, k, v, do, o, lse)
-        del q, k, v, do, o, lse, o_r, lse_r, grads, want
+            timed = (q, k, v, do, o, lse, o32)
+        del q, k, v, do, o, lse, o32, o_r, lse_r, grads, want
         torch.cuda.empty_cache()
     log(f"[hybrid-train-kernels] flash D=80 max_abs_err: forward "
-        f"{[f'{e:.3e}' for e in ferr['fwd']]}, backward "
+        f"{[f'{e:.3e}' for e in ferr['fwd']]}, training's forward (o32) "
+        f"{[f'{e:.3e}' for e in ferr['train']]}, backward "
         f"{[f'{e:.3e}' for e in ferr['bwd']]}")
-    q, k, v, do, o, lse = timed
+    q, k, v, do, o, lse, o32 = timed
     shape = f"q {Bq}x{Hq}x{Sf}x{D} kv {Bq}x{Hq}x{Sf}x{D} causal"
     fwd_ops, bwd_ops, io = flash_work(q, k, v)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3366,11 +3580,11 @@ def check_hybrid_train_kernels(torch, entries):
                  ops=fwd_ops)),
         "flash_attention_backward": (
             max(ferr["bwd"]),
-            lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
-            lambda: ref.attention_backward(q, k, v, o, lse, do, q_offset=0),
+            lambda: fa.flash_attention_backward(q, k, v, o32, lse, do),
+            lambda: ref.attention_backward(q, k, v, o32, lse, do, q_offset=0),
             lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                         retain_graph=True),
-            dict(nbytes=2 * io + 4.0 * o.numel() + 4.0 * lse.numel(),
+            dict(nbytes=2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
                  ops=bwd_ops))}
     for e in entries:
         if e["name"] in cases:
@@ -3384,7 +3598,18 @@ def check_hybrid_train_kernels(torch, entries):
                 f"{work['ops'] / d80['ms'] / 1e9:.1f} TFLOP/s, "
                 f"{100 * d80['bound_ms'] / d80['ms']:.1f}% of its bound, "
                 f"{d80['ms'] / d80['library_ms']:.2f}x SDPA")
-    del q, k, v, do, o, lse, qq, kk, vv, out, timed, flush
+            if e["name"] == "flash_attention":
+                e["head_dim_80"]["training"] = train = \
+                    record_training_forward(
+                        torch, flush, e, shape, max(ferr["train"]), q, k, v,
+                        o, lse, lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True))
+                e["max_abs_err"] = max(e["max_abs_err"], max(ferr["train"]))
+                log(f"[hybrid-train-kernels] flash_attention training "
+                    f"{shape}: {100 * train['bound_ms'] / train['ms']:.1f}% "
+                    f"of its bound, {train['ms'] / d80['ms']:.2f}x "
+                    f"inference's forward")
+    del q, k, v, do, o, lse, o32, qq, kk, vv, out, timed, flush
     torch.cuda.empty_cache()
     return ssd
 
@@ -3798,20 +4023,22 @@ def mla_unregistered_flops(cfg, B: int, S: int) -> float:
 
 
 def cut_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
-                    flops=moe_model_flops, unregistered=None):
+                    flops=moe_model_flops, unregistered=None,
+                    kernels=TRAIN_KERNELS + ("rmsnorm",), profile=True):
     """Phases 12, 14, 16 and 17: a model (`cfg`: phi3.5-moe, deepseek-v2-lite,
     whose expanded MLA branch runs the flash pair at q/k head dim 192 and v
     128, granite-20b cut in depth, or internvl2-1b) trained at its widths,
     batch `shape`, `steps` steps through the port's Trainer and its XFA
     session.  Launch counters set to 0 just before and read just after:
-    both flash kernels, rmsnorm and its backward must have run; losses,
+    each of `kernels` (by default both flash kernels, rmsnorm and its
+    backward) must have run; losses,
     aux losses and grad norms finite; peak memory under MOE_TRAIN_PEAK_GB;
     the profile shard's device group (and an MoE model's fold invariants);
     step time, tokens/s, MFU by the static-cost FLOPs (`flops(cfg, B, S)`
     of a batch, held to the static-cost layer of one loss_fn at 1e-6) plus
     `unregistered(cfg, B, S)` FLOPs that the reference registers no cost
-    for; a profiled step.  Returns (launch counts of the run, its
-    stats)."""
+    for; with `profile`, a profiled step.  Returns (launch counts of the
+    run, its stats)."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import tracer as xfa
@@ -3850,7 +4077,7 @@ def cut_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
                                                      "grad_norm")):
                 fail(f"{tag}: step {h['step']} loss {h['loss']} aux "
                      f"{h['aux_loss']} grad norm {h['grad_norm']} not finite")
-        for name in TRAIN_KERNELS + ("rmsnorm",):
+        for name in kernels:
             if counts[name] <= 0:
                 fail(f"{tag}: kernel {name} was not launched: {counts}")
         if peak_gb >= MOE_TRAIN_PEAK_GB:
@@ -3889,6 +4116,7 @@ def cut_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
         f"{peak_gb:.1f} GB; run wall {wall:.1f}s incl. init; launches "
         f"{json.dumps(counts)}")
     # the registered FLOPs against the static-cost layer: one loss_fn
+    t_check = time.monotonic()
     batch = SyntheticLMData(cfg, 1, 1024, seed=1).generate(0)
     STATIC_COSTS.reset()
     with torch.no_grad():
@@ -3902,10 +4130,13 @@ def cut_train_phase(torch, cfg, tag: str, phase: int, shape, steps: int,
     if abs(got - want) > 1e-6 * want:
         fail(f"{tag}: {flops.__name__} disagrees with the "
              f"static-cost layer ({want:.6e} against {got:.6e})")
-    state, shares = profiled_step(
-        torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
-            steps), f"{tag}-profile", {"flash": FLASH_KERNEL_NAMES})
-    stats.update(busy=shares["busy"], flash_share=shares["flash"])
+    if profile:
+        state, shares = profiled_step(
+            torch, model, tcfg, state, SyntheticLMData(cfg, B, S).generate(
+                steps), f"{tag}-profile", {"flash": FLASH_KERNEL_NAMES})
+        stats.update(busy=shares["busy"], flash_share=shares["flash"])
+    log(f"[{tag}] train run {wall:.1f}s, static-cost check and profiled "
+        f"step {time.monotonic() - t_check:.1f}s")
     del state, trainer, model
     release(torch)
     log(f"[{tag}] phase {phase}: {time.monotonic() - t_phase:.1f}s")
@@ -4413,6 +4644,673 @@ def vlm_train_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------- audio ----
+AUDIO_ARCH = "seamless_m4t_large_v2"
+#: seamless's attention: 16 q over 16 kv heads of 64 (G 1), phase 3h's
+#: sub-entry key, and its rmsnorm rows' width
+AUDIO_HEADS = (16, 16, 64)              # Hq, Hkv, D
+AUDIO_KEY = "g1_d64"
+AUDIO_WIDTH = ("width_1024", 1024)
+#: the enc-dec's served sequence: AUDIO_ROWS rows, each AUDIO_SRC source
+#: frames encoded once and a decoder prompt bucket-padded to AUDIO_PROMPT
+#: tokens at these valid lengths, one AUDIO_CONT-token continuation
+#: without frames, then AUDIO_TICKS greedy decode ticks
+AUDIO_ROWS = 8
+AUDIO_SRC = 1024
+AUDIO_PROMPT = 128
+AUDIO_VALID = [8, 128, 50, 77, 100, 9, 127, 64]
+AUDIO_CONT = 64
+AUDIO_TICKS = 32
+AUDIO_MAX_LEN = 256                     # decoder cache rows
+AUDIO_ALONE = (0, 5)                    # rows served alone (f32)
+AUDIO_TRAIN_STEPS = 6
+AUDIO_TRAIN_SHAPE = (4, 2048)           # B, S (frames 2048 x 1024 a row)
+#: phase 3h's chunk attention at the decoder's self-attention: (T, per-row
+#: offsets) into a 1024-row cache
+AUDIO_CHUNKS = ((AUDIO_PROMPT, [0, 128, 512, 896, 7, 300, 700, 64]),
+                (8, [0, 1016, 64, 511, 900, 3, 700, 256]))
+
+
+def check_audio_kernels(torch, entries):
+    """Phase 3h: the kernels of the enc-dec's path at seamless's shapes
+    (16 q over 16 kv heads of 64), in f32 and bf16: decode against the
+    whole source, every row at kv_len = S (S 1024 and the ragged 1000);
+    chunk attention at T 128 and T 8 at per-row offsets; the flash
+    forward non-causal at the serving cross-attention (q [8,16,128,64]
+    against k/v [8,16,1024,64], q [8,16,8,64] against 1000 rows); the
+    flash pair non-causal at the training shape (q, k, v [4,16,2048,64];
+    f32 at [1,16,2048,64]) with two backward launches bitwise equal;
+    rmsnorm and its backward 1024 wide (check_width).  Each against its
+    plain version per entry (2e-2 bf16, 2e-5 f32; the bf16 dk and dv
+    against the plain backward with p rounded to bf16,
+    flash_backward_errs); the bf16 cases timed beside their plain
+    versions, their bounds (non-causal FLOPs) and SDPA.  Adds AUDIO_KEY
+    and AUDIO_WIDTH sub-entries to `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    Hq, Hkv, D = AUDIO_HEADS
+    tag = f"D={D} G=1 non-causal"
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    sdpa = F.scaled_dot_product_attention
+    by_name = {e["name"]: e for e in entries}
+    timed = {}
+
+    def record(name, key, shape, err, fn, plain, lib, **work):
+        """Time one case; `key` "main" is the entry's own shape."""
+        e = by_name[name]
+        timed.setdefault(name, {})[key] = sub_entry(record_kernel(
+            torch, flush, name, e["source"], e["replaces"], shape, err, fn,
+            plain, lib, **work))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        return timed[name][key]
+
+    B, S = AUDIO_ROWS, AUDIO_SRC
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tol = KERNEL_TOL if bf16 else F32_KERNEL_TOL
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+        q = rnd(B, Hq, D)
+        for Sk in (S, 1000):
+            k, v = rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
+            kv_len = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+            err = max_err(torch, dec.decode_attention(q, k, v, kv_len=kv_len),
+                          ref.decode_attention(q, k, v, kv_len=kv_len),
+                          f"decode_attention {tag} kv_len {Sk} {dtype}", tol)
+            if bf16:
+                record("decode_attention", "main" if Sk == S else "ragged",
+                       f"q {B}x{Hq}x{D} kv {B}x{Hkv}x{Sk}x{D} kv_len {Sk} "
+                       f"every row", err,
+                       lambda q=q, k=k, v=v, n=kv_len: dec.decode_attention(
+                           q, k, v, kv_len=n),
+                       lambda q=q, k=k, v=v, n=kv_len: ref.decode_attention(
+                           q, k, v, kv_len=n),
+                       lambda q=q, k=k, v=v: sdpa(q[:, :, None], k, v),
+                       nbytes=2.0 * q.numel() * 2 + 4 * B
+                       + B * Sk * Hkv * D * 2 * 2, ops=4.0 * B * Sk * Hq * D)
+        k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+        for T, pos_l in AUDIO_CHUNKS:
+            qc = rnd(B, Hq, T, D)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            err = max_err(torch, dec.chunk_attention(qc, k, v, pos=pos),
+                          ref.chunk_attention(qc, k, v, pos=pos),
+                          f"chunk_attention {tag} T={T} {dtype}", tol)
+            if bf16:
+                lim = pos[:, None] + torch.arange(T, device=dev)[None, :]
+                cmask = (torch.arange(S, device=dev)[None, None, :]
+                         <= lim[:, :, None])[:, None]
+                record("chunk_attention",
+                       "main" if T == AUDIO_PROMPT else "short_chunk",
+                       f"q {B}x{Hq}x{T}x{D} kv {B}x{Hkv}x{S}x{D} pos {pos_l}",
+                       err,
+                       lambda qc=qc, pos=pos: dec.chunk_attention(qc, k, v,
+                                                                  pos=pos),
+                       lambda qc=qc, pos=pos: ref.chunk_attention(qc, k, v,
+                                                                  pos=pos),
+                       lambda qc=qc, m=cmask: sdpa(qc, k, v, attn_mask=m),
+                       **chunk_work(pos_l, T, S, Hq, Hkv, D))
+        # the serving cross-attention: a chunk's queries against the source
+        for Sq, Sk in ((AUDIO_PROMPT, S), (8, 1000)):
+            qx, kx, vx = rnd(B, Hq, Sq, D), rnd(B, Hkv, Sk, D), \
+                rnd(B, Hkv, Sk, D)
+            o, lse, _ = fa.flash_attention(qx, kx, vx, causal=False)
+            o_r, lse_r = ref.attention(qx, kx, vx, causal=False, q_offset=0,
+                                       return_lse=True)
+            err = max_err(torch, o, o_r, f"flash_attention {tag} Sq {Sq} Sk "
+                          f"{Sk} {dtype}", tol)
+            max_err(torch, lse, lse_r, f"flash_attention lse {tag} Sq {Sq} "
+                    f"Sk {Sk} {dtype}", tol)
+            if bf16:
+                fwd_ops, _, io = flash_work(qx, kx, vx, causal=False)
+                record("flash_attention",
+                       "cross_chunk" if Sq == AUDIO_PROMPT else "cross_short",
+                       f"q {B}x{Hq}x{Sq}x{D} kv {B}x{Hkv}x{Sk}x{D} "
+                       f"non-causal", err,
+                       lambda a=(qx, kx, vx): fa.flash_attention(
+                           *a, causal=False),
+                       lambda a=(qx, kx, vx): ref.attention(
+                           *a, causal=False, q_offset=0, return_lse=True),
+                       lambda a=(qx, kx, vx): sdpa(*a),
+                       nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(),
+                       ops=fwd_ops)
+            del qx, kx, vx, o, lse, o_r, lse_r
+        del q, k, v
+        torch.cuda.empty_cache()
+        # the flash pair at the training shape: the encoder and the
+        # training cross-attention
+        Bt, St = (4, 2048) if bf16 else (1, 2048)
+        q, k, v, do = rnd(Bt, Hq, St, D), rnd(Bt, Hkv, St, D), \
+            rnd(Bt, Hkv, St, D), rnd(Bt, Hq, St, D)
+        o, lse, _ = fa.flash_attention(q, k, v, causal=False)
+        o_r, lse_r = ref.attention(q, k, v, causal=False, q_offset=0,
+                                   return_lse=True)
+        ferr = max_err(torch, o, o_r, f"flash_attention {tag} {dtype}", tol)
+        max_err(torch, lse, lse_r, f"flash_attention lse {tag} {dtype}", tol)
+        o32, terr = training_forward(torch, q, k, v, o, lse,
+                                     f"flash_attention {tag} {dtype}", tol,
+                                     causal=False)
+        o_r = o_r.float()
+        grads = fa.flash_attention_backward(q, k, v, o_r, lse_r, do,
+                                            causal=False)
+        if bf16:
+            berr = flash_backward_errs(torch, grads, (q, k, v, o_r, lse_r,
+                                                      do), tag, causal=False)
+        else:
+            berr = max(max_err(torch, g, w, f"flash_attention_backward {n} "
+                               f"{tag} f32", tol)
+                       for n, g, w in zip(("dq", "dk", "dv"), grads,
+                                          ref.attention_backward(
+                                              q, k, v, o_r, lse_r, do,
+                                              causal=False, q_offset=0)))
+        again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do,
+                                            causal=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"flash_attention_backward {tag} {dtype}: two launches "
+                 f"differ")
+        del o_r, lse_r, grads, again
+        if bf16:
+            shape = f"q {Bt}x{Hq}x{St}x{D} kv {Bt}x{Hkv}x{St}x{D} non-causal"
+            fwd_ops, bwd_ops, io = flash_work(q, k, v, causal=False)
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out = sdpa(qq, kk, vv)
+            fwd = record(
+                "flash_attention", "main", shape, ferr,
+                lambda: fa.flash_attention(q, k, v, causal=False),
+                lambda: ref.attention(q, k, v, causal=False, q_offset=0,
+                                      return_lse=True),
+                lambda: sdpa(q, k, v),
+                nbytes=io + 2.0 * o.numel() + 4.0 * lse.numel(), ops=fwd_ops)
+            # training's forward: o also in f32 for the backward's delta
+            fe = by_name["flash_attention"]
+            timed["flash_attention"]["training"] = train = \
+                record_training_forward(torch, flush, fe, shape, terr, q, k,
+                                        v, o, lse, lambda: sdpa(q, k, v),
+                                        causal=False)
+            fe["max_abs_err"] = max(fe["max_abs_err"], terr)
+            bwd = record(
+                "flash_attention_backward", "main", shape, berr,
+                lambda: fa.flash_attention_backward(q, k, v, o32, lse, do,
+                                                    causal=False),
+                lambda: ref.attention_backward(q, k, v, o32, lse, do,
+                                               causal=False, q_offset=0),
+                lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                            retain_graph=True),
+                nbytes=2 * io + 6.0 * o.numel() + 4.0 * lse.numel(),
+                ops=bwd_ops)
+            for name, t_, ops in (("flash_attention", fwd, fwd_ops),
+                                  ("flash_attention training", train,
+                                   fwd_ops),
+                                  ("flash_attention_backward", bwd,
+                                   bwd_ops)):
+                log(f"[audio-kernels] {name} {shape}: "
+                    f"{ops / t_['ms'] / 1e9:.1f} TFLOP/s, "
+                    f"{100 * t_['bound_ms'] / t_['ms']:.1f}% of its bound, "
+                    f"{t_['ms'] / t_['library_ms']:.2f}x SDPA")
+            del qq, kk, vv, out
+        log(f"[audio-kernels] {dtype}: decode (S 1024, 1000), chunk (T "
+            f"{AUDIO_PROMPT}, 8), flash forward (Sq {AUDIO_PROMPT} / 8 "
+            f"against Sk 1024 / 1000, and Sq = Sk = {St}) and backward "
+            f"(dq/dk/dv at {Bt}x{Hq}x{St}x{D}) within {tol}")
+        del q, k, v, do, o, lse, o32
+        torch.cuda.empty_cache()
+    # the sub-entry: the main shape's numbers, the other shapes keyed
+    for name, subs in timed.items():
+        by_name[name][AUDIO_KEY] = dict(
+            subs.pop("main"), **subs)
+    key, d = AUDIO_WIDTH
+    check_width(torch, entries, key, d, AUDIO_ARCH, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"[audio-kernels] phase 3h: {time.monotonic() - t_phase:.1f}s")
+
+
+def audio_inputs(torch, cfg, seed: int = 29):
+    """Seeded frames [AUDIO_ROWS, AUDIO_SRC, frontend_dim] f32, the
+    decoder prompt [AUDIO_ROWS, AUDIO_PROMPT] (0 past each row's valid
+    length), the continuation [AUDIO_ROWS, AUDIO_CONT] and the valid
+    lengths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = AUDIO_ROWS
+    frames = torch.randn((B, AUDIO_SRC, cfg.frontend_dim), generator=gen,
+                         device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, B, AUDIO_PROMPT), generator=gen,
+                         device=dev, dtype=torch.int32)
+    valid = torch.tensor(AUDIO_VALID, dtype=torch.int32, device=dev)
+    prompt = toks[0] * (torch.arange(AUDIO_PROMPT, device=dev)[None, :]
+                        < valid[:, None])
+    return frames, prompt.contiguous(), \
+        toks[1, :, :AUDIO_CONT].contiguous(), valid
+
+
+def audio_sequence(torch, model, params, inputs, ticks: int):
+    """The enc-dec's served sequence through the model API: the frames
+    encoded and the bucket-padded prompt prefilled in one forward_chunk,
+    the continuation without frames, `ticks` greedy decode ticks at
+    per-row offsets.  Returns (logits of the prefill, of the continuation
+    and of the first tick, the greedy tokens [B, 1 + ticks], prefill ms,
+    decode ms)."""
+    frames, prompt, cont, valid = inputs
+    B = prompt.shape[0]
+    cache = model.init_cache(B, AUDIO_MAX_LEN, src_len=frames.shape[1])
+    zero = torch.zeros(B, dtype=torch.int32, device=prompt.device)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    l0, cache, _ = model.forward_chunk(params, prompt, None, cache, zero,
+                                       valid, frames=frames)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    l1, cache, _ = model.forward_chunk(params, cont, None, cache, valid)
+    at = valid + cont.shape[1]
+    tok = torch.argmax(l1, dim=-1).to(torch.int32)
+    out, first = [tok], None
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(ticks):
+        logits, cache, _ = model.decode_step(params, tok, None, cache, at)
+        first = logits if first is None else first
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        at = at + 1
+    torch.cuda.synchronize()
+    decode_ms = (time.monotonic() - t0) * 1e3
+    return (l0.float(), l1.float(), first.float()), torch.stack(out, 1), \
+        prefill_ms, decode_ms
+
+
+def audio_serve_phase(torch):
+    """Phase 18: seamless-m4t-large-v2 at its published widths and all 24
+    + 24 layers, bf16, served through the model API (audio_sequence; the
+    engine's clients send token prompts only).  The launch counters are
+    set to 0 just before and read just after the sequence and must be
+    exactly the model's: rmsnorm 2 x 24 + 1 for the encoder and 3 x 24 + 1
+    a decoder forward, flash attention once a layer of the encoder and
+    once a decoder layer of each T > 1 chunk (the cross-attention), chunk
+    attention once a decoder layer of each chunk, decode attention twice a
+    decoder layer a tick (self and cross); prefill ms, decode tok/s, peak
+    memory and, in a torch.profiler window over a shorter sequence, the
+    card's busy share; then the logits of the prefill, the continuation
+    and the first tick, kernels vs plain, in f32 (held to each other) and
+    bf16 (check_precisions); and rows AUDIO_ALONE served alone give the
+    tokens they get in the batch (f32, kernels; the bf16 count logged).
+    Returns (launch counts, stats)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    t_phase = time.monotonic()
+    release(torch)
+    cfg = get_config(AUDIO_ARCH)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    inputs = audio_inputs(torch, cfg)
+    log(f"[seamless-serve] {cfg.name} at all {cfg.enc_layers} + "
+        f"{cfg.dec_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} q / "
+        f"{cfg.n_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}): {n_params / 1e9:.3f}B params; {AUDIO_ROWS} "
+        f"rows of {AUDIO_SRC} frames x {cfg.frontend_dim} + a prompt "
+        f"bucket-padded to {AUDIO_PROMPT} at valid {AUDIO_VALID}, a "
+        f"{AUDIO_CONT}-token continuation, {AUDIO_TICKS} decode ticks")
+    audio_sequence(torch, model, params, inputs, ticks=2)       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    _, toks, prefill_ms, decode_ms = audio_sequence(torch, model, params,
+                                                    inputs, ticks=AUDIO_TICKS)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    Le, Ld = cfg.enc_layers, cfg.dec_layers
+    want = {"rmsnorm": 2 * Le + 1 + (3 * Ld + 1) * (2 + AUDIO_TICKS),
+            "flash_attention": Le + 2 * Ld, "chunk_attention": 2 * Ld,
+            "decode_attention": 2 * Ld * AUDIO_TICKS,
+            "flash_attention_backward": 0, "chunk_attention_paged": 0,
+            "decode_attention_paged": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"seamless-serve: launch counts {counts}, want {want}")
+    if not ((0 <= toks) & (toks < cfg.vocab)).all():
+        fail("seamless-serve: a greedy token is out of the vocabulary")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.monotonic()
+        audio_sequence(torch, model, params, inputs, ticks=8)
+        wall_us = (time.monotonic() - t0) * 1e6
+    rows, busy = breakdown(p, wall_us, "seamless-profile",
+                           "prefill, continuation and 8 ticks")
+    stats = {"prefill_ms": prefill_ms,
+             "decode_tok_s": AUDIO_ROWS * AUDIO_TICKS / (decode_ms / 1e3),
+             "peak_gb": peak_gb, "busy": busy / wall_us}
+    log(f"[seamless-serve] prefill (encode {AUDIO_SRC} frames + "
+        f"{AUDIO_PROMPT} tokens) x {AUDIO_ROWS} rows {prefill_ms:.1f} ms, "
+        f"{AUDIO_TICKS} decode ticks {decode_ms:.1f} ms "
+        f"({stats['decode_tok_s']:.1f} tok/s, {decode_ms / AUDIO_TICKS:.2f} "
+        f"ms a tick); peak memory {peak_gb:.1f} GB; busy "
+        f"{100 * stats['busy']:.1f}%; launches {json.dumps(counts)}")
+    bf16_alone = []
+    for r in AUDIO_ALONE:
+        alone = audio_sequence(torch, model, params,
+                               tuple(x[r:r + 1] for x in inputs),
+                               ticks=AUDIO_TICKS)[1]
+        bf16_alone.append(int((alone[0] == toks[r]).sum()))
+    log(f"[seamless-serve] bf16 rows {list(AUDIO_ALONE)} alone: "
+        f"{bf16_alone} of {toks.shape[1]} tokens equal their batch rows' "
+        f"(logged: cuBLAS may pick other algorithms for one row, and "
+        f"bf16 greedy tokens of random weights follow rounding)")
+    del params, model, p, rows
+    release(torch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    out = {}
+    for c in (cfg, cfg32):
+        params = build_model(c, device="cuda").init(0)
+        for impl in ("kernel", "ref"):
+            m = build_model(c, impl=impl, device="cuda")
+            f32_kernels = c is cfg32 and impl == "kernel"
+            res = audio_sequence(torch, m, params, inputs,
+                                 ticks=AUDIO_TICKS if f32_kernels else 1)
+            out[c.param_dtype, impl] = res[0]
+            if f32_kernels:
+                for r in AUDIO_ALONE:
+                    alone = audio_sequence(
+                        torch, m, params, tuple(x[r:r + 1] for x in inputs),
+                        ticks=AUDIO_TICKS)
+                    if not torch.equal(alone[1][0], res[1][r]):
+                        fail(f"seamless-serve: row {r} alone gives other "
+                             f"tokens than in its batch (f32): "
+                             f"{alone[1][0].tolist()} against "
+                             f"{res[1][r].tolist()}")
+                log(f"[seamless-serve] f32 kernels: rows {list(AUDIO_ALONE)}"
+                    f" served alone give the {res[1].shape[1]} tokens of "
+                    f"their batch rows")
+            del m, res
+        del params
+        release(torch)
+    check_precisions(torch, "seamless-logits", (AUDIO_ROWS, cfg.vocab),
+                     out["bfloat16", "kernel"], out["bfloat16", "ref"],
+                     out["float32", "kernel"], out["float32", "ref"],
+                     whats=(f"prefill {AUDIO_SRC} frames + {AUDIO_PROMPT} "
+                            f"tokens", "continuation without frames",
+                            "first decode tick"))
+    log(f"[seamless-serve] phase 18: {time.monotonic() - t_phase:.1f}s")
+    return counts, stats
+
+
+def audio_model_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's; no recompute counted) of the
+    enc-dec on B rows of S frames and S tokens, as its static-cost edges
+    register them: per position and encoder layer the attention
+    projections, non-causal attention (4 head_dim S a head) and the MLP;
+    per position and decoder layer the self-attention (causal: 4 head_dim
+    S/2 a head), the cross-attention (its qkv_proj counted at the query
+    length, as the reference registers it; non-causal over the S source
+    rows) and the MLP; the lm head.  The frontend projection registers no
+    cost (audio_frontend_flops)."""
+    d, h = cfg.d_model, cfg.head_dim_
+    proj = 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h \
+        + 2 * cfg.n_heads * h * d
+    mlp = 2 * (3 if cfg.mlp_gated else 2) * d * cfg.d_ff
+    attn = 4 * cfg.n_heads * h * S
+    enc = proj + attn + mlp
+    dec = 2 * proj + attn / 2 + attn + mlp
+    return 3.0 * B * S * (cfg.enc_layers * enc + cfg.dec_layers * dec
+                          + 2 * d * cfg.vocab)
+
+
+def audio_frontend_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's) of the frames' projection, which
+    registers no static cost: 2 frontend_dim d a frame."""
+    return 3.0 * 2 * cfg.frontend_dim * cfg.d_model * B * S
+
+
+def audio_train_phase(torch):
+    """Phase 18b: seamless-m4t-large-v2 at its published widths and all
+    24 + 24 layers, batch AUDIO_TRAIN_SHAPE (2048 frames of 1024 features
+    and 2048 tokens a row), AUDIO_TRAIN_STEPS steps through cut_train_phase
+    (the flash pair non-causal in the encoder and the cross-attention,
+    causal in the decoder; MFU held to the static costs and adds the
+    frontend projection, which registers none; peak memory); then
+    grads_precision_check with frontend/w and the cross-attention's and
+    the encoder's leaves among the leaves.  Returns (launch counts, stats)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(AUDIO_ARCH)
+    out = cut_train_phase(torch, cfg, "seamless-train", 18, AUDIO_TRAIN_SHAPE,
+                          AUDIO_TRAIN_STEPS, flops=audio_model_flops,
+                          unregistered=audio_frontend_flops)
+    t0 = time.monotonic()
+    grads_precision_check(torch, cfg, "seamless-grads", require=(
+        "frontend/w", "enc_stack/stack/attn/wq",
+        "dec_stack/stack/cross/attn/wk"))
+    log(f"[seamless-grads] {time.monotonic() - t0:.1f}s")
+    return out
+
+
+# ------------------------------------------------------------------ ssm ----
+XLSTM_ARCH = "xlstm_1_3b"
+#: phase 19b: xlstm trained with the super-blocks rematerialized whole
+#: (remat "full"): under the config's dots_saveable every chunk's [B, H,
+#: 1024, 1024] f32 state product counts as a matmul output and is kept,
+#: ~1.07 GB a mLSTM layer at 4 x 2048, ~45 GB over 42 layers.  Its batch
+#: is cut from 4 x 2048 to 4 x 1024 for the run's time: a step is bound
+#: by the host's eager launches of the sLSTM loop (4 x 2048: 22.6 s a
+#: step, NVIDIA H100 80GB HBM3, 700.00 W)
+XLSTM_TRAIN_STEPS = 3
+XLSTM_TRAIN_SHAPE = (4, 1024)
+XLSTM_TRAIN_REMAT = "full"
+#: phase 19b's gradient check, held to the fixed limits of the other
+#: models (f32: HYBRID_LOSS_TOL, HYBRID_GRAD_TOL; bf16: HYBRID_BF16_RATIO)
+#: at the published widths and a cut depth: XLSTM_GRAD_LAYERS blocks (one
+#: super-block of 7 mLSTM + 1 sLSTM) at batch XLSTM_GRAD_SHAPE.  At random
+#: weights xLSTM's gradients move with the last bit of its norms, the
+#: more the deeper the model: at 1 x 256 a one-ulp move of every norm
+#: scale moves the plain f32 gradient under 1e-4 at 8 blocks and ~1e-1
+#: at all 48 (this phase logs both), so at full depth no fixed limit
+#: tells a right gradient from a wrong one
+#: (tests/test_torch_xlstm.py: the reference's gradients move as much).
+#: At the cut that move must stay below HYBRID_GRAD_TOL (checked); the
+#: full depth's readings are logged beside it
+XLSTM_GRAD_LAYERS = 8
+XLSTM_GRAD_SHAPE = (1, 256)
+#: phase 19's chunk-width check: a prompt of 512 tokens a row whole, then
+#: in four chunks that are no chunk multiple
+XLSTM_SPLIT = (100, 200, 150, 62)
+
+
+def xlstm_dims(cfg):
+    """(mLSTM blocks, sLSTM blocks, mLSTM inner width, head width)."""
+    n_s = cfg.n_layers // cfg.slstm_every
+    di = int(cfg.d_model * cfg.mlstm_proj_factor)
+    return cfg.n_layers - n_s, n_s, di, di // cfg.n_heads
+
+
+def xlstm_model_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's) of xLSTM on B rows of S tokens,
+    as its static-cost edges register them: per position each mLSTM
+    block's projections (up, q/k/v per head, gates, down) and each sLSTM
+    block's input and recurrent products, and the lm head."""
+    d, H = cfg.d_model, cfg.n_heads
+    n_m, n_s, di, ph = xlstm_dims(cfg)
+    mlstm = 2 * (d * 2 * di + 3 * di * ph + d * 2 * H + di * d)
+    slstm = 2 * (4 * d * d + 4 * d * d / H)
+    return 3.0 * B * S * (n_m * mlstm + n_s * slstm + 2 * d * cfg.vocab)
+
+
+def xlstm_unregistered_flops(cfg, B: int, S: int) -> float:
+    """Training FLOPs (3x the forward's) that register no static cost, as
+    in the reference: each mLSTM cell's chunkwise products (per position
+    and head q k^T and (w . s) v over the chunk, 4 chunk ph, and the
+    state's C q and v k^T, 4 ph^2) and each sLSTM block's gated FFN (3
+    products of d x 4d/3)."""
+    d, H = cfg.d_model, cfg.n_heads
+    n_m, n_s, di, ph = xlstm_dims(cfg)
+    chunk = min(cfg.ssm_chunk, S)
+    cell = H * (4 * chunk * ph + 4 * ph * ph)
+    ffn = 2 * 3 * d * int(d * 4 / 3)
+    return 3.0 * B * S * (n_m * cell + n_s * ffn)
+
+
+def xlstm_chunk_check(torch):
+    """Phase 19a: full-width xlstm-1.3b in f32 (rmsnorm kernels): a
+    512-token prompt a row (4 rows) whole, then as chunks XLSTM_SPLIT
+    (bucket-padded to 256 under valid): the relative L2 of the logits and
+    of the carried state, mLSTM (C, n, m) and sLSTM (c, n, m, h), within
+    HYBRID_F32_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, impl="kernel", device="cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    B, T = 4, sum(XLSTM_SPLIT)
+    toks = torch.randint(0, cfg.vocab, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lw, whole, _ = model.prefill(params, {"tokens": toks}, None,
+                                 model.init_cache(B, 0))
+    cache, at = model.init_cache(B, 0), 0
+    for n in XLSTM_SPLIT:
+        chunk = torch.zeros((B, 256), dtype=torch.int32, device="cuda")
+        chunk[:, :n] = toks[:, at:at + n]
+        lc, cache, _ = model.forward_chunk(
+            params, chunk, None, cache, at,
+            torch.full((B,), n, dtype=torch.int32, device="cuda"))
+        at += n
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    errs = {"logits": rel(lc.float(), lw.float())}
+    for g in ("mlstm", "slstm"):
+        for k in whole[g]:
+            errs[f"{g}.{k}"] = rel(cache[g][k], whole[g][k])
+    log(f"[xlstm] {cfg.name} f32, {B} rows of {T} tokens whole vs chunks "
+        f"{list(XLSTM_SPLIT)} (each bucket-padded to 256 under valid): "
+        f"relative L2 {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+        f" (tolerance {HYBRID_F32_TOL})")
+    if not all(math.isfinite(v) and v <= HYBRID_F32_TOL
+               for v in errs.values()):
+        fail(f"xlstm: the chunked prompt's logits or state differ from the "
+             f"whole prompt's: {errs}")
+    del params, model, whole, cache
+    release(torch)
+
+
+def xlstm_serve_phase(torch):
+    """Phase 19: xlstm-1.3b at its published widths and all 48 blocks
+    (6 super-blocks of 7 mLSTM + 1 sLSTM), bf16: the chunk-width check
+    (xlstm_chunk_check), then the 16 requests of phase 5 through the
+    engine's contiguous recurrent state (serve_run: rmsnorm the only
+    kernel, 2 n_super + n_mLSTM + 1 launches a forward), with tok/s, TTFT,
+    decode gap and peak memory.  Returns (launch counts, stats)."""
+    t_phase = time.monotonic()
+    release(torch)
+    xlstm_chunk_check(torch)
+    torch.cuda.reset_peak_memory_stats()
+    engine, done, counts, stats, _ = serve_run(torch, "xlstm-serve",
+                                               arch=XLSTM_ARCH)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[xlstm-serve] peak memory {stats['peak_gb']:.1f} GB; phase 19 "
+        f"serve: {time.monotonic() - t_phase:.1f}s")
+    del engine, done
+    release(torch)
+    return counts, stats
+
+
+def grad_spread(torch, cfg16, tag: str, shape) -> dict:
+    """How far xLSTM's gradients move, logged: one loss_fn + backward of
+    `cfg16` at batch `shape`, and per leaf the relative L2 from the f32
+    plain gradient of the f32 kernels' gradient, of the f32 plain one when
+    every norm scale moves by one f32 ulp (seeded signs), and of the bf16
+    plain and kernel gradients.  Returns the largest of each over the
+    leaves."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import value_and_grad
+    from repro_torch.tree import leaves_with_path, map_with_path
+
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S = shape
+    batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def moved(path, t):
+        if "norm" not in path:
+            return t
+        inf = torch.full_like(t, math.inf)
+        up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+        return torch.nextafter(t, torch.where(up, inf, -inf))
+
+    def grads(cfg, impl, params):
+        model = build_model(cfg, impl=impl, device="cuda")
+        g = value_and_grad(model, params, batch, None)[3]
+        return {n: v.float() for n, v in leaves_with_path(g)}
+
+    p32 = build_model(cfg32, device="cuda").init(0)
+    want = grads(cfg32, "ref", p32)
+    runs = {"f32 kernels": grads(cfg32, "kernel", p32),
+            "f32 plain with the norms moved one ulp": grads(
+                cfg32, "ref", map_with_path(moved, p32))}
+    del p32
+    p16 = build_model(cfg16, device="cuda").init(0)
+    runs["bf16 plain"] = grads(cfg16, "ref", p16)
+    runs["bf16 kernels"] = grads(cfg16, "kernel", p16)
+    del p16
+    worst = {}
+    for what, g in runs.items():
+        d = [((g[n] - w).norm() / w.norm()).item() for n, w in want.items()]
+        worst[what] = max(d)
+        log(f"[{tag}] {cfg16.n_layers} blocks, batch {B} x {S}: {what}, "
+            f"relative L2 from the f32 plain gradient {min(d):.3e}.."
+            f"{max(d):.3e} over {len(d)} leaves")
+    del runs, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def xlstm_train_phase(torch):
+    """Phase 19b: xlstm-1.3b at its published widths and all 48 blocks,
+    batch XLSTM_TRAIN_SHAPE, XLSTM_TRAIN_STEPS steps through
+    cut_train_phase at remat XLSTM_TRAIN_REMAT (rmsnorm and its backward
+    the only kernels; MFU held to the static costs, plus the cells'
+    chunkwise products and the sLSTM FFN, which register none; the
+    no profiled step); then grads_precision_check at XLSTM_GRAD_LAYERS
+    blocks and XLSTM_GRAD_SHAPE, where a one-ulp move of the norms must
+    move the plain f32 gradient less than HYBRID_GRAD_TOL, with the full
+    depth's readings logged (grad_spread).  Returns (launch counts,
+    stats)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH),
+                              remat=XLSTM_TRAIN_REMAT)
+    out = cut_train_phase(torch, cfg, "xlstm-train", 19, XLSTM_TRAIN_SHAPE,
+                          XLSTM_TRAIN_STEPS, flops=xlstm_model_flops,
+                          unregistered=xlstm_unregistered_flops,
+                          kernels=("rmsnorm", "rmsnorm_backward"),
+                          profile=False)
+    t0 = time.monotonic()
+    grad_spread(torch, cfg, "xlstm-grads", XLSTM_GRAD_SHAPE)
+    cut = dataclasses.replace(cfg, n_layers=XLSTM_GRAD_LAYERS)
+    moved = grad_spread(torch, cut, "xlstm-grads", XLSTM_GRAD_SHAPE)[
+        "f32 plain with the norms moved one ulp"]
+    if moved >= HYBRID_GRAD_TOL:
+        fail(f"xlstm-grads: at {XLSTM_GRAD_LAYERS} blocks a one-ulp move of "
+             f"the norms moves the plain gradient {moved:.3e}, not below "
+             f"the check's limit {HYBRID_GRAD_TOL}")
+    grads_precision_check(torch, cut, "xlstm-grads", require=(
+        "stack_mlstm/stack/mlstm/w_q", "stack_slstm/stack/slstm/r_i"),
+        shape=XLSTM_GRAD_SHAPE)
+    log(f"[xlstm-grads] {time.monotonic() - t0:.1f}s")
+    return out
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
@@ -4423,7 +5321,10 @@ DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("deepseek train", "mla-train/prof"),
              ("granite serve", "granite-serve"),
              ("granite train", "granite-train/prof"),
-             ("internvl train", "internvl-train/prof"))
+             ("internvl train", "internvl-train/prof"),
+             ("seamless train", "seamless-train/prof"),
+             ("xlstm serve", "xlstm-serve"),
+             ("xlstm train", "xlstm-train/prof"))
 #: the MoE train dirs whose report must show the device group: their
 #: (config, batch shape, steps)
 DEVICE_GROUPS = {
@@ -4583,8 +5484,9 @@ def fleet_check(torch):
 
 
 def diagnose_phase(torch):
-    """Phase 9: diagnose the profile dirs of phases 5, 6, 8 and 10 with
-    the port's CLI, then stream a serve and a train run to a collector."""
+    """Phase 9: diagnose the profile dirs that the serve and train phases
+    kept (DIAGNOSED) with the port's CLI, then stream a serve and a train
+    run to a collector."""
     t0 = time.monotonic()
     for what, rel in DIAGNOSED:
         d = RUN_ROOT / rel

@@ -63,7 +63,7 @@ SIGNATURES = {
         + (_F, _I, _P),
     },
     "flash_attention": {
-        "flash_attention_fwd_launch": (_P, _P, _P, _P, _P,
+        "flash_attention_fwd_launch": (_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I,
                                        _F, _F, _I, _P),
         "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

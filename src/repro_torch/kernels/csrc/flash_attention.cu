@@ -81,9 +81,18 @@
 // f32 after the product (never rounded into q; any sm_scale), together
 // with log2(e): scores are kept in log2 units, so p = exp2(s - m) costs
 // one subtraction and one ex2 per entry.  bf16 rounding enters at the
-// operands (the inputs are bf16), at P before the P V product (as
-// FlashAttention-2/3 do), at P and dS before the dV, dK and dQ
-// products, and at the outputs.  P's rounding is unbiased with a
+// operands (the inputs are bf16), at P before the P V product, at P and
+// dS before the dV, dK and dQ products (as FlashAttention-2/3 do), and
+// at the outputs, but never at O where delta reads it: a row's dS =
+// P (dP - delta) sums to zero over its columns only if delta =
+// rowsum(dO O) is sum_k P_k dP_k, and where the K rows share a large
+// common component -- a cross-attention's K from an encoder whose
+// near-uniform attention adds one vector to every position -- the
+// residue that O's rounding leaves, times that component, can dwarf dQ
+// and the weight gradients after it (seamless's cross-attention wq and
+// wk gradients 5.9x further from f32 than the plain bf16 path's, NVIDIA
+// H100 80GB HBM3, 700 W).  So training's forward (kKeepF32) also writes
+// O in f32 before its rounding, and delta reads that.  P's rounding is unbiased with a
 // relative error of at most 2^-9 per entry, so a row that spreads its
 // weight over n columns gains an error of about 2^-9 |v| / sqrt(n) in o,
 // under the one bf16 ulp (2^-8 relative) of the output's own rounding;
@@ -328,18 +337,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // --------------------------------------------------------- backward: delta ----
-// delta[row] = sum_d dO[row, d] * O[row, d], one thread per row.
+// delta[row] = sum_d dO[row, d] * O[row, d], one thread per row, from O
+// in f32: under bf16 the forward's o before its rounding.  A row's dS =
+// P (dP - delta) sums to zero over its columns only if delta is
+// sum_k P_k dP_k; O rounded to bf16 moves delta by up to ~2^-9 |dO| |O|,
+// and that error times the attention-weighted mean of the K rows enters
+// every dQ entry (and dK through Q), which can dwarf dQ where the K rows
+// share a large common component.
 template <typename T, int D>
-__global__ void flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+__global__ void flash_delta_kernel(const float* __restrict__ o, const T* __restrict__ dout,
                                    float* __restrict__ delta, long long rows) {
-  constexpr int V = rt::Vec<T>::n;
+  constexpr int V = rt::Vec<T>::n;   // 8 bf16 or 4 f32: dO's 16-byte loads
   const long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   float sum = 0.f;
 #pragma unroll
   for (int c = 0; c < D; c += V) {
     float a[V], g[V];
-    rt::load_vec(o + row * D + c, a);
+#pragma unroll
+    for (int j = 0; j < V; j += 4) rt::load_vec(o + row * D + c + j, a + j);
     rt::load_vec(dout + row * D + c, g);
 #pragma unroll
     for (int j = 0; j < V; ++j) sum += a[j] * g[j];
@@ -616,11 +632,13 @@ constexpr size_t fwd_smem() {   // Q tile + the K/V ring
   return kFwdM * tile_dim<D>() * sizeof(bf16) + FlashRing<D, DV>::kBytes + kAlign;
 }
 
-template <int D, int DV>
+// kKeepF32 (training, o32 given): o is also stored in f32 before its
+// rounding, for the backward's delta (see Numerics).
+template <int D, int DV, bool kKeepF32>
 __global__ void __launch_bounds__(kFwdWarps * 32, tile_dim<D>() <= 64 ? 2 : 1)
 fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-           float* __restrict__ lse, Problem pb) {
+           float* __restrict__ o32, float* __restrict__ lse, Problem pb) {
   constexpr int NT = kFwdWarps * 32, NS = kBN / 8, DT = tile_dim<D>(), DVT = tile_dim<DV>();
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(aligned_smem(tc_smem));
@@ -700,6 +718,20 @@ fwd_kernel(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
   acc_to_tile<DVT, kFwdM>(q_s, warp * 16, acc, inv[0], inv[1]);
   __syncwarp();
   store_rows<DVT, kFwdM, DV>(q_s, o, warp * 16, nrows, q_of);
+  if constexpr (kKeepF32) {   // o before its rounding, for the backward's delta
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rw + 8 * i >= nrows) continue;
+      float* dst = o32 + q_of(rw + 8 * i) * DV;
+#pragma unroll
+      for (int n = 0; n < DVT / 8; ++n) {
+        const int c = n * 8 + (lane & 3) * 2;
+        if (c < DV)
+          *reinterpret_cast<float2*>(dst + c) =
+              make_float2(acc[n][2 * i] * inv[i], acc[n][2 * i + 1] * inv[i]);
+      }
+    }
+  }
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -974,19 +1006,22 @@ cudaError_t bwd_f32(const float* q, const float* k, const float* v, const float*
 // bf16: the tensor-core kernels.  Grid x: (b, kv head); y: tiles, which
 // each kernel walks longest first.
 template <int D, int DV>
-cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                     const Problem& pb, cudaStream_t s) {
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, float* o32,
+                     float* lse, int B, const Problem& pb, cudaStream_t s) {
   using tc::bf16;
   CUtensorMap tk, tv;
   const cudaError_t err =
       tc::kv_maps<tc::tile_dim<D>(), tc::tile_dim<DV>()>(&tk, &tv, k, v, B * pb.hkv, pb.Sk, D, DV);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = tc::fwd_smem<D, DV>();
-  auto kernel = tc::fwd_kernel<D, DV>;
+  auto kernel = tc::fwd_kernel<D, DV, false>;
+  auto keep = tc::fwd_kernel<D, DV, true>;
   static const cudaError_t attr = rt::set_smem(kernel, smem);
-  return launch(kernel, attr, dim3(B * pb.hkv, (pb.rows() + tc::kFwdM - 1) / tc::kFwdM),
+  static const cudaError_t attr_keep = rt::set_smem(keep, smem);
+  return launch(o32 != nullptr ? keep : kernel, o32 != nullptr ? attr_keep : attr,
+                dim3(B * pb.hkv, (pb.rows() + tc::kFwdM - 1) / tc::kFwdM),
                 tc::kFwdWarps * 32, smem, s, static_cast<const bf16*>(q), tk, tv,
-                static_cast<bf16*>(o), lse, pb);
+                static_cast<bf16*>(o), o32, lse, pb);
 }
 
 template <int D, int DV>
@@ -1013,23 +1048,23 @@ cudaError_t bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 }
 
 template <int D, int DV = D>
-cudaError_t fwd_t(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-                  int B, const Problem& pb, cudaStream_t s) {
+cudaError_t fwd_t(int dtype, const void* q, const void* k, const void* v, void* o, float* o32,
+                  float* lse, int B, const Problem& pb, cudaStream_t s) {
   switch (dtype) {
-    case rt::kBF16: return fwd_bf16<D, DV>(q, k, v, o, lse, B, pb, s);
+    case rt::kBF16: return fwd_bf16<D, DV>(q, k, v, o, o32, lse, B, pb, s);
     case rt::kF32: return fwd_f32<D, DV>(q, k, v, o, lse, B, pb, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The delta pre-pass (over o's DV columns), then dK/dV and dQ.
+// The delta pre-pass (over o's DV columns, o in f32), then dK/dV and dQ.
 template <typename T, int DV, typename Bwd>
 cudaError_t bwd_typed(Bwd bwd, const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
                       void* dv, int B, const Problem& pb, cudaStream_t s) {
   const long long rows = static_cast<long long>(B) * pb.hkv * pb.rows();
   flash_delta_kernel<T, DV><<<static_cast<unsigned>((rows + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows);
+      static_cast<const float*>(o), static_cast<const T*>(dout), delta, rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return bwd(static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -1055,32 +1090,35 @@ cudaError_t bwd_t(int dtype, const void* q, const void* k, const void* v, const 
 }  // namespace
 
 // q: [B, hkv*G, Sq, D]; k: [B, hkv, Sk, D]; v: [B, hkv, Sk, Dv];
-// o: [B, hkv*G, Sq, Dv]; lse: [B, hkv*G, Sq] f32.  Head dims (D, Dv):
+// o: [B, hkv*G, Sq, Dv]; o32: null, or (bf16) o before its rounding in
+// f32, like o; lse: [B, hkv*G, Sq] f32.  Head dims (D, Dv):
 // (32, 32), (64, 64), (80, 80), (128, 128) and MLA's (192, 128).
 // causal: query t sees columns <= t + Sk - Sq.  softcap <= 0: none.
 // bf16 runs on the tensor cores, f32 on the FMA pipes.  Returns the
 // launch's CUDA error.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                          void* lse, int B, int hkv, int G, int Sq, int Sk,
-                                          int D, int Dv, int causal, float scale, float softcap,
-                                          int dtype, void* stream) {
+                                          void* o32, void* lse, int B, int hkv, int G, int Sq,
+                                          int Sk, int D, int Dv, int causal, float scale,
+                                          float softcap, int dtype, void* stream) {
   if (!valid(B, hkv, G, Sq, Sk)) return cudaSuccess;
   const Problem pb = make_problem(hkv, G, Sq, Sk, causal, scale, softcap);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (D == 192 && Dv == 128) return fwd_t<192, 128>(dtype, q, k, v, o, l, B, pb, s);
+  float* of = static_cast<float*>(o32);
+  if (D == 192 && Dv == 128) return fwd_t<192, 128>(dtype, q, k, v, o, of, l, B, pb, s);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return fwd_t<32>(dtype, q, k, v, o, l, B, pb, s);
-    case 64: return fwd_t<64>(dtype, q, k, v, o, l, B, pb, s);
-    case 80: return fwd_t<80>(dtype, q, k, v, o, l, B, pb, s);
-    case 128: return fwd_t<128>(dtype, q, k, v, o, l, B, pb, s);
+    case 32: return fwd_t<32>(dtype, q, k, v, o, of, l, B, pb, s);
+    case 64: return fwd_t<64>(dtype, q, k, v, o, of, l, B, pb, s);
+    case 80: return fwd_t<80>(dtype, q, k, v, o, of, l, B, pb, s);
+    case 128: return fwd_t<128>(dtype, q, k, v, o, of, l, B, pb, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The backward of flash_attention_fwd_launch from its inputs, o and lse:
-// dout like o; dq like q; dk like k; dv like v; delta: f32 scratch of
+// The backward of flash_attention_fwd_launch from its inputs, o in f32
+// (under bf16 its o32) and lse: dout like the forward's o; dq like q; dk
+// like k; dv like v; delta: f32 scratch of
 // B*hkv*G*Sq values.  Three launches on `stream`: the delta pre-pass,
 // dK/dV, dQ.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,

@@ -18,8 +18,8 @@ are HEAD_DIMS: equal at 32, 64, 80 and 128 (80 on the 128-column tile
 layout), and MLA training's (192, 128), where v keeps its own width: the
 reference pads v to 192 and drops o's zero columns, and o and dv here
 are that function's first 128 columns.  bf16 runs on the tensor cores
-(P and dS rounded to bf16 for their products, as FlashAttention-2 does),
-f32 on the FMA pipes in f32.
+(P and dS rounded to bf16 for their products, as FlashAttention-2 does;
+o kept in f32 for the backward's delta), f32 on the FMA pipes in f32.
 """
 
 from __future__ import annotations
@@ -69,28 +69,37 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
-                    logit_softcap: float = 0.0):
+                    logit_softcap: float = 0.0, keep_f32: bool = False):
     """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv] ->
-    (o [B, Hq, Sq, Dv] in q's dtype, lse [B, Hq, Sq] f32)."""
+    (o [B, Hq, Sq, Dv] in q's dtype, lse [B, Hq, Sq] f32, o32): o32 is
+    None, or with keep_f32 o in f32 before its rounding to q's dtype,
+    which flash_attention_backward takes."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                             logit_softcap=logit_softcap,
-                             q_offset=Sk - Sq if causal else 0,
-                             return_lse=True)
+        # the plain version computes in f32 and rounds o at its end
+        o32, lse = ref.attention(q.float(), k.float(), v.float(),
+                                 causal=causal, sm_scale=sm_scale,
+                                 logit_softcap=logit_softcap,
+                                 q_offset=Sk - Sq if causal else 0,
+                                 return_lse=True)
+        return o32.to(q.dtype), lse, o32 if keep_f32 else None
     _check("flash_attention", q, k, v)
     Hkv, Dv = k.shape[1], v.shape[-1]
     o = q.new_empty((B, Hq, Sq, Dv))
+    o32 = torch.empty_like(o, dtype=torch.float32) \
+        if keep_f32 and q.dtype != torch.float32 else None
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     err = build.load("flash_attention").flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, Hkv, Hq // Hkv, Sq, Sk, D, Dv, int(causal),
-        _scale(q, sm_scale), float(logit_softcap), DTYPES[q.dtype],
-        stream(q))
+        0 if o32 is None else o32.data_ptr(), lse.data_ptr(), B, Hkv,
+        Hq // Hkv, Sq, Sk, D, Dv, int(causal), _scale(q, sm_scale),
+        float(logit_softcap), DTYPES[q.dtype], stream(q))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return o, lse
+    if keep_f32 and o32 is None:
+        o32 = o
+    return o, lse, o32
 
 
 flash_attention.launches = 0
@@ -102,18 +111,28 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True,
                              sm_scale: Optional[float] = None,
                              logit_softcap: float = 0.0):
-    """The backward of flash_attention from its inputs, output and lse:
-    do like o -> (dq, dk, dv) like (q, k, v).  On the card: a delta
-    pre-pass, then one dK/dV kernel and one dQ kernel (no atomics; the
-    same bits on every run), counted as one launch of the backward."""
+    """The backward of flash_attention from its inputs, its output in f32
+    (its o32) and lse: do like o -> (dq, dk, dv) like (q, k, v).  delta =
+    rowsum(dO * o) is taken from o as given: only o before its rounding
+    makes each row's dS sum to zero over its columns, as the plain
+    version's autograd does.  On the card: a delta pre-pass, then one
+    dK/dV kernel and one dQ kernel (no atomics; the same bits on every
+    run), counted as one launch of the backward."""
     B, Hq, Sq, D = q.shape
     Sk = k.shape[2]
+    if o.dtype != torch.float32 or o.shape != do.shape \
+            or o.device != q.device:
+        raise ValueError(f"flash_attention_backward: o must be f32 "
+                         f"{tuple(do.shape)} on {q.device}, got {o.dtype} "
+                         f"{tuple(o.shape)} on {o.device}")
     if q.device.type == "cpu":
         return ref.attention_backward(q, k, v, o, lse, do, causal=causal,
                                       sm_scale=sm_scale,
                                       logit_softcap=logit_softcap,
                                       q_offset=Sk - Sq if causal else 0)
-    _check("flash_attention_backward", q, k, v, o, do)
+    _check("flash_attention_backward", q, k, v, do)
+    o = o.contiguous()
+    check_vectors(o.shape[-1], o)
     if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq) \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_attention_backward: lse must be contiguous "
@@ -137,14 +156,17 @@ flash_attention_backward.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose backward recomputes p from the saved
-    (q, k, v, o, lse), as the FlashAttention-2 backward does.
+    (q, k, v, o, lse), as the FlashAttention-2 backward does, with o
+    saved in f32 before its rounding.
     apply(q, k, v, causal, sm_scale, logit_softcap) -> o."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, logit_softcap):
-        o, lse = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 logit_softcap=logit_softcap)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o32 = flash_attention(q, k, v, causal=causal,
+                                      sm_scale=sm_scale,
+                                      logit_softcap=logit_softcap,
+                                      keep_f32=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.opts = dict(causal=causal, sm_scale=sm_scale,
                         logit_softcap=logit_softcap)
         return o

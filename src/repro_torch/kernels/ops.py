@@ -1,10 +1,10 @@
 """Public wrappers for the port's kernels, with impl dispatch.
 
 impl='auto'   -> the kernel wrapper: the CUDA kernel for a CUDA tensor,
-                 the plain version for a CPU tensor; `attention`, and
-                 `rmsnorm` and `ssd_scan` when a gradient is wanted, go
-                 through their autograd Functions, whose backward is a
-                 kernel too.  The kernels with no backward (decode and
+                 the plain version for a CPU tensor; `attention`,
+                 `rmsnorm` and `ssd_scan` go through their autograd
+                 Functions, whose backward is a kernel too, when a
+                 gradient is wanted.  The kernels with no backward (decode and
                  chunk attention, their paged twins and latent forms,
                  rmsnorm_add) raise
                  on a CUDA tensor when a gradient is wanted, rather than
@@ -80,6 +80,11 @@ def attention(q, k, v, *, causal: bool = True, sm_scale=None,
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
                              logit_softcap=logit_softcap,
                              q_offset=Sk - Sq if causal else 0)
+    if not _grad_wanted(q, k, v):
+        # inference: the forward kernel alone, without the f32 o that
+        # the autograd Function saves for its backward
+        return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   logit_softcap=logit_softcap)[0]
     return _fa.FlashAttention.apply(q, k, v, causal, sm_scale, logit_softcap)
 
 

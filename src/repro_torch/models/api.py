@@ -9,20 +9,25 @@
         of a training batch for a ShapeConfig (the vlm's: tokens,
         labels, mask [B, S - n_patches] and patches [B, n_patches,
         frontend_dim] f32)
-    model.init_cache(batch, max_len)            -> the serving cache: dense
-        {"k", "v"} [L,B,Hkv,S,h]; MLA {"ckv" [L,B,S,r], "krope"
-        [L,B,S,dr]}; hybrid {"ssm": {"conv", "h"}, "attn_k", "attn_v"}
-        (batch axis 1 in every leaf)
+    model.init_cache(batch, max_len[, src_len]) -> the serving cache:
+        dense {"k", "v"} [L,B,Hkv,S,h]; MLA {"ckv" [L,B,S,r], "krope"
+        [L,B,S,dr]}; hybrid {"ssm": {"conv", "h"}, "attn_k", "attn_v"};
+        audio {"k", "v", "xk", "xv"} (the cross K/V [L,B,Hkv,src_len or
+        max_len,h]); ssm {"mlstm": {"C", "n", "m"}, "slstm": {"c", "n",
+        "m", "h"}} (O(1) in max_len) (batch axis 1 in every leaf)
     model.forward_chunk(params, tokens, table, cache, pos[, valid,
-                        prefix_embeds])         -> (logits, cache, table)
+                        prefix_embeds, frames]) -> (logits, cache, table)
         THE serving entry point: tokens [B, T] written at per-slot cache
         offsets pos [B] int32, offset-causal against existing cache
         content; valid [B] masks a bucket-padded chunk.  The cache is
-        updated in place and returned.
+        updated in place and returned.  The enc-dec's frames [B, S_src,
+        frontend_dim] (the first chunk of fresh rows) are encoded and
+        written into the cross cache; later chunks read it.
     model.prefill(params, batch, table, cache)  -> (logits, cache, table)
         = forward_chunk at pos 0 over batch["tokens"]; the vlm's prefill
         projects batch["patches"] [B, P, frontend_dim] and writes them
-        before the tokens, so the cache then holds P + T rows a row
+        before the tokens, so the cache then holds P + T rows a row; the
+        enc-dec's encodes batch["frames"]
     model.project_patches(params, patches)      -> [B, P, d] (vlm; None
         elsewhere): the prefix embeddings that forward_chunk and
         forward_chunk_paged take as prefix_embeds=
@@ -38,22 +43,25 @@
         maps row b's virtual page i to arena page block_table[b, i]
         (page 0 is reserved scratch); the engine's paged pool
         (ServeConfig.max_cache_pages > 0) runs through these.  None for
-        the hybrid family, as in the reference: its recurrent state is
-        O(1) in sequence length, and the engine keeps the dense layout.
+        the hybrid, ssm and audio families, as in the reference, which
+        pages the transformer families only: the hybrid's and ssm's
+        recurrent state is O(1) in sequence length, and the engine keeps
+        the dense layout.
     model.table()                               -> the zeroed device fold
                                                    table on model.device
     model.fold_spec                             -> the frozen
                                                    DeviceFoldSpec whose
                                                    slots the family emits
 
-Ported families: "dense", "moe" (with or without multi-head latent
-attention), "hybrid" and "vlm" (the dense stack behind a patch
-projection), serving and training.  The other families ("ssm",
-"audio") raise NotImplementedError.  MLA serves through its latent
-kernels at head dim r + dr (576) and trains through the flash pair at
-q/k head dim dn + dr (192) and v head dim dv (128).  The serving engine's
-clients send token prompts only, in both packages: the vlm serves its
-patches through prefill or forward_chunk(prefix_embeds=...).
+Every family is ported, serving and training: "dense", "moe" (with or
+without multi-head latent attention), "hybrid", "vlm" (the dense stack
+behind a patch projection), "audio" (the encoder-decoder, `encdec.py`)
+and "ssm" (xLSTM, `xlstm.py`).  MLA serves through its latent kernels at
+head dim r + dr (576) and trains through the flash pair at q/k head dim
+dn + dr (192) and v head dim dv (128).  The serving engine's clients send
+token prompts only, in both packages: the vlm serves its patches through
+prefill or forward_chunk(prefix_embeds=...), the enc-dec its frames
+through prefill or forward_chunk(frames=...).
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.device_fold import DeviceFoldSpec
 from ..kernels.ops import IMPLS
-from . import mamba, transformer
+from . import encdec, mamba, transformer, xlstm
 from .layers import Runtime
 
 
@@ -105,6 +113,8 @@ class Model:
         if cfg.family == "vlm":
             spec["patches"] = ((B, cfg.n_patches, cfg.frontend_dim),
                                torch.float32)
+        if cfg.family == "audio":
+            spec["frames"] = ((B, S, cfg.frontend_dim), torch.float32)
         return spec
 
 
@@ -127,18 +137,21 @@ def _fold_spec(cfg: ModelConfig, declare) -> DeviceFoldSpec:
     return spec.freeze()
 
 
+#: the module of each family
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "hybrid": mamba, "ssm": xlstm, "audio": encdec}
+
+
 def build_model(cfg: ModelConfig, impl: str = "auto",
                 device: Optional[Union[str, torch.device]] = None) -> Model:
     """impl: 'auto' (kernels on CUDA, plain versions on the CPU),
     'kernel' or 'ref'; device: None means cuda."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     cfg = cfg.validate()
-    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (dense, "
-            f"moe, hybrid and vlm only; see ROADMAP.md)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    mod = mamba if cfg.family == "hybrid" else transformer
+    mod = FAMILIES[cfg.family]
     spec = _fold_spec(cfg, mod.declare_fold_slots)
     rt = Runtime(cfg=cfg, device=resolve_device(device), impl=impl,
                  fold_spec=spec)
@@ -149,15 +162,17 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
     def loss_fn(params, batch, table):
         return mod.loss_fn(params, batch, rt, table)
 
-    def init_cache(batch, max_len):
-        return mod.init_cache(cfg, batch, max_len, rt.device)
+    def init_cache(batch, max_len, **extra):
+        return mod.init_cache(cfg, batch, max_len, rt.device, **extra)
 
     vlm = cfg.family == "vlm"
 
     def forward_chunk(params, tokens, table, cache, pos, valid=None,
-                      prefix_embeds=None):
+                      prefix_embeds=None, frames=None):
         extra = {} if prefix_embeds is None else {
             "prefix_embeds": prefix_embeds}
+        if frames is not None:
+            extra["frames"] = frames
         return mod.forward_chunk(params, tokens, rt, table, cache, pos,
                                  valid=valid, **extra)
 
@@ -169,7 +184,8 @@ def build_model(cfg: ModelConfig, impl: str = "auto",
         if vlm:
             return mod.prefill(params, tokens, rt, table, cache,
                                project_patches(params, batch["patches"]))
-        return mod.prefill(params, tokens, rt, table, cache)
+        extra = {"frames": batch["frames"]} if "frames" in batch else {}
+        return mod.prefill(params, tokens, rt, table, cache, **extra)
 
     def decode_step(params, token, table, cache, pos):
         return mod.decode_step(params, token, rt, table, cache, pos)

@@ -189,12 +189,18 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 def attention(p: Params, x: torch.Tensor, rt: Runtime,
               positions: torch.Tensor, cache: Optional[Params] = None,
               pos: Optional[torch.Tensor] = None,
-              block_table: Optional[torch.Tensor] = None
+              block_table: Optional[torch.Tensor] = None, *,
+              kv: Optional[torch.Tensor] = None, causal: bool = True
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA/MQA (optionally qk-norm) self-attention.  x: [B, S, d].
+    """GQA/MQA (optionally qk-norm) attention.  x: [B, S, d].
 
-    Without a cache (training): causal attention over the S positions,
-    positions [S] the shared rope positions; returns (y, None).
+    Without a cache (training, the encoder): attention over the S
+    positions, causal unless `causal` is False, positions [S] the shared
+    rope positions; returns (y, None).  kv: [B, Sk, d], a cross-attention
+    source: K/V are projected from it, no rope is applied, and the
+    attention is never causal (the reference's `causal and kv is None`).
+    The qkv_proj cost counts the query length S for K/V too, as the
+    reference's does.
 
     With a cache, positioned-chunk mode: positions [B, S] per-row rope
     positions; cache: one layer's {"k", "v"} [B, Hkv, S_max, h], updated
@@ -211,23 +217,29 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     ap = p["attn"]
     B, S, d = x.shape
     h = cfg.head_dim_
+    src = x if kv is None else kv
+    Sk = src.shape[1]
     q = linear(ap["wq"], x).reshape(B, S, cfg.n_heads, h)
-    k = linear(ap["wk"], x).reshape(B, S, cfg.n_kv_heads, h)
-    v = linear(ap["wv"], x).reshape(B, S, cfg.n_kv_heads, h)
+    k = linear(ap["wk"], src).reshape(B, Sk, cfg.n_kv_heads, h)
+    v = linear(ap["wv"], src).reshape(B, Sk, cfg.n_kv_heads, h)
     annotate_cost("attention", "attention", "qkv_proj",
                   flops=2.0 * B * S * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h)
     if cfg.qk_norm:
         q = ops.rmsnorm(q, ap["q_norm"], eps=cfg.norm_eps, impl=rt.impl)
         k = ops.rmsnorm(k, ap["k_norm"], eps=cfg.norm_eps, impl=rt.impl)
-    cos, sin = rope_tables(cfg, positions, h)
-    if cos.dim() == 3:                                   # per-row positions
-        cos, sin = cos[:, None], sin[:, None]            # [B, 1, S, h/2]
-    q = apply_rope(q.transpose(1, 2), cos, sin)          # [B, Hq, S, h]
-    k = apply_rope(k.transpose(1, 2), cos, sin)
+    if kv is None:             # rope on self-attention only
+        cos, sin = rope_tables(cfg, positions, h)
+        if cos.dim() == 3:                               # per-row positions
+            cos, sin = cos[:, None], sin[:, None]        # [B, 1, S, h/2]
+        q = apply_rope(q.transpose(1, 2), cos, sin)      # [B, Hq, S, h]
+        k = apply_rope(k.transpose(1, 2), cos, sin)
+    else:
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
     v = v.transpose(1, 2)
     new_cache = None
-    if cache is None:          # training: causal over the S positions
-        o = ops.attention(q, k, v.contiguous(), causal=True, impl=rt.impl)
+    if cache is None:          # over the S positions (causal or not)
+        o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=causal and kv is None, impl=rt.impl)
     elif block_table is not None:
         # paged positioned chunk: scatter the S fresh rows through the
         # block table into the shared arena, read the row's visible

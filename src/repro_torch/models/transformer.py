@@ -117,8 +117,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     p["stack_moe"]["stack"] for the MoE family, as the reference names
     them."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"yet (dense, moe and vlm only)")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"decoder-only transformer (dense, moe, vlm)")
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": {"table": ((cfg.vocab, d), 1.0)},

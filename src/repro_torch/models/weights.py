@@ -6,7 +6,10 @@ The reference names every param leaf by its path, as
 model's `stack_moe/stack/moe/{router,w_gate,w_up,w_down}`,
 `stack_moe/stack/moe/shared/*` and `stack_dense/stack/...`; an MLA
 model's `stack_*/stack/attn/{wq,wkv_a,wkv_b,wo}`; a vlm's patch
-projection `frontend/w`), with layer leaves
+projection `frontend/w`; an enc-dec's `enc_stack/stack/...`,
+`dec_stack/stack/{attn,cross/attn,norm1..3,mlp}/...`, `enc_norm/scale`
+and `frontend/w`; an xLSTM's `stack_mlstm/stack/...` [n_super, n_m, ...]
+and `stack_slstm/stack/...` [n_super, ...]), with layer leaves
 stacked [L, ...].  `params_from_numpy` turns such a flat dict into
 the port's params; `load_reference_checkpoint` reads a reference
 checkpoint directory (`manifest.json` + `<i>.npy`).  A reference TRAIN
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from . import mamba, transformer
+from .api import FAMILIES
 from .layers import Params
 from .transformer import leaf_dtype, map_specs
 
@@ -49,10 +52,8 @@ def to_tensor(arr: Array, dtype_name: str = "") -> torch.Tensor:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The spec tree of a ported family's params."""
-    if cfg.family == "hybrid":
-        return mamba.param_specs(cfg)
-    return transformer.param_specs(cfg)
+    """The spec tree of a family's params."""
+    return FAMILIES[cfg.family].param_specs(cfg)
 
 
 def params_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,

@@ -99,6 +99,7 @@ def test_rmsnorm_kernel_rows(dtype, shape):
     (4, 48, 1, 2048, 128),     # granite's decode tick: MQA, G 48 (3 blocks)
     (4, 14, 2, 2048, 64),      # internvl's decode tick: G 7
     (4, 36, 4, 2048, 128),     # starcoder2's decode tick: G 9 (2 blocks)
+    (4, 16, 16, 256, 64),      # seamless's decoder self-attention: G 1
 ])
 def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     rng = np.random.default_rng(1)
@@ -133,6 +134,7 @@ def test_decode_attention_kernel(dtype, B, Hq, Hkv, S, D):
     (2, 14, 2, 512, 2048, 64),   # internvl's prefill chunk: G 7
     (2, 14, 2, 8, 2048, 64),     # internvl's short chunk
     (2, 36, 4, 512, 2048, 128),  # starcoder2's prefill chunk: G 9
+    (2, 16, 16, 128, 256, 64),   # seamless's decoder prompt chunk: G 1
 ])
 def test_chunk_attention_kernel(dtype, B, Hq, Hkv, T, S, D):
     rng = np.random.default_rng(2)
@@ -169,6 +171,9 @@ CHUNK_CASES = [
     (4, 48, 1, 8, 2048, 128, [0, 2040, 64, 1023]),   # granite: G 48
     (4, 14, 2, 8, 2048, 64, [0, 2040, 64, 1023]),    # internvl: G 7
     (4, 36, 4, 8, 2048, 128, [0, 2040, 64, 1023]),   # starcoder2: G 9
+    # seamless's decoder self-attention: G 1, D 64, T 128 and T 8
+    (8, 16, 16, 128, 1024, 64, [0, 128, 512, 896, 7, 300, 700, 64]),
+    (4, 16, 16, 8, 1024, 64, [0, 1016, 64, 511]),
 ]
 
 
@@ -377,6 +382,28 @@ def test_decode_attention_kernel_lengths(dtype, D, G, S):
                                            return_residuals=True)
     close(o, o_r, dtype)
     assert torch.all(o[kv_len == 0] == 0)
+    close(m, m_r, torch.float32 if dtype == torch.float32 else dtype)
+    np.testing.assert_allclose(l.cpu().numpy(), l_r.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [1024, 1000])
+def test_decode_attention_cross_rows_see_the_whole_source(dtype, S):
+    """seamless's cross-attention decode: 16 q over 16 kv heads of 64
+    (G 1), every row at kv_len = S, the encoder's length (1000: no tile
+    multiple), against the plain version with the (m, l) residuals."""
+    rng = np.random.default_rng(12)
+    B, H, D = 8, 16, 64
+    q = arr(rng, B, H, D, dtype=dtype)
+    k, v = arr(rng, B, H, S, D, dtype=dtype), arr(rng, B, H, S, D,
+                                                 dtype=dtype)
+    kv_len = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    o, (m, l) = dec.decode_attention(q, k, v, kv_len=kv_len,
+                                     return_residuals=True)
+    o_r, (m_r, l_r) = ref.decode_attention(q, k, v, kv_len=kv_len,
+                                           return_residuals=True)
+    close(o, o_r, dtype)
     close(m, m_r, torch.float32 if dtype == torch.float32 else dtype)
     np.testing.assert_allclose(l.cpu().numpy(), l_r.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -974,6 +1001,13 @@ FLASH_CASES = [
     (1, 48, 1, 1024, 1024, 128, True, 0.0),   # granite's training: MQA, G 48
     (1, 14, 2, 2048, 2048, 64, True, 0.0),    # internvl's training: G 7
     (1, 14, 2, 301, 301, 64, True, 0.0),      # G 7, ragged
+    # seamless (G 1, D 64, non-causal): the encoder and the training
+    # cross-attention, a serving chunk's cross-attention against a ragged
+    # source, a short chunk against the source, Sq > Sk
+    (1, 16, 16, 2048, 2048, 64, False, 0.0),
+    (2, 16, 16, 128, 1000, 64, False, 0.0),
+    (8, 16, 16, 8, 1024, 64, False, 0.0),
+    (1, 16, 16, 300, 130, 64, False, 0.0),
 ]
 
 
@@ -991,13 +1025,20 @@ def test_flash_attention_kernel(dtype, case):
     q, k, v = flash_inputs(np.random.default_rng(7), B, Hq, Hkv, Sq, Sk, D,
                            dtype)
     before = fa.flash_attention.launches
-    o, lse = fa.flash_attention(q, k, v, causal=causal, logit_softcap=cap)
-    assert fa.flash_attention.launches == before + 1
+    o, lse, none = fa.flash_attention(q, k, v, causal=causal,
+                                      logit_softcap=cap)
+    assert fa.flash_attention.launches == before + 1 and none is None
     o_r, lse_r = ref.attention(q, k, v, causal=causal, logit_softcap=cap,
                                q_offset=Sk - Sq if causal else 0,
                                return_lse=True)
     close(o, o_r, dtype)
     close(lse, lse_r, torch.float32 if dtype == torch.float32 else dtype)
+    # training's forward: the same o and lse, and o before its rounding
+    o_t, lse_t, o32 = fa.flash_attention(q, k, v, causal=causal,
+                                         logit_softcap=cap, keep_f32=True)
+    assert torch.equal(o_t, o) and torch.equal(lse_t, lse)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(dtype), o)
+    close(o32, o_r, dtype)
     if causal and Sq > Sk:      # rows before column 0 see nothing
         assert torch.all(o[:, :, :Sq - Sk] == 0)
 
@@ -1016,13 +1057,13 @@ def test_flash_attention_backward_kernel(dtype, case):
     o, lse = ref.attention(q, k, v, q_offset=Sk - Sq if causal else 0,
                            return_lse=True, **opts)
     before = fa.flash_attention_backward.launches
-    got = fa.flash_attention_backward(q, k, v, o, lse, do, **opts)
+    got = fa.flash_attention_backward(q, k, v, o.float(), lse, do, **opts)
     assert fa.flash_attention_backward.launches == before + 1
     want = ref.attention_backward(q, k, v, o, lse, do,
                                   q_offset=Sk - Sq if causal else 0, **opts)
     for g, w in zip(got, want):
         close(g, w, dtype)
-    again = fa.flash_attention_backward(q, k, v, o, lse, do, **opts)
+    again = fa.flash_attention_backward(q, k, v, o.float(), lse, do, **opts)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -1041,6 +1082,43 @@ def test_flash_attention_function_matches_autograd():
         grads.append(torch.autograd.grad(fn(*ins), ins, do))
     for g, w in zip(*grads):
         close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("D,G", [(64, 1), (128, 4), (80, 1)])
+def test_flash_attention_bf16_grads_where_k_shares_a_component(D, G):
+    """bf16 FlashAttention (kernels both ways) on K, Q and V rows that
+    share one large component, as a cross-attention's K from an encoder:
+    dk and dv within 2x the plain bf16 path's distance from the f64
+    gradient, and dq at least 10x nearer than the backward given the
+    forward's o rounded to bf16 (delta from it leaves each row's dS
+    summing to ~2^-9 |dO| |o|, which times the K rows' component is dq's
+    error: ~1.5 relative here).  dq stays ~50x the plain path's distance:
+    o32 carries P's rounding before P V, and so delta misses sum_k P_k
+    dP_k by that rounding times the component."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    Hkv, S = 2, 512
+    common = 4.0 * rnd(1, 1, 1, D)
+    q = (0.3 * rnd(1, Hkv * G, S, D) + 0.5 * common).to(torch.bfloat16)
+    k = (0.3 * rnd(1, Hkv, S, D) + common).to(torch.bfloat16)
+    v = (rnd(1, Hkv, S, D) + common).to(torch.bfloat16)
+    do = rnd(1, Hkv * G, S, D).to(torch.bfloat16)
+    ins64 = [a.double().requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(ref.attention(*ins64, causal=False), ins64,
+                               do.double())
+    rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+    ins = [a.clone().requires_grad_() for a in (q, k, v)]
+    plain = torch.autograd.grad(ref.attention(*ins, causal=False), ins, do)
+    ins = [a.clone().requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(fa.FlashAttention.apply(*ins, False, None,
+                                                      0.0), ins, do)
+    for g, p, w in zip(got[1:], plain[1:], want[1:]):
+        assert rel(g, w) <= 2.0 * rel(p, w), (rel(g, w), rel(p, w))
+    o, lse, _ = fa.flash_attention(q, k, v, causal=False)
+    rounded = fa.flash_attention_backward(q, k, v, o.float(), lse, do,
+                                          causal=False)
+    assert 10.0 * rel(got[0], want[0]) <= rel(rounded[0], want[0])
 
 
 #: MLA training's pair: q/k head dim dn + dr = 192, v at dv = 128, G 1,
@@ -1068,19 +1146,21 @@ def test_flash_attention_mla_training_pair(dtype, case):
     v, do = arr(rng, B, H, Sk, 128, dtype=dtype), arr(rng, B, H, Sq, 128,
                                                       dtype=dtype)
     opts = dict(causal=True, sm_scale=192 ** -0.5)
-    o, lse = fa.flash_attention(q, k, v, **opts)
+    o, lse, _ = fa.flash_attention(q, k, v, **opts)
     o_r, lse_r = ref.attention(q, k, v, q_offset=Sk - Sq, return_lse=True,
                                **opts)
     assert o.shape == (B, H, Sq, 128)
     close(o, o_r, dtype)
     close(lse, lse_r, torch.float32 if dtype == torch.float32 else dtype)
-    got = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+    got = fa.flash_attention_backward(q, k, v, o_r.float(), lse_r, do,
+                                      **opts)
     want = ref.attention_backward(q, k, v, o_r, lse_r, do, q_offset=Sk - Sq,
                                   **opts)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         close(g, w, dtype)
-    again = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, **opts)
+    again = fa.flash_attention_backward(q, k, v, o_r.float(), lse_r, do,
+                                        **opts)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     before = (fa.flash_attention.launches,
@@ -1120,11 +1200,12 @@ def test_flash_attention_bf16_explicit_scale():
     rng = np.random.default_rng(11)
     q, k, v = flash_inputs(rng, 2, 16, 4, 333, 333, 64, dtype)
     do = arr(rng, 2, 16, 333, 64, dtype=dtype)
-    o, lse = fa.flash_attention(q, k, v, sm_scale=scale)
+    o, lse, _ = fa.flash_attention(q, k, v, sm_scale=scale)
     o_r, lse_r = ref.attention(q, k, v, sm_scale=scale, return_lse=True)
     close(o, o_r, dtype)
     close(lse, lse_r, dtype)
-    got = fa.flash_attention_backward(q, k, v, o_r, lse_r, do, sm_scale=scale)
+    got = fa.flash_attention_backward(q, k, v, o_r.float(), lse_r, do,
+                                      sm_scale=scale)
     want = ref.attention_backward(q, k, v, o_r, lse_r, do, sm_scale=scale)
     for g, w in zip(got, want):
         close(g, w, dtype)

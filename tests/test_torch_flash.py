@@ -79,7 +79,7 @@ def test_fully_masked_rows_give_zeros_as_the_pallas_kernel():
     """Causal Sq > Sk: the first Sq - Sk rows see no column.  They are
     zeros (lse -1e30); the other rows match the oracle."""
     q, k, v, _ = inputs(1, 1, 4, 2, 20, 12, 16)
-    o, lse = tfa.flash_attention(t(q), t(k), t(v), causal=True)
+    o, lse, _ = tfa.flash_attention(t(q), t(k), t(v), causal=True)
     assert torch.all(o[:, :, :8] == 0) and torch.all(lse[:, :, :8] == -1e30)
     want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           causal=True, q_offset=-8)
@@ -193,3 +193,46 @@ def test_kernel_wrappers_on_the_cpu_run_the_plain_versions():
     assert not any(tops.launch_counts().values())
     with pytest.raises(ValueError, match="CUDA"):
         tops.attention(t(q), t(k), t(v), impl="kernel")
+
+
+def common_component_inputs(dtype, B=1, H=2, S=256, D=64, seed=11):
+    """q, k, v, dO whose K (and Q, V) rows share one large component, as
+    a cross-attention's K from an encoder whose near-uniform attention
+    adds one vector to every position."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    common = 4.0 * rnd(1, 1, 1, D)
+    q = 0.3 * rnd(B, H, S, D) + 0.5 * common
+    k = 0.3 * rnd(B, H, S, D) + common
+    v = rnd(B, H, S, D) + common
+    return [a.to(dtype) for a in (q, k, v, rnd(B, H, S, D))]
+
+
+def test_bf16_backward_takes_delta_from_o_before_its_rounding():
+    """delta = rowsum(dO * o) from o rounded to bf16 leaves each row's dS
+    summing to ~2^-9 |dO| |o| instead of 0, and that times the K rows'
+    common component is dQ's error: 1.25 relative here.  FlashAttention
+    keeps o in f32 for its backward (flash_attention(keep_f32=True)), so
+    its bf16 gradients stay within 2x the plain bf16 path's distance from
+    the f64 ones; flash_attention_backward with the rounded o shows the
+    error it avoids."""
+    q, k, v, do = common_component_inputs(torch.bfloat16)
+    ins64 = [a.double().requires_grad_() for a in (q, k, v)]
+    want = torch.autograd.grad(tref.attention(*ins64, causal=False), ins64,
+                               do.double())
+    rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+    ins = [a.clone().requires_grad_() for a in (q, k, v)]
+    plain = torch.autograd.grad(tref.attention(*ins, causal=False), ins, do)
+    ins = [a.clone().requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(tfa.FlashAttention.apply(*ins, False, None,
+                                                       0.0), ins, do)
+    for g, p, w in zip(got, plain, want):
+        assert rel(g, w) <= 2.0 * rel(p, w), (rel(g, w), rel(p, w))
+    o, lse, o32 = tfa.flash_attention(q, k, v, causal=False, keep_f32=True)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(o.dtype), o)
+    assert tfa.flash_attention(q, k, v, causal=False)[2] is None
+    with pytest.raises(ValueError, match="o must be f32"):
+        tfa.flash_attention_backward(q, k, v, o, lse, do, causal=False)
+    rounded = tfa.flash_attention_backward(q, k, v, o.float(), lse, do,
+                                           causal=False)
+    assert rel(rounded[0], want[0]) > 0.5 > 50 * rel(got[0], want[0])

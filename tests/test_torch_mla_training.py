@@ -95,7 +95,7 @@ def test_narrow_v_forward_matches_padded_jax(Sq, Sk):
                              impl=impl)
         assert got.shape == (1, 2, Sq, DV)
         close(got, want[..., :DV], what=impl)
-    o, lse = tfa.flash_attention(t(q), t(k), t(v), sm_scale=SCALE)
+    o, lse, _ = tfa.flash_attention(t(q), t(k), t(v), sm_scale=SCALE)
     o_p, lse_p = tref.attention(t(q), t(k), torch.from_numpy(
         np.array(pad(v))), sm_scale=SCALE, q_offset=Sk - Sq,
         return_lse=True)

@@ -184,11 +184,22 @@ def test_params_from_numpy_is_strict():
 
 
 @pytest.mark.parametrize("arch", ["xlstm_1_3b", "seamless_m4t_large_v2"])
-def test_other_families_are_not_ported_yet(arch):
-    """ssm and audio are not ported: they raise rather than run as
-    another family."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(torch_smoke(arch), device="cpu")
+def test_ssm_and_audio_families_build_with_their_fold_slots(arch):
+    """The last two families build (tests/test_torch_xlstm.py and
+    tests/test_torch_encdec.py hold them to the reference); their fold
+    spec holds the trainer's slot, as the reference's."""
+    tm = build_model(torch_smoke(arch), device="cpu")
+    jm = jax_build(jax_smoke(arch), impl="ref")
+    assert [(s.key, s.offset, s.width) for s in tm.fold_spec.slots()] == \
+        [(s.key, s.offset, s.width) for s in jm.fold_spec.slots()]
+    table = tm.table()
+    assert table.shape == (jm.fold_spec.size,) and not table.any()
+
+
+def test_an_unknown_family_raises():
+    cfg = dataclasses.replace(torch_smoke("tinyllama_1_1b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build_model(cfg, device="cpu")
 
 
 def test_moe_family_builds_with_its_fold_slots():
