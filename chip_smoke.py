@@ -182,7 +182,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               runtime arguments)
   11. moe serve  phi3_5_moe_42b at its published widths, cut to
               MOE_SERVE_LAYERS of its 32 layers (the whole model does not
-              fit the card; seeded random weights, shared by the runs):
+              fit the card, and the run's time is cut for phases 20 and
+              20b; seeded random weights, shared by the runs):
               one MoE layer's forward and emits at [8, 512] and [8, 1]
               under torch.cuda.set_sync_debug_mode("error"); the 16
               requests of phase 5 contiguous, then paged (257 pages), with
@@ -211,14 +212,15 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               step time, tokens/s, MFU by the active parameters' FLOPs
               (held to the static-cost layer's FLOPs of one loss_fn) and
               peak memory; a torch.profiler window over one more step
-  13. mla serve  deepseek_v2_lite_16b at its published widths and all 27
-              layers (15.7B params, 31.4 GB bf16, seeded random weights):
+  13. mla serve  deepseek_v2_lite_16b at its published widths and
+              MLA_SERVE_LAYERS of its 27 layers (all 27 fit the card; cut
+              for the run's time; seeded random weights):
               one MLA + MoE layer's forward at [8, 512] and [8, 1],
               contiguous and paged, under set_sync_debug_mode("error");
               the 16 requests of phase 5 contiguous, then paged (257
               pages), with tok/s, TTFT, decode gap, peak memory (under 75
               GB) and the fold's invariants (loads summing to top_k x
-              tokens x 26 MoE layers, the count to calls x 26); a
+              tokens x the MoE layers, the count to calls x them); a
               torch.profiler window (busy share, the latent kernels'
               and the copy kernels' launches and shares); the same pair at
               capacity_factor MLA_DROP_FREE (nothing drops) must give 16
@@ -246,8 +248,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               leaf no further from the f32 plain gradient than the plain
               bf16 one, within 1.25x, top-k choices pinned to the f32
               plain model's; the unpinned numbers logged)
-  15. granite serve  granite_20b at its published widths and all 52
-              layers (20.3B params, 40.6 GB bf16, seeded random weights):
+  15. granite serve  granite_20b at its published widths and
+              GRANITE_SERVE_LAYERS of its 52 layers (all 52 fit the card;
+              cut for the run's time; seeded random weights):
               one dense MQA layer's forward at [8, 512] and [8, 1],
               contiguous and paged, under set_sync_debug_mode("error"); the
               16 requests of phase 5 contiguous, then paged (257 pages),
@@ -346,15 +349,40 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               XLSTM_GRAD_SHAPE), where a one-ulp move of the norms must
               move the plain f32 gradient less than 1e-3; the same
               readings at all 48 blocks logged
+  20. mesh train  tinyllama_1_1b at its published widths, cut to
+              MESH_LAYERS of its 22 layers for the run's time, through
+              the launcher (`repro_torch.launch.train`),
+              MESH_STEPS steps of batch 4 x 1024 with 2 microbatches, the
+              deferred gradient reduce and int8 compression: on one rank,
+              then under torchrun at --mesh 1x2 (tensor parallel 2: 16 q
+              over 2 kv heads a rank) and 2x1 (data parallel 2, ZeRO-1),
+              two ranks sharing the card over gloo with CUDA tensors (the
+              gloo collectives refused on CUDA tensors run on host copies,
+              printed); every rank's losses within MESH_LOSS_REL_TOL of
+              the one-rank run's, its kernel launches (the rmsnorm and
+              flash pairs on its shard) and collectives printed, its step
+              times logged beside the card (no measure of parallel speed);
+              then, in a world of 2 spawned ranks, one loss_fn + backward
+              at batch 2 x 1024 under 1x2 and 2x1, gathered: f32 against
+              the one-rank f32 kernel run (loss 1e-4 relative, each leaf
+              1e-3 relative L2), bf16 each leaf no further from the f32
+              plain gradient than the one-rank bf16 kernel run's, within
+              1.25x
+  20b. cp decode context-parallel decode, q [8,32,64], k/v
+              [8,4,2048,64], the cache's sequence split over the 2 ranks
+              (rank 1's half empty for 5 of the 8 rows), bf16 and f32,
+              against the one-rank decode kernel on the whole cache
+              (2e-2 / 2e-5 abs + rel), and each rank's decode launches
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
               and 12 (phi3.5-moe serve and train), 14 (deepseek train),
               15 and 16 (granite serve and train), 17 (internvl train),
-              18b (seamless train) and 19 and 19b (xlstm serve and train)
-              kept: `diagnose --json` and `report --json` on each (the
-              phi3.5-moe and deepseek train reports must show the device
-              group), `timeline --json` on
+              18b (seamless train), 19 and 19b (xlstm serve and train)
+              and 20 (the two mesh runs: each report must merge both
+              ranks' shards) kept: `diagnose --json` and `report --json`
+              on each (the phi3.5-moe and deepseek train reports must show
+              the device group), `timeline --json` on
               the tinyllama serve dir; each must exit 0 with JSON that
               parses, and the findings by severity, the first five, each
               component's Wait share and the five edges with the most
@@ -376,7 +404,8 @@ numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
 (192, 128) numbers, and every kernel's mla_train_launches: phase 14;
 the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
 width_896 numbers: phase 17; the g1_d64 and width_1024 numbers: phases
-18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b);
+18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b;
+each mesh rank's launches, `mesh_launches`: phases 20 and 20b);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -523,6 +552,7 @@ def run(torch) -> None:
     audio_train_counts, audio_train = audio_train_phase(torch)
     xlstm_counts, xlstm = xlstm_serve_phase(torch)
     xlstm_train_counts, xlstm_train = xlstm_train_phase(torch)
+    mesh_launches = mesh_train_phase(torch)
     diagnose_phase(torch)
     # each new layout's and width's launches: the run of the model that
     # serves or trains at it (paged kernels: its paged run)
@@ -588,6 +618,12 @@ def run(torch) -> None:
                 if k[key]["launches"] <= 0:
                     fail(f"kernel {name} was not launched on the path of "
                          f"its {key} entry")
+        mesh = {key: c[name] for key, c in mesh_launches.items()
+                if c.get(name)}
+        if mesh:
+            # each rank's launches in phases 20 (its shard of tinyllama's
+            # training) and 20b (its half of the cache)
+            k["mesh_launches"] = mesh
         if name in ("rmsnorm", "rmsnorm_backward"):
             # xlstm's norms run the kernel at width 2048 (the entry's
             # width), in its serve and train runs
@@ -597,8 +633,10 @@ def run(torch) -> None:
     log(json.dumps({"kernels": kernels}))
     for arch, st in (("tinyllama_1_1b", stats), ("zamba2_2_7b", hybrid),
                      (f"phi3_5_moe_42b at {MOE_SERVE_LAYERS} layers", moe),
-                     ("deepseek_v2_lite_16b at 27 layers", mla),
-                     ("granite_20b at 52 layers", granite),
+                     (f"deepseek_v2_lite_16b at {MLA_SERVE_LAYERS} layers",
+                      mla),
+                     (f"granite_20b at {GRANITE_SERVE_LAYERS} layers",
+                      granite),
                      ("xlstm_1_3b at 48 blocks", xlstm)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
             f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
@@ -3617,20 +3655,22 @@ def check_hybrid_train_kernels(torch, entries):
 # ------------------------------------------------------------------- moe ----
 MOE_ARCH = "phi3_5_moe_42b"
 #: depth cuts of phi3.5-moe (32 layers of 1.300B params, 83.7 GB in bf16,
-#: do not fit the 80 GB card): serving keeps 24 layers (62.9 GB of weights
-#: and a 1.6 GB cache); training 2 (2.86B params x 16 B of state = 45.8
+#: do not fit the 80 GB card): serving keeps 6 layers (24 fit the card,
+#: 62.9 GB of weights; cut to 6 for the run's time, to make room for
+#: phases 20 and 20b); training 2 (2.86B params x 16 B of state = 45.8
 #: GB at batch 4 x 2048); the f32 logits check 4 (21.9 GB of f32 weights
 #: beside their bf16 copy)
-MOE_SERVE_LAYERS = 24
+MOE_SERVE_LAYERS = 6
 MOE_TRAIN_LAYERS = 2
 MOE_CHECK_LAYERS = 4
 #: capacity_factor at which nothing drops: C = max(4, int(T top_k / E cf))
 #: reaches T at cf = E / top_k = 8, and no expert receives more than T
 #: choices (a token picks an expert once).  The drop-free serve pair runs
 #: at MOE_DROP_FREE_LAYERS: its [E, T, d_ff] expert activations took the
-#: 24-layer serve to a 77.3 GB peak (NVIDIA H100 80GB HBM3)
+#: 24-layer serve to a 77.3 GB peak (NVIDIA H100 80GB HBM3); half the
+#: serve depth, as that pair's 12 of 24 was
 MOE_DROP_FREE = 8.0
-MOE_DROP_FREE_LAYERS = 12
+MOE_DROP_FREE_LAYERS = 3
 MOE_TRAIN_STEPS = 4
 MOE_TRAIN_SHAPE = (4, 2048)             # B, S of phase 12
 MOE_TRAIN_PEAK_GB = 80.0                # the card's memory (phases 12, 14)
@@ -4149,6 +4189,10 @@ MLA_ARCH = "deepseek_v2_lite_16b"
 #: int(T 6 / 64 x 11) >= T at every T, and no expert receives more than T
 #: choices (a token picks an expert once)
 MLA_DROP_FREE = 11.0
+#: deepseek served at 6 of its 27 layers (1 dense + 5 MoE): all 27 fit
+#: the card (PRs 23-27), cut for the run's time to make room for phases
+#: 20 and 20b
+MLA_SERVE_LAYERS = 6
 MLA_CHECK_LAYERS = 4                    # 1 dense + 3 MoE layers
 MLA_PEAK_GB = 75.0                      # the serve runs' ceiling
 
@@ -4222,12 +4266,13 @@ def mla_serve_phase(torch):
     release(torch)
     log(f"[mla-serve] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
         f"at the start of phase 13")
-    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(get_config(MLA_ARCH),
+                              n_layers=MLA_SERVE_LAYERS)
     t0 = time.monotonic()
     params = build_model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[mla-serve] {cfg.name} at all {cfg.n_layers} layers (d_model "
+    log(f"[mla-serve] {cfg.name} at {cfg.n_layers} of 27 layers (d_model "
         f"{cfg.d_model}, MLA: {cfg.n_heads} heads, latent r "
         f"{cfg.kv_lora_rank} + rope {cfg.qk_rope_dim}; {cfg.n_experts} "
         f"experts top {cfg.top_k} of d_ff {cfg.moe_d_ff} + "
@@ -4313,6 +4358,9 @@ def mla_train_phase(torch):
 # ----------------------------------------------------------- granite ----
 GRANITE_ARCH = "granite_20b"
 GRANITE_PEAK_GB = 75.0                  # the serve runs' ceiling
+#: granite served at 16 of its 52 layers: all 52 fit the card (PRs 26-27),
+#: cut for the run's time to make room for phases 20 and 20b
+GRANITE_SERVE_LAYERS = 16
 #: the logits checks of phase 15 (granite, and the two dense archs that no
 #: other phase runs on the card) at their widths, cut to 4 layers
 DENSE_CHECK_LAYERS = 4
@@ -4373,9 +4421,10 @@ def dense_logits_check(torch, cfg16, tag: str):
 
 
 def granite_serve_phase(torch):
-    """Phase 15: granite-20b served at its published widths and all 52
-    layers: one dense MQA layer sync-free; phase 5's requests contiguous,
-    then paged (257 pages), whose 16 token streams must be equal, each
+    """Phase 15: granite-20b served at its published widths and
+    GRANITE_SERVE_LAYERS of its 52 layers: one dense MQA layer
+    sync-free; phase 5's requests contiguous, then paged (257 pages),
+    whose 16 token streams must be equal, each
     with peak memory under GRANITE_PEAK_GB; a profiled window; the decode
     gap against the weights' read; then the logits checks of
     DENSE_CHECK_ARCHS at DENSE_CHECK_LAYERS layers.  Returns (launch
@@ -4387,14 +4436,16 @@ def granite_serve_phase(torch):
 
     t_phase = time.monotonic()
     release(torch)
-    cfg = get_config(GRANITE_ARCH)
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH),
+                              n_layers=GRANITE_SERVE_LAYERS)
     t0 = time.monotonic()
     params = build_model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     weight_gb = sum(t.numel() * t.element_size()
                     for t in _leaves(params)) / 1e9
-    log(f"[granite-serve] {cfg.name} at all {cfg.n_layers} layers (d_model "
+    log(f"[granite-serve] {cfg.name} at {cfg.n_layers} of 52 layers "
+        f"(d_model "
         f"{cfg.d_model}, {cfg.n_heads} q heads over {cfg.n_kv_heads} kv "
         f"head of {cfg.head_dim_}, ungated d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}): {n_params / 1e9:.3f}B params, {weight_gb:.1f} GB, "
@@ -5311,6 +5362,363 @@ def xlstm_train_phase(torch):
     return out
 
 
+# ------------------------------------------------------------ mesh train ----
+#: phase 20: tinyllama_1_1b at its published widths under --mesh, through
+#: the launcher under torchrun.  One card: NCCL takes one rank per card,
+#: so the two ranks share it over gloo with CUDA tensors.  Every run takes
+#: 2 microbatches with the deferred gradient reduce and int8 compression,
+#: the one-rank run included, so the three runs compute one function
+MESH_ARCH = "tinyllama_1_1b"
+#: the depth of phase 20's runs: 8 of tinyllama's 22 layers, cut for the
+#: run's time alone (all 22 took phases 20 and 20b 186-270 s, my chip
+#: calls 1-2; NVIDIA H100 80GB HBM3, 700.00 W)
+MESH_LAYERS = 8
+MESH_SHAPE = (4, 1024)                  # B, S of the launcher runs
+MESH_STEPS = 3
+MESH_FLAGS = ("--microbatches", "2", "--deferred-grad-reduce",
+              "--grad-compression", "int8")
+MESH_RUNS = (("one", None), ("tp", "1x2"), ("dp", "2x1"))
+#: each step's loss, a mesh run against the one-rank run: the first step
+#: is the same weights and tokens summed in another order (~1e-3 in bf16);
+#: later ones also carry that noise through AdamW's first, sign-like
+#: updates and the int8 quantizer's rounding, so 1e-2 as phase 6's
+#: kernels-vs-plain loss limit
+MESH_LOSS_REL_TOL = 1e-2
+#: the kernels each training rank must launch
+MESH_KERNELS = ("rmsnorm", "rmsnorm_backward", "flash_attention",
+                "flash_attention_backward")
+MESH_GRAD_SHAPE = (2, 1024)             # B, S: one row a data rank at 2x1
+MESH_GRAD_LOSS_TOL = 1e-4               # f32, relative
+MESH_TIMEOUT_S = 600                    # a launcher run's / the world's limit
+#: phase 20b: context-parallel decode over two ranks, each holding half of
+#: the cache; rows 0-4 leave rank 1's half empty
+CP_SHAPE = (8, 32, 4, 2048, 64)         # B, Hq, Hkv, S, D
+CP_POS = (0, 1, 77, 1000, 1023, 1024, 1537, 2047)
+CP_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # abs + rel, as KERNEL_TOL
+
+
+def run_group(cmd, timeout_s: float, what: str) -> str:
+    """Run `cmd` in its own process group (torchrun and its ranks); on
+    its time limit the whole group is killed.  Returns its stdout; a
+    non-zero exit fails the run."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
+    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        fail(f"{what}: not done in {timeout_s}s (killed)")
+    if p.returncode != 0:
+        fail(f"{what}: exited {p.returncode}: {err[-3000:]}")
+    return out
+
+
+def mesh_train_phase(torch):
+    """Phase 20: the launcher trains tinyllama_1_1b at its published
+    widths (MESH_LAYERS layers) for MESH_STEPS steps of MESH_SHAPE, first on
+    one rank, then under --mesh 1x2 (tensor parallel 2) and 2x1 (data
+    parallel 2, ZeRO-1), two ranks sharing the card over gloo; each mesh
+    run's losses are held to the one-rank run's, and each rank must
+    launch the training kernels on its shard.  Then the gradient check
+    and phase 20b in one spawned world (`mesh_world_phase`).  Returns
+    {rank: launches} of the mesh runs and the world's."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.monotonic()
+    release(torch)
+    cfg = get_config(MESH_ARCH)
+    B, S = MESH_SHAPE
+    log(f"[mesh-train] {cfg.name} at its published widths, cut from "
+        f"{cfg.n_layers} to {MESH_LAYERS} layers for the run's time alone, "
+        f"batch {B} x {S}, "
+        f"{MESH_STEPS} steps, {' '.join(MESH_FLAGS)}; meshes on one card: "
+        f"two ranks sharing one card over gloo (NCCL takes one rank per "
+        f"card)")
+    common = ["--arch", MESH_ARCH, "--device", "cuda", "--layers",
+              str(MESH_LAYERS), "--steps", str(MESH_STEPS), "--batch",
+              str(B), "--seq", str(S), "--ckpt-interval", "0", *MESH_FLAGS]
+    runs = {}
+    for tag, mesh in MESH_RUNS:
+        d = RUN_ROOT / "mesh" / tag
+        args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
+                str(d / "metrics"), "--profile-dir", str(d / "prof")]
+        n = 1
+        if mesh:
+            n = math.prod(int(x) for x in mesh.split("x"))
+            args += ["--mesh", mesh, "--dist-backend", "gloo"]
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", str(n), "-m",
+                   "repro_torch.launch.train", *args]
+        else:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+        t0 = time.monotonic()
+        out = run_group(cmd, MESH_TIMEOUT_S, f"mesh-train {tag}")
+        for line in out.splitlines():
+            if line.startswith("[mesh]"):
+                log(f"[mesh-train] {tag}: {line}")
+        ranks = []
+        for r in range(n):
+            with open(d / "metrics" / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+        runs[tag] = ranks
+        log(f"[mesh-train] {tag} ({mesh or 'one rank'}): {n} process(es), "
+            f"{time.monotonic() - t0:.1f}s wall incl. start-up")
+    base = [h["loss"] for h in runs["one"][0]["history"]]
+    launches = {}
+    for tag, mesh in MESH_RUNS:
+        for m in runs[tag]:
+            r, hist = m["rank"], m["history"]
+            losses = [h["loss"] for h in hist]
+            if len(losses) != MESH_STEPS or not all(
+                    math.isfinite(h[k]) for h in hist
+                    for k in ("loss", "grad_norm")):
+                fail(f"mesh-train {tag} rank {r}: history {hist}")
+            errs = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+            if max(errs) > MESH_LOSS_REL_TOL:
+                fail(f"mesh-train {tag} rank {r}: losses {losses} vs the "
+                     f"one-rank run's {base}: relative errors {errs} "
+                     f"(limit {MESH_LOSS_REL_TOL})")
+            missing = [k for k in MESH_KERNELS if m["launches"][k] <= 0]
+            if missing:
+                fail(f"mesh-train {tag} rank {r}: kernels {missing} were "
+                     f"not launched: {m['launches']}")
+            c = m["collectives"]
+            if mesh and (c["all_reduce"] <= 0 or (
+                    tag == "dp" and c["all_gather"] <= 0)):
+                fail(f"mesh-train {tag} rank {r}: collectives {c}")
+            step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
+            log(f"[mesh-train] {tag} rank {r}: losses "
+                f"{[round(x, 5) for x in losses]} (relative to one rank: "
+                f"{[f'{e:.2e}' for e in errs]}), grad norms "
+                f"{[round(h['grad_norm'], 4) for h in hist]}; step times "
+                f"(s) {[round(h['step_s'], 3) for h in hist]}, median after "
+                f"the first {step_ms:.1f} ms ({'two ranks sharing one card '
+                'over gloo' if mesh else 'one rank'}; no measure of parallel "
+                f"speed) on {device_line()}")
+            log(f"[mesh-train] {tag} rank {r}: kernel launches "
+                f"{json.dumps(m['launches'])}; collectives {json.dumps(c)}")
+            if mesh:
+                launches[f"{tag} rank {r}"] = m["launches"]
+    world = mesh_world_phase(torch)
+    launches.update(world)
+    log(f"[mesh-train] phases 20 and 20b: {time.monotonic() - t_phase:.1f}s")
+    return launches
+
+
+def mesh_world_phase(torch):
+    """Phase 20's gradient check and phase 20b, in one world of 2 ranks
+    spawned here (`mesh_rank`), sharing the card over gloo.  Rank 0 also
+    computes the one-rank references; any rank that fails fails the run
+    at once, and its peer is killed.  Returns {rank: launches}."""
+    import multiprocessing as mp
+
+    d = RUN_ROOT / "mesh" / "world"
+    d.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, 2, str(d)))
+             for r in range(2)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() - t0 > MESH_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        fail(f"mesh world: ranks exited {codes} after "
+             f"{time.monotonic() - t0:.1f}s")
+    out = {}
+    for r in range(2):
+        with open(d / f"rank{r}.json") as f:
+            res = json.load(f)
+        out[f"grads rank {r}"] = res["grad_launches"]
+        out[f"cp rank {r}"] = res["cp_launches"]
+        log(f"[mesh-grads] rank {r}: kernel launches "
+            f"{json.dumps(res['grad_launches'])}")
+        log(f"[cp-decode] rank {r}: kernel launches "
+            f"{json.dumps(res['cp_launches'])}")
+        if res["cp_launches"]["decode_attention"] <= 0:
+            fail(f"cp-decode: rank {r} launched no decode kernel")
+    log(f"[mesh-train] the world of 2 ranks: {time.monotonic() - t0:.1f}s")
+    return out
+
+
+def mesh_rank(rank: int, world: int, d: str) -> None:
+    """One rank of `mesh_world_phase` (a spawned process)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed("gloo", "cuda",
+                              init_method=f"file://{d}/init", rank=rank,
+                              world_size=world, timeout_s=MESH_TIMEOUT_S)
+    ops.reset_launch_counts()
+    mesh_grads(torch, rank)
+    res = {"grad_launches": ops.launch_counts()}
+    ops.reset_launch_counts()
+    cp_decode(torch, rank)
+    res["cp_launches"] = ops.launch_counts()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh_lib.shutdown()
+
+
+def mesh_grads(torch, rank: int) -> None:
+    """Phase 20, gradients: one loss_fn + backward of tinyllama_1_1b at
+    its published widths and MESH_LAYERS layers, batch MESH_GRAD_SHAPE, under
+    1x2 and 2x1 (the gradient summed over 'data', gathered over 'model'),
+    in f32 and bf16.  Rank 0 holds each against its own one-rank runs:
+    f32 against the f32 kernel run (loss MESH_GRAD_LOSS_TOL relative,
+    each leaf HYBRID_GRAD_TOL relative L2), bf16 no further from the f32
+    plain gradient than the one-rank bf16 kernel run's, within
+    HYBRID_BF16_RATIO (PERF.md §2's rule)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_tree, shard_tree
+    from repro_torch.runtime.trainer import (TrainLayout, full_shapes,
+                                             local_value_and_grad,
+                                             value_and_grad)
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg16 = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S = MESH_GRAD_SHAPE
+    batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
+    p32 = build_model(cfg32, device="cuda").init(0)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    full = {"float32": (cfg32, p32), "bfloat16": (cfg16, p16)}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    refs = {}
+    if rank == 0:
+        # one-rank references; these launches are comparisons, not counted
+        saved = ops.launch_counts()
+        for tag, (cfg, params), impl in (
+                ("plain32", full["float32"], "ref"),
+                ("kern32", full["float32"], "auto"),
+                ("kern16", full["bfloat16"], "auto")):
+            loss, _, _, g = value_and_grad(
+                build_model(cfg, impl=impl, device="cuda"), params, batch,
+                None)
+            refs[tag] = (float(loss), dict(leaves_with_path(g)))
+        for fn in ops._KERNELS:
+            fn.launches = saved[fn.__name__]
+    for shape in ((1, 2), (2, 1)):
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        tag = "x".join(map(str, shape))
+        for dtype in ("float32", "bfloat16"):
+            cfg, params = full[dtype]
+            model = build_model(cfg, device="cuda")
+            t0 = time.monotonic()
+            with runtime_mesh(mesh):
+                lay = TrainLayout(model, full_shapes(cfg), mesh)
+                local = shard_tree(params, mesh, lay.param)
+                loss, _, _, g = local_value_and_grad(
+                    model, local, lay.local_rows(batch, 1), None, lay)
+                # summed over 'data' in f32, as the trainer sums them
+                g = tree_map(lambda x: mesh_lib.all_reduce(
+                    x.float(), mesh, lay.batch_axes), g)
+                g = dict(leaves_with_path(gather_tree(g, mesh, lay.param)))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            del local
+            if rank != 0:
+                continue
+            if dtype == "float32":
+                want_loss, want = refs["kern32"]
+                lerr = abs(float(loss) - want_loss) / abs(want_loss)
+                errs = {n: rel(g[n], want[n]) for n in want}
+                worst = max(errs, key=errs.get)
+                log(f"[mesh-grads] {tag} f32: loss {float(loss):.6f} vs one "
+                    f"rank {want_loss:.6f} (relative {lerr:.2e}); worst leaf "
+                    f"{worst} {errs[worst]:.2e} relative L2; {wall:.1f}s")
+                if lerr > MESH_GRAD_LOSS_TOL or errs[worst] > HYBRID_GRAD_TOL:
+                    fail(f"mesh-grads {tag} f32: loss {lerr:.2e} (limit "
+                         f"{MESH_GRAD_LOSS_TOL}), {worst} {errs[worst]:.2e} "
+                         f"(limit {HYBRID_GRAD_TOL})")
+            else:
+                plain, one = refs["plain32"][1], refs["kern16"][1]
+                ratios = {n: rel(g[n], plain[n]) / max(rel(one[n], plain[n]),
+                                                       1e-30)
+                          for n in plain}
+                worst = max(ratios, key=ratios.get)
+                log(f"[mesh-grads] {tag} bf16: loss {float(loss):.6f} vs one "
+                    f"rank {refs['kern16'][0]:.6f}; worst leaf {worst}: "
+                    f"{rel(g[worst], plain[worst]):.3e} from f32 plain vs "
+                    f"the one-rank bf16 run's "
+                    f"{rel(one[worst], plain[worst]):.3e} (ratio "
+                    f"{ratios[worst]:.3f}, limit {HYBRID_BF16_RATIO}); "
+                    f"{wall:.1f}s")
+                if ratios[worst] > HYBRID_BF16_RATIO:
+                    fail(f"mesh-grads {tag} bf16: {worst} ratio "
+                         f"{ratios[worst]:.3f} > {HYBRID_BF16_RATIO}")
+            del g
+    del refs
+
+
+def cp_decode(torch, rank: int) -> None:
+    """Phase 20b: context-parallel decode at CP_SHAPE, the cache's
+    sequence split over 2 ranks (rank 1's half empty for rows 0-4), in
+    bf16 and f32, against the one-rank decode kernel on the whole cache
+    (rank 0), each entry within CP_TOL abs + rel."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.context import context_parallel_decode
+
+    B, Hq, Hkv, S, D = CP_SHAPE
+    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+    c, half = mesh.coord("data"), S // 2
+    pos = torch.tensor(CP_POS, dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(dtype)
+        kl = k[:, :, c * half:(c + 1) * half].contiguous()
+        vl = v[:, :, c * half:(c + 1) * half].contiguous()
+        got = context_parallel_decode(q, kl, vl, pos, mesh)
+        torch.cuda.synchronize()
+        if rank != 0:
+            continue
+        saved = ops.launch_counts()
+        want = ops.decode_attention(q, k, v, kv_len=pos + 1)
+        for fn in ops._KERNELS:
+            fn.launches = saved[fn.__name__]
+        name = str(dtype)[6:]
+        err = (got.float() - want.float()).abs()
+        lim = CP_TOL[name] * (1 + want.float().abs())
+        log(f"[cp-decode] {name} q [{B},{Hq},{D}], k/v [{B},{Hkv},{S},{D}] "
+            f"over 2 ranks (kv_len {list(CP_POS)} + 1): max abs err "
+            f"{float(err.max()):.3e} vs the one-rank decode kernel (limit "
+            f"{CP_TOL[name]} abs + rel)")
+        if not torch.isfinite(got).all() or bool((err > lim).any()):
+            fail(f"cp-decode {name}: max abs err {float(err.max()):.3e}")
+
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
@@ -5324,7 +5732,11 @@ DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("internvl train", "internvl-train/prof"),
              ("seamless train", "seamless-train/prof"),
              ("xlstm serve", "xlstm-serve"),
-             ("xlstm train", "xlstm-train/prof"))
+             ("xlstm train", "xlstm-train/prof"),
+             ("tinyllama train at 1x2", "mesh/tp/prof"),
+             ("tinyllama train at 2x1", "mesh/dp/prof"))
+#: the mesh runs' dirs: their reports must merge both ranks' shards
+MESH_PROFILES = ("mesh/tp/prof", "mesh/dp/prof")
 #: the MoE train dirs whose report must show the device group: their
 #: (config, batch shape, steps)
 DEVICE_GROUPS = {
@@ -5492,6 +5904,12 @@ def diagnose_phase(torch):
         d = RUN_ROOT / rel
         report = profile_cli("report", d)
         log_diagnosis(what, profile_cli("diagnose", d), report)
+        if rel in MESH_PROFILES:
+            merged = sorted(report["meta"].get("merged_from", []))
+            if merged != ["train-r0", "train-r1"]:
+                fail(f"diagnose: the {what} report merges {merged}, not "
+                     f"both ranks' shards")
+            log(f"[diagnose] {what}: the report merges {merged}")
         if rel in DEVICE_GROUPS:
             # the device group, as the CLI reads it back from the shard
             edges = {(e["caller"], e["component"], e["api"]): e

@@ -10,9 +10,18 @@ the latest checkpoint; `keep_last` old checkpoints are pruned after a
 successful save.
 
 Tensors are copied to the host when `save` is called; async mode hands
-the host arrays to a writer thread.  A bf16 leaf is written as numpy
-writes an ml_dtypes bfloat16 array (void `|V2`, manifest dtype
-"bfloat16"), and read back as `models/weights.py::to_tensor` reads one.
+the host arrays to a writer thread.
+
+Under a mesh (`specs` and `mesh` given: each leaf's placement, as
+`parallel.sharding.layout_tree` gives it) a checkpoint still holds FULL
+leaves in the reference's layout: `save` gathers every leaf (a
+collective: every rank calls it) and rank 0 writes; `restore` reads the
+full leaves on every rank and keeps each rank's slice.  So a checkpoint
+written on one mesh restores on any other, and on one device.
+
+A bf16 leaf is written as numpy writes an ml_dtypes bfloat16 array
+(void `|V2`, manifest dtype "bfloat16"), and read back as
+`models/weights.py::to_tensor` reads one.
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import tracer as xfa
 from ..models.weights import to_tensor
+from ..parallel.sharding import (gather_tree, global_shape, shard_leaf)
 from ..tree import leaves_with_path, map_with_path
 
 
@@ -53,7 +64,12 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     @xfa.api("ckpt", "save")
     def save(self, step: int, tree: Any,
-             extra: Optional[Dict[str, Any]] = None) -> str:
+             extra: Optional[Dict[str, Any]] = None, *, specs: Any = None,
+             mesh: Any = None) -> str:
+        if mesh is not None:
+            tree = gather_tree(tree, mesh, specs)
+            if mesh.devices.size > 1 and dist.get_rank() != 0:
+                return self._path(step)
         host = [(name,) + to_numpy(leaf)
                 for name, leaf in leaves_with_path(tree)]
         if self.async_save:
@@ -119,11 +135,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     @xfa.api("ckpt", "restore")
-    def restore(self, tree_like: Any, step: Optional[int] = None
+    def restore(self, tree_like: Any, step: Optional[int] = None, *,
+                specs: Any = None, mesh: Any = None
                 ) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of `tree_like`: every leaf by name,
         with its shape checked, on the like leaf's device and in its
-        dtype.  Returns (tree, the manifest's extra)."""
+        dtype.  Under a mesh `tree_like` holds this rank's slices: the
+        full leaf's shape is checked and the slice kept.  Returns (tree,
+        the manifest's extra)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -132,15 +151,22 @@ class CheckpointManager:
             manifest = json.load(f)
         by_name = {e["name"]: e for e in manifest["leaves"]}
 
+        spec_of = dict(leaves_with_path(specs)) if mesh is not None else {}
+
         def leaf(name, like):
             entry = by_name.get(name)
             if entry is None:
                 raise KeyError(f"checkpoint {step} missing leaf {name}")
             arr = np.load(os.path.join(path, entry["file"]))
-            if list(arr.shape) != list(like.shape):
+            spec = spec_of.get(name)
+            want = (global_shape(like.shape, spec, mesh) if spec is not None
+                    else tuple(like.shape))
+            if list(arr.shape) != list(want):
                 raise ValueError(f"{name}: ckpt shape {arr.shape} != "
-                                 f"{tuple(like.shape)}")
-            return to_tensor(arr, entry.get("dtype", "")).to(
-                device=like.device, dtype=like.dtype)
+                                 f"{tuple(want)}")
+            t = to_tensor(arr, entry.get("dtype", ""))
+            if spec is not None:
+                t = shard_leaf(t, spec, mesh)
+            return t.to(device=like.device, dtype=like.dtype)
         return (map_with_path(leaf, tree_like),
                 manifest.get("extra", {}))

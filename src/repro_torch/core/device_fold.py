@@ -25,7 +25,11 @@ one trace of the reference.
 `scan_multiplier` keeps the reference's interface for code that executes
 a body once on behalf of `length` applications.  The port's layer loop
 runs every layer, so it does NOT wrap that loop in a multiplier — the
-costs would count twice.
+costs would count twice.  `shard_scale` is its counterpart for a call
+that does one shard of a global operation (a rank's batch rows or its
+heads under a mesh): its metrics are scaled to the global operation's,
+its count is not, so every rank registers the numbers one trace of the
+reference's SPMD program registers.
 """
 
 from __future__ import annotations
@@ -177,6 +181,9 @@ class StaticCostRegistry:
     #: applications pushes `length` so its analytic costs keep their true
     #: per-step multiplicity.
     _mult_stack: List[float] = field(default_factory=lambda: [1.0])
+    #: shard-scale stack: metrics (not counts) of a call that computes
+    #: 1/scale of a global operation are scaled up to the global numbers
+    _scale_stack: List[float] = field(default_factory=lambda: [1.0])
 
     def push_multiplier(self, m: float) -> None:
         self._mult_stack.append(self._mult_stack[-1] * m)
@@ -193,13 +200,15 @@ class StaticCostRegistry:
         key = (caller, component, api)
         d = self.costs.setdefault(key, {})
         m = self.multiplier
+        scale = m * self._scale_stack[-1]
         for name, v in metrics.items():
-            d[name] = d.get(name, 0.0) + float(v) * m
+            d[name] = d.get(name, 0.0) + float(v) * scale
         d["count"] = d.get("count", 0.0) + m
 
     def reset(self) -> None:
         self.costs.clear()
         self._mult_stack[:] = [1.0]
+        self._scale_stack[:] = [1.0]
 
     def as_folded(self, group: str = "static") -> FoldedTable:
         edges: Dict[SlotKey, EdgeStats] = {}
@@ -227,6 +236,26 @@ class scan_multiplier:
 
     def __exit__(self, *exc):
         self.registry.pop_multiplier()
+        return False
+
+
+class shard_scale:
+    """Context manager: costs registered inside are those of one of
+    `factor` equal shards of a global operation; their metrics count
+    `factor` times, their call count once."""
+
+    def __init__(self, factor: float,
+                 registry: Optional[StaticCostRegistry] = None):
+        self.factor = float(factor)
+        self.registry = registry or STATIC_COSTS
+
+    def __enter__(self):
+        st = self.registry._scale_stack
+        st.append(st[-1] * self.factor)
+        return self
+
+    def __exit__(self, *exc):
+        self.registry._scale_stack.pop()
         return False
 
 

@@ -16,14 +16,30 @@ train_step count and, for an MoE model, each expert's load, the dropped
 tokens and the router losses).  --layers N keeps the published widths
 and cuts the depth (a model whose training state does not fit the card).
 --xfa-collector HOST:PORT (with --profile-dir) streams them to a fleet
-collector.  Not ported yet: --mesh (one device only) raises
-NotImplementedError.
+collector.  --metrics-out DIR writes each rank's step history, kernel
+launches and collective counts to DIR/rank<r>.json.
+
+Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense family),
+one process per rank, started by torchrun, whose world size must equal
+the mesh's product:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch tinyllama_1_1b --smoke --device cpu --mesh 2x2 --steps 4
+
+D is data parallel (each rank takes its rows of the same global batch,
+ZeRO-1 optimizer state), M tensor parallel.  --dist-backend defaults to
+nccl on CUDA (one rank per card) and gloo on the CPU; ranks sharing one
+card ask for gloo (--dist-backend gloo).  --grad-compression int8 and
+--deferred-grad-reduce set the trainer's knobs of the same names.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 
 from ..ckpt.manager import CheckpointManager
 from ..configs import get_config, get_smoke
@@ -31,7 +47,11 @@ from ..configs.base import TrainConfig
 from ..core.session import XFASession
 from ..data.pipeline import SyntheticLMData
 from ..models import build_model
-from ..runtime.trainer import Trainer
+from ..kernels import ops
+from ..parallel.axes import runtime_mesh
+from ..parallel.mesh import collective_counts, init_distributed, shutdown
+from ..runtime.trainer import Trainer, rank
+from .mesh import make_mesh, parse_mesh
 
 
 def main() -> int:
@@ -49,8 +69,20 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", default="",
-                    help="device mesh (not ported: one device only)")
+                    help="DxM or PxDxM (axes pod, data, model); the "
+                         "world size must equal the product")
+    ap.add_argument("--dist-backend", default="",
+                    help="nccl or gloo (default: nccl on cuda, gloo on "
+                         "cpu)")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--deferred-grad-reduce", action="store_true",
+                    help="reduce the gradient over 'data' once after the "
+                         "microbatches, not after each")
+    ap.add_argument("--grad-compression", default="none",
+                    help="none or int8 (error feedback)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write each rank's history, kernel launches and "
+                         "collective counts to DIR/rank<r>.json")
     ap.add_argument("--ckpt-dir", default="artifacts/train")
     ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -84,19 +116,25 @@ def main() -> int:
                          "time (0: governor off)")
     args = ap.parse_args()
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError("--mesh: the port trains on one device "
-                                  "(parallel/ is not ported yet)")
+        shape, axes = parse_mesh(args.mesh)
+        device = init_distributed(args.dist_backend or None, args.device)
+        mesh = make_mesh(shape, axes)
+    else:
+        device = args.device
     if args.xfa_host_label:
         from ..profile import set_host_label
         set_host_label(args.xfa_host_label)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = build_model(cfg, impl="auto", device=args.device)
+    model = build_model(cfg, impl="auto", device=device)
     tcfg = TrainConfig(total_steps=args.steps, learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
                        microbatches=args.microbatches,
+                       deferred_grad_reduce=args.deferred_grad_reduce,
+                       grad_compression=args.grad_compression,
                        ckpt_interval=args.ckpt_interval,
                        xfa_overhead_budget=args.xfa_budget_pct / 100.0,
                        seed=args.seed)
@@ -112,11 +150,23 @@ def main() -> int:
                           max_bytes=args.profile_max_bytes),
                       profile_meta=dict(args.profile_meta),
                       xfa_collector=args.xfa_collector)
+    # every rank reads the same global batch and takes its rows of it
     data = SyntheticLMData(cfg, args.batch, args.seq, seed=args.seed)
-    state, metrics = trainer.run(args.seed, data, args.steps,
-                                 resume=args.resume)
-    print(f"done: {metrics}")
-    print(trainer.session.report().render(components=("app",)))
+    with runtime_mesh(mesh):
+        state, metrics = trainer.run(args.seed, data, args.steps,
+                                     resume=args.resume)
+    r = rank()
+    if args.metrics_out:
+        os.makedirs(args.metrics_out, exist_ok=True)
+        with open(os.path.join(args.metrics_out, f"rank{r}.json"), "w") as f:
+            json.dump({"rank": r, "mesh": args.mesh,
+                       "history": trainer.history,
+                       "launches": ops.launch_counts(),
+                       "collectives": collective_counts()}, f)
+    print(f"done: {metrics}" if r == 0 else f"done (rank {r}): {metrics}")
+    if r == 0:
+        print(trainer.session.report().render(components=("app",)))
+    shutdown()
     return 0
 
 

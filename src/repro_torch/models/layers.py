@@ -16,6 +16,16 @@ new array that jit donation lets XLA write in place.
 Training runs `attention` without a cache (causal flash attention over
 the whole sequence) and differentiates with torch autograd; the kernels'
 autograd Functions supply the attention and norm backward passes.
+
+Under a mesh with a model axis (`repro_torch.parallel`) the dense path
+is tensor parallel, Megatron-style: each layer reads its local widths
+from its weights' shapes (heads, d_ff, vocab rows) and communicates
+through `parallel/tp.py` where a weight is split.  `attention` and `mlp`
+run column-parallel in and row-parallel out; `embed` and `lm_head` are
+vocab-parallel, and `token_nll` takes the max, the sum of exponentials
+and the gold logit across the vocab shards, so the full logits never
+exist on one rank.  The static costs stay the global operation's, as
+one trace of the reference's SPMD program registers them.
 """
 
 from __future__ import annotations
@@ -27,8 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..core.device_fold import annotate_cost
+from ..core.device_fold import annotate_cost, shard_scale
 from ..kernels import ops
+from ..parallel import mesh as mesh_lib
+from ..parallel import tp
+from ..parallel.axes import get_runtime_mesh
 
 Params = Dict[str, Any]
 
@@ -219,14 +232,33 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     h = cfg.head_dim_
     src = x if kv is None else kv
     Sk = src.shape[1]
-    q = linear(ap["wq"], x).reshape(B, S, cfg.n_heads, h)
-    k = linear(ap["wk"], src).reshape(B, Sk, cfg.n_kv_heads, h)
-    v = linear(ap["wv"], src).reshape(B, Sk, cfg.n_kv_heads, h)
+    # local heads from the weights: a model axis holds Hq / tp q heads
+    # and Hkv / tp kv heads a rank (MQA: the one kv head on every rank)
+    Hq, Hkv = ap["wq"].shape[-1] // h, ap["wk"].shape[-1] // h
+    split = tp.split_over_model(Hq, cfg.n_heads)
+    wk, wv = ap["wk"], ap["wv"]
+    q_scale = k_scale = None
+    if cfg.qk_norm:
+        q_scale, k_scale = ap["q_norm"], ap["k_norm"]
+    if split:
+        x = tp.copy_to_model(x)
+        src = x if kv is None else tp.copy_to_model(kv)
+        if not tp.split_over_model(Hkv, cfg.n_kv_heads):
+            # whole K/V weights see only this rank's q heads' gradient
+            wk, wv = tp.copy_to_model(wk), tp.copy_to_model(wv)
+        if cfg.qk_norm:
+            q_scale, k_scale = (tp.copy_to_model(q_scale),
+                                tp.copy_to_model(k_scale))
+    q = linear(ap["wq"], x).reshape(B, S, Hq, h)
+    k = linear(wk, src).reshape(B, Sk, Hkv, h)
+    v = linear(wv, src).reshape(B, Sk, Hkv, h)
     annotate_cost("attention", "attention", "qkv_proj",
                   flops=2.0 * B * S * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * h)
     if cfg.qk_norm:
-        q = ops.rmsnorm(q, ap["q_norm"], eps=cfg.norm_eps, impl=rt.impl)
-        k = ops.rmsnorm(k, ap["k_norm"], eps=cfg.norm_eps, impl=rt.impl)
+        with shard_scale(cfg.n_heads / Hq):
+            q = ops.rmsnorm(q, q_scale, eps=cfg.norm_eps, impl=rt.impl)
+        with shard_scale(cfg.n_kv_heads / Hkv):
+            k = ops.rmsnorm(k, k_scale, eps=cfg.norm_eps, impl=rt.impl)
     if kv is None:             # rope on self-attention only
         cos, sin = rope_tables(cfg, positions, h)
         if cos.dim() == 3:                               # per-row positions
@@ -238,8 +270,9 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     v = v.transpose(1, 2)
     new_cache = None
     if cache is None:          # over the S positions (causal or not)
-        o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=causal and kv is None, impl=rt.impl)
+        with shard_scale(cfg.n_heads / Hq):
+            o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal and kv is None, impl=rt.impl)
     elif block_table is not None:
         # paged positioned chunk: scatter the S fresh rows through the
         # block table into the shared arena, read the row's visible
@@ -264,10 +297,10 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
         else:                  # prefill chunk at per-row offsets
             o = ops.chunk_attention(q, ck, cv, pos=pos, impl=rt.impl)
     if o.dim() == 3:           # decode: [B, Hq, h]
-        o = o.reshape(B, 1, cfg.n_heads * h)
+        o = o.reshape(B, 1, Hq * h)
     else:
-        o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * h)
-    y = linear(ap["wo"], o)
+        o = o.transpose(1, 2).reshape(B, S, Hq * h)
+    y = tp.row_parallel(o, ap["wo"]) if split else linear(ap["wo"], o)
     annotate_cost("attention", "attention", "o_proj",
                   flops=2.0 * B * S * cfg.n_heads * h * d)
     return y, new_cache
@@ -369,16 +402,30 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
 
 # ------------------------------------------------------------------- mlp ----
 def mlp(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The (gated) MLP.  With d_ff split over a model axis: through
+    `tp.col_row_mlp` when cfg.manual_tp (bf16 partials reduced once each
+    way), else column-parallel in and f32 partials reduced after w_down,
+    as the reference's pjit path computes it."""
     mp = p["mlp"]
     cfg = rt.cfg
-    up = linear(mp["w_up"], x)
-    if cfg.mlp_gated:
-        act = F.silu(linear(mp["w_gate"], x).float())
-        hidden = (act * up.float()).to(x.dtype)
-    else:
-        hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    y = linear(mp["w_down"], hidden)
     f = mp["w_up"].shape[-1]
+    split = tp.split_over_model(f, cfg.d_ff)
+    if split and cfg.manual_tp:
+        y = tp.col_row_mlp(x, mp["w_up"], mp["w_down"], mp.get("w_gate"),
+                           cfg.mlp_gated)
+    else:
+        if split:
+            x = tp.copy_to_model(x)
+        up = linear(mp["w_up"], x)
+        if cfg.mlp_gated:
+            act = F.silu(linear(mp["w_gate"], x).float())
+            hidden = (act * up.float()).to(x.dtype)
+        else:
+            hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
+        y = (tp.row_parallel(hidden, mp["w_down"]) if split
+             else linear(mp["w_down"], hidden))
+    if split:
+        f = cfg.d_ff
     nmat = 3 if cfg.mlp_gated else 2
     annotate_cost("mlp", "mlp", "ffn",
                   flops=2.0 * x.shape[0] * x.shape[1] * cfg.d_model * f * nmat)
@@ -386,15 +433,41 @@ def mlp(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- embed ----
+def _vocab_start(local: int, rt: Runtime) -> Optional[int]:
+    """The first vocab row this rank holds when the vocab is split over
+    the model axis, else None."""
+    if tp.split_over_model(local, rt.cfg.vocab):
+        return tp.model_coord() * local
+    return None
+
+
 def embed(p: Params, tokens: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    x = p["embed"]["table"][tokens.long()].to(rt.cdtype)
+    """Token embeddings; vocab-parallel when the table's rows are split:
+    ids outside this rank's rows give zeros, then one sum over the
+    model axis."""
+    table = p["embed"]["table"]
+    start = _vocab_start(table.shape[0], rt)
+    if start is None:
+        x = table[tokens.long()].to(rt.cdtype)
+    else:
+        ids = tokens.long() - start
+        inside = (ids >= 0) & (ids < table.shape[0])
+        rows = table[ids.clamp(0, table.shape[0] - 1)]
+        x = torch.where(inside[..., None], rows,
+                        torch.zeros((), dtype=rows.dtype,
+                                    device=rows.device)).to(rt.cdtype)
+        x = tp.reduce_from_model(x)
     annotate_cost("embed", "embed", "lookup", bytes=float(x.numel() * 2))
     return x
 
 
 def lm_head(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Logits; with the vocab split over the model axis, this rank's
+    vocab columns only."""
     w = (p["embed"]["table"].T if rt.cfg.tie_embeddings
          else p["lm_head"]["w"])
+    if _vocab_start(w.shape[-1], rt) is not None:
+        x = tp.copy_to_model(x)
     logits = torch.matmul(x, w.to(x.dtype))
     annotate_cost("lm_head", "lm_head", "proj",
                   flops=2.0 * x.shape[0] * x.shape[1] * rt.cfg.d_model
@@ -413,3 +486,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     m = mask.float()
     return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, rt: Runtime
+              ) -> torch.Tensor:
+    """Per-token NLL [B, S] in f32.  Vocab-parallel logits (this rank's
+    columns of the vocab): the max, the sum of exponentials and the gold
+    logit are each reduced over the model axis, so every rank gets the
+    full NLL without the full logits."""
+    lf = logits.float()
+    start = _vocab_start(lf.shape[-1], rt)
+    if start is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return lse - gold
+    mx = mesh_lib.all_reduce(lf.detach().amax(dim=-1), get_runtime_mesh(),
+                             tp.model_axes(), op="max")
+    sumexp = tp.reduce_from_model(torch.exp(lf - mx[..., None]).sum(dim=-1))
+    ids = labels.long() - start
+    inside = (ids >= 0) & (ids < lf.shape[-1])
+    gold = torch.gather(lf, -1, ids.clamp(0, lf.shape[-1] - 1)[..., None])
+    gold = tp.reduce_from_model(
+        torch.where(inside, gold[..., 0], torch.zeros_like(gold[..., 0])))
+    return mx + torch.log(sumexp) - gold

@@ -47,9 +47,12 @@ from torch.utils import checkpoint as ckpt
 from ..configs.base import ModelConfig
 from ..core.device_fold import DeviceFoldSpec, scan_multiplier
 from . import moe as moe_lib
+from ..parallel import mesh as mesh_lib
+from ..parallel import tp
+from ..parallel.axes import get_runtime_mesh, mesh_axes
 from .layers import (Params, Runtime, attention, cross_entropy, embed,
                      init_kv_cache, last_valid, linear, lm_head, mlp,
-                     norm, torch_dtype)
+                     norm, token_nll, torch_dtype)
 
 #: init markers: a constant fill in place of a scaled normal draw
 ONES = ("fill", 1.0)
@@ -329,9 +332,24 @@ def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
                                    prefix_embeds)
         x = x[:, prefix_embeds.shape[1]:]
     logits = lm_head(p, x, rt)
-    loss = cross_entropy(logits, labels, mask)
-    tokens = (mask.float().sum() if mask is not None
-              else torch.full((), float(labels.numel()), device=rt.device))
+    mesh = get_runtime_mesh()
+    if mesh is None:
+        loss = cross_entropy(logits, labels, mask)
+        tokens = (mask.float().sum() if mask is not None
+                  else torch.full((), float(labels.numel()),
+                                  device=rt.device))
+    else:
+        # this rank's rows of the global batch: the NLL summed here and
+        # the masked-token count, each summed over the batch axes, so the
+        # loss (and, through reduce_from's identity backward, the
+        # gradient once the trainer sums it over 'data') is the one
+        # device's on the global batch
+        nll = token_nll(logits, labels, rt)
+        m = (mask.float() if mask is not None else torch.ones_like(nll))
+        batch = mesh_axes("batch")
+        tokens = mesh_lib.all_reduce(m.sum(), mesh, batch)
+        loss = (tp.reduce_from((nll * m).sum(), mesh, batch)
+                / torch.clamp(tokens, min=1.0))
     metrics = {"loss": loss, "aux_loss": aux, "tokens": tokens}
     return loss + aux, (metrics, table)
 

@@ -58,13 +58,21 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def params_from_numpy(flat: Dict[str, Array], cfg: ModelConfig,
                       device: Union[str, torch.device],
-                      dtype: Optional[torch.dtype] = None) -> Params:
+                      dtype: Optional[torch.dtype] = None,
+                      mesh=None) -> Params:
     """Reference leaf names -> the port's params on `device`, each in
     `dtype` or, by default, in its own dtype: cfg.param_dtype, except the
     leaves the reference keeps in f32 whatever param_dtype is (the
     hybrid's a_log, dt_bias, d_skip).  Every leaf the config needs must
     be present with its exact shape; a missing, extra or mis-shaped leaf
-    raises."""
+    raises.  With a `mesh`, this rank's slices of the full leaves, as
+    `parallel.sharding.layout_tree` places them."""
+    if mesh is not None:
+        from ..parallel.sharding import layout_tree, shard_tree
+        from ..tree import tree_map
+        full = params_from_numpy(flat, cfg, "cpu", dtype)
+        local = shard_tree(full, mesh, layout_tree(full, mesh, cfg))
+        return tree_map(lambda t: t.to(device), local)
     specs = param_specs(cfg)
     need = set()
 

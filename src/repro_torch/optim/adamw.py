@@ -11,19 +11,28 @@ State layout (nested dicts mirroring params):
 
 The reference is functional; here `apply_updates` updates master, mu, nu
 and the params IN PLACE (it returns the same tensors), so a step holds no
-second copy of the state.  Gradient compression (`grad_compression=
-"int8"`) is not ported: it raises NotImplementedError.
+second copy of the state.
+
+Under a mesh (`runtime/trainer.py`) every leaf here may be one rank's
+slice of the global leaf: `split` names, per leaf, the mesh axes it is
+split over (`parallel.sharding.split_axes`).  `global_norm` then sums
+each leaf's squares across its slices before the root, and the int8
+compression takes each leaf's amax over the whole leaf (a max across
+its slices), so both equal the reference's single program's.  ZeRO-1
+needs nothing more: the update is elementwise, and a rank updates the
+slice of master, mu and nu it holds.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import TrainConfig
 from ..core.device_fold import annotate_cost
+from ..parallel import mesh as mesh_lib
 from ..tree import leaves_with_path, map_with_path, tree_map
 
 
@@ -65,28 +74,45 @@ def init_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=some.device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def _by_split(tree, split, mesh):
+    """{axes: [(path, leaf)]}: the leaves grouped by the mesh axes (of
+    extent > 1) that split them; one group () without a mesh."""
+    groups: Dict[Tuple[str, ...], list] = {}
+    splits = dict(leaves_with_path(split)) if split is not None else {}
+    for path, x in leaves_with_path(tree):
+        axes = tuple(sorted(a for a in splits.get(path, ())
+                            if mesh is not None and mesh.size(a) > 1))
+        groups.setdefault(axes, []).append((path, x))
+    return groups
+
+
+def global_norm(tree, split=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (leaves summed in
-    the reference's order)."""
+    the reference's order).  With `split` (per leaf, the mesh axes it is
+    split over) the squares of each group of leaves split alike are
+    summed over their axes first: one all-reduce a group."""
     total = None
-    for _, x in leaves_with_path(tree):
-        sq = torch.sum(torch.square(x.float()))
-        total = sq if total is None else total + sq
+    for axes, items in _by_split(tree, split, mesh).items():
+        part = None
+        for _, x in items:
+            sq = torch.sum(torch.square(x.float()))
+            part = sq if part is None else part + sq
+        part = mesh_lib.all_reduce(part, mesh, axes)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(params, state, grads, cfg: TrainConfig
+def apply_updates(params, state, grads, cfg: TrainConfig, *, split=None,
+                  mesh=None, n_params: Optional[int] = None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics
-    {grad_norm, lr})."""
-    if cfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={cfg.grad_compression!r} is not ported yet "
-            f"(ROADMAP.md)")
+    {grad_norm, lr}).  Under a mesh the leaves are this rank's slices,
+    `split` their axes (see `global_norm`) and `n_params` the global
+    count of the static cost."""
     step = state["step"] + 1
     lr = warmup_cosine(cfg)(step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split, mesh)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
@@ -109,8 +135,57 @@ def apply_updates(params, state, grads, cfg: TrainConfig
         p.copy_(master)
     map_with_path(upd, grads, state["mu"], state["nu"], state["master"],
                   params)
-    n_params = sum(x.numel() for _, x in leaves_with_path(params))
+    if n_params is None:
+        n_params = sum(x.numel() for _, x in leaves_with_path(params))
     annotate_cost("optimizer", "optimizer", "adamw",
                   flops=12.0 * n_params, bytes=16.0 * n_params)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression (int8 with error feedback), as the reference's: an
+# in-graph quantize-dequantize of the reduced gradient, the residue fed
+# back into the next step's gradient.
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, scale): q = round(x / scale) in [-127, 127], scale =
+    (max |x| + 1e-12) / 127; `amax` overrides max |x| (the max over a
+    leaf's slices on other ranks)."""
+    amax = (torch.max(torch.abs(x)) if amax is None else amax) + 1e-12
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+@torch.no_grad()
+def compress_grads_with_feedback(grads, error_state, split=None, mesh=None):
+    """Error-feedback int8 compression: g' = Q(g + e); e' = (g + e) - g'.
+    Returns (g' in each gradient's dtype, e' in f32).  Under a mesh each
+    leaf's amax is the max over all its slices: one all-reduce (max) for
+    each group of leaves split alike."""
+    gf = map_with_path(lambda _, g, e: g.float() + e, grads, error_state)
+    amax = {}
+    for axes, items in _by_split(gf, split, mesh).items():
+        local = torch.stack([torch.max(torch.abs(x)) for _, x in items])
+        local = mesh_lib.all_reduce(local, mesh, axes, op="max")
+        amax.update((path, local[i]) for i, (path, _) in enumerate(items))
+
+    out = {path: dequantize_int8(*quantize_int8(x, amax[path]))
+           for path, x in leaves_with_path(gf)}
+    new_grads = map_with_path(lambda path, g: out[path].to(g.dtype), grads)
+    new_err = map_with_path(lambda path, x: x - out[path], gf)
+    return new_grads, new_err
+
+
+def init_error_state(params):
+    """Zero f32 residues, one per param leaf."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), params)

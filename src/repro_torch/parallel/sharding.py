@@ -1,0 +1,277 @@
+"""Parameter and state sharding: path pattern -> logical axes -> the
+placement of each dim, as the reference's `parallel/sharding.py`.
+
+Every parameter leaf is matched by exactly one rule (tests enforce
+this).  Stacked layer leaves carry a leading layer axis, and None is
+prepended for it (detected through the '/stack' marker in the path).
+The rules are Megatron-style TP over 'model', batch DP over
+('pod', 'data'), EP over 'model' for experts, and ZeRO-1 (optimizer
+state over 'data', `_apply_fsdp`) as a transform on top of the base
+placement.
+
+Where the reference hands a PartitionSpec to XLA, the port holds each
+rank's slice itself: `spec_tree` gives a tuple per leaf (None, a mesh
+axis or a tuple of axes per dim: the entries of the reference's
+PartitionSpec), `shard_tree` cuts full leaves to this rank's slices and
+`gather_tree` puts them back together.  `layout_tree` is the layout the
+port's eager tensor parallelism runs: `spec_tree`, with the attention's
+K/V projections kept whole on every model rank under MQA (one kv head
+cannot be split; the reference's layout splits its columns, which
+GSPMD may do and manual TP may not).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..tree import leaves_with_path, map_with_path
+from . import mesh as mesh_lib
+from .axes import get_rules
+
+Spec = Tuple[Any, ...]
+
+# (regex over 'a/b/c' param path, logical axes per trailing dim of the leaf)
+# Leading scan axis handled separately. Order matters: first match wins.
+RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
+    # embeddings / unembedding: vocab sharded over model axis
+    (r".*/embed/table$", ("vocab", None)),
+    (r".*/lm_head/w$", (None, "vocab")),
+    # MLA projections (deepseek)
+    (r".*/attn/wq$", (None, "model")),
+    (r".*/attn/wkv_a$", (None, None)),
+    (r".*/attn/wkv_b$", (None, "model")),
+    # attention
+    (r".*/attn/w[kv]$", (None, "model")),
+    (r".*/attn/wo$", ("model", None)),
+    (r".*/attn/(q_norm|k_norm)$", (None,)),
+    # MoE expert stacks: EP over the model axis; d_ff per expert unsharded
+    # (the expert dim and d_ff cannot both map to 'model')
+    (r".*/moe/(w_gate|w_up)$", ("expert", None, None)),
+    (r".*/moe/w_down$", ("expert", None, None)),
+    (r".*/moe/router$", (None, None)),
+    (r".*/moe/shared/(w_gate|w_up)$", (None, "model")),
+    (r".*/moe/shared/w_down$", ("model", None)),
+    # dense MLP
+    (r".*/mlp/(w_gate|w_up)$", (None, "model")),
+    (r".*/mlp/w_down$", ("model", None)),
+    # mamba2
+    (r".*/ssm/in_proj$", (None, "model")),
+    (r".*/ssm/out_proj$", ("model", None)),
+    (r".*/ssm/conv_w$", (None, "model")),
+    (r".*/ssm/(a_log|dt_bias|d_skip)$", ("model",)),
+    (r".*/ssm/norm$", ("model",)),
+    # xlstm
+    (r".*/mlstm/w_up$", (None, "model")),
+    (r".*/mlstm/w_(q|k|v)$", ("model", None)),
+    (r".*/mlstm/w_gates$", (None, None)),
+    (r".*/mlstm/w_down$", ("model", None)),
+    (r".*/mlstm/skip$", ("model",)),
+    (r".*/slstm/w_(i|f|z|o)$", (None, "model")),
+    (r".*/slstm/r_(i|f|z|o)$", ("model", None)),
+    (r".*/slstm/(ffn_gate|ffn_up)$", (None, "model")),
+    (r".*/slstm/ffn_down$", ("model", None)),
+    # norms and other vectors/scalars: replicated
+    (r".*/[\w]*norm[\w]*/scale$", (None,)),
+    (r".*/bias$", (None,)),
+    # frontend stubs project precomputed embeddings into d_model
+    (r".*/frontend/w$", (None, "model")),
+]
+
+_COMPILED = [(re.compile(pat), axes) for pat, axes in RULES]
+
+
+def logical_axes_for(path: str, ndim: int) -> Tuple[Optional[str], ...]:
+    stacked = "/stack/" in path
+    base = path.replace("/stack/", "/")
+    for rx, axes in _COMPILED:
+        if rx.match(base):
+            out: Tuple[Optional[str], ...] = axes
+            if stacked:
+                out = (None,) + tuple(axes)
+            if len(out) < ndim:   # broadcast leading None (extra stack dims)
+                out = (None,) * (ndim - len(out)) + tuple(out)
+            if len(out) != ndim:
+                raise ValueError(
+                    f"rule for {path} gives {len(out)} axes, leaf has {ndim}")
+            return out
+    raise KeyError(f"no sharding rule matches param path: {path}")
+
+
+def _sizes(mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.devices.shape)) if mesh else {}
+
+
+def _to_mesh_axes(logical: Tuple[Optional[str], ...], mesh,
+                  shape: Optional[Sequence[int]] = None) -> Spec:
+    """Translate logical axes to mesh axes, dropping any that do not EVENLY
+    divide the dim (vocab 151655 or d_ff 2730 fall back to replicated)."""
+    rules = get_rules()
+    sizes = _sizes(mesh)
+    parts = []
+    for i, ax in enumerate(logical):
+        if ax is None:
+            parts.append(None)
+            continue
+        mapped = tuple(m for m in rules.get(ax, (ax,)) if m in sizes)
+        if mapped and shape is not None:
+            extent = math.prod(sizes.get(m, 1) for m in mapped)
+            if extent == 0 or shape[i] % extent != 0:
+                mapped = ()
+        parts.append(None if not mapped else
+                     (mapped[0] if len(mapped) == 1 else mapped))
+    return tuple(parts)
+
+
+def _apply_fsdp(spec: Spec, shape: Sequence[int], dsize: int) -> Spec:
+    """The largest dim not already sharded that `dsize` divides also
+    goes over 'data' (ZeRO-1's optimizer-state transform)."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    best, best_dim = -1, -1
+    for i, (p, s) in enumerate(zip(parts, shape)):
+        if p is None and s % dsize == 0 and s > best:
+            best, best_dim = s, i
+    if best_dim >= 0:
+        parts[best_dim] = "data"
+    return tuple(parts)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf.shape)
+
+
+def _base_spec(path: str, leaf, mesh) -> Spec:
+    shape = _shape(leaf)
+    return _to_mesh_axes(logical_axes_for("/" + path, len(shape)), mesh,
+                         shape)
+
+
+def spec_tree(params: Any, mesh, fsdp: bool = False) -> Any:
+    """The placement of every leaf of `params` (anything with .shape, at
+    full size), as the reference's PartitionSpec tree holds it.
+    fsdp=True also puts the largest still-whole dim over 'data'."""
+    dsize = _sizes(mesh).get("data", 1)
+
+    def leaf_spec(path, leaf):
+        spec = _base_spec(path, leaf, mesh)
+        if fsdp and dsize > 1:
+            spec = _apply_fsdp(spec, _shape(leaf), dsize)
+        return spec
+
+    return map_with_path(leaf_spec, params)
+
+
+def validate_rules(params: Any) -> List[str]:
+    """Param paths with no matching rule (tests assert [])."""
+    bad = []
+    for path, leaf in leaves_with_path(params):
+        try:
+            logical_axes_for("/" + path, len(_shape(leaf)))
+        except KeyError:
+            bad.append("/" + path)
+    return bad
+
+
+def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
+    """The placements the port's eager parallelism holds `params` in:
+    `spec_tree`, except that under MQA (one kv head) the K/V projections
+    stay whole on every model rank.  Tensor parallelism splits heads
+    whole, so a model axis that does not divide the q heads, or the kv
+    heads of a GQA model, raises.  zero1=True gives the optimizer
+    state's placements (`_apply_fsdp` over 'data')."""
+    sizes = _sizes(mesh)
+    tp = sizes.get("model", 1)
+    if tp > 1 and getattr(cfg, "n_heads", 0):
+        if cfg.n_heads % tp:
+            raise ValueError(f"tensor parallelism {tp} does not divide "
+                             f"{cfg.name}'s {cfg.n_heads} q heads")
+        if cfg.n_kv_heads > 1 and cfg.n_kv_heads % tp:
+            raise ValueError(f"tensor parallelism {tp} does not divide "
+                             f"{cfg.name}'s {cfg.n_kv_heads} kv heads")
+    dsize = sizes.get("data", 1)
+    mqa = tp > 1 and getattr(cfg, "n_kv_heads", 0) == 1
+
+    def leaf_spec(path, leaf):
+        spec = _base_spec(path, leaf, mesh)
+        if mqa and re.search(r"/attn/w[kv]$", "/" + path):
+            spec = (None,) * len(spec)
+        if zero1 and dsize > 1:
+            spec = _apply_fsdp(spec, _shape(leaf), dsize)
+        return spec
+
+    return map_with_path(leaf_spec, params)
+
+
+# ------------------------------------------------------- rank slices ----
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis a leaf's placement splits it over."""
+    out: List[str] = []
+    for p in spec:
+        if p is not None:
+            out += [p] if isinstance(p, str) else list(p)
+    return tuple(out)
+
+
+def _dim_slice(mesh, p, size: int) -> Tuple[int, int]:
+    """(start, length) of this rank's part of a dim of `size` placed on p."""
+    n = mesh.size(p)
+    if size % n:
+        raise ValueError(f"dim of {size} does not split {n} ways")
+    length = size // n
+    return mesh.coord(p) * length, length
+
+
+def shard_leaf(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's slice of a full leaf (a view where no dim is split)."""
+    out = full
+    for d, p in enumerate(spec):
+        if p is not None and mesh.size(p) > 1:
+            start, length = _dim_slice(mesh, p, full.shape[d])
+            out = out.narrow(d, start, length)
+    return out.contiguous() if out is not full else out
+
+
+def sub_slice(t: torch.Tensor, spec: Spec, finer: Spec, mesh
+              ) -> torch.Tensor:
+    """A VIEW of the part of `t` (this rank's slice under `spec`) that a
+    finer placement `finer` gives this rank: narrowed on each dim that
+    `finer` splits and `spec` does not."""
+    for d, (p, q) in enumerate(zip(spec, finer)):
+        if p is None and q is not None and mesh.size(q) > 1:
+            start, length = _dim_slice(mesh, q, t.shape[d])
+            t = t.narrow(d, start, length)
+    return t
+
+
+def gather_leaf(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf from every rank's slice (each rank gets it)."""
+    out = local
+    for d, p in enumerate(spec):
+        if p is None:
+            continue
+        for a in reversed((p,) if isinstance(p, str) else tuple(p)):
+            # minor axes first: each gather joins contiguous blocks
+            out = mesh_lib.all_gather(out, mesh, a, dim=d)
+    return out
+
+
+def shard_tree(params: Any, mesh, specs: Any) -> Any:
+    """Full leaves -> this rank's slices under `specs`."""
+    return map_with_path(lambda _, x, s: shard_leaf(x, s, mesh), params,
+                         specs)
+
+
+def gather_tree(tree: Any, mesh, specs: Any) -> Any:
+    """This rank's slices -> full leaves (a collective: every rank of the
+    mesh calls it with the same tree structure)."""
+    return map_with_path(lambda _, x, s: gather_leaf(x, s, mesh), tree,
+                         specs)
+
+
+def global_shape(local_shape: Sequence[int], spec: Spec, mesh
+                 ) -> Tuple[int, ...]:
+    return tuple(n * (mesh.size(p) if p is not None else 1)
+                 for n, p in zip(local_shape, spec))

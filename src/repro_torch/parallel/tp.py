@@ -1,0 +1,187 @@
+"""Megatron-style tensor parallelism on torch.distributed, the port of
+the reference's `parallel/tp.py`.
+
+The reference runs one SPMD program and lets GSPMD place the
+collectives (or, for `col_row_mlp`, places them itself inside
+shard_map).  The port's ranks hold their shards and call the collectives
+eagerly, through the Megatron pair of autograd Functions:
+
+  copy_to     identity forward, all-reduce of the gradient backward:
+              where a replicated activation enters column-parallel
+              weights (each rank's dx is a partial sum)
+  reduce_from all-reduce forward, identity backward: where row-parallel
+              partial outputs become one replicated activation (or a
+              data-parallel loss becomes the global one)
+
+`col_row_mlp` is the reference's manual-TP MLP with its custom backward
+(`ModelConfig.manual_tp`): up/gate column-parallel, the activation
+local, down row-parallel with ONE forward all-reduce in the compute
+dtype; backward ONE dx all-reduce, the up and gate dx partials summed
+locally first, and the weight gradients accumulated in f32.  The
+reference also sums the weight gradients over the batch axes inside
+that backward; the port's trainer reduces every leaf's gradient over
+'data' once (`runtime/trainer.py`), so the backward here leaves them
+local.
+
+The Functions take the mesh when the forward runs: the backward runs
+on autograd's threads.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import mesh as mesh_lib
+from .axes import get_runtime_mesh, mesh_axes
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh_lib.all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """x unchanged; its gradient summed over `axes` on the way back."""
+    if mesh is None or mesh.size(axes) == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """x summed over `axes`; its gradient passed back unchanged."""
+    if mesh is None or mesh.size(axes) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def model_axes() -> Tuple[str, ...]:
+    return mesh_axes("model")
+
+
+def model_size() -> int:
+    mesh = get_runtime_mesh()
+    return mesh.size(model_axes()) if mesh is not None else 1
+
+
+def model_coord() -> int:
+    """This rank's index along the tensor-parallel axis."""
+    mesh = get_runtime_mesh()
+    return mesh.coord(model_axes()) if mesh is not None else 0
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    return copy_to(x, get_runtime_mesh(), model_axes())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    return reduce_from(x, get_runtime_mesh(), model_axes())
+
+
+def split_over_model(local: int, full: int) -> bool:
+    """True when a dim of `full` entries is split over the installed
+    model axis (this rank holds `local` of them), False when it is held
+    whole; any other width under a model axis raises."""
+    n = model_size()
+    if n == 1 or local == full:
+        return False
+    if local * n == full:
+        return True
+    raise ValueError(f"a dim of {full} held as {local} under tensor "
+                     f"parallelism {model_size()}")
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for row-parallel weights, as the reference's pjit path
+    computes it: each rank's partial product accumulated in f32, summed
+    over the model axis in f32, then rounded to x's dtype once."""
+    y = torch.matmul(x.float(), w.float())
+    return reduce_from_model(y).to(x.dtype)
+
+
+def _act(h_up, h_gate, gated: bool):
+    if gated:
+        return (F.silu(h_gate.float()) * h_up.float()).to(h_up.dtype)
+    return F.gelu(h_up.float(), approximate="tanh").to(h_up.dtype)
+
+
+def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 accumulation of the (exact) products."""
+    return torch.matmul(a.float(), b.float())
+
+
+class _ColRowMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_up, w_down, w_gate, gated, mesh, axes):
+        h_up = torch.matmul(x, w_up.to(x.dtype))
+        h_gate = torch.matmul(x, w_gate.to(x.dtype)) if gated else None
+        h = _act(h_up, h_gate, gated)
+        y = mesh_lib.all_reduce(torch.matmul(h, w_down.to(x.dtype)), mesh,
+                                axes)           # ONE forward all-reduce
+        ctx.gated, ctx.mesh, ctx.axes = gated, mesh, axes
+        ctx.save_for_backward(x, w_up, w_down,
+                              w_gate if gated else None, h_up, h_gate)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_up, w_down, w_gate, h_up, h_gate = ctx.saved_tensors
+        gated = ctx.gated
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        dy = dy.to(x.dtype)
+        h = _act(h_up, h_gate, gated)
+        dw_down = _f32_mm(h.reshape(-1, h.shape[-1]).T, dy.reshape(-1, d))
+        dh = torch.matmul(dy, w_down.to(dy.dtype).T)
+        dhf = dh.float()
+        if gated:
+            g32 = h_gate.float()
+            sg = torch.sigmoid(g32)
+            d_up = dhf * (g32 * sg)
+            d_gate = dhf * h_up.float() * sg * (1 + g32 * (1 - sg))
+        else:
+            with torch.enable_grad():
+                t = h_up.float().detach().requires_grad_()
+                (d_up,) = torch.autograd.grad(
+                    F.gelu(t, approximate="tanh"), t, dhf)
+            d_gate = None
+        d_up = d_up.to(x.dtype)
+        f = d_up.shape[-1]
+        dw_up = _f32_mm(x2.T, d_up.reshape(-1, f))
+        dx = torch.matmul(d_up, w_up.to(x.dtype).T)
+        dw_gate = None
+        if gated:
+            d_gate = d_gate.to(x.dtype)
+            dw_gate = _f32_mm(x2.T, d_gate.reshape(-1, f)).to(w_gate.dtype)
+            # the up and gate dx partials summed locally, then ONE reduce
+            dx = dx + torch.matmul(d_gate, w_gate.to(x.dtype).T)
+        dx = mesh_lib.all_reduce(dx, ctx.mesh, ctx.axes)
+        return (dx, dw_up.to(w_up.dtype), dw_down.to(w_down.dtype), dw_gate,
+                None, None, None)
+
+
+def col_row_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                w_gate: Optional[torch.Tensor], gated: bool) -> torch.Tensor:
+    """x: [B, S, d] replicated over the model axis; w_up / w_gate: this
+    rank's [d, f / tp] columns; w_down: its [f / tp, d] rows.  Returns
+    [B, S, d], replicated."""
+    return _ColRowMLP.apply(x, w_up, w_down, w_gate, gated,
+                            get_runtime_mesh(), model_axes())

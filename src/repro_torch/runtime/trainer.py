@@ -5,22 +5,38 @@ The port of `repro/runtime/trainer.py`.  `make_train_step` builds
   (train_state, batch, table) -> (train_state, metrics, table)
 
 with gradient microbatching (accumulation in f32), torch autograd for the
-gradients, the port's AdamW and the XFA device fold table threaded
-through (the model's layers emit into it; the step adds one
-("app", "loss", "train_step") count); `Trainer.run` is the loop:
-prefetching data, the `runtime/dispatch_step` and `runtime/device_sync`
-scopes, periodic (async) checkpoints, resume from the latest one, and XFA
-profile shards through the port's ProfileStore and run manifest.  The
-table is fetched and folded once, at the end of the run, so the final
-shard carries the `device` group, as in the reference.
+gradients, optional int8 error-feedback gradient compression, the port's
+AdamW and the XFA device fold table threaded through (the model's layers
+emit into it; the step adds one ("app", "loss", "train_step") count);
+`Trainer.run` is the loop: prefetching data, the `runtime/dispatch_step`
+and `runtime/device_sync` scopes, periodic (async) checkpoints, resume
+from the latest one, and XFA profile shards through the port's
+ProfileStore and run manifest.  The table is fetched and folded once, at
+the end of the run, so the final shard carries the `device` group, as in
+the reference.
 
 PyTorch runs eagerly: there is no compile step, and a step is dispatched
-op by op.  `deferred_grad_reduce` changes only where the reference's
-gradient all-reduce happens across devices; on one device it is the same
-arithmetic as the per-microbatch accumulation, which both settings run.
-With `profile_dir` and `xfa_collector` set, every shard refresh also
-streams the ring's unacked entries to a fleet collector.
-Not ported: int8 gradient compression raises NotImplementedError.
+op by op.  With `profile_dir` and `xfa_collector` set, every shard
+refresh also streams the ring's unacked entries to a fleet collector.
+
+Under a mesh (`parallel.axes.runtime_mesh`, the dense family) the step
+is the reference's SPMD step run by each rank on its part
+(`TrainLayout`):
+- params are held as `parallel.sharding.layout_tree` places them (tensor
+  parallel over 'model'); master, mu, nu and the int8 residues are also
+  sliced over 'data' by `_apply_fsdp`'s rule when tcfg.zero1 (ZeRO-1);
+- each data rank takes its rows of the SAME global batch (of microbatch
+  i, the i-th block of the global rows, as the reference's reshape then
+  data sharding gives them), so the tokens are the one device's, and the
+  loss normalises by the global token count (`transformer.lm_loss`);
+- the gradient is summed over 'data' in f32 after each microbatch, or,
+  with tcfg.deferred_grad_reduce, once after the microbatch loop on the
+  f32 accumulator (`parallel.mesh.collective_counts()` shows which ran);
+  the two differ only in the order of sums;
+- each rank then compresses (int8) and updates its ZeRO slice, and the
+  params are all-gathered over 'data'.
+Every rank writes its own profile shard (`train-r{rank}`); the device and
+static folds are replicated, and only rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -30,29 +46,129 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt.manager import CheckpointManager
 from ..configs.base import TrainConfig
 from ..core import tracer as xfa
+from ..core.device_fold import shard_scale
 from ..core.session import XFASession
 from ..data.pipeline import SyntheticLMData
 from ..models.api import Model
 from ..optim import adamw
+from ..parallel import mesh as mesh_lib
+from ..parallel.axes import get_runtime_mesh, mesh_axes
+from ..parallel.sharding import (gather_leaf, gather_tree, layout_tree,
+                                 shard_tree, split_axes, sub_slice)
 from ..tree import leaves_with_path, map_with_path, tree_map
 
 
-def _no_compression(tcfg: TrainConfig) -> None:
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} is not ported to "
-            f"PyTorch yet (ROADMAP.md)")
+def _check_compression(tcfg: TrainConfig) -> None:
+    if tcfg.grad_compression not in ("none", "int8"):
+        raise ValueError(f"grad_compression must be none or int8, got "
+                         f"{tcfg.grad_compression!r}")
 
 
-def init_train_state(model: Model, seed: int, tcfg: TrainConfig
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class TrainLayout:
+    """Where each leaf of a train state lives under `mesh`: `param`, the
+    params' placements; `opt`, those of master, mu, nu and the int8
+    residues (ZeRO-1: also over 'data' when zero1).  Built from the full
+    params' shapes."""
+
+    def __init__(self, model: Model, full_params, mesh, zero1: bool = True):
+        cfg = model.cfg
+        if cfg.family != "dense" or cfg.mla:
+            raise NotImplementedError(
+                f"training {cfg.name} (family {cfg.family}) under a mesh is "
+                f"not ported: only the dense family is (ROADMAP.md §1 "
+                f"item 3)")
+        self.mesh = mesh
+        self.param = layout_tree(full_params, mesh, cfg)
+        self.opt = layout_tree(full_params, mesh, cfg, zero1=zero1)
+        self.n_params = sum(x.numel() for _, x in leaves_with_path(
+            full_params))
+        self.opt_split = tree_map(split_axes, self.opt)
+        self.batch_axes = mesh_axes("batch")
+        self.data_size = mesh.size(self.batch_axes)
+
+    def state_specs(self, state) -> Dict[str, Any]:
+        """Placements of every leaf of a train state like `state`."""
+        out = {"params": self.param,
+               "opt": {"master": self.opt, "mu": self.opt, "nu": self.opt,
+                       "step": ()}}
+        if "grad_err" in state:
+            out["grad_err"] = self.opt
+        return out
+
+    def shard_state(self, state):
+        """A full train state (one device's) -> this rank's slices."""
+        return shard_tree(state, self.mesh, self.state_specs(state))
+
+    def gather_state(self, state):
+        """This rank's slices -> the full train state (a collective)."""
+        return gather_tree(state, self.mesh, self.state_specs(state))
+
+    def zero_views(self, tree):
+        """Views of this rank's ZeRO slices of a tree held like params."""
+        return map_with_path(lambda _, x, p, o: sub_slice(x, p, o, self.mesh),
+                             tree, self.param, self.opt)
+
+    def gather_params(self, params) -> None:
+        """After each rank updated its ZeRO slice of every param: the
+        whole (tensor-parallel) param on every data rank, in place."""
+        def fill(_, x, p, o):
+            for d, (a, b) in enumerate(zip(p, o)):
+                if a is None and b is not None and self.mesh.size(b) > 1:
+                    view = sub_slice(x, p, o, self.mesh)
+                    x.copy_(gather_leaf(view, (None,) * d + (b,),
+                                        self.mesh))
+        map_with_path(fill, params, self.param, self.opt)
+
+    def local_rows(self, batch, n_micro: int):
+        """This data rank's rows of the global batch: of each of the
+        n_micro microbatches (consecutive blocks of rows), its block."""
+        n, i = self.data_size, self.mesh.coord(self.batch_axes)
+
+        def rows(x):
+            x = torch.as_tensor(x)
+            B = x.shape[0]
+            if B % (n_micro * n):
+                raise ValueError(f"batch of {B} rows does not split into "
+                                 f"{n_micro} microbatches x {n} data ranks")
+            per = B // (n_micro * n)
+            x = x.reshape((n_micro, n * per) + tuple(x.shape[1:]))
+            return x[:, i * per:(i + 1) * per].reshape(
+                (n_micro * per,) + tuple(x.shape[2:]))
+        return {k: rows(v) for k, v in batch.items()}
+
+
+def full_shapes(cfg) -> Any:
+    """The params' tree at full size, as meta tensors (shapes only)."""
+    from ..models.api import FAMILIES
+    from ..models.transformer import map_specs
+    return map_specs(lambda _, sp: torch.empty(sp[0], device="meta"),
+                     FAMILIES[cfg.family].param_specs(cfg))
+
+
+def init_train_state(model: Model, seed: int, tcfg: TrainConfig,
+                     layout: Optional[TrainLayout] = None
                      ) -> Dict[str, Any]:
-    _no_compression(tcfg)
+    """Params from `seed`, a fresh optimizer state (and int8 residues);
+    under a layout, this rank's slices of them."""
+    _check_compression(tcfg)
     params = model.init(seed)
-    return {"params": params, "opt": adamw.init_state(params)}
+    owned = params              # the slices whose optimizer state we hold
+    if layout is not None:
+        params = shard_tree(params, layout.mesh, layout.param)
+        owned = layout.zero_views(params)
+    state = {"params": params, "opt": adamw.init_state(owned)}
+    if tcfg.grad_compression == "int8":
+        state["grad_err"] = adamw.init_error_state(owned)
+    return state
 
 
 def value_and_grad(model: Model, params, batch, table):
@@ -68,37 +184,78 @@ def value_and_grad(model: Model, params, batch, table):
             table, map_with_path(lambda path, _: grads[path], req))
 
 
-def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
+def local_value_and_grad(model: Model, params, batch, table,
+                         layout: Optional[TrainLayout] = None):
+    """`value_and_grad` of this rank's rows (its gradient not yet summed
+    over 'data'); their static costs are registered as the global
+    batch's."""
+    if layout is None:
+        return value_and_grad(model, params, batch, table)
+    with shard_scale(layout.data_size):
+        return value_and_grad(model, params, batch, table)
+
+
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    layout: Optional[TrainLayout] = None) -> Callable:
     """The step.  Microbatching splits the batch on axis 0 into
     tcfg.microbatches parts and accumulates their gradients in f32, each
     divided by the count, as the reference does; the fold table runs
-    through every microbatch.  A `table` of None folds nothing."""
-    _no_compression(tcfg)
+    through every microbatch.  A `table` of None folds nothing.  Under a
+    layout the step takes the GLOBAL batch and runs this rank's part (see
+    the module docstring)."""
+    _check_compression(tcfg)
+    mesh = layout.mesh if layout is not None else None
+
+    def reduce(grads):
+        # in f32, as the reference's partitioner sums the dw products'
+        # f32 accumulators before rounding them to the params' dtype
+        return tree_map(lambda g: mesh_lib.all_reduce(
+            g.float(), mesh, layout.batch_axes), grads)
 
     def step(state, batch, table):
         params = state["params"]
         n_micro = tcfg.microbatches
+        if layout is not None:
+            batch = layout.local_rows(batch, max(n_micro, 1))
         if n_micro <= 1:
-            loss, metrics, table, grads = value_and_grad(model, params,
-                                                         batch, table)
+            loss, metrics, table, grads = local_value_and_grad(
+                model, params, batch, table, layout)
+            if layout is not None:
+                grads = reduce(grads)
         else:
             rows = len(batch["tokens"]) // n_micro
             grads, loss = None, 0.0
             for i in range(n_micro):
                 mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-                l, metrics, table, g = value_and_grad(model, params, mb,
-                                                      table)
+                l, metrics, table, g = local_value_and_grad(
+                    model, params, mb, table, layout)
+                if layout is not None and not tcfg.deferred_grad_reduce:
+                    g = reduce(g)
                 g = tree_map(lambda x: x.float() / n_micro, g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
                 loss = loss + l / n_micro
+            if layout is not None and tcfg.deferred_grad_reduce:
+                grads = reduce(grads)
             metrics["loss"] = loss
-        params, opt, opt_metrics = adamw.apply_updates(params, state["opt"],
-                                                       grads, tcfg)
+        new_state = dict(state)
+        split, views, n_params = None, params, None
+        if layout is not None:
+            grads = layout.zero_views(grads)
+            views = layout.zero_views(params)
+            split, n_params = layout.opt_split, layout.n_params
+        if tcfg.grad_compression == "int8":
+            grads, new_state["grad_err"] = adamw.compress_grads_with_feedback(
+                grads, state["grad_err"], split, mesh)
+        _, opt, opt_metrics = adamw.apply_updates(
+            views, state["opt"], grads, tcfg, split=split, mesh=mesh,
+            n_params=n_params)
+        if layout is not None:
+            layout.gather_params(params)
         metrics.update(opt_metrics)
         if table is not None:
             table = model.fold_spec.emit(table, "app", "loss", "train_step",
                                          "count", 1.0)
-        return dict(state, params=params, opt=opt), metrics, table
+        return dict(new_state, params=params, opt=opt), metrics, table
 
     return step
 
@@ -150,9 +307,12 @@ class Trainer:
             return
         from ..profile import register_run
         cfg = self.model.cfg
+        mesh = get_runtime_mesh()
         register_run(
             self.profile_dir, config=cfg.name, arch=cfg.family,
-            label="train-r0", kind="train",
+            mesh_shape=mesh.shape if mesh is not None else None,
+            mesh_axes=mesh.axis_names if mesh is not None else None,
+            label=f"train-r{rank()}", kind="train",
             meta={"n_steps_planned": n_steps,
                   "microbatches": self.tcfg.microbatches,
                   "device": str(self.model.device),
@@ -161,11 +321,16 @@ class Trainer:
     def _write_profile_shard(self, step: int) -> None:
         if self._profile_store is None:
             return
+        # the device and static folds are replicated across the ranks:
+        # only rank 0 shards them, or the cross-rank reduce would count
+        # them once per rank
+        r = rank()
         with xfa.scope("runtime", "profile_snapshot"):
             self._profile_store.write_shard(
-                self.session.folded_all(), label="train-r0",
+                self.session.folded_all(include_replicated=r == 0),
+                label=f"train-r{r}",
                 meta={"step": step, "n_steps": self.session.n_steps,
-                      "wall_ns": self.session.wall_ns, "rank": 0})
+                      "wall_ns": self.session.wall_ns, "rank": r})
         if self._publisher is not None:
             # local ring first, then stream the delta; a dead collector
             # costs one rate-limited connect attempt, nothing else
@@ -182,17 +347,25 @@ class Trainer:
         """The loop: data -> dispatch -> sync -> ckpt -> profile shard.
         Returns (state, the last step's metrics as floats)."""
         model, tcfg = self.model, self.tcfg
-        step_fn = make_train_step(model, tcfg)
+        mesh = get_runtime_mesh()
+        layout = (TrainLayout(model, full_shapes(model.cfg), mesh,
+                              tcfg.zero1) if mesh is not None else None)
+        step_fn = make_train_step(model, tcfg, layout)
         start_step = 0
+        where = {}
 
         if state is None:
             with xfa.scope("runtime", "init_state"):
-                state = init_train_state(model, seed, tcfg)
+                state = init_train_state(model, seed, tcfg, layout)
+            if layout is not None:
+                where = {"specs": layout.state_specs(state), "mesh": mesh}
             if resume:
                 latest = self.ckpt.latest_step()
                 if latest is not None:
-                    state, extra = self.ckpt.restore(state)
+                    state, extra = self.ckpt.restore(state, **where)
                     start_step = int(extra.get("next_step", latest + 1))
+        elif layout is not None:
+            where = {"specs": layout.state_specs(state), "mesh": mesh}
 
         self._register_run(n_steps)
         table = model.table()
@@ -214,7 +387,8 @@ class Trainer:
                     self.session.snapshot_static()
 
                 if tcfg.ckpt_interval and (step + 1) % tcfg.ckpt_interval == 0:
-                    self.ckpt.save(step, state, extra={"next_step": step + 1})
+                    self.ckpt.save(step, state, extra={"next_step": step + 1},
+                                   **where)
 
                 if self.profile_interval and \
                         (step + 1) % self.profile_interval == 0:

@@ -1623,3 +1623,22 @@ def test_hybrid_engine_on_the_card_matches_the_plain_path():
         else:
             assert not any(counts.values()), counts
     assert len({str(o) for o in outs.values()}) == 1, outs
+
+
+def test_tensor_parallel_layer_on_two_ranks_sharing_the_card(tmp_path):
+    """A gloo world of 2 ranks on one card: tinyllama_1_1b's embedding,
+    first decoder layer and final norm at full width, tensor parallel 2
+    (16 q over 2 kv heads a rank, G 8 as on one rank), against the
+    one-rank kernel forward; both ranks launch the rmsnorm and flash
+    kernels on their shards."""
+    import torch_mesh_worlds as worlds
+    procs = worlds.start_world("layer_cuda", 2, str(tmp_path))
+    worlds.join(procs, str(tmp_path), "layer_cuda")
+    ranks = [torch.load(tmp_path / f"layer_cuda-rank{r}.pt")
+             for r in range(2)]
+    want = ranks[0]["want"]
+    for r in ranks:
+        np.testing.assert_allclose(r["got"].numpy(), want.numpy(),
+                                   atol=2e-2, rtol=2e-2)
+        assert r["launches"]["rmsnorm"] == 3
+        assert r["launches"]["flash_attention"] == 1

@@ -228,12 +228,19 @@ def test_adamw_steps_match_jax(clip):
 
 
 def test_int8_grad_compression_is_not_ported():
+    """The name is from when int8 compression raised.  It is ported now
+    (held to the reference in tests/test_torch_parallel.py and
+    tests/test_torch_mesh_training.py): the state carries zero f32
+    residues, and a kind the reference lacks raises."""
     tm = build_model(tiny(torch_smoke, "tinyllama_1_1b"), device="cpu")
-    tcfg = TrainConfig(grad_compression="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_train_step(tm, tcfg)
-    with pytest.raises(NotImplementedError, match="int8"):
-        init_train_state(tm, 0, tcfg)
+    state = init_train_state(tm, 0, TrainConfig(grad_compression="int8"))
+    assert all(float(e.abs().max()) == 0.0 and e.dtype == torch.float32
+               for _, e in leaves_with_path(state["grad_err"]))
+    make_train_step(tm, TrainConfig(grad_compression="int8"))
+    with pytest.raises(ValueError, match="int4"):
+        make_train_step(tm, TrainConfig(grad_compression="int4"))
+    with pytest.raises(ValueError, match="int4"):
+        init_train_state(tm, 0, TrainConfig(grad_compression="int4"))
 
 
 # --------------------------------------------------------------- trainer ----

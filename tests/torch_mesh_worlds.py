@@ -1,0 +1,376 @@
+"""Rank programs of the port's gloo worlds on the CPU, for
+tests/test_torch_parallel.py and tests/test_torch_mesh_training.py.
+
+Each test module starts one world per mesh size once (a module fixture):
+`start_world` launches one process per rank running `main`, which joins
+a gloo group through a file:// path with a timeout, runs the named
+program and writes what it found to <dir>/<program>-rank<r>.pt for the
+tests to read.  `join` waits with a time limit and kills every rank of a
+world that did not finish, so a dead rank fails its tests and never
+hangs the run.  Nothing here imports jax: the JAX side of each
+comparison runs in the test process or in its own subprocess.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+#: the process group's timeout and a world's time limit, seconds
+PG_TIMEOUT_S = 120
+JOIN_TIMEOUT_S = 240
+
+
+def start_world(program: str, world: int, out_dir: str):
+    """Launch the `world` ranks of `program`; returns their processes."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
+               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    procs = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"{program}-rank{r}.log")
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import torch_mesh_worlds as w; w.main()", program, str(r),
+                 str(world), out_dir],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def join(procs, out_dir: str, program: str,
+         timeout_s: float = JOIN_TIMEOUT_S) -> None:
+    """Wait for every rank; raise with the logs' tails if one failed or
+    the world outlived its time limit (its ranks are killed)."""
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            break
+    alive = [p for p in procs if p.poll() is None]
+    for p in alive:
+        p.kill()
+        p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if alive or bad:
+        tails = []
+        for r in range(len(procs)):
+            with open(os.path.join(out_dir, f"{program}-rank{r}.log")) as f:
+                tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
+        raise RuntimeError(f"world {program}: ranks {bad} failed"
+                           f"{' (time limit)' if alive else ''}\n"
+                           + "\n".join(tails))
+
+
+def main() -> None:
+    program, rank, world, out_dir = sys.argv[1:5]
+    rank, world = int(rank), int(world)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed(
+        "gloo", "cuda" if program.endswith("_cuda") else "cpu",
+        init_method=f"file://{out_dir}/{program}.init",
+        rank=rank, world_size=world, timeout_s=PG_TIMEOUT_S)
+    out = PROGRAMS[program](rank, world, out_dir)
+    torch.save(out, os.path.join(out_dir, f"{program}-rank{rank}.pt"))
+    mesh_lib.shutdown()
+
+
+# ------------------------------------------------------------ helpers ----
+def _gather_rows(t, mesh, axis):
+    from repro_torch.parallel import mesh as mesh_lib
+    return mesh_lib.all_gather(t, mesh, axis, dim=0)
+
+
+def _tiny(manual_tp=False, **kw):
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke("tinyllama_1_1b"), n_layers=2,
+                               vocab=256, manual_tp=manual_tp, **kw)
+
+
+# ----------------------------------------------------------- parallel ----
+def parallel(rank, world, d):
+    """col_row_mlp at (2, 2), gpipe_apply over 4 stages, context-parallel
+    decode over 4 shards and over (2, 2), the smoke tinyllama's loss and
+    gradients at (2, 2), and the collective counters."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.configs import get_smoke
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.context import context_parallel_decode
+    from repro_torch.parallel.pipeline import gpipe_apply, split_stages
+    from repro_torch.parallel.sharding import gather_tree, shard_leaf
+    from repro_torch.parallel.tp import col_row_mlp
+    from repro_torch.runtime.trainer import (TrainLayout, full_shapes,
+                                             local_value_and_grad)
+    from repro_torch.tree import leaves_with_path
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    out = {}
+    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    dc, mc = m22.coord("data"), m22.coord("model")
+
+    # col_row_mlp: x rows over data, w_up / w_gate columns and w_down rows
+    # over model
+    for gated in (True, False):
+        x = torch.from_numpy(inp["mlp_x"])[dc:dc + 1].requires_grad_()
+        ws = {k: shard_leaf(torch.from_numpy(inp[f"mlp_{k}"]), s, m22)
+              .clone().requires_grad_()
+              for k, s in (("wu", (None, "model")), ("wg", (None, "model")),
+                           ("wd", ("model", None)))}
+        with runtime_mesh(m22):
+            y = col_row_mlp(x, ws["wu"], ws["wd"],
+                            ws["wg"] if gated else None, gated)
+        ct = torch.from_numpy(inp["mlp_ct"])[dc:dc + 1]
+        (y * ct).sum().backward()
+        got = {"y": _gather_rows(y.detach(), m22, "data"),
+               "dx": _gather_rows(x.grad, m22, "data")}
+        for k, s in (("wu", (None, "model")), ("wd", ("model", None)),
+                     ("wg", (None, "model"))):
+            if k == "wg" and not gated:
+                continue
+            g = mesh_lib.all_reduce(ws[k].grad, m22, "data")
+            got[f"d{k}"] = gather_tree({"g": g}, m22, {"g": s})["g"]
+        out[f"mlp_gated{int(gated)}"] = got
+
+    # gpipe over 4 stages of 2 layers each
+    m4 = mesh_lib.make_mesh((4,), ("stage",))
+    s = m4.coord("stage")
+    layer_w = torch.from_numpy(inp["pipe_w"])
+    w = split_stages({"w": layer_w}, 4)["w"][s].clone().requires_grad_()
+
+    def stage_fn(p, x):
+        for i in range(p.shape[0]):
+            x = torch.tanh(x @ p[i])
+        return x
+    mbs = torch.from_numpy(inp["pipe_mbs"])
+    mesh_lib.reset_collective_counts()
+    y = gpipe_apply(stage_fn, w, mbs, m4)
+    torch.sin(y).sum().backward()
+    out["pipe"] = {"y": y.detach(), "grad": w.grad,
+                   "counts": mesh_lib.collective_counts()}
+
+    # context-parallel decode: 4 shards of the sequence; then 2 shards
+    # (data) with the heads over model (each rank passes its heads)
+    q, k, v = (torch.from_numpy(inp[f"cp_{n}"]) for n in "qkv")
+    S = k.shape[2]
+    m41 = mesh_lib.make_mesh((4, 1), ("data", "model"))
+    c4 = m41.coord("data")
+    cp = {}
+    for pos in inp["cp_pos"]:
+        kl = k[:, :, c4 * S // 4:(c4 + 1) * S // 4]
+        vl = v[:, :, c4 * S // 4:(c4 + 1) * S // 4]
+        cp[f"shards4_pos{int(pos)}"] = context_parallel_decode(
+            q, kl, vl, int(pos), m41, impl="ref")
+    rows = torch.from_numpy(inp["cp_rows"])
+    kl = k[:, :, c4 * S // 4:(c4 + 1) * S // 4]
+    vl = v[:, :, c4 * S // 4:(c4 + 1) * S // 4]
+    cp["shards4_rows"] = context_parallel_decode(q, kl, vl, rows, m41,
+                                                 impl="ref")
+    qb, kb, vb = (t[:, :, c4 * S // 4:(c4 + 1) * S // 4] if t.dim() == 4
+                  else t for t in (q.bfloat16(), k.bfloat16(), v.bfloat16()))
+    cp["shards4_rows_bf16"] = context_parallel_decode(qb, kb, vb, rows, m41,
+                                                      impl="ref")
+    Hq, Hkv = q.shape[1], k.shape[1]
+    hq = slice(mc * Hq // 2, (mc + 1) * Hq // 2)
+    hk = slice(mc * Hkv // 2, (mc + 1) * Hkv // 2)
+    half = slice(dc * S // 2, (dc + 1) * S // 2)
+    o = context_parallel_decode(q[:, hq], k[:, hk, half], v[:, hk, half],
+                                rows, m22, impl="ref")
+    cp["data2_heads2_rows"] = mesh_lib.all_gather(o, m22, "model", dim=1)
+    cp["one_rank_rows"] = ref.decode_attention(
+        q, k, v, kv_len=(rows + 1).to(torch.int32))
+    out["cp"] = cp
+
+    # the smoke tinyllama at (2, 2): loss and gradients on the global batch
+    cfg = get_smoke("tinyllama_1_1b")
+    model = build_model(cfg, device="cpu")
+    flat = {n[len("p/"):]: a for n, a in inp.items() if n.startswith("p/")}
+    params = params_from_numpy(flat, cfg, "cpu", mesh=m22)
+    batch = {n: inp[f"batch_{n}"] for n in ("tokens", "labels", "mask")}
+    with runtime_mesh(m22):
+        lay = TrainLayout(model, full_shapes(cfg), m22)
+        loss, met, _, g = local_value_and_grad(
+            model, params, lay.local_rows(batch, 1), None, lay)
+        for _, x in leaves_with_path(g):
+            mesh_lib.all_reduce(x, m22, lay.batch_axes)
+        out["tinyllama"] = {"loss": loss, "tokens": met["tokens"],
+                            "grads": gather_tree(g, m22, lay.param)}
+
+    # counters: an axis of extent 1 costs nothing and counts nothing
+    mesh_lib.reset_collective_counts()
+    t = torch.ones(3)
+    mesh_lib.all_reduce(t, m41, "model")
+    mesh_lib.all_gather(t, m41, "model")
+    mesh_lib.broadcast(t, m41, "model")
+    trivial = mesh_lib.collective_counts()
+    mesh_lib.all_reduce(t, m22, ("data", "model"))
+    mesh_lib.all_reduce(t, m22, "model", op="max")
+    g2 = mesh_lib.all_gather(torch.full((2,), float(rank)), m22, "model")
+    b = mesh_lib.broadcast(torch.full((1,), float(rank)), m22, "data", src=1)
+    out["counters"] = {"trivial": trivial,
+                       "after": mesh_lib.collective_counts(),
+                       "sum": t, "gathered": g2, "broadcast": b,
+                       "coord": (dc, mc)}
+    return out
+
+
+# ----------------------------------------------------------- training ----
+#: the trainer settings of the loss curves each training world runs
+CURVES = {"plain": {}, "micro2": {"microbatches": 2},
+          "deferred": {"microbatches": 2, "deferred_grad_reduce": True},
+          "deferred_int8": {"microbatches": 2, "deferred_grad_reduce": True,
+                            "grad_compression": "int8"}}
+
+
+def training(rank, world, d):
+    """The tiny tinyllama under every mesh this world holds (2 ranks:
+    1x2 then 2x1; 4 ranks: 2x2): loss and gradients (and with manual
+    TP), the static costs, three 3-step loss curves, ZeRO-1 slices,
+    collective counts; with 2 ranks also a checkpoint written at 1x2 and
+    restored at 2x1, and a Trainer run's profile shards."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.device_fold import STATIC_COSTS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    train_state_from_numpy)
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.runtime.trainer import (
+        Trainer, TrainLayout, full_shapes, init_train_state,
+        local_value_and_grad, make_train_step)
+    from repro_torch.tree import leaves_with_path
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    flat_state = {n[len("s/"):]: a for n, a in inp.items()
+                  if n.startswith("s/")}
+    batch = {n: inp[f"batch_{n}"] for n in ("tokens", "labels", "mask")}
+    shapes = [(1, 2), (2, 1)] if world == 2 else [(2, 2)]
+    out = {}
+    for shape in shapes:
+        tag = "x".join(map(str, shape))
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        res = {}
+        for manual in ((False, True) if shape[1] > 1 else (False,)):
+            cfg = _tiny(manual)
+            model = build_model(cfg, device="cpu")
+            params = params_from_numpy(
+                {n[len("params/"):]: a for n, a in flat_state.items()
+                 if n.startswith("params/")}, cfg, "cpu", mesh=mesh)
+            with runtime_mesh(mesh):
+                lay = TrainLayout(model, full_shapes(cfg), mesh)
+                STATIC_COSTS.reset()
+                loss, met, _, g = local_value_and_grad(
+                    model, params, lay.local_rows(batch, 1), None, lay)
+                costs = {k: dict(v) for k, v in STATIC_COSTS.costs.items()}
+                for _, x in leaves_with_path(g):
+                    mesh_lib.all_reduce(x, mesh, lay.batch_axes)
+                res[f"grads_manual{int(manual)}"] = {
+                    "loss": loss, "tokens": met["tokens"],
+                    "grads": gather_tree(g, mesh, lay.param),
+                    "costs": costs}
+        cfg = _tiny()
+        model = build_model(cfg, device="cpu")
+        curves = {}
+        for mode, kw in CURVES.items():
+            tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                               total_steps=3, ckpt_interval=0, **kw)
+            state = train_state_from_numpy(flat_state, cfg, "cpu")
+            if tcfg.grad_compression == "int8":
+                state["grad_err"] = adamw.init_error_state(state["params"])
+            with runtime_mesh(mesh):
+                lay = TrainLayout(model, full_shapes(cfg), mesh)
+                state = lay.shard_state(state)
+                step = make_train_step(model, tcfg, lay)
+                losses, norms, counts = [], [], []
+                for i in range(3):
+                    mesh_lib.reset_collective_counts()
+                    state, m, _ = step(state, SyntheticLMData(
+                        cfg, 4, 16, seed=3).generate(i), None)
+                    counts.append(mesh_lib.collective_counts())
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                curves[mode] = {
+                    "loss": losses, "grad_norm": norms, "counts": counts,
+                    "state": lay.gather_state(state),
+                    "master_shapes": {n: tuple(x.shape) for n, x in
+                                      leaves_with_path(
+                                          state["opt"]["master"])},
+                    "n_leaves": len(leaves_with_path(state["params"]))}
+        res["curves"] = curves
+        if tag == "1x2":
+            tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                               total_steps=2, ckpt_interval=2)
+            with runtime_mesh(mesh):
+                t = Trainer(model, tcfg, CheckpointManager(
+                    os.path.join(d, "ck")), profile_dir=os.path.join(
+                        d, "prof"))
+                st, last = t.run(0, SyntheticLMData(cfg, 4, 16, seed=3), 2,
+                                 resume=False)
+                lay = TrainLayout(model, full_shapes(cfg), mesh)
+                res["ckpt_state"] = lay.gather_state(st)
+                res["ckpt_last"] = last
+        out[tag] = res
+        if tag == "2x1":
+            # restore the checkpoint the 1x2 run wrote, at 2x1
+            tcfg = TrainConfig(ckpt_interval=0)
+            with runtime_mesh(mesh):
+                lay = TrainLayout(model, full_shapes(cfg), mesh)
+                fresh = init_train_state(model, 7, tcfg, lay)
+                restored, extra = CheckpointManager(
+                    os.path.join(d, "ck")).restore(
+                        fresh, specs=lay.state_specs(fresh), mesh=mesh)
+                out["restored_2x1"] = {
+                    "state": lay.gather_state(restored), "extra": extra,
+                    "master_shapes": {n: tuple(x.shape) for n, x in
+                                      leaves_with_path(
+                                          restored["opt"]["master"])}}
+    return out
+
+
+# --------------------------------------------------------------- card ----
+def layer_cuda(rank, world, d):
+    """Two ranks sharing one card over gloo: tinyllama_1_1b's embedding,
+    first decoder layer and final norm at its published widths (bf16,
+    the kernels), tensor parallel 2, against rank 0's one-rank forward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, transformer
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import layout_tree, shard_tree
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b"), n_layers=1)
+    model = build_model(cfg, device="cuda")
+    full = model.init(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=torch.Generator().manual_seed(1))
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    ops.reset_launch_counts()
+    with runtime_mesh(mesh), torch.no_grad():
+        local = shard_tree(full, mesh, layout_tree(full, mesh, cfg))
+        got, _, _ = transformer.forward(local, tokens, model.rt, None)
+    counts = ops.launch_counts()
+    want = None
+    if rank == 0:
+        with torch.no_grad():
+            want, _, _ = transformer.forward(full, tokens, model.rt, None)
+        want = want.float().cpu()
+    torch.cuda.synchronize()
+    return {"got": got.float().cpu(), "want": want, "launches": counts}
+
+
+PROGRAMS = {"parallel": parallel, "training": training,
+            "layer_cuda": layer_cuda}
