@@ -332,7 +332,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               1 sLSTM, d_model 2048, 4 heads, mLSTM head width 1024, chunk
               128, vocab 50304) at its widths and full depth: the prompt
               whole vs in 4 chunks (f32: logits and the carried mLSTM and
-              sLSTM state within 1e-3); then the 16 requests of phase 5
+              sLSTM state within 1e-3); then, cut to XLSTM_SERVE_LAYERS
+              (16) blocks for the run's time, the 16 requests of phase 5
               through the engine's contiguous recurrent state (rmsnorm
               the only kernel: its launches exact for the engine's
               forwards), tok/s, TTFT, decode gap, peak memory
@@ -367,22 +368,53 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the one-rank f32 kernel run (loss 1e-4 relative, each leaf
               1e-3 relative L2), bf16 each leaf no further from the f32
               plain gradient than the one-rank bf16 kernel run's, within
-              1.25x
+              1.25x.  Each mesh rank's recorded step (XFA's L3 flows,
+              `check_flows`): as many flows per kind as
+              collective_counts() over the step, none in `app`, the
+              attention's and the loss's all-reduces on 'model' at 1x2,
+              the gradient's all-reduces under `grads` and the ZeRO
+              all-gathers under `optimizer` on 'data' at 2x1; rank 0's
+              report shows the collectives section
   20b. cp decode context-parallel decode, q [8,32,64], k/v
               [8,4,2048,64], the cache's sequence split over the 2 ranks
               (rank 1's half empty for 5 of the 8 rows), bf16 and f32,
               against the one-rank decode kernel on the whole cache
               (2e-2 / 2e-5 abs + rel), and each rank's decode launches
+  21. moe mesh train  phi3_5_moe_42b at its published widths, cut to
+              MOE_MESH_LAYERS (2) of its 32 layers as phase 12, through
+              the launcher, MOE_MESH_STEPS steps of batch 2 x 1024 at
+              capacity_factor 8 (drop-free): on one rank, then under
+              torchrun at --mesh 1x2 (expert parallel 2: the a2a MoE
+              dispatch, 8 of 16 experts a rank, tokens exchanged by
+              all-to-all over 'model'; attention 16 q over 4 kv heads a
+              rank and half the vocab), two ranks sharing the card over
+              gloo; each rank's state reckoned before (1.43B params a
+              rank) and its peak printed, the two peaks' sum under 80 GB;
+              every rank's losses within MESH_LOSS_REL_TOL of the
+              one-rank run's, its kernel launches (the rmsnorm and flash
+              pairs), the fold's invariant (loads summing to top_k x
+              tokens x layers x steps, nothing dropped) on each rank and
+              the two ranks' tables equal; each rank's recorded step
+              (`check_flows`): MOE_A2A_PER_LAYER all-to-alls a layer
+              (forward, remat's recompute, backward), each under `moe`
+              on 'model' with E x C_loc x 4096 x 2 input bytes, per-kind
+              counts equal to collective_counts(), none in `app`; rank
+              0's report shows the collectives section.  Then, in a
+              world of 2 spawned ranks, one loss_fn + backward at 1 x
+              1024 under 1x2, each leaf gathered: f32 against the
+              one-rank f32 kernel run (loss 1e-4, leaves 1e-3), bf16 no
+              further from the f32 plain gradient than the one-rank bf16
+              kernel run's, within 1.25x
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
               and 12 (phi3.5-moe serve and train), 14 (deepseek train),
               15 and 16 (granite serve and train), 17 (internvl train),
               18b (seamless train), 19 and 19b (xlstm serve and train)
-              and 20 (the two mesh runs: each report must merge both
-              ranks' shards) kept: `diagnose --json` and `report --json`
-              on each (the phi3.5-moe and deepseek train reports must show
-              the device group), `timeline --json` on
+              20 and 21 (the three mesh runs: each report must merge
+              both ranks' shards) kept: `diagnose --json` and `report --json`
+              on each (the phi3.5-moe, its 1x2 and the deepseek train
+              reports must show the device group), `timeline --json` on
               the tinyllama serve dir; each must exit 0 with JSON that
               parses, and the findings by severity, the first five, each
               component's Wait share and the five edges with the most
@@ -405,7 +437,8 @@ numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
 the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
 width_896 numbers: phase 17; the g1_d64 and width_1024 numbers: phases
 18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b;
-each mesh rank's launches, `mesh_launches`: phases 20 and 20b);
+each mesh rank's launches, `mesh_launches`: phases 20, 20b and 21,
+the keys "moe ep rank r" and "moe grads rank r" phase 21's);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -553,6 +586,7 @@ def run(torch) -> None:
     xlstm_counts, xlstm = xlstm_serve_phase(torch)
     xlstm_train_counts, xlstm_train = xlstm_train_phase(torch)
     mesh_launches = mesh_train_phase(torch)
+    mesh_launches.update(moe_mesh_phase(torch))
     diagnose_phase(torch)
     # each new layout's and width's launches: the run of the model that
     # serves or trains at it (paged kernels: its paged run)
@@ -637,7 +671,7 @@ def run(torch) -> None:
                       mla),
                      (f"granite_20b at {GRANITE_SERVE_LAYERS} layers",
                       granite),
-                     ("xlstm_1_3b at 48 blocks", xlstm)):
+                     (f"xlstm_1_3b at {XLSTM_SERVE_LAYERS} blocks", xlstm)):
         log(f"[serve-summary] {arch}: {st['throughput_tok_s']:.1f} tok/s, "
             f"ttft p50 {st['ttft_p50_s'] * 1e3:.1f} ms p95 "
             f"{st['ttft_p95_s'] * 1e3:.1f} ms, xfa prefill_chunk mean "
@@ -4358,9 +4392,10 @@ def mla_train_phase(torch):
 # ----------------------------------------------------------- granite ----
 GRANITE_ARCH = "granite_20b"
 GRANITE_PEAK_GB = 75.0                  # the serve runs' ceiling
-#: granite served at 16 of its 52 layers: all 52 fit the card (PRs 26-27),
-#: cut for the run's time to make room for phases 20 and 20b
-GRANITE_SERVE_LAYERS = 16
+#: granite served at 8 of its 52 layers: all 52 fit the card (PRs 26-27),
+#: cut for the run's time to make room for phases 20, 20b (16 layers) and
+#: 21 (8)
+GRANITE_SERVE_LAYERS = 8
 #: the logits checks of phase 15 (granite, and the two dense archs that no
 #: other phase runs on the card) at their widths, cut to 4 layers
 DENSE_CHECK_LAYERS = 4
@@ -5144,6 +5179,10 @@ def audio_train_phase(torch):
 
 # ------------------------------------------------------------------ ssm ----
 XLSTM_ARCH = "xlstm_1_3b"
+#: phase 19 serves 16 of xlstm's 48 blocks (2 of its 6 super-blocks),
+#: cut for the run's time to make room for phase 21 (all 48 took 42.2 s
+#: on NVIDIA H100 80GB HBM3, 700.00 W); the chunk check keeps all 48
+XLSTM_SERVE_LAYERS = 16
 #: phase 19b: xlstm trained with the super-blocks rematerialized whole
 #: (remat "full"): under the config's dots_saveable every chunk's [B, H,
 #: 1024, 1024] f32 state product counts as a matmul output and is kept,
@@ -5255,16 +5294,24 @@ def xlstm_chunk_check(torch):
 def xlstm_serve_phase(torch):
     """Phase 19: xlstm-1.3b at its published widths and all 48 blocks
     (6 super-blocks of 7 mLSTM + 1 sLSTM), bf16: the chunk-width check
-    (xlstm_chunk_check), then the 16 requests of phase 5 through the
-    engine's contiguous recurrent state (serve_run: rmsnorm the only
-    kernel, 2 n_super + n_mLSTM + 1 launches a forward), with tok/s, TTFT,
-    decode gap and peak memory.  Returns (launch counts, stats)."""
+    (xlstm_chunk_check), then at XLSTM_SERVE_LAYERS blocks the 16
+    requests of phase 5 through the engine's contiguous recurrent state
+    (serve_run: rmsnorm the only kernel, 2 n_super + n_mLSTM + 1 launches
+    a forward), with tok/s, TTFT, decode gap and peak memory.  Returns
+    (launch counts, stats)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
     t_phase = time.monotonic()
     release(torch)
     xlstm_chunk_check(torch)
     torch.cuda.reset_peak_memory_stats()
-    engine, done, counts, stats, _ = serve_run(torch, "xlstm-serve",
-                                               arch=XLSTM_ARCH)
+    cfg = get_config(XLSTM_ARCH)
+    log(f"[xlstm-serve] served at {XLSTM_SERVE_LAYERS} of its "
+        f"{cfg.n_layers} blocks, cut for the run's time")
+    engine, done, counts, stats, _ = serve_run(
+        torch, "xlstm-serve",
+        cfg=dataclasses.replace(cfg, n_layers=XLSTM_SERVE_LAYERS))
     stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[xlstm-serve] peak memory {stats['peak_gb']:.1f} GB; phase 19 "
         f"serve: {time.monotonic() - t_phase:.1f}s")
@@ -5395,6 +5442,17 @@ MESH_TIMEOUT_S = 600                    # a launcher run's / the world's limit
 CP_SHAPE = (8, 32, 4, 2048, 64)         # B, Hq, Hkv, S, D
 CP_POS = (0, 1, 77, 1000, 1023, 1024, 1537, 2047)
 CP_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # abs + rel, as KERNEL_TOL
+#: XFA's L3 flows of each mesh run's recorded step: (component, kind,
+#: axis) sites that must hold at least one collective
+MESH_FLOW_SITES = {
+    "tp": (("attention", "all-reduce", "model"),
+           ("loss", "all-reduce", "model")),
+    "dp": (("grads", "all-reduce", "data"),
+           ("optimizer", "all-gather", "data")),
+    "ep": (("moe", "all-to-all", "model"), ("moe", "all-gather", "model"),
+           ("attention", "all-reduce", "model"))}
+#: the launcher's report opens its collectives section with this line
+FLOWS_HEAD = "Collective flows (wire bytes/device/step):"
 
 
 def run_group(cmd, timeout_s: float, what: str) -> str:
@@ -5467,6 +5525,9 @@ def mesh_train_phase(torch):
         runs[tag] = ranks
         log(f"[mesh-train] {tag} ({mesh or 'one rank'}): {n} process(es), "
             f"{time.monotonic() - t0:.1f}s wall incl. start-up")
+        if mesh and FLOWS_HEAD not in out:
+            fail(f"mesh-train {tag}: rank 0's report shows no collective "
+                 f"flows")
     base = [h["loss"] for h in runs["one"][0]["history"]]
     launches = {}
     for tag, mesh in MESH_RUNS:
@@ -5503,23 +5564,23 @@ def mesh_train_phase(torch):
                 f"{json.dumps(m['launches'])}; collectives {json.dumps(c)}")
             if mesh:
                 launches[f"{tag} rank {r}"] = m["launches"]
+                check_flows(f"mesh-train {tag} rank {r}", m,
+                            MESH_FLOW_SITES[tag])
     world = mesh_world_phase(torch)
     launches.update(world)
     log(f"[mesh-train] phases 20 and 20b: {time.monotonic() - t_phase:.1f}s")
     return launches
 
 
-def mesh_world_phase(torch):
-    """Phase 20's gradient check and phase 20b, in one world of 2 ranks
-    spawned here (`mesh_rank`), sharing the card over gloo.  Rank 0 also
-    computes the one-rank references; any rank that fails fails the run
-    at once, and its peer is killed.  Returns {rank: launches}."""
+def spawn_world(target, d: Path, what: str):
+    """Run `target(rank, 2, str(d))` in 2 spawned ranks; any rank that
+    fails fails the run at once (its peer is killed).  Returns each
+    rank's <d>/rank<r>.json."""
     import multiprocessing as mp
 
-    d = RUN_ROOT / "mesh" / "world"
     d.mkdir(parents=True, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(r, 2, str(d)))
+    procs = [ctx.Process(target=target, args=(r, 2, str(d)))
              for r in range(2)]
     t0 = time.monotonic()
     for p in procs:
@@ -5538,12 +5599,23 @@ def mesh_world_phase(torch):
             p.join()
     codes = [p.exitcode for p in procs]
     if codes != [0, 0]:
-        fail(f"mesh world: ranks exited {codes} after "
+        fail(f"{what}: ranks exited {codes} after "
              f"{time.monotonic() - t0:.1f}s")
-    out = {}
+    log(f"[{what}] the world of 2 ranks: {time.monotonic() - t0:.1f}s")
+    out = []
     for r in range(2):
         with open(d / f"rank{r}.json") as f:
-            res = json.load(f)
+            out.append(json.load(f))
+    return out
+
+
+def mesh_world_phase(torch):
+    """Phase 20's gradient check and phase 20b, in one world of 2 ranks
+    spawned here (`mesh_rank`), sharing the card over gloo.  Rank 0 also
+    computes the one-rank references.  Returns {rank: launches}."""
+    out = {}
+    for r, res in enumerate(spawn_world(mesh_rank, RUN_ROOT / "mesh" /
+                                        "world", "mesh-world")):
         out[f"grads rank {r}"] = res["grad_launches"]
         out[f"cp rank {r}"] = res["cp_launches"]
         log(f"[mesh-grads] rank {r}: kernel launches "
@@ -5552,7 +5624,6 @@ def mesh_world_phase(torch):
             f"{json.dumps(res['cp_launches'])}")
         if res["cp_launches"]["decode_attention"] <= 0:
             fail(f"cp-decode: rank {r} launched no decode kernel")
-    log(f"[mesh-train] the world of 2 ranks: {time.monotonic() - t0:.1f}s")
     return out
 
 
@@ -5719,6 +5790,387 @@ def cp_decode(torch, rank: int) -> None:
 
 
 
+
+def check_flows(what: str, m: dict, sites, a2a=None) -> None:
+    """XFA's L3 flows of the step a mesh rank's Trainer recorded (the
+    launcher's metrics): per kind as many as `collective_counts()` over
+    the step; no collective of the model in `app`; each of `sites`
+    (component, kind, axis) holds one at least; with a2a = (count,
+    input bytes), every all-to-all sits under `moe` on 'model' with
+    those bytes, `count` of them."""
+    import collections
+    from repro_torch.parallel.mesh import flow_kind_counts
+    rec = m.get("collective_flows")
+    if not rec:
+        fail(f"{what}: no recorded flows")
+    flows = rec["flows"]
+    kinds = dict(collections.Counter(f["kind"] for f in flows))
+    want = flow_kind_counts(rec["collectives"])
+    if kinds != want:
+        fail(f"{what}: recorded flows per kind {kinds}, collective_counts "
+             f"over the step {want}")
+    app = [f for f in flows if f["component"] == "app"]
+    if app:
+        fail(f"{what}: {len(app)} collectives resolve to app: {app[:3]}")
+    sites_seen = collections.Counter((f["component"], f["kind"], f["axis"])
+                                     for f in flows)
+    missing = [s for s in sites if not sites_seen[s]]
+    if missing:
+        fail(f"{what}: no collective at {missing}: {dict(sites_seen)}")
+    if a2a is not None:
+        count, nbytes = a2a
+        got = [f for f in flows if f["kind"] == "all-to-all"]
+        bad = [f for f in got if (f["component"], f["axis"],
+                                  f["input_bytes"]) != ("moe", "model",
+                                                        nbytes)]
+        if len(got) != count or bad:
+            fail(f"{what}: {len(got)} all-to-alls (want {count}), "
+                 f"{len(bad)} not moe@model at {nbytes} B: {bad[:2]}")
+    summ = rec["summary"]
+    log(f"[flows] {what}: step {rec['step']}, {len(flows)} collectives "
+        f"{json.dumps(want)}; by (component, kind, axis) "
+        f"{ {'/'.join(k): n for k, n in sorted(sites_seen.items())} }; "
+        f"wire bytes/device by component "
+        f"{ {k: round(v) for k, v in summ['by_component'].items()} }, by "
+        f"axis {summ['by_axis']}, total {summ['total_wire_bytes']:.0f}")
+
+
+# -------------------------------------------------------- moe mesh train ----
+#: phase 21: phi3_5_moe_42b at its published widths under --mesh 1x2
+#: (expert parallel 2 over 'model', the attention and the vocab tensor
+#: parallel 2), through the launcher under torchrun, against one rank;
+#: the two ranks share the card over gloo, as phase 20's
+MOE_MESH_LAYERS = MOE_TRAIN_LAYERS
+MOE_MESH_SHAPE = (2, 1024)              # B, S of the launcher runs
+MOE_MESH_STEPS = 3
+#: drop-free in both runs: at capacity_factor 8 one rank's capacity is
+#: int(T 2 / 16 x 8) = T and a shard's max(8, int(t_loc 2 / 16 x 8)) =
+#: t_loc, and no expert gets more than one choice of a token
+MOE_MESH_CF = MOE_DROP_FREE
+MOE_MESH_RUNS = (("one", None), ("ep", "1x2"))
+MOE_MESH_GRAD_SHAPE = (1, 1024)         # B, S of the gradient check
+#: all-to-alls a layer and step: the dispatch and the return in the
+#: forward, again in remat's recompute (dots_saveable recomputes both:
+#: their outputs are no matmul's), and their inverses in the backward
+MOE_A2A_PER_LAYER = 6
+
+
+def moe_mesh_state_gb(cfg, mesh_shape):
+    """(params, GB of train state) of one rank at `mesh_shape`: its slice
+    of every leaf (tensor and expert parallel over 'model') x (2 bytes of
+    bf16 param + 2 of bf16 gradient + 12 of f32 master, mu and nu)."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.sharding import layout_tree
+    from repro_torch.runtime.trainer import full_shapes
+    from repro_torch.tree import leaves_with_path
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    shapes = full_shapes(cfg)
+    specs = dict(leaves_with_path(layout_tree(shapes, mesh, cfg)))
+    n = sum(x.numel() // mesh.size([a for a in specs[k] if a])
+            for k, x in leaves_with_path(shapes))
+    return n, n * 16 / 1e9
+
+
+def moe_mesh_phase(torch):
+    """Phase 21: the launcher trains phi3_5_moe_42b at its widths
+    (MOE_MESH_LAYERS layers) for MOE_MESH_STEPS steps of MOE_MESH_SHAPE,
+    drop-free, on one rank and under --mesh 1x2 (the a2a MoE dispatch:
+    experts split over 'model', tokens exchanged by all-to-all); every
+    rank's losses within MESH_LOSS_REL_TOL of the one-rank run's, its
+    kernels launched, its fold's invariant (the ranks' tables equal),
+    its recorded step's flows (`check_flows`); then the gradient check in
+    a spawned world (`moe_mesh_rank`).  Returns {rank: launches}."""
+    from repro_torch.core.folding import FoldedTable
+
+    t_phase = time.monotonic()
+    release(torch)
+    cfg = moe_cfg(MOE_MESH_LAYERS, capacity_factor=MOE_MESH_CF)
+    B, S = MOE_MESH_SHAPE
+    n_one, gb_one = moe_mesh_state_gb(cfg, (1, 1))
+    n_rank, gb_rank = moe_mesh_state_gb(cfg, (1, 2))
+    log(f"[moe-mesh] {cfg.name} at its published widths, cut from 32 to "
+        f"{MOE_MESH_LAYERS} layers as phase 12, batch {B} x {S}, "
+        f"{MOE_MESH_STEPS} steps, capacity_factor {MOE_MESH_CF} (drop-free)"
+        f"; one rank holds {n_one / 1e9:.3f}B params ({gb_one:.1f} GB of "
+        f"state at 16 B a param), a rank at 1x2 {n_rank / 1e9:.3f}B "
+        f"({gb_rank:.1f} GB; two ranks {2 * gb_rank:.1f} GB of the card's "
+        f"80) before activations")
+    common = ["--arch", MOE_ARCH, "--device", "cuda", "--layers",
+              str(MOE_MESH_LAYERS), "--steps", str(MOE_MESH_STEPS),
+              "--batch", str(B), "--seq", str(S), "--ckpt-interval", "0",
+              "--capacity-factor", str(MOE_MESH_CF)]
+    runs = {}
+    for tag, mesh in MOE_MESH_RUNS:
+        d = RUN_ROOT / "moe-mesh" / tag
+        args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
+                str(d / "metrics"), "--profile-dir", str(d / "prof")]
+        n = 1
+        if mesh:
+            n = math.prod(int(x) for x in mesh.split("x"))
+            args += ["--mesh", mesh, "--dist-backend", "gloo"]
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", str(n), "-m",
+                   "repro_torch.launch.train", *args]
+        else:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+        t0 = time.monotonic()
+        out = run_group(cmd, MESH_TIMEOUT_S, f"moe-mesh {tag}")
+        for line in out.splitlines():
+            if line.startswith("[mesh]"):
+                log(f"[moe-mesh] {tag}: {line}")
+        if mesh:
+            if FLOWS_HEAD not in out:
+                fail(f"moe-mesh {tag}: rank 0's report shows no collective "
+                     f"flows")
+            section = out[out.index(FLOWS_HEAD):].split("\n\n")
+            log(f"[moe-mesh] {tag}: rank 0's report: "
+                + " | ".join(x.strip() for x in section[:12]))
+        runs[tag] = [json.load(open(d / "metrics" / f"rank{r}.json"))
+                     for r in range(n)]
+        log(f"[moe-mesh] {tag} ({mesh or 'one rank'}): {n} process(es), "
+            f"{time.monotonic() - t0:.1f}s wall incl. start-up")
+    base = [h["loss"] for h in runs["one"][0]["history"]]
+    t_loc = B * S // 2
+    c_loc = max(8, int(t_loc * cfg.top_k / cfg.n_experts * MOE_MESH_CF))
+    a2a = (MOE_A2A_PER_LAYER * MOE_MESH_LAYERS,
+           cfg.n_experts * c_loc * cfg.d_model * 2)
+    launches, folds, peaks = {}, {}, {}
+    for tag, mesh in MOE_MESH_RUNS:
+        for m in runs[tag]:
+            r, hist = m["rank"], m["history"]
+            what = f"moe-mesh {tag} rank {r}"
+            losses = [h["loss"] for h in hist]
+            if len(losses) != MOE_MESH_STEPS or not all(
+                    math.isfinite(h[k]) for h in hist
+                    for k in ("loss", "aux_loss", "grad_norm")):
+                fail(f"{what}: history {hist}")
+            errs = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
+            if max(errs) > MESH_LOSS_REL_TOL:
+                fail(f"{what}: losses {losses} vs the one-rank run's {base}"
+                     f": relative errors {errs} (limit {MESH_LOSS_REL_TOL})")
+            missing = [k for k in MESH_KERNELS if m["launches"][k] <= 0]
+            if missing:
+                fail(f"{what}: kernels {missing} were not launched: "
+                     f"{m['launches']}")
+            fold = FoldedTable.from_json(m["device_fold"])
+            f = moe_fold(cfg, fold, what, B * S * MOE_MESH_STEPS,
+                         MOE_MESH_STEPS)
+            if f["dropped"]:
+                fail(f"{what}: {f['dropped']} choices dropped at "
+                     f"capacity_factor {MOE_MESH_CF}")
+            folds[(tag, r)] = m["device_fold"]
+            peaks[(tag, r)] = m["peak_bytes"] / 1e9
+            step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
+            log(f"[moe-mesh] {what}: losses {[round(x, 5) for x in losses]} "
+                f"(relative to one rank: {[f'{e:.2e}' for e in errs]}), aux "
+                f"{[round(h['aux_loss'], 6) for h in hist]}, grad norms "
+                f"{[round(h['grad_norm'], 4) for h in hist]}; step times (s) "
+                f"{[round(h['step_s'], 3) for h in hist]}, median after the "
+                f"first {step_ms:.1f} ms ({'two ranks sharing one card over '
+                'gloo' if mesh else 'one rank'}; no measure of parallel "
+                f"speed); peak {peaks[(tag, r)]:.1f} GB; on {device_line()}")
+            log(f"[moe-mesh] {what}: kernel launches "
+                f"{json.dumps(m['launches'])}; collectives "
+                f"{json.dumps(m['collectives'])}")
+            if mesh:
+                launches[f"moe {tag} rank {r}"] = m["launches"]
+                check_flows(what, m, MESH_FLOW_SITES[tag], a2a)
+        if mesh:
+            if folds[(tag, 0)] != folds[(tag, 1)]:
+                fail(f"moe-mesh {tag}: the ranks' fold tables differ")
+            total = peaks[(tag, 0)] + peaks[(tag, 1)]
+            log(f"[moe-mesh] {tag}: the two ranks' fold tables are equal; "
+                f"peaks {peaks[(tag, 0)]:.1f} + {peaks[(tag, 1)]:.1f} = "
+                f"{total:.1f} GB")
+            if total >= MOE_TRAIN_PEAK_GB:
+                fail(f"moe-mesh {tag}: the ranks' peaks sum to {total:.1f} "
+                     f"GB")
+    for r, res in enumerate(spawn_world(moe_mesh_rank, RUN_ROOT / "moe-mesh"
+                                        / "world", "moe-mesh-grads")):
+        launches[f"moe grads rank {r}"] = res["grad_launches"]
+        log(f"[moe-mesh-grads] rank {r}: kernel launches "
+            f"{json.dumps(res['grad_launches'])}; peak "
+            f"{res['peak_bytes'] / 1e9:.1f} GB")
+    log(f"[moe-mesh] phase 21: {time.monotonic() - t_phase:.1f}s")
+    return launches
+
+
+def moe_mesh_rank(rank: int, world: int, d: str) -> None:
+    """One rank of phase 21's gradient world (a spawned process)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed("gloo", "cuda",
+                              init_method=f"file://{d}/init", rank=rank,
+                              world_size=world, timeout_s=MESH_TIMEOUT_S)
+    ops.reset_launch_counts()
+    moe_mesh_grads(torch, rank)
+    torch.cuda.synchronize()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({"grad_launches": ops.launch_counts(),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+    mesh_lib.shutdown()
+
+
+def moe_mesh_grads(torch, rank: int) -> None:
+    """Phase 21, gradients: one loss_fn + backward of phi3.5-moe at its
+    widths and MOE_MESH_LAYERS layers, batch MOE_MESH_GRAD_SHAPE,
+    drop-free, under 1x2 (each leaf gathered over 'model' and compared on
+    rank 0 one at a time), in f32 and bf16, against rank 0's one-rank
+    runs, kept in host memory: f32 against the f32 kernel run (loss
+    MESH_GRAD_LOSS_TOL relative, each leaf HYBRID_GRAD_TOL relative L2);
+    bf16 no further from the f32 plain gradient than the one-rank bf16
+    kernel run's, within HYBRID_BF16_RATIO, with every top-k choice of
+    both runs pinned to the f32 plain model's (`pinned_router`, each rank
+    its block of tokens; routing on bf16-rounded values flips choices
+    between the runs, as in phases 11, 13 and 14), the unpinned readings
+    and the share of choices that differ logged."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_leaf, shard_tree
+    from repro_torch.runtime.trainer import (TrainLayout, full_shapes,
+                                             local_value_and_grad,
+                                             value_and_grad)
+    from repro_torch.tree import leaves_with_path, map_with_path, tree_map
+
+    cfg16 = moe_cfg(MOE_MESH_LAYERS, capacity_factor=MOE_MESH_CF)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S = MOE_MESH_GRAD_SHAPE
+    T, K = B * S, cfg16.top_k
+    batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
+    p32 = build_model(cfg32, device="cuda").init(0)
+    router = moe_lib._router
+
+    def routed(fn, pinned=None):
+        """(fn(), every router call's top-k indices): the calls routed by
+        `pinned` (one [t, K] tensor a call, in call order) when given."""
+        picks = []
+        route = router if pinned is None else pinned_router(router, pinned)
+
+        def spy(w, x2, c):
+            out = route(w, x2, c)
+            picks.append(out[1])
+            return out
+        moe_lib._router = spy
+        try:
+            return fn(), picks
+        finally:
+            moe_lib._router = router
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def bf16(tree):
+        return tree_map(lambda t: t.to(torch.bfloat16), tree)
+
+    refs, n_calls = {}, torch.zeros(1, dtype=torch.int64, device="cuda")
+    if rank == 0:
+        # one-rank references, in host memory; these launches are
+        # comparisons, not counted
+        saved = ops.launch_counts()
+        pins = None
+        for tag, cfg, impl, pin in (("plain32", cfg32, "ref", False),
+                                    ("kern32", cfg32, "auto", False),
+                                    ("kern16", cfg16, "auto", False),
+                                    ("kern16 pinned", cfg16, "auto", True)):
+            params = p32 if cfg is cfg32 else bf16(p32)
+            model = build_model(cfg, impl=impl, device="cuda")
+            (loss, _, _, g), picks = routed(
+                lambda: value_and_grad(model, params, batch, None),
+                pins if pin else None)
+            refs[tag] = (float(loss), {n: x.cpu() for n, x in
+                                       leaves_with_path(g)}, picks)
+            if tag == "plain32":
+                pins = picks
+            del g, params
+        for fn in ops._KERNELS:
+            fn.launches = saved[fn.__name__]
+        n_calls.fill_(len(pins))
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    # the f32 plain model's choices, to every rank (one [T, K] a call)
+    mesh_lib.broadcast(n_calls, mesh, "model")
+    pins = (torch.stack(refs["plain32"][2]) if rank == 0 else
+            torch.zeros((int(n_calls), T, K), dtype=torch.int64,
+                        device="cuda"))
+    mesh_lib.broadcast(pins, mesh, "model")
+    m, t_loc = mesh.coord("model"), T // mesh.size("model")
+    block = [p[m * t_loc:(m + 1) * t_loc] for p in pins]
+    with runtime_mesh(mesh):
+        lay = TrainLayout(build_model(cfg32, device="cuda"),
+                          full_shapes(cfg32), mesh)
+    local32 = shard_tree(p32, mesh, lay.param)
+    del p32
+    torch.cuda.empty_cache()
+    for dtype, cfg, pin in (("float32", cfg32, False),
+                            ("bfloat16", cfg16, False),
+                            ("bfloat16", cfg16, True)):
+        local = local32 if dtype == "float32" else bf16(local32)
+        model = build_model(cfg, device="cuda")
+        t0 = time.monotonic()
+        with runtime_mesh(mesh):
+            (loss, _, _, g), picks = routed(
+                lambda: local_value_and_grad(
+                    model, local, lay.local_rows(batch, 1), None, lay),
+                block if pin else None)
+        one = "kern32" if dtype == "float32" else (
+            "kern16 pinned" if pin else "kern16")
+        errs = {}
+
+        def compare(path, x, spec):
+            full = gather_leaf(mesh_lib.all_reduce(
+                x.float(), mesh, lay.batch_axes), spec, mesh)
+            if rank != 0:
+                return
+            if dtype == "float32":
+                errs[path] = rel(full, refs[one][1][path].cuda())
+            else:
+                plain = refs["plain32"][1][path].cuda()
+                errs[path] = rel(full, plain) / max(rel(
+                    refs[one][1][path].cuda(), plain), 1e-30)
+        map_with_path(compare, g, lay.param)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        del g, local
+        if rank != 0:
+            continue
+        want_loss, _, want_picks = refs[one]
+        differ = sum(int((a.sort(-1).values != b[:t_loc].sort(-1).values)
+                         .sum()) for a, b in zip(picks, want_picks))
+        flips = differ / (len(picks) * t_loc * K)
+        worst = max(errs, key=errs.get)
+        what = f"1x2 {'f32' if dtype == 'float32' else 'bf16'}" + (
+            " pinned" if pin else "")
+        log(f"[moe-mesh-grads] {what}: loss {float(loss):.6f} vs one rank "
+            f"{want_loss:.6f} (relative "
+            f"{abs(float(loss) - want_loss) / abs(want_loss):.2e}); top-k "
+            f"choices of rank 0's tokens that differ from the one-rank "
+            f"run's {100 * flips:.3f}%; worst leaf {worst} "
+            + (f"{errs[worst]:.2e} relative L2" if dtype == "float32" else
+               f"ratio {errs[worst]:.3f} of the one-rank bf16 run's "
+               f"distance from the f32 plain gradient")
+            + f"; {wall:.1f}s")
+        if dtype == "float32":
+            lerr = abs(float(loss) - want_loss) / abs(want_loss)
+            if lerr > MESH_GRAD_LOSS_TOL or errs[worst] > HYBRID_GRAD_TOL:
+                fail(f"moe-mesh-grads f32: loss {lerr:.2e} (limit "
+                     f"{MESH_GRAD_LOSS_TOL}), {worst} {errs[worst]:.2e} "
+                     f"(limit {HYBRID_GRAD_TOL})")
+        elif pin and errs[worst] > HYBRID_BF16_RATIO:
+            fail(f"moe-mesh-grads bf16 pinned: {worst} ratio "
+                 f"{errs[worst]:.3f} > {HYBRID_BF16_RATIO}")
+    del refs
+
+
 # -------------------------------------------------------------- diagnose ----
 #: the profile dirs phase 9 diagnoses: (what, dir under the run root)
 DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
@@ -5734,16 +6186,19 @@ DIAGNOSED = (("tinyllama serve", "serve"), ("train", "train/prof"),
              ("xlstm serve", "xlstm-serve"),
              ("xlstm train", "xlstm-train/prof"),
              ("tinyllama train at 1x2", "mesh/tp/prof"),
-             ("tinyllama train at 2x1", "mesh/dp/prof"))
+             ("tinyllama train at 2x1", "mesh/dp/prof"),
+             ("phi3.5-moe train at 1x2", "moe-mesh/ep/prof"))
 #: the mesh runs' dirs: their reports must merge both ranks' shards
-MESH_PROFILES = ("mesh/tp/prof", "mesh/dp/prof")
+MESH_PROFILES = ("mesh/tp/prof", "mesh/dp/prof", "moe-mesh/ep/prof")
 #: the MoE train dirs whose report must show the device group: their
 #: (config, batch shape, steps)
 DEVICE_GROUPS = {
     "moe-train/prof": lambda: (moe_cfg(MOE_TRAIN_LAYERS), MOE_TRAIN_SHAPE,
                                MOE_TRAIN_STEPS),
     "mla-train/prof": lambda: (mla_train_cfg(), MLA_TRAIN_SHAPE,
-                               MLA_TRAIN_STEPS)}
+                               MLA_TRAIN_STEPS),
+    "moe-mesh/ep/prof": lambda: (moe_cfg(MOE_MESH_LAYERS), MOE_MESH_SHAPE,
+                                 MOE_MESH_STEPS)}
 FLEET_TRAIN_STEPS = 2
 
 

@@ -4,8 +4,11 @@ The port's copy of `repro/core/session.py`.  The device layer is the
 port's `DeviceFoldSpec`: the model's fold table is a torch tensor on its
 device, fetched and folded once by `finish_device`, and the fold merges
 into `report()` and into the shards the run writes, as in the
-reference.  One layer is not ported yet: the compiled-HLO collective
-flows (`attach_hlo` raises NotImplementedError; ROADMAP.md).
+reference.  The collective flows come from HLO text (`attach_hlo`,
+through the port's copy of the parser, `hlo_flows.py`) or, for a torch
+run, from the recorder of `repro_torch.parallel.mesh`
+(`attach_collectives`): one step's collectives, each with its
+component, mesh axis and bytes.
 
 The session is the user-facing object (the paper's 'Scaler runtime' +
 'offline visualizer' pair):
@@ -33,14 +36,25 @@ from .attribution import (attribute_parallel, attribute_serial,
                           combine_phases, imbalance_report, wait_split)
 from .device_fold import STATIC_COSTS, DeviceFoldSpec
 from .folding import FoldedTable
+from .hlo_flows import (CollectiveFlow, CollectiveSummary,
+                        find_redundant_gathers, parse_collective_flows)
 from .views import (View, api_view, api_view_by_caller, component_view,
                     flow_matrix, metric_view, render_flow_matrix)
+
+#: component vocabulary used to resolve HLO op_name scopes; model code uses
+#: jax.named_scope with these names.
+KNOWN_COMPONENTS = (
+    "embed", "attention", "mlp", "moe", "ssm", "mlstm", "slstm", "norm",
+    "rope", "lm_head", "loss", "optimizer", "grads", "collective", "data",
+    "ckpt", "serve", "decode", "prefill", "encoder", "decoder", "cross",
+    "runtime", "pipeline", "app",
+)
 
 
 @dataclass
 class XFAReport:
     folded: FoldedTable
-    collectives: Any    # always None: HLO collective flows are not ported
+    collectives: Optional[CollectiveSummary]
     wall_ns: float
     n_steps: int
 
@@ -66,6 +80,18 @@ class XFAReport:
             parts.append(self.component_view(c).render())
             parts.append(self.api_view(c).render())
         parts.append(render_flow_matrix(self.folded))
+        if self.collectives and self.collectives.flows:
+            parts.append("Collective flows (wire bytes/device/step):")
+            for comp, b in sorted(self.collectives.by_component.items(),
+                                  key=lambda kv: -kv[1]):
+                parts.append(f"  {comp:<20} {b/1e6:>12.3f} MB")
+            for axis, b in sorted(self.collectives.by_axis.items()):
+                parts.append(f"  axis {axis:<15} {b/1e6:>12.3f} MB")
+            red = find_redundant_gathers(self.collectives.flows)
+            if red:
+                parts.append("  redundant collectives (same shape+site):")
+                for desc, n in red[:10]:
+                    parts.append(f"    {n}x {desc}")
         return "\n\n".join(parts)
 
     def to_json(self) -> dict:
@@ -73,7 +99,12 @@ class XFAReport:
             "wall_ns": self.wall_ns,
             "n_steps": self.n_steps,
             "folded": self.folded.to_json(),
-            "collectives": None,
+            "collectives": {
+                "by_component": self.collectives.by_component,
+                "by_kind": self.collectives.by_kind,
+                "by_axis": self.collectives.by_axis,
+                "total_wire_bytes": self.collectives.total_wire_bytes,
+            } if self.collectives else None,
         }
 
 
@@ -99,7 +130,7 @@ class XFASession:
         self.n_steps = 0
         self.wall_ns = 0.0
         self._device_fold: Optional[FoldedTable] = None
-        self._collectives = None
+        self._collectives: Optional[CollectiveSummary] = None
         self._static_snapshot: Optional[FoldedTable] = None
 
     # -- device table ------------------------------------------------------
@@ -127,9 +158,18 @@ class XFASession:
 
     def attach_hlo(self, hlo_text: str,
                    mesh_axes: Optional[Dict[str, int]] = None) -> None:
-        raise NotImplementedError(
-            "compiled-HLO collective flows (L3) are not ported: torch emits "
-            "no HLO; a new design is queued in ROADMAP.md")
+        flows = parse_collective_flows(hlo_text, KNOWN_COMPONENTS, mesh_axes)
+        self._collectives = CollectiveSummary.build(flows)
+
+    def attach_collectives(self, flows: Sequence[CollectiveFlow]) -> None:
+        """One step's collectives, as `parallel.mesh.recording()` recorded
+        them on this rank."""
+        self._collectives = CollectiveSummary.build(list(flows))
+
+    @property
+    def device_fold(self) -> Optional[FoldedTable]:
+        """The folded device table (after `finish_device`)."""
+        return self._device_fold
 
     # -- report --------------------------------------------------------------
     def host_folds(self) -> List[FoldedTable]:

@@ -17,18 +17,26 @@ tokens and the router losses).  --layers N keeps the published widths
 and cuts the depth (a model whose training state does not fit the card).
 --xfa-collector HOST:PORT (with --profile-dir) streams them to a fleet
 collector.  --metrics-out DIR writes each rank's step history, kernel
-launches and collective counts to DIR/rank<r>.json.
+launches, collective counts, peak device memory, the device fold and,
+under a mesh, the collective flows of the step its Trainer recorded to
+DIR/rank<r>.json.
+--capacity-factor sets an MoE model's (0: the config's).
 
-Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense family),
-one process per rank, started by torchrun, whose world size must equal
-the mesh's product:
+Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense family
+and the MoE family without MLA, e.g. phi3_5_moe_42b at 1x2: expert and
+tensor parallel over 'model'), one process per rank, started by
+torchrun, whose world size must equal the mesh's product:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train \
         --arch tinyllama_1_1b --smoke --device cpu --mesh 2x2 --steps 4
 
 D is data parallel (each rank takes its rows of the same global batch,
-ZeRO-1 optimizer state), M tensor parallel.  --dist-backend defaults to
+ZeRO-1 optimizer state), M tensor parallel (and expert parallel for an
+MoE model: its experts split over M, tokens exchanged by all-to-all).
+Rank 0's closing report shows the recorded step's collective flows: wire
+bytes by component and by mesh axis, and the collectives repeated at
+one shape and site.  --dist-backend defaults to
 nccl on CUDA (one rank per card) and gloo on the CPU; ranks sharing one
 card ask for gloo (--dist-backend gloo).  --grad-compression int8 and
 --deferred-grad-reduce set the trainer's knobs of the same names.
@@ -41,6 +49,8 @@ import dataclasses
 import json
 import os
 
+import torch
+
 from ..ckpt.manager import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..configs.base import TrainConfig
@@ -52,6 +62,18 @@ from ..parallel.axes import runtime_mesh
 from ..parallel.mesh import collective_counts, init_distributed, shutdown
 from ..runtime.trainer import Trainer, rank
 from .mesh import make_mesh, parse_mesh
+
+
+def flows_json(trainer: Trainer):
+    """The recorded step's collectives (None without a mesh): its step,
+    counts, the summary of the session's report and each flow."""
+    rec = trainer.recorded
+    if rec is None:
+        return None
+    return {"step": rec["step"], "collectives": rec["counts"],
+            "summary": trainer.session.report().to_json()["collectives"],
+            "flows": [dict(dataclasses.asdict(f), wire_bytes=f.wire_bytes)
+                      for f in rec["flows"]]}
 
 
 def main() -> int:
@@ -74,6 +96,9 @@ def main() -> int:
     ap.add_argument("--dist-backend", default="",
                     help="nccl or gloo (default: nccl on cuda, gloo on "
                          "cpu)")
+    ap.add_argument("--capacity-factor", type=float, default=0.0,
+                    help="an MoE model's capacity factor (0: the "
+                         "config's)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--deferred-grad-reduce", action="store_true",
                     help="reduce the gradient over 'data' once after the "
@@ -129,6 +154,8 @@ def main() -> int:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.capacity_factor:
+        cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)
     model = build_model(cfg, impl="auto", device=device)
     tcfg = TrainConfig(total_steps=args.steps, learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
@@ -162,7 +189,14 @@ def main() -> int:
             json.dump({"rank": r, "mesh": args.mesh,
                        "history": trainer.history,
                        "launches": ops.launch_counts(),
-                       "collectives": collective_counts()}, f)
+                       "collectives": collective_counts(),
+                       "peak_bytes": (torch.cuda.max_memory_allocated(
+                           model.device) if model.device.type == "cuda"
+                           else 0),
+                       "collective_flows": flows_json(trainer),
+                       "device_fold": (trainer.session.device_fold.to_json()
+                                       if trainer.session.device_fold
+                                       else None)}, f)
     print(f"done: {metrics}" if r == 0 else f"done (rank {r}): {metrics}")
     if r == 0:
         print(trainer.session.report().render(components=("app",)))

@@ -25,7 +25,10 @@ run column-parallel in and row-parallel out; `embed` and `lm_head` are
 vocab-parallel, and `token_nll` takes the max, the sum of exponentials
 and the gold logit across the vocab shards, so the full logits never
 exist on one rank.  The static costs stay the global operation's, as
-one trace of the reference's SPMD program registers them.
+one trace of the reference's SPMD program registers them.  Each of
+`attention`, `mlp`, `embed` and `lm_head` runs inside its XFA component
+scope (`core.hlo_flows.scoped`), so the collectives it calls are
+recorded under it.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import hlo_flows
 from ..core.device_fold import annotate_cost, shard_scale
 from ..kernels import ops
 from ..parallel import mesh as mesh_lib
@@ -199,6 +203,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+@hlo_flows.scoped("attention")
 def attention(p: Params, x: torch.Tensor, rt: Runtime,
               positions: torch.Tensor, cache: Optional[Params] = None,
               pos: Optional[torch.Tensor] = None,
@@ -401,6 +406,7 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
 
 
 # ------------------------------------------------------------------- mlp ----
+@hlo_flows.scoped("mlp")
 def mlp(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """The (gated) MLP.  With d_ff split over a model axis: through
     `tp.col_row_mlp` when cfg.manual_tp (bf16 partials reduced once each
@@ -441,6 +447,7 @@ def _vocab_start(local: int, rt: Runtime) -> Optional[int]:
     return None
 
 
+@hlo_flows.scoped("embed")
 def embed(p: Params, tokens: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """Token embeddings; vocab-parallel when the table's rows are split:
     ids outside this rank's rows give zeros, then one sum over the
@@ -461,6 +468,7 @@ def embed(p: Params, tokens: torch.Tensor, rt: Runtime) -> torch.Tensor:
     return x
 
 
+@hlo_flows.scoped("lm_head")
 def lm_head(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """Logits; with the vocab split over the model axis, this rank's
     vocab columns only."""

@@ -45,6 +45,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..core import hlo_flows
 from ..core.device_fold import DeviceFoldSpec, scan_multiplier
 from . import moe as moe_lib
 from ..parallel import mesh as mesh_lib
@@ -339,19 +340,26 @@ def lm_loss(forward_fn, p: Params, batch: Dict[str, Any], rt: Runtime,
                   else torch.full((), float(labels.numel()),
                                   device=rt.device))
     else:
-        # this rank's rows of the global batch: the NLL summed here and
-        # the masked-token count, each summed over the batch axes, so the
-        # loss (and, through reduce_from's identity backward, the
-        # gradient once the trainer sums it over 'data') is the one
-        # device's on the global batch
-        nll = token_nll(logits, labels, rt)
-        m = (mask.float() if mask is not None else torch.ones_like(nll))
-        batch = mesh_axes("batch")
-        tokens = mesh_lib.all_reduce(m.sum(), mesh, batch)
-        loss = (tp.reduce_from((nll * m).sum(), mesh, batch)
-                / torch.clamp(tokens, min=1.0))
+        with hlo_flows.component("loss"):
+            loss, tokens = _mesh_loss(logits, labels, mask, rt, mesh)
     metrics = {"loss": loss, "aux_loss": aux, "tokens": tokens}
     return loss + aux, (metrics, table)
+
+
+def _mesh_loss(logits, labels, mask, rt: Runtime, mesh):
+    """(loss, tokens) of this rank's rows under a mesh."""
+    # this rank's rows of the global batch: the NLL summed here and
+    # the masked-token count, each summed over the batch axes, so the
+    # loss (and, through reduce_from's identity backward, the
+    # gradient once the trainer sums it over 'data') is the one
+    # device's on the global batch
+    nll = token_nll(logits, labels, rt)
+    m = (mask.float() if mask is not None else torch.ones_like(nll))
+    batch = mesh_axes("batch")
+    tokens = mesh_lib.all_reduce(m.sum(), mesh, batch)
+    loss = (tp.reduce_from((nll * m).sum(), mesh, batch)
+            / torch.clamp(tokens, min=1.0))
+    return loss, tokens
 
 
 def loss_fn(p: Params, batch: Dict[str, Any], rt: Runtime, table):

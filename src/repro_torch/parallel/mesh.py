@@ -17,10 +17,17 @@ of `repro_torch.parallel` stands on:
 - `make_mesh(shape, axes)` is the counterpart of `jax.make_mesh`, over
   `torch.distributed.device_mesh.init_device_mesh`.  A mesh of one rank
   needs no process group: its collectives are no-ops.
-- `all_reduce`, `all_gather`, `broadcast`, `send` and `recv` over mesh
-  axes, each counted per kind (`collective_counts()`, as
-  `kernels.ops.launch_counts()` counts kernel launches).  A collective
-  over axes of extent 1 does nothing and counts nothing.
+- `all_reduce`, `all_gather`, `all_to_all`, `broadcast`, `send` and
+  `recv` over mesh axes, each counted per kind (`collective_counts()`,
+  as `kernels.ops.launch_counts()` counts kernel launches).  A
+  collective over axes of extent 1 does nothing and counts nothing.
+- `recording()`: while armed, every collective also appends one
+  `core.hlo_flows.CollectiveFlow` (XFA's L3 flows): its kind in the
+  reference's HLO vocabulary (`FLOW_KIND`), this rank's input and
+  output bytes, the group's size and its stride in the mesh's row-major
+  rank numbering (the reference's device-id layout), the mesh axis the
+  call named, and the component of the open scope
+  (`hlo_flows.component`).  Wire bytes follow hlo_flows' ring model.
 
 gloo's support for CUDA tensors differs across PyTorch builds.  With
 gloo and a CUDA device, `init_distributed` checks each collective on
@@ -36,11 +43,14 @@ from __future__ import annotations
 import datetime
 import math
 import os
-from typing import Dict, Optional, Sequence, Set, Tuple, Union
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..core import hlo_flows
 
 #: the process-group timeout: a rank that stops answering fails the
 #: collectives of the others after this long
@@ -49,7 +59,14 @@ DEFAULT_TIMEOUT_S = 600.0
 Axes = Union[str, Sequence[str]]
 
 _COUNTS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
-                           "broadcast": 0, "send": 0, "recv": 0}
+                           "all_to_all": 0, "broadcast": 0, "send": 0,
+                           "recv": 0}
+#: each counted kind's name in the reference's HLO vocabulary
+FLOW_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "all_to_all": "all-to-all", "broadcast": "broadcast",
+             "send": "collective-permute", "recv": "collective-permute"}
+#: the recorder's list while armed (`recording`), else None
+_FLOWS: Optional[List[hlo_flows.CollectiveFlow]] = None
 #: (collective, dtype) pairs gloo refused on CUDA tensors: run on a host copy
 _HOST_COPIED: Set[Tuple[str, torch.dtype]] = set()
 _PROBE_DTYPES = (torch.float32, torch.bfloat16, torch.int64)
@@ -63,6 +80,49 @@ def collective_counts() -> Dict[str, int]:
 def reset_collective_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+
+
+def flow_kind_counts(counts: Dict[str, int]) -> Dict[str, int]:
+    """`collective_counts()` in the flows' vocabulary (send and recv are
+    both collective-permutes), kinds of count 0 left out: what a
+    recording of the same window counts per kind."""
+    out: Dict[str, int] = {}
+    for k, n in counts.items():
+        if n:
+            out[FLOW_KIND[k]] = out.get(FLOW_KIND[k], 0) + n
+    return out
+
+
+@contextmanager
+def recording():
+    """Record every collective called inside the window: yields the list
+    the flows are appended to (in call order)."""
+    global _FLOWS
+    prev, _FLOWS = _FLOWS, []
+    try:
+        yield _FLOWS
+    finally:
+        _FLOWS = prev
+
+
+def _count(kind: str, mesh: "Mesh", axis: str, in_bytes: int,
+           out_bytes: int) -> None:
+    """Count one collective of `kind` over `axis`; record it if armed."""
+    _COUNTS[kind] += 1
+    if _FLOWS is None:
+        return
+    flow_kind = FLOW_KIND[kind]
+    _FLOWS.append(hlo_flows.CollectiveFlow(
+        kind=flow_kind, hlo_name=f"{flow_kind}.{len(_FLOWS)}",
+        input_bytes=in_bytes, output_bytes=out_bytes,
+        group_size=2 if flow_kind == "collective-permute" else
+        mesh.size(axis),
+        group_stride=mesh.stride(axis), op_name=hlo_flows.scope_path(),
+        component=hlo_flows.current_component(), axis=axis))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ----------------------------------------------------------- processes ----
@@ -127,7 +187,7 @@ def _probe_gloo_cuda(device: torch.device) -> None:
     direct = []
     for dtype in _PROBE_DTYPES:
         for kind in ("all_reduce", "all_reduce_max", "all_gather",
-                     "broadcast"):
+                     "all_to_all", "broadcast"):
             t = torch.full((4,), rank + 1, dtype=dtype, device=device)
             try:
                 if kind == "all_reduce":
@@ -141,6 +201,14 @@ def _probe_gloo_cuda(device: torch.device) -> None:
                     dist.all_gather(parts, t)
                     t = torch.cat(parts)
                     want = None
+                elif kind == "all_to_all":
+                    # chunk j of each rank goes to rank j: every rank
+                    # receives 1..world in order, as all_gather gives
+                    t = torch.full((4 * world,), rank + 1, dtype=dtype,
+                                   device=device)
+                    got = torch.empty_like(t)
+                    dist.all_to_all_single(got, t)
+                    t, want = got, None
                 else:
                     dist.broadcast(t, 0)
                     want = 1
@@ -188,6 +256,12 @@ class Mesh:
             return int(self.devices.size)
         sizes = dict(zip(self.axis_names, self.shape))
         return math.prod(sizes.get(a, 1) for a in _as_tuple(axes))
+
+    def stride(self, axis: str) -> int:
+        """The rank-number distance between neighbours along `axis` in
+        the row-major numbering (1 for the last axis)."""
+        i = self.axis_names.index(axis)
+        return math.prod(self.shape[i + 1:])
 
     def coord(self, axes: Axes) -> int:
         """This rank's index along one axis, or its row-major index over
@@ -249,7 +323,7 @@ def all_reduce(t: torch.Tensor, mesh: Optional[Mesh], axes: Axes,
     kind = "all_reduce" if op == "sum" else "all_reduce_max"
     for a in _as_tuple(axes):
         if mesh.size(a) > 1:
-            _COUNTS["all_reduce"] += 1
+            _count("all_reduce", mesh, a, _nbytes(t), _nbytes(t))
             _run(kind, t, lambda x, a=a: dist.all_reduce(
                 x, op=rop, group=mesh.group(a)))
     return t
@@ -261,7 +335,8 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
     the axis' order."""
     if mesh is None or mesh.size(axis) == 1:
         return t
-    _COUNTS["all_gather"] += 1
+    _count("all_gather", mesh, axis, _nbytes(t),
+           _nbytes(t) * mesh.size(axis))
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size(axis))]
     group = mesh.group(axis)
@@ -274,12 +349,33 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
     return torch.cat(parts, dim=dim)
 
 
+def all_to_all(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
+               dim: int = 0) -> torch.Tensor:
+    """`t` split into size(axis) equal chunks along `dim`, chunk j sent
+    to the rank at index j along `axis`; returns the chunks received,
+    concatenated along `dim` in the axis' order (chunk i from index i).
+    Split and concat on one dim: the call is its own inverse."""
+    if mesh is None or mesh.size(axis) == 1:
+        return t
+    _count("all_to_all", mesh, axis, _nbytes(t), _nbytes(t))
+    x = t.movedim(dim, 0).contiguous()
+    group = mesh.group(axis)
+    if x.is_cuda and ("all_to_all", x.dtype) in _HOST_COPIED:
+        host = torch.empty(x.shape, dtype=x.dtype)
+        dist.all_to_all_single(host, x.cpu(), group=group)
+        out = host.to(x.device)
+    else:
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+    return out.movedim(0, dim)
+
+
 def broadcast(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
               src: int = 0) -> torch.Tensor:
     """t IN PLACE from the rank at index `src` along `axis`."""
     if mesh is None or mesh.size(axis) == 1:
         return t
-    _COUNTS["broadcast"] += 1
+    _count("broadcast", mesh, axis, _nbytes(t), _nbytes(t))
     group = mesh.group(axis)
     _run("broadcast", t, lambda x: dist.broadcast(
         x, dist.get_global_rank(group, src), group=group))
@@ -289,7 +385,7 @@ def broadcast(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
 def send(t: torch.Tensor, mesh: Mesh, axis: str, dst: int, tag: int = 0):
     """Start sending t to the rank at index `dst` along `axis`; returns
     the request (wait on it before t is changed)."""
-    _COUNTS["send"] += 1
+    _count("send", mesh, axis, _nbytes(t), 0)
     group = mesh.group(axis)
     return dist.isend(t.contiguous(), dist.get_global_rank(group, dst),
                       group=group, tag=tag)
@@ -298,7 +394,7 @@ def send(t: torch.Tensor, mesh: Mesh, axis: str, dst: int, tag: int = 0):
 def recv(out: torch.Tensor, mesh: Mesh, axis: str, src: int,
          tag: int = 0) -> torch.Tensor:
     """Receive into `out` from index `src` along `axis`; returns out."""
-    _COUNTS["recv"] += 1
+    _count("recv", mesh, axis, 0, _nbytes(out))
     group = mesh.group(axis)
     dist.recv(out, dist.get_global_rank(group, src), group=group, tag=tag)
     return out

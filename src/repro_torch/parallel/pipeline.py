@@ -28,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core import hlo_flows
 from ..tree import tree_map
 from . import mesh as mesh_lib
 
@@ -36,11 +37,13 @@ class _Recv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, anchor, like, mesh, axis, src, tag):
         ctx.mesh, ctx.axis, ctx.src, ctx.tag = mesh, axis, src, tag
+        ctx.component = hlo_flows.current_component()
         return mesh_lib.recv(torch.empty_like(like), mesh, axis, src, tag)
 
     @staticmethod
     def backward(ctx, g):
-        mesh_lib.send(g, ctx.mesh, ctx.axis, ctx.src, ctx.tag).wait()
+        with hlo_flows.component(ctx.component):
+            mesh_lib.send(g, ctx.mesh, ctx.axis, ctx.src, ctx.tag).wait()
         return None, None, None, None, None, None
 
 
@@ -49,13 +52,15 @@ class _Send(torch.autograd.Function):
     def forward(ctx, y, mesh, axis, dst, tag, pending):
         ctx.mesh, ctx.axis, ctx.dst, ctx.tag = mesh, axis, dst, tag
         ctx.shape, ctx.dtype, ctx.device = y.shape, y.dtype, y.device
+        ctx.component = hlo_flows.current_component()
         pending.append(mesh_lib.send(y, mesh, axis, dst, tag))
         return y.new_zeros(())
 
     @staticmethod
     def backward(ctx, _):
         g = torch.empty(ctx.shape, dtype=ctx.dtype, device=ctx.device)
-        mesh_lib.recv(g, ctx.mesh, ctx.axis, ctx.dst, ctx.tag)
+        with hlo_flows.component(ctx.component):
+            mesh_lib.recv(g, ctx.mesh, ctx.axis, ctx.dst, ctx.tag)
         return g, None, None, None, None, None
 
 

@@ -23,8 +23,24 @@ that backward; the port's trainer reduces every leaf's gradient over
 'data' once (`runtime/trainer.py`), so the backward here leaves them
 local.
 
-The Functions take the mesh when the forward runs: the backward runs
-on autograd's threads.
+The Functions take the mesh, and the XFA component of the open scope
+(`core.hlo_flows.component`), when the forward runs: the backward runs
+on autograd's threads, and records its collectives under the
+component of the forward that made them (as the reference's HLO names
+`transpose(jvp(attention))` ops after their forward's scope).
+
+The expert-parallel MoE adds three (`models/moe.py`'s a2a mode):
+
+  all_to_all  the all-to-all over one mesh axis, its backward the
+              inverse all-to-all (the same call)
+  split_rows  this rank's block of rows of an activation held whole on
+              every rank of the axis; backward, the blocks' gradients
+              all-gathered, so each rank again holds the whole gradient
+  gather_rows every rank's block of rows, all-gathered; backward, this
+              rank's block of the gradient, NOT summed: downstream of a
+              replicated activation each rank of the axis already holds
+              the same whole gradient (`copy_to` summed it), and a sum
+              would scale it by the axis' size
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import hlo_flows
 from . import mesh as mesh_lib
 from .axes import get_runtime_mesh, mesh_axes
 
@@ -42,11 +59,14 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
         ctx.mesh, ctx.axes = mesh, axes
+        ctx.component = hlo_flows.current_component()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return mesh_lib.all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
+        with hlo_flows.component(ctx.component):
+            g = mesh_lib.all_reduce(g.clone(), ctx.mesh, ctx.axes)
+        return g, None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
@@ -71,6 +91,76 @@ def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh is None or mesh.size(axes) == 1:
         return x
     return _ReduceFrom.apply(x, mesh, axes)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.component = hlo_flows.current_component()
+        return mesh_lib.all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with hlo_flows.component(ctx.component):
+            g = mesh_lib.all_to_all(g, ctx.mesh, ctx.axis)
+        return g, None, None
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.component = hlo_flows.current_component()
+        n = x.shape[0] // mesh.size(axis)
+        i = mesh.coord(axis)
+        return x[i * n:(i + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        with hlo_flows.component(ctx.component):
+            g = mesh_lib.all_gather(g, ctx.mesh, ctx.axis, dim=0)
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
+        return mesh_lib.all_gather(x, mesh, axis, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.coord(ctx.axis)
+        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x's size(axis) blocks of rows exchanged over `axis` (block j to
+    the rank at index j); differentiable, its backward the same
+    exchange."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis)
+
+
+def split_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """This rank's block of the rows of x (held whole on every rank of
+    `axis`): the i-th of size(axis) equal blocks at index i."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    if x.shape[0] % mesh.size(axis):
+        raise ValueError(f"{x.shape[0]} rows do not split "
+                         f"{mesh.size(axis)} ways over {axis!r}")
+    return _SplitRows.apply(x, mesh, axis)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every rank's block of rows, in the axis' order: the inverse of
+    `split_rows`."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    return _GatherRows.apply(x, mesh, axis)
 
 
 def model_axes() -> Tuple[str, ...]:
@@ -137,6 +227,7 @@ class _ColRowMLP(torch.autograd.Function):
         y = mesh_lib.all_reduce(torch.matmul(h, w_down.to(x.dtype)), mesh,
                                 axes)           # ONE forward all-reduce
         ctx.gated, ctx.mesh, ctx.axes = gated, mesh, axes
+        ctx.component = hlo_flows.current_component()
         ctx.save_for_backward(x, w_up, w_down,
                               w_gate if gated else None, h_up, h_gate)
         return y
@@ -173,7 +264,8 @@ class _ColRowMLP(torch.autograd.Function):
             dw_gate = _f32_mm(x2.T, d_gate.reshape(-1, f)).to(w_gate.dtype)
             # the up and gate dx partials summed locally, then ONE reduce
             dx = dx + torch.matmul(d_gate, w_gate.to(x.dtype).T)
-        dx = mesh_lib.all_reduce(dx, ctx.mesh, ctx.axes)
+        with hlo_flows.component(ctx.component):
+            dx = mesh_lib.all_reduce(dx, ctx.mesh, ctx.axes)
         return (dx, dw_up.to(w_up.dtype), dw_down.to(w_down.dtype), dw_gate,
                 None, None, None)
 

@@ -19,9 +19,10 @@ PyTorch runs eagerly: there is no compile step, and a step is dispatched
 op by op.  With `profile_dir` and `xfa_collector` set, every shard
 refresh also streams the ring's unacked entries to a fleet collector.
 
-Under a mesh (`parallel.axes.runtime_mesh`, the dense family) the step
-is the reference's SPMD step run by each rank on its part
-(`TrainLayout`):
+Under a mesh (`parallel.axes.runtime_mesh`; the dense family, and the
+MoE family without MLA, whose layers run the expert-parallel a2a mode
+of `models/moe.py`) the step is the reference's SPMD step run by each
+rank on its part (`TrainLayout`):
 - params are held as `parallel.sharding.layout_tree` places them (tensor
   parallel over 'model'); master, mu, nu and the int8 residues are also
   sliced over 'data' by `_apply_fsdp`'s rule when tcfg.zero1 (ZeRO-1);
@@ -36,11 +37,17 @@ is the reference's SPMD step run by each rank on its part
 - each rank then compresses (int8) and updates its ZeRO slice, and the
   params are all-gathered over 'data'.
 Every rank writes its own profile shard (`train-r{rank}`); the device and
-static folds are replicated, and only rank 0 writes them.
+static folds are replicated, and only rank 0 writes them.  The gradient
+reduce and the int8 path run in XFA's `grads` component, the AdamW
+update and the ZeRO gathers in `optimizer`.  `Trainer.run` records the
+collectives of one step (the second it runs, or the only one) with
+`parallel.mesh.recording()` and attaches them to its session (XFA's L3
+flows; `Trainer.recorded` keeps them and that step's counts).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -50,6 +57,7 @@ import torch.distributed as dist
 
 from ..ckpt.manager import CheckpointManager
 from ..configs.base import TrainConfig
+from ..core import hlo_flows
 from ..core import tracer as xfa
 from ..core.device_fold import shard_scale
 from ..core.session import XFASession
@@ -81,11 +89,21 @@ class TrainLayout:
 
     def __init__(self, model: Model, full_params, mesh, zero1: bool = True):
         cfg = model.cfg
-        if cfg.family != "dense" or cfg.mla:
+        if cfg.family not in ("dense", "moe") or cfg.mla:
+            what = "MLA" if cfg.mla else f"family {cfg.family}"
             raise NotImplementedError(
-                f"training {cfg.name} (family {cfg.family}) under a mesh is "
-                f"not ported: only the dense family is (ROADMAP.md §1 "
-                f"item 3)")
+                f"training {cfg.name} ({what}) under a mesh is not ported: "
+                f"only the dense family and the MoE family without MLA are "
+                f"(ROADMAP.md §1 item 3)")
+        if cfg.family == "moe":
+            ep = mesh.size("model")
+            if ep < 2 or cfg.n_experts % ep:
+                raise NotImplementedError(
+                    f"training {cfg.name} under a mesh runs the a2a MoE "
+                    f"dispatch over the 'model' axis, which must split its "
+                    f"{cfg.n_experts} experts (it has {ep} ranks); the "
+                    f"dense dispatch over split tokens is not ported "
+                    f"(ROADMAP.md §1 item 3)")
         self.mesh = mesh
         self.param = layout_tree(full_params, mesh, cfg)
         self.opt = layout_tree(full_params, mesh, cfg, zero1=zero1)
@@ -206,6 +224,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     _check_compression(tcfg)
     mesh = layout.mesh if layout is not None else None
 
+    @hlo_flows.scoped("grads")
     def reduce(grads):
         # in f32, as the reference's partitioner sums the dw products'
         # f32 accumulators before rounding them to the params' dtype
@@ -244,13 +263,16 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             views = layout.zero_views(params)
             split, n_params = layout.opt_split, layout.n_params
         if tcfg.grad_compression == "int8":
-            grads, new_state["grad_err"] = adamw.compress_grads_with_feedback(
-                grads, state["grad_err"], split, mesh)
-        _, opt, opt_metrics = adamw.apply_updates(
-            views, state["opt"], grads, tcfg, split=split, mesh=mesh,
-            n_params=n_params)
-        if layout is not None:
-            layout.gather_params(params)
+            with hlo_flows.component("grads"):
+                grads, new_state["grad_err"] = \
+                    adamw.compress_grads_with_feedback(
+                        grads, state["grad_err"], split, mesh)
+        with hlo_flows.component("optimizer"):
+            _, opt, opt_metrics = adamw.apply_updates(
+                views, state["opt"], grads, tcfg, split=split, mesh=mesh,
+                n_params=n_params)
+            if layout is not None:
+                layout.gather_params(params)
         metrics.update(opt_metrics)
         if table is not None:
             table = model.fold_spec.emit(table, "app", "loss", "train_step",
@@ -285,6 +307,9 @@ class Trainer:
     #: one record per step run: {"step", "step_s" (dispatch + device
     #: sync, host clock), and the step's metrics as floats}
     history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    #: under a mesh, the recorded step: {"step", "flows" (this rank's
+    #: CollectiveFlows in call order), "counts" (its collective_counts)}
+    recorded: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
         if self.session is None:
@@ -371,12 +396,25 @@ class Trainer:
         table = model.table()
         data.start(at_step=start_step)
         last_metrics: Dict[str, float] = {}
+        # under a mesh: the collectives of one step after the first
+        record_at = (min(start_step + 1, n_steps - 1) if mesh is not None
+                     else None)
         try:
             for step in range(start_step, n_steps):
                 batch = next(data)
                 t0 = time.perf_counter_ns()
-                with xfa.scope("runtime", "dispatch_step"):
+                if step == record_at:
+                    before = mesh_lib.collective_counts()
+                with xfa.scope("runtime", "dispatch_step"), \
+                        (mesh_lib.recording() if step == record_at
+                         else contextlib.nullcontext()) as flows:
                     state, metrics, table = step_fn(state, batch, table)
+                if step == record_at:
+                    after = mesh_lib.collective_counts()
+                    self.recorded = {"step": step, "flows": list(flows),
+                                     "counts": {k: after[k] - before[k]
+                                                for k in after}}
+                    self.session.attach_collectives(flows)
                 with xfa.scope("runtime", "device_sync", xfa.KIND_WAIT):
                     self._sync()
                 dt = time.perf_counter_ns() - t0

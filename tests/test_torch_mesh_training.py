@@ -341,11 +341,18 @@ def test_report_merges_both_rank_shards(run):
 
 # ------------------------------------------------------------- trainer ----
 def test_other_families_raise_under_a_mesh():
-    m = mesh_lib.Mesh((1, 1), ("data", "model"))
-    moe = build_model(dataclasses.replace(
-        torch_smoke("phi3_5_moe_42b"), n_layers=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainLayout(moe, full_shapes(moe.cfg), m)
+    """Every family but the dense one and the MoE family without MLA
+    (tests/test_torch_moe_mesh.py) raises, naming what is missing."""
+    m = mesh_lib.Mesh((1, 2), ("data", "model"))
+    for arch, what in (("zamba2_2_7b", "family hybrid"),
+                       ("deepseek_v2_lite_16b", "MLA"),
+                       ("internvl2_1b", "family vlm"),
+                       ("seamless_m4t_large_v2", "family audio"),
+                       ("xlstm_1_3b", "family ssm")):
+        model = build_model(torch_smoke(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+            TrainLayout(model, full_shapes(model.cfg), m)
+        assert what in str(err.value), (arch, str(err.value))
 
 
 def test_one_device_int8_trainer_follows_the_reference_trainer(ref,

@@ -1,5 +1,6 @@
 """Rank programs of the port's gloo worlds on the CPU, for
-tests/test_torch_parallel.py and tests/test_torch_mesh_training.py.
+tests/test_torch_parallel.py, tests/test_torch_mesh_training.py,
+tests/test_torch_moe_mesh.py and tests/test_torch_collective_flows.py.
 
 Each test module starts one world per mesh size once (a module fixture):
 `start_world` launches one process per rank running `main`, which joins
@@ -372,5 +373,206 @@ def layer_cuda(rank, world, d):
     return {"got": got.float().cpu(), "want": want, "launches": counts}
 
 
+# ---------------------------------------------------------------- moe ----
+#: the capacity factors of the MoE layer checks: the config's (binding:
+#: the same per-shard drops) and one at which nothing drops
+MOE_CFS = (1.25, 64.0)
+#: the batch of the MoE model checks and curves: 64 tokens, 16 a shard
+#: at (2, 2)
+MOE_BATCH = (4, 16)
+
+
+def _moe_cfg(cf=None):
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("phi3_5_moe_42b")
+    return cfg if cf is None else dataclasses.replace(cfg,
+                                                      capacity_factor=cf)
+
+
+def _sub_mesh(m22):
+    """(1, 2) over the model axis of each data row of the (2, 2) world:
+    both rows run it, each on its own."""
+    from repro_torch.parallel import mesh as mesh_lib
+    return mesh_lib.Mesh((1, 2), ("data", "model"),
+                         device_mesh=m22.device_mesh)
+
+
+def _moe_layer(inp, mesh, cf, mode="a2a"):
+    """The first MoE layer of the smoke phi3.5-moe on x [B, S, 128]:
+    y, aux_total and the fold table, and the gradients of sum(y ct) +
+    aux_total, gathered (x over 'data', the experts over 'model', the
+    router's summed over 'data')."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import shard_leaf
+    cfg = _moe_cfg(cf)
+    model = build_model(cfg, device="cpu")
+    dp = mesh.size("data") if mesh is not None else 1
+    dc = mesh.coord("data") if mesh is not None else 0
+    B = inp["x"].shape[0]
+    rows = slice(dc * B // dp, (dc + 1) * B // dp)
+    x = torch.from_numpy(inp["x"])[rows].clone().requires_grad_()
+    ct = torch.from_numpy(inp["ct"])[rows]
+    w = {}
+    for k in ("router", "w_gate", "w_up", "w_down"):
+        full = torch.from_numpy(inp[f"moe_{k}"])
+        spec = (None, None) if k == "router" else ("model", None, None)
+        w[k] = (shard_leaf(full, spec, mesh) if mesh is not None
+                else full).clone().requires_grad_()
+    with runtime_mesh(mesh):
+        y, table, aux = moe_lib.moe({"moe": w}, x, model.rt, model.table(),
+                                    mode=mode)
+    ((y * ct).sum() + aux).backward()
+    out = {"y": y.detach(), "aux": aux.detach(), "table": table,
+           "dx": x.grad, "d_router": w["router"].grad}
+    for k in ("w_gate", "w_up", "w_down"):
+        out[f"d_{k}"] = w[k].grad
+    if mesh is not None:
+        out["y"] = _gather_rows(out["y"], mesh, "data")
+        out["dx"] = _gather_rows(out["dx"], mesh, "data")
+        out["d_router"] = mesh_lib.all_reduce(out["d_router"], mesh, "data")
+        for k in ("w_gate", "w_up", "w_down"):
+            g = mesh_lib.all_reduce(out[f"d_{k}"], mesh, "data")
+            out[f"d_{k}"] = mesh_lib.all_gather(g, mesh, "model", dim=0)
+    return out
+
+
+def moe_mesh(rank, world, d):
+    """The smoke phi3.5-moe's a2a MoE layer at (1, 2) and (2, 2) at each
+    of MOE_CFS, and the dense layer on one rank; the model's loss and
+    gradients and a 3-step Trainer run at each mesh, the (1, 2) run
+    writing a checkpoint."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    train_state_from_numpy)
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.runtime.trainer import (Trainer, TrainLayout,
+                                             full_shapes,
+                                             local_value_and_grad)
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    flat_state = {n[len("s/"):]: a for n, a in inp.items()
+                  if n.startswith("s/")}
+    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    meshes = {"1x2": _sub_mesh(m22), "2x2": m22}
+    out = {"dense": {cf: _moe_layer(inp, None, cf, "dense")
+                     for cf in MOE_CFS}}
+    cfg = _moe_cfg()
+    model = build_model(cfg, device="cpu")
+    B, S = MOE_BATCH
+    batch = SyntheticLMData(cfg, B, S, seed=3).generate(0)
+    row = m22.coord("data")
+    for tag, mesh in meshes.items():
+        res = {"layer": {cf: _moe_layer(inp, mesh, cf) for cf in MOE_CFS}}
+        params = params_from_numpy(
+            {n[len("params/"):]: a for n, a in flat_state.items()
+             if n.startswith("params/")}, cfg, "cpu", mesh=mesh)
+        with runtime_mesh(mesh):
+            lay = TrainLayout(model, full_shapes(cfg), mesh)
+            loss, met, table, g = local_value_and_grad(
+                model, params, lay.local_rows(batch, 1), model.table(), lay)
+            for _, x in _leaves(g):
+                mesh_lib.all_reduce(x, mesh, lay.batch_axes)
+            res["grads"] = {"loss": loss, "aux_loss": met["aux_loss"],
+                            "table": table,
+                            "grads": gather_tree(g, mesh, lay.param)}
+            tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                               total_steps=3, ckpt_interval=3)
+            state = lay.shard_state(train_state_from_numpy(flat_state, cfg,
+                                                           "cpu"))
+            t = Trainer(model, tcfg, CheckpointManager(
+                os.path.join(d, f"ck-{tag}-row{row}")))
+            st, _ = t.run(0, SyntheticLMData(cfg, B, S, seed=3), 3,
+                          resume=False, state=state)
+            res["curve"] = {"loss": [h["loss"] for h in t.history],
+                            "aux_loss": [h["aux_loss"] for h in t.history],
+                            "grad_norm": [h["grad_norm"] for h in t.history],
+                            "state": lay.gather_state(st),
+                            "fold": t.session.device_fold.to_json()}
+        out[tag] = res
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves_with_path
+    return leaves_with_path(tree)
+
+
+# --------------------------------------------------------------- flows ----
+#: the Trainer settings of the recorded smoke phi3.5-moe step at (2, 2)
+FLOWS_TRAIN = {"learning_rate": 3e-3, "warmup_steps": 2, "total_steps": 2,
+               "ckpt_interval": 0, "grad_compression": "int8"}
+
+
+def _flow_dicts(flows):
+    return [dict(dataclasses.asdict(f), wire_bytes=f.wire_bytes)
+            for f in flows]
+
+
+def flows(rank, world, d):
+    """XFA's L3 flows as the port records them at (2, 2): one call of each
+    collective kind inside a `collective` scope, and the smoke
+    phi3.5-moe's second Trainer step (int8 compression, ZeRO-1): each
+    flow, the step's counts, its report's collectives section and the
+    redundant collectives."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import hlo_flows
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.runtime.trainer import Trainer
+    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    out = {}
+    mesh_lib.reset_collective_counts()
+    mesh_lib.all_reduce(torch.ones(3), m22, "model")   # not recorded
+    before = mesh_lib.collective_counts()
+    with hlo_flows.component("collective"), mesh_lib.recording() as fl:
+        mesh_lib.all_reduce(torch.ones(3), m22, ("data", "model"))
+        mesh_lib.all_gather(torch.ones(2), m22, "model")
+        a2a = mesh_lib.all_to_all(torch.arange(4.0) + 10 * rank, m22,
+                                  "model")
+        mesh_lib.broadcast(torch.ones(5), m22, "data")
+        mesh_lib.all_reduce(torch.ones(4), m22, "data", op="max")
+        me = m22.coord("model")
+        buf = torch.empty(6)
+        if me == 0:
+            mesh_lib.send(torch.ones(6), m22, "model", 1).wait()
+            mesh_lib.recv(buf, m22, "model", 1)
+        else:
+            mesh_lib.recv(buf, m22, "model", 0)
+            mesh_lib.send(torch.ones(6), m22, "model", 0).wait()
+    after = mesh_lib.collective_counts()
+    out["direct"] = {"flows": _flow_dicts(fl), "a2a": a2a,
+                     "counts": {k: after[k] - before[k] for k in after},
+                     "armed_after": mesh_lib._FLOWS is not None}
+
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("phi3_5_moe_42b")
+    model = build_model(cfg, device="cpu")
+    t = Trainer(model, TrainConfig(**FLOWS_TRAIN),
+                CheckpointManager(os.path.join(d, f"ck-r{rank}")))
+    with runtime_mesh(m22):
+        t.run(0, SyntheticLMData(cfg, 4, 16, seed=3), 2, resume=False)
+    rep = t.session.report()
+    out["step"] = {"step": t.recorded["step"],
+                   "flows": _flow_dicts(t.recorded["flows"]),
+                   "counts": t.recorded["counts"],
+                   "collectives": rep.to_json()["collectives"],
+                   "render": rep.render(components=("app",)),
+                   "redundant": hlo_flows.find_redundant_gathers(
+                       t.recorded["flows"])}
+    return out
+
+
 PROGRAMS = {"parallel": parallel, "training": training,
-            "layer_cuda": layer_cuda}
+            "layer_cuda": layer_cuda, "moe_mesh": moe_mesh, "flows": flows}
