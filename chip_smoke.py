@@ -338,8 +338,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the only kernel: its launches exact for the engine's
               forwards), tok/s, TTFT, decode gap, peak memory
   19b. xlstm train  the same model, batch 4 x 1024 (cut from 4 x 2048:
-              the sLSTM loop's eager launches set the step time), 3 steps
-              through the Trainer with each super-block rematerialized
+              the sLSTM loop's eager launches set the step time),
+              XLSTM_TRAIN_STEPS (2) steps through the Trainer with each super-block rematerialized
               whole (remat full, see XLSTM_TRAIN_REMAT): step time, peak
               memory, MFU by the static costs (held at 1e-6) plus the
               cells' chunkwise products and the sLSTM FFN, which register
@@ -348,13 +348,13 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the fixed limits (f32 1e-4 / 1e-3, bf16 ratio 1.25) at one
               super-block (8 blocks) and 1 x 256 (XLSTM_GRAD_LAYERS,
               XLSTM_GRAD_SHAPE), where a one-ulp move of the norms must
-              move the plain f32 gradient less than 1e-3; the same
-              readings at all 48 blocks logged
+              move the plain f32 gradient less than 1e-3
   20. mesh train  tinyllama_1_1b at its published widths, cut to
               MESH_LAYERS of its 22 layers for the run's time, through
               the launcher (`repro_torch.launch.train`),
               MESH_STEPS steps of batch 4 x 1024 with 2 microbatches, the
-              deferred gradient reduce and int8 compression: on one rank,
+              deferred gradient reduce and int8 compression: on one rank
+              (the launcher's main in this process: `run_launcher`),
               then under torchrun at --mesh 1x2 (tensor parallel 2: 16 q
               over 2 kv heads a rank) and 2x1 (data parallel 2, ZeRO-1),
               two ranks sharing the card over gloo with CUDA tensors (the
@@ -383,8 +383,9 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
   21. moe mesh train  phi3_5_moe_42b at its published widths, cut to
               MOE_MESH_LAYERS (2) of its 32 layers as phase 12, through
               the launcher, MOE_MESH_STEPS steps of batch 2 x 1024 at
-              capacity_factor 8 (drop-free): on one rank, then under
-              torchrun at --mesh 1x2 (expert parallel 2: the a2a MoE
+              capacity_factor 8 (drop-free): on one rank (in this
+              process), then under torchrun at --mesh 1x2 (expert
+              parallel 2: the a2a MoE
               dispatch, 8 of 16 experts a rank, tokens exchanged by
               all-to-all over 'model'; attention 16 q over 4 kv heads a
               rank and half the vocab), two ranks sharing the card over
@@ -399,12 +400,41 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               (forward, remat's recompute, backward), each under `moe`
               on 'model' with E x C_loc x 4096 x 2 input bytes, per-kind
               counts equal to collective_counts(), none in `app`; rank
-              0's report shows the collectives section.  Then, in a
-              world of 2 spawned ranks, one loss_fn + backward at 1 x
-              1024 under 1x2, each leaf gathered: f32 against the
+              0's report shows the collectives section.  Then, in phase
+              22's world of 2 spawned ranks, one loss_fn + backward at 1
+              x 1024 under 1x2 at MOE_MESH_GRAD_LAYERS (1) layer, each
+              leaf gathered: f32 against the
               one-rank f32 kernel run (loss 1e-4, leaves 1e-3), bf16 no
               further from the f32 plain gradient than the one-rank bf16
-              kernel run's, within 1.25x
+              kernel run's, within 1.25x, the top-k choices pinned; each
+              rank's attention takes 16 q heads
+  22. family mesh train  deepseek_v2_lite_16b (MLA, 64 experts top 6 + 2
+              shared) at 2 of its 27 layers (the dense one and one MoE
+              layer) at capacity_factor 11 (drop-free), and zamba2_2_7b
+              at 12 of its 54 layers (two super-blocks: the tied block's
+              gradient sums over two calls), both at their published
+              widths, through `mesh_case_phase` as phase 21:
+              FAMILY_MESH_STEPS steps of batch 2 x 1024 on one rank and
+              at --mesh 1x2 (deepseek: MLA split by heads, 8 a rank, the
+              a2a MoE with 32 experts a rank, the shared experts and the
+              dense MLP column/row; zamba2: the Mamba2 blocks split by
+              ssm heads, 40 a rank, B and C whole, the gated norm over
+              the gathered row, the shared block's 16 heads a rank), each
+              rank's state reckoned and peak printed, the peaks' sum
+              under 80 GB; losses within MESH_LOSS_REL_TOL of one rank's,
+              the rmsnorm and flash pairs (and zamba2's ssd_scan pair)
+              launched on each rank, deepseek's fold invariant (nothing
+              dropped), the ranks' tables equal; the recorded step's
+              flows: deepseek's attention all-reduces and MoE
+              all-to-alls (E x C_loc x 2048 x 2 bytes) on 'model',
+              zamba2's `ssm` all-reduces and all-gathers on 'model', none
+              in `app`.  Then both gradient checks, one after the other
+              and after phase 21's, in one world of 2 spawned ranks
+              (deepseek's
+              bf16 pair pinned, the unpinned reading logged), each rank's
+              kernels taking the local shapes: the flash pair at (192,
+              128) with 8 heads; ssd_scan with 40 heads and the flash
+              pair at D 80 with 16 heads
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
@@ -437,8 +467,10 @@ numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
 the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
 width_896 numbers: phase 17; the g1_d64 and width_1024 numbers: phases
 18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b;
-each mesh rank's launches, `mesh_launches`: phases 20, 20b and 21,
-the keys "moe ep rank r" and "moe grads rank r" phase 21's);
+each mesh rank's launches, `mesh_launches`: phases 20, 20b, 21 and
+22, the keys "moe ep rank r" and "moe grads rank r" phase 21's,
+"deepseek 1x2 rank r", "deepseek grads rank r", "zamba2 1x2 rank r" and
+"zamba2 grads rank r" phase 22's);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -447,6 +479,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -460,6 +493,7 @@ import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from typing import Any, Dict, NamedTuple, Tuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -587,6 +621,7 @@ def run(torch) -> None:
     xlstm_train_counts, xlstm_train = xlstm_train_phase(torch)
     mesh_launches = mesh_train_phase(torch)
     mesh_launches.update(moe_mesh_phase(torch))
+    mesh_launches.update(family_mesh_phase(torch))
     diagnose_phase(torch)
     # each new layout's and width's launches: the run of the model that
     # serves or trains at it (paged kernels: its paged run)
@@ -5189,8 +5224,9 @@ XLSTM_SERVE_LAYERS = 16
 #: ~1.07 GB a mLSTM layer at 4 x 2048, ~45 GB over 42 layers.  Its batch
 #: is cut from 4 x 2048 to 4 x 1024 for the run's time: a step is bound
 #: by the host's eager launches of the sLSTM loop (4 x 2048: 22.6 s a
-#: step, NVIDIA H100 80GB HBM3, 700.00 W)
-XLSTM_TRAIN_STEPS = 3
+#: step, NVIDIA H100 80GB HBM3, 700.00 W); 2 steps (3 took 33.6 s), cut
+#: for the run's time
+XLSTM_TRAIN_STEPS = 2
 XLSTM_TRAIN_SHAPE = (4, 1024)
 XLSTM_TRAIN_REMAT = "full"
 #: phase 19b's gradient check, held to the fixed limits of the other
@@ -5200,11 +5236,11 @@ XLSTM_TRAIN_REMAT = "full"
 #: weights xLSTM's gradients move with the last bit of its norms, the
 #: more the deeper the model: at 1 x 256 a one-ulp move of every norm
 #: scale moves the plain f32 gradient under 1e-4 at 8 blocks and ~1e-1
-#: at all 48 (this phase logs both), so at full depth no fixed limit
-#: tells a right gradient from a wrong one
-#: (tests/test_torch_xlstm.py: the reference's gradients move as much).
-#: At the cut that move must stay below HYBRID_GRAD_TOL (checked); the
-#: full depth's readings are logged beside it
+#: at all 48 (PERF.md §2), so at full depth no fixed limit tells a right
+#: gradient from a wrong one (tests/test_torch_xlstm.py: the reference's
+#: gradients move as much).  At the cut that move must stay below
+#: HYBRID_GRAD_TOL (checked); the full depth's readings, logged only,
+#: were cut for the run's time
 XLSTM_GRAD_LAYERS = 8
 XLSTM_GRAD_SHAPE = (1, 256)
 #: phase 19's chunk-width check: a prompt of 512 tokens a row whole, then
@@ -5381,9 +5417,8 @@ def xlstm_train_phase(torch):
     chunkwise products and the sLSTM FFN, which register none; the
     no profiled step); then grads_precision_check at XLSTM_GRAD_LAYERS
     blocks and XLSTM_GRAD_SHAPE, where a one-ulp move of the norms must
-    move the plain f32 gradient less than HYBRID_GRAD_TOL, with the full
-    depth's readings logged (grad_spread).  Returns (launch counts,
-    stats)."""
+    move the plain f32 gradient less than HYBRID_GRAD_TOL (grad_spread).
+    Returns (launch counts, stats)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(XLSTM_ARCH),
@@ -5394,7 +5429,6 @@ def xlstm_train_phase(torch):
                           kernels=("rmsnorm", "rmsnorm_backward"),
                           profile=False)
     t0 = time.monotonic()
-    grad_spread(torch, cfg, "xlstm-grads", XLSTM_GRAD_SHAPE)
     cut = dataclasses.replace(cfg, n_layers=XLSTM_GRAD_LAYERS)
     moved = grad_spread(torch, cut, "xlstm-grads", XLSTM_GRAD_SHAPE)[
         "f32 plain with the norms moved one ulp"]
@@ -5416,12 +5450,13 @@ def xlstm_train_phase(torch):
 #: 2 microbatches with the deferred gradient reduce and int8 compression,
 #: the one-rank run included, so the three runs compute one function
 MESH_ARCH = "tinyllama_1_1b"
-#: the depth of phase 20's runs: 8 of tinyllama's 22 layers, cut for the
-#: run's time alone (all 22 took phases 20 and 20b 186-270 s, my chip
-#: calls 1-2; NVIDIA H100 80GB HBM3, 700.00 W)
-MESH_LAYERS = 8
+#: the depth of phase 20's runs: 4 of tinyllama's 22 layers, cut for the
+#: run's time alone (all 22 took phases 20 and 20b 186-270 s, 8 layers
+#: and 3 steps 150.8 s; NVIDIA H100 80GB HBM3, 700.00 W); 2 steps, the
+#: second the recorded one
+MESH_LAYERS = 4
 MESH_SHAPE = (4, 1024)                  # B, S of the launcher runs
-MESH_STEPS = 3
+MESH_STEPS = 2
 MESH_FLAGS = ("--microbatches", "2", "--deferred-grad-reduce",
               "--grad-compression", "int8")
 MESH_RUNS = (("one", None), ("tp", "1x2"), ("dp", "2x1"))
@@ -5475,6 +5510,39 @@ def run_group(cmd, timeout_s: float, what: str) -> str:
     return out
 
 
+def run_launcher(torch, args, mesh, what: str) -> str:
+    """The train launcher with `args`: under --mesh `mesh` (two ranks
+    sharing the card over gloo) by torchrun in its own process group;
+    with no mesh in this process (`launch.train.main`, the one-rank
+    reference runs: a fresh process's start-up and first step took 15-22
+    s of each, PR 29), its launch counters and peak memory reset first.
+    Returns its standard output (rank 0's under torchrun)."""
+    if mesh:
+        return run_group([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc-per-node", str(math.prod(
+                              int(x) for x in mesh.split("x"))), "-m",
+                          "repro_torch.launch.train", *args, "--mesh", mesh,
+                          "--dist-backend", "gloo"], MESH_TIMEOUT_S, what)
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    release(torch)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    argv, sys.argv = sys.argv, ["repro_torch.launch.train", *args]
+    out = io.StringIO()
+    try:
+        with redirect_stdout(out):
+            rc = launcher.main()
+    finally:
+        sys.argv = argv
+    if rc != 0:
+        fail(f"{what}: the launcher returned {rc}")
+    release(torch)
+    return out.getvalue()
+
+
 def mesh_train_phase(torch):
     """Phase 20: the launcher trains tinyllama_1_1b at its published
     widths (MESH_LAYERS layers) for MESH_STEPS steps of MESH_SHAPE, first on
@@ -5504,17 +5572,9 @@ def mesh_train_phase(torch):
         d = RUN_ROOT / "mesh" / tag
         args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
                 str(d / "metrics"), "--profile-dir", str(d / "prof")]
-        n = 1
-        if mesh:
-            n = math.prod(int(x) for x in mesh.split("x"))
-            args += ["--mesh", mesh, "--dist-backend", "gloo"]
-            cmd = [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", "--nproc-per-node", str(n), "-m",
-                   "repro_torch.launch.train", *args]
-        else:
-            cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+        n = math.prod(int(x) for x in mesh.split("x")) if mesh else 1
         t0 = time.monotonic()
-        out = run_group(cmd, MESH_TIMEOUT_S, f"mesh-train {tag}")
+        out = run_launcher(torch, args, mesh, f"mesh-train {tag}")
         for line in out.splitlines():
             if line.startswith("[mesh]"):
                 log(f"[mesh-train] {tag}: {line}")
@@ -5523,8 +5583,8 @@ def mesh_train_phase(torch):
             with open(d / "metrics" / f"rank{r}.json") as f:
                 ranks.append(json.load(f))
         runs[tag] = ranks
-        log(f"[mesh-train] {tag} ({mesh or 'one rank'}): {n} process(es), "
-            f"{time.monotonic() - t0:.1f}s wall incl. start-up")
+        log(f"[mesh-train] {tag} ({mesh or 'one rank, in this process'}): "
+            f"{n} rank(s), {time.monotonic() - t0:.1f}s wall incl. start-up")
         if mesh and FLOWS_HEAD not in out:
             fail(f"mesh-train {tag}: rank 0's report shows no collective "
                  f"flows")
@@ -5847,157 +5907,250 @@ MOE_MESH_STEPS = 3
 #: int(T 2 / 16 x 8) = T and a shard's max(8, int(t_loc 2 / 16 x 8)) =
 #: t_loc, and no expert gets more than one choice of a token
 MOE_MESH_CF = MOE_DROP_FREE
-MOE_MESH_RUNS = (("one", None), ("ep", "1x2"))
 MOE_MESH_GRAD_SHAPE = (1, 1024)         # B, S of the gradient check
+#: the gradient check's depth: one MoE layer (2 and the leaves' gathers
+#: took 48.1 s of the world, PR 30), cut for the run's time
+MOE_MESH_GRAD_LAYERS = 1
 #: all-to-alls a layer and step: the dispatch and the return in the
 #: forward, again in remat's recompute (dots_saveable recomputes both:
 #: their outputs are no matmul's), and their inverses in the backward
 MOE_A2A_PER_LAYER = 6
 
 
-def moe_mesh_state_gb(cfg, mesh_shape):
+class MeshCase(NamedTuple):
+    """One model trained through the launcher on one rank and at --mesh
+    1x2 (two ranks sharing the card over gloo) and checked against the
+    one-rank run (`mesh_case_phase`), then its gradient at 1x2 against
+    one rank's in a spawned world (`mesh_case_grads`)."""
+    key: str                # the launches' keys and the run dir's name
+    arch: str
+    layers: int
+    shape: Tuple[int, int]  # B, S of the launcher runs
+    steps: int
+    grad_shape: Tuple[int, int]
+    #: the gradient check's depth (0: `layers`)
+    grad_layers: int
+    #: kernels each rank of the 1x2 run must launch
+    kernels: Tuple[str, ...]
+    #: (component, kind, axis) flow sites of the 1x2 run's recorded step
+    sites: Tuple[Tuple[str, str, str], ...]
+    #: the local shapes each rank's kernels take at 1x2: "attention" (q
+    #: heads, q/k head dim, v head dim), "ssd_scan" (heads)
+    local: Dict[str, Any]
+    capacity_factor: float = 0.0
+    #: an MoE model's bf16 gradient also unpinned (logged only)
+    unpinned: bool = True
+    mesh_tag: str = "1x2"
+    #: the launcher runs write profile dirs (phase 9 reads phase 21's)
+    profile: bool = False
+
+    def cfg(self, layers: int = 0):
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config(self.arch),
+                                  n_layers=layers or self.layers)
+        if self.capacity_factor:
+            cfg = dataclasses.replace(cfg,
+                                      capacity_factor=self.capacity_factor)
+        return cfg
+
+
+MOE_MESH = MeshCase(
+    key="moe", arch=MOE_ARCH, layers=MOE_MESH_LAYERS, shape=MOE_MESH_SHAPE,
+    steps=MOE_MESH_STEPS, grad_shape=MOE_MESH_GRAD_SHAPE,
+    grad_layers=MOE_MESH_GRAD_LAYERS,
+    kernels=MESH_KERNELS, sites=MESH_FLOW_SITES["ep"],
+    local={"attention": (16, 128, 128)}, capacity_factor=MOE_MESH_CF,
+    unpinned=False, mesh_tag="ep", profile=True)
+
+# --------------------------------------------------- family mesh train ----
+#: phase 22: deepseek-v2-lite (MLA + 64 experts top 6 + 2 shared) and
+#: zamba2-2.7b (the Mamba2 hybrid) at their published widths under --mesh
+#: 1x2 through the launcher, against one rank, as phase 21.  deepseek at 2
+#: of 27 layers (the dense one and one MoE layer), drop-free at
+#: capacity_factor 11 >= 64 / 6 (a shard's capacity max(8, int(t_loc 6 /
+#: 64 x 11)) >= t_loc); zamba2 at 12 of 54 layers (two super-blocks, so
+#: the tied block's gradient sums over two calls); 2 steps each (the
+#: second is the recorded one) of batch 2 x 1024
+FAMILY_MESH_SHAPE = (2, 1024)
+FAMILY_MESH_STEPS = 2
+FAMILY_MESH = (
+    MeshCase(key="deepseek", arch=MLA_ARCH, layers=2,
+             shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
+             grad_shape=(1, 1024), grad_layers=0, kernels=MESH_KERNELS,
+             sites=(("attention", "all-reduce", "model"),
+                    ("moe", "all-to-all", "model"),
+                    ("mlp", "all-reduce", "model")),
+             local={"attention": (8, 192, 128)},
+             capacity_factor=MLA_DROP_FREE),
+    MeshCase(key="zamba2", arch="zamba2_2_7b", layers=12,
+             shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
+             grad_shape=(1, 1024), grad_layers=0,
+             kernels=MESH_KERNELS + ("ssd_scan", "ssd_scan_backward"),
+             sites=(("ssm", "all-reduce", "model"),
+                    ("ssm", "all-gather", "model"),
+                    ("attention", "all-reduce", "model")),
+             local={"attention": (16, 80, 80), "ssd_scan": 40}))
+MESH_CASES = {c.key: c for c in (MOE_MESH,) + FAMILY_MESH}
+
+
+def mesh_state_gb(cfg, mesh_shape):
     """(params, GB of train state) of one rank at `mesh_shape`: its slice
-    of every leaf (tensor and expert parallel over 'model') x (2 bytes of
-    bf16 param + 2 of bf16 gradient + 12 of f32 master, mu and nu)."""
-    from repro_torch.models import build_model
+    of every leaf (`layout_tree`: tensor and expert parallel over
+    'model', the hybrid's B and C columns whole) x (2 bytes of bf16 param
+    + 2 of bf16 gradient + 12 of f32 master, mu and nu)."""
     from repro_torch.parallel.mesh import Mesh
-    from repro_torch.parallel.sharding import layout_tree
+    from repro_torch.parallel.sharding import layout_tree, local_shape
     from repro_torch.runtime.trainer import full_shapes
     from repro_torch.tree import leaves_with_path
     mesh = Mesh(mesh_shape, ("data", "model"))
     shapes = full_shapes(cfg)
     specs = dict(leaves_with_path(layout_tree(shapes, mesh, cfg)))
-    n = sum(x.numel() // mesh.size([a for a in specs[k] if a])
+    n = sum(math.prod(local_shape(x.shape, specs[k], mesh))
             for k, x in leaves_with_path(shapes))
     return n, n * 16 / 1e9
 
 
-def moe_mesh_phase(torch):
-    """Phase 21: the launcher trains phi3_5_moe_42b at its widths
-    (MOE_MESH_LAYERS layers) for MOE_MESH_STEPS steps of MOE_MESH_SHAPE,
-    drop-free, on one rank and under --mesh 1x2 (the a2a MoE dispatch:
-    experts split over 'model', tokens exchanged by all-to-all); every
-    rank's losses within MESH_LOSS_REL_TOL of the one-rank run's, its
-    kernels launched, its fold's invariant (the ranks' tables equal),
-    its recorded step's flows (`check_flows`); then the gradient check in
-    a spawned world (`moe_mesh_rank`).  Returns {rank: launches}."""
+def mesh_case_phase(torch, case: MeshCase, phase: str):
+    """The launcher trains `case` at its widths and depth for its steps
+    on one rank and under --mesh 1x2; every rank's losses within
+    MESH_LOSS_REL_TOL of the one-rank run's, its kernels launched, an MoE
+    model's fold invariant (nothing dropped), the ranks' fold tables
+    equal and their peaks summed under the card's memory, and its
+    recorded step's flows (`check_flows`; an MoE model's all-to-alls
+    MOE_A2A_PER_LAYER a layer at E x C_loc x d x 2 bytes).  Returns
+    {key: launches} of the mesh run's ranks."""
     from repro_torch.core.folding import FoldedTable
 
-    t_phase = time.monotonic()
+    t0 = time.monotonic()
     release(torch)
-    cfg = moe_cfg(MOE_MESH_LAYERS, capacity_factor=MOE_MESH_CF)
-    B, S = MOE_MESH_SHAPE
-    n_one, gb_one = moe_mesh_state_gb(cfg, (1, 1))
-    n_rank, gb_rank = moe_mesh_state_gb(cfg, (1, 2))
-    log(f"[moe-mesh] {cfg.name} at its published widths, cut from 32 to "
-        f"{MOE_MESH_LAYERS} layers as phase 12, batch {B} x {S}, "
-        f"{MOE_MESH_STEPS} steps, capacity_factor {MOE_MESH_CF} (drop-free)"
-        f"; one rank holds {n_one / 1e9:.3f}B params ({gb_one:.1f} GB of "
+    cfg = case.cfg()
+    what = f"{case.key}-mesh"
+    B, S = case.shape
+    n_one, gb_one = mesh_state_gb(cfg, (1, 1))
+    n_rank, gb_rank = mesh_state_gb(cfg, (1, 2))
+    log(f"[{what}] {cfg.name} at its published widths, cut to "
+        f"{case.layers} layers, batch {B} x {S}, {case.steps} steps"
+        + (f", capacity_factor {case.capacity_factor} (drop-free)"
+           if case.capacity_factor else "")
+        + f"; one rank holds {n_one / 1e9:.3f}B params ({gb_one:.1f} GB of "
         f"state at 16 B a param), a rank at 1x2 {n_rank / 1e9:.3f}B "
         f"({gb_rank:.1f} GB; two ranks {2 * gb_rank:.1f} GB of the card's "
         f"80) before activations")
-    common = ["--arch", MOE_ARCH, "--device", "cuda", "--layers",
-              str(MOE_MESH_LAYERS), "--steps", str(MOE_MESH_STEPS),
-              "--batch", str(B), "--seq", str(S), "--ckpt-interval", "0",
-              "--capacity-factor", str(MOE_MESH_CF)]
+    common = ["--arch", case.arch, "--device", "cuda", "--layers",
+              str(case.layers), "--steps", str(case.steps), "--batch",
+              str(B), "--seq", str(S), "--ckpt-interval", "0"]
+    if case.capacity_factor:
+        common += ["--capacity-factor", str(case.capacity_factor)]
     runs = {}
-    for tag, mesh in MOE_MESH_RUNS:
-        d = RUN_ROOT / "moe-mesh" / tag
+    for tag, mesh in (("one", None), (case.mesh_tag, "1x2")):
+        d = RUN_ROOT / what / tag
         args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
-                str(d / "metrics"), "--profile-dir", str(d / "prof")]
-        n = 1
-        if mesh:
-            n = math.prod(int(x) for x in mesh.split("x"))
-            args += ["--mesh", mesh, "--dist-backend", "gloo"]
-            cmd = [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", "--nproc-per-node", str(n), "-m",
-                   "repro_torch.launch.train", *args]
-        else:
-            cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
-        t0 = time.monotonic()
-        out = run_group(cmd, MESH_TIMEOUT_S, f"moe-mesh {tag}")
+                str(d / "metrics")]
+        if case.profile:
+            args += ["--profile-dir", str(d / "prof")]
+        n = 2 if mesh else 1
+        t_run = time.monotonic()
+        out = run_launcher(torch, args, mesh, f"{what} {tag}")
         for line in out.splitlines():
             if line.startswith("[mesh]"):
-                log(f"[moe-mesh] {tag}: {line}")
+                log(f"[{what}] {tag}: {line}")
         if mesh:
             if FLOWS_HEAD not in out:
-                fail(f"moe-mesh {tag}: rank 0's report shows no collective "
+                fail(f"{what} {tag}: rank 0's report shows no collective "
                      f"flows")
             section = out[out.index(FLOWS_HEAD):].split("\n\n")
-            log(f"[moe-mesh] {tag}: rank 0's report: "
+            log(f"[{what}] {tag}: rank 0's report: "
                 + " | ".join(x.strip() for x in section[:12]))
         runs[tag] = [json.load(open(d / "metrics" / f"rank{r}.json"))
                      for r in range(n)]
-        log(f"[moe-mesh] {tag} ({mesh or 'one rank'}): {n} process(es), "
-            f"{time.monotonic() - t0:.1f}s wall incl. start-up")
+        log(f"[{what}] {tag} ({mesh or 'one rank, in this process'}): {n} "
+            f"rank(s), {time.monotonic() - t_run:.1f}s wall incl. start-up")
     base = [h["loss"] for h in runs["one"][0]["history"]]
-    t_loc = B * S // 2
-    c_loc = max(8, int(t_loc * cfg.top_k / cfg.n_experts * MOE_MESH_CF))
-    a2a = (MOE_A2A_PER_LAYER * MOE_MESH_LAYERS,
-           cfg.n_experts * c_loc * cfg.d_model * 2)
+    a2a = None
+    if cfg.moe:
+        t_loc = B * S // 2
+        c_loc = max(8, int(t_loc * cfg.top_k / cfg.n_experts
+                           * cfg.capacity_factor))
+        a2a = (MOE_A2A_PER_LAYER * moe_layers(cfg),
+               cfg.n_experts * c_loc * cfg.d_model * 2)
     launches, folds, peaks = {}, {}, {}
-    for tag, mesh in MOE_MESH_RUNS:
+    keys = ("loss", "aux_loss", "grad_norm")
+    for tag, mesh in (("one", None), (case.mesh_tag, "1x2")):
         for m in runs[tag]:
             r, hist = m["rank"], m["history"]
-            what = f"moe-mesh {tag} rank {r}"
+            run_what = f"{what} {tag} rank {r}"
             losses = [h["loss"] for h in hist]
-            if len(losses) != MOE_MESH_STEPS or not all(
-                    math.isfinite(h[k]) for h in hist
-                    for k in ("loss", "aux_loss", "grad_norm")):
-                fail(f"{what}: history {hist}")
+            if len(losses) != case.steps or not all(
+                    math.isfinite(h[k]) for h in hist for k in keys):
+                fail(f"{run_what}: history {hist}")
             errs = [abs(a - b) / abs(b) for a, b in zip(losses, base)]
             if max(errs) > MESH_LOSS_REL_TOL:
-                fail(f"{what}: losses {losses} vs the one-rank run's {base}"
-                     f": relative errors {errs} (limit {MESH_LOSS_REL_TOL})")
-            missing = [k for k in MESH_KERNELS if m["launches"][k] <= 0]
+                fail(f"{run_what}: losses {losses} vs the one-rank run's "
+                     f"{base}: relative errors {errs} (limit "
+                     f"{MESH_LOSS_REL_TOL})")
+            missing = [k for k in case.kernels if m["launches"][k] <= 0]
             if missing:
-                fail(f"{what}: kernels {missing} were not launched: "
+                fail(f"{run_what}: kernels {missing} were not launched: "
                      f"{m['launches']}")
-            fold = FoldedTable.from_json(m["device_fold"])
-            f = moe_fold(cfg, fold, what, B * S * MOE_MESH_STEPS,
-                         MOE_MESH_STEPS)
-            if f["dropped"]:
-                fail(f"{what}: {f['dropped']} choices dropped at "
-                     f"capacity_factor {MOE_MESH_CF}")
+            if cfg.moe:
+                f = moe_fold(cfg, FoldedTable.from_json(m["device_fold"]),
+                             run_what, B * S * case.steps, case.steps)
+                if f["dropped"]:
+                    fail(f"{run_what}: {f['dropped']} choices dropped at "
+                         f"capacity_factor {case.capacity_factor}")
             folds[(tag, r)] = m["device_fold"]
             peaks[(tag, r)] = m["peak_bytes"] / 1e9
             step_ms = statistics.median(h["step_s"] for h in hist[1:]) * 1e3
-            log(f"[moe-mesh] {what}: losses {[round(x, 5) for x in losses]} "
-                f"(relative to one rank: {[f'{e:.2e}' for e in errs]}), aux "
+            log(f"[{what}] {run_what}: losses "
+                f"{[round(x, 5) for x in losses]} (relative to one rank: "
+                f"{[f'{e:.2e}' for e in errs]}), aux "
                 f"{[round(h['aux_loss'], 6) for h in hist]}, grad norms "
                 f"{[round(h['grad_norm'], 4) for h in hist]}; step times (s) "
                 f"{[round(h['step_s'], 3) for h in hist]}, median after the "
                 f"first {step_ms:.1f} ms ({'two ranks sharing one card over '
                 'gloo' if mesh else 'one rank'}; no measure of parallel "
                 f"speed); peak {peaks[(tag, r)]:.1f} GB; on {device_line()}")
-            log(f"[moe-mesh] {what}: kernel launches "
+            log(f"[{what}] {run_what}: kernel launches "
                 f"{json.dumps(m['launches'])}; collectives "
                 f"{json.dumps(m['collectives'])}")
             if mesh:
-                launches[f"moe {tag} rank {r}"] = m["launches"]
-                check_flows(what, m, MESH_FLOW_SITES[tag], a2a)
+                launches[f"{case.key} {tag} rank {r}"] = m["launches"]
+                check_flows(run_what, m, case.sites, a2a)
         if mesh:
             if folds[(tag, 0)] != folds[(tag, 1)]:
-                fail(f"moe-mesh {tag}: the ranks' fold tables differ")
+                fail(f"{what} {tag}: the ranks' fold tables differ")
             total = peaks[(tag, 0)] + peaks[(tag, 1)]
-            log(f"[moe-mesh] {tag}: the two ranks' fold tables are equal; "
+            log(f"[{what}] {tag}: the two ranks' fold tables are equal; "
                 f"peaks {peaks[(tag, 0)]:.1f} + {peaks[(tag, 1)]:.1f} = "
                 f"{total:.1f} GB")
             if total >= MOE_TRAIN_PEAK_GB:
-                fail(f"moe-mesh {tag}: the ranks' peaks sum to {total:.1f} "
+                fail(f"{what} {tag}: the ranks' peaks sum to {total:.1f} "
                      f"GB")
-    for r, res in enumerate(spawn_world(moe_mesh_rank, RUN_ROOT / "moe-mesh"
-                                        / "world", "moe-mesh-grads")):
-        launches[f"moe grads rank {r}"] = res["grad_launches"]
-        log(f"[moe-mesh-grads] rank {r}: kernel launches "
-            f"{json.dumps(res['grad_launches'])}; peak "
-            f"{res['peak_bytes'] / 1e9:.1f} GB")
-    log(f"[moe-mesh] phase 21: {time.monotonic() - t_phase:.1f}s")
+    log(f"[{what}] phase {phase} launcher runs: "
+        f"{time.monotonic() - t0:.1f}s")
     return launches
 
 
-def moe_mesh_rank(rank: int, world: int, d: str) -> None:
-    """One rank of phase 21's gradient world (a spawned process)."""
+def mesh_grads_world(cases, what: str):
+    """The gradient checks of `cases` (`mesh_case_grads`), one after the
+    other in one world of 2 ranks spawned here.  Returns {key: launches}
+    of each case's mesh runs, each rank."""
+    d = RUN_ROOT / what
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "cases.json").write_text(json.dumps([c.key for c in cases]))
+    launches = {}
+    for r, res in enumerate(spawn_world(mesh_grads_rank, d, what)):
+        for c in cases:
+            got = res[c.key]
+            launches[f"{c.key} grads rank {r}"] = got["grad_launches"]
+            log(f"[{what}] {c.key} rank {r}: kernel launches "
+                f"{json.dumps(got['grad_launches'])}; local shapes "
+                f"{got['shapes']}; peak {got['peak_bytes'] / 1e9:.1f} GB")
+    return launches
+
+
+def mesh_grads_rank(rank: int, world: int, d: str) -> None:
+    """One rank of `mesh_grads_world` (a spawned process)."""
     sys.path.insert(0, str(SRC))
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6007,29 +6160,56 @@ def moe_mesh_rank(rank: int, world: int, d: str) -> None:
     mesh_lib.init_distributed("gloo", "cuda",
                               init_method=f"file://{d}/init", rank=rank,
                               world_size=world, timeout_s=MESH_TIMEOUT_S)
-    ops.reset_launch_counts()
-    moe_mesh_grads(torch, rank)
-    torch.cuda.synchronize()
+    out = {}
+    for key in json.loads(Path(d, "cases.json").read_text()):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        shapes = mesh_case_grads(torch, rank, MESH_CASES[key])
+        torch.cuda.synchronize()
+        out[key] = {"grad_launches": ops.launch_counts(), "shapes": shapes,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+        gc.collect()
+        torch.cuda.empty_cache()
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
-        json.dump({"grad_launches": ops.launch_counts(),
-                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+        json.dump(out, f)
     mesh_lib.shutdown()
 
 
-def moe_mesh_grads(torch, rank: int) -> None:
-    """Phase 21, gradients: one loss_fn + backward of phi3.5-moe at its
-    widths and MOE_MESH_LAYERS layers, batch MOE_MESH_GRAD_SHAPE,
-    drop-free, under 1x2 (each leaf gathered over 'model' and compared on
-    rank 0 one at a time), in f32 and bf16, against rank 0's one-rank
-    runs, kept in host memory: f32 against the f32 kernel run (loss
-    MESH_GRAD_LOSS_TOL relative, each leaf HYBRID_GRAD_TOL relative L2);
-    bf16 no further from the f32 plain gradient than the one-rank bf16
-    kernel run's, within HYBRID_BF16_RATIO, with every top-k choice of
-    both runs pinned to the f32 plain model's (`pinned_router`, each rank
-    its block of tokens; routing on bf16-rounded values flips choices
-    between the runs, as in phases 11, 13 and 14), the unpinned readings
-    and the share of choices that differ logged."""
-    import dataclasses
+@contextmanager
+def local_shapes(ops, seen: set):
+    """Record the shapes this rank's attention and SSD scan calls take:
+    ("attention", q heads, q/k head dim, v head dim) and ("ssd_scan",
+    heads)."""
+    attention, ssd_scan = ops.attention, ops.ssd_scan
+
+    def spy_attention(q, k, v, **kw):
+        seen.add(("attention", q.shape[1], q.shape[-1], v.shape[-1]))
+        return attention(q, k, v, **kw)
+
+    def spy_ssd(x, *args, **kw):
+        seen.add(("ssd_scan", x.shape[2]))
+        return ssd_scan(x, *args, **kw)
+    ops.attention, ops.ssd_scan = spy_attention, spy_ssd
+    try:
+        yield
+    finally:
+        ops.attention, ops.ssd_scan = attention, ssd_scan
+
+
+def mesh_case_grads(torch, rank: int, case: MeshCase):
+    """One loss_fn + backward of `case` at its widths and depth
+    (case.grad_layers), batch case.grad_shape, under 1x2 (each leaf
+    gathered over 'model' and compared on rank 0 one at a time), in f32 and bf16, against rank 0's
+    one-rank runs, kept in host memory: f32 against the f32 kernel run
+    (loss MESH_GRAD_LOSS_TOL relative, each leaf HYBRID_GRAD_TOL relative
+    L2); bf16 no further from the f32 plain gradient than the one-rank
+    bf16 kernel run's, within HYBRID_BF16_RATIO.  For an MoE model every
+    top-k choice of both bf16 runs is pinned to the f32 plain model's
+    (`pinned_router`, each rank its block of tokens; routing on
+    bf16-rounded values flips choices between the runs, as in phases 11,
+    13 and 14), the unpinned readings (case.unpinned) and the share of
+    choices that differ logged.  Each rank's kernels must take
+    case.local's shapes.  Returns the shapes seen."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -6042,10 +6222,12 @@ def moe_mesh_grads(torch, rank: int) -> None:
                                              value_and_grad)
     from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 
-    cfg16 = moe_cfg(MOE_MESH_LAYERS, capacity_factor=MOE_MESH_CF)
+    what = f"{case.key}-mesh-grads"
+    cfg16 = case.cfg(case.grad_layers)
     cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
                                 compute_dtype="float32")
-    B, S = MOE_MESH_GRAD_SHAPE
+    pin_moe = cfg16.moe
+    B, S = case.grad_shape
     T, K = B * S, cfg16.top_k
     batch = SyntheticLMData(cfg16, B, S, seed=1).generate(0)
     p32 = build_model(cfg32, device="cuda").init(0)
@@ -6073,16 +6255,20 @@ def moe_mesh_grads(torch, rank: int) -> None:
     def bf16(tree):
         return tree_map(lambda t: t.to(torch.bfloat16), tree)
 
+    # the bf16 runs: unpinned (an MoE model's logged only), pinned
+    bf16_pins = ((False,) if not pin_moe else
+                 (False, True) if case.unpinned else (True,))
+    runs = (("plain32", cfg32, "ref", False),
+            ("kern32", cfg32, "auto", False)) + tuple(
+        ("kern16 pinned" if pin else "kern16", cfg16, "auto", pin)
+        for pin in bf16_pins)
     refs, n_calls = {}, torch.zeros(1, dtype=torch.int64, device="cuda")
     if rank == 0:
         # one-rank references, in host memory; these launches are
         # comparisons, not counted
         saved = ops.launch_counts()
         pins = None
-        for tag, cfg, impl, pin in (("plain32", cfg32, "ref", False),
-                                    ("kern32", cfg32, "auto", False),
-                                    ("kern16", cfg16, "auto", False),
-                                    ("kern16 pinned", cfg16, "auto", True)):
+        for tag, cfg, impl, pin in runs:
             params = p32 if cfg is cfg32 else bf16(p32)
             model = build_model(cfg, impl=impl, device="cuda")
             (loss, _, _, g), picks = routed(
@@ -6097,27 +6283,29 @@ def moe_mesh_grads(torch, rank: int) -> None:
             fn.launches = saved[fn.__name__]
         n_calls.fill_(len(pins))
     mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
-    # the f32 plain model's choices, to every rank (one [T, K] a call)
-    mesh_lib.broadcast(n_calls, mesh, "model")
-    pins = (torch.stack(refs["plain32"][2]) if rank == 0 else
-            torch.zeros((int(n_calls), T, K), dtype=torch.int64,
-                        device="cuda"))
-    mesh_lib.broadcast(pins, mesh, "model")
     m, t_loc = mesh.coord("model"), T // mesh.size("model")
-    block = [p[m * t_loc:(m + 1) * t_loc] for p in pins]
+    block = None
+    if pin_moe:
+        # the f32 plain model's choices, to every rank (one [T, K] a call)
+        mesh_lib.broadcast(n_calls, mesh, "model")
+        pins = (torch.stack(refs["plain32"][2]) if rank == 0 else
+                torch.zeros((int(n_calls), T, K), dtype=torch.int64,
+                            device="cuda"))
+        mesh_lib.broadcast(pins, mesh, "model")
+        block = [p[m * t_loc:(m + 1) * t_loc] for p in pins]
     with runtime_mesh(mesh):
         lay = TrainLayout(build_model(cfg32, device="cuda"),
                           full_shapes(cfg32), mesh)
     local32 = shard_tree(p32, mesh, lay.param)
     del p32
     torch.cuda.empty_cache()
-    for dtype, cfg, pin in (("float32", cfg32, False),
-                            ("bfloat16", cfg16, False),
-                            ("bfloat16", cfg16, True)):
+    seen = set()
+    for dtype, cfg, pin in (("float32", cfg32, False),) + tuple(
+            ("bfloat16", cfg16, pin) for pin in bf16_pins):
         local = local32 if dtype == "float32" else bf16(local32)
         model = build_model(cfg, device="cuda")
         t0 = time.monotonic()
-        with runtime_mesh(mesh):
+        with runtime_mesh(mesh), local_shapes(ops, seen):
             (loss, _, _, g), picks = routed(
                 lambda: local_value_and_grad(
                     model, local, lay.local_rows(batch, 1), None, lay),
@@ -6144,17 +6332,21 @@ def moe_mesh_grads(torch, rank: int) -> None:
         if rank != 0:
             continue
         want_loss, _, want_picks = refs[one]
-        differ = sum(int((a.sort(-1).values != b[:t_loc].sort(-1).values)
-                         .sum()) for a, b in zip(picks, want_picks))
-        flips = differ / (len(picks) * t_loc * K)
+        flips = ""
+        if pin_moe:
+            differ = sum(int((a.sort(-1).values
+                              != b[:t_loc].sort(-1).values).sum())
+                         for a, b in zip(picks, want_picks))
+            flips = (f"; top-k choices of rank 0's tokens that differ from "
+                     f"the one-rank run's "
+                     f"{100 * differ / (len(picks) * t_loc * K):.3f}%")
         worst = max(errs, key=errs.get)
-        what = f"1x2 {'f32' if dtype == 'float32' else 'bf16'}" + (
+        run_what = f"1x2 {'f32' if dtype == 'float32' else 'bf16'}" + (
             " pinned" if pin else "")
-        log(f"[moe-mesh-grads] {what}: loss {float(loss):.6f} vs one rank "
+        log(f"[{what}] {run_what}: loss {float(loss):.6f} vs one rank "
             f"{want_loss:.6f} (relative "
-            f"{abs(float(loss) - want_loss) / abs(want_loss):.2e}); top-k "
-            f"choices of rank 0's tokens that differ from the one-rank "
-            f"run's {100 * flips:.3f}%; worst leaf {worst} "
+            f"{abs(float(loss) - want_loss) / abs(want_loss):.2e}){flips}; "
+            f"worst leaf {worst} "
             + (f"{errs[worst]:.2e} relative L2" if dtype == "float32" else
                f"ratio {errs[worst]:.3f} of the one-rank bf16 run's "
                f"distance from the f32 plain gradient")
@@ -6162,13 +6354,47 @@ def moe_mesh_grads(torch, rank: int) -> None:
         if dtype == "float32":
             lerr = abs(float(loss) - want_loss) / abs(want_loss)
             if lerr > MESH_GRAD_LOSS_TOL or errs[worst] > HYBRID_GRAD_TOL:
-                fail(f"moe-mesh-grads f32: loss {lerr:.2e} (limit "
+                fail(f"{what} f32: loss {lerr:.2e} (limit "
                      f"{MESH_GRAD_LOSS_TOL}), {worst} {errs[worst]:.2e} "
                      f"(limit {HYBRID_GRAD_TOL})")
-        elif pin and errs[worst] > HYBRID_BF16_RATIO:
-            fail(f"moe-mesh-grads bf16 pinned: {worst} ratio "
-                 f"{errs[worst]:.3f} > {HYBRID_BF16_RATIO}")
+        elif (pin or not pin_moe) and errs[worst] > HYBRID_BF16_RATIO:
+            fail(f"{what} {run_what}: {worst} ratio {errs[worst]:.3f} > "
+                 f"{HYBRID_BF16_RATIO}")
     del refs
+    want = {("attention",) + tuple(case.local["attention"])}
+    if "ssd_scan" in case.local:
+        want.add(("ssd_scan", case.local["ssd_scan"]))
+    if seen != want:
+        fail(f"{what} rank {rank}: the kernels took local shapes "
+             f"{sorted(seen)}, want {sorted(want)}")
+    return sorted(seen)
+
+
+def moe_mesh_phase(torch):
+    """Phase 21: phi3_5_moe_42b at its widths and MOE_MESH_LAYERS layers,
+    drop-free, through `mesh_case_phase` (the a2a MoE dispatch at 1x2:
+    experts split over 'model', tokens exchanged by all-to-all); its
+    gradient check runs in phase 22's world.  Returns {rank:
+    launches}."""
+    t_phase = time.monotonic()
+    launches = mesh_case_phase(torch, MOE_MESH, "21")
+    log(f"[moe-mesh] phase 21: {time.monotonic() - t_phase:.1f}s")
+    return launches
+
+
+def family_mesh_phase(torch):
+    """Phase 22: deepseek-v2-lite and zamba2-2.7b through
+    `mesh_case_phase`, then the gradient checks of phases 21 and 22 one
+    after the other in one spawned world.  Returns {rank: launches}."""
+    t_phase = time.monotonic()
+    launches = {}
+    for case in FAMILY_MESH:
+        launches.update(mesh_case_phase(torch, case, "22"))
+    launches.update(mesh_grads_world((MOE_MESH,) + FAMILY_MESH,
+                                     "mesh-grads"))
+    log(f"[family-mesh] phase 22 (with phase 21's gradient check): "
+        f"{time.monotonic() - t_phase:.1f}s")
+    return launches
 
 
 # -------------------------------------------------------------- diagnose ----

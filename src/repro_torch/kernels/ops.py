@@ -20,6 +20,8 @@ reference's edges and formulas.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..core import tracer as xfa
@@ -289,7 +291,8 @@ def rmsnorm_add(x, residual, w, *, eps: float = 1e-5, impl: str = "auto",
 
 
 def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, h0=None,
-             impl: str = "auto", component: str = "ssm"):
+             impl: str = "auto", component: str = "ssm",
+             heads: Optional[int] = None):
     """Mamba2 SSD: x [B, L, H, P], dt [B, L, H], a [H], b/c [B, L, N];
     h0 [B, H, N, P] the carried state (None = a fresh sequence), so a
     prompt fed in chunks resumes where the previous chunk stopped.
@@ -302,13 +305,16 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, h0=None,
     reference does before its Pallas kernel (`ref.ssd_scan`).  When a
     gradient is wanted the kernel path goes through `SSDScan` (the scan
     backward kernel); otherwise it calls the wrapper, one launch with no
-    autograd host cost."""
+    autograd host cost.  `heads`: the global head count when x, dt and
+    a hold one rank's heads (tensor parallel; b and c are whole): the
+    static cost registered is the global scan's."""
     B, L, H, P = x.shape
     N = b.shape[-1]
+    share = (heads or H) / H
     # 2 matmul pairs of [T,T]x[T,*] per chunk ~ 6*B*H*L*chunk*(N+P) flops
     annotate_cost(xfa.current_component(), component, "ssd_scan",
-                  flops=float(6 * B * H * L * chunk * (N + P)),
-                  bytes=_bytes(x, dt, b, c) * 2)
+                  flops=float(6 * B * H * L * chunk * (N + P)) * share,
+                  bytes=(_bytes(x, dt) * share + _bytes(b, c)) * 2)
     pad = (-L) % chunk
     if pad:
         def zp(t):

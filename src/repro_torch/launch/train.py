@@ -22,10 +22,12 @@ under a mesh, the collective flows of the step its Trainer recorded to
 DIR/rank<r>.json.
 --capacity-factor sets an MoE model's (0: the config's).
 
-Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense family
-and the MoE family without MLA, e.g. phi3_5_moe_42b at 1x2: expert and
-tensor parallel over 'model'), one process per rank, started by
-torchrun, whose world size must equal the mesh's product:
+Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense, MoE
+and hybrid families, e.g. phi3_5_moe_42b or deepseek_v2_lite_16b at 1x2:
+expert and tensor parallel over 'model'; zamba2_2_7b at 1x2: its Mamba2
+blocks split by ssm heads, and --layers a multiple of its attn_every),
+one process per rank, started by torchrun, whose world size must equal
+the mesh's product:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train \
@@ -153,6 +155,10 @@ def main() -> int:
         set_host_label(args.xfa_host_label)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
+        if cfg.attn_every and args.layers % cfg.attn_every:
+            ap.error(f"--layers {args.layers}: {cfg.name} applies its "
+                     f"shared block every {cfg.attn_every} layers, so the "
+                     f"depth must be a multiple of {cfg.attn_every}")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.capacity_factor:
         cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)

@@ -25,10 +25,11 @@ run column-parallel in and row-parallel out; `embed` and `lm_head` are
 vocab-parallel, and `token_nll` takes the max, the sum of exponentials
 and the gold logit across the vocab shards, so the full logits never
 exist on one rank.  The static costs stay the global operation's, as
-one trace of the reference's SPMD program registers them.  Each of
-`attention`, `mlp`, `embed` and `lm_head` runs inside its XFA component
-scope (`core.hlo_flows.scoped`), so the collectives it calls are
-recorded under it.
+one trace of the reference's SPMD program registers them; MLA's
+training branch splits its heads too (`mla_attention`).  Each of
+`attention` (GQA and MLA), `mlp`, `embed` and `lm_head` runs inside its
+XFA component scope (`core.hlo_flows.scoped`), so the collectives it
+calls are recorded under it.
 """
 
 from __future__ import annotations
@@ -203,7 +204,6 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-@hlo_flows.scoped("attention")
 def attention(p: Params, x: torch.Tensor, rt: Runtime,
               positions: torch.Tensor, cache: Optional[Params] = None,
               pos: Optional[torch.Tensor] = None,
@@ -231,6 +231,17 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     (y [B, S, d], cache)."""
     if rt.cfg.mla:
         return mla_attention(p, x, rt, positions, cache, pos, block_table)
+    return _gqa_attention(p, x, rt, positions, cache, pos, block_table,
+                          kv=kv, causal=causal)
+
+
+@hlo_flows.scoped("attention")
+def _gqa_attention(p: Params, x: torch.Tensor, rt: Runtime,
+                   positions: torch.Tensor, cache: Optional[Params],
+                   pos: Optional[torch.Tensor],
+                   block_table: Optional[torch.Tensor], *,
+                   kv: Optional[torch.Tensor], causal: bool
+                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     cfg = rt.cfg
     ap = p["attn"]
     B, S, d = x.shape
@@ -311,6 +322,7 @@ def attention(p: Params, x: torch.Tensor, rt: Runtime,
     return y, new_cache
 
 
+@hlo_flows.scoped("attention")
 def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
                   positions: torch.Tensor, cache: Optional[Params] = None,
                   pos: Optional[torch.Tensor] = None,
@@ -335,16 +347,32 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
     [ckv | krope] (D = r + dr) and V rows ckv, sm_scale (dn + dr) ** -0.5,
     r output columns (the reference builds k = [ckv | krope] and v = ckv
     zero-padded to r + dr, and keeps the same r columns).  They are
-    un-absorbed through wv_b in f32.  Returns (y, cache)."""
+    un-absorbed through wv_b in f32.  Returns (y, cache).
+
+    Under a model axis (training only) the layer is tensor parallel by
+    heads: wq and wkv_b hold this rank's heads' columns (head-major, so
+    the contiguous split keeps heads whole) and wo their rows
+    (`tp.row_parallel`); wkv_a is whole on every rank, so x enters it as
+    it is and the latent (c_kv, k_rope) goes through `tp.copy_to_model`
+    (its gradient is this rank's heads' part), while x enters wq through
+    `copy_to_model` too.  The latent serving path runs on one device."""
     cfg = rt.cfg
     ap = p["attn"]
     B, S, d = x.shape
     nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                       cfg.v_head_dim)
     r = cfg.kv_lora_rank
-    q = linear(ap["wq"], x).reshape(B, S, nh, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    # local heads from the weights: a model axis holds nh / tp a rank
+    nh_loc = ap["wq"].shape[-1] // (dn + dr)
+    split = tp.split_over_model(nh_loc, nh)
+    if split and cache is not None:
+        raise NotImplementedError("MLA's latent serving path under a "
+                                  "model axis is not ported")
     kv_a = linear(ap["wkv_a"], x)                        # [B, S, r + dr]
+    if split:
+        kv_a, x = tp.copy_to_model(kv_a), tp.copy_to_model(x)
+    q = linear(ap["wq"], x).reshape(B, S, nh_loc, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
     c_kv, k_rope = kv_a[..., :r], kv_a[..., r:]
     cos, sin = rope_tables(cfg, positions, dr)
     if cos.dim() == 3:                                   # per-row positions
@@ -353,17 +381,19 @@ def mla_attention(p: Params, x: torch.Tensor, rt: Runtime,
     k_rope = apply_rope(k_rope[:, None], cos, sin)          # [B, 1, S, dr]
     annotate_cost("attention", "attention", "mla_proj",
                   flops=2.0 * B * S * d * (nh * (dn + dr) + r + dr))
-    wkv_b = ap["wkv_b"].reshape(r, nh, dn + dv)
+    wkv_b = ap["wkv_b"].reshape(r, nh_loc, dn + dv)
     wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]        # [r,nh,dn], [r,nh,dv]
     scale = (dn + dr) ** -0.5
     if cache is None:          # training: expand the latent
         k_nope = torch.einsum("bsr,rhd->bhsd", c_kv, wk_b.to(c_kv.dtype))
         v = torch.einsum("bsr,rhd->bhsd", c_kv, wv_b.to(c_kv.dtype))
-        k = torch.cat([k_nope, k_rope.expand(B, nh, S, dr)], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, nh_loc, S, dr)], dim=-1)
         qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
-        o = ops.attention(qq, k, v.contiguous(), causal=True, sm_scale=scale,
-                          impl=rt.impl)
-        y = linear(ap["wo"], o.transpose(1, 2).reshape(B, S, nh * dv))
+        with shard_scale(nh / nh_loc):
+            o = ops.attention(qq, k, v.contiguous(), causal=True,
+                              sm_scale=scale, impl=rt.impl)
+        o = o.transpose(1, 2).reshape(B, S, nh_loc * dv)
+        y = tp.row_parallel(o, ap["wo"]) if split else linear(ap["wo"], o)
         return y, None
     if block_table is not None:
         cc = update_cache_pages(cache["ckv"], c_kv, pos, block_table,

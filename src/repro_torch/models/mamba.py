@@ -34,6 +34,22 @@ kernels, head dim 80 at zamba2's width).  Each super-block (attn_every
 Mamba layers, then the shared block) is rematerialized per cfg.remat, as
 the reference checkpoints its `super_body`; `loss_fn` is the causal LM
 loss of `transformer.lm_loss`.
+
+Under a model axis (training; `parallel.sharding.layout_tree`) the
+Mamba2 block is tensor parallel by ssm heads: in_proj gives this rank's
+z, x and dt columns and the whole B and C (one group), the depthwise conv
+runs on its x channels and all of B and C, a_log, dt_bias and d_skip
+hold its heads, and the SSD scan runs on its H / tp heads.  The weight
+parts every rank holds whole (in_proj's and conv_w's B and C) meet only
+this rank's heads, so their gradients are summed over 'model' once
+(`tp.copy_to_model(part=...)`), and x enters the block's projection
+through `copy_to_model`.  The gated RMSNorm runs over all of d_inner,
+mixing heads: y is gathered over 'model', normed whole (the rounding of
+one device), and this rank's columns of it enter the row-parallel
+out_proj.  The shared block runs the split `attention` and `mlp`; its
+weight-tied gradients add up over the super-blocks.  Each Mamba2 block
+runs inside XFA's `ssm` component scope, so its collectives are
+recorded under it.
 """
 
 from __future__ import annotations
@@ -44,8 +60,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import hlo_flows
 from ..core.device_fold import DeviceFoldSpec, annotate_cost
 from ..kernels import ops
+from ..parallel import tp
+from ..parallel.axes import get_runtime_mesh
 from .layers import (Params, Runtime, attention, embed, last_valid, linear,
                      lm_head, mlp, norm, torch_dtype)
 from .transformer import (F32, ONES, ZEROS, _layer, _remat, init_from_specs,
@@ -138,6 +157,7 @@ def _conv_tail(raw_xbc: torch.Tensor, conv_state: Optional[torch.Tensor],
     return torch.gather(xp, 1, idx[..., None].expand(-1, -1, ch))
 
 
+@hlo_flows.scoped("ssm")
 def mamba_block(p: Params, x: torch.Tensor, rt: Runtime,
                 state: Optional[Params] = None, return_state: bool = False,
                 valid: Optional[torch.Tensor] = None
@@ -154,23 +174,37 @@ def mamba_block(p: Params, x: torch.Tensor, rt: Runtime,
     injected: the state is untouched) and the conv tail is taken at each
     row's own frontier.  return_state=True returns the post-sequence
     state in full-sequence mode too.  The new state is returned, not
-    written: the caller owns the cache."""
+    written: the caller owns the cache.  Under a model axis (training
+    only) the block runs this rank's heads (see the module docstring)."""
     cfg = rt.cfg
     sp = p["ssm"]
     B, L, d = x.shape
-    di, n, H = cfg.d_inner_, cfg.ssm_state, cfg.n_ssm_heads
-    P, K = cfg.ssm_head_dim, cfg.conv_kernel
+    n, P, K = cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_kernel
+    # local heads from the weights: a model axis holds H / tp a rank
+    H = sp["a_log"].shape[-1]
+    di = H * P
+    split = tp.split_over_model(H, cfg.n_ssm_heads)
+    if split and state is not None:
+        raise NotImplementedError("the Mamba2 block's serving path under "
+                                  "a model axis is not ported")
     h = norm(p["norm1"], x, rt)
-    proj = linear(sp["in_proj"], h)
+    w_in, conv_w = sp["in_proj"], sp["conv_w"]
+    if split:
+        # B and C are whole on every rank: their weights' gradients (this
+        # rank's heads' part) summed over 'model' once
+        h = tp.copy_to_model(h)
+        w_in = tp.copy_to_model(w_in, part=(w_in.dim() - 1, 2 * di, 2 * n))
+        conv_w = tp.copy_to_model(conv_w, part=(conv_w.dim() - 1, di, 2 * n))
+    proj = linear(w_in, h)
     z = proj[..., :di]
     raw_xbc = proj[..., di:di + di + 2 * n]
     dt_raw = proj[..., -H:]
     annotate_cost("ssm", "ssm", "in_proj",
-                  flops=2.0 * B * L * d * (2 * di + 2 * n + H))
+                  flops=2.0 * B * L * d * (2 * cfg.d_inner_ + 2 * n
+                                           + cfg.n_ssm_heads))
 
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(raw_xbc, sp["conv_w"].to(x.dtype),
-                                 conv_state)
+    xbc, new_conv = _causal_conv(raw_xbc, conv_w.to(x.dtype), conv_state)
     xbc = F.silu(xbc.float()).to(x.dtype)
     xs = xbc[..., :di].reshape(B, L, H, P)
     b_mat = xbc[..., di:di + n]
@@ -189,7 +223,8 @@ def mamba_block(p: Params, x: torch.Tensor, rt: Runtime,
     if state is None or L > 1:
         y, new_ssm = ops.ssd_scan(
             xs, dt, a, b_mat, c_mat, chunk=min(cfg.ssm_chunk, L),
-            h0=state["h"] if state is not None else None, impl=rt.impl)
+            h0=state["h"] if state is not None else None, impl=rt.impl,
+            heads=cfg.n_ssm_heads)
         if return_state or state is not None:
             conv_tail = _conv_tail(raw_xbc, conv_state, K, valid)
     else:
@@ -203,11 +238,20 @@ def mamba_block(p: Params, x: torch.Tensor, rt: Runtime,
                          new_ssm)[:, None].to(x.dtype)
 
     y = y.float() + sp["d_skip"].float()[None, None, :, None] * xs.float()
-    y = y.reshape(B, L, di) * F.silu(z.float())
-    y = ops.rmsnorm(y.to(x.dtype), sp["norm"], eps=cfg.norm_eps,
-                    impl=rt.impl)
-    out = linear(sp["out_proj"], y)
-    annotate_cost("ssm", "ssm", "out_proj", flops=2.0 * B * L * di * d)
+    y = (y.reshape(B, L, di) * F.silu(z.float())).to(x.dtype)
+    if split:
+        # the norm mixes every head: over the whole row, then this rank's
+        # columns into the row-parallel out_proj
+        axis = tp.model_axes()[0]
+        y = tp.gather_rows(y, get_runtime_mesh(), axis, dim=-1)
+        y = ops.rmsnorm(y, sp["norm"], eps=cfg.norm_eps, impl=rt.impl)
+        y = tp.split_rows(y, get_runtime_mesh(), axis, dim=-1)
+        out = tp.row_parallel(y, sp["out_proj"])
+    else:
+        y = ops.rmsnorm(y, sp["norm"], eps=cfg.norm_eps, impl=rt.impl)
+        out = linear(sp["out_proj"], y)
+    annotate_cost("ssm", "ssm", "out_proj",
+                  flops=2.0 * B * L * cfg.d_inner_ * d)
     if state is not None:
         return out, {"conv": conv_tail.to(state["conv"].dtype),
                      "h": new_ssm}

@@ -18,9 +18,11 @@ slice of the global leaf: `split` names, per leaf, the mesh axes it is
 split over (`parallel.sharding.split_axes`).  `global_norm` then sums
 each leaf's squares across its slices before the root, and the int8
 compression takes each leaf's amax over the whole leaf (a max across
-its slices), so both equal the reference's single program's.  ZeRO-1
-needs nothing more: the update is elementwise, and a rank updates the
-slice of master, mu and nu it holds.
+its slices), so both equal the reference's single program's.  A part
+of a slice that every rank of a split axis holds whole (`replicated`:
+the hybrid's B and C columns, `parallel.sharding.replicated_parts`)
+counts once in the norm.  ZeRO-1 needs nothing more: the update is
+elementwise, and a rank updates the slice of master, mu and nu it holds.
 """
 
 from __future__ import annotations
@@ -86,16 +88,23 @@ def _by_split(tree, split, mesh):
     return groups
 
 
-def global_norm(tree, split=None, mesh=None) -> torch.Tensor:
+def global_norm(tree, split=None, mesh=None, replicated=None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (leaves summed in
     the reference's order).  With `split` (per leaf, the mesh axes it is
     split over) the squares of each group of leaves split alike are
-    summed over their axes first: one all-reduce a group."""
+    summed over their axes first: one all-reduce a group.  `replicated`
+    {path: [(dim, start, length, n)]}: parts of a leaf held whole on the
+    n ranks of one of its axes, whose squares count 1/n a rank."""
     total = None
+    replicated = replicated or {}
     for axes, items in _by_split(tree, split, mesh).items():
         part = None
-        for _, x in items:
+        for path, x in items:
             sq = torch.sum(torch.square(x.float()))
+            for dim, start, length, n in replicated.get(path, ()):
+                sq = sq - (1 - 1 / n) * torch.sum(torch.square(
+                    x.narrow(dim, start, length).float()))
             part = sq if part is None else part + sq
         part = mesh_lib.all_reduce(part, mesh, axes)
         total = part if total is None else total + part
@@ -104,15 +113,17 @@ def global_norm(tree, split=None, mesh=None) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params, state, grads, cfg: TrainConfig, *, split=None,
-                  mesh=None, n_params: Optional[int] = None
+                  mesh=None, n_params: Optional[int] = None,
+                  replicated=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics
     {grad_norm, lr}).  Under a mesh the leaves are this rank's slices,
-    `split` their axes (see `global_norm`) and `n_params` the global
-    count of the static cost."""
+    `split` their axes and `replicated` their parts held whole (see
+    `global_norm`), and `n_params` the global count of the static
+    cost."""
     step = state["step"] + 1
     lr = warmup_cosine(cfg)(step)
-    gnorm = global_norm(grads, split, mesh)
+    gnorm = global_norm(grads, split, mesh, replicated)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps

@@ -14,14 +14,22 @@ rank's slice itself: `spec_tree` gives a tuple per leaf (None, a mesh
 axis or a tuple of axes per dim: the entries of the reference's
 PartitionSpec), `shard_tree` cuts full leaves to this rank's slices and
 `gather_tree` puts them back together.  `layout_tree` is the layout the
-port's eager tensor parallelism runs: `spec_tree`, with the attention's
-K/V projections kept whole on every model rank under MQA (one kv head
-cannot be split; the reference's layout splits its columns, which
-GSPMD may do and manual TP may not).
+port's eager tensor parallelism runs: `spec_tree`, with two kinds of
+leaf placed otherwise, because the reference's contiguous splits are
+ones only GSPMD can run (it re-shards afterwards):
+- under MQA (one kv head) the attention's K/V projections stay whole on
+  every model rank;
+- the Mamba2 block's `in_proj` columns [z | x | B | C | dt] and
+  `conv_w` channels [x | B | C] are split by ssm heads, a `Segmented`
+  dim: each model rank holds the z, x and dt columns of its own heads
+  and B and C whole (one group), in that order; its gated norm's scale
+  stays whole (the block gathers y over 'model' before that norm).
+`gather_leaf` rebuilds such a leaf in the reference's column order.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Any, List, Optional, Sequence, Tuple
@@ -33,6 +41,29 @@ from . import mesh as mesh_lib
 from .axes import get_rules
 
 Spec = Tuple[Any, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segmented:
+    """The placement of a dim made of consecutive segments of `widths`:
+    segment i is split over `axis` (each rank its own contiguous block
+    of it) where `split[i]`, else held whole on every rank of `axis`.
+    A rank's slice of the dim is its part of each segment, in order."""
+    axis: str
+    widths: Tuple[int, ...]
+    split: Tuple[bool, ...]
+
+    def parts(self, n: int) -> List[Tuple[int, int, bool]]:
+        """(start, length, split) of each segment in a rank's slice, at
+        `n` ranks on the axis."""
+        out, at = [], 0
+        for w, s in zip(self.widths, self.split):
+            if s and w % n:
+                raise ValueError(f"segment of {w} does not split {n} ways")
+            length = w // n if s else w
+            out.append((at, length, s))
+            at += length
+        return out
 
 # (regex over 'a/b/c' param path, logical axes per trailing dim of the leaf)
 # Leading scan axis handled separately. Order matters: first match wins.
@@ -175,13 +206,24 @@ def validate_rules(params: Any) -> List[str]:
     return bad
 
 
+def _ssm_segments(cfg) -> dict:
+    """The Mamba2 leaves' last dims as `Segmented` over 'model': in_proj
+    [z | x | B | C | dt] and conv_w [x | B | C], split by ssm heads."""
+    di, n, H = cfg.d_inner_, cfg.ssm_state, cfg.n_ssm_heads
+    return {"in_proj": Segmented("model", (di, di, n, n, H),
+                                 (True, True, False, False, True)),
+            "conv_w": Segmented("model", (di, n, n), (True, False, False))}
+
+
 def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
     """The placements the port's eager parallelism holds `params` in:
     `spec_tree`, except that under MQA (one kv head) the K/V projections
-    stay whole on every model rank.  Tensor parallelism splits heads
-    whole, so a model axis that does not divide the q heads, or the kv
-    heads of a GQA model, raises.  zero1=True gives the optimizer
-    state's placements (`_apply_fsdp` over 'data')."""
+    stay whole on every model rank, and a hybrid's Mamba2 leaves are
+    split by ssm heads (`_ssm_segments`; its gated norm's scale whole).
+    Tensor parallelism splits heads whole, so a model axis that does not
+    divide the q heads, the kv heads of a GQA model or the ssm heads
+    raises.  zero1=True gives the optimizer state's placements
+    (`_apply_fsdp` over 'data')."""
     sizes = _sizes(mesh)
     tp = sizes.get("model", 1)
     if tp > 1 and getattr(cfg, "n_heads", 0):
@@ -191,6 +233,11 @@ def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
         if cfg.n_kv_heads > 1 and cfg.n_kv_heads % tp:
             raise ValueError(f"tensor parallelism {tp} does not divide "
                              f"{cfg.name}'s {cfg.n_kv_heads} kv heads")
+    ssm = tp > 1 and cfg.family == "hybrid"
+    if ssm and cfg.n_ssm_heads % tp:
+        raise ValueError(f"tensor parallelism {tp} does not divide "
+                         f"{cfg.name}'s {cfg.n_ssm_heads} ssm heads")
+    segments = _ssm_segments(cfg) if ssm else {}
     dsize = sizes.get("data", 1)
     mqa = tp > 1 and getattr(cfg, "n_kv_heads", 0) == 1
 
@@ -198,6 +245,10 @@ def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
         spec = _base_spec(path, leaf, mesh)
         if mqa and re.search(r"/attn/w[kv]$", "/" + path):
             spec = (None,) * len(spec)
+        m = re.search(r"/ssm/(in_proj|conv_w|norm)$", "/" + path)
+        if ssm and m:
+            # None for the norm's scale: whole on every rank
+            spec = (None,) * (len(spec) - 1) + (segments.get(m.group(1)),)
         if zero1 and dsize > 1:
             spec = _apply_fsdp(spec, _shape(leaf), dsize)
         return spec
@@ -207,12 +258,28 @@ def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
 
 # ------------------------------------------------------- rank slices ----
 def split_axes(spec: Spec) -> Tuple[str, ...]:
-    """Every mesh axis a leaf's placement splits it over."""
+    """Every mesh axis a leaf's placement splits it over (a `Segmented`
+    dim's axis included: some of its columns are split)."""
     out: List[str] = []
     for p in spec:
-        if p is not None:
+        if isinstance(p, Segmented):
+            out.append(p.axis)
+        elif p is not None:
             out += [p] if isinstance(p, str) else list(p)
     return tuple(out)
+
+
+def replicated_parts(spec: Spec, mesh) -> List[Tuple[int, int, int, int]]:
+    """(dim, start, length, n) of each part of this rank's slice that all
+    n > 1 ranks of a `Segmented` dim's axis hold whole: a sum over the
+    axis counts such a part n times."""
+    out = []
+    for d, p in enumerate(spec):
+        if isinstance(p, Segmented) and mesh.size(p.axis) > 1:
+            n = mesh.size(p.axis)
+            out += [(d, start, length, n)
+                    for start, length, s in p.parts(n) if not s]
+    return out
 
 
 def _dim_slice(mesh, p, size: int) -> Tuple[int, int]:
@@ -228,7 +295,14 @@ def shard_leaf(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's slice of a full leaf (a view where no dim is split)."""
     out = full
     for d, p in enumerate(spec):
-        if p is not None and mesh.size(p) > 1:
+        if isinstance(p, Segmented):
+            n, i = mesh.size(p.axis), mesh.coord(p.axis)
+            if n > 1:
+                out = torch.cat([
+                    part.narrow(d, i * (w // n), w // n) if s else part
+                    for part, w, s in zip(out.split(list(p.widths), dim=d),
+                                          p.widths, p.split)], dim=d)
+        elif p is not None and mesh.size(p) > 1:
             start, length = _dim_slice(mesh, p, full.shape[d])
             out = out.narrow(d, start, length)
     return out.contiguous() if out is not full else out
@@ -247,9 +321,22 @@ def sub_slice(t: torch.Tensor, spec: Spec, finer: Spec, mesh
 
 
 def gather_leaf(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The full leaf from every rank's slice (each rank gets it)."""
+    """The full leaf from every rank's slice (each rank gets it); a
+    `Segmented` dim in the reference's column order."""
     out = local
     for d, p in enumerate(spec):
+        if isinstance(p, Segmented):
+            n = mesh.size(p.axis)
+            if n > 1:
+                ranks = mesh_lib.all_gather(out, mesh, p.axis, dim=d).chunk(
+                    n, dim=d)
+                parts = p.parts(n)
+                out = torch.cat([
+                    torch.cat([r.narrow(d, start, length) for r in ranks],
+                              dim=d) if s else
+                    ranks[0].narrow(d, start, length)
+                    for start, length, s in parts], dim=d)
+            continue
         if p is None:
             continue
         for a in reversed((p,) if isinstance(p, str) else tuple(p)):
@@ -273,5 +360,14 @@ def gather_tree(tree: Any, mesh, specs: Any) -> Any:
 
 def global_shape(local_shape: Sequence[int], spec: Spec, mesh
                  ) -> Tuple[int, ...]:
-    return tuple(n * (mesh.size(p) if p is not None else 1)
+    return tuple(sum(p.widths) if isinstance(p, Segmented) else
+                 n * (mesh.size(p) if p is not None else 1)
                  for n, p in zip(local_shape, spec))
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of this rank's slice of a full leaf of `shape`."""
+    return tuple(sum(length for _, length, _ in p.parts(mesh.size(p.axis)))
+                 if isinstance(p, Segmented) else
+                 n // (mesh.size(p) if p is not None else 1)
+                 for n, p in zip(shape, spec))

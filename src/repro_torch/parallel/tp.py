@@ -8,7 +8,9 @@ eagerly, through the Megatron pair of autograd Functions:
 
   copy_to     identity forward, all-reduce of the gradient backward:
               where a replicated activation enters column-parallel
-              weights (each rank's dx is a partial sum)
+              weights (each rank's dx is a partial sum), or a weight
+              (or, with `part`, a block of its columns) that every rank
+              holds whole meets this rank's heads only
   reduce_from all-reduce forward, identity backward: where row-parallel
               partial outputs become one replicated activation (or a
               data-parallel loss becomes the global one)
@@ -41,6 +43,11 @@ The expert-parallel MoE adds three (`models/moe.py`'s a2a mode):
               replicated activation each rank of the axis already holds
               the same whole gradient (`copy_to` summed it), and a sum
               would scale it by the axis' size
+
+Both take a `dim`: the Mamba2 block (`models/mamba.py`) gathers its
+heads' columns of y over 'model' (`gather_rows(dim=-1)`) for the gated
+norm over all of d_inner, then takes its own columns of the normed row
+for the row-parallel out_proj (`split_rows(dim=-1)`).
 """
 
 from __future__ import annotations
@@ -57,16 +64,22 @@ from .axes import get_runtime_mesh, mesh_axes
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, x, mesh, axes, part):
+        ctx.mesh, ctx.axes, ctx.part = mesh, axes, part
         ctx.component = hlo_flows.current_component()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
+        g = g.clone()
         with hlo_flows.component(ctx.component):
-            g = mesh_lib.all_reduce(g.clone(), ctx.mesh, ctx.axes)
-        return g, None, None
+            if ctx.part is None:
+                mesh_lib.all_reduce(g, ctx.mesh, ctx.axes)
+            else:
+                block = g.narrow(*ctx.part)
+                block.copy_(mesh_lib.all_reduce(block.contiguous(),
+                                                ctx.mesh, ctx.axes))
+        return g, None, None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
@@ -79,11 +92,13 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
-def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """x unchanged; its gradient summed over `axes` on the way back."""
+def copy_to(x: torch.Tensor, mesh, axes,
+            part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """x unchanged; its gradient summed over `axes` on the way back, or
+    with part = (dim, start, length) only that block of it."""
     if mesh is None or mesh.size(axes) == 1:
         return x
-    return _CopyTo.apply(x, mesh, axes)
+    return _CopyTo.apply(x, mesh, axes, part)
 
 
 def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -109,30 +124,31 @@ class _AllToAll(torch.autograd.Function):
 
 class _SplitRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
         ctx.component = hlo_flows.current_component()
-        n = x.shape[0] // mesh.size(axis)
-        i = mesh.coord(axis)
-        return x[i * n:(i + 1) * n].clone()
+        n = x.shape[dim] // mesh.size(axis)
+        return x.narrow(dim, mesh.coord(axis) * n, n).clone(
+            memory_format=torch.contiguous_format)
 
     @staticmethod
     def backward(ctx, g):
         with hlo_flows.component(ctx.component):
-            g = mesh_lib.all_gather(g, ctx.mesh, ctx.axis, dim=0)
-        return g, None, None
+            g = mesh_lib.all_gather(g, ctx.mesh, ctx.axis, dim=ctx.dim)
+        return g, None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
-        return mesh_lib.all_gather(x, mesh, axis, dim=0)
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.rows = mesh, axis, dim, x.shape[dim]
+        return mesh_lib.all_gather(x, mesh, axis, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         i = ctx.mesh.coord(ctx.axis)
-        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None
+        return (g.narrow(ctx.dim, i * ctx.rows, ctx.rows), None, None,
+                None)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -144,23 +160,26 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
-def split_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """This rank's block of the rows of x (held whole on every rank of
-    `axis`): the i-th of size(axis) equal blocks at index i."""
+def split_rows(x: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """This rank's block of the rows (entries of `dim`) of x, held whole
+    on every rank of `axis`: the i-th of size(axis) equal blocks at
+    index i."""
     if mesh is None or mesh.size(axis) == 1:
         return x
-    if x.shape[0] % mesh.size(axis):
-        raise ValueError(f"{x.shape[0]} rows do not split "
+    if x.shape[dim] % mesh.size(axis):
+        raise ValueError(f"{x.shape[dim]} rows do not split "
                          f"{mesh.size(axis)} ways over {axis!r}")
-    return _SplitRows.apply(x, mesh, axis)
+    return _SplitRows.apply(x, mesh, axis, dim % x.dim())
 
 
-def gather_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Every rank's block of rows, in the axis' order: the inverse of
-    `split_rows`."""
+def gather_rows(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                ) -> torch.Tensor:
+    """Every rank's block of rows (of `dim`), in the axis' order: the
+    inverse of `split_rows`."""
     if mesh is None or mesh.size(axis) == 1:
         return x
-    return _GatherRows.apply(x, mesh, axis)
+    return _GatherRows.apply(x, mesh, axis, dim % x.dim())
 
 
 def model_axes() -> Tuple[str, ...]:
@@ -178,8 +197,10 @@ def model_coord() -> int:
     return mesh.coord(model_axes()) if mesh is not None else 0
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    return copy_to(x, get_runtime_mesh(), model_axes())
+def copy_to_model(x: torch.Tensor,
+                  part: Optional[Tuple[int, int, int]] = None
+                  ) -> torch.Tensor:
+    return copy_to(x, get_runtime_mesh(), model_axes(), part)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:

@@ -19,13 +19,15 @@ PyTorch runs eagerly: there is no compile step, and a step is dispatched
 op by op.  With `profile_dir` and `xfa_collector` set, every shard
 refresh also streams the ring's unacked entries to a fleet collector.
 
-Under a mesh (`parallel.axes.runtime_mesh`; the dense family, and the
-MoE family without MLA, whose layers run the expert-parallel a2a mode
-of `models/moe.py`) the step is the reference's SPMD step run by each
-rank on its part (`TrainLayout`):
+Under a mesh (`parallel.axes.runtime_mesh`; the dense family, the MoE
+family, whose MoE layers run the expert-parallel a2a mode of
+`models/moe.py`, MLA included, and the hybrid) the step is the
+reference's SPMD step run by each rank on its part (`TrainLayout`):
 - params are held as `parallel.sharding.layout_tree` places them (tensor
   parallel over 'model'); master, mu, nu and the int8 residues are also
   sliced over 'data' by `_apply_fsdp`'s rule when tcfg.zero1 (ZeRO-1);
+  the parts of a leaf every model rank holds whole (the hybrid's B and
+  C columns) count once in the global gradient norm;
 - each data rank takes its rows of the SAME global batch (of microbatch
   i, the i-th block of the global rows, as the reference's reshape then
   data sharding gives them), so the tokens are the one device's, and the
@@ -67,7 +69,8 @@ from ..optim import adamw
 from ..parallel import mesh as mesh_lib
 from ..parallel.axes import get_runtime_mesh, mesh_axes
 from ..parallel.sharding import (gather_leaf, gather_tree, layout_tree,
-                                 shard_tree, split_axes, sub_slice)
+                                 replicated_parts, shard_tree, split_axes,
+                                 sub_slice)
 from ..tree import leaves_with_path, map_with_path, tree_map
 
 
@@ -89,12 +92,11 @@ class TrainLayout:
 
     def __init__(self, model: Model, full_params, mesh, zero1: bool = True):
         cfg = model.cfg
-        if cfg.family not in ("dense", "moe") or cfg.mla:
-            what = "MLA" if cfg.mla else f"family {cfg.family}"
+        if cfg.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
-                f"training {cfg.name} ({what}) under a mesh is not ported: "
-                f"only the dense family and the MoE family without MLA are "
-                f"(ROADMAP.md §1 item 3)")
+                f"training {cfg.name} (family {cfg.family}) under a mesh is "
+                f"not ported: only the dense, MoE (MLA included) and hybrid "
+                f"families are (ROADMAP.md §1 item 3)")
         if cfg.family == "moe":
             ep = mesh.size("model")
             if ep < 2 or cfg.n_experts % ep:
@@ -110,6 +112,9 @@ class TrainLayout:
         self.n_params = sum(x.numel() for _, x in leaves_with_path(
             full_params))
         self.opt_split = tree_map(split_axes, self.opt)
+        self.opt_replicated = {
+            path: parts for path, parts in leaves_with_path(tree_map(
+                lambda s: replicated_parts(s, mesh), self.opt)) if parts}
         self.batch_axes = mesh_axes("batch")
         self.data_size = mesh.size(self.batch_axes)
 
@@ -257,11 +262,12 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                 grads = reduce(grads)
             metrics["loss"] = loss
         new_state = dict(state)
-        split, views, n_params = None, params, None
+        split, views, n_params, replicated = None, params, None, None
         if layout is not None:
             grads = layout.zero_views(grads)
             views = layout.zero_views(params)
             split, n_params = layout.opt_split, layout.n_params
+            replicated = layout.opt_replicated
         if tcfg.grad_compression == "int8":
             with hlo_flows.component("grads"):
                 grads, new_state["grad_err"] = \
@@ -270,7 +276,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         with hlo_flows.component("optimizer"):
             _, opt, opt_metrics = adamw.apply_updates(
                 views, state["opt"], grads, tcfg, split=split, mesh=mesh,
-                n_params=n_params)
+                n_params=n_params, replicated=replicated)
             if layout is not None:
                 layout.gather_params(params)
         metrics.update(opt_metrics)

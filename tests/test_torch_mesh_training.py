@@ -341,12 +341,11 @@ def test_report_merges_both_rank_shards(run):
 
 # ------------------------------------------------------------- trainer ----
 def test_other_families_raise_under_a_mesh():
-    """Every family but the dense one and the MoE family without MLA
-    (tests/test_torch_moe_mesh.py) raises, naming what is missing."""
+    """Every family but the dense, MoE (tests/test_torch_moe_mesh.py,
+    tests/test_torch_mla_mesh.py) and hybrid ones
+    (tests/test_torch_hybrid_mesh.py) raises, naming what is missing."""
     m = mesh_lib.Mesh((1, 2), ("data", "model"))
-    for arch, what in (("zamba2_2_7b", "family hybrid"),
-                       ("deepseek_v2_lite_16b", "MLA"),
-                       ("internvl2_1b", "family vlm"),
+    for arch, what in (("internvl2_1b", "family vlm"),
                        ("seamless_m4t_large_v2", "family audio"),
                        ("xlstm_1_3b", "family ssm")):
         model = build_model(torch_smoke(arch), device="cpu")

@@ -65,7 +65,7 @@ JAX_SCRIPT = textwrap.dedent("""
     from repro.models import build_model
     from repro.models import moe as moe_mod
     from repro.models.layers import Runtime
-    from repro.parallel.axes import runtime_mesh
+    from repro.parallel.axes import named_sharding, runtime_mesh
     from repro.runtime import trainer as jt
 
     CFS, (B, S), STEPS = %(cfs)r, %(batch)r, %(steps)d
@@ -117,12 +117,19 @@ JAX_SCRIPT = textwrap.dedent("""
                 lambda p: jm.loss_fn(p, batch, jm.table()),
                 has_aux=True)(p)
             return loss, met["aux_loss"], table, g
-        with runtime_mesh(mesh(shape)):
+        m = mesh(shape)
+        with runtime_mesh(m):
             loss, aux, table, g = jax.jit(lg)(params)
             jcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
                                total_steps=STEPS, ckpt_interval=0)
             js = jt.init_train_state(jm, jax.random.key(0), jcfg)
-            step = jax.jit(jt.make_train_step(jm, jcfg))
+            # the state's shardings in and out, as the reference's
+            # Trainer compiles its step: one compile a mesh
+            ss = jt.state_shardings(js, m, jcfg.zero1)
+            step = jax.jit(jt.make_train_step(jm, jcfg),
+                           in_shardings=(ss, jt.batch_shardings(batch, m),
+                                         named_sharding()),
+                           out_shardings=(ss, None, named_sharding()))
             losses, auxes, norms = [], [], []
             for i in range(STEPS):
                 b = {k: jnp.asarray(v) for k, v in SyntheticLMData(
@@ -366,9 +373,8 @@ def test_checkpoint_written_at_1x2_restores_on_one_device(run):
 
 # ------------------------------------------------------------- layouts ----
 def test_train_layout_admits_moe_and_refuses_the_rest():
-    """phi3.5-moe trains under a mesh whose model axis splits its
-    experts; one rank there, deepseek (MLA) and the other families
-    raise."""
+    """phi3.5-moe and deepseek (MLA) train under a mesh whose model axis
+    splits their experts; one rank there, and the vlm family, raise."""
     m12 = mesh_lib.Mesh((1, 2), ("data", "model"))
     m21 = mesh_lib.Mesh((2, 1), ("data", "model"))
     moe = build_model(torch_smoke("phi3_5_moe_42b"), device="cpu")
@@ -380,8 +386,12 @@ def test_train_layout_admits_moe_and_refuses_the_rest():
     with pytest.raises(NotImplementedError, match="a2a"):
         TrainLayout(moe, full_shapes(moe.cfg), m21)
     mla = build_model(torch_smoke("deepseek_v2_lite_16b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TrainLayout(mla, full_shapes(mla.cfg), m12)
+    lay = TrainLayout(mla, full_shapes(mla.cfg), m12)
+    assert lay.param["stack_moe"]["stack"]["attn"]["wkv_b"] == \
+        (None, None, "model")
+    vlm = build_model(torch_smoke("internvl2_1b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        TrainLayout(vlm, full_shapes(vlm.cfg), m12)
 
 
 def test_dense_dispatch_under_a_splitting_mesh_raises():

@@ -1,6 +1,7 @@
 """Rank programs of the port's gloo worlds on the CPU, for
 tests/test_torch_parallel.py, tests/test_torch_mesh_training.py,
-tests/test_torch_moe_mesh.py and tests/test_torch_collective_flows.py.
+tests/test_torch_moe_mesh.py, tests/test_torch_collective_flows.py,
+tests/test_torch_mla_mesh.py and tests/test_torch_hybrid_mesh.py.
 
 Each test module starts one world per mesh size once (a module fixture):
 `start_world` launches one process per rank running `main`, which joins
@@ -574,5 +575,162 @@ def flows(rank, world, d):
     return out
 
 
+# ------------------------------------------------- mla and hybrid mesh ----
+#: the batch of the family checks and curves, and the curves' steps
+FAMILY_BATCH = (4, 16)
+FAMILY_STEPS = 3
+#: per architecture: each checked layer's (name, stack path, leading
+#: stacked dims, the param groups it takes)
+FAMILY_LAYERS = {
+    "deepseek_v2_lite_16b": (("mla", ("stack_dense", "stack"), 1,
+                              ("attn",)),
+                             ("moe", ("stack_moe", "stack"), 1, ("moe",))),
+    "zamba2_2_7b": (("ssm", ("stack", "stack"), 2, ("norm1", "ssm")),),
+}
+
+
+def _family_cfg(arch):
+    from repro_torch.configs import get_smoke
+    return get_smoke(arch)
+
+
+def _sub_tree(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _family_layer(inp, cfg, lay, mesh, name, path, lead, groups):
+    """One layer of the smoke model at `mesh` on x [B, S, d] (rows over
+    'data'): y (and the MoE layer's aux and fold table) and the
+    gradients of sum(y ct) (+ aux), each summed over 'data' and gathered
+    to the full leaf."""
+    import torch
+    from repro_torch.models import build_model, layers
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_leaf, shard_leaf
+    model = build_model(cfg, device="cpu")
+    dp, dc = mesh.size("data"), mesh.coord("data")
+    B, S = inp["x"].shape[:2]
+    rows = slice(dc * B // dp, (dc + 1) * B // dp)
+    x = torch.from_numpy(inp["x"])[rows].clone().requires_grad_()
+    ct = torch.from_numpy(inp["ct"])[rows]
+    prefix = "s/params/" + "/".join(path) + "/"
+    specs, local = {}, {}
+    for n, a in inp.items():
+        rel = n[len(prefix):]
+        if n.startswith(prefix) and rel.split("/")[0] in groups:
+            specs[rel] = _sub_tree(lay, path + tuple(rel.split("/")))[lead:]
+            local[rel] = shard_leaf(torch.from_numpy(a)[(0,) * lead],
+                                    specs[rel], mesh).clone().requires_grad_()
+    tree = {}
+    for k, v in local.items():
+        node = tree
+        *up, last = k.split("/")
+        for u in up:
+            node = node.setdefault(u, {})
+        node[last] = v
+    positions = torch.arange(S)
+    table = model.table()
+    aux = None
+    with runtime_mesh(mesh):
+        if name == "mla":
+            y, _ = layers.attention(tree, x, model.rt, positions)
+        elif name == "moe":
+            y, table, aux = moe_lib.moe(tree, x, model.rt, table, mode="a2a")
+        else:
+            y, _ = mamba_lib.mamba_block(tree, x, model.rt)
+    loss = (y * ct).sum() + (aux if aux is not None else 0.0)
+    loss.backward()
+    out = {"y": y.detach(), "dx": x.grad}
+    if aux is not None:
+        out["aux"], out["table"] = aux.detach(), table
+    for k, v in local.items():
+        out["d_" + k.replace("/", "_")] = gather_leaf(mesh_lib.all_reduce(
+            v.grad, mesh, "data"), specs[k], mesh)
+    out["y"] = _gather_rows(out["y"], mesh, "data")
+    out["dx"] = _gather_rows(out["dx"], mesh, "data")
+    return out
+
+
+def _family_mesh(arch, rank, world, d):
+    """The smoke `arch` (MLA + MoE, or the hybrid) at (1, 2) and (2, 2):
+    each FAMILY_LAYERS layer's output and gradients, the model's loss,
+    gradients and static costs, and a FAMILY_STEPS-step Trainer run (its
+    fold, its recorded step's flows; at (1, 2) a checkpoint)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.device_fold import STATIC_COSTS
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import (build_model, params_from_numpy,
+                                    train_state_from_numpy)
+    from repro_torch.parallel import mesh as mesh_lib
+    from repro_torch.parallel.axes import runtime_mesh
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.runtime.trainer import (Trainer, TrainLayout,
+                                             full_shapes,
+                                             local_value_and_grad)
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    flat_state = {n[len("s/"):]: a for n, a in inp.items()
+                  if n.startswith("s/")}
+    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    meshes = {"1x2": _sub_mesh(m22), "2x2": m22}
+    cfg = _family_cfg(arch)
+    model = build_model(cfg, device="cpu")
+    B, S = FAMILY_BATCH
+    batch = SyntheticLMData(cfg, B, S, seed=3).generate(0)
+    row = m22.coord("data")
+    out = {}
+    for tag, mesh in meshes.items():
+        with runtime_mesh(mesh):
+            lay = TrainLayout(model, full_shapes(cfg), mesh)
+        res = {"layer": {name: _family_layer(inp, cfg, lay.param, mesh,
+                                             name, path, lead, groups)
+                         for name, path, lead, groups in FAMILY_LAYERS[arch]}}
+        params = params_from_numpy(
+            {n[len("params/"):]: a for n, a in flat_state.items()
+             if n.startswith("params/")}, cfg, "cpu", mesh=mesh)
+        with runtime_mesh(mesh):
+            STATIC_COSTS.reset()
+            loss, met, table, g = local_value_and_grad(
+                model, params, lay.local_rows(batch, 1), model.table(), lay)
+            costs = {k: dict(v) for k, v in STATIC_COSTS.costs.items()}
+            for _, x in _leaves(g):
+                mesh_lib.all_reduce(x, mesh, lay.batch_axes)
+            res["grads"] = {"loss": loss, "aux_loss": met["aux_loss"],
+                            "table": table, "costs": costs,
+                            "grads": gather_tree(g, mesh, lay.param)}
+            tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                               total_steps=FAMILY_STEPS,
+                               ckpt_interval=FAMILY_STEPS)
+            state = lay.shard_state(train_state_from_numpy(flat_state, cfg,
+                                                           "cpu"))
+            t = Trainer(model, tcfg, CheckpointManager(
+                os.path.join(d, f"ck-{tag}-row{row}")))
+            st, _ = t.run(0, SyntheticLMData(cfg, B, S, seed=3),
+                          FAMILY_STEPS, resume=False, state=state)
+            res["curve"] = {"loss": [h["loss"] for h in t.history],
+                            "aux_loss": [h["aux_loss"] for h in t.history],
+                            "grad_norm": [h["grad_norm"] for h in t.history],
+                            "state": lay.gather_state(st),
+                            "fold": t.session.device_fold.to_json(),
+                            "flows": _flow_dicts(t.recorded["flows"]),
+                            "counts": t.recorded["counts"]}
+        out[tag] = res
+    return out
+
+
+def mla_mesh(rank, world, d):
+    return _family_mesh("deepseek_v2_lite_16b", rank, world, d)
+
+
+def hybrid_mesh(rank, world, d):
+    return _family_mesh("zamba2_2_7b", rank, world, d)
+
+
 PROGRAMS = {"parallel": parallel, "training": training,
-            "layer_cuda": layer_cuda, "moe_mesh": moe_mesh, "flows": flows}
+            "layer_cuda": layer_cuda, "moe_mesh": moe_mesh, "flows": flows,
+            "mla_mesh": mla_mesh, "hybrid_mesh": hybrid_mesh}
