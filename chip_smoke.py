@@ -306,6 +306,12 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               version per entry (2e-2 bf16, 2e-5 f32), the bf16 cases
               timed beside their plain versions, their bounds (non-causal
               FLOPs) and SDPA or F.rms_norm
+  3i. modal mesh kernels  the flash pair at internvl2's local heads under
+              --mesh 1x2 (7 q over 1 kv head of 64, causal) at q
+              [2,7,1024,64], as phase 3g's flash cases: against the plain
+              versions, two backward launches bitwise equal, timed beside
+              the plain versions, the bound and SDPA (sub-entry g7_hkv1;
+              its launches are those of internvl's rank 0 in phase 23)
   18. seamless serve  seamless_m4t_large_v2 (the enc-dec: 24 encoder and
               24 decoder layers, d_model 1024, 16 heads of 64, ungated
               d_ff 8192, vocab 256206, a stub frames frontend of 1024
@@ -333,12 +339,13 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               128, vocab 50304) at its widths and full depth: the prompt
               whole vs in 4 chunks (f32: logits and the carried mLSTM and
               sLSTM state within 1e-3); then, cut to XLSTM_SERVE_LAYERS
-              (16) blocks for the run's time, the 16 requests of phase 5
+              (8) blocks for the run's time, the 16 requests of phase 5
               through the engine's contiguous recurrent state (rmsnorm
               the only kernel: its launches exact for the engine's
               forwards), tok/s, TTFT, decode gap, peak memory
-  19b. xlstm train  the same model, batch 4 x 1024 (cut from 4 x 2048:
-              the sLSTM loop's eager launches set the step time),
+  19b. xlstm train  the same model at XLSTM_TRAIN_LAYERS (16) of its 48
+              blocks, batch 4 x 1024 (cut from 4 x 2048: the sLSTM
+              loop's eager launches set the step time),
               XLSTM_TRAIN_STEPS (2) steps through the Trainer with each super-block rematerialized
               whole (remat full, see XLSTM_TRAIN_REMAT): step time, peak
               memory, MFU by the static costs (held at 1e-6) plus the
@@ -363,7 +370,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               the one-rank run's, its kernel launches (the rmsnorm and
               flash pairs on its shard) and collectives printed, its step
               times logged beside the card (no measure of parallel speed);
-              then, in a world of 2 spawned ranks, one loss_fn + backward
+              then, first in phase 22's world of 2 spawned ranks, one
+              loss_fn + backward
               at batch 2 x 1024 under 1x2 and 2x1, gathered: f32 against
               the one-rank f32 kernel run (loss 1e-4 relative, each leaf
               1e-3 relative L2), bf16 each leaf no further from the f32
@@ -379,7 +387,8 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               [8,4,2048,64], the cache's sequence split over the 2 ranks
               (rank 1's half empty for 5 of the 8 rows), bf16 and f32,
               against the one-rank decode kernel on the whole cache
-              (2e-2 / 2e-5 abs + rel), and each rank's decode launches
+              (2e-2 / 2e-5 abs + rel), and each rank's decode launches,
+              in phase 22's world after phase 20's gradient check
   21. moe mesh train  phi3_5_moe_42b at its published widths, cut to
               MOE_MESH_LAYERS (2) of its 32 layers as phase 12, through
               the launcher, MOE_MESH_STEPS steps of batch 2 x 1024 at
@@ -434,7 +443,34 @@ Phases (any failure exits non-zero; nothing is caught and hidden):
               bf16 pair pinned, the unpinned reading logged), each rank's
               kernels taking the local shapes: the flash pair at (192,
               128) with 8 heads; ssd_scan with 40 heads and the flash
-              pair at D 80 with 16 heads
+              pair at D 80 with 16 heads.  The world first sends bf16
+              and f32 CUDA tensors both ways between its two ranks
+              (`parallel.mesh.send` / `recv`: host copies under gloo),
+              each received bit for bit
+  23. vlm, audio, ssm mesh train  internvl2_1b at all 24 layers (256 of
+              the 1024 positions a row are the patches' prefix),
+              seamless_m4t_large_v2 at 4 + 4 of its 24 + 24 layers and
+              xlstm_1_3b at 8 of its 48 blocks (one super-block), at
+              their published widths, through `mesh_case_phase` as phase
+              22: FAMILY_MESH_STEPS steps of batch 2 x 1024 on one rank
+              and at --mesh 1x2 (internvl: the frontend projection split
+              by columns and gathered, 7 q over 1 kv head a rank;
+              seamless: the frames' projection gathered, 8 heads a rank
+              in the encoder, the decoder and the cross-attention;
+              xlstm: the mLSTM and sLSTM blocks split by heads, 2 a
+              rank, the sLSTM's y gathered, its FFN split), with phase
+              22's checks; the flows at their sites: the frontend's
+              all-gather under `embed` and the attention all-reduces, or
+              the `mlstm` all-reduces and the `slstm` all-gathers and
+              all-reduces, on 'model'.  Their gradient checks in phase
+              22's world after phase 22's: internvl and seamless at 2
+              layers (1 + 1) and 1 x 1024, xlstm at one super-block and 1
+              x 256; each rank's kernels at the local shapes: flash at 7
+              q over 1 kv head of 64 (causal) for internvl, 8 over 8 of
+              64 (causal and not) for seamless, and rmsnorm at widths
+              896, 1024 and 2048.  Phases 20, 22 and 23 each start their
+              mesh worlds at once, after their one-rank runs (the note
+              at MESH_RUNS)
   9. diagnose the port's own profile CLI (`python -m repro_torch.profile`,
               a subprocess) over the profile dirs that phases 5 (tinyllama
               serve), 6 (train), 8 (zamba2 serve), 10 (zamba2 train), 11
@@ -467,10 +503,11 @@ numbers: phases 11 and 12; the head-dim-576 numbers: phase 13; the
 the g48_d128 and width_6144 numbers: phases 15 and 16; the g7_d64 and
 width_896 numbers: phase 17; the g1_d64 and width_1024 numbers: phases
 18 and 18b; xlstm's rmsnorm launches, logged beside: phases 19 and 19b;
-each mesh rank's launches, `mesh_launches`: phases 20, 20b, 21 and
-22, the keys "moe ep rank r" and "moe grads rank r" phase 21's,
+each mesh rank's launches, `mesh_launches`: phases 20, 20b, 21,
+22 and 23, the keys "moe ep rank r" and "moe grads rank r" phase 21's,
 "deepseek 1x2 rank r", "deepseek grads rank r", "zamba2 1x2 rank r" and
-"zamba2 grads rank r" phase 22's);
+"zamba2 grads rank r" phase 22's, "internvl ...", "seamless ..." and
+"xlstm ..." phase 23's);
 rmsnorm_add has
 no model path in either package, so its launches are those of its
 correctness checks in phase 3c.  Without CUDA, or outside a
@@ -493,10 +530,13 @@ import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, FrozenSet, NamedTuple, Tuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: the byte-compiled modules of the run's processes (`cache_bytecode`), in
+#: the checkout's build dir (listed in .gitignore)
+PYCACHE = ROOT / "build" / "pycache"
 #: one temporary root per run: the profile dirs phases 5-8 and 10 write, kept
 #: for phase 9 to diagnose, and the fleet spool (removed at exit)
 RUN_ROOT = Path()
@@ -554,10 +594,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def cache_bytecode() -> None:
+    """Keep the byte-compiled modules of this process and of every process
+    it starts (torchrun's ranks, spawned worlds) under PYCACHE: where the
+    interpreter's own .pyc files are missing, each fresh process compiles
+    torch's modules from source again (5.5 of a fresh launcher process's
+    14.1 s before its first step ended, a cProfile on NVIDIA H100 80GB
+    HBM3, 700.00 W)."""
+    PYCACHE.mkdir(parents=True, exist_ok=True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(PYCACHE)
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
              f"repository")
+    cache_bytecode()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an "
@@ -596,6 +651,9 @@ def run(torch) -> None:
     check_mla_train_kernels(torch, kernels)
     check_dense_kernels(torch, kernels, build.build_log)
     check_audio_kernels(torch, kernels)
+    check_flash_pair(torch, kernels, MODAL_FLASH_KEY, *MODAL_FLASH,
+                     MODAL_FLASH_SHAPE,
+                     torch.Generator(device="cuda").manual_seed(31))
     forward_phase(torch)
     counts, stats, outputs = serve_phase(torch)
     paged_counts = paged_phase(torch, stats, outputs)
@@ -687,6 +745,13 @@ def run(torch) -> None:
                 if k[key]["launches"] <= 0:
                     fail(f"kernel {name} was not launched on the path of "
                          f"its {key} entry")
+        if MODAL_FLASH_KEY in k:
+            # 7 q over one kv head: internvl2's attention at 1x2 (phase 23)
+            k[MODAL_FLASH_KEY]["launches"] = mesh_launches[
+                "internvl 1x2 rank 0"][name]
+            if k[MODAL_FLASH_KEY]["launches"] <= 0:
+                fail(f"kernel {name} was not launched at G 7 over one kv "
+                     f"head on internvl's rank at 1x2")
         mesh = {key: c[name] for key, c in mesh_launches.items()
                 if c.get(name)}
         if mesh:
@@ -2340,8 +2405,31 @@ def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
     del k, v, q, kp, vp, arenas, cases, chunks
     torch.cuda.empty_cache()
 
-    # the flash pair at the training shape
-    Bt, St = 4, 2048
+    del flush
+    check_flash_pair(torch, entries, key, Hq, Hkv, D, (4, 2048), gen)
+    log(f"[layout {tag}] {key}: {time.monotonic() - t_phase:.1f}s")
+
+
+def check_flash_pair(torch, entries, key: str, Hq: int, Hkv: int, D: int,
+                     shape, gen):
+    """The flash pair at q [Bt,Hq,St,D], k/v [Bt,Hkv,St,D] causal (bf16;
+    `shape` (Bt, St)): against the plain versions at KERNEL_TOL (the
+    backward's dk and dv against attention_backward_tc), two backward
+    launches bitwise equal, and the training forward; each timed beside
+    its plain version, its bound and SDPA, as a `key` sub-entry of the
+    flash entries of `entries`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    sdpa = lambda qq, kk, vv, **kw: F.scaled_dot_product_attention(
+        qq, kk, vv, enable_gqa=True, **kw)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    tag = f"D={D} G={Hq // Hkv}"
+    Bt, St = shape
     q, k, v, do = rnd(Bt, Hq, St, D), rnd(Bt, Hkv, St, D), \
         rnd(Bt, Hkv, St, D), rnd(Bt, Hq, St, D)
     o, lse, _ = fa.flash_attention(q, k, v)
@@ -2399,7 +2487,8 @@ def check_layout(torch, entries, key: str, Hq: int, Hkv: int, D: int,
                     f"forward")
     del q, k, v, do, o, lse, o32, qq, kk, vv, out, flash, flush
     torch.cuda.empty_cache()
-    log(f"[layout {tag}] {key}: {time.monotonic() - t_phase:.1f}s")
+
+
 
 
 def attention_backward_tc(torch, q, k, v, o, lse, do, causal=True):
@@ -5214,10 +5303,11 @@ def audio_train_phase(torch):
 
 # ------------------------------------------------------------------ ssm ----
 XLSTM_ARCH = "xlstm_1_3b"
-#: phase 19 serves 16 of xlstm's 48 blocks (2 of its 6 super-blocks),
-#: cut for the run's time to make room for phase 21 (all 48 took 42.2 s
-#: on NVIDIA H100 80GB HBM3, 700.00 W); the chunk check keeps all 48
-XLSTM_SERVE_LAYERS = 16
+#: phase 19 serves 8 of xlstm's 48 blocks (one of its 6 super-blocks),
+#: cut for the run's time: all 48 took 42.2 s, 16 made room for phase
+#: 21, 8 for phase 23 (phase 19 at 16 blocks 13.6-24.8 s over two hosts;
+#: NVIDIA H100 80GB HBM3, 700.00 W); the chunk check keeps all 48
+XLSTM_SERVE_LAYERS = 8
 #: phase 19b: xlstm trained with the super-blocks rematerialized whole
 #: (remat "full"): under the config's dots_saveable every chunk's [B, H,
 #: 1024, 1024] f32 state product counts as a matmul output and is kept,
@@ -5225,8 +5315,11 @@ XLSTM_SERVE_LAYERS = 16
 #: is cut from 4 x 2048 to 4 x 1024 for the run's time: a step is bound
 #: by the host's eager launches of the sLSTM loop (4 x 2048: 22.6 s a
 #: step, NVIDIA H100 80GB HBM3, 700.00 W); 2 steps (3 took 33.6 s), cut
-#: for the run's time
+#: for the run's time; and XLSTM_TRAIN_LAYERS of its 48 blocks (two
+#: super-blocks), cut for phase 23 (phase 19b at 48 blocks 24.5-39.0 s
+#: over two NVIDIA H100 80GB HBM3 hosts)
 XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_LAYERS = 16
 XLSTM_TRAIN_SHAPE = (4, 1024)
 XLSTM_TRAIN_REMAT = "full"
 #: phase 19b's gradient check, held to the fixed limits of the other
@@ -5410,8 +5503,9 @@ def grad_spread(torch, cfg16, tag: str, shape) -> dict:
 
 
 def xlstm_train_phase(torch):
-    """Phase 19b: xlstm-1.3b at its published widths and all 48 blocks,
-    batch XLSTM_TRAIN_SHAPE, XLSTM_TRAIN_STEPS steps through
+    """Phase 19b: xlstm-1.3b at its published widths and
+    XLSTM_TRAIN_LAYERS blocks, batch XLSTM_TRAIN_SHAPE, XLSTM_TRAIN_STEPS
+    steps through
     cut_train_phase at remat XLSTM_TRAIN_REMAT (rmsnorm and its backward
     the only kernels; MFU held to the static costs, plus the cells'
     chunkwise products and the sLSTM FFN, which register none; the
@@ -5422,6 +5516,7 @@ def xlstm_train_phase(torch):
     import dataclasses
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(XLSTM_ARCH),
+                              n_layers=XLSTM_TRAIN_LAYERS,
                               remat=XLSTM_TRAIN_REMAT)
     out = cut_train_phase(torch, cfg, "xlstm-train", 19, XLSTM_TRAIN_SHAPE,
                           XLSTM_TRAIN_STEPS, flops=xlstm_model_flops,
@@ -5460,6 +5555,12 @@ MESH_STEPS = 2
 MESH_FLAGS = ("--microbatches", "2", "--deferred-grad-reduce",
               "--grad-compression", "int8")
 MESH_RUNS = (("one", None), ("tp", "1x2"), ("dp", "2x1"))
+#: the launcher's mesh worlds of each of phases 20, 22 and 23 run at
+#: once, after that phase's one-rank runs: a world spends most of its
+#: ~20-49 s starting up and in its first step, on the host (NVIDIA H100
+#: 80GB HBM3, 700.00 W; PERF.md §4), and the worlds' peaks fit the card
+#: together (phase 23's three 24.1 + 18.8 + 14.4 GB, phase 22's two 24.7
+#: + 19.1); their step times, logged only, include the others' load
 #: each step's loss, a mesh run against the one-rank run: the first step
 #: is the same weights and tokens summed in another order (~1e-3 in bf16);
 #: later ones also carry that noise through AdamW's first, sign-like
@@ -5490,39 +5591,60 @@ MESH_FLOW_SITES = {
 FLOWS_HEAD = "Collective flows (wire bytes/device/step):"
 
 
-def run_group(cmd, timeout_s: float, what: str) -> str:
-    """Run `cmd` in its own process group (torchrun and its ranks); on
-    its time limit the whole group is killed.  Returns its stdout; a
-    non-zero exit fails the run."""
-    import signal
+class Group(NamedTuple):
+    """A command running in its own process group (`start_group`)."""
+    proc: Any
+    what: str
+    t0: float
+    log: Path
+
+
+def start_group(cmd, what: str, log: Path) -> Group:
+    """Start `cmd` in its own process group (torchrun and its ranks), its
+    standard output and errors to `log` (a pipe nobody reads while the
+    group runs could fill and stall it)."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
-    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                         stderr=subprocess.PIPE, text=True,
-                         start_new_session=True)
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=f,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True)
+    return Group(p, what, time.monotonic(), log)
+
+
+def wait_group(g: Group, timeout_s: float = MESH_TIMEOUT_S) -> str:
+    """Wait for a started group; on its time limit (from its start) the
+    whole group is killed.  Returns its output; a non-zero exit fails
+    the run."""
+    import signal
     try:
-        out, err = p.communicate(timeout=timeout_s)
+        g.proc.wait(timeout=max(timeout_s - (time.monotonic() - g.t0), 1))
     except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        p.communicate()
-        fail(f"{what}: not done in {timeout_s}s (killed)")
-    if p.returncode != 0:
-        fail(f"{what}: exited {p.returncode}: {err[-3000:]}")
+        os.killpg(g.proc.pid, signal.SIGKILL)
+        g.proc.wait()
+        fail(f"{g.what}: not done in {timeout_s}s (killed)")
+    out = g.log.read_text()
+    if g.proc.returncode != 0:
+        fail(f"{g.what}: exited {g.proc.returncode}: {out[-3000:]}")
     return out
 
 
-def run_launcher(torch, args, mesh, what: str) -> str:
-    """The train launcher with `args`: under --mesh `mesh` (two ranks
-    sharing the card over gloo) by torchrun in its own process group;
-    with no mesh in this process (`launch.train.main`, the one-rank
-    reference runs: a fresh process's start-up and first step took 15-22
-    s of each, PR 29), its launch counters and peak memory reset first.
-    Returns its standard output (rank 0's under torchrun)."""
-    if mesh:
-        return run_group([sys.executable, "-m", "torch.distributed.run",
-                          "--standalone", "--nproc-per-node", str(math.prod(
-                              int(x) for x in mesh.split("x"))), "-m",
-                          "repro_torch.launch.train", *args, "--mesh", mesh,
-                          "--dist-backend", "gloo"], MESH_TIMEOUT_S, what)
+def start_launcher(args, mesh: str, what: str, log: Path) -> Group:
+    """The train launcher with `args` under --mesh `mesh` (two ranks
+    sharing the card over gloo), started by torchrun in its own process
+    group (`wait_group` collects it)."""
+    return start_group([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", str(math.prod(
+                            int(x) for x in mesh.split("x"))), "-m",
+                        "repro_torch.launch.train", *args, "--mesh", mesh,
+                        "--dist-backend", "gloo"], what, log)
+
+
+def run_launcher(torch, args, what: str) -> str:
+    """The train launcher with `args` on one rank, in this process
+    (`launch.train.main`; a fresh process's start-up and first step took
+    15-22 s of each one-rank reference run), its launch counters and
+    peak memory reset first.  Returns its standard output."""
     import io
     from contextlib import redirect_stdout
     from repro_torch.kernels import ops
@@ -5549,9 +5671,9 @@ def mesh_train_phase(torch):
     one rank, then under --mesh 1x2 (tensor parallel 2) and 2x1 (data
     parallel 2, ZeRO-1), two ranks sharing the card over gloo; each mesh
     run's losses are held to the one-rank run's, and each rank must
-    launch the training kernels on its shard.  Then the gradient check
-    and phase 20b in one spawned world (`mesh_world_phase`).  Returns
-    {rank: launches} of the mesh runs and the world's."""
+    launch the training kernels on its shard.  Its gradient check and
+    phase 20b run in phase 22's spawned world (`mesh_grads_rank`).
+    Returns {rank: launches} of the mesh runs."""
     from repro_torch.configs import get_config
 
     t_phase = time.monotonic()
@@ -5567,14 +5689,28 @@ def mesh_train_phase(torch):
     common = ["--arch", MESH_ARCH, "--device", "cuda", "--layers",
               str(MESH_LAYERS), "--steps", str(MESH_STEPS), "--batch",
               str(B), "--seq", str(S), "--ckpt-interval", "0", *MESH_FLAGS]
+
+    def run_args(tag):
+        d = RUN_ROOT / "mesh" / tag
+        return d, [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
+                   str(d / "metrics"), "--profile-dir", str(d / "prof")]
+
+    t0 = time.monotonic()
+    outs = {"one": run_launcher(torch, run_args("one")[1],
+                                "mesh-train one")}
+    walls = {"one": time.monotonic() - t0}
+    # the 1x2 and 2x1 worlds at once (MESH_RUNS' note)
+    worlds = {tag: start_launcher(run_args(tag)[1], mesh,
+                                  f"mesh-train {tag}",
+                                  RUN_ROOT / "mesh" / f"{tag}.log")
+              for tag, mesh in MESH_RUNS if mesh}
+    for tag, g in worlds.items():
+        outs[tag] = wait_group(g)
+        walls[tag] = time.monotonic() - g.t0
     runs = {}
     for tag, mesh in MESH_RUNS:
-        d = RUN_ROOT / "mesh" / tag
-        args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
-                str(d / "metrics"), "--profile-dir", str(d / "prof")]
+        d, out = run_args(tag)[0], outs[tag]
         n = math.prod(int(x) for x in mesh.split("x")) if mesh else 1
-        t0 = time.monotonic()
-        out = run_launcher(torch, args, mesh, f"mesh-train {tag}")
         for line in out.splitlines():
             if line.startswith("[mesh]"):
                 log(f"[mesh-train] {tag}: {line}")
@@ -5584,7 +5720,7 @@ def mesh_train_phase(torch):
                 ranks.append(json.load(f))
         runs[tag] = ranks
         log(f"[mesh-train] {tag} ({mesh or 'one rank, in this process'}): "
-            f"{n} rank(s), {time.monotonic() - t0:.1f}s wall incl. start-up")
+            f"{n} rank(s), {walls[tag]:.1f}s wall incl. start-up")
         if mesh and FLOWS_HEAD not in out:
             fail(f"mesh-train {tag}: rank 0's report shows no collective "
                  f"flows")
@@ -5626,9 +5762,9 @@ def mesh_train_phase(torch):
                 launches[f"{tag} rank {r}"] = m["launches"]
                 check_flows(f"mesh-train {tag} rank {r}", m,
                             MESH_FLOW_SITES[tag])
-    world = mesh_world_phase(torch)
-    launches.update(world)
-    log(f"[mesh-train] phases 20 and 20b: {time.monotonic() - t_phase:.1f}s")
+    log(f"[mesh-train] phase 20 launcher runs (its gradient check and "
+        f"phase 20b run in phase 22's world): "
+        f"{time.monotonic() - t_phase:.1f}s")
     return launches
 
 
@@ -5669,44 +5805,17 @@ def spawn_world(target, d: Path, what: str):
     return out
 
 
-def mesh_world_phase(torch):
-    """Phase 20's gradient check and phase 20b, in one world of 2 ranks
-    spawned here (`mesh_rank`), sharing the card over gloo.  Rank 0 also
-    computes the one-rank references.  Returns {rank: launches}."""
-    out = {}
-    for r, res in enumerate(spawn_world(mesh_rank, RUN_ROOT / "mesh" /
-                                        "world", "mesh-world")):
-        out[f"grads rank {r}"] = res["grad_launches"]
-        out[f"cp rank {r}"] = res["cp_launches"]
-        log(f"[mesh-grads] rank {r}: kernel launches "
-            f"{json.dumps(res['grad_launches'])}")
-        log(f"[cp-decode] rank {r}: kernel launches "
-            f"{json.dumps(res['cp_launches'])}")
-        if res["cp_launches"]["decode_attention"] <= 0:
-            fail(f"cp-decode: rank {r} launched no decode kernel")
-    return out
-
-
-def mesh_rank(rank: int, world: int, d: str) -> None:
-    """One rank of `mesh_world_phase` (a spawned process)."""
-    sys.path.insert(0, str(SRC))
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import ops
-    from repro_torch.parallel import mesh as mesh_lib
-    mesh_lib.init_distributed("gloo", "cuda",
-                              init_method=f"file://{d}/init", rank=rank,
-                              world_size=world, timeout_s=MESH_TIMEOUT_S)
-    ops.reset_launch_counts()
-    mesh_grads(torch, rank)
-    res = {"grad_launches": ops.launch_counts()}
-    ops.reset_launch_counts()
-    cp_decode(torch, rank)
-    res["cp_launches"] = ops.launch_counts()
-    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
-        json.dump(res, f)
-    mesh_lib.shutdown()
+def mesh_world_launches(res: dict, r: int) -> dict:
+    """Phase 20's gradient check's and phase 20b's launches on rank `r`
+    of phase 22's world (`mesh_grads_rank`), checked and logged."""
+    log(f"[mesh-grads] rank {r}: kernel launches "
+        f"{json.dumps(res['grad_launches'])}")
+    log(f"[cp-decode] rank {r}: kernel launches "
+        f"{json.dumps(res['cp_launches'])}")
+    if res["cp_launches"]["decode_attention"] <= 0:
+        fail(f"cp-decode: rank {r} launched no decode kernel")
+    return {f"grads rank {r}": res["grad_launches"],
+            f"cp rank {r}": res["cp_launches"]}
 
 
 def mesh_grads(torch, rank: int) -> None:
@@ -5934,9 +6043,10 @@ class MeshCase(NamedTuple):
     kernels: Tuple[str, ...]
     #: (component, kind, axis) flow sites of the 1x2 run's recorded step
     sites: Tuple[Tuple[str, str, str], ...]
-    #: the local shapes each rank's kernels take at 1x2: "attention" (q
-    #: heads, q/k head dim, v head dim), "ssd_scan" (heads)
-    local: Dict[str, Any]
+    #: the local shapes each rank's kernels take at 1x2, as `local_shapes`
+    #: records them: every shape of the kinds named here and of
+    #: LOCAL_KINDS (a case that names none of those takes none)
+    local: FrozenSet[Tuple[Any, ...]]
     capacity_factor: float = 0.0
     #: an MoE model's bf16 gradient also unpinned (logged only)
     unpinned: bool = True
@@ -5945,9 +6055,11 @@ class MeshCase(NamedTuple):
     profile: bool = False
 
     def cfg(self, layers: int = 0):
+        """The config at `layers` (0: self.layers), cut as the launcher's
+        --layers cuts it (an enc-dec to half encoder, half decoder)."""
         from repro_torch.configs import get_config
-        cfg = dataclasses.replace(get_config(self.arch),
-                                  n_layers=layers or self.layers)
+        from repro_torch.launch.train import cut_depth
+        cfg = cut_depth(get_config(self.arch), layers or self.layers)
         if self.capacity_factor:
             cfg = dataclasses.replace(cfg,
                                       capacity_factor=self.capacity_factor)
@@ -5959,7 +6071,8 @@ MOE_MESH = MeshCase(
     steps=MOE_MESH_STEPS, grad_shape=MOE_MESH_GRAD_SHAPE,
     grad_layers=MOE_MESH_GRAD_LAYERS,
     kernels=MESH_KERNELS, sites=MESH_FLOW_SITES["ep"],
-    local={"attention": (16, 128, 128)}, capacity_factor=MOE_MESH_CF,
+    local=frozenset({("attention", 16, 128, 128)}),
+    capacity_factor=MOE_MESH_CF,
     unpinned=False, mesh_tag="ep", profile=True)
 
 # --------------------------------------------------- family mesh train ----
@@ -5980,7 +6093,7 @@ FAMILY_MESH = (
              sites=(("attention", "all-reduce", "model"),
                     ("moe", "all-to-all", "model"),
                     ("mlp", "all-reduce", "model")),
-             local={"attention": (8, 192, 128)},
+             local=frozenset({("attention", 8, 192, 128)}),
              capacity_factor=MLA_DROP_FREE),
     MeshCase(key="zamba2", arch="zamba2_2_7b", layers=12,
              shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
@@ -5989,8 +6102,49 @@ FAMILY_MESH = (
              sites=(("ssm", "all-reduce", "model"),
                     ("ssm", "all-gather", "model"),
                     ("attention", "all-reduce", "model")),
-             local={"attention": (16, 80, 80), "ssd_scan": 40}))
-MESH_CASES = {c.key: c for c in (MOE_MESH,) + FAMILY_MESH}
+             local=frozenset({("attention", 16, 80, 80),
+                              ("ssd_scan", 40)})))
+#: phase 23: internvl2-1b (vlm), seamless-m4t-large-v2 (audio enc-dec)
+#: and xlstm-1.3b (ssm) at their published widths under --mesh 1x2
+#: through the launcher, against one rank, as phase 22, 2 steps of batch
+#: 2 x 1024 each.  internvl at all 24 layers (its 1024 positions a row
+#: hold the 256 patches' prefix); seamless at 4 + 4 of its 24 + 24
+#: layers and xlstm at one super-block (8 of 48 blocks), cut for the
+#: run's time; the gradient checks at 2 layers (1 + 1) and at one
+#: super-block of 1 x 256 (as phase 19b's)
+MODAL_MESH = (
+    MeshCase(key="internvl", arch="internvl2_1b", layers=24,
+             shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
+             grad_shape=(1, 1024), grad_layers=2, kernels=MESH_KERNELS,
+             sites=(("embed", "all-gather", "model"),
+                    ("attention", "all-reduce", "model"),
+                    ("mlp", "all-reduce", "model")),
+             local=frozenset({("attention", 7, 64, 64),
+                              ("heads", 7, 1, True), ("rmsnorm", 896)})),
+    MeshCase(key="seamless", arch="seamless_m4t_large_v2", layers=8,
+             shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
+             grad_shape=(1, 1024), grad_layers=2, kernels=MESH_KERNELS,
+             sites=(("embed", "all-gather", "model"),
+                    ("attention", "all-reduce", "model"),
+                    ("mlp", "all-reduce", "model")),
+             local=frozenset({("attention", 8, 64, 64),
+                              ("heads", 8, 8, True), ("heads", 8, 8, False),
+                              ("rmsnorm", 1024)})),
+    MeshCase(key="xlstm", arch=XLSTM_ARCH, layers=8,
+             shape=FAMILY_MESH_SHAPE, steps=FAMILY_MESH_STEPS,
+             grad_shape=XLSTM_GRAD_SHAPE, grad_layers=0,
+             kernels=("rmsnorm", "rmsnorm_backward"),
+             sites=(("mlstm", "all-reduce", "model"),
+                    ("slstm", "all-gather", "model"),
+                    ("slstm", "all-reduce", "model")),
+             local=frozenset({("rmsnorm", 2048)})))
+MESH_CASES = {c.key: c for c in (MOE_MESH,) + FAMILY_MESH + MODAL_MESH}
+#: phase 3i: the flash pair at internvl2's local heads at 1x2 (7 q over
+#: 1 kv head of 64), at the batch of its phase 23 runs, timed; its
+#: launches are internvl's rank 0 at 1x2
+MODAL_FLASH_KEY = "g7_hkv1"
+MODAL_FLASH = (7, 1, 64)                 # Hq, Hkv, D
+MODAL_FLASH_SHAPE = FAMILY_MESH_SHAPE    # B, S
 
 
 def mesh_state_gb(cfg, mesh_shape):
@@ -6010,9 +6164,56 @@ def mesh_state_gb(cfg, mesh_shape):
     return n, n * 16 / 1e9
 
 
-def mesh_case_phase(torch, case: MeshCase, phase: str):
+def mesh_case_args(case: MeshCase, tag: str):
+    """(run dir, launcher args) of `case`'s run `tag` ("one" or its mesh
+    tag)."""
+    d = RUN_ROOT / f"{case.key}-mesh" / tag
+    B, S = case.shape
+    args = ["--arch", case.arch, "--device", "cuda", "--layers",
+            str(case.layers), "--steps", str(case.steps), "--batch", str(B),
+            "--seq", str(S), "--ckpt-interval", "0", "--ckpt-dir",
+            str(d / "ckpt"), "--metrics-out", str(d / "metrics")]
+    if case.capacity_factor:
+        args += ["--capacity-factor", str(case.capacity_factor)]
+    if case.profile:
+        args += ["--profile-dir", str(d / "prof")]
+    return d, args
+
+
+def mesh_case_one(torch, case: MeshCase):
+    """`case`'s one-rank launcher run, in this process: (its output, its
+    wall seconds)."""
+    t0 = time.monotonic()
+    out = run_launcher(torch, mesh_case_args(case, "one")[1],
+                       f"{case.key}-mesh one")
+    return out, time.monotonic() - t0
+
+
+def mesh_case_world(case: MeshCase) -> Group:
+    """Start `case`'s --mesh 1x2 launcher run (torchrun, in the
+    background)."""
+    d, args = mesh_case_args(case, case.mesh_tag)
+    return start_launcher(args, "1x2", f"{case.key}-mesh {case.mesh_tag}",
+                          d.parent / f"{case.mesh_tag}.log")
+
+
+def mesh_cases_together(torch, cases, phase: str):
+    """`mesh_case_phase` of `cases`: their one-rank runs first, then their
+    1x2 worlds all at once (MESH_RUNS' note).  Returns {key:
+    launches}."""
+    ones = [mesh_case_one(torch, c) for c in cases]
+    worlds = [mesh_case_world(c) for c in cases]
+    launches = {}
+    for c, one, world in zip(cases, ones, worlds):
+        launches.update(mesh_case_phase(torch, c, phase, one, world))
+    return launches
+
+
+def mesh_case_phase(torch, case: MeshCase, phase: str, one, world: Group):
     """The launcher trains `case` at its widths and depth for its steps
-    on one rank and under --mesh 1x2; every rank's losses within
+    on one rank (`one`: that run's output and wall, `mesh_case_one`) and
+    under --mesh 1x2 (`world`: that run started, `mesh_case_world`);
+    every rank's losses within
     MESH_LOSS_REL_TOL of the one-rank run's, its kernels launched, an MoE
     model's fold invariant (nothing dropped), the ranks' fold tables
     equal and their peaks summed under the card's memory, and its
@@ -6036,21 +6237,13 @@ def mesh_case_phase(torch, case: MeshCase, phase: str):
         f"state at 16 B a param), a rank at 1x2 {n_rank / 1e9:.3f}B "
         f"({gb_rank:.1f} GB; two ranks {2 * gb_rank:.1f} GB of the card's "
         f"80) before activations")
-    common = ["--arch", case.arch, "--device", "cuda", "--layers",
-              str(case.layers), "--steps", str(case.steps), "--batch",
-              str(B), "--seq", str(S), "--ckpt-interval", "0"]
-    if case.capacity_factor:
-        common += ["--capacity-factor", str(case.capacity_factor)]
     runs = {}
     for tag, mesh in (("one", None), (case.mesh_tag, "1x2")):
-        d = RUN_ROOT / what / tag
-        args = [*common, "--ckpt-dir", str(d / "ckpt"), "--metrics-out",
-                str(d / "metrics")]
-        if case.profile:
-            args += ["--profile-dir", str(d / "prof")]
+        d = mesh_case_args(case, tag)[0]
         n = 2 if mesh else 1
-        t_run = time.monotonic()
-        out = run_launcher(torch, args, mesh, f"{what} {tag}")
+        out, wall = one if not mesh else (wait_group(world), None)
+        if mesh:
+            wall = time.monotonic() - world.t0
         for line in out.splitlines():
             if line.startswith("[mesh]"):
                 log(f"[{what}] {tag}: {line}")
@@ -6064,7 +6257,7 @@ def mesh_case_phase(torch, case: MeshCase, phase: str):
         runs[tag] = [json.load(open(d / "metrics" / f"rank{r}.json"))
                      for r in range(n)]
         log(f"[{what}] {tag} ({mesh or 'one rank, in this process'}): {n} "
-            f"rank(s), {time.monotonic() - t_run:.1f}s wall incl. start-up")
+            f"rank(s), {wall:.1f}s wall incl. start-up")
     base = [h["loss"] for h in runs["one"][0]["history"]]
     a2a = None
     if cfg.moe:
@@ -6132,20 +6325,23 @@ def mesh_case_phase(torch, case: MeshCase, phase: str):
 
 
 def mesh_grads_world(cases, what: str):
-    """The gradient checks of `cases` (`mesh_case_grads`), one after the
-    other in one world of 2 ranks spawned here.  Returns {key: launches}
-    of each case's mesh runs, each rank."""
+    """Phase 20's gradient check (`mesh_grads`), phase 20b (`cp_decode`),
+    the send / recv check (`p2p_check`) and the gradient checks of
+    `cases` (`mesh_case_grads`), one after the other in one world of 2
+    ranks spawned here.  Returns {key: launches} of each, each rank."""
     d = RUN_ROOT / what
     d.mkdir(parents=True, exist_ok=True)
     (d / "cases.json").write_text(json.dumps([c.key for c in cases]))
     launches = {}
     for r, res in enumerate(spawn_world(mesh_grads_rank, d, what)):
+        launches.update(mesh_world_launches(res["tinyllama"], r))
         for c in cases:
             got = res[c.key]
             launches[f"{c.key} grads rank {r}"] = got["grad_launches"]
             log(f"[{what}] {c.key} rank {r}: kernel launches "
                 f"{json.dumps(got['grad_launches'])}; local shapes "
-                f"{got['shapes']}; peak {got['peak_bytes'] / 1e9:.1f} GB")
+                f"{got['shapes']}; peak {got['peak_bytes'] / 1e9:.1f} GB; "
+                f"{got['seconds']:.1f}s")
     return launches
 
 
@@ -6160,14 +6356,25 @@ def mesh_grads_rank(rank: int, world: int, d: str) -> None:
     mesh_lib.init_distributed("gloo", "cuda",
                               init_method=f"file://{d}/init", rank=rank,
                               world_size=world, timeout_s=MESH_TIMEOUT_S)
-    out = {}
+    # phase 20's gradient check and phase 20b, then the send / recv check
+    ops.reset_launch_counts()
+    mesh_grads(torch, rank)
+    out = {"tinyllama": {"grad_launches": ops.launch_counts()}}
+    ops.reset_launch_counts()
+    cp_decode(torch, rank)
+    out["tinyllama"]["cp_launches"] = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["p2p"] = p2p_check(torch, rank)
     for key in json.loads(Path(d, "cases.json").read_text()):
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
         shapes = mesh_case_grads(torch, rank, MESH_CASES[key])
         torch.cuda.synchronize()
         out[key] = {"grad_launches": ops.launch_counts(), "shapes": shapes,
-                    "peak_bytes": torch.cuda.max_memory_allocated()}
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "seconds": time.monotonic() - t0}
         gc.collect()
         torch.cuda.empty_cache()
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
@@ -6175,25 +6382,87 @@ def mesh_grads_rank(rank: int, world: int, d: str) -> None:
     mesh_lib.shutdown()
 
 
+#: the send / recv check of phase 22's world: [rows, cols] a tensor
+P2P_SHAPE = (64, 1031)
+
+
+def p2p_check(torch, rank: int) -> dict:
+    """Each rank of the world sends a bf16 and an f32 CUDA tensor, and a
+    transposed bf16 view (as a backward's gradient can be), to the other
+    (`parallel.mesh.send` / `recv`, both ways, the view received into a
+    transposed buffer) and holds what it received to what its peer
+    sent, bit for bit (both draw the tensors from the same seeds).
+    Returns {name: seconds}."""
+    from repro_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    peer = 1 - mesh.coord("model")
+    out = {}
+    for name, dtype, transposed in (
+            ("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
+            ("bf16 transposed", torch.bfloat16, True)):
+        def draw(r):
+            gen = torch.Generator(device="cuda").manual_seed(41 + r)
+            t = torch.randn(P2P_SHAPE[::-1], generator=gen,
+                            device="cuda").to(dtype).t()
+            return t if transposed else t.contiguous()
+        sent = draw(rank)
+        got = torch.full_like(sent, math.nan)
+        if sent.is_contiguous() == transposed:
+            fail(f"p2p: the {name} tensor's layout is not the one meant")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if rank == 0:
+            req = mesh_lib.send(sent, mesh, "model", peer)
+            mesh_lib.recv(got, mesh, "model", peer)
+            req.wait()
+        else:
+            mesh_lib.recv(got, mesh, "model", peer)
+            mesh_lib.send(sent, mesh, "model", peer).wait()
+        torch.cuda.synchronize()
+        out[name] = time.monotonic() - t0
+        if not torch.equal(got, draw(peer)):
+            fail(f"p2p: rank {rank} received a {name} tensor that is not "
+                 f"the one its peer sent")
+    if rank == 0:
+        log(f"[p2p] send / recv of [{P2P_SHAPE[0]}, {P2P_SHAPE[1]}] CUDA "
+            f"tensors both ways over gloo (host copies): bf16, f32 and a "
+            f"transposed bf16 view equal bit for bit on both ranks; "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in out.items()))
+    return out
+
+
+#: the kinds of `local_shapes` every MeshCase's local shapes are held to,
+#: whether it names them or not
+LOCAL_KINDS = frozenset({"attention", "ssd_scan"})
+
+
 @contextmanager
 def local_shapes(ops, seen: set):
-    """Record the shapes this rank's attention and SSD scan calls take:
-    ("attention", q heads, q/k head dim, v head dim) and ("ssd_scan",
-    heads)."""
-    attention, ssd_scan = ops.attention, ops.ssd_scan
+    """Record the shapes this rank's attention, SSD scan and RMSNorm calls
+    take: ("attention", q heads, q/k head dim, v head dim), ("heads", q
+    heads, kv heads, causal), ("ssd_scan", heads) and ("rmsnorm",
+    width)."""
+    attention, ssd_scan, rmsnorm = ops.attention, ops.ssd_scan, ops.rmsnorm
 
     def spy_attention(q, k, v, **kw):
         seen.add(("attention", q.shape[1], q.shape[-1], v.shape[-1]))
+        seen.add(("heads", q.shape[1], k.shape[1], kw.get("causal", True)))
         return attention(q, k, v, **kw)
 
     def spy_ssd(x, *args, **kw):
         seen.add(("ssd_scan", x.shape[2]))
         return ssd_scan(x, *args, **kw)
-    ops.attention, ops.ssd_scan = spy_attention, spy_ssd
+
+    def spy_rmsnorm(x, *args, **kw):
+        seen.add(("rmsnorm", x.shape[-1]))
+        return rmsnorm(x, *args, **kw)
+    ops.attention, ops.ssd_scan, ops.rmsnorm = (spy_attention, spy_ssd,
+                                                spy_rmsnorm)
     try:
         yield
     finally:
-        ops.attention, ops.ssd_scan = attention, ssd_scan
+        ops.attention, ops.ssd_scan, ops.rmsnorm = attention, ssd_scan, \
+            rmsnorm
 
 
 def mesh_case_grads(torch, rank: int, case: MeshCase):
@@ -6314,6 +6583,8 @@ def mesh_case_grads(torch, rank: int, case: MeshCase):
             "kern16 pinned" if pin else "kern16")
         errs = {}
 
+        dists = {}
+
         def compare(path, x, spec):
             full = gather_leaf(mesh_lib.all_reduce(
                 x.float(), mesh, lay.batch_axes), spec, mesh)
@@ -6323,8 +6594,9 @@ def mesh_case_grads(torch, rank: int, case: MeshCase):
                 errs[path] = rel(full, refs[one][1][path].cuda())
             else:
                 plain = refs["plain32"][1][path].cuda()
-                errs[path] = rel(full, plain) / max(rel(
-                    refs[one][1][path].cuda(), plain), 1e-30)
+                dists[path] = (rel(full, plain),
+                               rel(refs[one][1][path].cuda(), plain))
+                errs[path] = dists[path][0] / max(dists[path][1], 1e-30)
         map_with_path(compare, g, lay.param)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -6349,7 +6621,8 @@ def mesh_case_grads(torch, rank: int, case: MeshCase):
             f"worst leaf {worst} "
             + (f"{errs[worst]:.2e} relative L2" if dtype == "float32" else
                f"ratio {errs[worst]:.3f} of the one-rank bf16 run's "
-               f"distance from the f32 plain gradient")
+               f"distance from the f32 plain gradient ({dists[worst][0]:.3e} "
+               f"vs {dists[worst][1]:.3e} relative L2)")
             + f"; {wall:.1f}s")
         if dtype == "float32":
             lerr = abs(float(loss) - want_loss) / abs(want_loss)
@@ -6361,13 +6634,12 @@ def mesh_case_grads(torch, rank: int, case: MeshCase):
             fail(f"{what} {run_what}: {worst} ratio {errs[worst]:.3f} > "
                  f"{HYBRID_BF16_RATIO}")
     del refs
-    want = {("attention",) + tuple(case.local["attention"])}
-    if "ssd_scan" in case.local:
-        want.add(("ssd_scan", case.local["ssd_scan"]))
-    if seen != want:
+    kinds = LOCAL_KINDS | {x[0] for x in case.local}
+    got = {x for x in seen if x[0] in kinds}
+    if got != case.local:
         fail(f"{what} rank {rank}: the kernels took local shapes "
-             f"{sorted(seen)}, want {sorted(want)}")
-    return sorted(seen)
+             f"{sorted(got, key=str)}, want {sorted(case.local, key=str)}")
+    return sorted(got, key=str)
 
 
 def moe_mesh_phase(torch):
@@ -6377,22 +6649,27 @@ def moe_mesh_phase(torch):
     gradient check runs in phase 22's world.  Returns {rank:
     launches}."""
     t_phase = time.monotonic()
-    launches = mesh_case_phase(torch, MOE_MESH, "21")
+    launches = mesh_cases_together(torch, (MOE_MESH,), "21")
     log(f"[moe-mesh] phase 21: {time.monotonic() - t_phase:.1f}s")
     return launches
 
 
 def family_mesh_phase(torch):
     """Phase 22: deepseek-v2-lite and zamba2-2.7b through
-    `mesh_case_phase`, then the gradient checks of phases 21 and 22 one
-    after the other in one spawned world.  Returns {rank: launches}."""
+    `mesh_case_phase`; phase 23: internvl2-1b, seamless-m4t-large-v2 and
+    xlstm-1.3b the same way, each phase's 1x2 worlds at once (MESH_RUNS'
+    note);
+    then the gradient checks of phases 21, 22 and 23 one after the other
+    in one spawned world (after its send / recv check).  Returns {rank:
+    launches}."""
     t_phase = time.monotonic()
-    launches = {}
-    for case in FAMILY_MESH:
-        launches.update(mesh_case_phase(torch, case, "22"))
-    launches.update(mesh_grads_world((MOE_MESH,) + FAMILY_MESH,
+    launches = mesh_cases_together(torch, FAMILY_MESH, "22")
+    t23 = time.monotonic()
+    launches.update(mesh_cases_together(torch, MODAL_MESH, "23"))
+    log(f"[modal-mesh] phase 23 launcher runs: {time.monotonic() - t23:.1f}s")
+    launches.update(mesh_grads_world((MOE_MESH,) + FAMILY_MESH + MODAL_MESH,
                                      "mesh-grads"))
-    log(f"[family-mesh] phase 22 (with phase 21's gradient check): "
+    log(f"[family-mesh] phases 22 and 23 (with phase 21's gradient check): "
         f"{time.monotonic() - t_phase:.1f}s")
     return launches
 
@@ -6426,6 +6703,12 @@ DEVICE_GROUPS = {
     "moe-mesh/ep/prof": lambda: (moe_cfg(MOE_MESH_LAYERS), MOE_MESH_SHAPE,
                                  MOE_MESH_STEPS)}
 FLEET_TRAIN_STEPS = 2
+
+
+#: phase 9's CLI processes at a time (each a fresh interpreter reading one
+#: profile dir; one after the other they took 14.8-26.2 s on NVIDIA H100
+#: 80GB HBM3 hosts)
+CLI_WORKERS = 6
 
 
 def profile_cli(*args) -> dict:
@@ -6580,11 +6863,19 @@ def diagnose_phase(torch):
     """Phase 9: diagnose the profile dirs that the serve and train phases
     kept (DIAGNOSED) with the port's CLI, then stream a serve and a train
     run to a collector."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.monotonic()
-    for what, rel in DIAGNOSED:
-        d = RUN_ROOT / rel
-        report = profile_cli("report", d)
-        log_diagnosis(what, profile_cli("diagnose", d), report)
+    # the CLI's processes, each reading one dir, CLI_WORKERS at a time;
+    # their results read in order
+    with ThreadPoolExecutor(CLI_WORKERS) as pool:
+        runs = [(what, rel,
+                 pool.submit(profile_cli, "report", RUN_ROOT / rel),
+                 pool.submit(profile_cli, "diagnose", RUN_ROOT / rel))
+                for what, rel in DIAGNOSED]
+        results = [(what, rel, r.result(), dg.result())
+                   for what, rel, r, dg in runs]
+    for what, rel, report, diagnosis in results:
+        log_diagnosis(what, diagnosis, report)
         if rel in MESH_PROFILES:
             merged = sorted(report["meta"].get("merged_from", []))
             if merged != ["train-r0", "train-r1"]:

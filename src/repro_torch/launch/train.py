@@ -14,7 +14,10 @@ fall back.  The port's CLI reads the run's profile shards
 the final shard carries the device fold (the `device` group: the
 train_step count and, for an MoE model, each expert's load, the dropped
 tokens and the router losses).  --layers N keeps the published widths
-and cuts the depth (a model whose training state does not fit the card).
+and cuts the depth (a model whose training state does not fit the card):
+whole super-blocks for the hybrid (a multiple of attn_every) and the
+xLSTM (of slstm_every), and for the enc-dec N / 2 encoder and N / 2
+decoder layers (N even).
 --xfa-collector HOST:PORT (with --profile-dir) streams them to a fleet
 collector.  --metrics-out DIR writes each rank's step history, kernel
 launches, collective counts, peak device memory, the device fold and,
@@ -22,12 +25,14 @@ under a mesh, the collective flows of the step its Trainer recorded to
 DIR/rank<r>.json.
 --capacity-factor sets an MoE model's (0: the config's).
 
-Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; the dense, MoE
-and hybrid families, e.g. phi3_5_moe_42b or deepseek_v2_lite_16b at 1x2:
-expert and tensor parallel over 'model'; zamba2_2_7b at 1x2: its Mamba2
-blocks split by ssm heads, and --layers a multiple of its attn_every),
-one process per rank, started by torchrun, whose world size must equal
-the mesh's product:
+Under a mesh (--mesh DxM, or PxDxM with a 'pod' axis; every family,
+e.g. phi3_5_moe_42b or deepseek_v2_lite_16b at 1x2: expert and tensor
+parallel over 'model'; zamba2_2_7b: its Mamba2 blocks split by ssm
+heads; xlstm_1_3b: its mLSTM and sLSTM blocks by heads; internvl2_1b
+and seamless_m4t_large_v2: the frontend projection split and gathered,
+the attention, cross-attention included, and the MLPs split), one
+process per rank, started by torchrun, whose world size must equal the
+mesh's product:
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train \
@@ -78,6 +83,27 @@ def flows_json(trainer: Trainer):
                       for f in rec["flows"]]}
 
 
+def cut_depth(cfg, layers: int):
+    """cfg at `layers` layers, widths as published: a hybrid's depth a
+    multiple of attn_every, an xLSTM's of slstm_every (whole
+    super-blocks), an enc-dec's even (half encoder, half decoder); any
+    other depth raises ValueError."""
+    every = cfg.attn_every or cfg.slstm_every
+    if every and layers % every:
+        raise ValueError(f"--layers {layers}: {cfg.name} repeats a "
+                         f"super-block of {every} layers, so the depth must "
+                         f"be a multiple of {every}")
+    if cfg.family == "audio":
+        if layers % 2:
+            raise ValueError(f"--layers {layers}: {cfg.name} is an "
+                             f"encoder-decoder cut to half encoder, half "
+                             f"decoder layers, so the depth must be even")
+        return dataclasses.replace(cfg, n_layers=layers,
+                                   enc_layers=layers // 2,
+                                   dec_layers=layers // 2)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -88,7 +114,10 @@ def main() -> int:
                     help="seed of the random initial weights")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers, widths as "
-                         "published (0: the config's own depth)")
+                         "published (0: the config's own depth); a "
+                         "multiple of a hybrid's attn_every and of an "
+                         "xLSTM's slstm_every; an enc-dec's even, half "
+                         "encoder and half decoder layers")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -155,11 +184,10 @@ def main() -> int:
         set_host_label(args.xfa_host_label)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
-        if cfg.attn_every and args.layers % cfg.attn_every:
-            ap.error(f"--layers {args.layers}: {cfg.name} applies its "
-                     f"shared block every {cfg.attn_every} layers, so the "
-                     f"depth must be a multiple of {cfg.attn_every}")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        try:
+            cfg = cut_depth(cfg, args.layers)
+        except ValueError as err:
+            ap.error(str(err))
     if args.capacity_factor:
         cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)
     model = build_model(cfg, impl="auto", device=device)

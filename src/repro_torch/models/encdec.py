@@ -46,8 +46,8 @@ from ..core.device_fold import DeviceFoldSpec
 from ..kernels import ops
 from .layers import (Params, Runtime, attention, embed, last_valid, linear,
                      lm_head, mlp, norm, torch_dtype)
-from .transformer import (ONES, _layer, _layer_specs, _remat, _unstack,
-                          init_from_specs, lm_loss)
+from .transformer import (ONES, _layer, _layer_specs, _project_patches,
+                          _remat, _unstack, init_from_specs, lm_loss)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -95,8 +95,7 @@ def encode(p: Params, frames, rt: Runtime) -> torch.Tensor:
     """frames [B, S_src, frontend_dim] (numpy or a tensor) -> the encoder
     output [B, S_src, d] after enc_norm."""
     cfg = rt.cfg
-    x = linear(p["frontend"]["w"],
-               torch.as_tensor(frames, device=rt.device).to(rt.cdtype))
+    x = _project_patches(p, frames, rt)
     positions = torch.arange(x.shape[1], device=rt.device)
     body = _remat(lambda lp, h: _encoder_layer(lp, h, rt, positions), cfg)
     for layer_p in _unstack(p["enc_stack"]["stack"], cfg.enc_layers):

@@ -505,8 +505,9 @@ def lm_head(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     w = (p["embed"]["table"].T if rt.cfg.tie_embeddings
          else p["lm_head"]["w"])
     if _vocab_start(w.shape[-1], rt) is not None:
-        x = tp.copy_to_model(x)
-    logits = torch.matmul(x, w.to(x.dtype))
+        logits = tp.vocab_parallel(x, w)
+    else:
+        logits = torch.matmul(x, w.to(x.dtype))
     annotate_cost("lm_head", "lm_head", "proj",
                   flops=2.0 * x.shape[0] * x.shape[1] * rt.cfg.d_model
                   * rt.cfg.vocab)

@@ -24,7 +24,12 @@ Training (`forward`, `loss_fn`) runs the same layers without a cache and
 is differentiated by torch autograd.  `cfg.remat` is honoured per layer
 with torch.utils.checkpoint: "full" recomputes the whole layer in the
 backward, "dots_saveable" saves the matmul outputs and recomputes the
-rest.  Remat changes memory, never the loss or the gradients.
+rest.  Remat changes memory, never the loss or the gradients.  Under a
+model axis the frontend projection (the vlm's, and the enc-dec's in
+`encdec.encode`) is column-split: each rank projects the whole patches
+onto its d_model / tp columns and the projection is all-gathered over
+'model' (`_project_patches`), so every rank holds the whole prefix, as
+the residual stream needs.
 
 Prefill and decode share ONE positioned-chunk body (forward_chunk): a
 chunk of T tokens lands at per-row cache offsets, T = 1 being the pooled
@@ -272,12 +277,21 @@ def _stacks(p: Params, cfg: ModelConfig):
         yield kind, count, p[_stack_name(cfg, kind)]["stack"]
 
 
+@hlo_flows.scoped("embed")
 def _project_patches(p: Params, patches, rt: Runtime) -> torch.Tensor:
-    """The vlm's patch features [B, P, frontend_dim] (numpy or a tensor)
-    -> prefix embeddings [B, P, d] in the compute dtype.  Like the
-    reference's, the projection registers no static cost."""
+    """The frontend's features [B, P, frontend_dim] (the vlm's patches,
+    the enc-dec's frames; numpy or a tensor) -> embeddings [B, P, d] in
+    the compute dtype.  With p["frontend"]["w"]'s columns split over a
+    model axis, this rank's columns of the projection are gathered over
+    'model' (its backward takes this rank's block of the gradient).
+    Like the reference's, the projection registers no static cost."""
     x = torch.as_tensor(patches, device=rt.device).to(rt.cdtype)
-    return linear(p["frontend"]["w"], x)
+    w = p["frontend"]["w"]
+    y = linear(w, x)
+    if tp.split_over_model(w.shape[-1], rt.cfg.d_model):
+        y = tp.gather_rows(y, get_runtime_mesh(), tp.model_axes()[0],
+                           dim=-1)
+    return y
 
 
 def _with_prefix(x: torch.Tensor, prefix_embeds: Optional[torch.Tensor]

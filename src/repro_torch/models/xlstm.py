@@ -31,6 +31,22 @@ B, H, ph, ph], "n" [.., B, H, ph], "m" [.., B, H]}, "slstm": {"c", "n",
 (c, n, m, h) tuples, the mLSTM's two layer axes merged so that every
 leaf's batch axis is 1, as the serving engine takes it.  `forward_chunk`
 updates it IN PLACE.  There are no paged entry points.
+
+Under a model axis (training; `parallel.sharding.layout_tree`) both
+blocks are tensor parallel by heads.  mLSTM: `w_up` gives this rank's
+heads' columns of x and of z (a `Segmented` leaf), w_q/k/v and the skip
+hold its heads, and it takes its heads' f and i columns of the whole
+`w_gates`, whose gradient is then summed over 'model' once
+(`tp.copy_to_model`); the chunked cell runs on its heads and the block
+ends in the row-parallel `w_down`.  sLSTM: w_{i,f,z,o} give its heads'
+columns and r_* hold its heads, so the loop runs on them; the block has
+no out projection, so y is gathered over 'model' before the residual
+add.  Its gated FFN is split (column-parallel in, row-parallel out)
+when its width divides the model axis, else every rank runs it whole
+(xlstm-1.3b's 2730 at 'model' 4).  The normed input enters each split
+projection through `copy_to_model`.  Each block runs inside XFA's
+`mlstm` or `slstm` component scope, so its collectives are recorded
+under it.
 """
 
 from __future__ import annotations
@@ -41,7 +57,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import hlo_flows
 from ..core.device_fold import DeviceFoldSpec, annotate_cost
+from ..parallel import tp
+from ..parallel.axes import get_runtime_mesh
 from .layers import (Params, Runtime, embed, last_valid, linear, lm_head,
                      norm)
 from .transformer import ONES, _remat, _unstack, init_from_specs, lm_loss
@@ -211,6 +230,13 @@ def _pad_mask(L: int, valid: torch.Tensor, device) -> torch.Tensor:
         < valid.to(device)[:, None]
 
 
+def _serving_split(split: bool, state) -> None:
+    if split and state is not None:
+        raise NotImplementedError("the xLSTM's serving path under a model "
+                                  "axis is not ported")
+
+
+@hlo_flows.scoped("mlstm")
 def mlstm_block(p: Params, x: torch.Tensor, rt: Runtime, state=None,
                 valid: Optional[torch.Tensor] = None):
     """x: [B, L, d] -> (the block's output [B, L, d] (the caller adds the
@@ -218,16 +244,30 @@ def mlstm_block(p: Params, x: torch.Tensor, rt: Runtime, state=None,
     is full-sequence mode; with a state, L == 1 is the one-step
     recurrence and L > 1 the chunked form resuming from it.  valid: [B]
     real-token counts of a bucket-padded chunk; pad steps get log f = 0
-    and log i = -1e30, so (C, n, m) pass through them."""
+    and log i = -1e30, so (C, n, m) pass through them.  Under a model
+    axis (training only) the block runs this rank's heads (see the
+    module docstring)."""
     cfg = rt.cfg
     mp = p["mlstm"]
     B, L, d = x.shape
-    H = cfg.n_heads
-    _, _, di, ph = _dims(cfg)
+    _, _, di_all, ph = _dims(cfg)
+    # local heads from the weights: a model axis holds H / tp a rank
+    H = mp["w_q"].shape[-3]
+    di = H * ph
+    split = tp.split_over_model(H, cfg.n_heads)
+    _serving_split(split, state)
     h = norm(p["norm1"], x, rt)
+    w_gates = mp["w_gates"]
+    if split:
+        # the whole w_gates meets only this rank's heads' f and i columns
+        h, w_gates = tp.copy_to_model(h), tp.copy_to_model(w_gates)
+        first = tp.model_coord() * H
+        w_gates = torch.cat([w_gates[..., first:first + H],
+                             w_gates[..., cfg.n_heads + first:
+                                     cfg.n_heads + first + H]], dim=-1)
     up = linear(mp["w_up"], h)
     xin, z = up[..., :di], up[..., di:]
-    gates = linear(mp["w_gates"], h).float()              # [B, L, 2H]
+    gates = linear(w_gates, h).float()                     # [B, L, 2H]
     logf = F.logsigmoid(gates[..., :H]).transpose(1, 2)   # [B, H, L]
     logi = gates[..., H:].transpose(1, 2)
     if valid is not None:
@@ -240,8 +280,8 @@ def mlstm_block(p: Params, x: torch.Tensor, rt: Runtime, state=None,
         * ph ** -0.5
     v = torch.einsum("bhld,hde->bhle", xh, mp["w_v"].to(xh.dtype))
     annotate_cost("mlstm", "mlstm", "proj",
-                  flops=2.0 * B * L * (d * 2 * di + 3 * di * ph + d * 2 * H
-                                       + di * d))
+                  flops=2.0 * B * L * (d * 2 * di_all + 3 * di_all * ph
+                                       + d * 2 * cfg.n_heads + di_all * d))
     if state is None or L > 1:
         y, new_state = _mlstm_cell_chunked(
             q, k, v, logf, logi, chunk=min(cfg.ssm_chunk, max(L, 1)),
@@ -253,8 +293,9 @@ def mlstm_block(p: Params, x: torch.Tensor, rt: Runtime, state=None,
     y = y.transpose(1, 2).reshape(B, L, di).to(x.dtype)
     y = y + mp["skip"].to(x.dtype) * xin
     y = y * F.silu(z.float()).to(x.dtype)
-    return linear(mp["w_down"], y), (new_state if state is not None
-                                     else None)
+    out = (tp.row_parallel(y, mp["w_down"]) if split
+           else linear(mp["w_down"], y))
+    return out, (new_state if state is not None else None)
 
 
 # ---------------------------------------------------------------- sLSTM ----
@@ -373,10 +414,12 @@ def _slstm_scan(sp: Params, x: torch.Tensor, cfg: ModelConfig, state,
     no gradient).  Returns (y [B, L, d] f32, state).  Inside the loop the
     carries are head-major [H, B, ph], so a step's recurrent product for
     the four gates is one batched matmul; with a gradient wanted the loop
-    runs as _SLSTMScan."""
-    B, L, d = x.shape
-    H = cfg.n_heads
-    ph = d // H
+    runs as _SLSTMScan.  Under a model axis `sp` holds this rank's
+    heads (r_* [H / tp, ph, ph], w_* their columns): the loop runs on
+    them, and y and the state are this rank's [.., d / tp]."""
+    B, L, _ = x.shape
+    H, ph = sp["r_i"].shape[-3], sp["r_i"].shape[-1]
+    d = H * ph
     wi = torch.stack([sp["w_i"], sp["w_f"], sp["w_z"], sp["w_o"]]).float()
     ri = torch.stack([sp["r_i"], sp["r_f"], sp["r_z"], sp["r_o"]]).float()
     rh = ri.permute(1, 2, 0, 3).reshape(H, ph, 4 * ph)    # [H, ph, 4 ph]
@@ -396,25 +439,45 @@ def _slstm_scan(sp: Params, x: torch.Tensor, cfg: ModelConfig, state,
     return y, tuple(a.transpose(0, 1).reshape(B, d) for a in st)
 
 
+@hlo_flows.scoped("slstm")
 def slstm_block(p: Params, x: torch.Tensor, rt: Runtime, state=None,
                 valid: Optional[torch.Tensor] = None):
     """x: [B, L, d] -> (x + the sLSTM + its gated FFN, the new (c, n, m,
-    h) or None without a state)."""
+    h) or None without a state).  Under a model axis (training only) the
+    cell runs this rank's heads and its y is gathered over 'model'; the
+    FFN is split or whole by its local width (see the module
+    docstring)."""
     cfg = rt.cfg
     sp = p["slstm"]
     B, L, d = x.shape
+    split = tp.split_over_model(sp["r_i"].shape[-3], cfg.n_heads)
+    _serving_split(split, state)
     h = norm(p["norm1"], x, rt)
-    st = state if state is not None else _zero_slstm(B, d, x.device)
+    if split:
+        h = tp.copy_to_model(h)
+    st = (state if state is not None
+          else _zero_slstm(B, sp["w_i"].shape[-1], x.device))
     mask = None if valid is None else _pad_mask(L, valid, x.device)
     y, new_state = _slstm_scan(sp, h, cfg, st, mask)
     annotate_cost("slstm", "slstm", "cell",
                   flops=2.0 * B * L * (4 * d * d + 4 * d * d
                                        / max(cfg.n_heads, 1)))
-    x = x + y.to(x.dtype)
+    y = y.to(x.dtype)
+    if split:
+        # no out projection: y joins the residual stream whole
+        y = tp.gather_rows(y, get_runtime_mesh(), tp.model_axes()[0],
+                           dim=-1)
+    x = x + y
     h2 = norm(p["norm2"], x, rt)
+    ffn_split = tp.split_over_model(sp["ffn_gate"].shape[-1],
+                                    int(d * 4 / 3))
+    if ffn_split:
+        h2 = tp.copy_to_model(h2)
     g = F.silu(linear(sp["ffn_gate"], h2).float())
     u = linear(sp["ffn_up"], h2).float()
-    x = x + linear(sp["ffn_down"], (g * u).to(x.dtype))
+    hidden = (g * u).to(x.dtype)
+    x = x + (tp.row_parallel(hidden, sp["ffn_down"]) if ffn_split
+             else linear(sp["ffn_down"], hidden))
     return x, (new_state if state is not None else None)
 
 

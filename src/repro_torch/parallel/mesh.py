@@ -35,7 +35,9 @@ each dtype the port reduces (f32, bf16, int64) once, on small CUDA
 tensors, values included; a collective that gloo refuses for CUDA
 tensors is then run on an explicit host copy, and rank 0 prints which
 ran directly and which through host copies.  A collective that runs but gives a
-wrong value raises.
+wrong value raises.  `send` and `recv` are not probed: gloo's
+point-to-point calls take CPU tensors only, so under gloo a CUDA
+tensor is always sent from, and received into, a host copy.
 """
 
 from __future__ import annotations
@@ -382,19 +384,56 @@ def broadcast(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
     return t
 
 
+class _HostSend:
+    """An isend's request together with the host copy it sends: the copy
+    lives until the request is waited on."""
+
+    def __init__(self, work, host: torch.Tensor) -> None:
+        self.work, self.host = work, host
+
+    def wait(self, *args, **kwargs):
+        out = self.work.wait(*args, **kwargs)
+        self.host = None
+        return out
+
+    def is_completed(self) -> bool:
+        return self.work.is_completed()
+
+
+def _host_p2p(t: torch.Tensor, group) -> bool:
+    """True where gloo carries the point-to-point message: its send and
+    recv take CPU tensors only, so a CUDA tensor goes through a host
+    copy."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def send(t: torch.Tensor, mesh: Mesh, axis: str, dst: int, tag: int = 0):
     """Start sending t to the rank at index `dst` along `axis`; returns
-    the request (wait on it before t is changed)."""
+    the request (wait on it before t is changed).  Under gloo a CUDA
+    tensor is sent from a host copy, which the request keeps alive until
+    it is waited on."""
     _count("send", mesh, axis, _nbytes(t), 0)
     group = mesh.group(axis)
-    return dist.isend(t.contiguous(), dist.get_global_rank(group, dst),
-                      group=group, tag=tag)
+    peer = dist.get_global_rank(group, dst)
+    if _host_p2p(t, group):
+        # contiguous: `.cpu()` keeps a transposed view's strides, and
+        # gloo sends a dense buffer only
+        host = t.detach().contiguous().cpu()
+        return _HostSend(dist.isend(host, peer, group=group, tag=tag), host)
+    return dist.isend(t.contiguous(), peer, group=group, tag=tag)
 
 
 def recv(out: torch.Tensor, mesh: Mesh, axis: str, src: int,
          tag: int = 0) -> torch.Tensor:
-    """Receive into `out` from index `src` along `axis`; returns out."""
+    """Receive into `out` from index `src` along `axis`; returns out
+    (under gloo a CUDA `out` is filled from a host buffer)."""
     _count("recv", mesh, axis, 0, _nbytes(out))
     group = mesh.group(axis)
-    dist.recv(out, dist.get_global_rank(group, src), group=group, tag=tag)
+    peer = dist.get_global_rank(group, src)
+    if _host_p2p(out, group):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.recv(host, peer, group=group, tag=tag)
+        out.copy_(host)
+    else:
+        dist.recv(out, peer, group=group, tag=tag)
     return out

@@ -23,7 +23,11 @@ ones only GSPMD can run (it re-shards afterwards):
   `conv_w` channels [x | B | C] are split by ssm heads, a `Segmented`
   dim: each model rank holds the z, x and dt columns of its own heads
   and B and C whole (one group), in that order; its gated norm's scale
-  stays whole (the block gathers y over 'model' before that norm).
+  stays whole (the block gathers y over 'model' before that norm);
+- the mLSTM's `w_up` columns [x | z] are `Segmented` too, each segment
+  split by heads, and its per-head `w_q/k/v` and the sLSTM's recurrent
+  `r_*` ([.., H, p, p]) are split on the head dim, where the reference's
+  rules split the first p dim (a contraction GSPMD re-shards).
 `gather_leaf` rebuilds such a leaf in the reference's column order.
 """
 
@@ -215,15 +219,23 @@ def _ssm_segments(cfg) -> dict:
             "conv_w": Segmented("model", (di, n, n), (True, False, False))}
 
 
+def _xlstm_segments(cfg) -> dict:
+    """The mLSTM's w_up [x | z] as `Segmented` over 'model', each of its
+    two di-wide segments split by heads (di is head-major)."""
+    di = int(cfg.d_model * cfg.mlstm_proj_factor)
+    return {"w_up": Segmented("model", (di, di), (True, True))}
+
+
 def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
     """The placements the port's eager parallelism holds `params` in:
     `spec_tree`, except that under MQA (one kv head) the K/V projections
-    stay whole on every model rank, and a hybrid's Mamba2 leaves are
-    split by ssm heads (`_ssm_segments`; its gated norm's scale whole).
-    Tensor parallelism splits heads whole, so a model axis that does not
-    divide the q heads, the kv heads of a GQA model or the ssm heads
-    raises.  zero1=True gives the optimizer state's placements
-    (`_apply_fsdp` over 'data')."""
+    stay whole on every model rank, a hybrid's Mamba2 leaves are split
+    by ssm heads (`_ssm_segments`; its gated norm's scale whole), and an
+    xLSTM's blocks by heads (`_xlstm_segments`; the per-head matrices on
+    their head dim).  Tensor parallelism splits heads whole, so a model
+    axis that does not divide the q heads, the kv heads of a GQA model
+    or the ssm heads raises.  zero1=True gives the optimizer state's
+    placements (`_apply_fsdp` over 'data')."""
     sizes = _sizes(mesh)
     tp = sizes.get("model", 1)
     if tp > 1 and getattr(cfg, "n_heads", 0):
@@ -237,7 +249,9 @@ def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
     if ssm and cfg.n_ssm_heads % tp:
         raise ValueError(f"tensor parallelism {tp} does not divide "
                          f"{cfg.name}'s {cfg.n_ssm_heads} ssm heads")
-    segments = _ssm_segments(cfg) if ssm else {}
+    xl = tp > 1 and cfg.family == "ssm"
+    segments = (_ssm_segments(cfg) if ssm else
+                _xlstm_segments(cfg) if xl else {})
     dsize = sizes.get("data", 1)
     mqa = tp > 1 and getattr(cfg, "n_kv_heads", 0) == 1
 
@@ -249,6 +263,12 @@ def layout_tree(params: Any, mesh, cfg, zero1: bool = False) -> Any:
         if ssm and m:
             # None for the norm's scale: whole on every rank
             spec = (None,) * (len(spec) - 1) + (segments.get(m.group(1)),)
+        if xl and re.search(r"/mlstm/w_up$", "/" + path):
+            spec = (None,) * (len(spec) - 1) + (segments["w_up"],)
+        if xl and re.search(r"/(mlstm/w_[qkv]|slstm/r_[ifzo])$",
+                            "/" + path):
+            # [.., H, p, p]: by heads
+            spec = (None,) * (len(spec) - 3) + ("model", None, None)
         if zero1 and dsize > 1:
             spec = _apply_fsdp(spec, _shape(leaf), dsize)
         return spec

@@ -19,15 +19,16 @@ PyTorch runs eagerly: there is no compile step, and a step is dispatched
 op by op.  With `profile_dir` and `xfa_collector` set, every shard
 refresh also streams the ring's unacked entries to a fleet collector.
 
-Under a mesh (`parallel.axes.runtime_mesh`; the dense family, the MoE
-family, whose MoE layers run the expert-parallel a2a mode of
-`models/moe.py`, MLA included, and the hybrid) the step is the
+Under a mesh (`parallel.axes.runtime_mesh`; every family: the MoE
+layers run the expert-parallel a2a mode of `models/moe.py`, so an MoE
+model's 'model' axis must split its experts) the step is the
 reference's SPMD step run by each rank on its part (`TrainLayout`):
 - params are held as `parallel.sharding.layout_tree` places them (tensor
   parallel over 'model'); master, mu, nu and the int8 residues are also
   sliced over 'data' by `_apply_fsdp`'s rule when tcfg.zero1 (ZeRO-1);
   the parts of a leaf every model rank holds whole (the hybrid's B and
-  C columns) count once in the global gradient norm;
+  C columns) count once in the global gradient norm, and so does a leaf
+  held whole;
 - each data rank takes its rows of the SAME global batch (of microbatch
   i, the i-th block of the global rows, as the reference's reshape then
   data sharding gives them), so the tokens are the one device's, and the
@@ -92,11 +93,6 @@ class TrainLayout:
 
     def __init__(self, model: Model, full_params, mesh, zero1: bool = True):
         cfg = model.cfg
-        if cfg.family not in ("dense", "moe", "hybrid"):
-            raise NotImplementedError(
-                f"training {cfg.name} (family {cfg.family}) under a mesh is "
-                f"not ported: only the dense, MoE (MLA included) and hybrid "
-                f"families are (ROADMAP.md §1 item 3)")
         if cfg.family == "moe":
             ep = mesh.size("model")
             if ep < 2 or cfg.n_experts % ep:
@@ -105,7 +101,7 @@ class TrainLayout:
                     f"dispatch over the 'model' axis, which must split its "
                     f"{cfg.n_experts} experts (it has {ep} ranks); the "
                     f"dense dispatch over split tokens is not ported "
-                    f"(ROADMAP.md §1 item 3)")
+                    f"(ROADMAP.md §1 item 1)")
         self.mesh = mesh
         self.param = layout_tree(full_params, mesh, cfg)
         self.opt = layout_tree(full_params, mesh, cfg, zero1=zero1)

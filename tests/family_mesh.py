@@ -1,18 +1,23 @@
-"""Shared parts of tests/test_torch_mla_mesh.py and
-tests/test_torch_hybrid_mesh.py: a smoke model of one family trained
+"""Shared parts of tests/test_torch_mla_mesh.py,
+tests/test_torch_hybrid_mesh.py and
+tests/test_torch_vlm_audio_ssm_mesh.py: smoke models of a family trained
 under a mesh by the port against the JAX package, on the CPU.
 
 The JAX side runs in ONE subprocess per test module with 8 host devices
-and meshes of Auto axes (`JAX_SCRIPT`); the port's in one gloo world of
-4 ranks (`torch_mesh_worlds.mla_mesh` / `hybrid_mesh`), whose (1, 2)
-mesh runs over the model axis of each data row of its (2, 2) mesh.  Both
-start once per module (`start`).  Inputs: the smoke config, the
-reference's initial train state carried through numpy, a layer input x
-[4, 16, d] with its output's cotangent, and the reference's batches.
+and meshes of Auto axes (`JAX_SCRIPT`, every case of the module one
+after the other); the port's in one gloo world of 4 ranks (a program of
+`torch_mesh_worlds`), whose (1, 2) mesh runs over the model axis of each
+data row of its (2, 2) mesh.  Both start once per module (`start`,
+`start_cases`).  Inputs, per case (`torch_mesh_worlds.FamilyCase`): the
+smoke config, the reference's initial train state carried through
+numpy, a layer input x [4, 16, d] with its output's cotangent (and the
+vlm's patches, the decoder layer's cross source), and the reference's
+batches.
 The reference's train step is jitted with the train state's shardings
 in and out, as its Trainer compiles it, so it compiles once a mesh.
 """
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -36,7 +41,7 @@ MESHES = ["1x2", "2x2"]
 STEPS = worlds.FAMILY_STEPS
 
 JAX_SCRIPT = textwrap.dedent("""
-    import os, pickle, sys
+    import dataclasses, os, pickle, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax, jax.numpy as jnp, numpy as np
     from jax.sharding import AxisType
@@ -44,98 +49,139 @@ JAX_SCRIPT = textwrap.dedent("""
     from repro.configs import get_smoke
     from repro.configs.base import TrainConfig
     from repro.data.pipeline import SyntheticLMData
-    from repro.models import build_model, layers, mamba
+    from repro.models import build_model, layers, mamba, transformer, xlstm
     from repro.models import moe as moe_mod
     from repro.parallel.axes import named_sharding, runtime_mesh
     from repro.runtime import trainer as jt
 
-    ARCH, LAYERS, (B, S), STEPS = %(arch)r, %(layers)r, %(batch)r, %(steps)d
+    CASES = %(cases)r
 
     def mesh(shape):
         devs = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
         return jax.sharding.Mesh(devs, ("data", "model"),
                                  axis_types=(AxisType.Auto,) * 2)
 
-    inp = dict(np.load(sys.argv[1]))
-    x, ct = jnp.asarray(inp["x"]), jnp.asarray(inp["ct"])
-    cfg = get_smoke(ARCH)
-    jm = build_model(cfg, impl="ref")
+    def run_case(case):
+        inp = dict(np.load(os.path.join(sys.argv[1],
+                                        "inputs-%%s.npz" %% case["key"])))
+        x = jnp.asarray(inp["x"])
+        cfg = dataclasses.replace(get_smoke(case["arch"]), **case["over"])
+        jm = build_model(cfg, impl="ref")
+        B, S = case["batch"]
+        steps = case["steps"]
 
-    def layer_params(path, lead, groups):
-        prefix = "s/params/" + "/".join(path) + "/"
-        tree = {}
-        for n, a in inp.items():
-            rel = n[len(prefix):].split("/")
-            if n.startswith(prefix) and rel[0] in groups:
-                node = tree
-                for u in rel[:-1]:
-                    node = node.setdefault(u, {})
-                node[rel[-1]] = jnp.asarray(a[(0,) * lead])
-        return tree
+        def layer_params(sources):
+            tree = {}
+            for path, lead, groups in sources:
+                prefix = "s/params/" + "/".join(path) + ("/" if path else "")
+                for n, a in inp.items():
+                    rel = n[len(prefix):].split("/")
+                    if n.startswith(prefix) and rel[0] in groups:
+                        node = tree
+                        for u in rel[:-1]:
+                            node = node.setdefault(u, {})
+                        node[rel[-1]] = jnp.asarray(a[(0,) * lead])
+            return tree
 
-    def apply(name, lp, x):
-        zero = jnp.zeros((), jnp.float32)
-        if name == "mla":
-            return layers.attention(lp, x, jm.rt,
-                                    jnp.arange(x.shape[1]))[0], zero, \\
-                jm.table()
-        if name == "moe":
-            y, table, aux = moe_mod.moe(lp, x, jm.rt, jm.table(), mode="a2a")
-            return y, aux, table
-        return mamba.mamba_block(lp, x, jm.rt)[0], zero, jm.table()
+        def apply(name, lp, x, extra):
+            zero = jnp.zeros((), jnp.float32)
+            rt, table = jm.rt, jm.table()
+            if name == "mla":
+                return layers.attention(lp, x, rt,
+                                        jnp.arange(x.shape[1]))[0], zero, \\
+                    table
+            if name == "moe":
+                y, table, aux = moe_mod.moe(lp, x, rt, table, mode="a2a")
+                return y, aux, table
+            if name == "ssm":
+                return mamba.mamba_block(lp, x, rt)[0], zero, table
+            if name == "vlm":
+                pre = transformer._project_patches(
+                    lp, jnp.asarray(inp["patches"]), rt)
+                h = jnp.concatenate([pre.astype(x.dtype), x], axis=1)
+                y = transformer.decoder_layer(lp, h, rt, table,
+                                              jnp.arange(h.shape[1]),
+                                              "dense")[0]
+                return y, zero, table
+            if name == "dec":
+                pos = jnp.arange(x.shape[1])
+                h = layers.norm(lp["norm1"], x, rt)
+                x = x + layers.attention(lp, h, rt, pos, causal=True)[0]
+                h = layers.norm(lp["norm2"], x, rt)
+                x = x + layers.attention(lp["cross"], h, rt, pos,
+                                         kv=extra["src"], causal=False)[0]
+                h = layers.norm(lp["norm3"], x, rt)
+                return x + layers.mlp(lp, h, rt), zero, table
+            if name == "mlstm":
+                return xlstm.mlstm_block(lp, x, rt)[0], zero, table
+            return xlstm.slstm_block(lp, x, rt)[0], zero, table
 
-    out = {}
-    params = jm.init(jax.random.key(0))
-    batches = [{k: jnp.asarray(v) for k, v in SyntheticLMData(
-        cfg, B, S, seed=3).generate(i).items()} for i in range(STEPS)]
-    for tag, shape in (("1x2", (1, 2)), ("2x2", (2, 2))):
-        res = {"layer": {}}
-        m = mesh(shape)
-        with runtime_mesh(m):
-            for name, path, lead, groups in LAYERS:
-                def run(lp, x, name=name):
-                    def f(lp, x):
-                        y, aux, table = apply(name, lp, x)
-                        return (y, aux), table
-                    (y, aux), vjp, table = jax.vjp(f, lp, x, has_aux=True)
-                    g = vjp((ct, jnp.ones((), jnp.float32)))
-                    return y, aux, table, g
-                y, aux, table, g = jax.jit(run)(
-                    layer_params(path, lead, groups), x)
-                lay = {"y": y, "aux": aux, "table": table, "dx": g[1]}
-                for n, a in _flatten(g[0])[0]:
-                    lay["d_" + n.replace("/", "_")] = a
-                res["layer"][name] = {k: np.asarray(v)
-                                      for k, v in lay.items()}
+        out = {}
+        params = jm.init(jax.random.key(0))
+        batches = [{k: jnp.asarray(v) for k, v in SyntheticLMData(
+            cfg, B, S, seed=3).generate(i).items()} for i in range(steps)]
+        for tag, shape in (("1x2", (1, 2)), ("2x2", (2, 2))):
+            res = {"layer": {}}
+            m = mesh(shape)
+            with runtime_mesh(m):
+                for name, sources in case["layers"]:
+                    ct = jnp.asarray(inp.get("ct_" + name, inp["ct"]))
+                    extra = {k: jnp.asarray(inp[k]) for k in ("src",)
+                             if name == "dec"}
 
-            def lg(p):
-                (loss, (met, table)), g = jax.value_and_grad(
-                    lambda p: jm.loss_fn(p, batches[0], jm.table()),
-                    has_aux=True)(p)
-                return loss, met["aux_loss"], table, g
-            loss, aux, table, g = jax.jit(lg)(params)
-            jcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
-                               total_steps=STEPS, ckpt_interval=0)
-            js = jt.init_train_state(jm, jax.random.key(0), jcfg)
-            ss = jt.state_shardings(js, m, jcfg.zero1)
-            bs = jt.batch_shardings(batches[0], m)
-            step = jax.jit(jt.make_train_step(jm, jcfg),
-                           in_shardings=(ss, bs, named_sharding()),
-                           out_shardings=(ss, None, named_sharding()))
-            losses, auxes, norms = [], [], []
-            for i in range(STEPS):
-                js, met, _ = step(js, batches[i], jm.table())
-                losses.append(float(met["loss"]))
-                auxes.append(float(met["aux_loss"]))
-                norms.append(float(met["grad_norm"]))
-        res.update({"loss": float(loss), "aux_loss": float(aux),
-                    "table": np.asarray(table),
-                    "grads": {n: np.asarray(a) for n, a in _flatten(g)[0]},
-                    "curve": {"loss": losses, "aux_loss": auxes,
-                              "grad_norm": norms,
-                              "state": {n: np.asarray(a)
-                                        for n, a in _flatten(js)[0]}}})
-        out[tag] = res
+                    def run(lp, x, extra, name=name, ct=ct):
+                        def f(lp, x, extra):
+                            y, aux, table = apply(name, lp, x, extra)
+                            return (y, aux), table
+                        (y, aux), vjp, table = jax.vjp(f, lp, x, extra,
+                                                       has_aux=True)
+                        g = vjp((ct, jnp.ones((), jnp.float32)))
+                        return y, aux, table, g
+                    y, aux, table, g = jax.jit(run)(
+                        layer_params(sources), x, extra)
+                    lay = {"y": y, "aux": aux, "table": table, "dx": g[1]}
+                    for k, v in g[2].items():
+                        lay["d" + k] = v
+                    for n, a in _flatten(g[0])[0]:
+                        lay["d_" + n.replace("/", "_")] = a
+                    res["layer"][name] = {k: np.asarray(v)
+                                          for k, v in lay.items()}
+                if not steps:
+                    out[tag] = res
+                    continue
+
+                def lg(p):
+                    (loss, (met, table)), g = jax.value_and_grad(
+                        lambda p: jm.loss_fn(p, batches[0], jm.table()),
+                        has_aux=True)(p)
+                    return loss, met["aux_loss"], table, g
+                loss, aux, table, g = jax.jit(lg)(params)
+                jcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                                   total_steps=steps, ckpt_interval=0)
+                js = jt.init_train_state(jm, jax.random.key(0), jcfg)
+                ss = jt.state_shardings(js, m, jcfg.zero1)
+                bs = jt.batch_shardings(batches[0], m)
+                step = jax.jit(jt.make_train_step(jm, jcfg),
+                               in_shardings=(ss, bs, named_sharding()),
+                               out_shardings=(ss, None, named_sharding()))
+                losses, auxes, norms = [], [], []
+                for i in range(steps):
+                    js, met, _ = step(js, batches[i], jm.table())
+                    losses.append(float(met["loss"]))
+                    auxes.append(float(met["aux_loss"]))
+                    norms.append(float(met["grad_norm"]))
+            res.update({"loss": float(loss), "aux_loss": float(aux),
+                        "table": np.asarray(table),
+                        "grads": {n: np.asarray(a)
+                                  for n, a in _flatten(g)[0]},
+                        "curve": {"loss": losses, "aux_loss": auxes,
+                                  "grad_norm": norms,
+                                  "state": {n: np.asarray(a)
+                                            for n, a in _flatten(js)[0]}}})
+            out[tag] = res
+        return out
+
+    out = {case["key"]: run_case(case) for case in CASES}
     with open(sys.argv[2], "wb") as f:
         pickle.dump(out, f)
     print("OK")
@@ -146,37 +192,52 @@ def flat_np(tree):
     return {name: np.asarray(leaf) for name, leaf in _flatten(tree)[0]}
 
 
-def _inputs(arch, path):
-    """The reference's initial train state of the smoke `arch`, a layer
-    input x [4, 16, d] and its output's cotangent (that of a mean over
-    the tokens)."""
+def _inputs(case, path):
+    """The reference's initial train state of `case`'s smoke model, a
+    layer input x [B, S, d] and its output's cotangent (that of a mean
+    over the tokens); with a vlm layer the patches [B, P, frontend_dim]
+    and the cotangent of its [B, P + S, d] output, with a decoder layer
+    the cross-attention's source [B, S, d]."""
     rng = np.random.default_rng(0)
-    jm = jax_build(jax_smoke(arch), impl="ref")
+    jcfg = dataclasses.replace(jax_smoke(case.arch), **dict(case.over))
+    jm = jax_build(jcfg, impl="ref")
     jstate = jax_trainer.init_train_state(jm, jax.random.key(0),
                                           JaxTrainConfig())
-    d = jm.cfg.d_model
+    cfg = jm.cfg
+    d = cfg.d_model
     B, S = worlds.FAMILY_BATCH
     arrays = {"x": rng.standard_normal((B, S, d)).astype(np.float32),
               "ct": (rng.standard_normal((B, S, d)) / (B * S)).astype(
                   np.float32),
               **{f"s/{n}": a for n, a in flat_np(jstate).items()}}
+    names = [name for name, _ in worlds.case_layers(case)]
+    if "vlm" in names:
+        P = cfg.n_patches
+        arrays["patches"] = rng.standard_normal(
+            (B, P, cfg.frontend_dim)).astype(np.float32)
+        arrays["ct_vlm"] = (rng.standard_normal((B, P + S, d))
+                            / (B * (P + S))).astype(np.float32)
+    if "dec" in names:
+        arrays["src"] = rng.standard_normal((B, S, d)).astype(np.float32)
     np.savez(path, **arrays)
     return arrays
 
 
-def start(arch, program, d):
-    """(inputs, the JAX subprocess's results, the port ranks' results):
-    both sides run at once."""
-    inp = _inputs(arch, os.path.join(d, "inputs.npz"))
+def start_cases(cases, program, d):
+    """({key: inputs}, {key: the JAX subprocess's results}, the port
+    ranks' results) of the `worlds.FamilyCase`s: one JAX subprocess and
+    one gloo world of 4 ranks running `program`, both at once."""
+    inps = {c.key: _inputs(c, os.path.join(d, f"inputs-{c.key}.npz"))
+            for c in cases}
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
-    script = JAX_SCRIPT % {"arch": arch,
-                           "layers": worlds.FAMILY_LAYERS[arch],
-                           "batch": worlds.FAMILY_BATCH, "steps": STEPS}
+    script = JAX_SCRIPT % {"cases": [
+        {"key": c.key, "arch": c.arch, "over": dict(c.over),
+         "layers": worlds.case_layers(c), "batch": c.batch,
+         "steps": STEPS if c.full else 0} for c in cases]}
     jax_proc = subprocess.Popen(
-        [sys.executable, "-c", script, os.path.join(d, "inputs.npz"),
-         os.path.join(d, "jax.pkl")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        [sys.executable, "-c", script, d, os.path.join(d, "jax.pkl")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     procs = worlds.start_world(program, 4, d)
     try:
         worlds.join(procs, d, program)
@@ -190,7 +251,14 @@ def start(arch, program, d):
         ref = pickle.load(f)
     ranks = [torch.load(os.path.join(d, f"{program}-rank{r}.pt"),
                         weights_only=False) for r in range(4)]
-    return inp, ref, ranks
+    return inps, ref, ranks
+
+
+def start(arch, program, d):
+    """(inputs, the JAX subprocess's results, the port ranks' results) of
+    one architecture's smoke model (`worlds.FAMILY_CASES[arch]`)."""
+    inps, ref, ranks = start_cases([worlds.FAMILY_CASES[arch]], program, d)
+    return inps[arch], ref[arch], ranks
 
 
 def close(got, want, atol=ATOL, rtol=RTOL, what=""):

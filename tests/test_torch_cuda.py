@@ -1625,6 +1625,27 @@ def test_hybrid_engine_on_the_card_matches_the_plain_path():
     assert len({str(o) for o in outs.values()}) == 1, outs
 
 
+def test_gloo_send_recv_of_cuda_tensors_on_two_ranks_sharing_the_card(
+        tmp_path):
+    """A gloo world of 2 ranks on one card: `parallel.mesh.send` and
+    `recv` carry bf16 and f32 CUDA tensors, and a transposed bf16 view
+    into a transposed buffer, both ways (through host copies: gloo's
+    point-to-point calls take CPU tensors), bit for bit, into CUDA
+    buffers."""
+    import torch_mesh_worlds as worlds
+    procs = worlds.start_world("p2p_cuda", 2, str(tmp_path))
+    worlds.join(procs, str(tmp_path), "p2p_cuda")
+    ranks = [torch.load(tmp_path / f"p2p_cuda-rank{r}.pt")
+             for r in range(2)]
+    for name, _, transposed in worlds.P2P_CASES:
+        for r in range(2):
+            got, sent = ranks[r][name]["got"], ranks[1 - r][name]["sent"]
+            assert ranks[r][name]["device"].startswith("cuda")
+            assert sent.is_contiguous() != transposed, name
+            assert got.dtype == sent.dtype and torch.equal(got, sent), \
+                (name, r)
+
+
 def test_tensor_parallel_layer_on_two_ranks_sharing_the_card(tmp_path):
     """A gloo world of 2 ranks on one card: tinyllama_1_1b's embedding,
     first decoder layer and final norm at full width, tensor parallel 2

@@ -179,7 +179,7 @@ def test_checkpoint_written_at_1x2_restores_on_one_device(run):
     _, _, ranks, d = run
     like = init_train_state(build_model(cfg(), device="cpu"), 5,
                             TrainConfig())
-    ck = CheckpointManager(os.path.join(d, "ck-1x2-row0"))
+    ck = CheckpointManager(os.path.join(d, f"ck-{ARCH}-1x2-row0"))
     assert ck.list_steps() == [fm.STEPS - 1]
     state, extra = ck.restore(like)
     assert extra == {"next_step": fm.STEPS}

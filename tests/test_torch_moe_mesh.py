@@ -374,7 +374,9 @@ def test_checkpoint_written_at_1x2_restores_on_one_device(run):
 # ------------------------------------------------------------- layouts ----
 def test_train_layout_admits_moe_and_refuses_the_rest():
     """phi3.5-moe and deepseek (MLA) train under a mesh whose model axis
-    splits their experts; one rank there, and the vlm family, raise."""
+    splits their experts; one rank there raises.  The vlm family, refused
+    before its tensor-parallel hooks, builds its layout now (its frontend
+    projection split by columns)."""
     m12 = mesh_lib.Mesh((1, 2), ("data", "model"))
     m21 = mesh_lib.Mesh((2, 1), ("data", "model"))
     moe = build_model(torch_smoke("phi3_5_moe_42b"), device="cpu")
@@ -390,8 +392,8 @@ def test_train_layout_admits_moe_and_refuses_the_rest():
     assert lay.param["stack_moe"]["stack"]["attn"]["wkv_b"] == \
         (None, None, "model")
     vlm = build_model(torch_smoke("internvl2_1b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        TrainLayout(vlm, full_shapes(vlm.cfg), m12)
+    lay = TrainLayout(vlm, full_shapes(vlm.cfg), m12)
+    assert lay.param["frontend"]["w"] == (None, "model")
 
 
 def test_dense_dispatch_under_a_splitting_mesh_raises():

@@ -1,7 +1,9 @@
 """Rank programs of the port's gloo worlds on the CPU, for
 tests/test_torch_parallel.py, tests/test_torch_mesh_training.py,
 tests/test_torch_moe_mesh.py, tests/test_torch_collective_flows.py,
-tests/test_torch_mla_mesh.py and tests/test_torch_hybrid_mesh.py.
+tests/test_torch_mla_mesh.py, tests/test_torch_hybrid_mesh.py,
+tests/test_torch_vlm_audio_ssm_mesh.py and the card's
+tests/test_torch_cuda.py.
 
 Each test module starts one world per mesh size once (a module fixture):
 `start_world` launches one process per rank running `main`, which joins
@@ -374,6 +376,41 @@ def layer_cuda(rank, world, d):
     return {"got": got.float().cpu(), "want": want, "launches": counts}
 
 
+#: p2p_cuda's tensors: (name, dtype, a transposed view)
+P2P_CASES = (("bfloat16", "bfloat16", False), ("float32", "float32", False),
+             ("bfloat16_transposed", "bfloat16", True))
+
+
+def p2p_cuda(rank, world, d):
+    """Two ranks sharing one card over gloo: each sends a bf16 and an f32
+    CUDA tensor, and a transposed bf16 view, to the other (`mesh.send` /
+    `mesh.recv`, both ways; the view is received into a transposed
+    buffer).  Returns what each rank sent and received, on the host
+    (strides kept)."""
+    import torch
+    from repro_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    other = 1 - mesh.coord("model")
+    out = {}
+    for name, dtype, transposed in P2P_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(11 + rank)
+        sent = torch.randn(257, 3, generator=gen,
+                           device="cuda").to(getattr(torch, dtype)).t()
+        if not transposed:
+            sent = sent.contiguous()
+        got = torch.empty_like(sent)
+        if rank == 0:
+            req = mesh_lib.send(sent, mesh, "model", other)
+            mesh_lib.recv(got, mesh, "model", other)
+            req.wait()
+        else:
+            mesh_lib.recv(got, mesh, "model", other)
+            mesh_lib.send(sent, mesh, "model", other).wait()
+        out[name] = {"sent": sent.cpu(), "got": got.cpu(),
+                     "device": str(got.device)}
+    return out
+
+
 # ---------------------------------------------------------------- moe ----
 #: the capacity factors of the MoE layer checks: the config's (binding:
 #: the same per-shard drops) and one at which nothing drops
@@ -575,23 +612,69 @@ def flows(rank, world, d):
     return out
 
 
-# ------------------------------------------------- mla and hybrid mesh ----
+# ---------------------------------------------- family meshes (PRs 30-31) ----
 #: the batch of the family checks and curves, and the curves' steps
 FAMILY_BATCH = (4, 16)
 FAMILY_STEPS = 3
-#: per architecture: each checked layer's (name, stack path, leading
-#: stacked dims, the param groups it takes)
+#: per layers key: each checked layer's (name, its params' sources: (stack
+#: path, leading stacked dims, the param groups it takes) each)
 FAMILY_LAYERS = {
-    "deepseek_v2_lite_16b": (("mla", ("stack_dense", "stack"), 1,
-                              ("attn",)),
-                             ("moe", ("stack_moe", "stack"), 1, ("moe",))),
-    "zamba2_2_7b": (("ssm", ("stack", "stack"), 2, ("norm1", "ssm")),),
+    "deepseek_v2_lite_16b": (
+        ("mla", ((("stack_dense", "stack"), 1, ("attn",)),)),
+        ("moe", ((("stack_moe", "stack"), 1, ("moe",)),))),
+    "zamba2_2_7b": (("ssm", ((("stack", "stack"), 2, ("norm1", "ssm")),)),),
+    # the patches' projection, then the first decoder layer on [prefix, x]
+    "internvl2_1b": (("vlm", ((("stack", "stack"), 1,
+                               ("norm1", "norm2", "attn", "mlp")),
+                              ((), 0, ("frontend",)))),),
+    # the first decoder layer: self-attention, cross-attention, MLP
+    "seamless_m4t_large_v2": (("dec", ((("dec_stack", "stack"), 1,
+                                        ("norm1", "norm2", "norm3", "attn",
+                                         "cross", "mlp")),)),),
+    "xlstm_1_3b": (("mlstm", ((("stack_mlstm", "stack"), 2,
+                               ("norm1", "mlstm")),)),
+                   ("slstm", ((("stack_slstm", "stack"), 1,
+                               ("norm1", "norm2", "slstm")),))),
+    "xlstm_slstm": (("slstm", ((("stack_slstm", "stack"), 1,
+                                ("norm1", "norm2", "slstm")),)),),
 }
 
 
-def _family_cfg(arch):
+@dataclasses.dataclass(frozen=True)
+class FamilyCase:
+    """One smoke model of a family mesh module: `arch`'s smoke config
+    with the overrides `over`, its checked layers (FAMILY_LAYERS[layers],
+    by default the arch's), the batch of its model checks and curves,
+    and whether the model's loss, gradients and curve are checked
+    (`full`) or only its layers."""
+    key: str
+    arch: str
+    over: tuple = ()
+    layers: str = ""
+    batch: tuple = FAMILY_BATCH
+    full: bool = True
+
+
+FAMILY_CASES = {c.key: c for c in (
+    FamilyCase("deepseek_v2_lite_16b", "deepseek_v2_lite_16b"),
+    FamilyCase("zamba2_2_7b", "zamba2_2_7b"),
+    # the smoke vlm's 16 patches go before 16 text tokens
+    FamilyCase("internvl2_1b", "internvl2_1b", batch=(4, 32)),
+    FamilyCase("seamless_m4t_large_v2", "seamless_m4t_large_v2"),
+    FamilyCase("xlstm_1_3b", "xlstm_1_3b"),
+    # d 100: the sLSTM FFN's int(100 * 4 / 3) = 133 columns do not split
+    # over 'model' 2, so every rank runs it whole
+    FamilyCase("xlstm_whole_ffn", "xlstm_1_3b", over=(("d_model", 100),),
+               layers="xlstm_slstm", full=False))}
+
+
+def case_layers(case):
+    return FAMILY_LAYERS[case.layers or case.arch]
+
+
+def _family_cfg(case):
     from repro_torch.configs import get_smoke
-    return get_smoke(arch)
+    return dataclasses.replace(get_smoke(case.arch), **dict(case.over))
 
 
 def _sub_tree(tree, path):
@@ -600,32 +683,72 @@ def _sub_tree(tree, path):
     return tree
 
 
-def _family_layer(inp, cfg, lay, mesh, name, path, lead, groups):
+def _rows(a, mesh):
+    """This data rank's rows of a global array (its block over 'data')."""
+    import torch
+    dp, dc = mesh.size("data"), mesh.coord("data")
+    B = a.shape[0]
+    return torch.from_numpy(a)[dc * B // dp:(dc + 1) * B // dp]
+
+
+def _apply_layer(name, tree, x, extra, model, mesh, inp):
+    """(y, aux or None, table) of one checked layer at `mesh`."""
+    import torch
+    from repro_torch.models import encdec, layers, transformer
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import xlstm
+    from repro_torch.parallel.axes import runtime_mesh
+    rt, table = model.rt, model.table()
+    positions = torch.arange(x.shape[1])
+    with runtime_mesh(mesh):
+        if name == "mla":
+            return layers.attention(tree, x, rt, positions)[0], None, table
+        if name == "moe":
+            y, table, aux = moe_lib.moe(tree, x, rt, table, mode="a2a")
+            return y, aux, table
+        if name == "ssm":
+            return mamba_lib.mamba_block(tree, x, rt)[0], None, table
+        if name == "vlm":
+            pre = transformer._project_patches(
+                tree, _rows(inp["patches"], mesh), rt)
+            h = transformer._with_prefix(x, pre)
+            return transformer.decoder_layer(
+                tree, h, rt, torch.arange(h.shape[1]))[0], None, table
+        if name == "dec":
+            return encdec._decoder_layer(tree, x, extra["src"], rt,
+                                         positions), None, table
+        if name == "mlstm":
+            return xlstm.mlstm_block(tree, x, rt)[0], None, table
+        return xlstm.slstm_block(tree, x, rt)[0], None, table
+
+
+def _family_layer(inp, cfg, lay, mesh, name, sources):
     """One layer of the smoke model at `mesh` on x [B, S, d] (rows over
     'data'): y (and the MoE layer's aux and fold table) and the
     gradients of sum(y ct) (+ aux), each summed over 'data' and gathered
-    to the full leaf."""
+    to the full leaf (x's, and a decoder layer's source's, over
+    'data')."""
     import torch
-    from repro_torch.models import build_model, layers
-    from repro_torch.models import mamba as mamba_lib
-    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import build_model
     from repro_torch.parallel import mesh as mesh_lib
-    from repro_torch.parallel.axes import runtime_mesh
     from repro_torch.parallel.sharding import gather_leaf, shard_leaf
     model = build_model(cfg, device="cpu")
-    dp, dc = mesh.size("data"), mesh.coord("data")
-    B, S = inp["x"].shape[:2]
-    rows = slice(dc * B // dp, (dc + 1) * B // dp)
-    x = torch.from_numpy(inp["x"])[rows].clone().requires_grad_()
-    ct = torch.from_numpy(inp["ct"])[rows]
-    prefix = "s/params/" + "/".join(path) + "/"
+    x = _rows(inp["x"], mesh).clone().requires_grad_()
+    ct = _rows(inp.get("ct_" + name, inp["ct"]), mesh)
+    extra = ({"src": _rows(inp["src"], mesh).clone().requires_grad_()}
+             if name == "dec" else {})
     specs, local = {}, {}
-    for n, a in inp.items():
-        rel = n[len(prefix):]
-        if n.startswith(prefix) and rel.split("/")[0] in groups:
-            specs[rel] = _sub_tree(lay, path + tuple(rel.split("/")))[lead:]
-            local[rel] = shard_leaf(torch.from_numpy(a)[(0,) * lead],
-                                    specs[rel], mesh).clone().requires_grad_()
+    for path, lead, groups in sources:
+        prefix = "s/params/" + "/".join(path) + ("/" if path else "")
+        for n, a in inp.items():
+            rel = n[len(prefix):]
+            if n.startswith(prefix) and rel.split("/")[0] in groups:
+                specs[rel] = _sub_tree(lay, path + tuple(rel.split("/")))[
+                    lead:]
+                local[rel] = shard_leaf(torch.from_numpy(a)[(0,) * lead],
+                                        specs[rel], mesh
+                                        ).clone().requires_grad_()
     tree = {}
     for k, v in local.items():
         node = tree
@@ -633,16 +756,7 @@ def _family_layer(inp, cfg, lay, mesh, name, path, lead, groups):
         for u in up:
             node = node.setdefault(u, {})
         node[last] = v
-    positions = torch.arange(S)
-    table = model.table()
-    aux = None
-    with runtime_mesh(mesh):
-        if name == "mla":
-            y, _ = layers.attention(tree, x, model.rt, positions)
-        elif name == "moe":
-            y, table, aux = moe_lib.moe(tree, x, model.rt, table, mode="a2a")
-        else:
-            y, _ = mamba_lib.mamba_block(tree, x, model.rt)
+    y, aux, table = _apply_layer(name, tree, x, extra, model, mesh, inp)
     loss = (y * ct).sum() + (aux if aux is not None else 0.0)
     loss.backward()
     out = {"y": y.detach(), "dx": x.grad}
@@ -651,16 +765,19 @@ def _family_layer(inp, cfg, lay, mesh, name, path, lead, groups):
     for k, v in local.items():
         out["d_" + k.replace("/", "_")] = gather_leaf(mesh_lib.all_reduce(
             v.grad, mesh, "data"), specs[k], mesh)
+    for k, v in extra.items():
+        out["d" + k] = _gather_rows(v.grad, mesh, "data")
     out["y"] = _gather_rows(out["y"], mesh, "data")
     out["dx"] = _gather_rows(out["dx"], mesh, "data")
     return out
 
 
-def _family_mesh(arch, rank, world, d):
-    """The smoke `arch` (MLA + MoE, or the hybrid) at (1, 2) and (2, 2):
-    each FAMILY_LAYERS layer's output and gradients, the model's loss,
-    gradients and static costs, and a FAMILY_STEPS-step Trainer run (its
-    fold, its recorded step's flows; at (1, 2) a checkpoint)."""
+def _family_mesh(case, rank, world, d, meshes):
+    """The smoke model of `case` at (1, 2) and (2, 2) (`meshes`): each
+    checked layer's output and gradients and, for a full case, the
+    model's loss, gradients and static costs and a FAMILY_STEPS-step
+    Trainer run (its fold, its recorded step's flows; at (1, 2) a
+    checkpoint)."""
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.device_fold import STATIC_COSTS
@@ -673,23 +790,24 @@ def _family_mesh(arch, rank, world, d):
     from repro_torch.runtime.trainer import (Trainer, TrainLayout,
                                              full_shapes,
                                              local_value_and_grad)
-    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    inp = dict(np.load(os.path.join(d, f"inputs-{case.key}.npz")))
     flat_state = {n[len("s/"):]: a for n, a in inp.items()
                   if n.startswith("s/")}
-    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
-    meshes = {"1x2": _sub_mesh(m22), "2x2": m22}
-    cfg = _family_cfg(arch)
+    cfg = _family_cfg(case)
     model = build_model(cfg, device="cpu")
-    B, S = FAMILY_BATCH
+    B, S = case.batch
     batch = SyntheticLMData(cfg, B, S, seed=3).generate(0)
-    row = m22.coord("data")
+    row = meshes["2x2"].coord("data")
     out = {}
     for tag, mesh in meshes.items():
         with runtime_mesh(mesh):
             lay = TrainLayout(model, full_shapes(cfg), mesh)
         res = {"layer": {name: _family_layer(inp, cfg, lay.param, mesh,
-                                             name, path, lead, groups)
-                         for name, path, lead, groups in FAMILY_LAYERS[arch]}}
+                                             name, sources)
+                         for name, sources in case_layers(case)}}
+        out[tag] = res
+        if not case.full:
+            continue
         params = params_from_numpy(
             {n[len("params/"):]: a for n, a in flat_state.items()
              if n.startswith("params/")}, cfg, "cpu", mesh=mesh)
@@ -709,7 +827,7 @@ def _family_mesh(arch, rank, world, d):
             state = lay.shard_state(train_state_from_numpy(flat_state, cfg,
                                                            "cpu"))
             t = Trainer(model, tcfg, CheckpointManager(
-                os.path.join(d, f"ck-{tag}-row{row}")))
+                os.path.join(d, f"ck-{case.key}-{tag}-row{row}")))
             st, _ = t.run(0, SyntheticLMData(cfg, B, S, seed=3),
                           FAMILY_STEPS, resume=False, state=state)
             res["curve"] = {"loss": [h["loss"] for h in t.history],
@@ -719,18 +837,38 @@ def _family_mesh(arch, rank, world, d):
                             "fold": t.session.device_fold.to_json(),
                             "flows": _flow_dicts(t.recorded["flows"]),
                             "counts": t.recorded["counts"]}
-        out[tag] = res
     return out
 
 
+def _family_meshes():
+    from repro_torch.parallel import mesh as mesh_lib
+    m22 = mesh_lib.make_mesh((2, 2), ("data", "model"))
+    return {"1x2": _sub_mesh(m22), "2x2": m22}
+
+
 def mla_mesh(rank, world, d):
-    return _family_mesh("deepseek_v2_lite_16b", rank, world, d)
+    return _family_mesh(FAMILY_CASES["deepseek_v2_lite_16b"], rank, world,
+                        d, _family_meshes())
 
 
 def hybrid_mesh(rank, world, d):
-    return _family_mesh("zamba2_2_7b", rank, world, d)
+    return _family_mesh(FAMILY_CASES["zamba2_2_7b"], rank, world, d,
+                        _family_meshes())
+
+
+#: the cases of tests/test_torch_vlm_audio_ssm_mesh.py, in order
+VLM_AUDIO_SSM = ("internvl2_1b", "seamless_m4t_large_v2", "xlstm_1_3b",
+                 "xlstm_whole_ffn")
+
+
+def vlm_audio_ssm_mesh(rank, world, d):
+    meshes = _family_meshes()
+    return {key: _family_mesh(FAMILY_CASES[key], rank, world, d, meshes)
+            for key in VLM_AUDIO_SSM}
 
 
 PROGRAMS = {"parallel": parallel, "training": training,
-            "layer_cuda": layer_cuda, "moe_mesh": moe_mesh, "flows": flows,
-            "mla_mesh": mla_mesh, "hybrid_mesh": hybrid_mesh}
+            "layer_cuda": layer_cuda, "p2p_cuda": p2p_cuda,
+            "moe_mesh": moe_mesh, "flows": flows,
+            "mla_mesh": mla_mesh, "hybrid_mesh": hybrid_mesh,
+            "vlm_audio_ssm_mesh": vlm_audio_ssm_mesh}
